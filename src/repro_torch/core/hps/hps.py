@@ -1,0 +1,395 @@
+"""Hierarchical Parameter Server (paper §3), counterpart of
+``repro/core/hps/hps.py``.
+
+Lookup path per table: L1 device cache -> L2 volatile DB -> L3 persistent
+DB, with promotion on miss at every level. Each table resolves through a
+HOST stage (sorted-index probe + one coalesced miss fetch) and a DEVICE
+stage (the one payload scatter + the slot block's transfer); the pooled
+``[B, T, D]`` output is then gathered on the device per table (K1, or K6
+for int8 payloads) and stacked. ``pipelined=True`` double-buffers the two
+stages on host workers (table *t+1* probes while table *t* scatters), and
+``lookup_stream`` extends the pipeline across queries. Every plan gathers
+from its own payload snapshot (see ``payload_store``), so all engines give
+identical results.
+
+Online updates (the message bus, dirty marking, refresh) and the striped
+multi-device L1 are later slices (ROADMAP items "The rest of the serving
+engine" and "Multi-GPU").
+"""
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import EmbeddingTableConfig
+from repro_torch.core.hps.embedding_cache import DeviceEmbeddingCache, LookupPlan
+from repro_torch.core.hps.persistent_db import PersistentDB
+from repro_torch.core.hps.volatile_db import VolatileDB
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
+
+#: (table index, overflow positions, overflow rows, hotness) per table
+Overflow = Tuple[int, np.ndarray, np.ndarray, int]
+
+
+def _pooled_stack(payloads: Sequence[tuple], slots: Sequence[torch.Tensor],
+                  combiners: Sequence[str],
+                  apply_mean: bool = True) -> torch.Tensor:
+    """Per-table pooled gathers stacked to ``[B, T, D]`` f32. Each payload
+    is a ``(payload, scales)`` snapshot; int8 stores dequantize inside
+    the gather kernel."""
+    outs = []
+    for (p, sc), s, comb in zip(payloads, slots, combiners):
+        pooled = ops.pooled_cache_lookup(p, s, sc)       # [B, D] sum over H
+        if comb == "mean" and apply_mean:
+            denom = (s >= 0).sum(dim=1, keepdim=True).clamp_min(1)
+            pooled = pooled / denom.to(pooled.dtype)
+        outs.append(pooled)
+    return torch.stack(outs, dim=1)
+
+
+class HPS:
+
+    # the L3 counters have their own lock (probe fetches race), the lazy
+    # host pool is built under _pool_lock
+    _GUARDED_BY = {
+        "_l3_fetch_calls": "_l3_stats_lock",
+        "_l3_fetch_rows": "_l3_stats_lock",
+        "_host_pool": "_pool_lock",
+    }
+
+    def __init__(self, model_name: str,
+                 tables: Sequence[EmbeddingTableConfig],
+                 pdb: PersistentDB, *,
+                 vdb: Optional[VolatileDB] = None,
+                 cache_capacity: int = 4096,
+                 cache_shards: int = 1,
+                 payload_dtype: str = "f32",
+                 device: DeviceLike = None):
+        self.model_name = model_name
+        self.tables = tuple(tables)
+        self.pdb = pdb
+        self.vdb = vdb or VolatileDB()
+        self.device = resolve_device(device)
+        self.cache_shards = cache_shards
+        self.cache_capacity = cache_capacity
+        self.payload_dtype = payload_dtype
+        self._table_cfg: Dict[str, EmbeddingTableConfig] = {
+            t.name: t for t in tables}
+        self._l3_fetch_calls: Dict[str, int] = {t.name: 0 for t in tables}
+        self._l3_fetch_rows: Dict[str, int] = {t.name: 0 for t in tables}
+        self._l3_stats_lock = threading.Lock()
+        self.caches: Dict[str, DeviceEmbeddingCache] = {}
+        for t in tables:
+            self.caches[t.name] = DeviceEmbeddingCache(
+                min(cache_capacity, t.vocab_size), t.dim,
+                fetch_fn=self._make_fetch(t.name), shards=cache_shards,
+                payload_dtype=payload_dtype, device=self.device)
+        self._host_pool: Optional[ThreadPoolExecutor] = None
+        self._pool_lock = threading.Lock()
+        #: the lookahead the adaptive ``lookup_stream`` last settled on
+        #: (and the deepest it reached)
+        self.stream_depth = 2
+        self.stream_depth_peak = 2
+
+    # -- L2/L3 fall-through ------------------------------------------------------
+
+    def _vdb_key(self, table: str) -> str:
+        """L2 keys are scoped by model, as in the reference."""
+        return f"{self.model_name}/{table}"
+
+    def _make_fetch(self, table: str):
+        dim = self._table_cfg[table].dim
+
+        def fetch(ids: np.ndarray) -> np.ndarray:
+            mask, rows = self.vdb.query(self._vdb_key(table), ids)
+            if rows is None:
+                rows = np.zeros((len(ids), dim), np.float32)
+            if not mask.all():
+                missing = ids[~mask]
+                fetched = self.pdb.fetch(self.model_name, table, missing)
+                with self._l3_stats_lock:
+                    self._l3_fetch_calls[table] += 1
+                    self._l3_fetch_rows[table] += len(missing)
+                rows[~mask] = fetched
+                self.vdb.insert(self._vdb_key(table), missing,
+                                fetched)  # promote
+            return rows
+        return fetch
+
+    # -- query validation ---------------------------------------------------------
+
+    def _split_query(self, cat: np.ndarray,
+                     hotness: Optional[List[int]]) -> List[np.ndarray]:
+        """Validate the query shape and return per-table id blocks [B, H_t]."""
+        T = len(self.tables)
+        if cat.ndim == 2:
+            if hotness is None:
+                raise ValueError(
+                    "2-D cat requires hotness=[ids per table] to split "
+                    f"the {cat.shape[1]} id columns over {T} tables")
+            if len(hotness) != T:
+                raise ValueError(
+                    f"hotness has {len(hotness)} entries for {T} tables")
+            if sum(hotness) != cat.shape[1]:
+                raise ValueError(
+                    f"sum(hotness)={sum(hotness)} != cat.shape[1]="
+                    f"{cat.shape[1]}")
+            return np.split(cat, np.cumsum(hotness)[:-1], axis=1)
+        if cat.ndim != 3:
+            raise ValueError(f"cat must be [B, T, H] or [B, sum(hotness)]; "
+                             f"got shape {cat.shape}")
+        if cat.shape[1] != T:
+            raise ValueError(
+                f"cat.shape[1]={cat.shape[1]} does not match the "
+                f"{T} tables of model '{self.model_name}'")
+        blocks = [cat[:, ti, :] for ti in range(T)]
+        if hotness is not None:
+            if len(hotness) != T:
+                raise ValueError(
+                    f"hotness has {len(hotness)} entries for {T} tables")
+            for ti, h in enumerate(hotness):
+                if h > cat.shape[2]:
+                    raise ValueError(
+                        f"hotness[{ti}]={h} exceeds id columns "
+                        f"{cat.shape[2]}")
+                if h < cat.shape[2]:  # mask columns beyond the hotness
+                    blk = blocks[ti].copy()
+                    blk[:, h:] = -1
+                    blocks[ti] = blk
+        return blocks
+
+    def _check_dims(self) -> int:
+        dims = {t.dim for t in self.tables}
+        if len(dims) != 1:
+            raise ValueError(
+                f"stacked lookup needs equal table dims, got {sorted(dims)}")
+        return dims.pop()
+
+    # -- two-stage lookup pipeline -------------------------------------------------
+
+    def _host_worker(self) -> ThreadPoolExecutor:
+        """Host-stage workers (index probes + miss fetches). Two workers
+        let table *t+1*'s probe run while table *t*'s fetch waits on the
+        lower levels; same-table probes stay ordered by the cache lock."""
+        with self._pool_lock:
+            if self._host_pool is None:
+                self._host_pool = ThreadPoolExecutor(
+                    max_workers=min(2, len(self.tables)),
+                    thread_name_prefix="hps-host")
+            return self._host_pool
+
+    def close(self) -> None:
+        """Release the host-stage workers (idempotent)."""
+        with self._pool_lock:
+            pool, self._host_pool = self._host_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+    def _probe(self, ti: int, blocks: List[np.ndarray]) -> LookupPlan:
+        flat = np.ascontiguousarray(blocks[ti], np.int64).reshape(-1)
+        return self.caches[self.tables[ti].name].probe(flat)
+
+    def _device_stage(self, ti: int, plan: LookupPlan, b: int, bp: int,
+                      h: int) -> Tuple[torch.Tensor, tuple]:
+        """Flush the plan's deferred scatter, bind its snapshot, and ship
+        the slot block (int32, padded to ``bp`` rows with -1)."""
+        payload = self.caches[self.tables[ti].name].commit(plan)
+        slots = np.pad(plan.slots.reshape(b, h), ((0, bp - b), (0, 0)),
+                       constant_values=-1).astype(np.int32)
+        return torch.from_numpy(slots).to(self.device), payload
+
+    def _collect_plan(self, ti: int, plan: LookupPlan, b: int, bp: int,
+                      blocks: List[np.ndarray],
+                      slot_blocks: List[torch.Tensor], payloads: List[tuple],
+                      overflow: List[Overflow]) -> tuple:
+        sb, payload = self._device_stage(ti, plan, b, bp,
+                                         blocks[ti].shape[1])
+        slot_blocks.append(sb)
+        payloads.append(payload)
+        if len(plan.ov_idx):
+            overflow.append((ti, plan.ov_idx, plan.ov_rows,
+                             blocks[ti].shape[1]))
+        return payload
+
+    def _finalize(self, payloads: List[tuple],
+                  slot_blocks: List[torch.Tensor],
+                  blocks: List[np.ndarray], overflow: List[Overflow],
+                  b: int) -> torch.Tensor:
+        """The pooled gathers (+ the rare host-side overflow fix)."""
+        combiners = tuple("mean" if t.combiner == "mean" else "sum"
+                          for t in self.tables)
+        if not overflow:
+            return _pooled_stack(payloads, slot_blocks, combiners)[:b]
+        # rare path: some ids exceeded L1 evictable capacity; add their
+        # contribution host-side, then apply the mean denominators exactly
+        out = _pooled_stack(payloads, slot_blocks, combiners,
+                            apply_mean=False)[:b]
+        dim = self.tables[0].dim
+        corr = np.zeros((b, len(self.tables), dim), np.float32)
+        for ti, ov_idx, ov_rows, h in overflow:
+            np.add.at(corr[:, ti, :], ov_idx // h, ov_rows)
+        out = out + torch.from_numpy(corr).to(self.device)
+        mean_mask = np.asarray([c == "mean" for c in combiners])
+        if mean_mask.any():
+            denom = np.stack(
+                [np.maximum((blk >= 0).sum(axis=1), 1) for blk in blocks],
+                axis=1).astype(np.float32)[:, :, None]
+            mask_t = torch.from_numpy(mean_mask).to(self.device)
+            out = torch.where(mask_t[None, :, None],
+                              out / torch.from_numpy(denom).to(self.device),
+                              out)
+        return out
+
+    def lookup(self, cat: np.ndarray, hotness: Optional[List[int]] = None,
+               *, pipelined: bool = False) -> torch.Tensor:
+        """``cat [B, T, H]`` or ``[B, sum(hotness)]`` (-1 pad) -> pooled
+        ``[B, T, D]`` f32 on the HPS device, honoring each table's
+        combiner. The batch pads to a power of two with -1 slots (and is
+        sliced back), as in the reference."""
+        cat = np.asarray(cat)
+        blocks = self._split_query(cat, hotness)
+        self._check_dims()
+        T = len(self.tables)
+        b = cat.shape[0]
+        if b == 0:
+            return torch.zeros((0, T, self.tables[0].dim),
+                               dtype=torch.float32, device=self.device)
+        bp = 1 << (b - 1).bit_length()
+        slot_blocks: List[torch.Tensor] = []
+        payloads: List[tuple] = []
+        overflow: List[Overflow] = []
+        if pipelined and T > 1:
+            pool = self._host_worker()
+            futs: Dict[int, Future] = {
+                ti: pool.submit(self._probe, ti, blocks)
+                for ti in range(min(3, T))}          # 2 running + 1 queued
+            for ti in range(T):
+                plan = futs.pop(ti).result()
+                if ti + 3 < T:
+                    futs[ti + 3] = pool.submit(self._probe, ti + 3, blocks)
+                self._collect_plan(ti, plan, b, bp, blocks, slot_blocks,
+                                   payloads, overflow)
+        else:
+            for ti in range(T):
+                self._collect_plan(ti, self._probe(ti, blocks), b, bp,
+                                   blocks, slot_blocks, payloads, overflow)
+        return self._finalize(payloads, slot_blocks, blocks, overflow, b)
+
+    def _timed_probe(self, ti: int, blocks: List[np.ndarray],
+                     rec: List[float]) -> LookupPlan:
+        t0 = time.perf_counter()
+        plan = self._probe(ti, blocks)
+        rec.append(time.perf_counter() - t0)
+        return plan
+
+    def lookup_stream(self, cats: Iterable[np.ndarray],
+                      hotness: Optional[List[int]] = None, *,
+                      depth: Optional[int] = None, max_depth: int = 8,
+                      materialize: bool = True) -> Iterator:
+        """Serve a stream of queries through the two-stage pipeline,
+        yielding ``[B, T, D]`` pooled outputs in order.
+
+        Host workers probe query *i+1* (and fetch its misses) while the
+        calling thread runs query *i*'s device stages. ``depth`` bounds
+        the lookahead; ``None`` auto-tunes it to ``ceil(fetch/compute)+1``
+        within ``[2, max_depth]`` as the reference does.
+        ``materialize=False`` yields the device tensors right after each
+        query's launches (the stream-fed server chains the dense net on
+        them); ``True`` yields numpy arrays, synced one query behind.
+        """
+        self._check_dims()
+        pool = self._host_worker()
+        it = iter(cats)
+        pending: deque = deque()
+        exhausted = False
+        adaptive = depth is None
+        cur_depth = 2 if adaptive else max(1, depth)
+        cap = max(cur_depth, max_depth)
+        workers = max(1, min(2, len(self.tables)))
+        ema_fetch: Optional[float] = None
+        ema_compute: Optional[float] = None
+        self.stream_depth = cur_depth
+        self.stream_depth_peak = max(self.stream_depth_peak, cur_depth)
+
+        def admit():
+            nonlocal exhausted
+            while not exhausted and len(pending) < max(1, cur_depth):
+                try:
+                    cat = np.asarray(next(it))
+                except StopIteration:
+                    exhausted = True
+                    return
+                blocks = self._split_query(cat, hotness)
+                rec: List[float] = []
+                futs = [pool.submit(self._timed_probe, ti, blocks, rec)
+                        for ti in range(len(self.tables))]
+                pending.append((cat.shape[0], blocks, futs, rec))
+
+        in_flight: List[torch.Tensor] = []
+        try:
+            admit()
+            while pending:
+                b, blocks, futs, rec = pending.popleft()
+                plans = [f.result() for f in futs]
+                t0 = time.perf_counter()
+                bp = 1 << (b - 1).bit_length()
+                slot_blocks, payloads, overflow = [], [], []
+                for ti, plan in enumerate(plans):
+                    self._collect_plan(ti, plan, b, bp, blocks,
+                                       slot_blocks, payloads, overflow)
+                out = self._finalize(payloads, slot_blocks, blocks,
+                                     overflow, b)
+                admit()                     # next query probes first ...
+                if not materialize:         # ... caller owns the sync
+                    yield out
+                else:
+                    in_flight.append(out)
+                    if len(in_flight) > 1:  # ... then sync, one behind
+                        yield in_flight.pop(0).cpu().numpy()
+                if adaptive:
+                    compute = max(time.perf_counter() - t0, 1e-6)
+                    fetch = sum(rec) / workers
+                    ema_fetch = fetch if ema_fetch is None \
+                        else 0.5 * ema_fetch + 0.5 * fetch
+                    ema_compute = compute if ema_compute is None \
+                        else 0.5 * ema_compute + 0.5 * compute
+                    cur_depth = int(min(cap, max(
+                        2, math.ceil(ema_fetch / ema_compute) + 1)))
+                    self.stream_depth = cur_depth
+                    self.stream_depth_peak = max(self.stream_depth_peak,
+                                                 cur_depth)
+            for out in in_flight:
+                yield out.cpu().numpy()
+        finally:
+            for _, _, futs, _ in pending:   # abandoned mid-stream
+                for f in futs:
+                    f.cancel()
+
+    # -- metrics ---------------------------------------------------------------------
+
+    def stats(self) -> Dict:
+        with self._l3_stats_lock:
+            l3 = {"calls": dict(self._l3_fetch_calls),
+                  "rows": dict(self._l3_fetch_rows)}
+        l2 = self.vdb.stats()
+        l1 = {k: c.counters() for k, c in self.caches.items()}
+        return {
+            "l1_hit_rate": {
+                k: (c["hits"] / (c["hits"] + c["misses"])
+                    if c["hits"] + c["misses"] else 0.0)
+                for k, c in l1.items()},
+            "l2_hits": l2["hits"],
+            "l2_misses": l2["misses"],
+            "l2": l2,
+            "l3_fetches": l3,
+            "stream": {"depth": self.stream_depth,
+                       "depth_peak": self.stream_depth_peak},
+        }

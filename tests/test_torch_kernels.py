@@ -1,0 +1,275 @@
+"""K1, K2, K5 and K6 of the port against the JAX package's Pallas kernels,
+run in interpret mode on the CPU as ``tests/test_kernels.py`` runs them.
+
+On CPU tensors each wrapper takes its plain version, so these cases hold
+the plain versions (and the wrappers' dispatch) to the TPU kernels on the
+same numpy inputs. Tolerances: the gathers K5/K6 (f32, f16 and int8
+``q * scale``) and K1 with one id per row are bit-exact; K1 with several
+ids per row sums in another order (<= 1e-6 relative); K2 is an f32 dot
+over D (<= 1e-5). The ``cuda``-marked cases launch each CUDA kernel and
+compare it with its plain version on the card; they skip without one.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import types
+
+import numpy as np
+
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.dot_interaction import (
+    interaction_fwd, interaction_fwd_plain)
+from repro_torch.kernels.embedding_lookup import lookup_fwd, lookup_fwd_plain
+from repro_torch.kernels.hps_gather import (
+    dequant_gather_rows, dequant_gather_rows_plain, gather_rows,
+    gather_rows_plain)
+from repro_torch.core.hps.payload_store import quantize_rows
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX reference (imported here, not at module level, so the
+    ``cuda`` cases below also run where only torch is installed)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core.hps import payload_store
+    from repro.kernels import dot_interaction, embedding_lookup, hps_gather
+    from repro.kernels import ops as jops
+    return types.SimpleNamespace(
+        jnp=jnp, di=dot_interaction, el=embedding_lookup, hg=hps_gather,
+        ops=jops, quantize_rows=payload_store.quantize_rows)
+
+
+def _rows(rng, b, h, v, pad_frac=0.2):
+    rows = rng.integers(0, v, size=(b, h)).astype(np.int32)
+    rows[rng.random((b, h)) < pad_frac] = -1
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# K1 lookup_fwd
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("v,d,b,h", [
+    (64, 8, 16, 1),        # one-hot
+    (1000, 64, 37, 3),     # multi-hot, non-aligned batch
+    (513, 16, 8, 7),       # vocab not a multiple of the block
+    (300, 128, 130, 1),    # served width, non-aligned batch
+])
+def test_lookup_fwd_matches_pallas(J, v, d, b, h):
+    rng = np.random.default_rng(v + b)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    rows = _rows(rng, b, h, v)
+    rows[0, :] = rows[0, 0] if rows[0, 0] >= 0 else 3   # duplicate ids
+    want = np.asarray(J.ops.fused_embedding_lookup(J.jnp.asarray(table),
+                                                  J.jnp.asarray(rows)))
+    got = lookup_fwd(torch.from_numpy(table), torch.from_numpy(rows)).numpy()
+    if h == 1:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_lookup_fwd_raw_pallas_bf16(J):
+    """The raw Pallas kernel on a bf16 table (block-aligned shapes)."""
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((256, 32)).astype(np.float32)
+    tb = J.jnp.asarray(table).astype(J.jnp.bfloat16)
+    rows = _rows(rng, 16, 2, 256)
+    want = np.asarray(J.el.lookup_fwd(tb, J.jnp.asarray(rows), block_b=8,
+                                     block_v=128, interpret=True))
+    got = lookup_fwd(torch.from_numpy(table).to(torch.bfloat16),
+                     torch.from_numpy(rows)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_lookup_fwd_all_pads_and_duplicates():
+    table = torch.arange(32 * 4, dtype=torch.float32).reshape(32, 4)
+    pads = torch.full((3, 2), -1, dtype=torch.int32)
+    assert torch.equal(lookup_fwd(table, pads), torch.zeros(3, 4))
+    dup = torch.tensor([[5, 5, 5]], dtype=torch.int32)
+    assert torch.equal(lookup_fwd(table, dup)[0], 3 * table[5])
+
+
+# ---------------------------------------------------------------------------
+# K2 interaction_fwd
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,f,d,self_int", [
+    (8, 4, 16, False), (37, 27, 128, False), (13, 7, 16, True),
+    (64, 14, 16, False)])
+def test_interaction_fwd_matches_pallas(J, b, f, d, self_int):
+    rng = np.random.default_rng(b * f)
+    x = rng.standard_normal((b, f, d)).astype(np.float32)
+    want = np.asarray(J.ops.dot_interaction(J.jnp.asarray(x), self_int))
+    got = interaction_fwd(torch.from_numpy(x),
+                          self_interaction=self_int).numpy()
+    assert got.shape == (b, f * (f + 1) // 2 if self_int else f * (f - 1) // 2)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_interaction_order_is_tril_indices(J):
+    """The raw Pallas kernel's selection matrix fixes np.tril_indices
+    order; the port indexes the triangle directly in the same order."""
+    x = np.random.default_rng(1).standard_normal((8, 5, 8)).astype(np.float32)
+    s = J.jnp.asarray(J.di.selection_matrix(5))
+    want = np.asarray(J.di.interaction_fwd(J.jnp.asarray(x), s, block_b=8,
+                                          interpret=True))
+    gram = np.einsum("bfd,bgd->bfg", x, x)
+    i, j = np.tril_indices(5, -1)
+    np.testing.assert_allclose(want, gram[:, i, j], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ops.dot_interaction(torch.from_numpy(x))
+                               .numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K5 gather_rows / K6 dequant_gather_rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("payload_dtype", ["f32", "f16", "int8"])
+@pytest.mark.parametrize("n,c,d", [(7, 24, 8), (64, 512, 32), (200, 100, 4)])
+def test_gather_matches_pallas(J, payload_dtype, n, c, d):
+    rng = np.random.default_rng(c + n)
+    rows = rng.standard_normal((c, d)).astype(np.float32)
+    rows[3] = 0.0                                  # all-zero row: scale 1
+    stored, scales = quantize_rows(rows, payload_dtype)
+    slots = rng.integers(-1, c, size=n).astype(np.int32)
+    if scales is None:
+        want = np.asarray(J.ops.cache_gather(J.jnp.asarray(stored), slots,
+                                            use_kernel=True))
+        got = gather_rows(torch.from_numpy(stored), torch.from_numpy(slots))
+    else:
+        want = np.asarray(J.ops.cache_gather(J.jnp.asarray(stored), slots,
+                                            scales=J.jnp.asarray(scales),
+                                            use_kernel=True))
+        got = dequant_gather_rows(torch.from_numpy(stored),
+                                  torch.from_numpy(scales),
+                                  torch.from_numpy(slots))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dequant_gather_f16_scaled_matches_raw_pallas(J):
+    rng = np.random.default_rng(9)
+    payload = rng.standard_normal((128, 16)).astype(np.float16)
+    scales = (rng.random(128) + 0.5).astype(np.float32)
+    slots = rng.integers(-1, 128, size=32).astype(np.int32)
+    want = np.asarray(J.hg.dequant_gather_rows(
+        J.jnp.asarray(payload), J.jnp.asarray(scales)[:, None],
+        J.jnp.asarray(slots)[:, None], block_n=16, block_c=64, interpret=True))
+    got = dequant_gather_rows(torch.from_numpy(payload),
+                              torch.from_numpy(scales),
+                              torch.from_numpy(slots))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_quantize_rows_matches_reference(J):
+    rows = np.random.default_rng(2).standard_normal((50, 12)).astype(
+        np.float32)
+    rows[0] = 0.0
+    rows[1, 0] = 0.5 * np.abs(rows[1]).max()       # a tie for rint
+    for mode in ("f32", "f16", "int8"):
+        a, sa = quantize_rows(rows, mode)
+        b, sb = J.quantize_rows(rows, mode)
+        np.testing.assert_array_equal(a, b)
+        assert (sa is None) == (sb is None)
+        if sa is not None:
+            np.testing.assert_array_equal(sa, sb)
+
+
+def test_pooled_cache_lookup_paths(J):
+    """f32 payload -> K1; int8 payload + scales -> K6 then the H sum."""
+    rng = np.random.default_rng(4)
+    rows = rng.standard_normal((40, 8)).astype(np.float32)
+    slots = _rows(rng, 9, 2, 40)
+    q, sc = quantize_rows(rows, "int8")
+    want = np.asarray(J.ops.pooled_cache_lookup(
+        J.jnp.asarray(q), J.jnp.asarray(slots), J.jnp.asarray(sc)))
+    got = ops.pooled_cache_lookup(torch.from_numpy(q),
+                                  torch.from_numpy(slots),
+                                  torch.from_numpy(sc))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    want = np.asarray(J.ops.pooled_cache_lookup(J.jnp.asarray(rows),
+                                               J.jnp.asarray(slots)))
+    got = ops.pooled_cache_lookup(torch.from_numpy(rows),
+                                  torch.from_numpy(slots))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_wrappers_reject_mixed_or_other_devices():
+    t = torch.zeros((4, 4), device="meta")
+    r = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        lookup_fwd(t, r)
+    with pytest.raises(ValueError):
+        interaction_fwd(torch.zeros((2, 3, 4), device="meta"))
+
+
+def test_plain_path_launches_nothing():
+    """CPU tensors run the plain versions: no kernel is built or counted."""
+    _build.LAUNCHES.reset()
+    lookup_fwd(torch.zeros((4, 2)), torch.zeros((2, 1), dtype=torch.int32))
+    gather_rows(torch.zeros((4, 2)), torch.zeros((2,), dtype=torch.int32))
+    assert _build.LAUNCHES.snapshot() == {}
+
+
+# ---------------------------------------------------------------------------
+# on the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", [1, 3])
+def test_cuda_lookup_fwd(cuda, dtype, h):
+    g = torch.Generator().manual_seed(h)
+    table = torch.randn((1000, 128), generator=g).to(dtype).to(cuda)
+    rows = torch.randint(-1, 1000, (257, h), generator=g,
+                         dtype=torch.int32).to(cuda)
+    got, want = lookup_fwd(table, rows), lookup_fwd_plain(table, rows)
+    torch.cuda.synchronize()
+    if h == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_int", [False, True])
+def test_cuda_interaction_fwd(cuda, self_int):
+    x = torch.randn((300, 27, 128),
+                    generator=torch.Generator().manual_seed(0)).to(cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = interaction_fwd(x, self_interaction=self_int)
+    want = interaction_fwd_plain(x, self_interaction=self_int)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload_dtype", ["f32", "f16", "int8"])
+def test_cuda_gathers(cuda, payload_dtype):
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((777, 128)).astype(np.float32)
+    stored, scales = quantize_rows(rows, payload_dtype)
+    p = torch.from_numpy(stored).to(cuda)
+    slots = torch.from_numpy(
+        rng.integers(-1, 777, size=1031).astype(np.int32)).to(cuda)
+    if payload_dtype != "int8":        # int8 rows are read through K6
+        assert torch.equal(gather_rows(p, slots),
+                           gather_rows_plain(p, slots))
+    if scales is None:
+        scales = (rng.random(777) + 0.5).astype(np.float32)
+    if payload_dtype != "f32":
+        sc = torch.from_numpy(scales).to(cuda)
+        assert torch.equal(dequant_gather_rows(p, sc, slots),
+                           dequant_gather_rows_plain(p, sc, slots))
+    torch.cuda.synchronize()
