@@ -9,18 +9,26 @@ Phases, in order; any failure exits non-zero:
 2. Build: compile ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a.
 3. Kernels: launch K1 (pooled lookup), K2 (dot interaction), K5 (row
    gather) and K6 (dequantizing gather, int8 and f16) at the served
-   shapes and hold each against its plain PyTorch version on the card;
-   time kernel, plain version and one library call with CUDA events.
-4. Bundle: write a full-width ``dlrm-criteo`` serving bundle (26 tables at
-   D=128, 13 dense features, bottom MLP 512-256-128, top MLP
-   1024-1024-512-256-1) with the port's own writer. The one cut: each
-   table's vocabulary is capped at ``RUN.vocab_cap`` rows.
-5. Serve: rebuild the server from ``ps.json`` on ``cuda`` and push
+   shapes, K1 and K2 again at the training shapes, and K3 (the lookup's
+   adjoint) and K4 (the interaction's) at the training shapes, and hold
+   each against its plain PyTorch version
+   on the card; time kernel, plain version and one library call with CUDA
+   events.
+4. Train: declare full-width ``dlrm-criteo`` (26 tables at D=128, 13 dense
+   features, bottom MLP 512-256-128, top MLP 1024-1024-512-256-1, bf16
+   compute) through the port's graph API and ``fit()`` it at batch
+   ``RUN.train_batch`` on the synthetic reader: warm-up steps, then timed
+   steps; the loss must fall, K3 and K4 must launch on every step, and
+   the first steps with the plain versions must give the same losses.
+   The one cut: each table's vocabulary is capped at ``RUN.vocab_cap``.
+5. Deploy: ``Model.deploy()`` writes the trained model's serving bundle.
+6. Serve: rebuild the server from ``ps.json`` on ``cuda`` and push
    batch-1024 Zipf requests through ``submit`` on the stream engine, once
    with an f32 and once with an int8 L1 payload; check the predictions
    against the plain path (pooled rows straight from the PDB, dense net
-   with the plain ops) and that the kernels' launch counters rose.
-6. One JSON line of per-kernel numbers, then the device line last.
+   with the plain ops) and, for both payloads, against the trained
+   model's ``predict``; and that the kernels' launch counters rose.
+7. One JSON line of per-kernel numbers, then the device line last.
 
 Needs ``torch.cuda.is_available()`` and the package under ``src/``; with
 either missing it prints no result and exits 2.
@@ -44,10 +52,16 @@ F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 #: (the bound the reference holds its own server to); int8 payloads add
 #: quantization error, bounded as the reference's launcher bounds it
 SERVE_TOL = {"f32": 2e-2, "int8": 1e-1}
+#: trained model's predictions against the plain versions' (first steps'
+#: losses) and against the served ones: the bf16 bound of the reference
+TRAIN_TOL = 2e-2
 #: the run: vocabulary cap per table (the one cut), L1 rows per table,
-#: request batch, warm-up and measured requests, seed
+#: request batch, warm-up and measured requests, seed; training batch,
+#: warm-up and timed steps, steps on the plain versions, learning rate
 RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
-                            batch=1024, warmup=4, requests=16, seed=0)
+                            batch=1024, warmup=4, requests=16, seed=0,
+                            train_batch=4096, warm_steps=2, timed_steps=8,
+                            plain_steps=3, lr=1e-3)
 
 
 def fail(msg: str) -> None:
@@ -111,6 +125,34 @@ def zipf_ids(rng, vocab: int, size, a: float = 1.1):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def capped_config(args):
+    """Full-width ``dlrm-criteo`` with each vocabulary capped (the cut)."""
+    import dataclasses
+    from repro_torch.configs.registry import dlrm_criteo
+    return dataclasses.replace(dlrm_criteo, tables=tuple(
+        dataclasses.replace(t, vocab_size=min(t.vocab_size, args.vocab_cap))
+        for t in dlrm_criteo.tables))
+
+
+def training_rows(args, dev):
+    """K3's inputs as the training run gives them: the embedding groups
+    the planner makes, ``{key: (group rows, that group's row ids of the
+    first training batch, [B * T_g, 1])}``."""
+    from repro_torch.configs.base import SINGLE_DEVICE
+    from repro_torch.core.embedding.collection import EmbeddingCollection
+    from repro_torch.core.embedding.planner import resolve_strategies
+    from repro_torch.data.synthetic import SyntheticCTR
+    from repro_torch.train.trainer import put_batch
+    cfg = capped_config(args)
+    coll = EmbeddingCollection(
+        resolve_strategies(cfg.tables, SINGLE_DEVICE, args.train_batch),
+        device=dev)
+    batch = put_batch(SyntheticCTR(cfg, args.train_batch,
+                                   seed=args.seed).batch(0), dev)
+    return {k: (coll.groups[k].total_rows, r.reshape(-1, r.shape[-1]))
+            for k, r in coll.group_rows(batch["cat"]).items()}
+
+
 def kernel_phase(args, dev):
     import numpy as np
     import torch
@@ -137,12 +179,12 @@ def kernel_phase(args, dev):
     out, device = {}, {}
 
     def record(name, source, replaces, got, want, exact, tol, fn, plain,
-               lib, nbytes, flops):
+               lib, nbytes, flops, reps=20):
         err = (got - want).abs().max().item()
         if exact:
             check(torch.equal(got, want), f"{name}: not bit-exact "
                   f"(max abs err {err})")
-        else:
+        elif tol is not None:
             check(torch.allclose(got, want, rtol=tol, atol=tol),
                   f"{name}: max abs err {err} above {tol}")
         bms, by = bound_ms(nbytes, flops)
@@ -152,7 +194,7 @@ def kernel_phase(args, dev):
             "ms": time_ms(fn), "plain_ms": time_ms(plain),
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lib) if lib is not None else None}
-        device[name] = graph_ms(fn)
+        device[name] = graph_ms(fn, reps)
 
     # K1 at the served shape: f32 L1 payload [C, D], one id per table row
     rows = slots.view(B, 1)
@@ -209,6 +251,83 @@ def kernel_phase(args, dev):
                          k2.interaction_fwd_plain(xs, self_interaction=True),
                          rtol=1e-5, atol=1e-5),
           "interaction_fwd self_interaction: above 1e-5")
+    # K3: the lookup's adjoint at the training shapes and ids (the first
+    # training batch's Zipf ids, one launch per embedding group and step);
+    # timed at the largest group
+    tb = args.train_batch
+    groups = training_rows(args, dev)
+    largest = max(groups, key=lambda k: groups[k][0])
+    gc = torch.Generator(device=dev).manual_seed(args.seed)
+    for key, (v, rows3) in sorted(groups.items(), key=lambda kv: kv[1][0]):
+        # K1 at the same training shape: the group's f32 mega-table
+        mega = torch.randn((v, D), generator=gc, device=dev)
+        check(torch.equal(k1.lookup_fwd(mega, rows3),
+                          k1.lookup_fwd_plain(mega, rows3)),
+              f"lookup_fwd {key}: not bit-exact at rows [{rows3.shape[0]}, "
+              f"1] into [{v}, {D}]")
+        del mega
+        dp3 = torch.randn((rows3.shape[0], D), generator=g).to(dev)
+        got, want = k1.lookup_bwd((v, D), rows3, dp3), \
+            k1.lookup_bwd_plain((v, D), rows3, dp3)
+        check(torch.equal(got, k1.lookup_bwd((v, D), rows3, dp3)),
+              f"lookup_bwd {key}: two launches differ")
+        # a Zipf head id sums thousands of rows: the f32 sum-order bound
+        # is relative to the sum of the absolute contributions
+        scale = k1.lookup_bwd_plain((v, D), rows3, dp3.abs())
+        check(bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all()),
+              f"lookup_bwd {key}: above 1e-5 of the summed magnitudes")
+        del scale
+        distinct = int(torch.unique(rows3[rows3 >= 0]).numel())
+        print(f"lookup_bwd group {key}: rows [{tb}*{rows3.shape[0] // tb}, "
+              f"1] into [{v}, {D}], {distinct} distinct ids")
+        if key != largest:
+            continue
+        keep = rows3.view(-1) >= 0
+        flat, src = rows3.view(-1)[keep].long(), dp3[keep]
+        n3 = rows3.shape[0]
+        record("lookup_bwd", "src/repro_torch/csrc/embedding_lookup.cu",
+               "src/repro/kernels/embedding_lookup.py:87", got, want, False,
+               None, lambda: k1.lookup_bwd((v, D), rows3, dp3),
+               lambda: k1.lookup_bwd_plain((v, D), rows3, dp3),
+               lambda: torch.zeros((v, D), device=dev).index_add_(
+                   0, flat, src),
+               n3 * D * 4 + n3 * 4 + v * D * 4, int(keep.sum()) * D, reps=4)
+        del got, want
+
+    # K4: the interaction's adjoint at the training shape (f32 x, as the
+    # dense net feeds K2); bf16 and self_interaction checked off it
+    P = F * (F - 1) // 2
+    xt = torch.randn((tb, F, D), generator=g).mul_(0.3).to(dev)
+    dtri = torch.randn((tb, P), generator=g).to(dev)
+    bi, bj = torch.tril_indices(F, F, -1, device=dev)
+    check(torch.allclose(k2.interaction_fwd(xt), k2.interaction_fwd_plain(xt),
+                         rtol=1e-5, atol=1e-5),
+          f"interaction_fwd at the training shape [{tb}, {F}, {D}]: above "
+          "1e-5")
+
+    def lib_k4():
+        gm = torch.zeros((tb, F, F), device=dev)
+        gm[:, bi, bj] = dtri
+        return torch.bmm(gm + gm.transpose(1, 2), xt)
+
+    record("interaction_bwd", "src/repro_torch/csrc/dot_interaction.cu",
+           "src/repro/kernels/dot_interaction.py:73",
+           k2.interaction_bwd(xt, dtri), k2.interaction_bwd_plain(xt, dtri),
+           False, 1e-5, lambda: k2.interaction_bwd(xt, dtri),
+           lambda: k2.interaction_bwd_plain(xt, dtri), lib_k4,
+           2 * tb * F * D * 4 + tb * P * 4, 2 * tb * F * F * D)
+    xs4 = torch.randn((7, 5, 16), generator=g).to(dev)
+    ds4 = torch.randn((7, 15), generator=g).to(dev)
+    check(torch.allclose(k2.interaction_bwd(xs4, ds4, self_interaction=True),
+                         k2.interaction_bwd_plain(xs4, ds4,
+                                                  self_interaction=True),
+                         rtol=1e-5, atol=1e-5),
+          "interaction_bwd self_interaction: above 1e-5")
+    xb4, db4 = xs4.to(torch.bfloat16), ds4[:, :10].contiguous()
+    gb = k2.interaction_bwd(xb4, db4)
+    check(gb.dtype == torch.bfloat16 and torch.allclose(
+        gb.float(), k2.interaction_bwd_plain(xb4, db4).float(),
+        rtol=1e-2, atol=1e-2), "interaction_bwd bf16: above 1e-2")
     for rec in out.values():
         print(f"kernel {rec['name']}: {rec['ms']:.4f} ms (bound "
               f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, plain "
@@ -219,47 +338,169 @@ def kernel_phase(args, dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: full-width bundle, then serve it
+# phases 4-5: train full-width DLRM through fit(), then deploy it
 # ---------------------------------------------------------------------------
 
-def write_full_bundle(args, bundle_dir, dev):
-    import dataclasses
+def declare(args, cfg):
+    """The ``dlrm-criteo`` graph through the port's graph API."""
+    from repro_torch.api import CreateSolver, DataReaderParams, dlrm_graph
+    return dlrm_graph(cfg, solver=CreateSolver(
+        batch_size=args.train_batch, lr=args.lr, seed=args.seed),
+        reader=DataReaderParams(num_dense_features=cfg.num_dense_features,
+                                seed=args.seed))
+
+
+#: device kernels by kind, by a piece of their name (first match wins)
+KINDS = (("K1", ("lookup_fwd_kernel",)), ("K3", ("lookup_bwd_kernel",)),
+         ("K2", ("interaction_fwd_kernel",)),
+         ("K4", ("interaction_bwd_kernel",)), ("K5/K6", ("gather_rows",)),
+         ("matmul", ("gemm", "xmma", "cutlass")), ("fill", ("Fill",)),
+         ("sort", ("radix", "Radix", "sort")), ("reduce", ("reduce_kernel",)),
+         ("copy", ("copy", "Memcpy")), ("elementwise", ("elementwise",)))
+
+
+def kind(name: str) -> str:
+    for k, keys in KINDS:
+        if any(key in name for key in keys):
+            return k
+    return "other"
+
+
+def profile(label: str, fn) -> None:
+    """Where one call's time goes: its host wall time against the device's
+    busy time in it (the sum of kernel times from ``torch.profiler``), the
+    busy time by kind of kernel, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"profile {label}: wall {wall:.2f} ms; device time not "
+              "measured (the profiler recorded no device events)")
+        return
+    busy = sum(e.device_time for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    by_kind = {}
+    for n, t in by_name.items():
+        by_kind[kind(n)] = by_kind.get(kind(n), 0.0) + t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%), {len(kernels)} device events; by "
+          "kind: " + "; ".join(f"{k} {t:.3f} ms" for k, t in sorted(
+              by_kind.items(), key=lambda kv: -kv[1]))
+          + "; top: " + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top))
+
+
+def train_phase(args, dev):
+    """fit() full-width DLRM; returns the trained model and the launch
+    counts of its run."""
     import numpy as np
     import torch
-    from repro_torch.api import dlrm_graph
-    from repro_torch.configs.registry import dlrm_criteo
-    from repro_torch.core.hps.persistent_db import PersistentDB
-    from repro_torch.models.recsys.model import RecsysModel
-    from repro_torch.serve.server import write_bundle
+    from repro_torch.data.synthetic import SyntheticCTR
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.train.trainer import Trainer
 
-    cfg = dataclasses.replace(dlrm_criteo, tables=tuple(
-        dataclasses.replace(t, vocab_size=min(t.vocab_size, args.vocab_cap))
-        for t in dlrm_criteo.tables))
+    from repro_torch.configs.registry import dlrm_criteo
+    cfg = capped_config(args)
     full_rows = sum(t.vocab_size for t in dlrm_criteo.tables)
     rows = sum(t.vocab_size for t in cfg.tables)
     print(f"reduced: vocabulary capped at {args.vocab_cap} rows per table: "
-          f"{rows} rows ({rows * 128 * 4 / 1e9:.1f} GB f32) instead of "
-          f"{full_rows} ({full_rows * 128 * 4 / 1e9:.1f} GB); widths, 26 "
+          f"{rows} rows ({rows * 128 * 4 / 1e9:.2f} GB f32) instead of "
+          f"{full_rows} ({full_rows * 128 * 4 / 1e9:.2f} GB); widths, 26 "
           f"tables, hotness and both MLPs as published")
+    steps = args.warm_steps + args.timed_steps
     t0 = time.perf_counter()
-    pdb = PersistentDB(os.path.join(bundle_dir, "pdb"))
-    rng = np.random.default_rng(args.seed)
-    chunk = 1 << 18
-    for t in cfg.tables:
-        pdb.create_table(cfg.name, t.name, t.vocab_size, t.dim)
-        for lo in range(0, t.vocab_size, chunk):
-            hi = min(t.vocab_size, lo + chunk)
-            block = rng.standard_normal((hi - lo, t.dim), dtype=np.float32)
-            pdb.upsert(cfg.name, t.name, np.arange(lo, hi), block * 0.3)
-    pdb.flush()
-    model = RecsysModel(cfg, device=dev)
-    params = model.init(torch.Generator().manual_seed(args.seed))
-    write_bundle(bundle_dir, dlrm_graph(cfg), params,
-                 cache_capacity=args.cache_capacity, max_batch=args.batch)
-    print(f"bundle: {len(cfg.tables)} tables written in "
-          f"{time.perf_counter() - t0:.1f} s")
-    return cfg, pdb, params
+    m = declare(args, cfg).compile(device=dev)
+    print("train groups: " + ", ".join(
+        f"{k} {g.num_tables} tables {g.total_rows} rows"
+        for k, g in m.model.embedding.groups.items()))
+    reader = SyntheticCTR(cfg, args.train_batch, seed=args.seed)
+    per_step, data_ms = [], []
 
+    def data_fn(step):             # launch counts as each step begins, and
+        per_step.append(LAUNCHES.snapshot())     # the reader's host time
+        t = time.perf_counter()
+        batch = reader.batch(step)
+        data_ms.append((time.perf_counter() - t) * 1e3)
+        return batch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    hist = m.fit(data_fn, steps=steps)
+    torch.cuda.synchronize()
+    launches = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step.append(launches)
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == steps and np.isfinite(losses).all(),
+          f"train: {len(hist)} steps, losses {losses}")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    groups = len(m.model.embedding.groups)
+    for i in range(steps):
+        d = {k: per_step[i + 1].get(k, 0) - per_step[i].get(k, 0)
+             for k in ("lookup_bwd", "interaction_bwd")}
+        check(d == {"lookup_bwd": groups, "interaction_bwd": 1},
+              f"train step {i}: launches {d}, want K3 once per embedding "
+              f"group ({groups}) and K4 once")
+    ms = [h["time"] * 1e3 for h in hist[args.warm_steps:]]
+    p50 = float(np.median(ms))
+    print(f"train on {torch.cuda.get_device_name(0)}: {steps} steps at "
+          f"batch {args.train_batch} ({args.warm_steps} warm-up) in "
+          f"{time.perf_counter() - t0:.1f} s with set-up; step p50 "
+          f"{p50:.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}), "
+          f"{args.train_batch / p50 * 1e3:.0f} samples/s; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak memory "
+          f"{peak:.2f} GiB; synthetic batch on the host p50 "
+          f"{float(np.median(data_ms[args.warm_steps:])):.2f} ms of each "
+          f"step; launches {launches}")
+
+    # one more step, profiled, from the trained state (not kept)
+    tr = Trainer(m.model, m.solver.to_train_config(), reader.batch)
+    profile("train step", lambda: tr.train(
+        1, initial_state=(m.params, None)))
+
+    # the first steps again on the plain versions, from the same init
+    plain = declare(args, cfg).compile(device=dev, use_kernels=False)
+    ph = plain.fit(reader.batch, steps=args.plain_steps)
+    err = max(abs(a["loss"] - b["loss"]) for a, b in zip(ph, hist))
+    check(err <= TRAIN_TOL, f"train: plain-version losses "
+          f"{[h['loss'] for h in ph]} vs {losses[:args.plain_steps]}")
+    print(f"train plain versions: first {args.plain_steps} losses within "
+          f"{err:.3g} of the kernel path (bound {TRAIN_TOL})")
+    del plain, ph
+    torch.cuda.empty_cache()
+    return m, launches
+
+
+def deploy_phase(args, m, bundle_dir):
+    """Model.deploy() the trained model; returns what the serving checks
+    need: the config, the bundle's PDB and the dense params."""
+    from repro_torch.core.hps.persistent_db import PersistentDB
+    t0 = time.perf_counter()
+    server = m.deploy(bundle_dir, cache_capacity=args.cache_capacity,
+                      max_batch=args.batch)
+    server.close()
+    pdb = PersistentDB(os.path.join(bundle_dir, "pdb"))
+    for t in m.cfg.tables:
+        pdb.open_table(m.name, t.name)
+    print(f"deploy: {len(m.cfg.tables)} trained tables written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return m.cfg, pdb, m.dense_params()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serve the bundle
+# ---------------------------------------------------------------------------
 
 def make_requests(args, cfg, n, stream):
     import numpy as np
@@ -289,36 +530,10 @@ def plain_predict(cfg, pdb, params, dev, dense, cat):
     return torch.sigmoid(logit).cpu().numpy(), emb
 
 
-def profile_predict(server, dense, cat) -> None:
-    """Where one served batch's time goes: the host wall time of a
-    ``predict`` call against the device's busy time in it (the sum of
-    kernel times from ``torch.profiler``), and the top kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.predict(dense, cat)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        print(f"profile predict: wall {wall:.2f} ms; device time not "
-              "measured (the profiler recorded no device events)")
-        return
-    busy = sum(e.device_time for e in kernels) / 1e3
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile predict: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / wall:.1f}%), {len(kernels)} device events; top: "
-          + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top))
-
-
-def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype):
+def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
+                trained=None):
+    """Serve the bundle; with ``trained`` (the api.Model that deployed it)
+    the served predictions are also held against its ``predict``."""
     import numpy as np
     import torch
     from repro_torch.kernels._build import LAUNCHES
@@ -356,7 +571,7 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype):
         for dense, cat in reqs[:8]:             # one request at a time
             server.predict(dense, cat)
         seq = server.latency_percentiles()
-        profile_predict(server, *reqs[8 % len(reqs)])
+        profile("predict", lambda: server.predict(*reqs[8 % len(reqs)]))
 
         # predictions against the plain path
         err = 0.0
@@ -368,6 +583,15 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype):
         tol = SERVE_TOL[payload_dtype]
         check(err <= tol, f"{payload_dtype}: served predictions deviate "
               f"{err} from the plain path (bound {tol})")
+        trained_err = None
+        if trained is not None:
+            trained_err = max(
+                float(np.abs(p - trained.predict(
+                    {"dense": d, "cat": c})).max())
+                for (d, c), p in zip(reqs, preds))
+            check(trained_err <= TRAIN_TOL, f"{payload_dtype}: served "
+                  f"predictions deviate {trained_err} from the trained "
+                  f"Model.predict (bound {TRAIN_TOL})")
         # the pooled L1 read itself: bit-exact for f32, within half a
         # quantization step for int8
         dense, cat = reqs[-1]
@@ -403,7 +627,10 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype):
           f"{pct['p99']:.2f} ms, queueing included); one request at a "
           f"time through predict: p50 {seq['p50']:.2f} ms; "
           f"L1 hit rate {hit:.4f}; max |p - plain| {err:.3g} "
-          f"(bound {tol}); launches {launches}")
+          f"(bound {tol})"
+          + ("" if trained_err is None else
+             f"; max |p - Model.predict| {trained_err:.3g} (bound "
+             f"{TRAIN_TOL})") + f"; launches {launches}")
     return launches, err
 
 
@@ -445,21 +672,22 @@ def main() -> int:
     pin_f32_matmul()
     kernels = kernel_phase(args, dev)
 
-    # 4-5. bundle and serve
+    # 4-6. train, deploy, serve
     bundle_dir = os.path.join(ROOT, "_smoke_bundle")
     shutil.rmtree(bundle_dir, ignore_errors=True)
     try:
-        cfg, pdb, params = write_full_bundle(args, bundle_dir, dev)
+        model, total = train_phase(args, dev)
+        cfg, pdb, params = deploy_phase(args, model, bundle_dir)
         ps = os.path.join(bundle_dir, "ps.json")
-        total = {}
         for pd in ("f32", "int8"):
-            launches, _ = serve_phase(args, ps, cfg, pdb, params, dev, pd)
+            launches, _ = serve_phase(args, ps, cfg, pdb, params, dev, pd,
+                                      trained=model)
             for k, n in launches.items():
                 total[k] = total.get(k, 0) + n
     finally:
         shutil.rmtree(bundle_dir, ignore_errors=True)
 
-    # 6. kernels line, then the device line last
+    # 7. kernels line, then the device line last
     for name, rec in kernels.items():
         rec["launches"] = total.get(name, 0)
         check(rec["launches"] > 0, f"{name}: no launches on the main path")

@@ -1,25 +1,40 @@
-"""HugeCTR-style declarative graph API, the serving subset (counterpart of
+"""HugeCTR-style declarative graph API on one device (counterpart of
 ``repro/api.py``).
 
 The layer declarations (``Solver``, ``DataReaderParams``, ``Input``,
 ``SparseEmbedding``, ``DenseLayer``) carry the JAX package's field sets,
 so a ``graph.json`` (format ``repro-graph-v1``) written by either package
 loads in the other and lowers to the same ``recsys_config_hash``. This
-slice lowers the canonical DLRM recipe (bottom MLP, dot interaction,
+port lowers the canonical DLRM recipe (bottom MLP, dot interaction,
 concat, top MLP, sigmoid); any other graph raises ``NotImplementedError``
-naming the ROADMAP item that ports it. Training (``fit``), ``save``/
-``load`` and ``deploy`` from a trained model come with the training slice;
-:func:`repro_torch.serve.server.write_bundle` writes serving bundles.
+naming the ROADMAP item that ports it.
+
+The paper's workflow runs through :class:`Model`::
+
+    m = Model(solver, reader, name="dlrm"); m.add(...); ...
+    m.compile(device="cuda")      # "cuda" unless device="cpu" is given
+    m.fit(steps=100)              # synthetic reader, one device
+    m.save("ckpt")                # graph.json + logical checkpoint
+    server = m.deploy("bundle")   # pdb/ graph.json dense.npz ps.json
+
+and ``launch/serve.py::build_server_from_config`` (either package's)
+serves the bundle. Not ported yet: the ETC backend (``Solver.etc``), the
+criteo reader, and meshes of more than one device.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import os
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
 
 from repro_torch.configs.base import (
-    EmbeddingTableConfig, RecsysConfig, recsys_config_hash,
+    EmbeddingTableConfig, RecsysConfig, TrainConfig, recsys_config_hash,
 )
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys.dense_graph import (
     RESERVED_NAMES, GraphError, compile_layers, not_ported, spec_from_layer,
 )
@@ -30,8 +45,9 @@ GRAPH_FORMAT = "repro-graph-v1"
 @dataclasses.dataclass
 class Solver:
     """Run-level knobs (HugeCTR's ``CreateSolver``); the JAX package's
-    field set, so ``graph.json`` round-trips between the packages. Only
-    the serving side reads it in this slice."""
+    field set, so ``graph.json`` round-trips between the packages.
+    Training runs on one device: ``mesh_shape`` of more than one device
+    and ``mode="manual"`` raise at ``compile()``."""
     batch_size: int = 256
     lr: float = 1e-3
     optimizer: str = "adamw"
@@ -71,6 +87,18 @@ class Solver:
                     f"Solver.mesh_shape must be a non-empty tuple of "
                     f"positive ints, got {self.mesh_shape!r}")
             self.mesh_shape = shape
+
+    def to_train_config(self) -> TrainConfig:
+        return TrainConfig(
+            learning_rate=self.lr, dense_optimizer=self.optimizer,
+            sparse_optimizer=self.sparse_optimizer,
+            weight_decay=self.weight_decay, grad_clip=self.grad_clip,
+            mixed_precision=self.mixed_precision,
+            grad_allreduce_dtype=self.grad_allreduce_dtype)
+
+
+def CreateSolver(**kwargs) -> Solver:  # noqa: N802 — HugeCTR spelling
+    return Solver(**kwargs)
 
 
 @dataclasses.dataclass
@@ -282,7 +310,9 @@ def lower_graph(name: str, inp: Optional[Input],
 
 class Model:
     """A declarative model graph: ``add`` layers, lower with
-    :meth:`to_recsys_config`, round-trip through ``graph.json``."""
+    :meth:`to_recsys_config`, round-trip through ``graph.json``; then
+    ``compile`` / ``fit`` / ``predict`` / ``save`` / ``load`` / ``deploy``
+    drive the lowered model on one device."""
 
     def __init__(self, solver: Optional[Solver] = None,
                  reader: Optional[DataReaderParams] = None, *,
@@ -293,6 +323,13 @@ class Model:
         self._input: Optional[Input] = None
         self._embeddings: List[SparseEmbedding] = []
         self._dense_layers: List[DenseLayer] = []
+        self.cfg: Optional[RecsysConfig] = None
+        self.device: Optional[torch.device] = None
+        self._model = None            # lowered RecsysModel
+        self._tcfg: Optional[TrainConfig] = None
+        self._params = None
+        self._opt_state = None
+        self.stragglers = 0
 
     def add(self, layer) -> "Model":
         if isinstance(layer, Input):
@@ -313,6 +350,161 @@ class Model:
         """The lowering pass (pure — no devices touched)."""
         return lower_graph(self.name, self._input, self._embeddings,
                            self._dense_layers)
+
+    # -- compile ----------------------------------------------------------------
+
+    def compile(self, *, device: DeviceLike = None,
+                use_kernels: bool = True) -> "Model":
+        """Lower the graph and build the model on ``device`` (``cuda``
+        unless ``"cpu"`` is given; raises without a card).
+        ``use_kernels=False`` runs the plain versions of the kernels."""
+        from repro_torch.core.embedding.collection import MULTI_DEVICE
+        from repro_torch.models.recsys.model import RecsysModel
+        self.cfg = self.to_recsys_config()
+        if self.reader is not None and \
+                self.reader.num_dense_features != self._input.dense_dim:
+            raise GraphError(
+                f"reader num_dense_features="
+                f"{self.reader.num_dense_features} != Input dense_dim="
+                f"{self._input.dense_dim}")
+        if self.solver.mesh_shape is not None and \
+                int(np.prod(self.solver.mesh_shape)) > 1:
+            raise not_ported(f"Solver.mesh_shape={self.solver.mesh_shape}",
+                             MULTI_DEVICE)
+        if self.solver.mode == "manual":
+            raise not_ported('Solver.mode="manual"', MULTI_DEVICE)
+        self._tcfg = self.solver.to_train_config()
+        self.batch_size = self.solver.batch_size
+        self.device = resolve_device(device)
+        self._model = RecsysModel(
+            self.cfg, device=self.device, use_kernels=use_kernels,
+            global_batch=self.batch_size, comm=self.solver.comm)
+        return self
+
+    @property
+    def model(self):
+        """The lowered RecsysModel (compile() first)."""
+        return self._model
+
+    @property
+    def params(self):
+        return self._params
+
+    def _require_compiled(self):
+        if self._model is None:
+            self.compile()
+
+    # -- train --------------------------------------------------------------------
+
+    def _reader_data_fn(self) -> Callable[[int], Dict]:
+        r = self.reader or DataReaderParams(
+            num_dense_features=self.cfg.num_dense_features)
+        if r.source != "synthetic":
+            raise not_ported(f"DataReaderParams(source={r.source!r})",
+                             "Front doors, benchmarks and CI "
+                             "(queue 1 item 6)")
+        from repro_torch.data.synthetic import SyntheticCTR
+        return SyntheticCTR(self.cfg, self.batch_size, seed=r.seed,
+                            zipf_a=r.zipf_a).batch
+
+    def fit(self, data_fn: Optional[Callable[[int], Dict]] = None,
+            steps: int = 100, *, ckpt_dir: Optional[str] = None,
+            log_every: int = 0, seed: Optional[int] = None,
+            failure_injector: Optional[Callable[[int], None]] = None
+            ) -> List[Dict]:
+        """Train; ``data_fn(step) -> {"dense", "cat", "label"}`` host
+        batches (defaults to the reader's source). Resumes from a newer
+        checkpoint in ``ckpt_dir`` if present, else from weights already
+        held (e.g. after :meth:`load`)."""
+        self._require_compiled()
+        if self.solver.etc is not None:
+            raise not_ported("ETC-staged fit() (Solver.etc)",
+                             "ETC and online training (queue 1 item 5)")
+        if data_fn is None:
+            data_fn = self._reader_data_fn()
+        from repro_torch.train.trainer import Trainer
+        trainer = Trainer(self._model, self._tcfg, data_fn,
+                          ckpt_dir=ckpt_dir,
+                          ckpt_interval=self.solver.ckpt_interval)
+        trainer.failure_injector = failure_injector
+        init = (self._params, self._opt_state) \
+            if self._params is not None else None
+        out = trainer.train(
+            steps, seed=self.solver.seed if seed is None else seed,
+            log_every=log_every, initial_state=init)
+        self._params = out["params"]
+        self._opt_state = out["opt_state"]
+        self.stragglers = out["stragglers"]
+        return out["history"]
+
+    # -- inference ------------------------------------------------------------------
+
+    def predict(self, batch: Dict) -> np.ndarray:
+        """Probabilities ``[B]`` for a host batch (``dense``, ``cat``)."""
+        if self._params is None:
+            raise RuntimeError("fit() or load() before predict()")
+        from repro_torch.train.trainer import put_batch
+        dev = put_batch({k: v for k, v in batch.items()
+                         if k in ("dense", "cat")}, self.device)
+        with torch.no_grad():
+            return torch.sigmoid(self._model.apply(self._params, dev)) \
+                .cpu().numpy()
+
+    # -- persistence ------------------------------------------------------------------
+
+    def save(self, directory: str, step: int = 0) -> str:
+        """Write the graph (graph.json) and a logical-layout checkpoint:
+        everything :meth:`load` (of either package) needs."""
+        if self._params is None:
+            raise RuntimeError("nothing to save: fit() or load() first")
+        from repro_torch.models.recsys.model import export_logical_params
+        from repro_torch.train import checkpoint as ck
+        os.makedirs(directory, exist_ok=True)
+        self.graph_to_json(os.path.join(directory, "graph.json"))
+        ck.save(directory, step,
+                {"params": export_logical_params(self._model, self._params)})
+        return directory
+
+    @classmethod
+    def load(cls, directory: str, *, device: DeviceLike = None) -> "Model":
+        """Rebuild a model from :meth:`save` output alone: graph JSON and
+        the newest checkpoint. ``predict()`` works at once; ``fit()``
+        continues from the loaded weights."""
+        from repro_torch.models.recsys.model import import_logical_params
+        from repro_torch.train import checkpoint as ck
+        m = cls.from_json(os.path.join(directory, "graph.json"))
+        m.compile(device=device)
+        step = ck.latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+        tree, _ = ck.load_tree(directory, step, device=m.device)
+        m._params = import_logical_params(m._model, tree["params"])
+        return m
+
+    # -- deployment -------------------------------------------------------------------
+
+    def dense_params(self) -> Dict:
+        from repro_torch.train.train_step import split_params
+        return split_params(self._params)[1]
+
+    def deploy(self, directory: str, *, cache_capacity: int = 4096,
+               max_batch: int = 1024, payload_dtype: str = "f32"):
+        """Write the serving bundle (``pdb/`` with every table,
+        ``graph.json``, ``dense.npz``, ``ps.json``) and return an
+        ``InferenceServer`` rebuilt from it on this model's device. Either
+        package's ``build_server_from_config`` serves the bundle."""
+        if self._params is None:
+            raise RuntimeError("fit() or load() before deploy()")
+        from repro_torch.launch.serve import build_server_from_config
+        from repro_torch.serve.server import write_bundle
+        tables = self._model.embedding.logical_tables(
+            self._params["embedding"])
+        write_bundle(directory, self, self.dense_params(), tables,
+                     cache_capacity=cache_capacity, max_batch=max_batch,
+                     payload_dtype=payload_dtype)
+        server, _ = build_server_from_config(
+            os.path.join(directory, "ps.json"), device=self.device)
+        return server
 
     def graph_dict(self) -> Dict:
         layers: List[Dict] = []

@@ -11,6 +11,12 @@ import hashlib
 import json
 from typing import Dict, Tuple
 
+# embedding placement strategies (the planner's vocabulary)
+LOCALIZED = "localized"      # whole table on one device, all-to-all after pool
+DISTRIBUTED = "distributed"  # rows striped across all devices (MP)
+HYBRID = "hybrid"            # hot rows replicated (DP), cold rows striped (MP)
+DATA_PARALLEL = "data_parallel"  # fully replicated (small tables)
+
 
 @dataclasses.dataclass(frozen=True)
 class EmbeddingTableConfig:
@@ -124,6 +130,42 @@ def hps_config_from_dict(d: Dict) -> HPSConfig:
     tables = tuple(EmbeddingTableConfig(**t) for t in d["tables"])
     rest = {k: v for k, v in d.items() if k not in ("tables", "format")}
     return HPSConfig(tables=tables, **rest)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters (the JAX package's field set and
+    defaults)."""
+    learning_rate: float = 1e-3
+    dense_optimizer: str = "adamw"    # "sgd" | "adam" | "adamw"
+    sparse_optimizer: str = "rowwise_adagrad"  # HugeCTR's default for tables
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    mixed_precision: bool = True      # bf16 compute, f32 master weights
+    grad_allreduce_dtype: str = "f32" # "bf16" enables compressed all-reduce
+    remat: str = "none"               # "none" | "full" | "dots"
+    microbatches: int = 1             # grad accumulation splits
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """A device layout as the placement planner sees it."""
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+#: one device, laid out as the reference lays out a one-device test mesh
+SINGLE_DEVICE = MeshConfig((1, 1), ("data", "model"))
 
 
 def ps_config_from_dict(d: Dict) -> HPSConfig:

@@ -1,11 +1,13 @@
-"""Parameter interchange with the JAX package's on-disk forms.
+"""Parameter and training-state interchange with the JAX package's forms.
 
 The JAX package writes dense parameters as numpy arrays under flat
-key-paths (``dense.npz``: ``bottom/w0``, ``top/b4``, ...) and embedding
-tables as logical per-table ``[V, D]`` f32 arrays (the PDB files). These
-functions turn that form into the port's params (a nested dict of
-tensors on a device) and back; the bundle writer uses the reverse
-direction, the bundle reader the forward one.
+key-paths (``dense.npz``: ``bottom/w0``, ``top/b4``, ...), embedding
+tables as logical per-table ``[V, D]`` f32 arrays (the PDB files), and a
+training state as the same flat key-paths over ``{"params", "opt"}`` (the
+checkpoint). These functions turn those forms into the port's trees (nested
+dicts of tensors on a device) and back: the bundle writer uses the reverse
+direction, the bundle reader the forward one, and the parity tests start
+both frameworks from one JAX-exported training state.
 """
 from __future__ import annotations
 
@@ -16,36 +18,44 @@ import torch
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import flatten, unflatten
 
 
 def dense_from_flat(flat: Mapping[str, np.ndarray], *,
                     device: DeviceLike = None) -> Dict:
     """``{"bottom/w0": array, ...}`` -> ``{"bottom": {"w0": tensor}}``."""
-    dev = resolve_device(device)
-    out: Dict = {}
-    for key, arr in flat.items():
-        node = out
-        *parents, leaf = key.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = torch.from_numpy(np.array(arr, np.float32)).to(dev)
-    return out
+    return state_from_flat({k: np.asarray(v, np.float32)
+                            for k, v in flat.items()}, device=device)
 
 
 def dense_to_flat(params: Mapping) -> Dict[str, np.ndarray]:
     """Inverse of :func:`dense_from_flat` (arrays as f32 numpy)."""
-    flat: Dict[str, np.ndarray] = {}
+    return {k: v.astype(np.float32)
+            for k, v in state_to_flat(params).items()}
 
-    def walk(prefix, node):
-        for k, v in node.items():
-            key = f"{prefix}/{k}" if prefix else str(k)
-            if isinstance(v, Mapping):
-                walk(key, v)
-            else:
-                flat[key] = v.detach().cpu().numpy().astype(np.float32)
 
-    walk("", params)
-    return flat
+def state_from_flat(flat: Mapping[str, np.ndarray], *,
+                    device: DeviceLike = None) -> Dict:
+    """A whole training state in the reference's flat form -> a nested
+    dict of tensors on ``device``, dtypes kept.
+
+    ``flat`` maps key-paths to arrays as ``repro/train/checkpoint.py``
+    flattens ``{"params": export_logical_params(...), "opt": opt_state}``:
+    ``params/embedding/dp``, ``params/bottom/w0``, ``opt/dense/mu/top/b1``,
+    ``opt/dense/step``, ``opt/sparse/acc/embedding/dist``, ... Pass the
+    ``params`` subtree through ``import_logical_params`` to train on it.
+    """
+    dev = resolve_device(device)
+    return unflatten({k: torch.from_numpy(np.array(v)).to(dev)
+                      for k, v in flat.items()})
+
+
+def state_to_flat(tree: Mapping) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`state_from_flat`: numpy arrays under the
+    reference's key-paths (sorted keys joined by ``/``), dtypes kept.
+    Leaves may be tensors or arrays."""
+    return {k: v.detach().cpu().numpy() if torch.is_tensor(v)
+            else np.asarray(v) for k, v in flatten(tree)}
 
 
 def check_dense(cfg: RecsysConfig, params: Mapping) -> None:

@@ -75,6 +75,7 @@ def build_server_from_config(ps_path: str, *, device: DeviceLike = None,
               cache_capacity=hcfg.cache_capacity,
               cache_shards=hcfg.cache_shards,
               payload_dtype=hcfg.payload_dtype, device=dev)
-    model = RecsysModel(cfg, device=dev)
+    model = RecsysModel(cfg, device=dev,
+                        global_batch=graph.solver.batch_size)
     server = InferenceServer(model, dense, hps, max_batch=hcfg.max_batch)
     return server, graph

@@ -30,10 +30,12 @@ class GraphError(ValueError):
     """A model graph that cannot be compiled into a dense program."""
 
 
-def not_ported(what: str) -> NotImplementedError:
+def not_ported(what: str, item: str = "The other recipes and graphs "
+               "(queue 1 item 3)") -> NotImplementedError:
+    """The error a part of the reference that the port lacks raises: it
+    names the ROADMAP item that ports it."""
     return NotImplementedError(
-        f"{what} is not ported yet: the other recipes and generic graphs "
-        'are the ROADMAP item "The other recipes and graphs"')
+        f'{what} is not ported yet: it is the ROADMAP item "{item}"')
 
 
 @dataclasses.dataclass
@@ -159,9 +161,10 @@ def _toposort(specs: List[LayerSpec], available: set) -> List[LayerSpec]:
 class DenseGraphProgram:
     """A compiled dense graph: topo-ordered nodes and one ``apply``.
 
-    ``use_kernels`` routes ``dot_interaction`` through K2 (its wrapper
-    launches the CUDA kernel on CUDA tensors); ``False`` runs the plain
-    version on any device, the in-port reference path.
+    ``use_kernels`` routes ``dot_interaction`` through K2, and its
+    gradient through K4 (the wrappers launch the CUDA kernels on CUDA
+    tensors); ``False`` runs the plain version on any device, the in-port
+    reference path.
     """
 
     def __init__(self, nodes: List[Node], shapes: Dict[str, Tuple],

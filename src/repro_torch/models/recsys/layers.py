@@ -1,5 +1,6 @@
 """Dense layers of the recsys models (counterpart of
-``repro/models/recsys/layers.py``: ``mlp_init`` and ``mlp_apply``).
+``repro/models/recsys/layers.py``: ``mlp_init``, ``mlp_apply``, the loss
+``bce_with_logits`` and the eval metric ``auc``).
 
 ``mlp_apply`` reproduces the JAX rounding order exactly: operands rounded
 to the compute dtype, a product accumulated in f32, the f32 bias added,
@@ -15,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -59,3 +61,26 @@ def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
             h = torch.relu(h)
         h = h.to(compute_dtype)
     return h.float()
+
+
+def bce_with_logits(logits: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable mean binary cross entropy, in the reference's
+    formula (``max(z, 0) - z y + log1p(exp(-|z|))``)."""
+    z = logits.float()
+    y = labels.float()
+    return torch.mean(torch.clamp_min(z, 0) - z * y
+                      + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def auc(logits: np.ndarray, labels: np.ndarray) -> float:
+    """Rank-based AUC (host-side eval metric, the paper's model metric)."""
+    order = np.argsort(logits)
+    ranks = np.empty_like(order, dtype=np.float64)
+    ranks[order] = np.arange(1, len(order) + 1)
+    pos = labels > 0.5
+    n_pos, n_neg = pos.sum(), (~pos).sum()
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))

@@ -104,13 +104,15 @@ def write_bundle(directory: str, graph, dense_params: Dict,
     formats are the JAX package's, so its ``build_server_from_config``
     serves the bundle too.
 
-    ``graph`` is a :class:`repro_torch.api.Model`; ``tables`` maps table
-    names to ``[V, D]`` arrays. Pass ``tables=None`` when the PDB under
-    ``directory/pdb`` already holds them (written by :func:`deploy_tables`
-    or ``PersistentDB.create_table``), e.g. tables too large to hold in
-    memory at once.
+    ``graph`` is a :class:`repro_torch.api.Model`; ``dense_params`` its
+    param tree (embedding keys, if present, are left out of ``dense.npz``);
+    ``tables`` maps table names to ``[V, D]`` arrays. Pass ``tables=None``
+    when the PDB under ``directory/pdb`` already holds them (written by
+    :func:`deploy_tables` or ``PersistentDB.create_table``), e.g. tables
+    too large to hold in memory at once.
     """
     from repro_torch.convert import dense_to_flat
+    from repro_torch.train.train_step import split_params
     cfg = graph.to_recsys_config()
     os.makedirs(directory, exist_ok=True)
     pdb_root = os.path.join(directory, "pdb")
@@ -122,7 +124,7 @@ def write_bundle(directory: str, graph, dense_params: Dict,
             raise FileNotFoundError(f"table {t.name!r} missing from {pdb_root}")
     graph.graph_to_json(os.path.join(directory, "graph.json"))
     np.savez(os.path.join(directory, "dense.npz"),
-             **dense_to_flat(dense_params))
+             **dense_to_flat(split_params(dense_params)[1]))
     hcfg = HPSConfig(
         model=graph.name, pdb_root="pdb", graph_path="graph.json",
         dense_weights_path="dense.npz", tables=cfg.tables,

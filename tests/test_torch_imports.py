@@ -105,6 +105,12 @@ def test_entry_points_default_to_cuda(tmp_path):
         RecsysModel(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         HPS("m", cfg.tables, PersistentDB(str(tmp_path / "pdb")))
+    from repro_torch.api import dlrm_graph
+    from repro_torch.core.embedding.collection import EmbeddingCollection
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dlrm_graph(cfg).compile()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbeddingCollection(())
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -1,13 +1,16 @@
-"""K1, K2, K5 and K6 of the port against the JAX package's Pallas kernels,
-run in interpret mode on the CPU as ``tests/test_kernels.py`` runs them.
+"""K1-K6 of the port against the JAX package's Pallas kernels, run in
+interpret mode on the CPU as ``tests/test_kernels.py`` runs them.
 
 On CPU tensors each wrapper takes its plain version, so these cases hold
 the plain versions (and the wrappers' dispatch) to the TPU kernels on the
 same numpy inputs. Tolerances: the gathers K5/K6 (f32, f16 and int8
 ``q * scale``) and K1 with one id per row are bit-exact; K1 with several
-ids per row sums in another order (<= 1e-6 relative); K2 is an f32 dot
-over D (<= 1e-5). The ``cuda``-marked cases launch each CUDA kernel and
-compare it with its plain version on the card; they skip without one.
+ids per row sums in another order (<= 1e-6 relative); K3 against the
+Pallas lookup's VJP sums each row's few contributions in another order
+(<= 1e-6); K2 and K4 are f32 dots over D or F (<= 1e-5). Both
+``autograd.Function``s pass ``gradcheck`` in f64 on the plain path. The
+``cuda``-marked cases launch each CUDA kernel and compare it with its
+plain version on the card; they skip without one.
 """
 import pytest
 
@@ -19,8 +22,10 @@ import numpy as np
 
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.dot_interaction import (
-    interaction_fwd, interaction_fwd_plain)
-from repro_torch.kernels.embedding_lookup import lookup_fwd, lookup_fwd_plain
+    interaction_bwd, interaction_bwd_plain, interaction_fwd,
+    interaction_fwd_plain)
+from repro_torch.kernels.embedding_lookup import (
+    lookup_bwd, lookup_bwd_plain, lookup_fwd, lookup_fwd_plain)
 from repro_torch.kernels.hps_gather import (
     dequant_gather_rows, dequant_gather_rows_plain, gather_rows,
     gather_rows_plain)
@@ -31,14 +36,14 @@ from repro_torch.core.hps.payload_store import quantize_rows
 def J():
     """The JAX reference (imported here, not at module level, so the
     ``cuda`` cases below also run where only torch is installed)."""
-    pytest.importorskip("jax")
+    jax = pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.core.hps import payload_store
     from repro.kernels import dot_interaction, embedding_lookup, hps_gather
     from repro.kernels import ops as jops
     return types.SimpleNamespace(
-        jnp=jnp, di=dot_interaction, el=embedding_lookup, hg=hps_gather,
-        ops=jops, quantize_rows=payload_store.quantize_rows)
+        jax=jax, jnp=jnp, di=dot_interaction, el=embedding_lookup,
+        hg=hps_gather, ops=jops, quantize_rows=payload_store.quantize_rows)
 
 
 def _rows(rng, b, h, v, pad_frac=0.2):
@@ -121,6 +126,103 @@ def test_interaction_order_is_tril_indices(J):
     np.testing.assert_allclose(want, gram[:, i, j], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ops.dot_interaction(torch.from_numpy(x))
                                .numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K3 lookup_bwd
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("v,d,b,h", [
+    (64, 8, 16, 1),        # one-hot
+    (1000, 64, 37, 3),     # multi-hot, pads, non-aligned batch
+    (513, 16, 8, 7),       # vocab not a multiple of the block
+    (40, 128, 130, 3),     # many duplicates across the batch
+])
+def test_lookup_bwd_matches_pallas_vjp(J, v, d, b, h):
+    rng = np.random.default_rng(v * b + h)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    rows = _rows(rng, b, h, v)
+    rows[0, :] = rows[0, 0] if rows[0, 0] >= 0 else 3   # duplicates in a row
+    dpooled = rng.standard_normal((b, d)).astype(np.float32)
+    _, vjp = J.jax.vjp(lambda t: J.ops.fused_embedding_lookup(
+        t, J.jnp.asarray(rows)), J.jnp.asarray(table))
+    want = np.asarray(vjp(J.jnp.asarray(dpooled))[0])
+    got = lookup_bwd((v, d), torch.from_numpy(rows),
+                     torch.from_numpy(dpooled))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (v, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # and through the autograd Function
+    t = torch.from_numpy(table).requires_grad_(True)
+    ops.fused_embedding_lookup(t, torch.from_numpy(rows)).backward(
+        torch.from_numpy(dpooled))
+    np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_lookup_bwd_pads_and_duplicates():
+    dp = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    rows = torch.tensor([[2, 2, -1], [-1, -1, -1], [0, 2, 5]],
+                        dtype=torch.int32)
+    got = lookup_bwd((6, 4), rows, dp)
+    want = torch.zeros(6, 4)
+    want[2] = 2 * dp[0] + dp[2]
+    want[0] = dp[2]
+    want[5] = dp[2]
+    assert torch.equal(got, want)
+
+
+def test_gradcheck_fused_lookup_f64():
+    g = torch.Generator().manual_seed(0)
+    t = torch.randn((20, 4), generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    rows = torch.tensor([[1, 1, -1], [3, 19, 0], [-1, -1, -1]],
+                        dtype=torch.int32)
+    assert torch.autograd.gradcheck(
+        lambda tb: ops.fused_embedding_lookup(tb, rows), (t,))
+    r3 = rows.reshape(1, 3, 3)
+    assert torch.autograd.gradcheck(
+        lambda tb: ops.kernel_pool(tb, r3, combiner="mean"), (t,))
+
+
+# ---------------------------------------------------------------------------
+# K4 interaction_bwd
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,f,d,self_int", [
+    (8, 4, 16, False), (37, 27, 128, False), (13, 7, 16, True),
+    (5, 27, 128, True)])
+def test_interaction_bwd_matches_pallas_vjp(J, b, f, d, self_int):
+    rng = np.random.default_rng(b * f + d)
+    x = rng.standard_normal((b, f, d)).astype(np.float32)
+    p = f * (f + 1) // 2 if self_int else f * (f - 1) // 2
+    dtri = rng.standard_normal((b, p)).astype(np.float32)
+    _, vjp = J.jax.vjp(lambda xx: J.ops.dot_interaction(xx, self_int),
+                       J.jnp.asarray(x))
+    want = np.asarray(vjp(J.jnp.asarray(dtri))[0])
+    got = interaction_bwd(torch.from_numpy(x), torch.from_numpy(dtri),
+                          self_interaction=self_int)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, f, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ops.dot_interaction(xt, self_int).backward(torch.from_numpy(dtri))
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_interaction_bwd_keeps_bf16():
+    x = torch.randn((4, 5, 8), generator=torch.Generator().manual_seed(2))
+    dtri = torch.randn((4, 10), generator=torch.Generator().manual_seed(3))
+    xb = x.to(torch.bfloat16)
+    got = interaction_bwd(xb, dtri)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, interaction_bwd(xb.float(), dtri)
+                       .to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("self_int", [False, True])
+def test_gradcheck_dot_interaction_f64(self_int):
+    x = torch.randn((3, 5, 4), generator=torch.Generator().manual_seed(1),
+                    dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda xx: ops.dot_interaction(xx, self_int), (x,))
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +311,10 @@ def test_plain_path_launches_nothing():
     """CPU tensors run the plain versions: no kernel is built or counted."""
     _build.LAUNCHES.reset()
     lookup_fwd(torch.zeros((4, 2)), torch.zeros((2, 1), dtype=torch.int32))
+    lookup_bwd((4, 2), torch.zeros((2, 1), dtype=torch.int32),
+               torch.zeros((2, 2)))
     gather_rows(torch.zeros((4, 2)), torch.zeros((2,), dtype=torch.int32))
+    interaction_bwd(torch.zeros((2, 3, 4)), torch.zeros((2, 3)))
     assert _build.LAUNCHES.snapshot() == {}
 
 
@@ -244,10 +349,10 @@ def test_cuda_lookup_fwd(cuda, dtype, h):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("self_int", [False, True])
-def test_cuda_interaction_fwd(cuda, self_int):
+def test_cuda_interaction_fwd(cuda, self_int, monkeypatch):
     x = torch.randn((300, 27, 128),
                     generator=torch.Generator().manual_seed(0)).to(cuda)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     got = interaction_fwd(x, self_interaction=self_int)
     want = interaction_fwd_plain(x, self_interaction=self_int)
     torch.cuda.synchronize()
@@ -273,3 +378,41 @@ def test_cuda_gathers(cuda, payload_dtype):
         assert torch.equal(dequant_gather_rows(p, sc, slots),
                            dequant_gather_rows_plain(p, sc, slots))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,h,hot_rows", [(3194, 1, 64), (100_000, 1, 64),
+                                          (1000, 3, 64), (50, 1, 3000)])
+def test_cuda_lookup_bwd(cuda, v, h, hot_rows):
+    """Against the plain version (an atomic index_add_ on the card). A row
+    sums up to thousands of contributions, so the f32 sum-order bound is
+    1e-5 of the summed magnitudes; two launches give the same bits."""
+    g = torch.Generator().manual_seed(v + h)
+    rows = torch.randint(-1, v, (4096, h), generator=g,
+                         dtype=torch.int32).to(cuda)
+    rows[:hot_rows] = 7                             # a hot row's long run
+    dp = torch.randn((4096, 128), generator=g).to(cuda)
+    got = lookup_bwd((v, 128), rows, dp)
+    again = lookup_bwd((v, 128), rows, dp)
+    want = lookup_bwd_plain((v, 128), rows, dp)
+    scale = lookup_bwd_plain((v, 128), rows, dp.abs())
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_int", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_interaction_bwd(cuda, self_int, dtype, monkeypatch):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((300, 27, 128), generator=g).to(dtype).to(cuda)
+    p = 27 * 28 // 2 if self_int else 27 * 26 // 2
+    dtri = torch.randn((300, p), generator=g).to(cuda)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    got = interaction_bwd(x, dtri, self_interaction=self_int)
+    want = interaction_bwd_plain(x, dtri, self_interaction=self_int)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
