@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
    adjoint) and K4 (the interaction's) at the training shapes, and hold
    each against its plain PyTorch version
    on the card; time kernel, plain version and one library call with CUDA
-   events.
+   events. K7 (flash-attention forward) likewise at minitron-4b's prefill
+   shape, recurrentgemma's local-attention shape and an odd f32 length.
 4. Train: declare full-width ``dlrm-criteo`` (26 tables at D=128, 13 dense
    features, bottom MLP 512-256-128, top MLP 1024-1024-512-256-1, bf16
    compute) through the port's graph API and ``fit()`` it at batch
@@ -28,13 +29,22 @@ Phases, in order; any failure exits non-zero:
    against the plain path (pooled rows straight from the PDB, dense net
    with the plain ops) and, for both payloads, against the trained
    model's ``predict``; and that the kernels' launch counters rose.
-7. One JSON line of per-kernel numbers, then the device line last.
+7. LM serve: full-width ``minitron-4b`` (hybrid token embedding, random
+   weights from a seed) prefills a 2 x 4096 Zipf(1.2) batch through K1 and
+   K7, held against the plain path (K1 first alone, bit-exact, on both
+   token tables at the prefill's and a decode step's rows); then a
+   64-token prompt is replayed through ``decode_step`` into a 4096-entry
+   KV cache, held against the prefill of the same tokens, and 32 greedy
+   tokens are decoded. The cut:
+   ``prefill_32k``'s batch 32 x 32768 becomes 2 x 4096.
+8. One JSON line of per-kernel numbers, then the device line last.
 
 Needs ``torch.cuda.is_available()`` and the package under ``src/``; with
 either missing it prints no result and exits 2.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -48,6 +58,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+BF16_TC_FLOPS = 989e12           # H100 SXM bf16 tensor cores, dense
 #: probability tolerance of the served bf16 DLRM against the plain path
 #: (the bound the reference holds its own server to); int8 payloads add
 #: quantization error, bounded as the reference's launcher bounds it
@@ -61,7 +72,22 @@ TRAIN_TOL = 2e-2
 RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             batch=1024, warmup=4, requests=16, seed=0,
                             train_batch=4096, warm_steps=2, timed_steps=8,
-                            plain_steps=3, lr=1e-3)
+                            plain_steps=3, lr=1e-3,
+                            attn_seq=4096, attn_odd_seq=1000,
+                            lm_arch="minitron-4b", lm_batch=2, lm_seq=4096,
+                            lm_timed=5, prompt=64, decode_steps=32)
+#: K7 against its plain version: bf16 ``o`` (one bf16 ulp of |o| < 4,
+#: where the kernel's bf16 ``p`` and the plain f32 ``p`` round apart) and
+#: the f32 ``lse``; f32 inputs: the f32 sum-order bound
+ATTN_TOL = {"bf16": (2e-2, 1e-3), "f32": (1e-4, 1e-4)}
+#: minitron prefill logits on the kernels against the plain path, relative
+#: to the largest |logit|: K7 rounds p to bf16 and the plain version does
+#: not, so bf16 activations differ by an ulp here and there and drift
+#: through 32 layers
+LM_LOGIT_TOL = 5e-2
+#: decode against prefill: the reference's bound for the same check
+#: (tests/test_models_smoke.py::test_decode_matches_prefill)
+DECODE_TOL = types.SimpleNamespace(rtol=0.1, atol=0.15, corr=0.99)
 
 
 def fail(msg: str) -> None:
@@ -74,9 +100,10 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = F32_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -179,7 +206,7 @@ def kernel_phase(args, dev):
     out, device = {}, {}
 
     def record(name, source, replaces, got, want, exact, tol, fn, plain,
-               lib, nbytes, flops, reps=20):
+               lib, nbytes, flops, reps=20, flops_per_s=F32_FLOPS, iters=50):
         err = (got - want).abs().max().item()
         if exact:
             check(torch.equal(got, want), f"{name}: not bit-exact "
@@ -187,13 +214,13 @@ def kernel_phase(args, dev):
         elif tol is not None:
             check(torch.allclose(got, want, rtol=tol, atol=tol),
                   f"{name}: max abs err {err} above {tol}")
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(nbytes, flops, flops_per_s)
         out[name] = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": time_ms(fn), "plain_ms": time_ms(plain),
+            "ms": time_ms(fn, iters), "plain_ms": time_ms(plain, iters),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": time_ms(lib) if lib is not None else None}
+            "library_ms": time_ms(lib, iters) if lib is not None else None}
         device[name] = graph_ms(fn, reps)
 
     # K1 at the served shape: f32 L1 payload [C, D], one id per table row
@@ -328,6 +355,7 @@ def kernel_phase(args, dev):
     check(gb.dtype == torch.bfloat16 and torch.allclose(
         gb.float(), k2.interaction_bwd_plain(xb4, db4).float(),
         rtol=1e-2, atol=1e-2), "interaction_bwd bf16: above 1e-2")
+    attention_kernel(args, record, g, dev)
     for rec in out.values():
         print(f"kernel {rec['name']}: {rec['ms']:.4f} ms (bound "
               f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, plain "
@@ -335,6 +363,55 @@ def kernel_phase(args, dev):
               f"ms), max abs err {rec['max_abs_err']:.3g}; device time "
               f"{device[rec['name']]:.4f} ms (CUDA graph replay)")
     return out
+
+
+def attention_kernel(args, record, g, dev):
+    """K7 against its plain version at (a) minitron-4b's prefill shape
+    (timed), (b) recurrentgemma's local attention and (c) an odd f32
+    length with GQA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    def qkv(bh, bkv, s, d, dtype):
+        return [torch.randn((n, s, d), generator=g).to(dtype).to(dev)
+                for n in (bh, bkv, bkv)]
+
+    def held(case, q, k, v, dtype, window=None):
+        o, lse = k7.flash_fwd(q, k, v, causal=True, window=window)
+        po, plse = flash_attention_ref(q, k, v, causal=True, window=window)
+        err_o = (o.float() - po.float()).abs().max().item()
+        err_l = (lse - plse).abs().max().item()
+        tol_o, tol_l = ATTN_TOL[dtype]
+        check(err_o <= tol_o and err_l <= tol_l,
+              f"flash_fwd {case}: max abs err o {err_o}, lse {err_l} (bounds "
+              f"{tol_o}, {tol_l})")
+        print(f"flash_fwd {case}: q {list(q.shape)} k/v {list(k.shape)} "
+              f"{dtype}, window {window}: max abs err o {err_o:.3g} (bound "
+              f"{tol_o}), lse {err_l:.3g} (bound {tol_l})")
+        return o, po
+
+    # (b) recurrentgemma's local attention: Hq 16, Hkv 1, D 256, window 2048
+    s = args.attn_seq
+    held("(b)", *qkv(16, 1, s, 256, torch.bfloat16), "bf16", window=s // 2)
+    # (c) an odd length in f32 with GQA g = 2
+    held("(c)", *qkv(8, 4, args.attn_odd_seq, 64, torch.float32), "f32")
+    # (a) minitron-4b prefill: B 2, Hq 24, Hkv 8, D 128, S 4096, causal
+    b, hq, hkv, d = 2, 24, 8, 128
+    q, k, v = qkv(b * hq, b * hkv, s, d, torch.bfloat16)
+    o, po = held("(a)", q, k, v, "bf16")
+    q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, k, v))
+    pairs = s * (s + 1) // 2                   # causal (query, key) pairs
+    record("flash_fwd", "src/repro_torch/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:101", o.float(), po.float(),
+           False, None, lambda: k7.flash_fwd(q, k, v, causal=True),
+           lambda: flash_attention_ref(q, k, v, causal=True),
+           lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, is_causal=True, enable_gqa=True),
+           2 * (q.numel() + k.numel() + v.numel() + q.numel())
+           + 4 * b * hq * s, 4 * b * hq * d * pairs, reps=5,
+           flops_per_s=BF16_TC_FLOPS, iters=10)
 
 
 # ---------------------------------------------------------------------------
@@ -351,10 +428,11 @@ def declare(args, cfg):
 
 
 #: device kernels by kind, by a piece of their name (first match wins)
-KINDS = (("K1", ("lookup_fwd_kernel",)), ("K3", ("lookup_bwd_kernel",)),
+KINDS = (("K7", ("flash_fwd",)),
+         ("K1", ("lookup_fwd_kernel",)), ("K3", ("lookup_bwd_kernel",)),
          ("K2", ("interaction_fwd_kernel",)),
          ("K4", ("interaction_bwd_kernel",)), ("K5/K6", ("gather_rows",)),
-         ("matmul", ("gemm", "xmma", "cutlass")), ("fill", ("Fill",)),
+         ("matmul", ("gemm", "xmma", "cutlass", "nvjet")), ("fill", ("Fill",)),
          ("sort", ("radix", "Radix", "sort")), ("reduce", ("reduce_kernel",)),
          ("copy", ("copy", "Memcpy")), ("elementwise", ("elementwise",)))
 
@@ -634,6 +712,190 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serve full-width minitron-4b: prefill, then KV-cache decode
+# ---------------------------------------------------------------------------
+
+def lm_embed_check(model, plain, params, tokens) -> str:
+    """K1 against its plain version at the LM's shapes: each token table's
+    lookup (ids masked to -1 where the other hybrid table holds the token)
+    and the model's ``embed``, at the prefill's rows and at one decode
+    step's. One id a row makes each result a copy, so both must agree bit
+    for bit. Returns what was checked, for the prefill line."""
+    import torch
+    from repro_torch.kernels import embedding_lookup as k1
+    err, masked = 0.0, []
+    for toks in (tokens, tokens[:, :1]):
+        ids = toks.reshape(-1, 1).to(torch.int32)
+        if model.embed_mode == "hybrid":
+            hot = ids < model.hot_rows
+            lookups = ((params["embed_hot"], torch.where(hot, ids, -1)),
+                       (params["embed_cold"],
+                        torch.where(hot, -1, ids - model.hot_rows)))
+        else:
+            lookups = ((params["embed"], ids),)
+        for table, rows in lookups:
+            got, want = k1.lookup_fwd(table, rows), k1.lookup_fwd_plain(table,
+                                                                      rows)
+            masked.append(float((rows < 0).float().mean()))
+            err = max(err, (got - want).abs().max().item())
+            check(torch.equal(got, want), f"K1 at table {tuple(table.shape)}, "
+                  f"rows {tuple(rows.shape)}: max abs err {err} from its "
+                  "plain version (bound: bit-exact)")
+        got, want = model.embed(params, toks), plain.embed(params, toks)
+        check(torch.equal(got, want), f"embed of tokens {tuple(toks.shape)}: "
+              f"max abs err {(got - want).abs().max().item()} from the "
+              "plain path (bound: bit-exact)")
+    shapes = ", ".join(f"[{t.shape[0]},{t.shape[1]}]" for t, _ in lookups)
+    share = " / ".join(f"{100 * m:.1f}%" for m in masked[:len(lookups)])
+    return (f"K1 at tables {shapes} on rows [{tokens.numel()},1] ({share} "
+            f"masked to -1) and [{tokens.shape[0]},1]: max abs err {err:.3g} "
+            "(bound: bit-exact), embed bit-exact")
+
+
+def lm_phase(args, dev, cfg):
+    """Prefill and decode ``cfg`` at full width with random weights;
+    returns the launch counts of the kernel path's run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import LM_SHAPE_BY_NAME
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.models.lm.backbone import LMModel
+    from repro_torch.tree import flatten, leaves
+
+    full = LM_SHAPE_BY_NAME["prefill_32k"]
+    b, s = args.lm_batch, args.lm_seq
+    print(f"reduced: {cfg.name} prefill at batch {b} x seq {s} instead of "
+          f"prefill_32k's {full.global_batch} x {full.seq_len}, so the first, "
+          f"simple K7 fits the smoke's time; widths, {cfg.num_layers} layers "
+          f"and the {cfg.vocab_size}-token vocabulary as published; random "
+          f"weights (seed {args.seed})")
+    model = LMModel(cfg, device=dev)
+    plain = LMModel(cfg, device=dev, use_kernels=False)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in leaves(params))
+    print(f"lm init: {n / 1e9:.3f} B f32 params ({n * 4 / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s; embedding {model.embed_mode} "
+          f"(hot {model.hot_rows} rows, cold {model.cold_rows})")
+    rng = np.random.default_rng((args.seed, 7))
+    tokens = torch.from_numpy(zipf_ids(rng, cfg.vocab_size, (b, s),
+                                       a=1.2)).to(dev)
+    batch = {"tokens": tokens}
+    hot = float((tokens < model.hot_rows).float().mean())
+    with torch.inference_mode():
+        # K1 at this path's shapes, before the counted run
+        k1_line = lm_embed_check(model, plain, params, tokens)
+        # 1. prefill: one warm-up, then timed calls
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        logits = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        first = LAUNCHES.snapshot()
+        check(first.get("flash_fwd", 0) == cfg.num_layers
+              and first.get("lookup_fwd", 0) == 2,
+              f"prefill launches {first}: want K7 {cfg.num_layers} times "
+              "and K1 twice")
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(args.lm_timed):
+            t = time.perf_counter()
+            model.prefill(params, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(tuple(logits.shape) == (b, model.logits_size)
+              and bool(torch.isfinite(logits).all()),
+              f"prefill logits {tuple(logits.shape)} not finite or of the "
+              "wrong shape")
+        want = plain.prefill(params, batch)
+        err = (logits - want).abs().max().item()
+        top = want.abs().max().item()
+        check(err <= LM_LOGIT_TOL * top, f"prefill logits deviate {err} "
+              f"from the plain path (bound {LM_LOGIT_TOL} x {top})")
+        del want
+        p50 = float(np.median(ms))
+        print(f"prefill on {torch.cuda.get_device_name(0)}: {b} x {s} tokens "
+              f"({100 * hot:.1f}% hot) p50 {p50:.2f} ms (min {min(ms):.2f}, "
+              f"max {max(ms):.2f}) over {args.lm_timed} calls, "
+              f"{b * s / p50 * 1e3:.0f} tokens/s; peak memory {peak:.2f} GiB; "
+              f"max |logit - plain| {err:.4g} (bound {LM_LOGIT_TOL} x max "
+              f"|logit| {top:.4g}); {k1_line}; launches per prefill {first}")
+        profile("prefill", lambda: model.prefill(params, batch))
+
+        # 2. decode: replay a prompt into the cache, hold the last step
+        # against prefill of the same tokens, then greedy tokens
+        p = args.prompt
+        prompt = tokens[:, :p]
+        cache = model.init_cache(b, s)
+        for i in range(p):
+            step, cache = model.decode_step(
+                params, prompt[:, i:i + 1], cache,
+                torch.full((b,), i, device=dev))
+        full_logits = model.prefill(params, {"tokens": prompt})
+        v = cfg.vocab_size
+        got, ref = step[:, :v].cpu().numpy(), full_logits[:, :v].cpu().numpy()
+        dmax = float(np.abs(got - ref).max())
+        corr = float(np.corrcoef(got.ravel(), ref.ravel())[0, 1])
+        check(np.allclose(got, ref, rtol=DECODE_TOL.rtol,
+                          atol=DECODE_TOL.atol) and corr > DECODE_TOL.corr,
+              f"decode after {p} tokens vs prefill: max abs {dmax}, "
+              f"correlation {corr}")
+        tok = step.argmax(-1, keepdim=True)
+        ms = []
+        for i in range(args.decode_steps):
+            t = time.perf_counter()
+            step, cache = model.decode_step(
+                params, tok, cache, torch.full((b,), p + i, device=dev))
+            tok = step.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(step).all()), "decode logits not finite")
+        launches = LAUNCHES.snapshot()
+        dp50 = float(np.median(ms))
+        # what the per-call f32 -> bf16 cast of the weights moves in a
+        # step: every dense weight and the head read as f32, written bf16
+        cast = sum(t.numel() for k, t in flatten(params)
+                   if not k.startswith("embed"))
+        cast_gb = cast * 6 / 1e9
+        print(f"decode on {torch.cuda.get_device_name(0)}: {p}-token prompt "
+              f"replayed into a {s}-entry cache, last logits vs prefill max "
+              f"abs {dmax:.4g}, correlation {corr:.6f} (bounds rtol "
+              f"{DECODE_TOL.rtol}, atol {DECODE_TOL.atol}, corr > "
+              f"{DECODE_TOL.corr}); {args.decode_steps} greedy steps at batch "
+              f"{b}: step p50 {dp50:.2f} ms (min {min(ms):.2f}, max "
+              f"{max(ms):.2f}), {b / dp50 * 1e3:.1f} tokens/s; the weights' "
+              f"per-call cast moves {cast_gb:.1f} GB a step, "
+              f"{cast_gb / HBM_BYTES_PER_S * 1e12:.2f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s")
+        profile("decode step", lambda: model.decode_step(
+            params, tok, cache, torch.full((b,), p + args.decode_steps,
+                                           device=dev)))
+    return launches
+
+
+def recsys_phases(args, dev):
+    """Phases 4-6; returns the launch counts of their main paths."""
+    import torch
+    bundle_dir = os.path.join(ROOT, "_smoke_bundle")
+    shutil.rmtree(bundle_dir, ignore_errors=True)
+    try:
+        model, total = train_phase(args, dev)
+        cfg, pdb, params = deploy_phase(args, model, bundle_dir)
+        ps = os.path.join(bundle_dir, "ps.json")
+        for pd in ("f32", "int8"):
+            launches, _ = serve_phase(args, ps, cfg, pdb, params, dev, pd,
+                                      trained=model)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+    finally:
+        shutil.rmtree(bundle_dir, ignore_errors=True)
+    del model, params, pdb
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     args = RUN
     try:
@@ -672,22 +934,19 @@ def main() -> int:
     pin_f32_matmul()
     kernels = kernel_phase(args, dev)
 
-    # 4-6. train, deploy, serve
-    bundle_dir = os.path.join(ROOT, "_smoke_bundle")
-    shutil.rmtree(bundle_dir, ignore_errors=True)
-    try:
-        model, total = train_phase(args, dev)
-        cfg, pdb, params = deploy_phase(args, model, bundle_dir)
-        ps = os.path.join(bundle_dir, "ps.json")
-        for pd in ("f32", "int8"):
-            launches, _ = serve_phase(args, ps, cfg, pdb, params, dev, pd,
-                                      trained=model)
-            for k, n in launches.items():
-                total[k] = total.get(k, 0) + n
-    finally:
-        shutil.rmtree(bundle_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
-    # 7. kernels line, then the device line last
+    # 4-6. train, deploy, serve
+    total = recsys_phases(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. LM serve
+    from repro_torch.configs.registry import get_lm_config
+    for k, n in lm_phase(args, dev, get_lm_config(args.lm_arch)).items():
+        total[k] = total.get(k, 0) + n
+
+    # 8. kernels line, then the device line last
     for name, rec in kernels.items():
         rec["launches"] = total.get(name, 0)
         check(rec["launches"] > 0, f"{name}: no launches on the main path")

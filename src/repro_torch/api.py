@@ -36,8 +36,9 @@ from repro_torch.configs.base import (
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys.dense_graph import (
-    RESERVED_NAMES, GraphError, compile_layers, not_ported, spec_from_layer,
+    RESERVED_NAMES, GraphError, compile_layers, spec_from_layer,
 )
+from repro_torch.roadmap import not_ported
 
 GRAPH_FORMAT = "repro-graph-v1"
 

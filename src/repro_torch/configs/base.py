@@ -2,14 +2,15 @@
 
 Field names, order and defaults are identical to the JAX package's, so
 ``recsys_config_hash`` is byte-identical and a ``graph.json``/``ps.json``
-written by either package verifies in the other.
+written by either package verifies in the other. The LM side's
+``LMConfig``/``MoEConfig`` and the input shapes are copied the same way.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 # embedding placement strategies (the planner's vocabulary)
 LOCALIZED = "localized"      # whole table on one device, all-to-all after pool
@@ -176,3 +177,101 @@ def ps_config_from_dict(d: Dict) -> HPSConfig:
             "ensemble bundles (MultiModelServer) are ported by the ROADMAP "
             "item 'The rest of the serving engine'")
     return hps_config_from_dict(d)
+
+
+# ---------------------------------------------------------------------------
+# LM-family architectures
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    expert_d_ff: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    family: str                      # "dense"|"moe"|"audio"|"vlm"|"ssm"|"hybrid"
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    norm: str = "rmsnorm"            # "rmsnorm" | "layernorm" | "nonparam_ln"
+    activation: str = "swiglu"       # "swiglu" | "gelu" | "relu_sq" | "geglu"
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    # hybrid/ssm block pattern: e.g. ("rglru","rglru","local_attn") repeated
+    block_pattern: Tuple[str, ...] = ("attn",)
+    local_attn_window: int = 2048    # for "local_attn" blocks
+    # enc-dec (seamless): encoder layers, 0 = decoder-only
+    encoder_layers: int = 0
+    # modality frontend stub: ("audio", frames_dim) / ("vision", patch_dim)
+    frontend: Optional[str] = None   # None | "audio" | "vision"
+    frontend_seq: int = 0            # stub frontend sequence length
+    #: whether full quadratic attention is the only mixer (skips long_500k)
+    full_attention_only: bool = True
+    dtype: str = "bf16"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def dense_param_count(self) -> int:
+        """Rough non-embedding parameter count (for 6ND napkin math)."""
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        hd = self.resolved_head_dim
+        attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+            + (self.num_heads * hd) * d
+        if self.moe is not None:
+            ffn = self.moe.num_experts * 3 * d * self.moe.expert_d_ff \
+                + d * self.moe.num_experts
+        elif self.activation in ("swiglu", "geglu"):
+            ffn = 3 * d * f
+        else:
+            ffn = 2 * d * f
+        total_layers = L + self.encoder_layers
+        return total_layers * (attn + ffn)
+
+    @property
+    def active_param_count(self) -> int:
+        """Active (per-token) params — differs from dense for MoE."""
+        if self.moe is None:
+            return self.dense_param_count
+        d, L = self.d_model, self.num_layers
+        hd = self.resolved_head_dim
+        attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+            + (self.num_heads * hd) * d
+        ffn = self.moe.top_k * 3 * d * self.moe.expert_d_ff \
+            + d * self.moe.num_experts
+        return L * (attn + ffn)
+
+    @property
+    def embedding_param_count(self) -> int:
+        n = self.vocab_size * self.d_model
+        return n if self.tie_embeddings else 2 * n
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str                 # "train_4k" | "prefill_32k" | ...
+    kind: str                 # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+LM_SHAPE_BY_NAME = {s.name: s for s in LM_SHAPES}

@@ -1,10 +1,131 @@
-"""The recsys registry entries the port serves, copied from
-``repro.configs.registry`` (DLRM on Criteo and its smoke reduction)."""
+"""Registry entries copied from ``repro.configs.registry``: the recsys
+configs the port serves and trains (DLRM on Criteo and its smoke
+reduction), and the ten LM architectures with ``get_lm_config`` and
+``reduce_for_smoke``, so the tests build the same reduced configs on both
+sides."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
-from repro_torch.configs.base import EmbeddingTableConfig, RecsysConfig
+from repro_torch.configs.base import (
+    EmbeddingTableConfig, LMConfig, MoEConfig, RecsysConfig)
+
+# ---------------------------------------------------------------------------
+# LM architectures
+# ---------------------------------------------------------------------------
+
+LM_ARCHS: Dict[str, LMConfig] = {}
+
+
+def _reg(cfg: LMConfig) -> LMConfig:
+    LM_ARCHS[cfg.name] = cfg
+    return cfg
+
+
+granite_moe_1b = _reg(LMConfig(
+    name="granite-moe-1b-a400m", family="moe",
+    num_layers=24, d_model=1024, num_heads=16, num_kv_heads=8,
+    d_ff=512, vocab_size=49155, norm="rmsnorm", activation="swiglu",
+    moe=MoEConfig(num_experts=32, top_k=8, expert_d_ff=512),
+    tie_embeddings=True, block_pattern=("attn",),
+    full_attention_only=True))
+
+granite_moe_3b = _reg(LMConfig(
+    name="granite-moe-3b-a800m", family="moe",
+    num_layers=32, d_model=1536, num_heads=24, num_kv_heads=8,
+    d_ff=512, vocab_size=49155, norm="rmsnorm", activation="swiglu",
+    moe=MoEConfig(num_experts=40, top_k=8, expert_d_ff=512),
+    tie_embeddings=True, block_pattern=("attn",),
+    full_attention_only=True))
+
+phi3_mini = _reg(LMConfig(
+    name="phi3-mini-3.8b", family="dense",
+    num_layers=32, d_model=3072, num_heads=32, num_kv_heads=32,
+    d_ff=8192, vocab_size=32064, norm="rmsnorm", activation="swiglu",
+    block_pattern=("attn",), full_attention_only=True))
+
+minitron_4b = _reg(LMConfig(
+    name="minitron-4b", family="dense",
+    num_layers=32, d_model=3072, num_heads=24, num_kv_heads=8,
+    head_dim=128, d_ff=9216, vocab_size=256000, norm="layernorm",
+    activation="relu_sq", block_pattern=("attn",),
+    full_attention_only=True))
+
+command_r_plus = _reg(LMConfig(
+    name="command-r-plus-104b", family="dense",
+    num_layers=64, d_model=12288, num_heads=96, num_kv_heads=8,
+    d_ff=33792, vocab_size=256000, norm="layernorm", activation="swiglu",
+    tie_embeddings=True, block_pattern=("attn",),
+    full_attention_only=True))
+
+olmo_1b = _reg(LMConfig(
+    name="olmo-1b", family="dense",
+    num_layers=16, d_model=2048, num_heads=16, num_kv_heads=16,
+    d_ff=8192, vocab_size=50304, norm="nonparam_ln", activation="swiglu",
+    tie_embeddings=True, block_pattern=("attn",),
+    full_attention_only=True))
+
+seamless_m4t = _reg(LMConfig(
+    name="seamless-m4t-large-v2", family="audio",
+    num_layers=24, d_model=1024, num_heads=16, num_kv_heads=16,
+    d_ff=8192, vocab_size=256206, norm="layernorm", activation="relu",
+    tie_embeddings=True, block_pattern=("attn",),
+    encoder_layers=24, frontend="audio", frontend_seq=512,
+    full_attention_only=True))
+
+pixtral_12b = _reg(LMConfig(
+    name="pixtral-12b", family="vlm",
+    num_layers=40, d_model=5120, num_heads=32, num_kv_heads=8,
+    head_dim=128, d_ff=14336, vocab_size=131072, norm="rmsnorm",
+    activation="swiglu", block_pattern=("attn",),
+    frontend="vision", frontend_seq=1024, full_attention_only=True))
+
+xlstm_125m = _reg(LMConfig(
+    name="xlstm-125m", family="ssm",
+    num_layers=12, d_model=768, num_heads=4, num_kv_heads=4,
+    d_ff=0, vocab_size=50304, norm="layernorm", activation="gelu",
+    tie_embeddings=True, block_pattern=("mlstm", "slstm"),
+    full_attention_only=False))
+
+recurrentgemma_9b = _reg(LMConfig(
+    name="recurrentgemma-9b", family="hybrid",
+    num_layers=38, d_model=4096, num_heads=16, num_kv_heads=1,
+    head_dim=256, d_ff=12288, vocab_size=256000, norm="rmsnorm",
+    activation="geglu", tie_embeddings=True,
+    block_pattern=("rglru", "rglru", "local_attn"),
+    local_attn_window=2048, full_attention_only=False))
+
+
+def get_lm_config(name: str) -> LMConfig:
+    return LM_ARCHS[name]
+
+
+def reduce_for_smoke(cfg: LMConfig) -> LMConfig:
+    """Shrink an arch to CPU-testable size, keeping its structure."""
+    per = len(cfg.block_pattern)
+    layers = per + (2 if cfg.name == "recurrentgemma-9b" else per)
+    kv = min(cfg.num_kv_heads, 2)
+    heads = 4 if 4 % kv == 0 else kv
+    moe = None
+    if cfg.moe is not None:
+        moe = MoEConfig(num_experts=8, top_k=2, expert_d_ff=32,
+                        capacity_factor=cfg.moe.capacity_factor)
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        num_layers=layers, d_model=64, num_heads=heads,
+        num_kv_heads=kv, head_dim=16,
+        d_ff=0 if cfg.d_ff == 0 else 96,
+        vocab_size=512, moe=moe,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        frontend_seq=16 if cfg.frontend else 0,
+        local_attn_window=8)
+
+
+# ---------------------------------------------------------------------------
+# Recsys configs
+# ---------------------------------------------------------------------------
 
 #: Criteo-Kaggle-like vocab profile (26 tables, heavy-tailed sizes)
 CRITEO_VOCAB_SIZES = (

@@ -7,7 +7,8 @@ training state as the same flat key-paths over ``{"params", "opt"}`` (the
 checkpoint). These functions turn those forms into the port's trees (nested
 dicts of tensors on a device) and back: the bundle writer uses the reverse
 direction, the bundle reader the forward one, and the parity tests start
-both frameworks from one JAX-exported training state.
+both frameworks from one JAX-exported training state. The LM side's
+parameters move the same way (``lm_params_from_flat``/``lm_params_to_flat``).
 """
 from __future__ import annotations
 
@@ -78,3 +79,12 @@ def check_dense(cfg: RecsysConfig, params: Mapping) -> None:
             raise ValueError(f"{name}: {len(params[name])} arrays, want "
                              f"{2 * (len(dims) - 1)}")
 
+
+#: The reference ``LMModel.init`` tree, flattened to numpy under its
+#: ``/``-joined key-paths (``embed_hot``, ``head``, ``final_norm/scale``,
+#: ``groups/0_attn/attn/wq`` ``[layers, D, Hq·Dh]``, ...), <-> the port's
+#: ``LMModel`` params, dtypes kept: the training state's conversion. An
+#: empty subtree (the norms of ``nonparam_ln``) has no leaf, so it comes
+#: back absent; the port's norms read an absent ``norm`` as empty.
+lm_params_from_flat = state_from_flat
+lm_params_to_flat = state_to_flat

@@ -1,0 +1,498 @@
+// K7 flash_fwd: causal / sliding-window GQA attention forward for Hopper
+// (sm_90a), returning the output and the per-row logsumexp.
+//
+// Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::flash_fwd
+// (_fwd_kernel). That kernel walked a sequential grid (BH, q tiles, k tiles)
+// and carried the online-softmax state (m, l, acc) in VMEM scratch from one
+// k step to the next; it needed S to be a multiple of its 512-row blocks.
+// Here one block owns one (head, query tile) and loops over the key tiles
+// itself, so the state lives in registers for the whole loop; tiles that lie
+// wholly outside the causal or window band are never visited, and the ragged
+// tail (S not a multiple of the tile) is masked, so any S works. GQA: query
+// head n reads KV head n / g straight from memory, with no replication.
+//
+// Semantics, as _fwd_kernel: scores in f32, a masked score is -1e30 and its
+// p is 0, m starts at -1e30, l and the accumulator in f32,
+// o = acc / max(l, 1e-30) in q's type, lse = m + log(max(l, 1e-30)) in f32.
+// Like the TPU kernel, the bf16 kernel rounds p to v's type (bf16, the
+// tensor cores' operand) before the PV product and sums l from the
+// unrounded p; for f32 inputs the rounding is a no-op.
+//
+// What bounds it: operations. At the prefill shape (q [48, 4096, 128], k/v
+// [16, 4096, 128], bf16, causal) it moves 135 MB (q, k, v, o, lse once each:
+// 0.04 ms at 3.35 TB/s) for 2.06e11 flops of the two products (0.21 ms at the
+// 989 TFLOP/s bf16 tensor-core peak).
+//
+// Two kernels:
+// * flash_fwd_mma_kernel (bf16): 4 warps, a 64-query tile (16 rows a warp),
+//   64-key tiles. Q, K and V are copied row-major into shared memory with
+//   16-byte cp.async (rows padded by 8 elements, so the eight rows an
+//   ldmatrix reads fall on 32 distinct banks); the fragments come through
+//   ldmatrix (.trans for V, whose B operand runs along the key axis), and
+//   S = Q K^T and O += P V run on the tensor cores as mma.sync.m16n8k16
+//   bf16 -> f32. The S accumulator's layout is the A operand's layout of
+//   the PV product, so P goes from registers to the tensor cores without
+//   touching shared memory (the FlashAttention-2 arrangement). No
+//   multi-stage pipeline, TMA or wgmma yet: each key tile is copied, then
+//   used, with two __syncthreads a tile; the other blocks on the SM (four
+//   at D = 128) overlap one block's copies.
+// * flash_fwd_f32_kernel (f32; any of the supported D): 4 warps, 16
+//   queries (4 rows a warp), 32-key tiles staged as f32. Lane j scores key j
+//   of the tile; the row's max and sum are warp shuffles; lane c accumulates
+//   output columns c, c + 32, ... with p broadcast by shuffle. f32 FMAs, so
+//   f32 inputs keep f32 products (mma in TF32 would not).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 128;
+
+// the mask of _fwd_kernel: key kj is visible from query qi
+__device__ __forceinline__ bool visible(int qi, int kj, int s, int causal,
+                                        int window) {
+  return kj < s && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
+}
+
+// the key tiles [t0, t1) that intersect the band of queries [q0, q1)
+__device__ __forceinline__ void key_tiles(int q0, int q1, int s, int bk,
+                                          int causal, int window, int* t0,
+                                          int* t1) {
+  const int khi = causal ? min(s, q1) : s;
+  const int klo = window > 0 ? max(0, q0 - window + 1) : 0;
+  *t0 = klo / bk;
+  *t1 = (khi + bk - 1) / bk;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct MmaTile {
+  static constexpr int kBq = 64;
+  static constexpr int kBk = 64;
+  static constexpr int kStride = D + 8;     // bf16 elements a staged row
+  static constexpr size_t kSmem = static_cast<size_t>(kBq + 2 * kBk) *
+                                  kStride * sizeof(__nv_bfloat16);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// four 8x8 bf16 tiles from shared memory; lane i names row i % 8 of tile
+// i / 8, and r[j] is this lane's fragment of tile j (transposed with .trans)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b for one m16n8k16 tile: a row-major 16x16, b column-major 16x8
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows [r0, r0 + kRows) of a [s, D] bf16 matrix into shared memory (row
+// stride D + 8) with 16-byte cp.async copies; rows at or past s read
+// nothing and are zero-filled
+template <int D, int kRows>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int r0,
+                                           int s) {
+  constexpr int kVec = D / 8;
+  for (int idx = threadIdx.x; idx < kRows * kVec; idx += kThreads) {
+    const int r = idx / kVec, c = (idx - r * kVec) * 8;
+    const bool in = r0 + r < s;
+    const __nv_bfloat16* from =
+        src + static_cast<int64_t>(in ? r0 + r : 0) * D + c;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :
+                 : "r"(smem_addr(dst + r * (D + 8) + c)), "l"(from),
+                   "r"(in ? 16 : 0));
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int s, int group,
+                         int causal, int window, float scale) {
+  using T = MmaTile<D>;
+  constexpr int kNt = D / 8;                // output n-tiles of 8 columns
+  constexpr int kStride = T::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + T::kBq * kStride;
+  __nv_bfloat16* vs = ks + T::kBk * kStride;
+
+  // the last query tiles, which visit the most causal key tiles, start first
+  const int nq = (s + T::kBq - 1) / T::kBq;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * T::kBq;
+  const int bh = blockIdx.y;
+  const int64_t qoff = static_cast<int64_t>(bh) * s * D;
+  const int64_t kvoff = static_cast<int64_t>(bh / group) * s * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
+  // ldmatrix row addresses: lane l reads row l % 8 of 8x8 tile l / 8
+  const int lrow = lane & 7, lhalf = (lane >> 3) & 1, lquad = lane >> 4;
+  stage_rows<D, T::kBq>(qs, q + qoff, q0, s);
+
+  float acc[kNt][4];
+#pragma unroll
+  for (int n = 0; n < kNt; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+  float m_run[2] = {kMasked, kMasked};
+  float l_run[2] = {0.f, 0.f};    // this thread's columns only; summed over
+                                  // the quad at the end
+  int t0, t1;
+  key_tiles(q0, min(q0 + T::kBq, s), s, T::kBk, causal, window, &t0, &t1);
+  for (int kt = t0; kt < t1; ++kt) {
+    const int k0 = kt * T::kBk;
+    __syncthreads();                        // the last tile's readers are done
+    stage_rows<D, T::kBk>(ks, k + kvoff, k0, s);
+    stage_rows<D, T::kBk>(vs, v + kvoff, k0, s);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // S = Q K^T: this warp's 16 rows x 64 keys, 8 n-tiles of 8 keys
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];   // rows 0-7 / 8-15 x columns 0-7 / 8-15 of the slice
+      ldsm_x4(a, qs + (warp * 16 + lhalf * 8 + lrow) * kStride + kk * 16 +
+                     lquad * 8);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];  // keys 0-7 / 8-15 of the pair x columns 0-7 / 8-15
+        ldsm_x4(b, ks + (jp * 16 + lquad * 8 + lrow) * kStride + kk * 16 +
+                       lhalf * 8);
+        mma_bf16(sc[2 * jp], a, b[0], b[1]);
+        mma_bf16(sc[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+
+    // mask, running max over the quad that shares a row
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + (e >> 1) * 8;
+        const int key = k0 + j * 8 + 2 * t + (e & 1);
+        const float val = visible(row, key, s, causal, window)
+                              ? sc[j][e] * scale
+                              : kMasked;
+        sc[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f((m_run[r] - mx[r]) * kLog2e);
+      m_run[r] = mx[r];
+      l_run[r] *= corr[r];
+    }
+    // p = exp(s - m) (0 where masked); l from the f32 p; P as bf16 A
+    // fragments (the S accumulator's layout is the A operand's)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float val = sc[j][e];
+        p[e] = val == kMasked ? 0.f
+                              : exp2f((val - m_run[e >> 1]) * kLog2e);
+        l_run[e >> 1] += p[e];
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+    // O += P V: k runs over the tile's 64 keys in 4 steps of 16; V is
+    // row-major [key][d], so its B fragments come through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kNt / 2; ++np) {
+        uint32_t b[4];  // keys 0-7 / 8-15 x columns 0-7 / 8-15 of the pair
+        ldsm_x4_trans(b, vs + (kk * 16 + lhalf * 8 + lrow) * kStride +
+                             np * 16 + lquad * 8);
+        mma_bf16(acc[2 * np], pa[kk], b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], pa[kk], b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    const int row = row0 + r * 8;
+    if (row >= s) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    __nv_bfloat16* orow = o + qoff + static_cast<int64_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          pack_bf16(acc[n][2 * r] / l, acc[n][2 * r + 1] / l);
+    }
+    if (t == 0) {
+      lse[static_cast<int64_t>(bh) * s + row] = m_run[r] + logf(l);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 with FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Bq = 16;   // 4 rows a warp
+constexpr int kF32Bk = 32;   // one key a lane
+
+template <int D>
+constexpr size_t f32_smem() {
+  return (static_cast<size_t>(kF32Bq) * D +
+          static_cast<size_t>(kF32Bk) * (D + 1) +
+          static_cast<size_t>(kF32Bk) * D) *
+         sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int s, int group,
+                         int causal, int window, float scale) {
+  constexpr int kRows = kF32Bq / (kThreads / 32);
+  constexpr int kPer = (D + 31) / 32;       // output columns a lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);    // [Bq][D]
+  float* ks = qs + kF32Bq * D;                    // [Bk][D + 1]
+  float* vs = ks + kF32Bk * (D + 1);              // [Bk][D]
+
+  const int nq = (s + kF32Bq - 1) / kF32Bq;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kF32Bq;
+  const int bh = blockIdx.y;
+  const int64_t qoff = static_cast<int64_t>(bh) * s * D;
+  const int64_t kvoff = static_cast<int64_t>(bh / group) * s * D;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  for (int idx = tid; idx < kF32Bq * D; idx += kThreads) {
+    const int r = idx / D;
+    qs[idx] = q0 + r < s ? q[qoff + static_cast<int64_t>(q0) * D + idx] : 0.f;
+  }
+  float acc[kRows][kPer];
+  float m_run[kRows], l_run[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m_run[i] = kMasked;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) acc[i][c] = 0.f;
+  }
+  int t0, t1;
+  key_tiles(q0, min(q0 + kF32Bq, s), s, kF32Bk, causal, window, &t0,
+            &t1);
+  for (int kt = t0; kt < t1; ++kt) {
+    const int k0 = kt * kF32Bk;
+    __syncthreads();
+    for (int idx = tid; idx < kF32Bk * D; idx += kThreads) {
+      const int r = idx / D, c = idx - r * D;
+      float kv = 0.f, vv = 0.f;
+      if (k0 + r < s) {
+        const int64_t off = kvoff + static_cast<int64_t>(k0) * D + idx;
+        kv = k[off];
+        vv = v[off];
+      }
+      ks[r * (D + 1) + c] = kv;
+      vs[idx] = vv;
+    }
+    __syncthreads();
+    const int key = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int qr = warp * kRows + i;
+      const int row = q0 + qr;
+      float dot = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        dot = fmaf(qs[qr * D + d], ks[lane * (D + 1) + d], dot);
+      }
+      const bool vis = visible(row, key, s, causal, window);
+      const float sv = vis ? dot * scale : kMasked;
+      float mx = sv;
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      }
+      const float m_new = fmaxf(m_run[i], mx);
+      const float corr = expf(m_run[i] - m_new);
+      const float p = vis ? expf(sv - m_new) : 0.f;
+      float psum = p;
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1) {
+        psum += __shfl_xor_sync(0xffffffffu, psum, w);
+      }
+      l_run[i] = l_run[i] * corr + psum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) acc[i][c] *= corr;
+      for (int j = 0; j < kF32Bk; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) {
+          const int d = lane + 32 * c;
+          if (d < D) acc[i][c] = fmaf(pj, vs[j * D + d], acc[i][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + warp * kRows + i;
+    if (row >= s) continue;
+    const float l = fmaxf(l_run[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) o[qoff + static_cast<int64_t>(row) * D + d] = acc[i][c] / l;
+    }
+    if (lane == 0) lse[static_cast<int64_t>(bh) * s + row] = m_run[i] + logf(l);
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               void* lse, long long bh, int group, int s, int causal,
+               int window, float scale, cudaStream_t stream) {
+  using T = MmaTile<D>;
+  const int rc = set_smem(flash_fwd_mma_kernel<D>, T::kSmem);
+  if (rc != 0) return rc;
+  const dim3 grid((s + T::kBq - 1) / T::kBq, static_cast<unsigned>(bh));
+  flash_fwd_mma_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), s, group, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, long long bh, int group, int s, int causal,
+               int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = f32_smem<D>();
+  const int rc = set_smem(flash_fwd_f32_kernel<D>, smem);
+  if (rc != 0) return rc;
+  const dim3 grid((s + kF32Bq - 1) / kF32Bq, static_cast<unsigned>(bh));
+  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), s, group, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           void* lse, long long bh, int group, int s, int causal, int window,
+           float scale, cudaStream_t stream) {
+  if (dtype == 2) {
+    return launch_mma<D>(q, k, v, o, lse, bh, group, s, causal, window, scale,
+                         stream);
+  }
+  if (dtype == 0) {
+    return launch_f32<D>(q, k, v, o, lse, bh, group, s, causal, window,
+                         scale, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// q, o [bh, s, d]; k, v [bkv, s, d]; lse [bh, s] f32; all contiguous.
+// dtype: 0 = float32, 2 = bfloat16 (q, k, v and o share it). window <= 0:
+// no window. d in {16, 32, 64, 96, 128, 256}.
+extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
+                               void* o, void* lse, int dtype, long long bh,
+                               long long bkv, int s, int d, int causal,
+                               int window, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bkv <= 0 || bh % bkv != 0 || bh > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bh == 0 || s == 0) return static_cast<int>(cudaGetLastError());
+  const int group = static_cast<int>(bh / bkv);
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  switch (d) {
+    case 16: return launch<16>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
+    case 32: return launch<32>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
+    case 64: return launch<64>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
+    case 96: return launch<96>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
+    case 128: return launch<128>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
+    case 256: return launch<256>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

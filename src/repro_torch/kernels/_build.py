@@ -44,6 +44,7 @@ SIGNATURES = {
     "repro_dequant_gather_rows": [_P, _I, _P, _P, _P, _L, _I, _P],
     "repro_interaction_fwd": [_P, _P, _L, _I, _I, _I, _P],
     "repro_interaction_bwd": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
+    "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _P],
 }
 
 #: dtype codes the C entry points switch on

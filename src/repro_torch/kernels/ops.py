@@ -1,7 +1,7 @@
 """Entry points over the kernels (counterparts of ``repro/kernels/ops.py``):
-the serving reads ``pooled_cache_lookup`` and ``cache_gather``, and the
+the serving reads ``pooled_cache_lookup`` and ``cache_gather``, the
 differentiable ``fused_embedding_lookup`` / ``kernel_pool`` and
-``dot_interaction`` that training runs.
+``dot_interaction`` that training runs, and the LM's ``flash_attention``.
 
 Each picks by the tensors' device, through its kernel's wrapper: the CUDA
 kernel for CUDA tensors, the plain version for CPU tensors. The JAX
@@ -16,10 +16,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.dot_interaction import interaction_bwd, interaction_fwd
 from repro_torch.kernels.embedding_lookup import lookup_bwd, lookup_fwd
+from repro_torch.kernels.flash_attention import flash_fwd
 from repro_torch.kernels.hps_gather import dequant_gather_rows, gather_rows
-from repro_torch.kernels.ref import acc_dtype
+from repro_torch.kernels.ref import acc_dtype, flash_attention_ref
+from repro_torch.roadmap import LM_TRAINING, not_ported
 
 
 def pooled_cache_lookup(payload: torch.Tensor, slots: torch.Tensor,
@@ -117,3 +120,61 @@ def dot_interaction(x: torch.Tensor,
     """``x [B, F, D]`` -> pairwise-dot triangle ``[B, P]`` f32 (K2); the
     gradient ``dx`` comes from K4 in ``x``'s type."""
     return _DotInteraction.apply(x, self_interaction)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (K7 forward; its backward, K8, is not ported yet)
+# ---------------------------------------------------------------------------
+
+def _bhsd(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> [B·H, S, D] (contiguous)."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d)
+
+
+def _unbhsd(x: torch.Tensor, b: int) -> torch.Tensor:
+    """[B·H, S, D] -> [B, S, H, D] (a view)."""
+    bh, s, d = x.shape
+    return x.reshape(b, bh // b, s, d).transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K7 under autograd. The kernel writes into a ``torch.empty`` buffer
+    that autograd cannot see through, so without this Function a backward
+    would give q, k and v no gradient at all; here it raises until K8 is
+    ported."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, _ = flash_fwd(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
+                         window=window)
+        return _unbhsd(o, q.shape[0])
+
+    @staticmethod
+    def backward(ctx, do):
+        raise not_ported("the backward of flash attention (K8, "
+                         "kernels/flash_attention.py::flash_bwd)", LM_TRAINING)
+
+
+def _use_kernel(*tensors: torch.Tensor) -> bool:
+    return not _build.on_cpu(*tensors)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """The plain version of :func:`flash_attention` on any device, in
+    plain torch ops that autograd differentiates."""
+    o, _ = flash_attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
+                               window=window)
+    return _unbhsd(o, q.shape[0])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """``q [B, S, Hq, D]``, ``k/v [B, S, Hkv, D]`` -> ``[B, S, Hq, D]``:
+    K7 on CUDA tensors (forward only), the plain version on CPU tensors."""
+    if _use_kernel(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return flash_attention_plain(q, k, v, causal, window)

@@ -7,6 +7,8 @@ f32, or in f64 for f64 inputs (the gradient checks).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -100,3 +102,40 @@ def dot_interaction_bwd_ref(x: torch.Tensor, dtri: torch.Tensor, *,
     g = torch.zeros((b, f, f), dtype=dt, device=x.device)
     g[:, i, j] = dtri.to(dt)
     return torch.matmul(g + g.transpose(1, 2), x.to(dt)).to(x.dtype)
+
+
+#: the score the flash kernels give a masked (query, key) pair
+MASKED = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window=None):
+    """Softmax attention in the flash kernels' flat layout: ``q [BH, S,
+    D]``, ``k/v [BKV, S, D]`` -> (``o [BH, S, D]`` in ``q``'s type, ``lse
+    [BH, S]`` f32). Query head ``n`` reads KV head ``n // g``, ``g = BH /
+    BKV``. Key ``j`` is visible from query ``i`` when ``j <= i`` (causal)
+    and ``j > i - window`` (a window); a masked score is -1e30 and its
+    ``p`` 0. All in f32 (f64 for f64 inputs); ``lse = m + log(max(l,
+    1e-30))``, as the forward kernel writes it."""
+    bh, s, d = q.shape
+    bkv = k.shape[0]
+    g = bh // bkv
+    dt = acc_dtype(q.dtype)
+    qf = q.to(dt).reshape(bkv, g, s, d)
+    sc = torch.matmul(qf, k.to(dt)[:, None].transpose(-1, -2)) \
+        * (1.0 / math.sqrt(d))
+    i = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[None, :] > i[:, None] - window
+    sc = torch.where(mask, sc, torch.full((), MASKED, dtype=dt,
+                                           device=q.device))
+    m = sc.amax(dim=-1)
+    p = torch.where(mask, torch.exp(sc - m[..., None]),
+                    torch.zeros((), dtype=dt, device=q.device))
+    l = p.sum(dim=-1).clamp_min(1e-30)
+    o = torch.matmul(p, v.to(dt)[:, None]) / l[..., None]
+    lse = m + torch.log(l)
+    return o.reshape(bh, s, d).to(q.dtype), lse.reshape(bh, s)

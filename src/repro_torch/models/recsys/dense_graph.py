@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import dot_interaction_ref
 from repro_torch.models.recsys import layers as dlayers
+from repro_torch.roadmap import not_ported
 
 #: params that can never be shadowed by a layer output
 RESERVED_NAMES = ("embedding", "wide_embedding")
@@ -28,14 +29,6 @@ PORTED_OPS = ("mlp", "dot_interaction", "concat", "sigmoid")
 
 class GraphError(ValueError):
     """A model graph that cannot be compiled into a dense program."""
-
-
-def not_ported(what: str, item: str = "The other recipes and graphs "
-               "(queue 1 item 3)") -> NotImplementedError:
-    """The error a part of the reference that the port lacks raises: it
-    names the ROADMAP item that ports it."""
-    return NotImplementedError(
-        f'{what} is not ported yet: it is the ROADMAP item "{item}"')
 
 
 @dataclasses.dataclass

@@ -1,0 +1,23 @@
+"""What the port leaves out, by the ROADMAP item that ports it.
+
+A part of the reference that the port lacks raises :func:`not_ported`
+naming its item, on the recsys and the LM side alike.
+"""
+from __future__ import annotations
+
+#: the recsys recipes and graphs beyond DLRM (the default item)
+RECIPES = "The other recipes and graphs (queue 1 item 3)"
+#: queue 1 item 7: the LM families and paths after dense-LM serving
+LM_TRAINING = "LM training with K8"
+RGLRU = "rglru + local_attn (recurrentgemma)"
+MOE = "MoE (granite)"
+XLSTM = "xLSTM"
+ENCDEC = "encoder-decoder and frontends (seamless, pixtral)"
+SEQPAR = "seqpar_attention with multi-GPU"
+
+
+def not_ported(what: str, item: str = RECIPES) -> NotImplementedError:
+    """The error a part of the reference that the port lacks raises: it
+    names the ROADMAP item that ports it."""
+    return NotImplementedError(
+        f'{what} is not ported yet: it is the ROADMAP item "{item}"')

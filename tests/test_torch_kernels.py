@@ -10,7 +10,10 @@ Pallas lookup's VJP sums each row's few contributions in another order
 (<= 1e-6); K2 and K4 are f32 dots over D or F (<= 1e-5). Both
 ``autograd.Function``s pass ``gradcheck`` in f64 on the plain path. The
 ``cuda``-marked cases launch each CUDA kernel and compare it with its
-plain version on the card; they skip without one.
+plain version on the card; they skip without one. K7 (flash attention)
+is held to the Pallas kernel on the CPU in ``tests/test_torch_lm.py``; its
+``cuda`` cases are here: bf16 within 2e-2 (``o``) and 1e-3 (``lse``),
+f32 within 1e-4.
 """
 import pytest
 
@@ -26,9 +29,11 @@ from repro_torch.kernels.dot_interaction import (
     interaction_fwd_plain)
 from repro_torch.kernels.embedding_lookup import (
     lookup_bwd, lookup_bwd_plain, lookup_fwd, lookup_fwd_plain)
+from repro_torch.kernels.flash_attention import flash_fwd
 from repro_torch.kernels.hps_gather import (
     dequant_gather_rows, dequant_gather_rows_plain, gather_rows,
     gather_rows_plain)
+from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.core.hps.payload_store import quantize_rows
 
 
@@ -416,3 +421,22 @@ def test_cuda_interaction_bwd(cuda, self_int, dtype, monkeypatch):
     assert got.dtype == dtype
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["a", "c"])
+def test_cuda_flash_fwd(cuda, case):
+    """(a) minitron-4b's prefill shape, bf16 causal GQA g=3; (c) an odd
+    length in f32, GQA g=2."""
+    b, hq, hkv, s, d, dtype, tol_o, tol_l = {
+        "a": (2, 24, 8, 4096, 128, torch.bfloat16, 2e-2, 1e-3),
+        "c": (1, 8, 4, 1000, 64, torch.float32, 1e-4, 1e-4)}[case]
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((b * h, s, d), generator=g).to(dtype).to(cuda)
+               for h in (hq, hkv, hkv))
+    o, lse = flash_fwd(q, k, v, causal=True)
+    po, plse = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert (o.float() - po.float()).abs().max().item() <= tol_o
+    assert (lse - plse).abs().max().item() <= tol_l
