@@ -14,7 +14,11 @@ Phases, in order; any failure exits non-zero:
    each against its plain PyTorch version
    on the card; time kernel, plain version and one library call with CUDA
    events. K7 (flash-attention forward) likewise at minitron-4b's prefill
-   shape, recurrentgemma's local-attention shape and an odd f32 length.
+   shape, recurrentgemma's local-attention shape and an odd f32 length,
+   and K8 (its backward) at minitron-4b's training shape, recurrentgemma's
+   local attention at S 2500 and an odd f32 length, with
+   ``scaled_dot_product_attention``'s backward (forward + backward minus
+   forward) as K8's yardstick.
 4. Train: declare full-width ``dlrm-criteo`` (26 tables at D=128, 13 dense
    features, bottom MLP 512-256-128, top MLP 1024-1024-512-256-1, bf16
    compute) through the port's graph API and ``fit()`` it at batch
@@ -37,7 +41,15 @@ Phases, in order; any failure exits non-zero:
    KV cache, held against the prefill of the same tokens, and 32 greedy
    tokens are decoded. The cut:
    ``prefill_32k``'s batch 32 x 32768 becomes 2 x 4096.
-8. One JSON line of per-kernel numbers, then the device line last.
+8. LM train, checked: a depth-2 copy of ``minitron-4b`` at full width
+   takes one gradient on the kernels (K1, K3, K7, K8) and on the plain
+   path; the loss and every parameter's gradient must agree.
+9. LM train: full-width ``minitron-4b`` (hybrid token table, seed-0
+   weights, bf16 compute) takes SGD steps on one 1 x 4096 Zipf(1.2) batch
+   through K1 and K7 forward and K8 and K3 backward (K3 first alone at the
+   LM's shapes), one warm-up and timed steps; the loss must fall at every
+   step. The cut: ``train_4k``'s batch 256 x 4096 becomes 1 x 4096.
+10. One JSON line of per-kernel numbers, then the device line last.
 
 Needs ``torch.cuda.is_available()`` and the package under ``src/``; with
 either missing it prints no result and exits 2.
@@ -75,7 +87,11 @@ RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             plain_steps=3, lr=1e-3,
                             attn_seq=4096, attn_odd_seq=1000,
                             lm_arch="minitron-4b", lm_batch=2, lm_seq=4096,
-                            lm_timed=5, prompt=64, decode_steps=32)
+                            lm_timed=5, prompt=64, decode_steps=32,
+                            attn_bwd_local_seq=2500, lm_train_batch=1,
+                            lm_train_warm=1, lm_train_timed=5,
+                            lm_train_lr=3e-4,
+                            lm_check_layers=2)
 #: K7 against its plain version: bf16 ``o`` (one bf16 ulp of |o| < 4,
 #: where the kernel's bf16 ``p`` and the plain f32 ``p`` round apart) and
 #: the f32 ``lse``; f32 inputs: the f32 sum-order bound
@@ -85,6 +101,19 @@ ATTN_TOL = {"bf16": (2e-2, 1e-3), "f32": (1e-4, 1e-4)}
 #: not, so bf16 activations differ by an ulp here and there and drift
 #: through 32 layers
 LM_LOGIT_TOL = 5e-2
+#: K8 against its plain version: bf16 by ``ref.BF16_GRAD_RULE``, within
+#: 1e-2 of the largest |gradient|, the whole tensor within 1e-2 relative
+#: L2 and each row within 2e-2 of its own norm plus 1e-4 of the largest
+#: row norm (the kernel rounds p and ds to bf16 before its products, the
+#: plain version keeps f32: each row's relative error stays a few bf16
+#: rounding steps), f32 within 1e-4 (the f32 sum-order bound)
+ATTN_BWD_TOL_F32 = 1e-4
+#: the depth-2 full-width model on the kernels against the plain path:
+#: relative loss, and per parameter the relative L2 error and the cosine of
+#: the gradients (bf16 compute: K7 and K8 round p and ds to bf16, the plain
+#: versions do not; a narrow 2-layer emulation on the CPU gave 8e-5 of the
+#: loss, 8.1e-3 and 0.99996 at worst)
+LM_GRAD_TOL = types.SimpleNamespace(loss_rel=1e-3, rel=5e-2, cos=0.999)
 #: decode against prefill: the reference's bound for the same check
 #: (tests/test_models_smoke.py::test_decode_matches_prefill)
 DECODE_TOL = types.SimpleNamespace(rtol=0.1, atol=0.15, corr=0.99)
@@ -222,6 +251,7 @@ def kernel_phase(args, dev):
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lib, iters) if lib is not None else None}
         device[name] = graph_ms(fn, reps)
+        return out[name]
 
     # K1 at the served shape: f32 L1 payload [C, D], one id per table row
     rows = slots.view(B, 1)
@@ -356,6 +386,7 @@ def kernel_phase(args, dev):
         gb.float(), k2.interaction_bwd_plain(xb4, db4).float(),
         rtol=1e-2, atol=1e-2), "interaction_bwd bf16: above 1e-2")
     attention_kernel(args, record, g, dev)
+    attention_bwd_kernel(args, record, g, dev)
     for rec in out.values():
         print(f"kernel {rec['name']}: {rec['ms']:.4f} ms (bound "
               f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, plain "
@@ -414,6 +445,95 @@ def attention_kernel(args, record, g, dev):
            flops_per_s=BF16_TC_FLOPS, iters=10)
 
 
+def attention_bwd_kernel(args, record, g, dev):
+    """K8 against its plain version on K7's own ``o`` and ``lse``, twice
+    (the bits must repeat), at (a) minitron-4b's training shape (timed,
+    with ``scaled_dot_product_attention``'s backward as the yardstick), (b)
+    recurrentgemma's local attention at an S no tile divides and (c) an odd
+    f32 length with GQA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k78
+    from repro_torch.kernels.ref import (BF16_GRAD_RULE,
+                                         flash_attention_bwd_ref,
+                                         grad_row_error)
+
+    def inputs(bh, bkv, s, d, dtype, window=None):
+        q, k, v, do = (torch.randn((n, s, d), generator=g).to(dtype).to(dev)
+                       for n in (bh, bkv, bkv, bh))
+        o, lse = k78.flash_fwd(q, k, v, causal=True, window=window)
+        return q, k, v, o, lse, do
+
+    def held(case, ins, dtype, window=None):
+        got = k78.flash_bwd(*ins, causal=True, window=window)
+        again = k78.flash_bwd(*ins, causal=True, window=window)
+        want = flash_attention_bwd_ref(*ins, causal=True, window=window)
+        errs = []
+        for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
+            check(torch.equal(x, y), f"flash_bwd {case} {name}: two "
+                  "launches differ")
+            top = w.float().abs().max().item()
+            err = (x.float() - w.float()).abs().max().item()
+            if dtype == "f32":
+                check(err <= ATTN_BWD_TOL_F32, f"flash_bwd {case} {name}: "
+                      f"max abs err {err} above {ATTN_BWD_TOL_F32}")
+                errs.append(f"{name} {err:.3g} (bound {ATTN_BWD_TOL_F32})")
+                continue
+            peak, whole, worst = grad_row_error(x, w)
+            check(peak <= BF16_GRAD_RULE["peak"]
+                  and whole <= BF16_GRAD_RULE["whole"] and worst <= 1.0,
+                  f"flash_bwd {case} {name}: max abs err {peak} of max "
+                  f"|{name}| (bound {BF16_GRAD_RULE['peak']}), relative L2 "
+                  f"{whole} (bound {BF16_GRAD_RULE['whole']}), worst row at "
+                  f"{worst} of its limit (bound 1)")
+            errs.append(f"{name} {err:.3g} (bound "
+                        f"{BF16_GRAD_RULE['peak'] * top:.3g}), "
+                        f"relative L2 {whole:.3g} (bound "
+                        f"{BF16_GRAD_RULE['whole']}), worst row {worst:.3g} "
+                        f"of its limit")
+        q, k = ins[0], ins[1]
+        print(f"flash_bwd {case}: q/o/do {list(q.shape)} k/v "
+              f"{list(k.shape)} {dtype}, window {window}: max abs err "
+              + ", ".join(errs) + "; two launches bit-identical")
+        return (torch.cat([x.float().flatten() for x in got]),
+                torch.cat([x.float().flatten() for x in want]))
+
+    # (b) recurrentgemma's local attention: Hq 16, Hkv 1, D 256, window 2048
+    held("(b)", inputs(16, 1, args.attn_bwd_local_seq, 256, torch.bfloat16,
+                       2048), "bf16", window=2048)
+    # (c) an odd length in f32 with GQA g = 2
+    held("(c)", inputs(8, 4, args.attn_odd_seq, 64, torch.float32), "f32")
+    # (a) minitron-4b training: B 1, Hq 24, Hkv 8, D 128, S 4096, causal
+    hq, hkv, d, s = 24, 8, 128, args.attn_seq
+    ins = inputs(hq, hkv, s, d, torch.bfloat16)
+    got, want = held("(a)", ins, "bf16")
+    q, k, v, o, lse, do = ins
+    pairs = s * (s + 1) // 2
+    rec = record("flash_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "src/repro/kernels/flash_attention.py:233", got, want,
+                 False, None, lambda: k78.flash_bwd(*ins, causal=True),
+                 lambda: flash_attention_bwd_ref(*ins, causal=True), None,
+                 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                 5 * 2 * hq * d * pairs, reps=5, flops_per_s=BF16_TC_FLOPS,
+                 iters=10)
+    # the yardstick: sdpa forward + backward, minus its forward
+    q4, k4, v4 = (t.detach().view(1, -1, s, d).requires_grad_()
+                  for t in (q, k, v))
+    do4 = do.view(1, hq, s, d)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+
+    fwd_ms = time_ms(sdpa, 10)
+    both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4),
+                                                  do4), 10)
+    rec["library_ms"] = both_ms - fwd_ms
+    print(f"flash_bwd yardstick: scaled_dot_product_attention forward + "
+          f"backward {both_ms:.4f} ms minus forward {fwd_ms:.4f} ms = "
+          f"{both_ms - fwd_ms:.4f} ms")
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: train full-width DLRM through fit(), then deploy it
 # ---------------------------------------------------------------------------
@@ -428,7 +548,7 @@ def declare(args, cfg):
 
 
 #: device kernels by kind, by a piece of their name (first match wins)
-KINDS = (("K7", ("flash_fwd",)),
+KINDS = (("K7", ("flash_fwd",)), ("K8", ("flash_bwd",)),
          ("K1", ("lookup_fwd_kernel",)), ("K3", ("lookup_bwd_kernel",)),
          ("K2", ("interaction_fwd_kernel",)),
          ("K4", ("interaction_bwd_kernel",)), ("K5/K6", ("gather_rows",)),
@@ -875,6 +995,166 @@ def lm_phase(args, dev, cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: train full-width minitron-4b
+# ---------------------------------------------------------------------------
+
+def lm_tokens(args, cfg, dev, b, s):
+    """A ``[b, s]`` bounded-Zipf(1.2) token batch (the draw of
+    ``examples/lm_pretrain_smoke.py``) from the run's seed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng((args.seed, 7))
+    return torch.from_numpy(zipf_ids(rng, cfg.vocab_size, (b, s),
+                                     a=1.2)).to(dev)
+
+
+def lm_grad_check(args, dev, cfg):
+    """The kernels (K1, K3, K7, K8) against the plain path on a copy of
+    ``cfg`` cut to ``args.lm_check_layers`` layers at full width: the loss
+    and, per parameter, the gradients' relative L2 error and cosine."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.train import lm_value_and_grad
+    from repro_torch.models.lm.backbone import LMModel
+    from repro_torch.tree import flatten
+    small = dataclasses.replace(cfg, num_layers=args.lm_check_layers)
+    model = LMModel(small, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    tokens = lm_tokens(args, cfg, dev, args.lm_train_batch, args.lm_seq)
+    loss, grads = lm_value_and_grad(model, params, tokens)
+    plain = LMModel(small, device=dev, use_kernels=False)
+    ploss, pgrads = lm_value_and_grad(plain, params, tokens)
+    dl = abs(float(loss) - float(ploss))
+    tol = LM_GRAD_TOL
+    check(dl <= tol.loss_rel * abs(float(ploss)), f"lm grad check: loss "
+          f"{float(loss)} on the kernels, {float(ploss)} on the plain path")
+    worst_rel, worst_cos, lines = 0.0, 1.0, []
+    for (key, g), (_, pg) in zip(flatten(grads), flatten(pgrads)):
+        g, pg = g.double().flatten(), pg.double().flatten()
+        rel = ((g - pg).norm() / pg.norm()).item()
+        cos = (g @ pg / (g.norm() * pg.norm())).item()
+        check(rel <= tol.rel and cos >= tol.cos, f"lm grad check {key}: "
+              f"relative error {rel}, cosine {cos} (bounds {tol.rel}, "
+              f"{tol.cos})")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        lines.append(f"{key.split('_attn/')[-1]} {rel:.2e}/{cos:.6f}")
+    print(f"lm grad check: {cfg.name} cut to {small.num_layers} layers at "
+          f"full width, tokens [{tokens.shape[0]}, {tokens.shape[1]}]: loss "
+          f"{float(loss):.6f} on the kernels, {float(ploss):.6f} on the plain "
+          f"path (|diff| {dl:.3g}, bound {tol.loss_rel} relative); gradients "
+          f"relative L2 error / cosine per parameter: {'; '.join(lines)}; "
+          f"worst {worst_rel:.3g} / {worst_cos:.6f} (bounds {tol.rel}, "
+          f"{tol.cos})")
+    del grads, pgrads, params
+
+
+def lm_k3_check(model, params, tokens) -> str:
+    """K3 against its plain version at the LM's shapes: each token table's
+    adjoint for the batch's rows (masked to -1 where the other hybrid table
+    holds the token), twice (the bits must repeat), within the f32
+    sum-order bound of the summed magnitudes; timed on the cold table."""
+    import torch
+    from repro_torch.kernels import embedding_lookup as k1
+    ids = tokens.reshape(-1, 1).to(torch.int32)
+    hot = ids < model.hot_rows
+    g = torch.Generator(device=tokens.device).manual_seed(3)
+    dp = torch.randn((ids.shape[0], model.cfg.d_model), generator=g,
+                     device=tokens.device)
+    parts = []
+    for table, rows in ((params["embed_hot"], torch.where(hot, ids, -1)),
+                        (params["embed_cold"],
+                         torch.where(hot, -1, ids - model.hot_rows))):
+        shape = tuple(table.shape)
+        got = k1.lookup_bwd(shape, rows, dp)
+        check(torch.equal(got, k1.lookup_bwd(shape, rows, dp)),
+              f"K3 at {shape}: two launches differ")
+        want = k1.lookup_bwd_plain(shape, rows, dp)
+        scale = k1.lookup_bwd_plain(shape, rows, dp.abs())
+        err = (got - want).abs().max().item()
+        check(bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all()),
+              f"K3 at {shape}: max abs err {err} above 1e-5 of the summed "
+              "magnitudes")
+        keep = rows.view(-1) >= 0
+        flat, src = rows.view(-1)[keep].long(), dp[keep]
+        ms = time_ms(lambda: k1.lookup_bwd(shape, rows, dp), 10)
+        pms = time_ms(lambda: k1.lookup_bwd_plain(shape, rows, dp), 10)
+        lms = time_ms(lambda: torch.zeros(shape, device=dp.device).index_add_(
+            0, flat, src), 10)
+        bms, by = bound_ms(rows.numel() * 4 + dp.numel() * 4
+                           + shape[0] * shape[1] * 4,
+                           int(keep.sum()) * shape[1])
+        runs = torch.unique(flat, return_counts=True)[1]
+        masked = 100 * float((~keep).float().mean())
+        parts.append(f"[{shape[0]},{shape[1]}] ({masked:.1f}% of rows -1, "
+                     f"{runs.numel()} distinct ids, longest run "
+                     f"{int(runs.max())}): {ms:.4f} ms (bound {bms:.4f} ms "
+                     f"by {by}, plain {pms:.4f} ms, library {lms:.4f} ms "
+                     f"zeros + index_add_), max abs err {err:.3g}")
+        del got, want, scale
+    return "K3 at " + "; ".join(parts)
+
+
+def lm_train_phase(args, dev, cfg):
+    """SGD steps of full-width ``cfg`` on one fixed batch; returns the
+    launch counts of the counted run (warm-up and timed steps)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import LM_SHAPE_BY_NAME
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.launch.train import lm_sgd_step_
+    from repro_torch.models.lm.backbone import LMModel
+
+    full = LM_SHAPE_BY_NAME["train_4k"]
+    b, s = args.lm_train_batch, args.lm_seq
+    print(f"reduced: {cfg.name} training at batch {b} x seq {s} instead of "
+          f"train_4k's {full.global_batch} x {full.seq_len} (one card's "
+          f"memory: f32 weights and gradients and every layer's "
+          f"activations); widths, {cfg.num_layers} layers and the "
+          f"{cfg.vocab_size}-token vocabulary as published; random weights "
+          f"(seed {args.seed}); SGD at lr {args.lm_train_lr}, remat "
+          f"'none'")
+    model = LMModel(cfg, device=dev, remat="none")
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    tokens = lm_tokens(args, cfg, dev, b, s)
+    k3_line = lm_k3_check(model, params, tokens)
+    want = {"lookup_fwd": 2, "lookup_bwd": 2, "flash_fwd": cfg.num_layers,
+            "flash_bwd": 2 * cfg.num_layers}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    losses, ms = [], []
+    for i in range(args.lm_train_warm + args.lm_train_timed):
+        before = LAUNCHES.snapshot()
+        t = time.perf_counter()
+        loss = lm_sgd_step_(model, params, tokens, args.lm_train_lr)
+        losses.append(float(loss))           # the loss's copy to the host
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        after = LAUNCHES.snapshot()
+        step = {k: after.get(k, 0) - before.get(k, 0) for k in want}
+        check(step == want, f"lm train step {i}: launches {step}, want "
+              f"{want}")
+    launches = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(np.isfinite(losses).all()) and all(
+        y < x for x, y in zip(losses, losses[1:])),
+        f"lm train: the loss did not fall at every step: {losses}")
+    timed = ms[args.lm_train_warm:]
+    p50 = float(np.median(timed))
+    print(f"lm train on {torch.cuda.get_device_name(0)}: {len(losses)} SGD "
+          f"steps at {b} x {s} tokens ({args.lm_train_warm} warm-up): step "
+          f"p50 {p50:.2f} ms (min {min(timed):.2f}, max {max(timed):.2f}), "
+          f"{b * s / p50 * 1e3:.0f} tokens/s; loss "
+          + " -> ".join(f"{x:.4f}" for x in losses)
+          + f"; peak memory {peak:.2f} GiB; launches per step {want}; "
+          f"{k3_line}")
+    profile("lm train step", lambda: lm_sgd_step_(model, params, tokens,
+                                                  args.lm_train_lr))
+    del params
+    return launches
+
+
 def recsys_phases(args, dev):
     """Phases 4-6; returns the launch counts of their main paths."""
     import torch
@@ -943,10 +1223,21 @@ def main() -> int:
 
     # 7. LM serve
     from repro_torch.configs.registry import get_lm_config
-    for k, n in lm_phase(args, dev, get_lm_config(args.lm_arch)).items():
+    lm_cfg = get_lm_config(args.lm_arch)
+    for k, n in lm_phase(args, dev, lm_cfg).items():
+        total[k] = total.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8-9. LM train: the kernels against the plain path at depth 2, then
+    # the full-width steps
+    lm_grad_check(args, dev, lm_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in lm_train_phase(args, dev, lm_cfg).items():
         total[k] = total.get(k, 0) + n
 
-    # 8. kernels line, then the device line last
+    # 10. kernels line, then the device line last
     for name, rec in kernels.items():
         rec["launches"] = total.get(name, 0)
         check(rec["launches"] > 0, f"{name}: no launches on the main path")

@@ -38,7 +38,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys.dense_graph import (
     RESERVED_NAMES, GraphError, compile_layers, spec_from_layer,
 )
-from repro_torch.roadmap import not_ported
+from repro_torch.roadmap import FRONT_DOORS, MULTI_DEVICE, not_ported
 
 GRAPH_FORMAT = "repro-graph-v1"
 
@@ -359,7 +359,6 @@ class Model:
         """Lower the graph and build the model on ``device`` (``cuda``
         unless ``"cpu"`` is given; raises without a card).
         ``use_kernels=False`` runs the plain versions of the kernels."""
-        from repro_torch.core.embedding.collection import MULTI_DEVICE
         from repro_torch.models.recsys.model import RecsysModel
         self.cfg = self.to_recsys_config()
         if self.reader is not None and \
@@ -402,8 +401,7 @@ class Model:
             num_dense_features=self.cfg.num_dense_features)
         if r.source != "synthetic":
             raise not_ported(f"DataReaderParams(source={r.source!r})",
-                             "Front doors, benchmarks and CI "
-                             "(queue 1 item 6)")
+                             FRONT_DOORS)
         from repro_torch.data.synthetic import SyntheticCTR
         return SyntheticCTR(self.cfg, self.batch_size, seed=r.seed,
                             zipf_a=r.zipf_a).batch

@@ -33,10 +33,7 @@ from repro_torch.core.embedding.common import (
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.roadmap import not_ported
-
-#: the ROADMAP item that ports the multi-device embedding strategies
-MULTI_DEVICE = "Multi-GPU (queue 1 item 4)"
+from repro_torch.roadmap import MULTI_DEVICE, not_ported
 
 
 class EmbeddingCollection:

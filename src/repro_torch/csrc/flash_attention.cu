@@ -41,32 +41,11 @@
 //   of the tile; the row's max and sum are warp shuffles; lane c accumulates
 //   output columns c, c + 32, ... with p broadcast by shuffle. f32 FMAs, so
 //   f32 inputs keep f32 products (mma in TF32 would not).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr float kMasked = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;
-
-// the mask of _fwd_kernel: key kj is visible from query qi
-__device__ __forceinline__ bool visible(int qi, int kj, int s, int causal,
-                                        int window) {
-  return kj < s && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
-}
-
-// the key tiles [t0, t1) that intersect the band of queries [q0, q1)
-__device__ __forceinline__ void key_tiles(int q0, int q1, int s, int bk,
-                                          int causal, int window, int* t0,
-                                          int* t1) {
-  const int khi = causal ? min(s, q1) : s;
-  const int klo = window > 0 ? max(0, q0 - window + 1) : 0;
-  *t0 = klo / bk;
-  *t1 = (khi + bk - 1) / bk;
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -80,69 +59,6 @@ struct MmaTile {
   static constexpr size_t kSmem = static_cast<size_t>(kBq + 2 * kBk) *
                                   kStride * sizeof(__nv_bfloat16);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// four 8x8 bf16 tiles from shared memory; lane i names row i % 8 of tile
-// i / 8, and r[j] is this lane's fragment of tile j (transposed with .trans)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b for one m16n8k16 tile: a row-major 16x16, b column-major 16x8
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [r0, r0 + kRows) of a [s, D] bf16 matrix into shared memory (row
-// stride D + 8) with 16-byte cp.async copies; rows at or past s read
-// nothing and are zero-filled
-template <int D, int kRows>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int r0,
-                                           int s) {
-  constexpr int kVec = D / 8;
-  for (int idx = threadIdx.x; idx < kRows * kVec; idx += kThreads) {
-    const int r = idx / kVec, c = (idx - r * kVec) * 8;
-    const bool in = r0 + r < s;
-    const __nv_bfloat16* from =
-        src + static_cast<int64_t>(in ? r0 + r : 0) * D + c;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :
-                 : "r"(smem_addr(dst + r * (D + 8) + c)), "l"(from),
-                   "r"(in ? 16 : 0));
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -169,8 +85,6 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
-  // ldmatrix row addresses: lane l reads row l % 8 of 8x8 tile l / 8
-  const int lrow = lane & 7, lhalf = (lane >> 3) & 1, lquad = lane >> 4;
   stage_rows<D, T::kBq>(qs, q + qoff, q0, s);
 
   float acc[kNt][4];
@@ -194,25 +108,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // S = Q K^T: this warp's 16 rows x 64 keys, 8 n-tiles of 8 keys
     float sc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];   // rows 0-7 / 8-15 x columns 0-7 / 8-15 of the slice
-      ldsm_x4(a, qs + (warp * 16 + lhalf * 8 + lrow) * kStride + kk * 16 +
-                     lquad * 8);
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t b[4];  // keys 0-7 / 8-15 of the pair x columns 0-7 / 8-15
-        ldsm_x4(b, ks + (jp * 16 + lquad * 8 + lrow) * kStride + kk * 16 +
-                       lhalf * 8);
-        mma_bf16(sc[2 * jp], a, b[0], b[1]);
-        mma_bf16(sc[2 * jp + 1], a, b[2], b[3]);
-      }
-    }
+    warp_abt<D>(sc, qs + warp * 16 * kStride, ks, lane);
 
     // mask, running max over the quad that shares a row
     float mx[2] = {m_run[0], m_run[1]};
@@ -240,20 +136,18 @@ __global__ void __launch_bounds__(kThreads)
     }
     // p = exp(s - m) (0 where masked); l from the f32 p; P as bf16 A
     // fragments (the S accumulator's layout is the A operand's)
-    uint32_t pa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float val = sc[j][e];
-        p[e] = val == kMasked ? 0.f
-                              : exp2f((val - m_run[e >> 1]) * kLog2e);
-        l_run[e >> 1] += p[e];
+        sc[j][e] = val == kMasked ? 0.f
+                                  : exp2f((val - m_run[e >> 1]) * kLog2e);
+        l_run[e >> 1] += sc[j][e];
       }
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
     }
+    uint32_t pa[4][4];
+    to_a_frags(pa, sc);
 #pragma unroll
     for (int n = 0; n < kNt; ++n) {
       acc[n][0] *= corr[0];
@@ -263,17 +157,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     // O += P V: k runs over the tile's 64 keys in 4 steps of 16; V is
     // row-major [key][d], so its B fragments come through ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kNt / 2; ++np) {
-        uint32_t b[4];  // keys 0-7 / 8-15 x columns 0-7 / 8-15 of the pair
-        ldsm_x4_trans(b, vs + (kk * 16 + lhalf * 8 + lrow) * kStride +
-                             np * 16 + lquad * 8);
-        mma_bf16(acc[2 * np], pa[kk], b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], pa[kk], b[2], b[3]);
-      }
-    }
+    warp_pb<D, kNt>(acc, pa, vs, lane);
   }
 
 #pragma unroll
@@ -414,14 +298,6 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (lane == 0) lse[static_cast<int64_t>(bh) * s + row] = m_run[i] + logf(l);
   }
-}
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
 }
 
 template <int D>

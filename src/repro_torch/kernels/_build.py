@@ -2,10 +2,11 @@
 
 Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, bound with ``ctypes`` (no PyTorch headers,
-so a build takes seconds). Objects are compiled in parallel, one ``nvcc``
-per source, then linked. The library lands in ``repro_torch/_build/<hash>/``
-(listed in ``.gitignore``), keyed by a hash of the sources and flags, and is
-built at the first kernel launch of a process: nothing here runs at import.
+so a build takes seconds); ``csrc/*.cuh`` holds what several sources share.
+Objects are compiled in parallel, one ``nvcc`` per source, then linked. The
+library lands in ``repro_torch/_build/<hash>/`` (listed in ``.gitignore``),
+keyed by a hash of the sources, headers and flags, and is built at the
+first kernel launch of a process: nothing here runs at import.
 
 The module also owns the launch counters: :func:`launch`, the one place a
 wrapper starts its kernel, counts each successful launch and nothing else,
@@ -45,6 +46,10 @@ SIGNATURES = {
     "repro_interaction_fwd": [_P, _P, _L, _I, _I, _I, _P],
     "repro_interaction_bwd": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _P],
+    "repro_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I,
+                           _I, _I, _P],
+    "repro_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
+                            _I, _I, _I, _P],
 }
 
 #: dtype codes the C entry points switch on
@@ -106,7 +111,7 @@ def _nvcc() -> str:
 
 def _key(srcs) -> str:
     h = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())

@@ -1,12 +1,15 @@
-"""K7: the flash-attention forward (``csrc/flash_attention.cu``).
+"""K7 and K8: the flash-attention forward (``csrc/flash_attention.cu``)
+and its backward (``csrc/flash_attention_bwd.cu``).
 
-Counterpart of ``repro/kernels/flash_attention.py::flash_fwd``, in its
-flat layout: ``q [BH, S, D]``, ``k/v [BKV, S, D]`` -> (``o [BH, S, D]``,
-``lse [BH, S]`` f32). On CUDA tensors the wrapper launches the
-hand-written kernel (bf16 on the tensor cores, f32 with FMAs); on CPU
-tensors it runs the plain version, ``ref.flash_attention_ref``. There is
-no fallback between the two: a CUDA launch that fails raises. Unlike the TPU kernel, any ``S`` works
-(the ragged tail is masked in the kernel).
+Counterparts of ``repro/kernels/flash_attention.py::flash_fwd`` and
+``::flash_bwd``, in their flat layout: ``q [BH, S, D]``, ``k/v [BKV, S,
+D]`` -> (``o [BH, S, D]``, ``lse [BH, S]`` f32), and with ``o``, ``lse``
+and ``do`` -> (``dq``, ``dk``, ``dv``). On CUDA tensors each wrapper
+launches its hand-written kernels (bf16 on the tensor cores, f32 with
+FMAs); on CPU tensors it runs the plain version,
+``ref.flash_attention_ref`` or ``ref.flash_attention_bwd_ref``. There is
+no fallback between the two: a CUDA launch that fails raises. Unlike the
+TPU kernels, any ``S`` works (the ragged tail is masked in the kernels).
 """
 from __future__ import annotations
 
@@ -15,9 +18,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref)
 
 NAME = "flash_fwd"
+NAME_BWD = "flash_bwd"
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 
@@ -36,6 +41,21 @@ def _check_shapes(q, k, v, window) -> None:
                    f"window must be positive, got {window}")
 
 
+def _check_cuda(q: torch.Tensor, **others: torch.Tensor) -> None:
+    """The checks every launch makes on its CUDA operands of ``q``'s type,
+    shape rank and device."""
+    for name, t in (("q", q), *others.items()):
+        _build.require_cuda(name, t, DTYPES, 3)
+        _build.require(t.dtype == q.dtype,
+                       f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        _build.require(t.device == q.device,
+                       f"{name} on {t.device}, q on {q.device}")
+        _build.require(t.data_ptr() % 16 == 0,
+                       f"{name} is not 16-byte aligned")
+    d = q.shape[-1]
+    _build.require(d in HEAD_DIMS, f"head dim {d} not in {HEAD_DIMS}")
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -46,16 +66,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_shapes(q, k, v, window)
     if _build.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.require_cuda(name, t, DTYPES, 3)
-        _build.require(t.dtype == q.dtype,
-                       f"{name} dtype {t.dtype} != q dtype {q.dtype}")
-        _build.require(t.device == q.device,
-                       f"{name} on {t.device}, q on {q.device}")
-        _build.require(t.data_ptr() % 16 == 0,
-                       f"{name} is not 16-byte aligned")
+    _check_cuda(q, k=k, v=v)
     bh, s, d = q.shape
-    _build.require(d in HEAD_DIMS, f"head dim {d} not in {HEAD_DIMS}")
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     _build.launch(NAME, "repro_flash_fwd", q.device, q.data_ptr(),
@@ -63,3 +75,40 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   _build.DTYPE_CODES[q.dtype], bh, k.shape[0], s, d,
                   int(causal), 0 if window is None else int(window))
     return o, lse
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`flash_fwd`: ``q, o, do [BH, S, D]``, ``k/v
+    [BKV, S, D]`` and the forward's ``lse [BH, S]`` f32 -> (``dq`` in
+    ``q``'s type, ``dk``, ``dv`` in ``k``'s), ``dk``/``dv`` summed over each
+    GQA group of query heads. Two launches: the dq kernel and the dk/dv
+    kernel. ``D = rowsum(do * o)`` is a torch reduction here, as the JAX
+    package computes it outside its kernels."""
+    _check_shapes(q, k, v, window)
+    _build.require(o.shape == q.shape and do.shape == q.shape,
+                   f"o {tuple(o.shape)} and do {tuple(do.shape)} must be "
+                   f"{tuple(q.shape)}")
+    _build.require(lse.shape == q.shape[:2],
+                   f"lse {tuple(lse.shape)} must be {tuple(q.shape[:2])}")
+    if _build.on_cpu(q, k, v, o, lse, do):
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    _check_cuda(q, k=k, v=v, o=o, do=do)
+    _build.require_cuda("lse", lse, (torch.float32,), 2)
+    _build.require(lse.device == q.device,
+                   f"lse on {lse.device}, q on {q.device}")
+    bh, s, d = q.shape
+    dcap = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), dcap.data_ptr())
+    tail = (_build.DTYPE_CODES[q.dtype], bh, k.shape[0], s, d, int(causal),
+            0 if window is None else int(window))
+    _build.launch(NAME_BWD, "repro_flash_bwd_dq", q.device, *common,
+                  dq.data_ptr(), *tail)
+    _build.launch(NAME_BWD, "repro_flash_bwd_dkv", q.device, *common,
+                  dk.data_ptr(), dv.data_ptr(), *tail)
+    return dq, dk, dv

@@ -8,7 +8,7 @@ kernel for CUDA tensors, the plain version for CPU tensors. The JAX
 package padded inputs to the Pallas kernels' block shapes; the CUDA
 kernels take any shape, so nothing is padded here. The JAX ``custom_vjp``s
 become ``torch.autograd.Function``s whose backward is the adjoint kernel
-(K3 for the lookup, K4 for the interaction).
+(K3 for the lookup, K4 for the interaction, K8 for flash attention).
 """
 from __future__ import annotations
 
@@ -19,10 +19,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.dot_interaction import interaction_bwd, interaction_fwd
 from repro_torch.kernels.embedding_lookup import lookup_bwd, lookup_fwd
-from repro_torch.kernels.flash_attention import flash_fwd
+from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
 from repro_torch.kernels.hps_gather import dequant_gather_rows, gather_rows
 from repro_torch.kernels.ref import acc_dtype, flash_attention_ref
-from repro_torch.roadmap import LM_TRAINING, not_ported
 
 
 def pooled_cache_lookup(payload: torch.Tensor, slots: torch.Tensor,
@@ -123,13 +122,14 @@ def dot_interaction(x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Flash attention (K7 forward; its backward, K8, is not ported yet)
+# Flash attention (K7 forward, K8 backward)
 # ---------------------------------------------------------------------------
 
 def _bhsd(x: torch.Tensor) -> torch.Tensor:
-    """[B, S, H, D] -> [B·H, S, D] (contiguous)."""
+    """[B, S, H, D] -> [B·H, S, D] (contiguous: at B = 1 the reshape alone
+    is a strided view)."""
     b, s, h, d = x.shape
-    return x.transpose(1, 2).reshape(b * h, s, d)
+    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
 
 def _unbhsd(x: torch.Tensor, b: int) -> torch.Tensor:
@@ -139,21 +139,26 @@ def _unbhsd(x: torch.Tensor, b: int) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K7 under autograd. The kernel writes into a ``torch.empty`` buffer
-    that autograd cannot see through, so without this Function a backward
-    would give q, k and v no gradient at all; here it raises until K8 is
-    ported."""
+    """K7 forward, K8 backward. The kernels write into ``torch.empty``
+    buffers that autograd cannot see through, so this Function carries the
+    gradient: forward saves the flat, contiguous q, k and v (the ``_bhsd``
+    copies the kernels read), ``o`` and K7's ``lse``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        o, _ = flash_fwd(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
-                         window=window)
+        qf, kf, vf = _bhsd(q), _bhsd(k), _bhsd(v)
+        o, lse = flash_fwd(qf, kf, vf, causal=causal, window=window)
+        ctx.save_for_backward(qf, kf, vf, o, lse)
+        ctx.causal, ctx.window = causal, window
         return _unbhsd(o, q.shape[0])
 
     @staticmethod
     def backward(ctx, do):
-        raise not_ported("the backward of flash attention (K8, "
-                         "kernels/flash_attention.py::flash_bwd)", LM_TRAINING)
+        qf, kf, vf, o, lse = ctx.saved_tensors
+        b = do.shape[0]
+        dq, dk, dv = flash_bwd(qf, kf, vf, o, lse, _bhsd(do),
+                               causal=ctx.causal, window=ctx.window)
+        return _unbhsd(dq, b), _unbhsd(dk, b), _unbhsd(dv, b), None, None
 
 
 def _use_kernel(*tensors: torch.Tensor) -> bool:
@@ -174,7 +179,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """``q [B, S, Hq, D]``, ``k/v [B, S, Hkv, D]`` -> ``[B, S, Hq, D]``:
-    K7 on CUDA tensors (forward only), the plain version on CPU tensors."""
+    K7 forward and K8 backward on CUDA tensors, the plain version on CPU
+    tensors."""
     if _use_kernel(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_plain(q, k, v, causal, window)

@@ -3,7 +3,8 @@
 Twins of ``repro/kernels/ref.py`` (the JAX package's test oracles). Each
 is the CPU implementation behind its kernel's wrapper and the reference
 ``chip_smoke.py`` holds the CUDA kernel against on the card. Sums run in
-f32, or in f64 for f64 inputs (the gradient checks).
+f32, or in f64 for f64 inputs (the gradient checks). ``grad_row_error``
+is the rule that holds K8's bf16 gradients to their plain version.
 """
 from __future__ import annotations
 
@@ -139,3 +140,70 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.matmul(p, v.to(dt)[:, None]) / l[..., None]
     lse = m + torch.log(l)
     return o.reshape(bh, s, d).to(q.dtype), lse.reshape(bh, s)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window=None):
+    """The gradient of :func:`flash_attention_ref`, written out (not
+    autograd of it): ``q, o, do [BH, S, D]``, ``k/v [BKV, S, D]``, ``lse
+    [BH, S]`` -> (``dq`` in ``q``'s type, ``dk``, ``dv`` in ``k``'s).
+    ``D = rowsum(do o)``, ``p = exp(s scale - lse)`` (0 where masked, the
+    forward's mask), ``dv = p^T do``, ``ds = p (do v^T - D) scale``, ``dq =
+    ds k``, ``dk = ds^T q``; ``dk``/``dv`` summed over each group of ``g =
+    BH / BKV`` query heads. All in f32 (f64 for f64 inputs)."""
+    bh, s, d = q.shape
+    bkv = k.shape[0]
+    g = bh // bkv
+    dt = acc_dtype(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    qf, of, dof = (t.to(dt).reshape(bkv, g, s, d) for t in (q, o, do))
+    kf, vf = k.to(dt)[:, None], v.to(dt)[:, None]
+    dcap = (dof * of).sum(dim=-1, keepdim=True)
+    i = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[None, :] > i[:, None] - window
+    sc = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.where(mask, torch.exp(sc - lse.to(dt).reshape(bkv, g, s, 1)),
+                    torch.zeros((), dtype=dt, device=q.device))
+    del sc
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(dim=1)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - dcap) * scale
+    del p
+    dq = torch.matmul(ds, kf).reshape(bh, s, d)
+    dk = torch.matmul(ds.transpose(-1, -2), qf).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: K8's bf16 gradients against :func:`flash_attention_bwd_ref`: the largest
+#: absolute error against ``peak`` of the largest |value| (two bf16 ulps),
+#: the whole tensor's relative L2 error, and each row's error against
+#: ``rel`` of that row's norm plus ``floor`` of the largest row norm (the
+#: floor is for rows that are 0 in exact arithmetic, such as ``dq`` of
+#: query 0)
+BF16_GRAD_RULE = dict(peak=1e-2, whole=1e-2, rel=2e-2, floor=1e-4)
+
+
+def grad_row_error(got: torch.Tensor, want: torch.Tensor, *,
+                   rel: float = BF16_GRAD_RULE["rel"],
+                   floor: float = BF16_GRAD_RULE["floor"]) -> tuple:
+    """How far ``got`` lies from ``want``: ``(peak, whole, worst)``, the
+    largest ``|got - want|`` over the largest ``|want|``, the relative L2
+    error ``|got - want| / |want|`` of the whole tensor, and, row by row
+    (a row is one vector along the last dim, one head at one position),
+    the largest ``|got_r - want_r| / (rel |want_r| + floor max_r
+    |want_r|)``, at most 1 where every row is within its limit. Causal
+    gradients shrink along the sequence, so a limit taken from the
+    largest value alone would pass a fault in the later rows."""
+    x = got.detach().double().reshape(-1, got.shape[-1])
+    w = want.detach().double().reshape(-1, want.shape[-1])
+    peak = ((x - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+    err, norm = (x - w).norm(dim=1), w.norm(dim=1)
+    whole = (err.norm() / norm.norm().clamp_min(1e-300)).item()
+    limit = rel * norm + floor * norm.max()
+    worst = (err / limit.clamp_min(1e-300)).max().item()
+    return peak, whole, worst

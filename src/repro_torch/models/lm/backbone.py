@@ -12,30 +12,35 @@ hybrid hot/cold split applies. On one device:
   and a cold table for the rest, each read by its own lookup and summed.
 
 Every lookup is the pooled-lookup kernel K1 with one id a row (-1 where the
-mode masks the id out), and prefill attention is the flash kernel K7. With
-``use_kernels=False`` both run their plain versions on any device: the
+mode masks the id out), whose gradient is the dense adjoint K3, and
+attention is the flash kernel K7 with K8 as its backward. With
+``use_kernels=False`` all run their plain versions on any device: the
 in-port reference path.
 
-Ported: ``init``, ``embed``, ``prefill``, ``init_cache`` and
-``decode_step`` for ``block_pattern == ("attn",)`` without MoE, encoder or
-frontend (phi3-mini, minitron-4b, command-r-plus, olmo-1b). The other
-families and ``train_loss`` raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Ported: ``init``, ``embed``, ``train_loss`` (with the chunked
+cross-entropy), ``prefill``, ``init_cache`` and ``decode_step`` for
+``block_pattern == ("attn",)`` without MoE, encoder or frontend
+(phi3-mini, minitron-4b, command-r-plus, olmo-1b), with ``remat`` "none"
+or "full". The other families and remat policies raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.embedding_lookup import lookup_fwd, lookup_fwd_plain
+from repro_torch.kernels import ops
+from repro_torch.kernels.embedding_lookup import lookup_fwd_plain
 from repro_torch.models.lm import transformer as tf
 from repro_torch.tree import tree_map
 
 EMBED_MODES = ("replicated", "sharded", "hybrid")
+REMATS = ("none", "full", "dots", "group")
 
 
 def _check_ported(cfg: LMConfig) -> None:
@@ -55,22 +60,35 @@ def _check_ported(cfg: LMConfig) -> None:
             raise ValueError(kind)
 
 
-def _layer(stacked: Dict, i: int) -> Dict:
-    """Layer ``i`` of a stacked ``[n, ...]`` params tree (views)."""
-    return tree_map(lambda a: a[i], stacked)
+def _layers(stacked: Dict, n: int) -> List[Dict]:
+    """The ``n`` layers of a stacked ``[n, ...]`` params tree, each leaf
+    split once by ``unbind``: its backward stacks the layers' gradients
+    into one ``[n, ...]`` tensor, where ``a[i]`` of each layer would add a
+    zero-filled tensor the size of the whole leaf per layer."""
+    split = tree_map(lambda a: a.unbind(0), stacked)
+    return [tree_map(lambda parts: parts[i], split) for i in range(n)]
 
 
 class LMModel:
     """``device`` resolves as every port entry point does (``cuda`` unless
     given ``"cpu"``); ``embed_mode="auto"`` picks as the reference does:
     ``hybrid`` from 100,000 tokens, else ``sharded`` above 2**26 table
-    entries, else ``replicated``."""
+    entries, else ``replicated``. ``loss_chunk`` is the cross-entropy's
+    sequence chunk; ``remat="full"`` recomputes each layer in backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``."""
 
     def __init__(self, cfg: LMConfig, *, device: DeviceLike = None,
                  embed_mode: str = "auto", hot_fraction: float = 0.05,
+                 loss_chunk: int = 512, remat: str = "none",
                  use_kernels: bool = True):
         _check_ported(cfg)
+        if remat not in REMATS:
+            raise ValueError(f"remat {remat!r} not in {REMATS}")
+        if remat in ("dots", "group"):
+            raise tf.not_ported(f'remat="{remat}"', tf.LM_REMAT)
         self.cfg = cfg
+        self.loss_chunk = loss_chunk
+        self.remat = remat
         self.device = resolve_device(device)
         self.cd = torch.bfloat16 if cfg.dtype == "bf16" else torch.float32
         self.use_kernels = use_kernels
@@ -131,9 +149,11 @@ class LMModel:
     # ----------------------------------------------------------------- embed
 
     def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-        """``tokens [B, S]`` -> ``[B, S, D]`` in the compute type: K1 lookups
-        of one id a row, exact f32 rows, summed (hybrid) and cast."""
-        lookup = lookup_fwd if self.use_kernels else lookup_fwd_plain
+        """``tokens [B, S]`` -> ``[B, S, D]`` in the compute type: lookups
+        of one id a row (K1, with K3 as the tables' gradient), exact f32
+        rows, summed (hybrid) and cast."""
+        lookup = ops.fused_embedding_lookup if self.use_kernels \
+            else lookup_fwd_plain
         ids = tokens.reshape(-1, 1).to(torch.int32)
         if self.embed_mode == "hybrid":
             is_hot = ids < self.hot_rows
@@ -176,20 +196,63 @@ class LMModel:
 
     def _run_stack(self, params: Dict, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
-        """Every layer in order; returns the final hidden states."""
+        """Every layer in order; returns the final hidden states. With
+        ``remat="full"`` each layer runs under ``checkpoint``: backward
+        keeps its input only and runs it again."""
+        def block(h, lp, kind):
+            return self._apply_block(kind, lp, h, positions=positions)[0]
+
         for key, kind, n in self._group_keys():
-            gp = params["groups"][key]
-            for i in range(n):
-                x, _ = self._apply_block(kind, _layer(gp, i), x,
-                                         positions=positions)
+            for lp in _layers(params["groups"][key], n):
+                if self.remat == "full":
+                    x = checkpoint(block, x, lp, kind, use_reentrant=False)
+                else:
+                    x = block(x, lp, kind)
         return x
 
-    def train_loss(self, params: Dict, batch: Dict):
-        raise tf.not_ported("LM training (train_loss)", tf.LM_TRAINING)
+    # ---------------------------------------------------------------- train
 
-    def _xent(self, params: Dict, h, labels):
-        raise tf.not_ported("the chunked LM cross-entropy (_xent)",
-                            tf.LM_TRAINING)
+    def train_loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["tokens"] [B, S]`` (the
+        last position has no label); f32 scalar."""
+        tokens = self._tokens(batch["tokens"])
+        b, s = tokens.shape
+        x = self.embed(params, tokens)
+        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        x = self._run_stack(params, x, positions)
+        x = tf.norm_apply(params.get("final_norm", {}), x, self.cfg)
+        labels = torch.cat([tokens[:, 1:],
+                            torch.full((b, 1), -1, dtype=tokens.dtype,
+                                       device=self.device)], dim=1)
+        return self._xent(params, x, labels)
+
+    def _xent(self, params: Dict, h: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+        """Cross-entropy in ``loss_chunk`` sequence chunks, so ``[B, S, V]``
+        logits never exist at once: each chunk's body runs under
+        ``checkpoint`` and backward recomputes its logits. The heads are
+        cast to the compute type once; labels of -1 are not counted."""
+        heads = [hp.to(self.cd) for hp in self._head_parts(params)]
+        chunk = min(self.loss_chunk, h.shape[1])
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        count = torch.zeros((), dtype=torch.int64, device=h.device)
+        for c0 in range(0, h.shape[1], chunk):
+            lc = labels[:, c0:c0 + chunk]
+            total = total + checkpoint(self._xent_chunk, h[:, c0:c0 + chunk],
+                                       lc, *heads, use_reentrant=False)
+            count = count + (lc >= 0).sum()
+        return total / count.clamp_min(1)
+
+    def _xent_chunk(self, hc: torch.Tensor, lc: torch.Tensor,
+                    *heads: torch.Tensor) -> torch.Tensor:
+        """The summed loss of one chunk: f32 logits, ``logsumexp -
+        logit[label]`` over the valid labels. (The reference also masks
+        the vocabulary's padding to the mesh; on one device there is
+        none: ``logits_size == vocab_size``.)"""
+        logits = torch.cat([(hc @ hp).float() for hp in heads], dim=-1)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, lc.clamp_min(0)[..., None].long())[..., 0]
+        return torch.where(lc >= 0, lse - ll, 0.0).sum()
 
     # ---------------------------------------------------------------- serve
 
@@ -231,9 +294,8 @@ class LMModel:
         for key, kind, n in self._group_keys():
             gp = params["groups"][key]
             kc, vc = cache["groups"][key]
-            for i in range(n):
-                x, _ = self._apply_block(kind, _layer(gp, i), x,
-                                         positions=positions,
+            for i, lp in enumerate(_layers(gp, n)):
+                x, _ = self._apply_block(kind, lp, x, positions=positions,
                                          cache=(kc[i], vc[i]), cache_pos=pos)
             new_cache["groups"][key] = (kc, vc)
         x = tf.norm_apply(params.get("final_norm", {}), x, self.cfg)

@@ -8,9 +8,10 @@ keys: the same i.i.d. draws, another generator). Rounding points are the referen
 are f32 masters cast to the activations' type at each product, norms and
 RoPE compute in f32 and cast back.
 
-Prefill attention is the flash kernel K7 through ``ops.flash_attention``
-(the reference's chunked jnp path and its Pallas kernel compute the same
-function; on the card the port runs the kernel). Decode attends one token
+Prefill and training attention is the flash kernel K7 through
+``ops.flash_attention``, with K8 as its backward (the reference's chunked
+jnp path and its Pallas kernels compute the same function; on the card the
+port runs the kernels). Decode attends one token
 against the KV cache in plain torch, as the reference does in jnp outside
 any kernel. Products with weights stay ``torch.matmul``.
 """
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels import ops
 from repro_torch.roadmap import (  # noqa: F401 (the backbone's items too)
-    ENCDEC, LM_TRAINING, MOE, RGLRU, SEQPAR, XLSTM, not_ported,
+    ENCDEC, LM_REMAT, MOE, RGLRU, SEQPAR, XLSTM, not_ported,
 )
 
 
@@ -152,8 +153,9 @@ def attn_apply(params: Dict, x: torch.Tensor, cfg: LMConfig, *,
                ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """Pre-norm attention with residual.
 
-    * prefill: ``cache=None`` -> full-sequence attention through K7
-      (``use_kernels``) or its plain version.
+    * prefill and training: ``cache=None`` -> full-sequence attention
+      through K7, with K8 as its backward (``use_kernels``), or the plain
+      version.
     * decode: ``cache=(k_cache, v_cache)`` ``[B, Smax, Hkv, Dh]``, ``x [B,
       1, D]``; the new K/V are written at ``cache_pos`` **in place** (the
       reference returns an updated copy; the port saves the copy of every

@@ -7,8 +7,10 @@ from __future__ import annotations
 
 #: the recsys recipes and graphs beyond DLRM (the default item)
 RECIPES = "The other recipes and graphs (queue 1 item 3)"
-#: queue 1 item 7: the LM families and paths after dense-LM serving
-LM_TRAINING = "LM training with K8"
+MULTI_DEVICE = "Multi-GPU (queue 1 item 4)"
+FRONT_DOORS = "Front doors, benchmarks and CI (queue 1 item 6)"
+#: queue 1 item 7: the LM families and paths after dense-LM training
+LM_REMAT = "LM remat policies dots and group"
 RGLRU = "rglru + local_attn (recurrentgemma)"
 MOE = "MoE (granite)"
 XLSTM = "xLSTM"

@@ -2,8 +2,14 @@
 stream: the PDB format is shared both ways, and ``HPS.lookup`` (sequential
 and ``pipelined``) and ``lookup_stream`` give bit-identical pooled
 embeddings in f32, f16 and int8, with an L1 small enough to force eviction
-and overflow. Also: a scatter issued while a plan is in flight leaves that
-plan's result unchanged (clone-on-write snapshots)."""
+and overflow. One exception, by design in both packages: at
+``lookup_stream``'s adaptive depth the lossy payloads' values follow
+thread timing (an overflowing row is served as the exact f32 row, an L1
+row rounded, and which rows overflow follows the probe order), so there
+f16 and int8 are held within their rounding bound of the f32 PDB rows;
+f32 stays bit-exact at every depth, and all three payloads are bit-exact
+at ``depth=1``. Also: a scatter issued while a plan is in flight leaves
+that plan's result unchanged (clone-on-write snapshots)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -75,6 +81,31 @@ def test_port_reads_jax_pdb_and_back(pdb_root, tmp_path):
     np.testing.assert_array_equal(back.fetch("p", "x", np.arange(10)), rows)
 
 
+def _rounding_bound(pdb_root, cat, payload_dtype):
+    """The exact pooled rows of one-hot ``cat [B, T, 1]`` from the PDB (f32;
+    a -1 id pools to zero) and, elementwise, how far an L1 read of the
+    ``payload_dtype`` payload may lie from them: half an f16 ulp of each
+    value, or half an int8 step (``max|row| / 127 / 2``) of each row; 0 for
+    f32."""
+    pdb = JPDB(pdb_root)
+    exact = []
+    for ti, t in enumerate(_tables(JTable)):
+        pdb.open_table("m", t.name)
+        ids = cat[:, ti, 0]
+        rows = pdb.fetch("m", t.name, np.maximum(ids, 0)).astype(np.float32)
+        exact.append(np.where(ids[:, None] >= 0, rows, 0.0))
+    exact = np.stack(exact, axis=1)
+    if payload_dtype == "f16":
+        half = np.abs(exact).astype(np.float16)
+        bound = np.spacing(half).astype(np.float32) / 2
+    elif payload_dtype == "int8":
+        step = np.abs(exact).max(axis=-1, keepdims=True) / 127.0
+        bound = np.broadcast_to(step / 2 * (1 + 1e-5), exact.shape)
+    else:
+        bound = np.zeros_like(exact)
+    return exact, bound
+
+
 def _pair(pdb_root, payload_dtype, capacity, hotness):
     jpdb, pdb = JPDB(pdb_root), PersistentDB(pdb_root)
     for t in _tables(JTable):
@@ -106,17 +137,25 @@ def test_lookup_matches_jax_bit_exact(pdb_root, payload_dtype, mode):
             want = [np.asarray(j.lookup(c, pipelined=pipe)) for c in cats]
             got = [p.lookup(c, pipelined=pipe).numpy() for c in cats]
         assert len(got) == len(want) == len(cats)
-        for g, w in zip(got, want):
+        for c, g, w in zip(cats, got, want):
             assert g.dtype == np.float32 and g.shape == w.shape
-            np.testing.assert_array_equal(g, w)
+            if mode != "stream" or payload_dtype == "f32":
+                np.testing.assert_array_equal(g, w)
+                continue
+            # lossy payloads at the adaptive depth: both packages within
+            # the payload's rounding bound of the f32 rows
+            exact, bound = _rounding_bound(pdb_root, c, payload_dtype)
+            assert (np.abs(g - exact) <= bound).all()
+            assert (np.abs(np.asarray(w) - exact) <= bound).all()
         if mode == "stream":
             # At the adaptive depth (>= 2) both packages submit the probes
             # of consecutive queries to one two-worker pool, so two probes
             # of the same table may take its cache lock in either order:
             # evictions, and with them the hit and fetch counts, follow
-            # thread timing (the values cannot, every row comes from the
-            # one PDB). One query in flight orders the probes on both
-            # sides, so the stats are compared there, on fresh caches.
+            # thread timing, and so do the values of a lossy payload. One
+            # query in flight orders the probes on both sides, so values
+            # of every payload and the stats are compared bit-exact there,
+            # on fresh caches.
             j.close()
             p.close()
             j, p = _pair(pdb_root, payload_dtype, capacity=16, hotness=1)

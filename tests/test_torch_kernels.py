@@ -13,7 +13,14 @@ Pallas lookup's VJP sums each row's few contributions in another order
 plain version on the card; they skip without one. K7 (flash attention)
 is held to the Pallas kernel on the CPU in ``tests/test_torch_lm.py``; its
 ``cuda`` cases are here: bf16 within 2e-2 (``o``) and 1e-3 (``lse``),
-f32 within 1e-4.
+f32 within 1e-4. K8 (its backward) is held to the Pallas kernel on the CPU
+in ``tests/test_torch_lm_train.py``; its ``cuda`` cases are here, against
+``flash_attention_bwd_ref`` on K7's own ``o`` and ``lse``: bf16 by
+``ref.BF16_GRAD_RULE`` (within 1e-2 of the largest |gradient|, the whole
+gradient within 1e-2 relative L2, each row within 2e-2 of its own norm;
+the kernel rounds ``p`` and ``ds`` to bf16 before its products, the
+plain version does not), f32 within 1e-4; two launches give the same
+bits.
 """
 import pytest
 
@@ -29,11 +36,13 @@ from repro_torch.kernels.dot_interaction import (
     interaction_fwd_plain)
 from repro_torch.kernels.embedding_lookup import (
     lookup_bwd, lookup_bwd_plain, lookup_fwd, lookup_fwd_plain)
-from repro_torch.kernels.flash_attention import flash_fwd
+from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
 from repro_torch.kernels.hps_gather import (
     dequant_gather_rows, dequant_gather_rows_plain, gather_rows,
     gather_rows_plain)
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (BF16_GRAD_RULE,
+                                     flash_attention_bwd_ref,
+                                     flash_attention_ref, grad_row_error)
 from repro_torch.core.hps.payload_store import quantize_rows
 
 
@@ -440,3 +449,35 @@ def test_cuda_flash_fwd(cuda, case):
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert (o.float() - po.float()).abs().max().item() <= tol_o
     assert (lse - plse).abs().max().item() <= tol_l
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["a", "b", "c"])
+def test_cuda_flash_bwd(cuda, case):
+    """(a) minitron-4b's training shape, bf16 causal GQA g=3; (b)
+    recurrentgemma's local attention (Hq 16, Hkv 1, D 256, window 2048) at
+    an S that no tile divides; (c) an odd length in f32, GQA g=2."""
+    b, hq, hkv, s, d, window, dtype = {
+        "a": (1, 24, 8, 4096, 128, None, torch.bfloat16),
+        "b": (1, 16, 1, 2500, 256, 2048, torch.bfloat16),
+        "c": (1, 8, 4, 1000, 64, None, torch.float32)}[case]
+    g = torch.Generator().manual_seed(8)
+    q, k, v, do = (torch.randn((b * h, s, d), generator=g).to(dtype).to(cuda)
+                   for h in (hq, hkv, hkv, hq))
+    o, lse = flash_fwd(q, k, v, causal=True, window=window)
+    got = flash_bwd(q, k, v, o, lse, do, causal=True, window=window)
+    again = flash_bwd(q, k, v, o, lse, do, causal=True, window=window)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+                                   window=window)
+    torch.cuda.synchronize()
+    for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert torch.equal(x, y), f"{name}: two launches differ"
+        if dtype == torch.float32:
+            err = (x - w).abs().max().item()
+            assert err <= 1e-4, f"{name}: max abs err {err} above 1e-4"
+            continue
+        peak, whole, worst = grad_row_error(x, w)
+        assert peak <= BF16_GRAD_RULE["peak"], f"{name}: peak {peak}"
+        assert whole <= BF16_GRAD_RULE["whole"], f"{name}: rel L2 {whole}"
+        assert worst <= 1.0, f"{name}: worst row at {worst} of its limit"

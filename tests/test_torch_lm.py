@@ -43,7 +43,8 @@ from repro_torch import convert
 from repro_torch.configs.registry import LM_ARCHS, reduce_for_smoke
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import flash_fwd
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref)
 from repro_torch.models.lm import transformer as tf
 from repro_torch.models.lm.backbone import LMModel
 from repro_torch.tree import flatten
@@ -185,28 +186,39 @@ def test_flash_attention_cpu_is_differentiable():
 
 def test_flash_attention_kernel_path_backward_raises(monkeypatch):
     """On the kernel path the output comes from K7 through an
-    ``autograd.Function`` whose backward raises until K8 is ported. The
-    launch is swapped for the plain version (under ``no_grad``, as opaque
-    to autograd as the kernel's output buffer) so the path runs here."""
+    ``autograd.Function`` whose backward is K8; it raises nothing now, and
+    its gradients are autograd's of the plain version. Both launches are
+    swapped for their plain versions (under ``no_grad``, as opaque to
+    autograd as the kernels' output buffers) so the path runs here."""
     calls = []
 
     def fake_flash_fwd(q, k, v, *, causal, window):
-        calls.append(q.shape)
+        calls.append(("fwd", q.shape))
         with torch.no_grad():
             return flash_attention_ref(q, k, v, causal=causal, window=window)
 
+    def fake_flash_bwd(q, k, v, o, lse, do, *, causal, window):
+        calls.append(("bwd", do.shape))
+        with torch.no_grad():
+            return flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+
     monkeypatch.setattr(ops, "_use_kernel", lambda *ts: True)
     monkeypatch.setattr(ops, "flash_fwd", fake_flash_fwd)
+    monkeypatch.setattr(ops, "flash_bwd", fake_flash_bwd)
     g = torch.Generator().manual_seed(1)
     q = torch.randn((2, 9, 6, 16), generator=g, requires_grad=True)
     k = torch.randn((2, 9, 2, 16), generator=g, requires_grad=True)
     v = torch.randn((2, 9, 2, 16), generator=g, requires_grad=True)
+    do = torch.randn((2, 9, 6, 16), generator=g)
     o = ops.flash_attention(q, k, v, True, None)
-    assert calls == [(12, 9, 16)]
-    torch.testing.assert_close(o, ops.flash_attention_plain(q, k, v),
-                               rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="K8"):
-        o.sum().backward()
+    want = ops.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(o, want, rtol=0, atol=0)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    assert calls == [("fwd", (12, 9, 16)), ("bwd", (12, 9, 16))]
+    for name, a, b in zip("qkv", got, torch.autograd.grad(want, (q, k, v),
+                                                          do)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5, msg=name)
 
 
 # ---------------------------------------------------------------------------
@@ -390,11 +402,7 @@ def test_other_families_raise(arch, item):
 
 def test_left_out_paths_raise():
     cfg = reduce_for_smoke(LM_ARCHS["olmo-1b"])
-    model = LMModel(cfg, device="cpu")
-    params = model.init()
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="K8"):
-        model.train_loss(params, {"tokens": tokens})
+    params = LMModel(cfg, device="cpu").init()
     x = torch.zeros((1, 4, cfg.d_model))
     pos = torch.zeros((1, 4), dtype=torch.int64)
     blk = params["groups"]["0_attn"]
