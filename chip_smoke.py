@@ -328,6 +328,9 @@ def kernel_phase(args, dev):
             k1.lookup_bwd_plain((v, D), rows3, dp3)
         check(torch.equal(got, k1.lookup_bwd((v, D), rows3, dp3)),
               f"lookup_bwd {key}: two launches differ")
+        check(torch.equal(got, k1.lookup_bwd_chunked_plain((v, D), rows3,
+                                                           dp3)),
+              f"lookup_bwd {key}: not bit-exact to its chunked plain version")
         # a Zipf head id sums thousands of rows: the f32 sum-order bound
         # is relative to the sum of the absolute contributions
         scale = k1.lookup_bwd_plain((v, D), rows3, dp3.abs())
@@ -348,7 +351,8 @@ def kernel_phase(args, dev):
                lambda: k1.lookup_bwd_plain((v, D), rows3, dp3),
                lambda: torch.zeros((v, D), device=dev).index_add_(
                    0, flat, src),
-               n3 * D * 4 + n3 * 4 + v * D * 4, int(keep.sum()) * D, reps=4)
+               int(keep.sum()) * D * 4 + n3 * 4 + v * D * 4,
+               int(keep.sum()) * D, reps=4)
         del got, want
 
     # K4: the interaction's adjoint at the training shape (f32 x, as the
@@ -396,6 +400,31 @@ def kernel_phase(args, dev):
     return out
 
 
+def lm_attn_shape(args) -> tuple:
+    """``(Hq, Hkv, D)`` of the attention of ``args.lm_arch``."""
+    from repro_torch.configs.registry import get_lm_config
+    cfg = get_lm_config(args.lm_arch)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+
+def randn_heads(g, dev, heads, s: int, d: int, dtype) -> list:
+    """One random ``[n, s, d]`` tensor of ``dtype`` on ``dev`` for each
+    ``n`` of ``heads``, drawn in that order from CPU generator ``g``."""
+    import torch
+    return [torch.randn((n, s, d), generator=g).to(dtype).to(dev)
+            for n in heads]
+
+
+def flash_bwd_inputs(g, dev, bh: int, bkv: int, s: int, d: int, dtype,
+                     window=None) -> tuple:
+    """K8's inputs: random ``q, k, v, do`` and K7's own causal ``o`` and
+    ``lse`` for them -> ``(q, k, v, o, lse, do)``."""
+    from repro_torch.kernels import flash_attention as k78
+    q, k, v, do = randn_heads(g, dev, (bh, bkv, bkv, bh), s, d, dtype)
+    o, lse = k78.flash_fwd(q, k, v, causal=True, window=window)
+    return q, k, v, o, lse, do
+
+
 def attention_kernel(args, record, g, dev):
     """K7 against its plain version at (a) minitron-4b's prefill shape
     (timed), (b) recurrentgemma's local attention and (c) an odd f32
@@ -406,8 +435,7 @@ def attention_kernel(args, record, g, dev):
     from repro_torch.kernels.ref import flash_attention_ref
 
     def qkv(bh, bkv, s, d, dtype):
-        return [torch.randn((n, s, d), generator=g).to(dtype).to(dev)
-                for n in (bh, bkv, bkv)]
+        return randn_heads(g, dev, (bh, bkv, bkv), s, d, dtype)
 
     def held(case, q, k, v, dtype, window=None):
         o, lse = k7.flash_fwd(q, k, v, causal=True, window=window)
@@ -429,7 +457,7 @@ def attention_kernel(args, record, g, dev):
     # (c) an odd length in f32 with GQA g = 2
     held("(c)", *qkv(8, 4, args.attn_odd_seq, 64, torch.float32), "f32")
     # (a) minitron-4b prefill: B 2, Hq 24, Hkv 8, D 128, S 4096, causal
-    b, hq, hkv, d = 2, 24, 8, 128
+    b, (hq, hkv, d) = args.lm_batch, lm_attn_shape(args)
     q, k, v = qkv(b * hq, b * hkv, s, d, torch.bfloat16)
     o, po = held("(a)", q, k, v, "bf16")
     q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, k, v))
@@ -459,10 +487,7 @@ def attention_bwd_kernel(args, record, g, dev):
                                          grad_row_error)
 
     def inputs(bh, bkv, s, d, dtype, window=None):
-        q, k, v, do = (torch.randn((n, s, d), generator=g).to(dtype).to(dev)
-                       for n in (bh, bkv, bkv, bh))
-        o, lse = k78.flash_fwd(q, k, v, causal=True, window=window)
-        return q, k, v, o, lse, do
+        return flash_bwd_inputs(g, dev, bh, bkv, s, d, dtype, window)
 
     def held(case, ins, dtype, window=None):
         got = k78.flash_bwd(*ins, causal=True, window=window)
@@ -504,7 +529,7 @@ def attention_bwd_kernel(args, record, g, dev):
     # (c) an odd length in f32 with GQA g = 2
     held("(c)", inputs(8, 4, args.attn_odd_seq, 64, torch.float32), "f32")
     # (a) minitron-4b training: B 1, Hq 24, Hkv 8, D 128, S 4096, causal
-    hq, hkv, d, s = 24, 8, 128, args.attn_seq
+    (hq, hkv, d), s = lm_attn_shape(args), args.attn_seq
     ins = inputs(hq, hkv, s, d, torch.bfloat16)
     got, want = held("(a)", ins, "bf16")
     q, k, v, o, lse, do = ins
@@ -549,7 +574,7 @@ def declare(args, cfg):
 
 #: device kernels by kind, by a piece of their name (first match wins)
 KINDS = (("K7", ("flash_fwd",)), ("K8", ("flash_bwd",)),
-         ("K1", ("lookup_fwd_kernel",)), ("K3", ("lookup_bwd_kernel",)),
+         ("K1", ("lookup_fwd_kernel",)), ("K3", ("lookup_bwd_",)),
          ("K2", ("interaction_fwd_kernel",)),
          ("K4", ("interaction_bwd_kernel",)), ("K5/K6", ("gather_rows",)),
          ("matmul", ("gemm", "xmma", "cutlass", "nvjet")), ("fill", ("Fill",)),
@@ -1049,49 +1074,70 @@ def lm_grad_check(args, dev, cfg):
     del grads, pgrads, params
 
 
-def lm_k3_check(model, params, tokens) -> str:
-    """K3 against its plain version at the LM's shapes: each token table's
-    adjoint for the batch's rows (masked to -1 where the other hybrid table
-    holds the token), twice (the bits must repeat), within the f32
-    sum-order bound of the summed magnitudes; timed on the cold table."""
+def lm_k3_inputs(model, tokens) -> list:
+    """K3's inputs at the LM's shapes: for the hot and the cold token table
+    of hybrid ``model``, ``(table shape, rows [N, 1], dpooled [N, d])``,
+    the batch's rows masked to -1 where the other table holds the token,
+    and one random ``dpooled`` shared by both."""
     import torch
-    from repro_torch.kernels import embedding_lookup as k1
     ids = tokens.reshape(-1, 1).to(torch.int32)
     hot = ids < model.hot_rows
     g = torch.Generator(device=tokens.device).manual_seed(3)
-    dp = torch.randn((ids.shape[0], model.cfg.d_model), generator=g,
-                     device=tokens.device)
+    d = model.cfg.d_model
+    dp = torch.randn((ids.shape[0], d), generator=g, device=tokens.device)
+    return [((model.hot_rows, d), torch.where(hot, ids, -1), dp),
+            ((model.cold_rows, d), torch.where(hot, -1, ids - model.hot_rows),
+             dp)]
+
+
+def lm_k3_check(model, tokens) -> str:
+    """K3 against its plain versions at the LM's shapes
+    (:func:`lm_k3_inputs`), twice (the bits must repeat), bit-exact to the
+    chunked plain version (the kernel's order of adds) and within the f32
+    sum-order bound of the summed magnitudes of the one-pass plain version;
+    timed on both tables, the kernel and ``zeros`` + ``index_add_`` also
+    as device time (CUDA graph replay)."""
+    import torch
+    from repro_torch.kernels import embedding_lookup as k1
     parts = []
-    for table, rows in ((params["embed_hot"], torch.where(hot, ids, -1)),
-                        (params["embed_cold"],
-                         torch.where(hot, -1, ids - model.hot_rows))):
-        shape = tuple(table.shape)
+    for shape, rows, dp in lm_k3_inputs(model, tokens):
         got = k1.lookup_bwd(shape, rows, dp)
         check(torch.equal(got, k1.lookup_bwd(shape, rows, dp)),
               f"K3 at {shape}: two launches differ")
+        check(torch.equal(got, k1.lookup_bwd_chunked_plain(shape, rows, dp)),
+              f"K3 at {shape}: not bit-exact to its chunked plain version")
         want = k1.lookup_bwd_plain(shape, rows, dp)
         scale = k1.lookup_bwd_plain(shape, rows, dp.abs())
         err = (got - want).abs().max().item()
         check(bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all()),
               f"K3 at {shape}: max abs err {err} above 1e-5 of the summed "
               "magnitudes")
+        del got, want, scale
         keep = rows.view(-1) >= 0
         flat, src = rows.view(-1)[keep].long(), dp[keep]
+
+        def lib():
+            return torch.zeros(shape, device=dp.device).index_add_(0, flat,
+                                                                   src)
+
         ms = time_ms(lambda: k1.lookup_bwd(shape, rows, dp), 10)
+        dms = graph_ms(lambda: k1.lookup_bwd(shape, rows, dp), 5)
         pms = time_ms(lambda: k1.lookup_bwd_plain(shape, rows, dp), 10)
-        lms = time_ms(lambda: torch.zeros(shape, device=dp.device).index_add_(
-            0, flat, src), 10)
-        bms, by = bound_ms(rows.numel() * 4 + dp.numel() * 4
-                           + shape[0] * shape[1] * 4,
-                           int(keep.sum()) * shape[1])
+        lms, lgms = time_ms(lib, 10), graph_ms(lib, 5)
+        # the ids, the dpooled rows of valid ids (a -1 row is never read)
+        # and the dense output
+        nkeep = int(keep.sum())
+        bms, by = bound_ms(rows.numel() * 4 + nkeep * shape[1] * 4
+                           + shape[0] * shape[1] * 4, nkeep * shape[1])
         runs = torch.unique(flat, return_counts=True)[1]
         masked = 100 * float((~keep).float().mean())
         parts.append(f"[{shape[0]},{shape[1]}] ({masked:.1f}% of rows -1, "
                      f"{runs.numel()} distinct ids, longest run "
-                     f"{int(runs.max())}): {ms:.4f} ms (bound {bms:.4f} ms "
-                     f"by {by}, plain {pms:.4f} ms, library {lms:.4f} ms "
-                     f"zeros + index_add_), max abs err {err:.3g}")
-        del got, want, scale
+                     f"{int(runs.max())}): device {dms:.4f} ms (CUDA graph "
+                     f"replay; wrapper {ms:.4f} ms), bound {bms:.4f} ms by "
+                     f"{by}, plain {pms:.4f} ms, library zeros + index_add_ "
+                     f"device {lgms:.4f} ms (wrapper {lms:.4f} ms); max abs "
+                     f"err {err:.3g}, bit-exact to the chunked plain version")
     return "K3 at " + "; ".join(parts)
 
 
@@ -1117,7 +1163,7 @@ def lm_train_phase(args, dev, cfg):
     model = LMModel(cfg, device=dev, remat="none")
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     tokens = lm_tokens(args, cfg, dev, b, s)
-    k3_line = lm_k3_check(model, params, tokens)
+    print(lm_k3_check(model, tokens))
     want = {"lookup_fwd": 2, "lookup_bwd": 2, "flash_fwd": cfg.num_layers,
             "flash_bwd": 2 * cfg.num_layers}
     torch.cuda.synchronize()
@@ -1147,8 +1193,7 @@ def lm_train_phase(args, dev, cfg):
           f"p50 {p50:.2f} ms (min {min(timed):.2f}, max {max(timed):.2f}), "
           f"{b * s / p50 * 1e3:.0f} tokens/s; loss "
           + " -> ".join(f"{x:.4f}" for x in losses)
-          + f"; peak memory {peak:.2f} GiB; launches per step {want}; "
-          f"{k3_line}")
+          + f"; peak memory {peak:.2f} GiB; launches per step {want}")
     profile("lm train step", lambda: lm_sgd_step_(model, params, tokens,
                                                   args.lm_train_lr))
     del params

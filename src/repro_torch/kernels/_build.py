@@ -40,16 +40,16 @@ LIB_NAME = "librepro_kernels.so"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "repro_lookup_fwd": [_P, _I, _P, _P, _L, _I, _I, _P],
-    "repro_lookup_bwd": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
+    "repro_lookup_bwd": [_P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
     "repro_gather_rows": [_P, _I, _P, _P, _L, _I, _P],
     "repro_dequant_gather_rows": [_P, _I, _P, _P, _P, _L, _I, _P],
     "repro_interaction_fwd": [_P, _P, _L, _I, _I, _I, _P],
     "repro_interaction_bwd": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _P],
-    "repro_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I,
-                           _I, _I, _P],
+    "repro_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
+                           _I, _I, _I, _I, _P],
     "repro_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
-                            _I, _I, _I, _P],
+                            _I, _I, _I, _I, _P],
 }
 
 #: dtype codes the C entry points switch on

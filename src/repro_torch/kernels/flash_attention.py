@@ -25,6 +25,8 @@ NAME = "flash_fwd"
 NAME_BWD = "flash_bwd"
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+#: the row padding of K8's lse and D operands: one query tile
+LSE_TILE = 64
 
 
 def _check_shapes(q, k, v, window) -> None:
@@ -85,8 +87,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [BKV, S, D]`` and the forward's ``lse [BH, S]`` f32 -> (``dq`` in
     ``q``'s type, ``dk``, ``dv`` in ``k``'s), ``dk``/``dv`` summed over each
     GQA group of query heads. Two launches: the dq kernel and the dk/dv
-    kernel. ``D = rowsum(do * o)`` is a torch reduction here, as the JAX
-    package computes it outside its kernels."""
+    kernel (on ``wgmma`` with a TMA copy ring for bf16 at D = 128,
+    ``mma.sync`` for bf16 at the other D, FMAs for f32). ``D = rowsum(do *
+    o)``, which the JAX package computes outside its kernels, is written by
+    a small kernel the dq launch runs first."""
     _check_shapes(q, k, v, window)
     _build.require(o.shape == q.shape and do.shape == q.shape,
                    f"o {tuple(o.shape)} and do {tuple(do.shape)} must be "
@@ -100,15 +104,21 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require_cuda("lse", lse, (torch.float32,), 2)
     _build.require(lse.device == q.device,
                    f"lse on {lse.device}, q on {q.device}")
+    _build.require(lse.data_ptr() % 16 == 0, "lse is not 16-byte aligned")
     bh, s, d = q.shape
-    dcap = (do.float() * o.float()).sum(-1)
+    # lse and D = rowsum(do * o) padded to whole 64-query tiles, so that the
+    # kernels copy a tile's rows of them as one aligned block; the dq launch
+    # writes D (and 0 in the padding), the dk/dv launch reads it
+    ls = -(-s // LSE_TILE) * LSE_TILE
+    lse_p = lse if ls == s else torch.nn.functional.pad(lse, (0, ls - s))
+    dcap = torch.empty((bh, ls), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), dcap.data_ptr())
-    tail = (_build.DTYPE_CODES[q.dtype], bh, k.shape[0], s, d, int(causal),
-            0 if window is None else int(window))
-    _build.launch(NAME_BWD, "repro_flash_bwd_dq", q.device, *common,
-                  dq.data_ptr(), *tail)
-    _build.launch(NAME_BWD, "repro_flash_bwd_dkv", q.device, *common,
-                  dk.data_ptr(), dv.data_ptr(), *tail)
+    tail = (_build.DTYPE_CODES[q.dtype], bh, k.shape[0], s, d, ls,
+            int(causal), 0 if window is None else int(window))
+    _build.launch(NAME_BWD, "repro_flash_bwd_dq", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                  lse_p.data_ptr(), dcap.data_ptr(), dq.data_ptr(), *tail)
+    _build.launch(NAME_BWD, "repro_flash_bwd_dkv", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), do.data_ptr(), lse_p.data_ptr(),
+                  dcap.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail)
     return dq, dk, dv

@@ -56,6 +56,64 @@ def embedding_grad_ref(table_shape, rows: torch.Tensor,
     return out[:v]
 
 
+#: sorted positions in one chunk of K3's kernel (one id a lane of a warp)
+LOOKUP_BWD_CHUNK = 16
+
+
+def embedding_grad_chunked_ref(table_shape, rows: torch.Tensor,
+                               dpooled: torch.Tensor) -> torch.Tensor:
+    """:func:`embedding_grad_ref` with K3's order of the f32 adds, so that
+    the kernel matches it bit for bit. The flat ids are sorted (stable) and
+    cut into chunks of :data:`LOOKUP_BWD_CHUNK` positions; inside a chunk
+    each segment of equal ids is summed in position order from zero; a run
+    of equal ids that spans several chunks is then the sum of its segments
+    in chunk order, starting from the first segment."""
+    v, d = table_shape
+    h = rows.shape[1]
+    dt = acc_dtype(dpooled.dtype)
+    dev = dpooled.device
+    chunk = LOOKUP_BWD_CHUNK
+    out = torch.zeros((v, d), dtype=dt, device=dev)
+    ids, order = torch.sort(rows.reshape(-1), stable=True)
+    n = ids.numel()
+    if n == 0:
+        return out
+    nc = -(-n // chunk)
+    pad = nc * chunk - n
+    # padded positions get an id no real one equals, and add nothing
+    ids = torch.cat([ids.long(), torch.full((pad,), -2 ** 40,
+                                            dtype=torch.long, device=dev)])
+    x = torch.cat([dpooled.to(dt)[order.long() // h],
+                   torch.zeros((pad, d), dtype=dt, device=dev)])
+    pos = torch.arange(nc * chunk, device=dev)
+    start = (pos % chunk == 0) | (ids != ids.roll(1))
+    end = (pos % chunk == chunk - 1) | (ids != ids.roll(-1))
+    # running sums along each chunk, restarted at every segment's start
+    xs, st = x.view(nc, chunk, d), start.view(nc, chunk)
+    seg = torch.empty_like(xs)
+    acc = torch.zeros((nc, d), dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    for i in range(chunk):
+        acc = torch.where(st[:, i, None], zero, acc) + xs[:, i]
+        seg[:, i] = acc
+    keep = end & (ids >= 0) & (ids < v)
+    sid, sval = ids[keep], seg.view(-1, d)[keep]
+    if sid.numel() == 0:
+        return out
+    # the segments of one run are consecutive: add them in chunk order
+    first = torch.ones_like(sid, dtype=torch.bool)
+    first[1:] = sid[1:] != sid[:-1]
+    run = torch.cumsum(first.long(), 0) - 1
+    rank = torch.arange(sid.numel(), device=dev) - \
+        first.nonzero().squeeze(1)[run]
+    total = sval[first].clone()
+    for r in range(1, int(rank.max()) + 1):
+        m = rank == r
+        total[run[m]] = total[run[m]] + sval[m]
+    out[sid[first]] = total
+    return out
+
+
 def cache_gather_ref(payload: torch.Tensor,
                      slots: torch.Tensor) -> torch.Tensor:
     """``payload [C, D]``, ``slots [N]`` int (-1 = hole) -> ``[N, D]`` f32."""

@@ -35,12 +35,14 @@ from repro_torch.kernels.dot_interaction import (
     interaction_bwd, interaction_bwd_plain, interaction_fwd,
     interaction_fwd_plain)
 from repro_torch.kernels.embedding_lookup import (
-    lookup_bwd, lookup_bwd_plain, lookup_fwd, lookup_fwd_plain)
-from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
+    lookup_bwd, lookup_bwd_chunked_plain, lookup_bwd_plain, lookup_fwd,
+    lookup_fwd_plain)
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_bwd,
+                                                 flash_fwd)
 from repro_torch.kernels.hps_gather import (
     dequant_gather_rows, dequant_gather_rows_plain, gather_rows,
     gather_rows_plain)
-from repro_torch.kernels.ref import (BF16_GRAD_RULE,
+from repro_torch.kernels.ref import (BF16_GRAD_RULE, LOOKUP_BWD_CHUNK,
                                      flash_attention_bwd_ref,
                                      flash_attention_ref, grad_row_error)
 from repro_torch.core.hps.payload_store import quantize_rows
@@ -182,6 +184,73 @@ def test_lookup_bwd_pads_and_duplicates():
     want[0] = dp[2]
     want[5] = dp[2]
     assert torch.equal(got, want)
+
+
+def _chunk_case(case, rng):
+    """(V, D, rows) for the chunked K3 order: runs across many chunks, runs
+    on chunk edges, all pads, D not a multiple of 32, D above 256."""
+    if case == "long_run":             # a Zipf head's 562-row run
+        rows = _rows(rng, 700, 1, 64)
+        rows[rng.permutation(700)[:562]] = 7
+        return 64, 40, rows
+    if case == "chunk_edges":          # runs that start and end on edges
+        ids = np.repeat(np.arange(8), [32, 64, 31, 1, 32, 33, 31, 32])
+        return 16, 8, ids[rng.permutation(ids.size)].astype(np.int32)[:, None]
+    if case == "all_pads":
+        return 30, 16, np.full((90, 2), -1, np.int32)
+    if case == "odd_d":                # multi-hot, pads, duplicates
+        rows = _rows(rng, 150, 3, 20)
+        rows[:40, :] = 3
+        return 20, 45, rows
+    assert case == "wide_d"            # two column tiles, the second ragged
+    rows = _rows(rng, 100, 2, 12)
+    rows[:70, 0] = 5
+    return 12, 300, rows
+
+
+@pytest.mark.parametrize("case", ["long_run", "chunk_edges", "all_pads",
+                                  "odd_d", "wide_d"])
+def test_lookup_bwd_chunked_plain_matches_pallas_vjp(J, case):
+    """K3's summation order (``lookup_bwd_chunked_plain``, which the kernel
+    matches bit for bit) against the Pallas lookup's VJP and the one-pass
+    plain version: a run sums up to hundreds of rows in another order, so
+    the f32 bound is 1e-5 of the summed magnitudes."""
+    rng = np.random.default_rng(len(case))
+    v, d, rows = _chunk_case(case, rng)
+    b = rows.shape[0]
+    dpooled = rng.standard_normal((b, d)).astype(np.float32)
+    table = np.zeros((v, d), np.float32)
+    _, vjp = J.jax.vjp(lambda t: J.ops.fused_embedding_lookup(
+        t, J.jnp.asarray(rows)), J.jnp.asarray(table))
+    want = np.asarray(vjp(J.jnp.asarray(dpooled))[0])
+    r, dp = torch.from_numpy(rows), torch.from_numpy(dpooled)
+    got = lookup_bwd_chunked_plain((v, d), r, dp)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (v, d)
+    scale = lookup_bwd_plain((v, d), r, dp.abs()).numpy()
+    bound = 1e-5 * scale + 1e-6
+    assert (np.abs(got.numpy() - want) <= bound).all()
+    assert (np.abs(got.numpy() - lookup_bwd_plain((v, d), r, dp).numpy())
+            <= bound).all()
+    if case == "all_pads":
+        assert not got.any()
+
+
+def test_lookup_bwd_chunked_plain_order():
+    """The chunked order itself. Sorted, id 0 takes positions 0-1 and id
+    2's 40-row run positions 2-41; each chunk sums its part of the run in
+    order from zero, and the parts are added in chunk order. With 2**24
+    first and ones after, a chunk's ones after 2**24 are lost in f32 while
+    the later chunks' ones are not, so the result is 2**24 plus the rows
+    past the first chunk, where one running sum stays at 2**24."""
+    x = torch.ones(42)
+    x[0], x[40], x[41] = 2.0 ** 24, 3.0, 4.0
+    dp = x[:, None].repeat(1, 2)
+    rows = torch.tensor([2] * 40 + [0, 0], dtype=torch.int32)[:, None]
+    got = lookup_bwd_chunked_plain((3, 2), rows, dp)
+    later = 40 - (LOOKUP_BWD_CHUNK - 2)
+    assert torch.equal(got[2], torch.full((2,), 2.0 ** 24 + later))
+    assert torch.equal(got[0], torch.full((2,), 7.0))
+    assert not got[1].any()
 
 
 def test_gradcheck_fused_lookup_f64():
@@ -395,23 +464,30 @@ def test_cuda_gathers(cuda, payload_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("v,h,hot_rows", [(3194, 1, 64), (100_000, 1, 64),
-                                          (1000, 3, 64), (50, 1, 3000)])
-def test_cuda_lookup_bwd(cuda, v, h, hot_rows):
-    """Against the plain version (an atomic index_add_ on the card). A row
-    sums up to thousands of contributions, so the f32 sum-order bound is
-    1e-5 of the summed magnitudes; two launches give the same bits."""
+@pytest.mark.parametrize("v,h,hot_rows,d", [
+    (3194, 1, 64, 128), (100_000, 1, 64, 128), (1000, 3, 64, 128),
+    (50, 1, 3000, 128),
+    (12800, 1, 562, 3072),      # the LM's hot token table, its head's run
+])
+def test_cuda_lookup_bwd(cuda, v, h, hot_rows, d):
+    """Bit-exact to the chunked plain version (the kernel's order of adds),
+    and against the one-pass plain version (an atomic index_add_ on the
+    card): a row sums up to thousands of contributions, so the f32
+    sum-order bound is 1e-5 of the summed magnitudes; two launches give the
+    same bits."""
     g = torch.Generator().manual_seed(v + h)
     rows = torch.randint(-1, v, (4096, h), generator=g,
                          dtype=torch.int32).to(cuda)
     rows[:hot_rows] = 7                             # a hot row's long run
-    dp = torch.randn((4096, 128), generator=g).to(cuda)
-    got = lookup_bwd((v, 128), rows, dp)
-    again = lookup_bwd((v, 128), rows, dp)
-    want = lookup_bwd_plain((v, 128), rows, dp)
-    scale = lookup_bwd_plain((v, 128), rows, dp.abs())
+    dp = torch.randn((4096, d), generator=g).to(cuda)
+    got = lookup_bwd((v, d), rows, dp)
+    again = lookup_bwd((v, d), rows, dp)
+    exact = lookup_bwd_chunked_plain((v, d), rows, dp)
+    want = lookup_bwd_plain((v, d), rows, dp)
+    scale = lookup_bwd_plain((v, d), rows, dp.abs())
     torch.cuda.synchronize()
     assert torch.equal(got, again)
+    assert torch.equal(got, exact)
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
 
 
@@ -452,22 +528,50 @@ def test_cuda_flash_fwd(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["a", "b", "c"])
+def test_cuda_flash_bwd_rejects_misaligned_lse(cuda):
+    """At S a multiple of 64 K8 bulk-copies the caller's own ``lse``, which
+    needs a 16-byte-aligned address: a contiguous view that is not raises
+    before any launch."""
+    g = torch.Generator().manual_seed(8)
+    q, k, v, do = (torch.randn((n, 128, 128), generator=g)
+                   .to(torch.bfloat16).to(cuda) for n in (3, 1, 1, 3))
+    o, lse = flash_fwd(q, k, v, causal=True)
+    shifted = torch.empty(lse.numel() + 1, device=cuda)[1:].view(lse.shape)
+    shifted.copy_(lse)
+    with pytest.raises(ValueError, match="lse is not 16-byte aligned"):
+        flash_bwd(q, k, v, o, shifted, do, causal=True)
+
+
+#: K8's cuda cases besides (a)-(c): every D of HEAD_DIMS in bf16 at an S
+#: that no tile divides, with GQA g = 3, and D 128 (the wgmma path) with a
+#: window and without the causal mask as well
+_BWD_EXTRA = {f"d{d}": (1, 6, 2, 700, d, None, torch.bfloat16, True)
+              for d in HEAD_DIMS}
+_BWD_EXTRA["d128w"] = (1, 6, 2, 700, 128, 300, torch.bfloat16, True)
+_BWD_EXTRA["d128full"] = (1, 6, 2, 700, 128, None, torch.bfloat16, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["a", "b", "c", *_BWD_EXTRA])
 def test_cuda_flash_bwd(cuda, case):
     """(a) minitron-4b's training shape, bf16 causal GQA g=3; (b)
     recurrentgemma's local attention (Hq 16, Hkv 1, D 256, window 2048) at
-    an S that no tile divides; (c) an odd length in f32, GQA g=2."""
-    b, hq, hkv, s, d, window, dtype = {
-        "a": (1, 24, 8, 4096, 128, None, torch.bfloat16),
-        "b": (1, 16, 1, 2500, 256, 2048, torch.bfloat16),
-        "c": (1, 8, 4, 1000, 64, None, torch.float32)}[case]
+    an S that no tile divides; (c) an odd length in f32, GQA g=2; then each
+    D of HEAD_DIMS in bf16 at S 700 with GQA g=3, so that the D = 128
+    wgmma kernels and the mma.sync kernels of the other D are each held,
+    and D 128 with a window and with no causal mask."""
+    b, hq, hkv, s, d, window, dtype, causal = {
+        "a": (1, 24, 8, 4096, 128, None, torch.bfloat16, True),
+        "b": (1, 16, 1, 2500, 256, 2048, torch.bfloat16, True),
+        "c": (1, 8, 4, 1000, 64, None, torch.float32, True),
+        **_BWD_EXTRA}[case]
     g = torch.Generator().manual_seed(8)
     q, k, v, do = (torch.randn((b * h, s, d), generator=g).to(dtype).to(cuda)
                    for h in (hq, hkv, hkv, hq))
-    o, lse = flash_fwd(q, k, v, causal=True, window=window)
-    got = flash_bwd(q, k, v, o, lse, do, causal=True, window=window)
-    again = flash_bwd(q, k, v, o, lse, do, causal=True, window=window)
-    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+    o, lse = flash_fwd(q, k, v, causal=causal, window=window)
+    got = flash_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    again = flash_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                    window=window)
     torch.cuda.synchronize()
     for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
