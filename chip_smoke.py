@@ -358,8 +358,7 @@ def kernel_phase(args, dev):
     # K4: the interaction's adjoint at the training shape (f32 x, as the
     # dense net feeds K2); bf16 and self_interaction checked off it
     P = F * (F - 1) // 2
-    xt = torch.randn((tb, F, D), generator=g).mul_(0.3).to(dev)
-    dtri = torch.randn((tb, P), generator=g).to(dev)
+    xt, dtri = interaction_bwd_inputs(g, dev, tb, F, D)
     bi, bj = torch.tril_indices(F, F, -1, device=dev)
     check(torch.allclose(k2.interaction_fwd(xt), k2.interaction_fwd_plain(xt),
                          rtol=1e-5, atol=1e-5),
@@ -371,9 +370,12 @@ def kernel_phase(args, dev):
         gm[:, bi, bj] = dtri
         return torch.bmm(gm + gm.transpose(1, 2), xt)
 
+    got = k2.interaction_bwd(xt, dtri)
+    check(torch.equal(got, k2.interaction_bwd(xt, dtri)),
+          "interaction_bwd: two launches differ")
     record("interaction_bwd", "src/repro_torch/csrc/dot_interaction.cu",
            "src/repro/kernels/dot_interaction.py:73",
-           k2.interaction_bwd(xt, dtri), k2.interaction_bwd_plain(xt, dtri),
+           got, k2.interaction_bwd_plain(xt, dtri),
            False, 1e-5, lambda: k2.interaction_bwd(xt, dtri),
            lambda: k2.interaction_bwd_plain(xt, dtri), lib_k4,
            2 * tb * F * D * 4 + tb * P * 4, 2 * tb * F * F * D)
@@ -398,6 +400,16 @@ def kernel_phase(args, dev):
               f"ms), max abs err {rec['max_abs_err']:.3g}; device time "
               f"{device[rec['name']]:.4f} ms (CUDA graph replay)")
     return out
+
+
+def interaction_bwd_inputs(g, dev, b: int, f: int = 27, d: int = 128):
+    """K4's inputs at DLRM's training shape: ``x [b, f, d]`` f32 (as the
+    dense net feeds K2) and ``dtri [b, f(f-1)/2]``, drawn in that order
+    from CPU generator ``g``."""
+    import torch
+    x = torch.randn((b, f, d), generator=g).mul_(0.3).to(dev)
+    dtri = torch.randn((b, f * (f - 1) // 2), generator=g).to(dev)
+    return x, dtri
 
 
 def lm_attn_shape(args) -> tuple:
@@ -439,6 +451,9 @@ def attention_kernel(args, record, g, dev):
 
     def held(case, q, k, v, dtype, window=None):
         o, lse = k7.flash_fwd(q, k, v, causal=True, window=window)
+        o2, lse2 = k7.flash_fwd(q, k, v, causal=True, window=window)
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"flash_fwd {case}: two launches differ")
         po, plse = flash_attention_ref(q, k, v, causal=True, window=window)
         err_o = (o.float() - po.float()).abs().max().item()
         err_l = (lse - plse).abs().max().item()
@@ -448,7 +463,8 @@ def attention_kernel(args, record, g, dev):
               f"{tol_o}, {tol_l})")
         print(f"flash_fwd {case}: q {list(q.shape)} k/v {list(k.shape)} "
               f"{dtype}, window {window}: max abs err o {err_o:.3g} (bound "
-              f"{tol_o}), lse {err_l:.3g} (bound {tol_l})")
+              f"{tol_o}), lse {err_l:.3g} (bound {tol_l}); two launches "
+              "bit-identical")
         return o, po
 
     # (b) recurrentgemma's local attention: Hq 16, Hkv 1, D 256, window 2048
@@ -911,8 +927,8 @@ def lm_phase(args, dev, cfg):
     full = LM_SHAPE_BY_NAME["prefill_32k"]
     b, s = args.lm_batch, args.lm_seq
     print(f"reduced: {cfg.name} prefill at batch {b} x seq {s} instead of "
-          f"prefill_32k's {full.global_batch} x {full.seq_len}, so the first, "
-          f"simple K7 fits the smoke's time; widths, {cfg.num_layers} layers "
+          f"prefill_32k's {full.global_batch} x {full.seq_len}, to fit the "
+          f"smoke's time; widths, {cfg.num_layers} layers "
           f"and the {cfg.vocab_size}-token vocabulary as published; random "
           f"weights (seed {args.seed})")
     model = LMModel(cfg, device=dev)

@@ -173,8 +173,7 @@ class DeviceEmbeddingCache:
         ov_idx, ov_rows = empty
         if miss.any():
             miss_ids = uniq[miss]
-            # the probe fetch runs under the lock to keep same-table
-            # ordering; the pipelined engine keeps it off the hot thread
+            # lock-ok: LOCK002 probe fetch under the lock preserves same-table ordering; the pipelined engine keeps it off the hot thread
             rows = np.asarray(self.fetch_fn(miss_ids), np.float32)
             k = len(miss_ids)
             n_occ = self._next_free

@@ -44,6 +44,7 @@
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -300,6 +301,227 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 128 on wgmma, with a TMA copy ring
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using hopper::wg::aligned_smem;
+using hopper::wg::kD;
+using hopper::wg::kmajor;
+using hopper::wg::kTile;
+using hopper::wg::kTileBytes;
+using hopper::wg::load_rows;
+using hopper::wg::mnmajor;
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x on the special-function unit (2 ulp; 0 for -inf, subnormal results
+// flushed to 0, far below what a bf16 p or the f32 sum l can hold)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int kThreadsWg = 128;          // one warpgroup
+constexpr int kStages = 2;               // the copy ring of K, V
+constexpr size_t kSmem = 1024 + kStages * 2 * kTileBytes + 64;
+
+// One block per (query head, 64-query tile), three blocks an SM: Q in
+// registers as the A operand of S = Q K^T, the band's K and V tiles
+// streamed through the ring. The running max m is over the raw scores; p =
+// 2^(s c - m c) with c = scale log2e, and lse = m c ln 2 + log l.
+__global__ void __launch_bounds__(kThreadsWg, 3)
+    flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int s, int group,
+                           int causal, int window, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = aligned_smem(smem_raw);            // K, V a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 *
+                                               kTileBytes);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // heads fastest: the last query tiles of every head, which visit the
+  // most causal key tiles, start first
+  const int nq = (s + kTile - 1) / kTile;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const int bh = blockIdx.x;
+  const int hk = bh / group;
+  int t0, t1;
+  key_tiles(q0, min(q0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  const int items = t1 - t0;
+
+  auto issue = [&](int i) {                // key tile t0 + i into its stage
+    unsigned char* st = ring + (i % kStages) * 2 * kTileBytes;
+    uint64_t* bar = full + i % kStages;
+    const int k0 = (t0 + i) * kTile;
+    hopper::mbar_expect_tx(bar, 2 * kTileBytes);
+    load_rows(st, &tk, bar, k0, hk);
+    load_rows(st + kTileBytes, &tv, bar, k0, hk);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) hopper::mbar_init(full + i, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < min(kStages, items); ++i) issue(i);
+  }
+
+  // this thread's Q fragments: k step kk, pair e at row qrow + 8 (e & 1),
+  // columns 16 kk + 8 (e >> 1) + 2 t (the register A operand's layout);
+  // rows past s are 0
+  const int qrow = q0 + warp * 16 + g;       // queries qrow, qrow + 8
+  uint32_t qa[kD / 16][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = qrow + 8 * (e & 1);
+    const __nv_bfloat16* src = q + (static_cast<int64_t>(bh) * s + row) * kD +
+                               8 * (e >> 1) + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      qa[kk][e] = row < s ? *reinterpret_cast<const uint32_t*>(src + 16 * kk)
+                          : 0u;
+    }
+  }
+
+  // the keys [lo, hi] each of this thread's two rows sees (visible()), and
+  // the keys [wlo, whi] every row of the tile sees: a key tile inside the
+  // latter needs no mask
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    hi[r] = causal ? min(qrow + 8 * r, s - 1) : s - 1;
+    lo[r] = window > 0 ? qrow + 8 * r - window + 1 : 0;
+  }
+  const int whi = causal ? min(q0, s - 1) : s - 1;
+  const int wlo = window > 0 ? q0 + kTile - window : 0;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m_run[2] = {kMasked, kMasked};
+  float l_run[2] = {0.f, 0.f};   // this thread's columns only; summed over
+                                 // the quad at the end
+  for (int i = 0; i < items; ++i) {
+    const unsigned char* ks = ring + (i % kStages) * 2 * kTileBytes;
+    const unsigned char* vs = ks + kTileBytes;
+    const int k0 = (t0 + i) * kTile;
+    hopper::mbar_wait(full + i % kStages, (i / kStages) & 1);
+
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    hopper::fence_regs(sc);
+    hopper::fence_regs(qa);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {      // S = Q K^T
+      hopper::wgmma_m64n64k16_rs(sc, qa[kk], kmajor(ks, kk), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(qa);
+
+    // mask (only a tile that crosses the diagonal, the window's lower edge
+    // or the ragged tail needs one), the running max of the raw scores over
+    // the quad that shares a row
+    const bool whole = k0 >= wlo && k0 + kTile - 1 <= whi;
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int r = (x >> 1) & 1;
+      const int key = k0 + (x >> 2) * 8 + 2 * t + (x & 1);
+      if (!whole && (key < lo[r] || key > hi[r])) sc[x] = -INFINITY;
+      mx[r] = fmaxf(mx[r], sc[x]);
+    }
+    float corr[2], mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2((m_run[r] - mx[r]) * scale_log2);
+      m_run[r] = mx[r];
+      mc[r] = mx[r] * scale_log2;
+      l_run[r] *= corr[r];
+    }
+    // p = exp(s scale - m scale) = 2^(s c - m c), c = scale log2e, one FMA
+    // and one ex2 a score (0 where masked); l from the f32 p; P as the bf16
+    // register A operand of the PV product
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int r = (x >> 1) & 1;
+      sc[x] = ex2(fmaf(sc[x], scale_log2, -mc[r]));
+      l_run[r] += sc[x];
+    }
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[x] *= corr[(x >> 1) & 1];
+    uint32_t pa[4][4];
+    hopper::acc_to_a(pa, sc);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {   // O += P V
+      hopper::wgmma_m64n128k16_rs_tb(acc, pa[kk], mnmajor(vs, kk), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pa);
+
+    __syncthreads();                         // the stage's readers are done
+    if (tid == 0 && i + kStages < items) issue(i + kStages);
+  }
+
+  const int64_t qoff = static_cast<int64_t>(bh) * s * kD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    const int row = qrow + r * 8;
+    if (row >= s) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    __nv_bfloat16* out = o + qoff + static_cast<int64_t>(row) * kD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<uint32_t*>(out + j * 8) =
+          pack_bf16(acc[4 * j + 2 * r] / l, acc[4 * j + 2 * r + 1] / l);
+    }
+    if (t == 0) {
+      lse[static_cast<int64_t>(bh) * s + row] =
+          m_run[r] * scale_log2 * kLn2 + logf(l);
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           long long bh, int group, int s, int causal, int window,
+           float scale, cudaStream_t stream) {
+  CUtensorMap tk, tv;
+  int rc = hopper::tensor_map_bf16(&tk, k, kD, s, bh / group, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, s, bh / group, kTile);
+  if (rc == 0) rc = set_smem(flash_fwd_wgmma_kernel, kSmem);
+  if (rc != 0) return rc;
+  const dim3 grid(static_cast<unsigned>(bh), (s + kTile - 1) / kTile);
+  flash_fwd_wgmma_kernel<<<grid, kThreadsWg, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), tk, tv,
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, group,
+      causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                void* lse, long long bh, int group, int s, int causal,
@@ -336,8 +558,13 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            void* lse, long long bh, int group, int s, int causal, int window,
            float scale, cudaStream_t stream) {
   if (dtype == 2) {
-    return launch_mma<D>(q, k, v, o, lse, bh, group, s, causal, window, scale,
-                         stream);
+    if constexpr (D == wg::kD) {
+      return wg::launch(q, k, v, o, lse, bh, group, s, causal, window, scale,
+                        stream);
+    } else {
+      return launch_mma<D>(q, k, v, o, lse, bh, group, s, causal, window,
+                           scale, stream);
+    }
   }
   if (dtype == 0) {
     return launch_f32<D>(q, k, v, o, lse, bh, group, s, causal, window,

@@ -518,39 +518,13 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace wg {
 
-constexpr int kD = 128;
-constexpr int kTile = 64;                  // queries or keys a streamed tile
-constexpr int kHalf = kTile * 128;         // bytes of a 64-row half: 8 KB
-constexpr int kTileBytes = 2 * kHalf;      // a [64, 128] swizzled tile
-constexpr uint32_t kSwSbo = 1024;          // 8 rows of 128 bytes
-
-// K-major descriptor of k step kk (16 columns) of a swizzled [64, 128] tile
-__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile,
-                                           int kk) {
-  return hopper::desc_sw128(tile + (kk >> 2) * kHalf + (kk & 3) * 32, 16,
-                            kSwSbo);
-}
-
-// MN-major descriptor of k step kk (16 rows) of a swizzled [64, 128] tile,
-// read as the [k, n] B operand of an n = 128 product
-__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile,
-                                            int kk) {
-  return hopper::desc_sw128(tile + kk * 16 * 128, kHalf, kSwSbo);
-}
-
-// rows [r0, r0 + 64) of plane `plane` into a swizzled [64, 128] tile, one
-// TMA box a column half
-__device__ __forceinline__ void load_rows(unsigned char* tile,
-                                          const CUtensorMap* map,
-                                          uint64_t* bar, int r0, int plane) {
-  hopper::tma_load_3d(tile, map, bar, 0, r0, plane);
-  hopper::tma_load_3d(tile + kHalf, map, bar, 64, r0, plane);
-}
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  const uintptr_t p = reinterpret_cast<uintptr_t>(raw);
-  return reinterpret_cast<unsigned char*>((p + 1023) & ~uintptr_t(1023));
-}
+using hopper::wg::aligned_smem;
+using hopper::wg::kD;
+using hopper::wg::kmajor;
+using hopper::wg::kTile;
+using hopper::wg::kTileBytes;
+using hopper::wg::load_rows;
+using hopper::wg::mnmajor;
 
 // ---- dk/dv: one block per (KV head, 64-key tile), one warpgroup
 

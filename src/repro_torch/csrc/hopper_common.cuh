@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
-// tile loads and bulk copies that complete on them, and warpgroup matrix
-// multiplies (wgmma) on bf16 operands in 128-byte-swizzled shared memory.
-// K8's bf16 D = 128 kernels use them (flash_attention_bwd.cu); they are kept
-// apart from flash_common.cuh so that other kernels can take them up.
+// tile loads and bulk copies that complete on them, warpgroup matrix
+// multiplies (wgmma) on bf16 operands in 128-byte-swizzled shared memory,
+// and the [64, 128] tile helpers (namespace wg) of the flash-attention
+// kernels at D = 128: K7's forward (flash_attention.cu) and K8's backward
+// (flash_attention_bwd.cu). Kept apart from flash_common.cuh so that other
+// kernels can take them up.
 //
 // The shared-memory layout every piece here agrees on, a "swizzled tile": a
 // row-major [R, 64 * H] bf16 operand stored as H column halves of 64 (128
@@ -158,6 +160,27 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d = A B (scale_d = 0) or d += A B (scale_d = 1) for one m64n64k16 step:
+// A [64, 16] from registers (four packed bf16 pairs a thread, the layout of
+// an m64 accumulator), B [64, 16] K-major in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // d (+)= A B for one m64n128k16 step: A [64, 16] from registers (four
 // packed bf16 pairs a thread, the layout of an m64 accumulator), B [16, 128]
 // MN-major in shared memory (descriptor; the transpose flag set)
@@ -203,6 +226,49 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// [64, 128] bf16 tiles: a streamed tile of 64 queries or keys at D = 128
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kD = 128;
+constexpr int kTile = 64;                  // queries or keys a streamed tile
+constexpr int kHalf = kTile * 128;         // bytes of a 64-row half: 8 KB
+constexpr int kTileBytes = 2 * kHalf;      // a [64, 128] swizzled tile
+constexpr uint32_t kSwSbo = 1024;          // 8 rows of 128 bytes
+
+// K-major descriptor of k step kk (16 columns) of a swizzled [64, 128] tile
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile,
+                                           int kk) {
+  return desc_sw128(tile + (kk >> 2) * kHalf + (kk & 3) * 32, 16, kSwSbo);
+}
+
+// MN-major descriptor of k step kk (16 rows) of a swizzled [64, 128] tile,
+// read as the [k, n] B operand of an n = 128 product
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile,
+                                            int kk) {
+  return desc_sw128(tile + kk * 16 * 128, kHalf, kSwSbo);
+}
+
+// rows [r0, r0 + 64) of plane `plane` into a swizzled [64, 128] tile, one
+// TMA box a column half
+__device__ __forceinline__ void load_rows(unsigned char* tile,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int r0, int plane) {
+  tma_load_3d(tile, map, bar, 0, r0, plane);
+  tma_load_3d(tile + kHalf, map, bar, 64, r0, plane);
+}
+
+// the first 1024-byte boundary of dynamic shared memory (allocate 1024
+// bytes more than the tiles need)
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(raw);
+  return reinterpret_cast<unsigned char*>((p + 1023) & ~uintptr_t(1023));
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // host: tensor maps

@@ -25,6 +25,15 @@ def num_pairs(f: int, self_interaction: bool = False) -> int:
     return f * (f + 1) // 2 if self_interaction else f * (f - 1) // 2
 
 
+def bwd_smem_bytes(f: int, d: int, p: int) -> int:
+    """Shared memory of one K4 block (``BwdLayout`` in the CUDA source):
+    two f32 copies of ``x[b]`` with rows padded to whole quads, two of
+    ``dtri[b]`` padded to a quad, and ``S^T`` and its index map with rows
+    padded to whole groups of 8."""
+    dp, rp, pp = -(-d // 4) * 4, -(-f // 8) * 8, -(-p // 4) * 4
+    return 4 * (2 * f * dp + 2 * pp + 2 * f * rp)
+
+
 def interaction_fwd(x: torch.Tensor, *,
                     self_interaction: bool = False) -> torch.Tensor:
     """``x [B, F, D]`` f32 -> ``[B, P]`` f32, the (strict, or with the
@@ -59,8 +68,8 @@ def interaction_bwd(x: torch.Tensor, dtri: torch.Tensor, *,
                    f"dtri {tuple(dtri.shape)} != ({b}, {p})")
     _build.require(x.device == dtri.device,
                    f"x on {x.device}, dtri on {dtri.device}")
-    _build.require((f * d + f * f) * 4 <= MAX_SMEM_BYTES,
-                   f"x[b] of {f}x{d} and its {f}x{f} S do not fit in shared "
+    _build.require(bwd_smem_bytes(f, d, p) <= MAX_SMEM_BYTES,
+                   f"two x[b] of {f}x{d} and their S do not fit in shared "
                    "memory")
     dx = torch.empty_like(x)
     _build.launch(NAME_BWD, "repro_interaction_bwd", x.device, x.data_ptr(),

@@ -64,7 +64,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of ``q [BH, S, D]`` over ``k/v [BKV, S, D]`` (query head
     ``n`` reads KV head ``n // (BH / BKV)``), causal and/or within a
     ``window`` of keys ``j > i - window`` -> (``o`` in ``q``'s type,
-    ``lse`` f32). f32 or bf16; D in :data:`HEAD_DIMS` on CUDA."""
+    ``lse`` f32). f32 or bf16; D in :data:`HEAD_DIMS` on CUDA. One launch:
+    ``wgmma`` fed by TMA copy rings for bf16 at D = 128, ``mma.sync`` for
+    bf16 at the other D, FMAs for f32."""
     _check_shapes(q, k, v, window)
     if _build.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -32,7 +32,7 @@ import numpy as np
 
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.dot_interaction import (
-    interaction_bwd, interaction_bwd_plain, interaction_fwd,
+    bwd_smem_bytes, interaction_bwd, interaction_bwd_plain, interaction_fwd,
     interaction_fwd_plain)
 from repro_torch.kernels.embedding_lookup import (
     lookup_bwd, lookup_bwd_chunked_plain, lookup_bwd_plain, lookup_fwd,
@@ -290,6 +290,15 @@ def test_interaction_bwd_matches_pallas_vjp(J, b, f, d, self_int):
     np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def test_interaction_bwd_smem_layout():
+    """The wrapper's shared-memory check follows the kernel's layout: two
+    f32 copies of x[b] (rows padded to quads), two of dtri[b] (padded to a
+    quad), S^T and its index map (rows padded to groups of 8)."""
+    assert bwd_smem_bytes(27, 128, 351) == 4 * (2 * 27 * 128 + 2 * 352
+                                                + 2 * 27 * 32)
+    assert bwd_smem_bytes(5, 13, 10) == 4 * (2 * 5 * 16 + 2 * 12 + 2 * 5 * 8)
+
+
 def test_interaction_bwd_keeps_bf16():
     x = torch.randn((4, 5, 8), generator=torch.Generator().manual_seed(2))
     dtri = torch.randn((4, 10), generator=torch.Generator().manual_seed(3))
@@ -492,37 +501,63 @@ def test_cuda_lookup_bwd(cuda, v, h, hot_rows, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,f,d", [(300, 27, 128), (301, 27, 128),
+                                   (257, 27, 16), (129, 5, 13)])
 @pytest.mark.parametrize("self_int", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_interaction_bwd(cuda, self_int, dtype, monkeypatch):
-    g = torch.Generator().manual_seed(1)
-    x = torch.randn((300, 27, 128), generator=g).to(dtype).to(cuda)
-    p = 27 * 28 // 2 if self_int else 27 * 26 // 2
-    dtri = torch.randn((300, p), generator=g).to(cuda)
+def test_cuda_interaction_bwd(cuda, b, f, d, self_int, dtype, monkeypatch):
+    """DLRM's F 27 / D 128 at a batch of 300 and at 301, which no count
+    of samples a block divides, D 16 and an odd D (the element-wise
+    path), with and without the diagonal, f32 and bf16 x; two launches
+    give the same bits."""
+    g = torch.Generator().manual_seed(b + f + d)
+    x = torch.randn((b, f, d), generator=g).to(dtype).to(cuda)
+    p = f * (f + 1) // 2 if self_int else f * (f - 1) // 2
+    dtri = torch.randn((b, p), generator=g).to(cuda)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     got = interaction_bwd(x, dtri, self_interaction=self_int)
+    again = interaction_bwd(x, dtri, self_interaction=self_int)
     want = interaction_bwd_plain(x, dtri, self_interaction=self_int)
     torch.cuda.synchronize()
     assert got.dtype == dtype
+    assert torch.equal(got, again), "two launches differ"
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+#: K7's cuda cases besides (a) and (c): every D of HEAD_DIMS in bf16 at an
+#: S that no tile divides, with GQA g = 3, so that the D = 128 wgmma kernel
+#: and the mma.sync kernel of the other D are each held; D 128 with a
+#: window, without the causal mask, and at S 64 (one whole tile) and 65
+_FWD_EXTRA = {f"d{d}": (1, 6, 2, 700, d, None, torch.bfloat16, True)
+              for d in HEAD_DIMS}
+_FWD_EXTRA["d128w"] = (1, 6, 2, 700, 128, 300, torch.bfloat16, True)
+_FWD_EXTRA["d128full"] = (1, 6, 2, 700, 128, None, torch.bfloat16, False)
+_FWD_EXTRA["d128s64"] = (1, 6, 2, 64, 128, None, torch.bfloat16, True)
+_FWD_EXTRA["d128s65"] = (1, 6, 2, 65, 128, None, torch.bfloat16, True)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["a", "c"])
+@pytest.mark.parametrize("case", ["a", "c", *_FWD_EXTRA])
 def test_cuda_flash_fwd(cuda, case):
     """(a) minitron-4b's prefill shape, bf16 causal GQA g=3; (c) an odd
-    length in f32, GQA g=2."""
-    b, hq, hkv, s, d, dtype, tol_o, tol_l = {
-        "a": (2, 24, 8, 4096, 128, torch.bfloat16, 2e-2, 1e-3),
-        "c": (1, 8, 4, 1000, 64, torch.float32, 1e-4, 1e-4)}[case]
+    length in f32, GQA g=2; then :data:`_FWD_EXTRA`. Two launches give the
+    same bits."""
+    b, hq, hkv, s, d, window, dtype, causal = {
+        "a": (2, 24, 8, 4096, 128, None, torch.bfloat16, True),
+        "c": (1, 8, 4, 1000, 64, None, torch.float32, True),
+        **_FWD_EXTRA}[case]
+    tol_o, tol_l = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-3)
     g = torch.Generator().manual_seed(7)
     q, k, v = (torch.randn((b * h, s, d), generator=g).to(dtype).to(cuda)
                for h in (hq, hkv, hkv))
-    o, lse = flash_fwd(q, k, v, causal=True)
-    po, plse = flash_attention_ref(q, k, v, causal=True)
+    o, lse = flash_fwd(q, k, v, causal=causal, window=window)
+    o2, lse2 = flash_fwd(q, k, v, causal=causal, window=window)
+    po, plse = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert o.dtype == dtype and lse.dtype == torch.float32
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+        "two launches differ"
     assert (o.float() - po.float()).abs().max().item() <= tol_o
     assert (lse - plse).abs().max().item() <= tol_l
 

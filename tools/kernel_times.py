@@ -45,14 +45,22 @@ def _dlrm_k3(cs, dev):
     return lambda: k1.lookup_bwd((v, 128), rows, dp), 4
 
 
-def _k7(cs, dev):
+def _k7(cs, dev, b: int):
     import torch
     from repro_torch.kernels import flash_attention as k78
-    b, (hq, hkv, d) = cs.RUN.lm_batch, cs.lm_attn_shape(cs.RUN)
+    hq, hkv, d = cs.lm_attn_shape(cs.RUN)
     q, k, v = cs.randn_heads(torch.Generator().manual_seed(7), dev,
                              (b * hq, b * hkv, b * hkv), cs.RUN.attn_seq, d,
                              torch.bfloat16)
     return lambda: k78.flash_fwd(q, k, v, causal=True), 5
+
+
+def _k4(cs, dev):
+    import torch
+    from repro_torch.kernels import dot_interaction as k2
+    x, dtri = cs.interaction_bwd_inputs(torch.Generator().manual_seed(4), dev,
+                                        cs.RUN.train_batch)
+    return lambda: k2.interaction_bwd(x, dtri), 20
 
 
 def _k8(cs, dev):
@@ -66,13 +74,16 @@ def _k8(cs, dev):
 
 #: case -> builder ``(chip_smoke, device) -> (call, CUDA graph reps)``: K3
 #: at the LM token tables (``lm_k3_check``'s inputs) and at the largest
-#: DLRM embedding group (``kernel_phase``'s), K7 at the LM prefill shape (a)
-#: and K8 at the LM training shape (a)
+#: DLRM embedding group (``kernel_phase``'s), K4 at the DLRM training shape
+#: (``interaction_bwd_inputs``), K7 at the LM prefill shape (a) and the LM
+#: training shape, and K8 at the LM training shape (a)
 CASES = {
     "lookup_bwd lm_hot": lambda cs, dev: _lm_k3(cs, dev, 0),
     "lookup_bwd lm_cold": lambda cs, dev: _lm_k3(cs, dev, 1),
     "lookup_bwd dlrm": _dlrm_k3,
-    "flash_fwd (a)": _k7,
+    "interaction_bwd dlrm": _k4,
+    "flash_fwd (a)": lambda cs, dev: _k7(cs, dev, cs.RUN.lm_batch),
+    "flash_fwd train": lambda cs, dev: _k7(cs, dev, cs.RUN.lm_train_batch),
     "flash_bwd (a)": _k8,
 }
 
