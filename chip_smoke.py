@@ -7,12 +7,14 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
 2. Build: compile ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a.
-3. Kernels: launch K1 (pooled lookup), K2 (dot interaction), K5 (row
-   gather) and K6 (dequantizing gather, int8 and f16) at the served
-   shapes, K1 and K2 again at the training shapes, and K3 (the lookup's
-   adjoint) and K4 (the interaction's) at the training shapes, and hold
-   each against its plain PyTorch version
-   on the card; time kernel, plain version and one library call with CUDA
+3. Kernels: launch K1 (pooled lookup) and K6 (dequantizing read) as the
+   served batch runs them, one grouped launch for all 26 tables (f32
+   through K1, int8 through K6), K2 (dot interaction) and K5 (row gather)
+   at the served shapes, K6's single-table row read (int8 and f16), K1
+   and K2 again at the training shapes and K1 at the LM's token tables,
+   and K3 (the lookup's adjoint) and K4 (the interaction's) at the
+   training shapes, and hold each against its plain PyTorch version on
+   the card; time kernel, plain version and one library call with CUDA
    events. K7 (flash-attention forward) likewise at minitron-4b's prefill
    shape, recurrentgemma's local-attention shape and an odd f32 length,
    and K8 (its backward) at minitron-4b's training shape, recurrentgemma's
@@ -32,7 +34,9 @@ Phases, in order; any failure exits non-zero:
    with an f32 and once with an int8 L1 payload; check the predictions
    against the plain path (pooled rows straight from the PDB, dense net
    with the plain ops) and, for both payloads, against the trained
-   model's ``predict``; and that the kernels' launch counters rose.
+   model's ``predict``; that the kernels' launch counters rose; and that
+   one pooled read of the 26 tables is one K1 (f32) or one K6 (int8)
+   launch.
 7. LM serve: full-width ``minitron-4b`` (hybrid token embedding, random
    weights from a seed) prefills a 2 x 4096 Zipf(1.2) batch through K1 and
    K7, held against the plain path (K1 first alone, bit-exact, on both
@@ -57,6 +61,7 @@ either missing it prints no result and exits 2.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import os
 import shutil
@@ -209,6 +214,58 @@ def training_rows(args, dev):
             for k, r in coll.group_rows(batch["cat"]).items()}
 
 
+#: batches of slots a served-read timing turns through: each call of a
+#: replayed CUDA graph reads rows the last 19 did not (20 x 13.6 MB of f32
+#: rows, more than the card's 50 MB L2), as a new batch would
+SLOT_SETS = 20
+
+
+def served_inputs(args, dev, payload_dtype: str, sets: int = 1) -> tuple:
+    """K1's (``"f32"``) or K6's (``"int8"``) inputs as a served batch gives
+    them: for each of ``dlrm-criteo``'s tables an L1 payload ``[cache
+    rows, 128]`` (int8 with per-row scales, or f32), and ``sets`` batches
+    of one ``[batch, 1]`` block of uniform slots a table, made on ``dev``
+    from the run's seed -> ``(payloads as (payload, scales) pairs, [slot
+    blocks of batch 0, ...])``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    c, b, d = args.cache_capacity, args.batch, 128
+    pays = []
+    for _ in capped_config(args).tables:
+        if payload_dtype == "int8":
+            p = torch.randint(-127, 128, (c, d), generator=g, device=dev,
+                              dtype=torch.int8)
+            sc = torch.rand((c,), generator=g, device=dev) * 0.02 + 1e-3
+        else:
+            p, sc = torch.randn((c, d), generator=g, device=dev) * 0.3, None
+        pays.append((p, sc))
+    return pays, [[torch.randint(0, c, (b, 1), generator=g, device=dev,
+                                 dtype=torch.int32) for _ in pays]
+                  for _ in range(sets)]
+
+
+def rotating(fn, inputs):
+    """A call of ``fn`` on each of ``inputs`` in turn, one a call."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(next(it))
+
+
+def lm_k1_inputs(args, dev) -> list:
+    """K1's inputs at the LM's token tables as a training step gives them:
+    ``(name, table, rows [N, 1])`` for the hot and the cold table of
+    ``args.lm_arch`` (random f32 tables, rows of :func:`lm_k3_inputs`)."""
+    import torch
+    from repro_torch.configs.registry import get_lm_config
+    from repro_torch.models.lm.backbone import LMModel
+    cfg = get_lm_config(args.lm_arch)
+    tokens = lm_tokens(args, cfg, dev, args.lm_train_batch, args.lm_seq)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    return [(name, torch.randn(shape, generator=g, device=dev), rows)
+            for name, (shape, rows, _) in zip(
+                ("lm_hot", "lm_cold"),
+                lm_k3_inputs(LMModel(cfg, device=dev), tokens))]
+
+
 def kernel_phase(args, dev):
     import numpy as np
     import torch
@@ -232,7 +289,7 @@ def kernel_phase(args, dev):
                    torch.randn((B, F - 1, D), generator=g) * 0.3], 1)
     x = x.to(torch.bfloat16).float().to(dev).contiguous()
     li, lj = torch.tril_indices(F, F, -1, device=dev)
-    out, device = {}, {}
+    out, device, device_lib = {}, {}, {}
 
     def record(name, source, replaces, got, want, exact, tol, fn, plain,
                lib, nbytes, flops, reps=20, flops_per_s=F32_FLOPS, iters=50):
@@ -251,17 +308,44 @@ def kernel_phase(args, dev):
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lib, iters) if lib is not None else None}
         device[name] = graph_ms(fn, reps)
+        if lib is not None:
+            device_lib[name] = graph_ms(lib, reps)
         return out[name]
 
-    # K1 at the served shape: f32 L1 payload [C, D], one id per table row
-    rows = slots.view(B, 1)
-    record("lookup_fwd", "src/repro_torch/csrc/embedding_lookup.cu",
-           "src/repro/kernels/embedding_lookup.py:67",
-           k1.lookup_fwd(table, rows), k1.lookup_fwd_plain(table, rows),
-           True, 0.0, lambda: k1.lookup_fwd(table, rows),
-           lambda: k1.lookup_fwd_plain(table, rows),
-           lambda: table.index_select(0, slots).view(B, 1, D).sum(1),
-           B * D * 4 + B * 4 + B * D * 4, B * D)
+    def shape_line(name, shape, fn, plain, lib, nbytes, flops, reps=20):
+        """A kernel's times at another main-path shape, printed only."""
+        bms, by = bound_ms(nbytes, flops)
+        dms = graph_ms(fn, reps)
+        print(f"kernel {name} at {shape}: device {dms:.4f} ms (CUDA graph "
+              f"replay, {100 * bms / dms:.1f}% of the bound), wrapper "
+              f"{time_ms(fn, 20):.4f} ms, bound {bms:.4f} ms by {by}, plain "
+              f"{time_ms(plain, 20):.4f} ms, library {time_ms(lib, 20):.4f} "
+              f"ms (device {graph_ms(lib, reps):.4f} ms)")
+
+    def k1_line(label, table, rows, reps=20):
+        # the bound reads each distinct valid row once (a Zipf batch
+        # repeats its head ids)
+        keep = rows >= 0
+        n = rows.shape[0]
+        distinct = int(torch.unique(rows[keep]).numel())
+        shape_line("lookup_fwd", f"{label}: rows [{n},{rows.shape[1]}] "
+                   f"({100 * float((~keep).float().mean()):.1f}% -1, "
+                   f"{distinct} distinct ids) into "
+                   f"[{table.shape[0]},{table.shape[1]}]",
+                   lambda: k1.lookup_fwd(table, rows),
+                   lambda: k1.lookup_fwd_plain(table, rows),
+                   lambda: (table.index_select(0, rows.view(-1).clamp_min(0))
+                            .view(n, rows.shape[1], -1) * keep[..., None])
+                   .sum(1),
+                   rows.numel() * 4 + distinct * table.shape[1] * 4
+                   + n * table.shape[1] * 4,
+                   int(keep.sum()) * table.shape[1], reps)
+
+    # K1 and K6 as a served batch runs them: one grouped read of all the
+    # tables, f32 through K1 and int8 through K6; the yardstick is each
+    # table's index_select (+ the scale) + sum, then torch.stack
+    for pd in ("f32", "int8"):
+        served_record(args, dev, pd, record)
     # K1 off the served shape: bf16 table, H=3 with pads and duplicates
     multi = torch.randint(-1, 64, (B, 3), generator=g,
                           dtype=torch.int32).to(dev)
@@ -281,19 +365,18 @@ def kernel_phase(args, dev):
            lambda: table.index_select(0, slots),
            B * D * 4 + B * 4 + B * D * 4, 0)
 
-    # K6: the int8 L1 pooled read (and the f16 payload variant)
-    got16 = k56.dequant_gather_rows(h16, sc16, holes)
-    want16 = k56.dequant_gather_rows_plain(h16, sc16, holes)
-    check(torch.equal(got16, want16), "dequant_gather_rows f16: not exact")
-    record("dequant_gather_rows", "src/repro_torch/csrc/hps_gather.cu",
-           "src/repro/kernels/hps_gather.py:98",
-           k56.dequant_gather_rows(q8, sc8, holes),
-           k56.dequant_gather_rows_plain(q8, sc8, holes), True, 0.0,
-           lambda: k56.dequant_gather_rows(q8, sc8, slots),
-           lambda: k56.dequant_gather_rows_plain(q8, sc8, slots),
-           lambda: q8.index_select(0, slots).float()
-           * sc8.index_select(0, slots)[:, None],
-           B * D * 1 + B * 4 + B * 4 + B * D * 4, B * D)
+    # K6's single-table row read, the cache query's (int8 and f16)
+    for pay, sc in ((q8, sc8), (h16, sc16)):
+        check(torch.equal(k56.dequant_gather_rows(pay, sc, holes),
+                          k56.dequant_gather_rows_plain(pay, sc, holes)),
+              f"dequant_gather_rows {pay.dtype}: not exact")
+    shape_line("dequant_gather_rows", f"the int8 cache query: slots [{B}] "
+               f"into [{C},{D}]", lambda: k56.dequant_gather_rows(q8, sc8,
+                                                                  slots),
+               lambda: k56.dequant_gather_rows_plain(q8, sc8, slots),
+               lambda: q8.index_select(0, slots).float()
+               * sc8.index_select(0, slots)[:, None],
+               B * D + B * 4 + B * 4 + B * D * 4, B * D)
 
     # K2: DLRM's interaction at F = 26 tables + 1, D = 128
     record("interaction_fwd", "src/repro_torch/csrc/dot_interaction.cu",
@@ -322,6 +405,8 @@ def kernel_phase(args, dev):
                           k1.lookup_fwd_plain(mega, rows3)),
               f"lookup_fwd {key}: not bit-exact at rows [{rows3.shape[0]}, "
               f"1] into [{v}, {D}]")
+        if key == largest:
+            k1_line(f"DLRM group {key}", mega, rows3, reps=10)
         del mega
         dp3 = torch.randn((rows3.shape[0], D), generator=g).to(dev)
         got, want = k1.lookup_bwd((v, D), rows3, dp3), \
@@ -364,6 +449,11 @@ def kernel_phase(args, dev):
                          rtol=1e-5, atol=1e-5),
           f"interaction_fwd at the training shape [{tb}, {F}, {D}]: above "
           "1e-5")
+    shape_line("interaction_fwd", f"x [{tb},{F},{D}] f32 (DLRM training)",
+               lambda: k2.interaction_fwd(xt),
+               lambda: k2.interaction_fwd_plain(xt),
+               lambda: torch.bmm(xt, xt.transpose(1, 2))[:, bi, bj],
+               tb * F * D * 4 + tb * P * 4, 2 * tb * P * D)
 
     def lib_k4():
         gm = torch.zeros((tb, F, F), device=dev)
@@ -391,15 +481,85 @@ def kernel_phase(args, dev):
     check(gb.dtype == torch.bfloat16 and torch.allclose(
         gb.float(), k2.interaction_bwd_plain(xb4, db4).float(),
         rtol=1e-2, atol=1e-2), "interaction_bwd bf16: above 1e-2")
+    # K1 at the LM's token tables (a training step's rows)
+    for label, table, rows in lm_k1_inputs(args, dev):
+        check(torch.equal(k1.lookup_fwd(table, rows),
+                          k1.lookup_fwd_plain(table, rows)),
+              f"lookup_fwd {label}: not bit-exact")
+        k1_line(label, table, rows, reps=10)
+        del table
+    torch.cuda.empty_cache()
     attention_kernel(args, record, g, dev)
     attention_bwd_kernel(args, record, g, dev)
     for rec in out.values():
+        dl = device_lib.get(rec["name"])
         print(f"kernel {rec['name']}: {rec['ms']:.4f} ms (bound "
               f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, plain "
               f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
               f"ms), max abs err {rec['max_abs_err']:.3g}; device time "
-              f"{device[rec['name']]:.4f} ms (CUDA graph replay)")
+              f"{device[rec['name']]:.4f} ms (CUDA graph replay, "
+              f"{100 * rec['bound_ms'] / device[rec['name']]:.1f}% of the "
+              "bound)" + ("" if dl is None else
+                          f", library device time {dl:.4f} ms"))
     return out
+
+
+def served_record(args, dev, payload_dtype, record):
+    """K1 (f32) or K6 (int8) at the served shape (:func:`served_inputs`):
+    one grouped launch for all the tables, bit-exact to the plain version
+    and to a second launch, recorded with each table's ``index_select`` +
+    ``sum`` and a ``torch.stack`` as the library yardstick."""
+    import torch
+    from repro_torch.kernels import embedding_lookup as k1
+    from repro_torch.kernels import hps_gather as k56
+    pays, sets = served_inputs(args, dev, payload_dtype, SLOT_SETS)
+    slots = sets[0]
+    tabs, scs = [p for p, _ in pays], [sc for _, sc in pays]
+    b, d = args.batch, tabs[0].shape[1]
+    if payload_dtype == "f32":
+        name, row_bytes, flops = "lookup_fwd", d * 4, 1
+        source = "src/repro_torch/csrc/embedding_lookup.cu"
+        replaces = "src/repro/kernels/embedding_lookup.py:67"
+
+        def fn(sl):
+            return k1.lookup_fwd_grouped(tabs, sl)
+
+        def plain(sl):
+            return k1.lookup_fwd_grouped_plain(tabs, sl)
+
+        def lib(sl):
+            return torch.stack([t.index_select(0, s.view(-1)).view(b, -1, d)
+                                .sum(1) for t, s in zip(tabs, sl)], 1)
+    else:
+        name, row_bytes, flops = "dequant_gather_rows", d + 4, 2
+        source = "src/repro_torch/csrc/hps_gather.cu"
+        replaces = "src/repro/kernels/hps_gather.py:98"
+
+        def fn(sl):
+            return k56.dequant_gather_grouped(tabs, scs, sl)
+
+        def plain(sl):
+            return k56.dequant_gather_grouped_plain(tabs, scs, sl)
+
+        def lib(sl):
+            return torch.stack([
+                (q.index_select(0, s.view(-1)).float()
+                 * c.index_select(0, s.view(-1))[:, None]).view(b, -1, d)
+                .sum(1) for q, c, s in zip(tabs, scs, sl)], 1)
+    got = fn(slots)
+    check(torch.equal(got, fn(slots)), f"{name} grouped: two launches differ")
+    # the bound reads each table's distinct valid rows once
+    ids = sum(s.numel() for s in slots)
+    valid = sum(int((s >= 0).sum()) for s in slots)
+    distinct = sum(int(torch.unique(s[s >= 0]).numel()) for s in slots)
+    print(f"kernel {name} grouped: {len(tabs)} tables x slots "
+          f"[{b},{slots[0].shape[1]}] into [{tabs[0].shape[0]},{d}] "
+          f"{tabs[0].dtype}, one launch, bit-exact to the plain version; "
+          f"timed over {len(sets)} batches of slots in turn")
+    record(name, source, replaces, got, plain(slots), True, 0.0,
+           rotating(fn, sets), rotating(plain, sets), rotating(lib, sets),
+           ids * 4 + distinct * row_bytes + len(tabs) * b * d * 4,
+           flops * valid * d)
 
 
 def interaction_bwd_inputs(g, dev, b: int, f: int = 27, d: int = 128):
@@ -590,9 +750,11 @@ def declare(args, cfg):
 
 #: device kernels by kind, by a piece of their name (first match wins)
 KINDS = (("K7", ("flash_fwd",)), ("K8", ("flash_bwd",)),
-         ("K1", ("lookup_fwd_kernel",)), ("K3", ("lookup_bwd_",)),
+         ("K6", ("pooled_read_kernel<signed char, true",
+                 "pooled_read_kernel<__half, true")),
+         ("K1", ("pooled_read_kernel",)), ("K3", ("lookup_bwd_",)),
          ("K2", ("interaction_fwd_kernel",)),
-         ("K4", ("interaction_bwd_kernel",)), ("K5/K6", ("gather_rows",)),
+         ("K4", ("interaction_bwd_kernel",)), ("K5", ("gather_rows",)),
          ("matmul", ("gemm", "xmma", "cutlass", "nvjet")), ("fill", ("Fill",)),
          ("sort", ("radix", "Radix", "sort")), ("reduce", ("reduce_kernel",)),
          ("copy", ("copy", "Memcpy")), ("elementwise", ("elementwise",)))
@@ -834,7 +996,16 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
         # the pooled L1 read itself: bit-exact for f32, within half a
         # quantization step for int8
         dense, cat = reqs[-1]
-        got = server.hps.lookup(cat).cpu().numpy()
+        pooled_k = ("lookup_fwd" if payload_dtype == "f32"
+                    else "dequant_gather_rows")
+        LAUNCHES.reset()
+        got = server.hps.lookup(cat)
+        torch.cuda.synchronize()
+        one_read = LAUNCHES.snapshot()
+        check(one_read == {pooled_k: 1}, f"{payload_dtype}: one pooled read "
+              f"of {len(cfg.tables)} tables launched {one_read}, want one "
+              f"{pooled_k}")
+        got = got.cpu().numpy()
         _, emb = plain_predict(cfg, pdb, params, dev, dense, cat)
         if payload_dtype == "f32":
             check(np.array_equal(got, emb), "f32 L1 read is not bit-exact")
@@ -866,7 +1037,8 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
           f"{pct['p99']:.2f} ms, queueing included); one request at a "
           f"time through predict: p50 {seq['p50']:.2f} ms; "
           f"L1 hit rate {hit:.4f}; max |p - plain| {err:.3g} "
-          f"(bound {tol})"
+          f"(bound {tol}); one pooled read of {len(cfg.tables)} tables: "
+          f"launches {one_read}"
           + ("" if trained_err is None else
              f"; max |p - Model.predict| {trained_err:.3g} (bound "
              f"{TRAIN_TOL})") + f"; launches {launches}")

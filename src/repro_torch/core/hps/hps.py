@@ -5,12 +5,12 @@ Lookup path per table: L1 device cache -> L2 volatile DB -> L3 persistent
 DB, with promotion on miss at every level. Each table resolves through a
 HOST stage (sorted-index probe + one coalesced miss fetch) and a DEVICE
 stage (the one payload scatter + the slot block's transfer); the pooled
-``[B, T, D]`` output is then gathered on the device per table (K1, or K6
-for int8 payloads) and stacked. ``pipelined=True`` double-buffers the two
-stages on host workers (table *t+1* probes while table *t* scatters), and
-``lookup_stream`` extends the pipeline across queries. Every plan gathers
-from its own payload snapshot (see ``payload_store``), so all engines give
-identical results.
+``[B, T, D]`` output is then read on the device for all tables at once
+(one K1 launch, or one K6 for int8 payloads). ``pipelined=True``
+double-buffers the two stages on host workers (table *t+1* probes while
+table *t* scatters), and ``lookup_stream`` extends the pipeline across
+queries. Every plan gathers from its own payload snapshot (see
+``payload_store``), so all engines give identical results.
 
 Online updates (the message bus, dirty marking, refresh) and the striped
 multi-device L1 are later slices (ROADMAP items "The rest of the serving
@@ -42,17 +42,17 @@ Overflow = Tuple[int, np.ndarray, np.ndarray, int]
 def _pooled_stack(payloads: Sequence[tuple], slots: Sequence[torch.Tensor],
                   combiners: Sequence[str],
                   apply_mean: bool = True) -> torch.Tensor:
-    """Per-table pooled gathers stacked to ``[B, T, D]`` f32. Each payload
-    is a ``(payload, scales)`` snapshot; int8 stores dequantize inside
-    the gather kernel."""
-    outs = []
-    for (p, sc), s, comb in zip(payloads, slots, combiners):
-        pooled = ops.pooled_cache_lookup(p, s, sc)       # [B, D] sum over H
-        if comb == "mean" and apply_mean:
-            denom = (s >= 0).sum(dim=1, keepdim=True).clamp_min(1)
-            pooled = pooled / denom.to(pooled.dtype)
-        outs.append(pooled)
-    return torch.stack(outs, dim=1)
+    """The pooled gathers of all tables, ``[B, T, D]`` f32, in one device
+    dispatch (as the reference's). Each payload is a ``(payload, scales)``
+    snapshot; int8 stores dequantize inside the gather kernel. The mean
+    renorm divides each mean table's slice in place."""
+    out = ops.grouped_pooled_lookup(payloads, slots)
+    if apply_mean:
+        for ti, (s, comb) in enumerate(zip(slots, combiners)):
+            if comb == "mean":
+                denom = (s >= 0).sum(dim=1, keepdim=True).clamp_min(1)
+                out[:, ti].div_(denom.to(out.dtype))
+    return out
 
 
 class HPS:

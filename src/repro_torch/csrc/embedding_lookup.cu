@@ -8,16 +8,17 @@
 //
 // What bounds it: memory. An output row reads H table rows of D elements and
 // writes D floats: about B*H*D*sizeof(T) + B*D*4 bytes (plus B*H*4 bytes of
-// ids), with no arithmetic to speak of. At the served shape (B=1024, H=1,
-// D=128, f32) that is about 1 MB a call, so launch overhead dominates.
+// ids), with no arithmetic to speak of. At the served shape (26 tables of
+// B=1024, H=1, D=128, f32) that is 27 MB a batch.
 //
-// Design: one warp per output row. Lane l owns columns l, l+32, ..., so the
-// 32 lanes read 32 consecutive elements of a table row (coalesced), the H ids
-// of the row are read through the read-only cache and shared by the warp, and
-// the sum stays in an f32 register until the one store. A -1 id is skipped,
-// so a padded slot adds nothing and duplicate ids count once per occurrence.
+// Design: the grouped pooled read of pooled_read.cuh, one launch for up to 64
+// tables that share D and the table type (f32, f16 or bf16): every table of
+// a served batch in one launch, each output row written in place in the
+// [B, T, D] result, rows moved in vector units of four elements. The
+// single-table lookup of
+// training and of the LM's token tables is the same kernel with one table.
 // The h loop runs in order from a zero start, so H=1 is bit-exact with the
-// plain version.
+// plain version; a row whose ids are all -1 reads nothing and writes zeros.
 //
 // K3 lookup_bwd: the adjoint, replacing repro/kernels/embedding_lookup.py::
 // lookup_bwd (_bwd_kernel). dtable[v] = sum of dpooled[b] over every (b, h)
@@ -55,54 +56,14 @@
 // 128 is 2.97 GB, against 29 MB of dpooled at B*T = 57,344. The zero-fill
 // writes those bytes; the kernels write only the touched rows and the
 // partials of the runs that cross a chunk boundary.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pooled_read.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__global__ void lookup_fwd_kernel(const T* __restrict__ table,
-                                  const int32_t* __restrict__ rows,
-                                  float* __restrict__ out, int64_t batch,
-                                  int hot, int dim) {
-  const int lane = threadIdx.x & 31;
-  const int64_t b =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= batch) return;
-  const int32_t* r = rows + b * hot;
-  float* o = out + b * dim;
-  for (int d = lane; d < dim; d += 32) {
-    float acc = 0.f;
-    for (int h = 0; h < hot; ++h) {
-      const int32_t id = __ldg(r + h);
-      if (id >= 0) acc += to_f32(table[static_cast<int64_t>(id) * dim + d]);
-    }
-    o[d] = acc;
-  }
-}
-
-template <typename T>
-int launch(const void* table, const void* rows, void* out, int64_t batch,
-           int hot, int dim, cudaStream_t stream) {
-  if (batch > 0) {
-    const int64_t blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    lookup_fwd_kernel<T><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
-                           0, stream>>>(
-        static_cast<const T*>(table), static_cast<const int32_t*>(rows),
-        static_cast<float*>(out), batch, hot, dim);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 constexpr int kChunk = 16;             // sorted positions a chunk
 constexpr int kColsPerLane = 4;        // a column tile: 4 x 32 columns
@@ -297,15 +258,31 @@ extern "C" int repro_lookup_bwd(const void* sorted, const void* order,
   return static_cast<int>(cudaGetLastError());
 }
 
-// table_dtype: 0 = float32, 1 = float16, 2 = bfloat16.
-extern "C" int repro_lookup_fwd(const void* table, int table_dtype,
-                                const void* rows, void* out, long long batch,
-                                int hot, int dim, void* stream) {
+// The grouped K1: `tables` (<= 64) tables of `dim` columns and one type
+// (table_dtype 0 = float32, 1 = float16, 2 = bfloat16); payloads and slots
+// hold each table's device pointer, hots its H (slots [batch, H] int32, -1 =
+// pad); out[b * out_stride + t * dim + d] f32. The pointer arrays live in
+// host memory and travel in the launch's parameters.
+extern "C" int repro_lookup_fwd(const void* const* payloads,
+                                const void* const* slots, const int* hots,
+                                int tables, int table_dtype, long long batch,
+                                int dim, void* out, long long out_stride,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (table_dtype) {
-    case 0: return launch<float>(table, rows, out, batch, hot, dim, s);
-    case 1: return launch<__half>(table, rows, out, batch, hot, dim, s);
-    case 2: return launch<__nv_bfloat16>(table, rows, out, batch, hot, dim, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0:
+      return pooled::launch<float, false>(payloads, nullptr, slots, hots,
+                                          tables, batch, dim, out, out_stride,
+                                          s);
+    case 1:
+      return pooled::launch<__half, false>(payloads, nullptr, slots, hots,
+                                           tables, batch, dim, out,
+                                           out_stride, s);
+    case 2:
+      return pooled::launch<__nv_bfloat16, false>(payloads, nullptr, slots,
+                                                  hots, tables, batch, dim,
+                                                  out, out_stride, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }

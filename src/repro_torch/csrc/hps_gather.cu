@@ -12,14 +12,23 @@
 // (D * sizeof(T) bytes, plus a 4-byte scale for K6) and every output row
 // writes D floats: about N*D*(sizeof(T) + 4) bytes a call.
 //
-// Design: one warp per output row; lane l converts columns l, l+32, ... so a
+// K5: one warp per output row; lane l converts columns l, l+32, ... so a
 // warp reads a payload row in coalesced 32-element runs. The payload type is
-// a template parameter (f32, f16, int8) and kScaled selects K6. A -1 slot
-// writes a zero row. K6 dequantizes with one multiply, float(q) * scale[s],
-// which is bit-exact with the plain version payload[s].float() * scales[s].
+// a template parameter (f32, f16). A -1 slot writes a zero row.
+//
+// K6: the grouped pooled read of pooled_read.cuh with the per-row scale: one
+// launch reads every table of a served int8 batch and sums each output row's
+// H dequantized rows into the [B, T, D] result in place (a warp per int8
+// row of 128 bytes, each lane dequantizing 4 bytes into one float4 store).
+// The cache's row read (slots [N]) is the same kernel with one
+// table and H = 1. Each row is float(q) * scale[s], rounded before it is
+// added, which at H = 1 is bit-exact with the plain version
+// payload[s].float() * scales[s].
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pooled_read.cuh"
 
 namespace {
 
@@ -27,13 +36,9 @@ constexpr int kWarpsPerBlock = 8;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) {
-  return static_cast<float>(v);
-}
 
-template <typename T, bool kScaled>
+template <typename T>
 __global__ void gather_rows_kernel(const T* __restrict__ payload,
-                                   const float* __restrict__ scales,
                                    const int32_t* __restrict__ slots,
                                    float* __restrict__ out, int64_t n,
                                    int dim) {
@@ -48,55 +53,60 @@ __global__ void gather_rows_kernel(const T* __restrict__ payload,
     return;
   }
   const T* p = payload + static_cast<int64_t>(s) * dim;
-  if (kScaled) {
-    const float sc = __ldg(scales + s);
-    for (int d = lane; d < dim; d += 32) o[d] = to_f32(p[d]) * sc;
-  } else {
-    for (int d = lane; d < dim; d += 32) o[d] = to_f32(p[d]);
-  }
+  for (int d = lane; d < dim; d += 32) o[d] = to_f32(p[d]);
 }
 
-template <typename T, bool kScaled>
-int launch(const void* payload, const void* scales, const void* slots,
-           void* out, int64_t n, int dim, cudaStream_t stream) {
+template <typename T>
+int launch(const void* payload, const void* slots, void* out, int64_t n,
+           int dim, cudaStream_t stream) {
   if (n > 0) {
     const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    gather_rows_kernel<T, kScaled>
+    gather_rows_kernel<T>
         <<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
-            static_cast<const T*>(payload), static_cast<const float*>(scales),
+            static_cast<const T*>(payload),
             static_cast<const int32_t*>(slots), static_cast<float*>(out), n,
             dim);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kScaled>
-int dispatch(const void* payload, int payload_dtype, const void* scales,
-             const void* slots, void* out, long long n, int dim,
-             void* stream) {
+}  // namespace
+
+// payload_dtype: 0 = float32, 1 = float16.
+extern "C" int repro_gather_rows(const void* payload, int payload_dtype,
+                                 const void* slots, void* out, long long n,
+                                 int dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (payload_dtype) {
-    case 0: return launch<float, kScaled>(payload, scales, slots, out, n, dim, s);
-    case 1: return launch<__half, kScaled>(payload, scales, slots, out, n, dim, s);
-    case 3: return launch<int8_t, kScaled>(payload, scales, slots, out, n, dim, s);
+    case 0: return launch<float>(payload, slots, out, n, dim, s);
+    case 1: return launch<__half>(payload, slots, out, n, dim, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-
-// payload_dtype: 0 = float32, 1 = float16, 3 = int8.
-extern "C" int repro_gather_rows(const void* payload, int payload_dtype,
-                                 const void* slots, void* out, long long n,
-                                 int dim, void* stream) {
-  return dispatch<false>(payload, payload_dtype, nullptr, slots, out, n, dim,
-                         stream);
-}
-
-extern "C" int repro_dequant_gather_rows(const void* payload, int payload_dtype,
-                                         const void* scales, const void* slots,
-                                         void* out, long long n, int dim,
-                                         void* stream) {
-  return dispatch<true>(payload, payload_dtype, scales, slots, out, n, dim,
-                        stream);
+// The grouped K6: `tables` (<= 64) payloads of `dim` columns and one type
+// (payload_dtype 1 = float16, 3 = int8) with their [C] f32 scales; slots
+// [batch, H] int32 (-1 = hole), hots each table's H; out[b * out_stride + t
+// * dim + d] f32. The pointer arrays live in host memory and travel in the
+// launch's parameters.
+extern "C" int repro_dequant_gather_rows(const void* const* payloads,
+                                         const void* const* scales,
+                                         const void* const* slots,
+                                         const int* hots, int tables,
+                                         int payload_dtype, long long batch,
+                                         int dim, void* out,
+                                         long long out_stride, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (payload_dtype) {
+    case 1:
+      return pooled::launch<__half, true>(payloads, scales, slots, hots,
+                                          tables, batch, dim, out, out_stride,
+                                          s);
+    case 3:
+      return pooled::launch<int8_t, true>(payloads, scales, slots, hots,
+                                          tables, batch, dim, out, out_stride,
+                                          s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

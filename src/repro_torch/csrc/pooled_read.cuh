@@ -1,0 +1,266 @@
+// The grouped pooled row read shared by K1 (lookup_fwd, embedding_lookup.cu)
+// and K6 (dequant_gather_rows, hps_gather.cu), for Hopper (sm_90a).
+//
+// out[b, t, :] = sum over h < hot_t, in order of h from a zero start, of
+// row(payload_t, slots_t[b, h]) in f32, where a -1 slot adds nothing and
+// row() is float(payload[s]) (K1) or float(payload[s]) * scales[s] (K6, the
+// product rounded before the add). One launch covers up to kMaxTables
+// tables that share the row width D and the payload type; each table has
+// its own payload, scales, slots [B, hot_t] and hot_t. The descriptors
+// travel in one struct by value (kernel parameter space, read through the
+// constant cache): no host-to-device copy and no sync, so a launch can be
+// captured in a CUDA graph. A single table with hot = 1 is the plain row
+// read (K6's dequant_gather_rows), and one table is the training and LM
+// lookup (K1's lookup_fwd).
+//
+// What bounds it: memory, and at the served shape the launch. A row of the
+// output reads hot_t payload rows and writes D floats.
+//
+// Design: output rows are numbered r = b * tables + t, so consecutive rows
+// are consecutive in out. A row moves in units of four elements, each read
+// by one vector load (16 bytes of f32, 8 of f16 or bf16, 4 of int8) and
+// written as one float4, wherever D is a multiple of 4 and the pointers are
+// aligned to a unit; otherwise in single elements (D = 1, D = 33, a payload
+// that starts off a unit). A row has the largest power of two of lanes, up
+// to 32, that its units fill: a warp per row of 128 in every type, so each
+// store instruction writes 512 contiguous bytes whatever the payload type.
+// A lane group takes one item: a whole row, one unit a lane, or, for a row
+// with more units than lanes (D = 3072: 768 f32 units), one pass of
+// kWideItems units a lane, consecutive groups taking a row's consecutive
+// passes. A lane reads its row's slots itself (the lanes of a row read the
+// same word, one transaction), then issues the pass's payload loads, then
+// adds. Small items and many warps, rather than several rows in flight a
+// warp, keep the card's memory busy at these shapes.
+//
+// Why not 16-byte loads for every type: a quarter-warp per int8 row then
+// writes each float4 64 bytes from its neighbour lane's, and the grouped
+// int8 read took twice as long; and several rows in flight a warp lost to
+// more, smaller warps (PERF.md section 6 has the variants' times).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace pooled {
+
+constexpr int kMaxTables = 64;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kWideItems = 4;   // units a lane keeps in flight, wide rows
+
+struct Table {
+  const void* payload;       // [C, D] of the payload type
+  const float* scales;       // [C] f32 (K6 only)
+  const int32_t* slots;      // [B, hot] int32, -1 = hole
+  int hot;
+};
+
+struct Group {
+  Table t[kMaxTables];
+  float* out;                // out[b * out_stride + t * dim + d]
+  long long out_stride;
+  int batch;
+  int tables;
+  int dim;
+  int units;                 // units (or elements) of a row
+  int lanes_log;             // log2 of the lanes of a row
+};
+
+template <typename To>
+__device__ __forceinline__ To bits(uint32_t w) {
+  To v;
+  memcpy(&v, &w, sizeof(To));
+  return v;
+}
+
+// A unit: four elements of T, one float4 of the output. Load is the
+// vector type that reads it (16 bytes of f32, 8 of f16 or bf16, 4 of int8).
+template <typename T> struct Unit;
+template <> struct Unit<float> {
+  using Load = uint4;
+  static __device__ __forceinline__ float4 unpack(Load v) {
+    return make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
+                       __uint_as_float(v.z), __uint_as_float(v.w));
+  }
+};
+template <> struct Unit<__half> {
+  using Load = uint2;
+  static __device__ __forceinline__ float4 unpack(Load v) {
+    const float2 a = __half22float2(bits<__half2>(v.x));
+    const float2 b = __half22float2(bits<__half2>(v.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+};
+template <> struct Unit<__nv_bfloat16> {
+  using Load = uint2;
+  static __device__ __forceinline__ float4 unpack(Load v) {
+    const float2 a = __bfloat1622float2(bits<__nv_bfloat162>(v.x));
+    const float2 b = __bfloat1622float2(bits<__nv_bfloat162>(v.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+};
+template <> struct Unit<int8_t> {
+  using Load = uint32_t;
+  static __device__ __forceinline__ float4 unpack(Load v) {
+    return make_float4(static_cast<float>(static_cast<int8_t>(v & 0xff)),
+                       static_cast<float>(static_cast<int8_t>(v >> 8 & 0xff)),
+                       static_cast<float>(static_cast<int8_t>(v >> 16 & 0xff)),
+                       static_cast<float>(static_cast<int8_t>(v >> 24)));
+  }
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
+
+// kVec: units of four elements (one float4 of the output each), else
+// single elements. kWide: a row has more units than lanes, and a lane group
+// takes one pass over it (kWideItems units a lane); else a lane group takes a
+// whole row, one unit a lane. One such item a lane group.
+template <typename T, bool kScaled, bool kVec, bool kWide>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    pooled_read_kernel(const __grid_constant__ Group g) {
+  using Load = typename Unit<T>::Load;
+  constexpr int kItems = kWide ? kWideItems : 1;
+  const int lane = threadIdx.x & 31;
+  const int lanes_log = g.lanes_log;
+  const int li = lane & ((1 << lanes_log) - 1);
+  // consecutive lane groups take consecutive items, so a warp's stores run
+  // over consecutive rows (narrow) or one row's consecutive passes (wide)
+  const long long item =
+      ((static_cast<long long>(blockIdx.x) * kWarpsPerBlock +
+        (threadIdx.x >> 5)) << (5 - lanes_log)) + (lane >> lanes_log);
+  const int span = kItems << lanes_log;          // units a pass covers
+  const int passes = kWide ? (g.units + span - 1) / span : 1;
+  const long long row = item / passes;
+  if (row >= static_cast<long long>(g.batch) * g.tables) return;
+  const int u0 = static_cast<int>(item - row * passes) * span + li;
+  const int b = static_cast<int>(row / g.tables);
+  const int t = static_cast<int>(row - static_cast<long long>(b) * g.tables);
+  const Table& tb = g.t[t];
+  float4 acc[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int h = 0; h < tb.hot; ++h) {
+    const int32_t id =
+        __ldg(tb.slots + static_cast<long long>(b) * tb.hot + h);
+    if (id < 0) continue;
+    const float sc = kScaled ? __ldg(tb.scales + id) : 1.f;
+    const T* src = static_cast<const T*>(tb.payload) +
+                   static_cast<long long>(id) * g.dim;
+    if (kVec) {
+      Load v[kItems];
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int u = u0 + (i << lanes_log);
+        if (u < g.units) v[i] = __ldg(reinterpret_cast<const Load*>(src) + u);
+      }
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        if (u0 + (i << lanes_log) >= g.units) continue;
+        float4 f = Unit<T>::unpack(v[i]);
+        if (kScaled) {
+          f.x = __fmul_rn(f.x, sc);
+          f.y = __fmul_rn(f.y, sc);
+          f.z = __fmul_rn(f.z, sc);
+          f.w = __fmul_rn(f.w, sc);
+        }
+        acc[i].x += f.x;
+        acc[i].y += f.y;
+        acc[i].z += f.z;
+        acc[i].w += f.w;
+      }
+    } else {
+      T v[kItems];
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int u = u0 + (i << lanes_log);
+        if (u < g.units) v[i] = src[u];
+      }
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        if (u0 + (i << lanes_log) >= g.units) continue;
+        const float f = to_f32(v[i]);
+        acc[i].x += kScaled ? __fmul_rn(f, sc) : f;
+      }
+    }
+  }
+  float* o = g.out + static_cast<long long>(b) * g.out_stride +
+             static_cast<long long>(t) * g.dim;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int u = u0 + (i << lanes_log);
+    if (u >= g.units) continue;
+    if (kVec)
+      reinterpret_cast<float4*>(o)[u] = acc[i];
+    else
+      o[u] = acc[i].x;
+  }
+}
+
+template <typename T, bool kScaled, bool kVec, bool kWide>
+void start(const Group& g, long long nrows, cudaStream_t stream) {
+  const int span = (kWide ? kWideItems : 1) << g.lanes_log;
+  const long long items = nrows * ((g.units + span - 1) / span);
+  const long long warps = (items + (32 >> g.lanes_log) - 1) >>
+                          (5 - g.lanes_log);
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  pooled_read_kernel<T, kScaled, kVec, kWide>
+      <<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(g);
+}
+
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The C entry points' common body: pack the descriptors, choose the unit
+// and the lanes a row, launch. payloads, scales (K6; nullptr for K1),
+// slots: `tables` device pointers each, in host memory; hots: H per table.
+template <typename T, bool kScaled>
+int launch(const void* const* payloads, const void* const* scales,
+           const void* const* slots, const int* hots, int tables,
+           long long batch, int dim, void* out, long long out_stride,
+           cudaStream_t stream) {
+  if (tables < 1 || tables > kMaxTables || batch < 0 || dim < 0 ||
+      batch * tables > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || dim == 0) return static_cast<int>(cudaGetLastError());
+  Group g;
+  memset(&g, 0, sizeof(g));
+  // units of four elements: the payload rows and out aligned to them
+  bool vec = dim % 4 == 0 && out_stride % 4 == 0 && aligned(out, 16);
+  for (int t = 0; t < tables; ++t) {
+    g.t[t].payload = payloads[t];
+    g.t[t].scales = kScaled ? static_cast<const float*>(scales[t]) : nullptr;
+    g.t[t].slots = static_cast<const int32_t*>(slots[t]);
+    g.t[t].hot = hots[t];
+    vec = vec && aligned(payloads[t], 4 * sizeof(T));
+  }
+  g.out = static_cast<float*>(out);
+  g.out_stride = out_stride;
+  g.batch = static_cast<int>(batch);
+  g.tables = tables;
+  g.dim = dim;
+  g.units = vec ? dim / 4 : dim;
+  g.lanes_log = 0;
+  while (g.lanes_log < 5 && (2 << g.lanes_log) <= g.units) ++g.lanes_log;
+  const bool wide = g.units > (1 << g.lanes_log);
+  const long long nrows = batch * tables;
+  if (vec) {
+    if (wide) start<T, kScaled, true, true>(g, nrows, stream);
+    else start<T, kScaled, true, false>(g, nrows, stream);
+  } else {
+    if (wide) start<T, kScaled, false, true>(g, nrows, stream);
+    else start<T, kScaled, false, false>(g, nrows, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace pooled

@@ -39,10 +39,11 @@ LIB_NAME = "librepro_kernels.so"
 #: returns cudaGetLastError() after its launch
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    "repro_lookup_fwd": [_P, _I, _P, _P, _L, _I, _I, _P],
+    "repro_lookup_fwd": [_P, _P, _P, _I, _I, _L, _I, _P, _L, _P],
     "repro_lookup_bwd": [_P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
     "repro_gather_rows": [_P, _I, _P, _P, _L, _I, _P],
-    "repro_dequant_gather_rows": [_P, _I, _P, _P, _P, _L, _I, _P],
+    "repro_dequant_gather_rows": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _L,
+                                  _P],
     "repro_interaction_fwd": [_P, _P, _L, _I, _I, _I, _P],
     "repro_interaction_bwd": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _P],
@@ -211,10 +212,9 @@ def require_cuda(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every operand lies on the CPU (the plain version's case);
     False when all are CUDA; raises on a mix or any other device."""
-    types = {t.device.type for t in tensors}
-    if types == {"cpu"}:
-        return True
-    if types == {"cuda"}:
+    if tensors and all(t.is_cuda for t in tensors):
         return False
+    if tensors and all(t.is_cpu for t in tensors):
+        return True
     raise ValueError(f"operands must all be on the CPU or all on CUDA, "
-                     f"got {sorted(types)}")
+                     f"got {sorted({t.device.type for t in tensors})}")

@@ -4,7 +4,10 @@
 Counterparts of ``repro/kernels/embedding_lookup.py::lookup_fwd`` and
 ``::lookup_bwd``. On CUDA tensors each wrapper launches its hand-written
 kernel; on CPU tensors it runs its plain version. There is no fallback
-between the two: a CUDA launch that fails raises. K3's kernel adds in the
+between the two: a CUDA launch that fails raises. K1 is the grouped pooled
+read of ``kernels/pooled.py``: :func:`lookup_fwd_grouped` reads every table
+of a served batch in one launch, :func:`lookup_fwd` is the same kernel with
+one table. K3's kernel adds in the
 order of ``lookup_bwd_chunked_plain`` and matches it bit for bit;
 ``lookup_bwd_plain`` (one ``index_add_``) computes the same function in
 another order and is what CPU tensors take.
@@ -15,7 +18,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, pooled
 from repro_torch.kernels.ref import LOOKUP_BWD_CHUNK
 from repro_torch.kernels.ref import \
     embedding_grad_chunked_ref as lookup_bwd_chunked_plain
@@ -32,17 +35,30 @@ def lookup_fwd(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     -> sum-pooled ``[B, D]`` f32; duplicate ids count multiply."""
     if _build.on_cpu(table, rows):
         return lookup_fwd_plain(table, rows)
-    _build.require_cuda("table", table, TABLE_DTYPES, 2)
-    _build.require_cuda("rows", rows, (torch.int32,), 2)
-    _build.require(table.device == rows.device,
-                   f"table on {table.device}, rows on {rows.device}")
-    b, h = rows.shape
-    d = table.shape[1]
-    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
-    _build.launch(NAME, "repro_lookup_fwd", table.device, table.data_ptr(),
-                  _build.DTYPE_CODES[table.dtype], rows.data_ptr(),
-                  out.data_ptr(), b, h, d)
-    return out
+    out = pooled.launch(NAME, "repro_lookup_fwd", (table,), None, (rows,),
+                        TABLE_DTYPES)
+    return out.view(out.shape[0], out.shape[2])
+
+
+def lookup_fwd_grouped_plain(tables: Sequence[torch.Tensor],
+                             rows: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The plain version of :func:`lookup_fwd_grouped`: each table's plain
+    lookup, stacked to ``[B, T, D]``."""
+    return torch.stack([lookup_fwd_plain(t, r) for t, r in zip(tables, rows)],
+                       dim=1)
+
+
+def lookup_fwd_grouped(tables: Sequence[torch.Tensor],
+                       rows: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``tables [V_t, D]`` of one type, ``rows [B, H_t]`` int32 (-1 = pad)
+    -> ``[B, T, D]`` f32, ``out[:, t]`` the pooled lookup of table ``t``:
+    one launch for every :data:`pooled.MAX_TABLES` tables on CUDA, the
+    plain versions stacked on the CPU (the launch checks that every
+    operand lies on the first table's card)."""
+    if tables and not tables[0].is_cuda and _build.on_cpu(*tables, *rows):
+        return lookup_fwd_grouped_plain(tables, rows)
+    return pooled.launch(NAME, "repro_lookup_fwd", tables, None, rows,
+                         TABLE_DTYPES)
 
 
 def lookup_bwd(table_shape: Sequence[int], rows: torch.Tensor,

@@ -2,15 +2,21 @@
 
 Counterparts of ``repro/kernels/hps_gather.py::gather_rows`` (K5) and
 ``::dequant_gather_rows`` (K6). On CUDA tensors the wrappers launch the
-hand-written kernel; on CPU tensors they run the plain versions. The
+hand-written kernel; on CPU tensors they run the plain versions. K6 is the
+grouped pooled read of ``kernels/pooled.py`` with per-row scales:
+:func:`dequant_gather_grouped` reads and sums every table of a served int8
+batch in one launch, :func:`dequant_gather_rows` is the same kernel with one
+table and one slot a row. The
 striped multi-device bodies (``sharded_gather_rows`` and its dequant twin)
 belong to the multi-GPU slice.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, pooled
 from repro_torch.kernels.ref import cache_gather_ref as gather_rows_plain
 from repro_torch.kernels.ref import (
     dequant_gather_ref as dequant_gather_rows_plain,
@@ -45,16 +51,44 @@ def dequant_gather_rows(payload: torch.Tensor, scales: torch.Tensor,
     int32 (-1 = hole) -> ``[N, D]`` f32 ``float(payload[s]) * scales[s]``."""
     if _build.on_cpu(payload, scales, slots):
         return dequant_gather_rows_plain(payload, scales, slots)
-    _build.require_cuda("payload", payload, COMPRESSED_DTYPES, 2)
-    _build.require_cuda("scales", scales, (torch.float32,), 1)
     _build.require_cuda("slots", slots, (torch.int32,), 1)
-    _build.require(payload.device == scales.device == slots.device,
-                   "payload, scales and slots must share one device")
-    _build.require(scales.shape[0] == payload.shape[0],
-                   f"{scales.shape[0]} scales for {payload.shape[0]} rows")
-    n, d = slots.shape[0], payload.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=payload.device)
-    _build.launch(DEQUANT, "repro_dequant_gather_rows", payload.device,
-                  payload.data_ptr(), _build.DTYPE_CODES[payload.dtype],
-                  scales.data_ptr(), slots.data_ptr(), out.data_ptr(), n, d)
-    return out
+    n = slots.shape[0]
+    out = pooled.launch(DEQUANT, "repro_dequant_gather_rows", (payload,),
+                        (scales,), (slots.view(n, 1),), COMPRESSED_DTYPES)
+    return out.view(n, out.shape[2])
+
+
+def dequant_pooled_plain(payload: torch.Tensor, scales: torch.Tensor,
+                         slots: torch.Tensor) -> torch.Tensor:
+    """The plain pooled dequantizing read: ``slots [B, H]`` -> ``[B, D]``
+    f32, the sum over H of :func:`dequant_gather_rows_plain`'s rows."""
+    b, h = slots.shape
+    rows = dequant_gather_rows_plain(payload, scales, slots.reshape(-1))
+    rows = rows.view(b, h, -1)
+    return rows[:, 0] if h == 1 else rows.sum(dim=1)
+
+
+def dequant_gather_grouped_plain(payloads: Sequence[torch.Tensor],
+                                 scales: Sequence[torch.Tensor],
+                                 slots: Sequence[torch.Tensor]
+                                 ) -> torch.Tensor:
+    """The plain version of :func:`dequant_gather_grouped`: each table's
+    :func:`dequant_pooled_plain`, stacked to ``[B, T, D]``."""
+    return torch.stack([dequant_pooled_plain(p, sc, s)
+                        for p, sc, s in zip(payloads, scales, slots)], dim=1)
+
+
+def dequant_gather_grouped(payloads: Sequence[torch.Tensor],
+                           scales: Sequence[torch.Tensor],
+                           slots: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``payloads [C_t, D]`` of one type (int8/f16) with ``scales [C_t]``
+    f32, ``slots [B, H_t]`` int32 (-1 = hole) -> ``[B, T, D]`` f32,
+    ``out[:, t]`` the sum over H of table ``t``'s dequantized rows: one
+    launch for every :data:`pooled.MAX_TABLES` tables on CUDA, the plain
+    versions stacked on the CPU (the launch checks that every operand lies
+    on the first payload's card)."""
+    if payloads and not payloads[0].is_cuda and \
+            _build.on_cpu(*payloads, *scales, *slots):
+        return dequant_gather_grouped_plain(payloads, scales, slots)
+    return pooled.launch(DEQUANT, "repro_dequant_gather_rows", payloads,
+                         scales, slots, COMPRESSED_DTYPES)

@@ -1,5 +1,6 @@
 """Entry points over the kernels (counterparts of ``repro/kernels/ops.py``):
-the serving reads ``pooled_cache_lookup`` and ``cache_gather``, the
+the serving reads ``grouped_pooled_lookup`` (every table of a batch in one
+launch), ``pooled_cache_lookup`` and ``cache_gather``, the
 differentiable ``fused_embedding_lookup`` / ``kernel_pool`` and
 ``dot_interaction`` that training runs, and the LM's ``flash_attention``.
 
@@ -12,31 +13,42 @@ become ``torch.autograd.Function``s whose backward is the adjoint kernel
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dot_interaction import interaction_bwd, interaction_fwd
-from repro_torch.kernels.embedding_lookup import lookup_bwd, lookup_fwd
+from repro_torch.kernels.embedding_lookup import (lookup_bwd, lookup_fwd,
+                                                  lookup_fwd_grouped)
 from repro_torch.kernels.flash_attention import flash_bwd, flash_fwd
-from repro_torch.kernels.hps_gather import dequant_gather_rows, gather_rows
+from repro_torch.kernels.hps_gather import (
+    dequant_gather_grouped, dequant_gather_rows, gather_rows)
 from repro_torch.kernels.ref import acc_dtype, flash_attention_ref
+
+
+def grouped_pooled_lookup(payloads: Sequence[tuple],
+                          slots: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``payloads``: one ``(payload [C_t, D], scales [C_t] or None)``
+    snapshot a table, all of one type; ``slots``: one ``[B, H_t]`` int32
+    block a table (-1 = hole) -> sum-pooled ``[B, T, D]`` f32. Int8 (scaled)
+    payloads go through K6, which dequantizes each row before the sum, the
+    others through K1: one launch for all the tables on CUDA."""
+    tables = [p for p, _ in payloads]
+    scales = [sc for _, sc in payloads]
+    if all(sc is None for sc in scales):
+        return lookup_fwd_grouped(tables, slots)
+    if any(sc is None for sc in scales):
+        raise ValueError("payloads with and without scales in one read")
+    return dequant_gather_grouped(tables, scales, slots)
 
 
 def pooled_cache_lookup(payload: torch.Tensor, slots: torch.Tensor,
                         scales: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """``payload [C, D]``, ``slots [B, H]`` int32 (-1 = hole) -> sum-pooled
-    ``[B, D]`` f32. With per-row ``scales`` (int8 payloads) the rows come
-    from the dequantizing gather K6 and are summed over H; otherwise the
-    pooled gather K1 reads the payload directly."""
-    if scales is not None:
-        b, h = slots.shape
-        rows = dequant_gather_rows(payload, scales, slots.reshape(-1))
-        rows = rows.view(b, h, -1)
-        return rows[:, 0] if h == 1 else rows.sum(dim=1)
-    return lookup_fwd(payload, slots)
+    ``[B, D]`` f32: :func:`grouped_pooled_lookup` of one table."""
+    return grouped_pooled_lookup(((payload, scales),), (slots,))[:, 0]
 
 
 def cache_gather(payload: torch.Tensor, slots: torch.Tensor, *,

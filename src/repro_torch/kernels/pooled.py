@@ -1,0 +1,97 @@
+"""The launch of the grouped pooled read that K1 and K6 share
+(``csrc/pooled_read.cuh``).
+
+One launch reads up to :data:`MAX_TABLES` tables that share the row width
+``D`` and the payload type, each with its own payload, slots ``[B, H_t]``
+(``H_t`` may differ) and, for K6, scales, and writes ``out[b, t, :]`` in
+place. The descriptors go to the C entry point as arrays of pointers in
+host memory and reach the kernel in its parameters, so a launch copies
+nothing to the card and waits for nothing: it can be captured in a CUDA
+graph. More tables take several launches, each writing its slice of
+``out`` (:func:`table_launches`).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: tables one launch takes (``pooled::kMaxTables``: the descriptors stay
+#: about 2 KB of the 4 KB of kernel parameters)
+MAX_TABLES = 64
+
+
+def table_launches(n: int, limit: int = MAX_TABLES) -> List[Tuple[int, int]]:
+    """The ``[start, stop)`` table ranges of the launches that read ``n``
+    tables, ``limit`` at most each."""
+    return [(t, min(n, t + limit)) for t in range(0, n, limit)]
+
+
+def _check(payloads, scales, slots, dtypes) -> Tuple[int, int]:
+    """The wrapper's checks on CUDA operands, message built only on a
+    failure; returns ``(B, D)``."""
+    n = len(payloads)
+    if not n or len(slots) != n or (scales is not None and len(scales) != n):
+        raise ValueError(f"{n} payloads, {len(slots)} slot blocks and "
+                         f"{'no' if scales is None else len(scales)} scales")
+    first = payloads[0]
+    if not (first.is_cuda and first.dtype in dtypes and first.dim() == 2):
+        _build.require_cuda("payload 0", first, dtypes, 2)
+    b, d = slots[0].shape[0], first.shape[1]
+    dtype, dev, di = first.dtype, first.device, first.get_device()
+    for t, (p, s) in enumerate(zip(payloads, slots)):
+        sc = None if scales is None else scales[t]
+        ps, ss = p.shape, s.shape
+        if (p.dtype is dtype and len(ps) == 2 and ps[1] == d
+                and p.is_contiguous() and p.get_device() == di
+                and s.dtype is torch.int32 and len(ss) == 2 and ss[0] == b
+                and s.is_contiguous() and s.get_device() == di
+                and (sc is None or (sc.dtype is torch.float32
+                                    and sc.ndim == 1 and sc.shape[0] == ps[0]
+                                    and sc.is_contiguous()
+                                    and sc.get_device() == di))):
+            continue
+        _build.require_cuda(f"payload {t}", p, (dtype,), 2)
+        _build.require_cuda(f"slots {t}", s, (torch.int32,), 2)
+        _build.require(p.device == s.device == dev,
+                       f"table {t}: payload on {p.device}, slots on "
+                       f"{s.device}, table 0 on {dev}")
+        _build.require(p.shape[1] == d, f"table {t}: D {p.shape[1]} != {d}")
+        _build.require(s.shape[0] == b, f"table {t}: B {s.shape[0]} != {b}")
+        _build.require_cuda(f"scales {t}", sc, (torch.float32,), 1)
+        _build.require(sc.device == dev and sc.shape[0] == p.shape[0],
+                       f"table {t}: {sc.shape[0]} scales on {sc.device} for "
+                       f"{p.shape[0]} rows on {dev}")
+    return b, d
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def launch(kernel: str, entry: str, payloads: Sequence[torch.Tensor],
+           scales: Optional[Sequence[torch.Tensor]],
+           slots: Sequence[torch.Tensor], dtypes) -> torch.Tensor:
+    """Read ``payloads`` (CUDA) at ``slots`` through the C entry ``entry``
+    (K6's when ``scales`` is given) -> ``[B, T, D]`` f32, in one launch per
+    :data:`MAX_TABLES` tables, each counted as one of ``kernel``."""
+    b, d = _check(payloads, scales, slots, dtypes)
+    n = len(payloads)
+    out = torch.empty((b, n, d), dtype=torch.float32,
+                      device=payloads[0].device)
+    if out.numel() == 0:
+        return out
+    code = _build.DTYPE_CODES[payloads[0].dtype]
+    for t0, t1 in table_launches(n):
+        pp, ss = _ptrs(payloads[t0:t1]), _ptrs(slots[t0:t1])
+        hh = (ctypes.c_int * (t1 - t0))(*[s.shape[1] for s in slots[t0:t1]])
+        cc = None if scales is None else _ptrs(scales[t0:t1])
+        head = [ctypes.addressof(pp)] + (
+            [] if cc is None else [ctypes.addressof(cc)])
+        _build.launch(kernel, entry, out.device, *head, ctypes.addressof(ss),
+                      ctypes.addressof(hh), t1 - t0, code, b, d,
+                      out.data_ptr() + t0 * d * out.element_size(), n * d)
+    return out

@@ -9,21 +9,28 @@ row rounded, and which rows overflow follows the probe order), so there
 f16 and int8 are held within their rounding bound of the f32 PDB rows;
 f32 stays bit-exact at every depth, and all three payloads are bit-exact
 at ``depth=1``. Also: a scatter issued while a plan is in flight leaves
-that plan's result unchanged (clone-on-write snapshots)."""
+that plan's result unchanged (clone-on-write snapshots); and the pooled
+read of all tables (``_pooled_stack``, one grouped read) matches the
+reference's with holes, H_t of 1 and 3, the mean combiner, with and
+without the mean applied (bit-exact on the H = 1 tables, <= 1e-6 on the
+others)."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import threading
 
+import jax.numpy as jnp
 import numpy as np
 
 from repro.configs.base import EmbeddingTableConfig as JTable
 from repro.core.hps.hps import HPS as JHPS
+from repro.core.hps.hps import _pooled_stack as j_pooled_stack
 from repro.core.hps.persistent_db import PersistentDB as JPDB
 from repro_torch.configs.base import EmbeddingTableConfig
 from repro_torch.core.hps.embedding_cache import DeviceEmbeddingCache
-from repro_torch.core.hps.hps import HPS
+from repro_torch.core.hps.hps import HPS, _pooled_stack
+from repro_torch.core.hps.payload_store import quantize_rows
 from repro_torch.core.hps.persistent_db import PersistentDB
 
 VOCABS = (300, 50, 1000)
@@ -183,6 +190,35 @@ def test_multi_hot_lookup_matches_jax(pdb_root, payload_dtype):
     finally:
         j.close()
         p.close()
+
+
+@pytest.mark.parametrize("payload_dtype", ["f32", "f16", "int8"])
+@pytest.mark.parametrize("d", [1, DIM])
+@pytest.mark.parametrize("apply_mean", [True, False])
+def test_pooled_stack_matches_jax(payload_dtype, d, apply_mean):
+    rng = np.random.default_rng(d)
+    hots = (1, 3, 1, 3)
+    combiners = ("sum", "mean", "mean", "sum")
+    pays, slots = [], []
+    for h in hots:
+        rows = rng.standard_normal((20, d)).astype(np.float32)
+        pays.append(quantize_rows(rows, payload_dtype))
+        s = rng.integers(-1, 20, size=(16, h)).astype(np.int32)
+        s[0] = -1                                       # a row of holes
+        slots.append(s)
+    want = np.asarray(j_pooled_stack(
+        tuple((jnp.asarray(p), None if sc is None else jnp.asarray(sc))
+              for p, sc in pays),
+        tuple(jnp.asarray(s) for s in slots), combiners, apply_mean))
+    got = _pooled_stack(
+        [(torch.from_numpy(p), None if sc is None else torch.from_numpy(sc))
+         for p, sc in pays],
+        [torch.from_numpy(s) for s in slots], combiners, apply_mean).numpy()
+    assert got.shape == want.shape == (16, len(hots), d)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    for t, h in enumerate(hots):
+        if h == 1:
+            np.testing.assert_array_equal(got[:, t], want[:, t])
 
 
 def test_cache_query_matches_jax(pdb_root):

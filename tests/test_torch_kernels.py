@@ -5,7 +5,9 @@ On CPU tensors each wrapper takes its plain version, so these cases hold
 the plain versions (and the wrappers' dispatch) to the TPU kernels on the
 same numpy inputs. Tolerances: the gathers K5/K6 (f32, f16 and int8
 ``q * scale``) and K1 with one id per row are bit-exact; K1 with several
-ids per row sums in another order (<= 1e-6 relative); K3 against the
+ids per row sums in another order (<= 1e-6 relative), and so does the
+grouped pooled read (K1 or K6 for all tables of a served batch at once)
+against the reference's per-table ``pooled_cache_lookup``; K3 against the
 Pallas lookup's VJP sums each row's few contributions in another order
 (<= 1e-6); K2 and K4 are f32 dots over D or F (<= 1e-5). Both
 ``autograd.Function``s pass ``gradcheck`` in f64 on the plain path. The
@@ -30,17 +32,18 @@ import types
 
 import numpy as np
 
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, ops, pooled
 from repro_torch.kernels.dot_interaction import (
     bwd_smem_bytes, interaction_bwd, interaction_bwd_plain, interaction_fwd,
     interaction_fwd_plain)
 from repro_torch.kernels.embedding_lookup import (
     lookup_bwd, lookup_bwd_chunked_plain, lookup_bwd_plain, lookup_fwd,
-    lookup_fwd_plain)
+    lookup_fwd_grouped, lookup_fwd_grouped_plain, lookup_fwd_plain)
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_bwd,
                                                  flash_fwd)
 from repro_torch.kernels.hps_gather import (
-    dequant_gather_rows, dequant_gather_rows_plain, gather_rows,
+    dequant_gather_grouped, dequant_gather_grouped_plain, dequant_gather_rows,
+    dequant_gather_rows_plain, dequant_pooled_plain, gather_rows,
     gather_rows_plain)
 from repro_torch.kernels.ref import (BF16_GRAD_RULE, LOOKUP_BWD_CHUNK,
                                      flash_attention_bwd_ref,
@@ -390,6 +393,73 @@ def test_pooled_cache_lookup_paths(J):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
+# ---------------------------------------------------------------------------
+# the grouped pooled read (K1 for f32/f16/bf16 payloads, K6 for int8)
+# ---------------------------------------------------------------------------
+
+def _grouped_inputs(rng, mode, d, hots, b=11):
+    """One ``(payload, scales)`` a table as the L1 stores it, and one
+    ``[b, H_t]`` slot block a table with holes (numpy)."""
+    pays, slots = [], []
+    for t, h in enumerate(hots):
+        rows = rng.standard_normal((30 + t, d)).astype(np.float32)
+        pays.append(quantize_rows(rows, mode))
+        slots.append(_rows(rng, b, h, 30 + t))
+    return pays, slots
+
+
+def _torch_pays(pays):
+    return [(torch.from_numpy(p), None if sc is None else torch.from_numpy(sc))
+            for p, sc in pays]
+
+
+@pytest.mark.parametrize("mode", ["f32", "f16", "int8"])
+@pytest.mark.parametrize("d", [1, 33])
+def test_grouped_pooled_lookup_plain_route(J, mode, d):
+    """CPU tensors: the per-table plain versions stacked, no launch, and
+    each table equal to the reference's ``pooled_cache_lookup`` (bit-exact
+    at H = 1, <= 1e-6 at H = 3)."""
+    rng = np.random.default_rng(d)
+    pays, slots = _grouped_inputs(rng, mode, d, (1, 3, 1, 3))
+    _build.LAUNCHES.reset()
+    got = ops.grouped_pooled_lookup(_torch_pays(pays),
+                                    [torch.from_numpy(s) for s in slots])
+    assert _build.LAUNCHES.snapshot() == {}
+    assert got.shape == (11, 4, d) and got.dtype == torch.float32
+    for t, ((p, sc), s) in enumerate(zip(pays, slots)):
+        tp, ts = torch.from_numpy(p), torch.from_numpy(s)
+        plain = lookup_fwd_plain(tp, ts) if sc is None else \
+            dequant_pooled_plain(tp, torch.from_numpy(sc), ts)
+        assert torch.equal(got[:, t], plain)
+        want = np.asarray(J.ops.pooled_cache_lookup(
+            J.jnp.asarray(p), J.jnp.asarray(s),
+            None if sc is None else J.jnp.asarray(sc)))
+        if s.shape[1] == 1:
+            np.testing.assert_array_equal(got[:, t].numpy(), want)
+        else:
+            np.testing.assert_allclose(got[:, t].numpy(), want, rtol=1e-6,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("n,want", [
+    (1, [(0, 1)]), (26, [(0, 26)]), (64, [(0, 64)]),
+    (65, [(0, 64), (64, 65)]), (130, [(0, 64), (64, 128), (128, 130)]),
+])
+def test_table_launches_split(n, want):
+    """Tables per launch: at most MAX_TABLES (the kernel's descriptor
+    array), in order, covering every table once."""
+    assert pooled.MAX_TABLES == 64
+    assert pooled.table_launches(n) == want
+
+
+def test_grouped_pooled_lookup_rejects_mixed_payloads():
+    f32 = (torch.zeros((4, 2)), None)
+    i8 = (torch.zeros((4, 2), dtype=torch.int8), torch.ones(4))
+    s = torch.zeros((3, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.grouped_pooled_lookup([f32, i8], [s, s])
+
+
 def test_wrappers_reject_mixed_or_other_devices():
     t = torch.zeros((4, 4), device="meta")
     r = torch.zeros((2, 1), dtype=torch.int32)
@@ -397,6 +467,13 @@ def test_wrappers_reject_mixed_or_other_devices():
         lookup_fwd(t, r)
     with pytest.raises(ValueError):
         interaction_fwd(torch.zeros((2, 3, 4), device="meta"))
+    # the grouped reads: a CPU first table does not hide another device
+    cpu = torch.zeros((4, 4))
+    with pytest.raises(ValueError):
+        lookup_fwd_grouped([cpu, t], [r, r])
+    with pytest.raises(ValueError):
+        dequant_gather_grouped([cpu.to(torch.int8), t.to(torch.int8)],
+                               [torch.ones(4), torch.ones(4)], [r, r])
 
 
 def test_plain_path_launches_nothing():
@@ -620,3 +697,114 @@ def test_cuda_flash_bwd(cuda, case):
         assert peak <= BF16_GRAD_RULE["peak"], f"{name}: peak {peak}"
         assert whole <= BF16_GRAD_RULE["whole"], f"{name}: rel L2 {whole}"
         assert worst <= 1.0, f"{name}: worst row at {worst} of its limit"
+
+
+def _cuda_grouped(cuda, mode, t, d, hots, g, offset=False):
+    """``t`` tables of ``mode`` on the card (``hots`` cycled over them),
+    slots [97, H] with holes; with ``offset`` each payload starts one
+    element into its storage (the kernel's element-wise path)."""
+    pays, slots = [], []
+    for i in range(t):
+        c = 200 + i
+        if mode == "int8":
+            p = torch.randint(-127, 128, (c, d), generator=g,
+                              dtype=torch.int8)
+            sc = torch.rand((c,), generator=g) + 0.5
+        else:
+            dt = {"f32": torch.float32, "f16": torch.float16,
+                  "bf16": torch.bfloat16}[mode]
+            p = torch.randn((c * d + 1,), generator=g).to(dt)
+            p = (p[1:] if offset else p[:-1]).view(c, d)
+            sc = None
+        pays.append((p.to(cuda), None if sc is None else sc.to(cuda)))
+        slots.append(torch.randint(-1, c, (97, hots[i % len(hots)]),
+                                   generator=g, dtype=torch.int32).to(cuda))
+    return pays, slots
+
+
+def _in_order(pays, slots):
+    """The kernel's order of adds on the plain route: each table's rows
+    summed over h in order from zero, and the sums of their magnitudes."""
+    outs, mags = [], []
+    for (p, sc), s in zip(pays, slots):
+        acc = mag = 0
+        for h in range(s.shape[1]):
+            sh = s[:, h:h + 1].contiguous()
+            x = lookup_fwd_plain(p, sh) if sc is None else \
+                dequant_pooled_plain(p, sc, sh)
+            acc, mag = acc + x, mag + x.abs()
+        outs.append(acc)
+        mags.append(mag)
+    return torch.stack(outs, 1), torch.stack(mags, 1)
+
+
+def _grouped_pair(pays, slots):
+    tabs, scs = [p for p, _ in pays], [sc for _, sc in pays]
+    if scs[0] is None:
+        return (lambda: lookup_fwd_grouped(tabs, slots),
+                lookup_fwd_grouped_plain(tabs, slots), "lookup_fwd")
+    return (lambda: dequant_gather_grouped(tabs, scs, slots),
+            dequant_gather_grouped_plain(tabs, scs, slots),
+            "dequant_gather_rows")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "f16", "int8"])
+@pytest.mark.parametrize("t", [1, 26, 70])
+@pytest.mark.parametrize("d", [1, 33, 128])
+def test_cuda_grouped_pooled_read(cuda, mode, t, d):
+    """The grouped kernel against its plain route: bit-exact at H = 1;
+    with H_t of 1 and 3 bit-exact to the plain rows added in the kernel's
+    order (h in order from zero) and within 1e-6 of the summed magnitudes
+    of the plain route's ``sum`` over H (another order of the f32 adds);
+    one launch a 64 tables; two launches give the same bits."""
+    g = torch.Generator().manual_seed(t * 1000 + d)
+    for hots in ((1,), (1, 3)):
+        pays, slots = _cuda_grouped(cuda, mode, t, d, hots, g)
+        fn, want, name = _grouped_pair(pays, slots)
+        _build.LAUNCHES.reset()
+        got = fn()
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES.snapshot() == {name: -(-t // 64)}
+        assert got.shape == (97, t, d)
+        if hots == (1,):
+            assert torch.equal(got, want)
+        else:
+            ordered, mag = _in_order(pays, slots)
+            assert torch.equal(got, ordered)
+            assert bool(((got - want).abs() <= 1e-6 * mag + 1e-6).all())
+        assert torch.equal(got, fn())
+        # the served entry point routes to the same kernel
+        assert torch.equal(got, ops.grouped_pooled_lookup(pays, slots))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "f16"])
+def test_cuda_grouped_unaligned_payload(cuda, mode):
+    """Payloads that start off a 16-byte boundary take the element-wise
+    path: still bit-exact at H = 1."""
+    g = torch.Generator().manual_seed(11)
+    pays, slots = _cuda_grouped(cuda, mode, 3, 128, (1,), g, offset=True)
+    fn, want, _ = _grouped_pair(pays, slots)
+    assert torch.equal(fn(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 3])
+def test_cuda_lookup_fwd_lm_width(cuda, dtype, h):
+    """K1 at the LM's width (D = 3072) with pads and an all-pad row:
+    bit-exact at H = 1, within 1e-6 at H = 3."""
+    g = torch.Generator().manual_seed(h)
+    table = torch.randn((3000, 3072), generator=g).to(dtype).to(cuda)
+    rows = torch.randint(-1, 3000, (513, h), generator=g, dtype=torch.int32)
+    rows[5] = -1
+    rows = rows.to(cuda)
+    got, want = lookup_fwd(table, rows), lookup_fwd_plain(table, rows)
+    torch.cuda.synchronize()
+    assert not got[5].any()
+    if h == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, lookup_fwd(table, rows))

@@ -9,8 +9,10 @@
 :data:`CASES` runs. Each case takes its inputs from ``chip_smoke.py``'s own
 functions and its run settings (``chip_smoke.RUN``), so that its shapes and
 ids follow the smoke's. Each time is the mean of calls replayed from a CUDA
-graph (``chip_smoke.graph_ms``). Prints the card's name and power limit,
-then one JSON line. Needs a CUDA device; exits 2 without one.
+graph (``chip_smoke.graph_ms``), beside the wrapper's time (CUDA events
+around back-to-back calls, ``chip_smoke.time_ms``). Prints the card's name
+and power limit, then one JSON line. Needs a CUDA device; exits 2 without
+one.
 """
 from __future__ import annotations
 
@@ -45,6 +47,38 @@ def _dlrm_k3(cs, dev):
     return lambda: k1.lookup_bwd((v, 128), rows, dp), 4
 
 
+def _pooled_stack(cs, dev, payload_dtype: str):
+    from repro_torch.core.hps.hps import _pooled_stack
+    pays, sets = cs.served_inputs(cs.RUN, dev, payload_dtype, cs.SLOT_SETS)
+    combiners = ("sum",) * len(pays)
+    return cs.rotating(lambda sl: _pooled_stack(pays, sl, combiners),
+                       sets), 20
+
+
+def _lm_k1(cs, dev, table: int):
+    from repro_torch.kernels import embedding_lookup as k1
+    _, tab, rows = cs.lm_k1_inputs(cs.RUN, dev)[table]
+    return lambda: k1.lookup_fwd(tab, rows), 10
+
+
+def _dlrm_k1(cs, dev):
+    import torch
+    from repro_torch.kernels import embedding_lookup as k1
+    groups = cs.training_rows(cs.RUN, dev)
+    v, rows = groups[max(groups, key=lambda k: groups[k][0])]
+    mega = torch.randn((v, 128), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    return lambda: k1.lookup_fwd(mega, rows), 10
+
+
+def _k2(cs, dev):
+    import torch
+    from repro_torch.kernels import dot_interaction as k2
+    x, _ = cs.interaction_bwd_inputs(torch.Generator().manual_seed(2), dev,
+                                     cs.RUN.train_batch)
+    return lambda: k2.interaction_fwd(x), 20
+
+
 def _k7(cs, dev, b: int):
     import torch
     from repro_torch.kernels import flash_attention as k78
@@ -72,12 +106,22 @@ def _k8(cs, dev):
     return lambda: k78.flash_bwd(*ins, causal=True), 5
 
 
-#: case -> builder ``(chip_smoke, device) -> (call, CUDA graph reps)``: K3
-#: at the LM token tables (``lm_k3_check``'s inputs) and at the largest
-#: DLRM embedding group (``kernel_phase``'s), K4 at the DLRM training shape
+#: case -> builder ``(chip_smoke, device) -> (call, CUDA graph reps)``: the
+#: served pooled read of all 26 tables through ``core.hps.hps._pooled_stack``
+#: (f32 and int8, ``served_inputs``, a new batch of slots each call), K1 at
+#: the LM token tables (``lm_k1_inputs``) and at the largest DLRM embedding
+#: group, K2 at the DLRM training shape, K3 at the LM token tables
+#: (``lm_k3_check``'s inputs) and at the largest DLRM embedding group
+#: (``kernel_phase``'s), K4 at the DLRM training shape
 #: (``interaction_bwd_inputs``), K7 at the LM prefill shape (a) and the LM
 #: training shape, and K8 at the LM training shape (a)
 CASES = {
+    "pooled_stack f32": lambda cs, dev: _pooled_stack(cs, dev, "f32"),
+    "pooled_stack int8": lambda cs, dev: _pooled_stack(cs, dev, "int8"),
+    "lookup_fwd lm_hot": lambda cs, dev: _lm_k1(cs, dev, 0),
+    "lookup_fwd lm_cold": lambda cs, dev: _lm_k1(cs, dev, 1),
+    "lookup_fwd dlrm": _dlrm_k1,
+    "interaction_fwd dlrm": _k2,
     "lookup_bwd lm_hot": lambda cs, dev: _lm_k3(cs, dev, 0),
     "lookup_bwd lm_cold": lambda cs, dev: _lm_k3(cs, dev, 1),
     "lookup_bwd dlrm": _dlrm_k3,
@@ -109,14 +153,15 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    ms = {}
+    ms, wrapper = {}, {}
     for name in args.cases or CASES:
         fn, reps = CASES[name](cs, dev)
         ms[name] = cs.graph_ms(fn, reps)
+        wrapper[name] = cs.time_ms(fn, 20)
         del fn
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "src": args.src,
-                      "device_ms": ms}))
+                      "device_ms": ms, "wrapper_ms": wrapper}))
     return 0
 
 
