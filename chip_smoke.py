@@ -7,11 +7,13 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
 2. Build: compile ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a.
-3. Kernels: launch K1 (pooled lookup) and K6 (dequantizing read) as the
-   served batch runs them, one grouped launch for all 26 tables (f32
-   through K1, int8 through K6), K2 (dot interaction) and K5 (row gather)
-   at the served shapes, K6's single-table row read (int8 and f16), K1
-   and K2 again at the training shapes and K1 at the LM's token tables,
+3. Kernels: time the launch floor (a one-element ``add_`` replayed from a
+   CUDA graph), then launch K1 (pooled lookup) and K6 (dequantizing read)
+   as the served batch runs them, one grouped launch for all 26 tables
+   (f32 through K1, int8 through K6), K2 (dot interaction, also with the
+   diagonal) and K5 (the cache's row read, f32 and f16) at the served
+   shapes, K6's single-table row read (int8 and f16), K1 and K2 again at
+   the training shapes and K1 at the LM's token tables,
    and K3 (the lookup's adjoint) and K4 (the interaction's) at the
    training shapes, and hold each against its plain PyTorch version on
    the card; time kernel, plain version and one library call with CUDA
@@ -173,6 +175,15 @@ def graph_ms(fn, reps: int = 20) -> float:
     return time_ms(graph.replay, iters=10) / reps
 
 
+def launch_floor_call(dev):
+    """The smallest launch the card runs, a one-element ``add_``: replayed
+    from a CUDA graph (:func:`graph_ms`), what any kernel that moves almost
+    nothing takes."""
+    import torch
+    t = torch.zeros(1, device=dev)
+    return lambda: t.add_(1.0)
+
+
 def zipf_ids(rng, vocab: int, size, a: float = 1.1):
     """Frequency-sorted bounded-Zipf draw on [0, vocab) (the reference's
     synthetic-data distribution)."""
@@ -283,13 +294,15 @@ def kernel_phase(args, dev):
                           dtype=torch.int32).to(dev)
     q_np, sc_np = quantize_rows(rows_f32.numpy(), "int8")
     q8, sc8 = torch.from_numpy(q_np).to(dev), torch.from_numpy(sc_np).to(dev)
-    h16 = rows_f32.to(torch.float16).to(dev)
     sc16 = (torch.rand((C,), generator=g) + 0.5).to(dev)
     x = torch.cat([torch.randn((B, 1, D), generator=g),
                    torch.randn((B, F - 1, D), generator=g) * 0.3], 1)
     x = x.to(torch.bfloat16).float().to(dev).contiguous()
     li, lj = torch.tril_indices(F, F, -1, device=dev)
     out, device, device_lib = {}, {}, {}
+    floor = graph_ms(launch_floor_call(dev), 100)
+    print(f"launch floor: {floor:.4f} ms device (a one-element add_, CUDA "
+          "graph replay)")
 
     def record(name, source, replaces, got, want, exact, tol, fn, plain,
                lib, nbytes, flops, reps=20, flops_per_s=F32_FLOPS, iters=50):
@@ -317,7 +330,9 @@ def kernel_phase(args, dev):
         bms, by = bound_ms(nbytes, flops)
         dms = graph_ms(fn, reps)
         print(f"kernel {name} at {shape}: device {dms:.4f} ms (CUDA graph "
-              f"replay, {100 * bms / dms:.1f}% of the bound), wrapper "
+              f"replay, {100 * bms / dms:.1f}% of the bound, "
+              f"{100 * max(bms, floor) / dms:.1f}% of the larger of bound "
+              f"and launch floor), wrapper "
               f"{time_ms(fn, 20):.4f} ms, bound {bms:.4f} ms by {by}, plain "
               f"{time_ms(plain, 20):.4f} ms, library {time_ms(lib, 20):.4f} "
               f"ms (device {graph_ms(lib, reps):.4f} ms)")
@@ -354,9 +369,14 @@ def kernel_phase(args, dev):
     check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
           "lookup_fwd bf16 H=3: above 1e-6")
 
-    # K5: the L1 row read of DeviceEmbeddingCache.query
+    # K5: the L1 row read of DeviceEmbeddingCache.query (f32 timed; f16
+    # checked), bit-exact with holes
     holes = slots.clone()
     holes[::7] = -1
+    h16 = rows_f32.to(torch.float16).to(dev)
+    check(torch.equal(k56.gather_rows(h16, holes),
+                      k56.gather_rows_plain(h16, holes)),
+          "gather_rows float16: not bit-exact")
     record("gather_rows", "src/repro_torch/csrc/hps_gather.cu",
            "src/repro/kernels/hps_gather.py:54",
            k56.gather_rows(table, holes), k56.gather_rows_plain(table, holes),
@@ -378,19 +398,22 @@ def kernel_phase(args, dev):
                * sc8.index_select(0, slots)[:, None],
                B * D + B * 4 + B * 4 + B * D * 4, B * D)
 
-    # K2: DLRM's interaction at F = 26 tables + 1, D = 128
+    # K2: DLRM's interaction at F = 26 tables + 1, D = 128; two launches
+    # give the same bits, and with the diagonal it holds too
+    got = k2.interaction_fwd(x)
+    check(torch.equal(got, k2.interaction_fwd(x)),
+          "interaction_fwd: two launches differ")
+    check(torch.allclose(k2.interaction_fwd(x, self_interaction=True),
+                         k2.interaction_fwd_plain(x, self_interaction=True),
+                         rtol=1e-5, atol=1e-5),
+          f"interaction_fwd self_interaction at [{B}, {F}, {D}]: above 1e-5")
     record("interaction_fwd", "src/repro_torch/csrc/dot_interaction.cu",
            "src/repro/kernels/dot_interaction.py:55",
-           k2.interaction_fwd(x), k2.interaction_fwd_plain(x), False, 1e-5,
+           got, k2.interaction_fwd_plain(x), False, 1e-5,
            lambda: k2.interaction_fwd(x),
            lambda: k2.interaction_fwd_plain(x),
            lambda: torch.bmm(x, x.transpose(1, 2))[:, li, lj],
            B * F * D * 4 + B * P * 4, 2 * B * P * D)
-    xs = torch.randn((5, 4, 16), generator=g).to(dev)
-    check(torch.allclose(k2.interaction_fwd(xs, self_interaction=True),
-                         k2.interaction_fwd_plain(xs, self_interaction=True),
-                         rtol=1e-5, atol=1e-5),
-          "interaction_fwd self_interaction: above 1e-5")
     # K3: the lookup's adjoint at the training shapes and ids (the first
     # training batch's Zipf ids, one launch per embedding group and step);
     # timed at the largest group
@@ -445,10 +468,26 @@ def kernel_phase(args, dev):
     P = F * (F - 1) // 2
     xt, dtri = interaction_bwd_inputs(g, dev, tb, F, D)
     bi, bj = torch.tril_indices(F, F, -1, device=dev)
-    check(torch.allclose(k2.interaction_fwd(xt), k2.interaction_fwd_plain(xt),
-                         rtol=1e-5, atol=1e-5),
+    got = k2.interaction_fwd(xt)
+    check(torch.equal(got, k2.interaction_fwd(xt)) and torch.allclose(
+        got, k2.interaction_fwd_plain(xt), rtol=1e-5, atol=1e-5),
           f"interaction_fwd at the training shape [{tb}, {F}, {D}]: above "
-          "1e-5")
+          "1e-5 or two launches differ")
+    # K2 against the exact dots (f64) at unit-variance x, more samples
+    # than the grid: the kernel's error and the f32 plain version's
+    xu = torch.randn((tb + 7, F, D),
+                     generator=torch.Generator().manual_seed(args.seed + 3))
+    xu = xu.to(dev)
+    exact = k2.interaction_fwd_plain(xu.double())
+    got = k2.interaction_fwd(xu).double()
+    err_k = (got - exact).abs().max().item()
+    err_p = (k2.interaction_fwd_plain(xu).double() - exact).abs().max().item()
+    check(torch.allclose(got, exact, rtol=1e-5, atol=1e-5),
+          f"interaction_fwd at unit-variance x: {err_k} from the f64 dots")
+    print(f"interaction_fwd at unit-variance x [{tb + 7},{F},{D}] against "
+          f"the f64 dots: kernel max abs err {err_k:.3g}, f32 plain "
+          f"version {err_p:.3g} (the kernel held to 1e-5)")
+    del xu, exact, got
     shape_line("interaction_fwd", f"x [{tb},{F},{D}] f32 (DLRM training)",
                lambda: k2.interaction_fwd(xt),
                lambda: k2.interaction_fwd_plain(xt),
@@ -493,14 +532,16 @@ def kernel_phase(args, dev):
     attention_bwd_kernel(args, record, g, dev)
     for rec in out.values():
         dl = device_lib.get(rec["name"])
+        dms, bms = device[rec["name"]], rec["bound_ms"]
         print(f"kernel {rec['name']}: {rec['ms']:.4f} ms (bound "
-              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, plain "
+              f"{bms:.4f} ms by {rec['bound_by']}, plain "
               f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
               f"ms), max abs err {rec['max_abs_err']:.3g}; device time "
-              f"{device[rec['name']]:.4f} ms (CUDA graph replay, "
-              f"{100 * rec['bound_ms'] / device[rec['name']]:.1f}% of the "
-              "bound)" + ("" if dl is None else
-                          f", library device time {dl:.4f} ms"))
+              f"{dms:.4f} ms (CUDA graph replay, {100 * bms / dms:.1f}% of "
+              f"the bound, {100 * max(bms, floor) / dms:.1f}% of the larger "
+              "of bound and launch floor)"
+              + ("" if dl is None else
+                 f", library device time {dl:.4f} ms"))
     return out
 
 
@@ -748,13 +789,15 @@ def declare(args, cfg):
                                 seed=args.seed))
 
 
-#: device kernels by kind, by a piece of their name (first match wins)
+#: device kernels by kind, by a piece of their name (first match wins); K1
+#: and K5 run one kernel (the unscaled pooled read), so the profile names
+#: them together and :func:`profile` prints each wrapper's launches
 KINDS = (("K7", ("flash_fwd",)), ("K8", ("flash_bwd",)),
          ("K6", ("pooled_read_kernel<signed char, true",
                  "pooled_read_kernel<__half, true")),
-         ("K1", ("pooled_read_kernel",)), ("K3", ("lookup_bwd_",)),
+         ("K1/K5", ("pooled_read_kernel",)), ("K3", ("lookup_bwd_",)),
          ("K2", ("interaction_fwd_kernel",)),
-         ("K4", ("interaction_bwd_kernel",)), ("K5", ("gather_rows",)),
+         ("K4", ("interaction_bwd_kernel",)),
          ("matmul", ("gemm", "xmma", "cutlass", "nvjet")), ("fill", ("Fill",)),
          ("sort", ("radix", "Radix", "sort")), ("reduce", ("reduce_kernel",)),
          ("copy", ("copy", "Memcpy")), ("elementwise", ("elementwise",)))
@@ -770,16 +813,22 @@ def kind(name: str) -> str:
 def profile(label: str, fn) -> None:
     """Where one call's time goes: its host wall time against the device's
     busy time in it (the sum of kernel times from ``torch.profiler``), the
-    busy time by kind of kernel, and the top kernels."""
+    busy time by kind of kernel, the top kernels, and the launches of each
+    kernel wrapper (``_build.LAUNCHES``) in the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.kernels._build import LAUNCHES
     torch.cuda.synchronize()
+    before = LAUNCHES.snapshot()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    after = LAUNCHES.snapshot()
+    wrappers = {k: n - before.get(k, 0) for k, n in sorted(after.items())
+                if n != before.get(k, 0)}
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -798,7 +847,8 @@ def profile(label: str, fn) -> None:
           f"({100 * busy / wall:.1f}%), {len(kernels)} device events; by "
           "kind: " + "; ".join(f"{k} {t:.3f} ms" for k, t in sorted(
               by_kind.items(), key=lambda kv: -kv[1]))
-          + "; top: " + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top))
+          + "; top: " + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top)
+          + f"; wrapper launches {wrappers}")
 
 
 def train_phase(args, dev):

@@ -4,20 +4,41 @@
 // interaction_fwd (_fwd_kernel). That kernel computed the whole F x F Gram
 // matrix per sample on the matrix unit and compacted its lower triangle with
 // a second matmul against a constant 0/1 selection matrix [F*F, P], because a
-// TPU dislikes gathers. Here each thread computes the dots of its own pairs
-// and writes them straight to their triangle index: no selection matrix, no
-// upper-triangle work.
+// TPU dislikes gathers. Here the Gram's lower triangle is cut into 4 x 4
+// register tiles and each entry goes straight to its triangle index: no
+// selection matrix, and of the upper triangle only the diagonal tiles' spare
+// entries are computed.
 //
 // What bounds it: memory. Per sample it reads F*D floats and writes P floats
 // (P = F(F-1)/2, or F(F+1)/2 with the diagonal), and does 2*P*D flops on
 // them; at F=27, D=128 that is 13.8 KB read for 90 KFLOP, about 6.5 flops a
-// byte, far below the card's ridge point.
+// byte, far below the card's ridge point; over a batch of 4096, 62 MB, 0.019
+// ms at 3.35 TB/s. It stays on the CUDA cores: the products are f32, and
+// TF32 tensor cores would break the 1e-5 agreement with the reference, while
+// the f32 FMAs (184 M at B = 4096, ~0.006 ms) are not what bounds it. The
+// trap is shared memory: one thread a pair, reading x[i, d] and x[j, d] for
+// every FMA, moves 1.5 GB of shared-memory loads at B = 4096, more than the
+// HBM traffic costs.
 //
-// Design: one block per sample. The block stages x[b] in shared memory once
-// (row stride D+1, so threads on different rows hit different banks), then
-// thread t takes pairs p = t, t + blockDim, ... It recovers (i, j) from p
-// (p = i(i-1)/2 + j with j < i, or i(i+1)/2 + j with j <= i), which is
-// exactly np.tril_indices order, and sums x[i,d]*x[j,d] over d in f32.
+// Design: a thread item (tile, slice) owns the 16 entries of one 4 x 4 tile
+// (rows i of tile row I, rows j of tile column J <= I; 28 tiles at F = 27)
+// over one of 8 slices of D: slice s takes the column quads q = s, s + 8,
+// ..., so the 8 lanes of a tile read 32 consecutive floats of a row in one
+// load phase (no bank conflicts whatever the row stride). Per quad a thread
+// reads x[i, 4q:4q+4] and x[j, 4q:4q+4] of its 4 + 4 rows as float4 loads:
+// 8 vector loads feed 64 FMAs. The 8 slices' partial tiles are then summed
+// by a three-step shuffle reduce-scatter (xor 4, 2, 1; 14 shuffles a
+// thread), after which lane s holds entries 2s and 2s + 1 of the tile, in
+// a fixed order of adds: no atomics, the same bits on every run. A map the
+// block builds once sends each (tile, entry) to its triangle index p in
+// np.tril_indices order, or to nothing (above the diagonal, past F); no
+// square roots. Blocks fill the card once and walk the batch; while a block
+// computes one sample, the next one's x[b] is in flight into the other of
+// two buffers (16-byte cp.async). A sample's P outputs are gathered in
+// shared memory and leave as 16-byte stores where they are aligned, with
+// scalar stores at the row's ragged ends. f32 x with D a multiple of 4 and
+// a 16-byte-aligned x takes the cp.async path; any other x is staged
+// element by element (columns padded to a quad with zeros).
 //
 // K4 interaction_bwd: the adjoint, replacing repro/kernels/dot_interaction.py
 // ::interaction_bwd (_bwd_kernel). There the TPU scattered dtri into the F x F
@@ -49,75 +70,13 @@
 // other D is staged element by element as f32 and written so.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
 
 namespace {
 
-constexpr int kThreads = 128;
-
-template <bool kSelf>
-__device__ __forceinline__ int tri_base(int i) {
-  return kSelf ? i * (i + 1) / 2 : i * (i - 1) / 2;
-}
-
-template <bool kSelf>
-__global__ void interaction_fwd_kernel(const float* __restrict__ x,
-                                       float* __restrict__ out, int f,
-                                       int dim, int pairs) {
-  extern __shared__ float xs[];
-  const int stride = dim + 1;
-  const int64_t b = blockIdx.x;
-  const float* xb = x + b * f * dim;
-  for (int idx = threadIdx.x; idx < f * dim; idx += blockDim.x) {
-    const int i = idx / dim;
-    xs[i * stride + (idx - i * dim)] = xb[idx];
-  }
-  __syncthreads();
-  float* ob = out + b * pairs;
-  for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-    const float root = sqrtf(1.f + 8.f * static_cast<float>(p));
-    int i = static_cast<int>(kSelf ? (root - 1.f) * 0.5f : (root + 1.f) * 0.5f);
-    while (i > 0 && tri_base<kSelf>(i) > p) --i;
-    while (tri_base<kSelf>(i + 1) <= p) ++i;
-    const int j = p - tri_base<kSelf>(i);
-    const float* xi = xs + i * stride;
-    const float* xj = xs + j * stride;
-    float acc = 0.f;
-    for (int d = 0; d < dim; ++d) acc = fmaf(xi[d], xj[d], acc);
-    ob[p] = acc;
-  }
-}
-
-template <bool kSelf>
-int launch(const void* x, void* out, int64_t batch, int f, int dim, int pairs,
-           cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(f) * (dim + 1) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        interaction_fwd_kernel<kSelf>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (batch > 0) {
-    interaction_fwd_kernel<kSelf>
-        <<<static_cast<unsigned>(batch), kThreads, smem, stream>>>(
-            static_cast<const float*>(x), static_cast<float*>(out), f, dim,
-            pairs);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+constexpr int kThreads = 128;           // K4's block
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -140,6 +99,254 @@ __device__ __forceinline__ void cp_async_commit() {
 // wait until at most one committed group of this thread is in flight
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The number of blocks of `kernel` that fit on the card at once, at most
+// `batch`: each then walks its samples b = blockIdx.x, + gridDim.x, ...
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, int threads, size_t smem,
+                          int64_t batch, unsigned* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  }
+  *grid = static_cast<unsigned>(std::min<int64_t>(
+      batch, static_cast<int64_t>(sms) * std::max(per_sm, 1)));
+  return err;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+constexpr int kFwdSlices = 8;         // lanes that split one tile's D
+constexpr int kFwdMaxThreads = 256;
+constexpr int kFwdMinBlocks = 4;      // blocks an SM (caps the registers)
+
+// The forward's shared-memory layout in floats, for F, D and P: x[b] twice
+// (f32, F padded to whole tiles of 4 rows with zero rows, D to whole
+// quads), the outputs twice (P + 3 floats, so that a sample's row can start
+// at any of the four positions of a 16-byte group, padded to a quad), the
+// tile map (tile -> I << 16 | J) and the entry map (tile, entry -> p or -1).
+struct FwdLayout {
+  int fp, dp, tiles, pp;
+  __host__ __device__ FwdLayout(int f, int dim, int pairs)
+      : fp((f + 3) & ~3), dp((dim + 3) & ~3),
+        tiles((fp / 4) * (fp / 4 + 1) / 2), pp((pairs + 6) & ~3) {}
+  __host__ __device__ int xs(int buf) const { return buf * fp * dp; }
+  __host__ __device__ int os(int buf) const { return 2 * fp * dp + buf * pp; }
+  __host__ __device__ int tmap() const { return os(2); }
+  __host__ __device__ int pmap() const { return tmap() + tiles; }
+  __host__ __device__ size_t bytes() const {
+    return static_cast<size_t>(pmap() + 16 * tiles) * 4;
+  }
+  __host__ __device__ int items() const { return tiles * kFwdSlices; }
+  // whole warps, so that every lane of a warp reaches the shuffles
+  __host__ __device__ int threads() const {
+    const int t = (items() + 31) & ~31;
+    return t < kFwdMaxThreads ? t : kFwdMaxThreads;
+  }
+};
+
+// Each block walks samples b = blockIdx.x, + gridDim.x, ...; while it
+// computes one, the next one's x[b] is in flight into the other buffer.
+// Thread item (tile, s) sums its tile's 16 entries over column quads q = s,
+// s + 8, ...; the tile's 8 lanes then reduce-scatter them. kVec: x is f32
+// with D a multiple of 4 and 16-byte aligned (16-byte cp.async); otherwise
+// x is staged element by element.
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdMaxThreads, kFwdMinBlocks)
+    interaction_fwd_kernel(const float* __restrict__ x,
+                           float* __restrict__ out, long long batch, int f,
+                           int dim, int pairs, int self_interaction) {
+  extern __shared__ __align__(16) float smem[];
+  const FwdLayout lay(f, dim, pairs);
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int nq = lay.dp / 4;
+  const int items = lay.items();
+  int* tmap = reinterpret_cast<int*>(smem + lay.tmap());
+  int* pmap = reinterpret_cast<int*>(smem + lay.pmap());
+
+  // tile t = I(I+1)/2 + J (J <= I); entry e is (i, j) = (4I + e / 4, 4J +
+  // e % 4), sent to p = i(i-1)/2 + j (j < i), or i(i+1)/2 + j (j <= i)
+  // under self_interaction
+  for (int t = tid; t < lay.tiles; t += nthr) {
+    int ti = 0;
+    while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+    const int tj = t - ti * (ti + 1) / 2;
+    tmap[t] = ti << 16 | tj;
+    for (int e = 0; e < 16; ++e) {
+      const int i = 4 * ti + (e >> 2), j = 4 * tj + (e & 3);
+      int p = -1;
+      if (i < f && (j < i || (self_interaction && j == i))) {
+        p = (self_interaction ? i * (i + 1) / 2 : i * (i - 1) / 2) + j;
+      }
+      pmap[16 * t + e] = p;
+    }
+  }
+  // the pad rows of both buffers stay zero
+  for (int e = tid; e < (lay.fp - f) * lay.dp; e += nthr) {
+    smem[lay.xs(0) + f * lay.dp + e] = 0.f;
+    smem[lay.xs(1) + f * lay.dp + e] = 0.f;
+  }
+
+  auto stage = [&](long long b, int buf) {
+    float* xd = smem + lay.xs(buf);
+    const float* xb = x + b * f * dim;
+    if constexpr (kVec) {
+      for (int e = tid; e < f * nq; e += nthr) {
+        cp_async16(xd + 4 * e, xb + 4 * e);
+      }
+    } else {
+      for (int e = tid; e < f * lay.dp; e += nthr) {
+        const int r = e / lay.dp, c = e - r * lay.dp;
+        xd[e] = c < dim ? xb[r * dim + c] : 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int s = tid & (kFwdSlices - 1);
+  const bool h4 = s & 4, h2 = s & 2, h1 = s & 1;
+  long long b = blockIdx.x;
+  if (b < batch) stage(b, 0);
+  for (int it = 0; b < batch; ++it, b += gridDim.x) {
+    const int cur = it & 1;
+    if (b + gridDim.x < batch) {
+      // the buffer the last sample was read from: every thread is past
+      // that sample's second barrier
+      stage(b + gridDim.x, cur ^ 1);
+    } else {
+      cp_async_commit();                     // keeps one group a sample
+    }
+    cp_async_wait_prior();
+    __syncthreads();                         // sample b has landed
+
+    float* ob = out + b * pairs;
+    // where the row starts in its 16-byte group: the staged outputs keep
+    // that offset, so that whole groups leave as one float4 each
+    const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(ob) >> 2 & 3);
+    float* os = smem + lay.os(cur);
+    const float* xc = smem + lay.xs(cur);
+    for (int base = 0; base < items; base += nthr) {
+      const int item = base + tid;
+      const int tile = item < items ? item / kFwdSlices : 0;
+      const int code = tmap[tile];
+      const float* xi = xc + 4 * (code >> 16) * lay.dp;
+      const float* xj = xc + 4 * (code & 0xffff) * lay.dp;
+      float acc[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+#pragma unroll 1
+      for (int q = s; q < nq; q += kFwdSlices) {
+        float4 a[4], c[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          a[r] = *reinterpret_cast<const float4*>(xi + r * lay.dp + 4 * q);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          c[r] = *reinterpret_cast<const float4*>(xj + r * lay.dp + 4 * q);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float v = acc[4 * r + k];
+            v = fmaf(a[r].x, c[k].x, v);
+            v = fmaf(a[r].y, c[k].y, v);
+            v = fmaf(a[r].z, c[k].z, v);
+            v = fmaf(a[r].w, c[k].w, v);
+            acc[4 * r + k] = v;
+          }
+        }
+      }
+      // reduce-scatter over the tile's 8 lanes: after the xor-4 step a
+      // lane holds entries 8 h4 + k, after xor 2 8 h4 + 4 h2 + k, after
+      // xor 1 entries 2s and 2s + 1
+      float v8[8], v4[4], v2[2];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float send = h4 ? acc[k] : acc[k + 8];
+        const float keep = h4 ? acc[k + 8] : acc[k];
+        v8[k] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float send = h2 ? v8[k] : v8[k + 4];
+        const float keep = h2 ? v8[k + 4] : v8[k];
+        v4[k] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float send = h1 ? v4[k] : v4[k + 2];
+        const float keep = h1 ? v4[k + 2] : v4[k];
+        v2[k] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+      }
+      if (item < items) {
+        const int p0 = pmap[16 * tile + 2 * s];
+        const int p1 = pmap[16 * tile + 2 * s + 1];
+        if (p0 >= 0) os[sh + p0] = v2[0];
+        if (p1 >= 0) os[sh + p1] = v2[1];
+      }
+    }
+    __syncthreads();                         // x[b] is read, os is full
+
+    // 16-byte group g of the staged row is out[b] - sh + 4g .. + 4
+    float* og = ob - sh;
+    const int groups = (sh + pairs + 3) >> 2;
+    for (int g = tid; g < groups; g += nthr) {
+      const float4 val = *reinterpret_cast<const float4*>(os + 4 * g);
+      const int e0 = 4 * g - sh;
+      if (e0 >= 0 && e0 + 4 <= pairs) {
+        *reinterpret_cast<float4*>(og + 4 * g) = val;
+      } else {
+        const float w[4] = {val.x, val.y, val.z, val.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (e0 + u >= 0 && e0 + u < pairs) og[4 * g + u] = w[u];
+        }
+      }
+    }
+  }
+}
+
+template <bool kVec>
+int launch_fwd(const void* x, void* out, int64_t batch, int f, int dim,
+               int pairs, int self_interaction, cudaStream_t stream) {
+  const FwdLayout lay(f, dim, pairs);
+  const size_t smem = lay.bytes();
+  auto kernel = interaction_fwd_kernel<kVec>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch > 0 && pairs > 0) {
+    unsigned grid = 0;
+    err = resident_grid(kernel, lay.threads(), smem, batch, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, lay.threads(), smem, stream>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), batch, f, dim,
+        pairs, self_interaction);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
 }
 
 constexpr int kBwdRows = 8;   // rows of dx a thread holds, one column quad
@@ -283,28 +490,13 @@ int launch_bwd(const void* x, const void* dtri, void* dx, int64_t batch, int f,
                int dim, int pairs, int self_interaction, cudaStream_t stream) {
   const size_t smem = BwdLayout(f, dim, pairs).bytes();
   auto kernel = interaction_bwd_kernel<T, kVec>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (batch > 0) {
-    // as many blocks as fit on the card at once, each walking its samples
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, smem);
-    }
+    unsigned grid = 0;
+    err = resident_grid(kernel, kThreads, smem, batch, &grid);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int64_t grid =
-        std::min<int64_t>(batch, static_cast<int64_t>(sms) *
-                                     std::max(per_sm, 1));
-    kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+    kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(dtri),
         static_cast<T*>(dx), batch, f, dim, pairs, self_interaction);
   }
@@ -337,12 +529,15 @@ extern "C" int repro_interaction_bwd(const void* x, int x_dtype,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// x [batch, f, dim] f32 -> out [batch, P] f32 (P with the diagonal when
+// self_interaction).
 extern "C" int repro_interaction_fwd(const void* x, void* out, long long batch,
                                      int f, int dim, int self_interaction,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (self_interaction) {
-    return launch<true>(x, out, batch, f, dim, f * (f + 1) / 2, s);
-  }
-  return launch<false>(x, out, batch, f, dim, f * (f - 1) / 2, s);
+  const int pairs = self_interaction ? f * (f + 1) / 2 : f * (f - 1) / 2;
+  const int si = self_interaction ? 1 : 0;
+  const bool vec = dim % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return vec ? launch_fwd<true>(x, out, batch, f, dim, pairs, si, s)
+             : launch_fwd<false>(x, out, batch, f, dim, pairs, si, s);
 }

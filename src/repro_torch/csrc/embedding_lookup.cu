@@ -15,8 +15,8 @@
 // tables that share D and the table type (f32, f16 or bf16): every table of
 // a served batch in one launch, each output row written in place in the
 // [B, T, D] result, rows moved in vector units of four elements. The
-// single-table lookup of
-// training and of the LM's token tables is the same kernel with one table.
+// single-table lookup of training and of the LM's token tables is the same
+// kernel through its one-table launch (repro_lookup_fwd_one).
 // The h loop runs in order from a zero start, so H=1 is bit-exact with the
 // plain version; a row whose ids are all -1 reads nothing and writes zeros.
 //
@@ -256,6 +256,27 @@ extern "C" int repro_lookup_bwd(const void* sorted, const void* order,
         vocab, dim);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1, one table: payload [V, dim] (table_dtype 0 = float32, 1 = float16, 2
+// = bfloat16), slots [batch, hot] int32 (-1 = pad) -> out [batch, dim] f32.
+extern "C" int repro_lookup_fwd_one(const void* payload, const void* slots,
+                                    int hot, int table_dtype, long long batch,
+                                    int dim, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (table_dtype) {
+    case 0:
+      return pooled::launch_one<float, false>(payload, nullptr, slots, hot,
+                                              batch, dim, out, s);
+    case 1:
+      return pooled::launch_one<__half, false>(payload, nullptr, slots, hot,
+                                               batch, dim, out, s);
+    case 2:
+      return pooled::launch_one<__nv_bfloat16, false>(payload, nullptr, slots,
+                                                      hot, batch, dim, out, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The grouped K1: `tables` (<= 64) tables of `dim` columns and one type

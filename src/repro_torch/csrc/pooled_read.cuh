@@ -9,9 +9,12 @@
 // its own payload, scales, slots [B, hot_t] and hot_t. The descriptors
 // travel in one struct by value (kernel parameter space, read through the
 // constant cache): no host-to-device copy and no sync, so a launch can be
-// captured in a CUDA graph. A single table with hot = 1 is the plain row
-// read (K6's dequant_gather_rows), and one table is the training and LM
-// lookup (K1's lookup_fwd).
+// captured in a CUDA graph. One table is the training and LM lookup (K1's
+// lookup_fwd), and one table with hot = 1 the cache's row read (K5's
+// gather_rows, K6's dequant_gather_rows). A one-table launch (launch_one)
+// takes its pointers as scalars and carries a one-entry descriptor array,
+// so its parameters are about 70 bytes, not 2 KB, and the host builds no
+// pointer arrays.
 //
 // What bounds it: memory, and at the served shape the launch. A row of the
 // output reads hot_t payload rows and writes D floats.
@@ -57,8 +60,9 @@ struct Table {
   int hot;
 };
 
-struct Group {
-  Table t[kMaxTables];
+template <int N>
+struct GroupN {
+  Table t[N];
   float* out;                // out[b * out_stride + t * dim + d]
   long long out_stride;
   int batch;
@@ -67,6 +71,7 @@ struct Group {
   int units;                 // units (or elements) of a row
   int lanes_log;             // log2 of the lanes of a row
 };
+using Group = GroupN<kMaxTables>;
 
 template <typename To>
 __device__ __forceinline__ To bits(uint32_t w) {
@@ -123,10 +128,14 @@ __device__ __forceinline__ float to_f32(int8_t v) {
 // kVec: units of four elements (one float4 of the output each), else
 // single elements. kWide: a row has more units than lanes, and a lane group
 // takes one pass over it (kWideItems units a lane); else a lane group takes a
-// whole row, one unit a lane. One such item a lane group.
-template <typename T, bool kScaled, bool kVec, bool kWide>
+// whole row, one unit a lane. One such item a lane group. kOne: every table
+// has hot = 1, so a row's one slot is read without a loop (at the cache
+// query's size the loop's test before the first load showed, PERF.md
+// section 6). N: the capacity of the descriptor array (kMaxTables, or 1
+// for a one-table launch).
+template <typename T, bool kScaled, bool kVec, bool kWide, bool kOne, int N>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    pooled_read_kernel(const __grid_constant__ Group g) {
+    pooled_read_kernel(const __grid_constant__ GroupN<N> g) {
   using Load = typename Unit<T>::Load;
   constexpr int kItems = kWide ? kWideItems : 1;
   const int lane = threadIdx.x & 31;
@@ -142,15 +151,17 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   const long long row = item / passes;
   if (row >= static_cast<long long>(g.batch) * g.tables) return;
   const int u0 = static_cast<int>(item - row * passes) * span + li;
-  const int b = static_cast<int>(row / g.tables);
-  const int t = static_cast<int>(row - static_cast<long long>(b) * g.tables);
+  const int b = static_cast<int>(N == 1 ? row : row / g.tables);
+  const int t = N == 1 ? 0 : static_cast<int>(
+      row - static_cast<long long>(b) * g.tables);
   const Table& tb = g.t[t];
   float4 acc[kItems];
 #pragma unroll
   for (int i = 0; i < kItems; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int h = 0; h < tb.hot; ++h) {
+  const int hot = kOne ? 1 : tb.hot;
+  for (int h = 0; h < hot; ++h) {
     const int32_t id =
-        __ldg(tb.slots + static_cast<long long>(b) * tb.hot + h);
+        __ldg(tb.slots + static_cast<long long>(b) * hot + h);
     if (id < 0) continue;
     const float sc = kScaled ? __ldg(tb.scales + id) : 1.f;
     const T* src = static_cast<const T*>(tb.payload) +
@@ -205,23 +216,50 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
-template <typename T, bool kScaled, bool kVec, bool kWide>
-void start(const Group& g, long long nrows, cudaStream_t stream) {
+template <typename T, bool kScaled, bool kVec, bool kWide, bool kOne, int N>
+void start(const GroupN<N>& g, long long nrows, cudaStream_t stream) {
   const int span = (kWide ? kWideItems : 1) << g.lanes_log;
   const long long items = nrows * ((g.units + span - 1) / span);
   const long long warps = (items + (32 >> g.lanes_log) - 1) >>
                           (5 - g.lanes_log);
   const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  pooled_read_kernel<T, kScaled, kVec, kWide>
+  pooled_read_kernel<T, kScaled, kVec, kWide, kOne, N>
       <<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(g);
+}
+
+template <typename T, bool kScaled, bool kVec, int N>
+void start_rows(const GroupN<N>& g, bool wide, bool one, long long nrows,
+                cudaStream_t stream) {
+  if (wide) {
+    if (one) start<T, kScaled, kVec, true, true>(g, nrows, stream);
+    else start<T, kScaled, kVec, true, false>(g, nrows, stream);
+  } else {
+    if (one) start<T, kScaled, kVec, false, true>(g, nrows, stream);
+    else start<T, kScaled, kVec, false, false>(g, nrows, stream);
+  }
 }
 
 inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// The C entry points' common body: pack the descriptors, choose the unit
-// and the lanes a row, launch. payloads, scales (K6; nullptr for K1),
+// Choose the unit (vec: every payload and out aligned to four elements)
+// and the lanes a row of g's filled descriptors, and launch; one: every
+// table has hot = 1.
+template <typename T, bool kScaled, int N>
+int run(GroupN<N>& g, bool vec, bool one, cudaStream_t stream) {
+  g.units = vec ? g.dim / 4 : g.dim;
+  g.lanes_log = 0;
+  while (g.lanes_log < 5 && (2 << g.lanes_log) <= g.units) ++g.lanes_log;
+  const bool wide = g.units > (1 << g.lanes_log);
+  const long long nrows = static_cast<long long>(g.batch) * g.tables;
+  if (vec) start_rows<T, kScaled, true>(g, wide, one, nrows, stream);
+  else start_rows<T, kScaled, false>(g, wide, one, nrows, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped C entry points' common body: pack the descriptors, choose the
+// unit and the lanes a row, launch. payloads, scales (K6; nullptr for K1),
 // slots: `tables` device pointers each, in host memory; hots: H per table.
 template <typename T, bool kScaled>
 int launch(const void* const* payloads, const void* const* scales,
@@ -236,31 +274,46 @@ int launch(const void* const* payloads, const void* const* scales,
   memset(&g, 0, sizeof(g));
   // units of four elements: the payload rows and out aligned to them
   bool vec = dim % 4 == 0 && out_stride % 4 == 0 && aligned(out, 16);
+  bool one = true;
   for (int t = 0; t < tables; ++t) {
     g.t[t].payload = payloads[t];
     g.t[t].scales = kScaled ? static_cast<const float*>(scales[t]) : nullptr;
     g.t[t].slots = static_cast<const int32_t*>(slots[t]);
     g.t[t].hot = hots[t];
     vec = vec && aligned(payloads[t], 4 * sizeof(T));
+    one = one && hots[t] == 1;
   }
   g.out = static_cast<float*>(out);
   g.out_stride = out_stride;
   g.batch = static_cast<int>(batch);
   g.tables = tables;
   g.dim = dim;
-  g.units = vec ? dim / 4 : dim;
-  g.lanes_log = 0;
-  while (g.lanes_log < 5 && (2 << g.lanes_log) <= g.units) ++g.lanes_log;
-  const bool wide = g.units > (1 << g.lanes_log);
-  const long long nrows = batch * tables;
-  if (vec) {
-    if (wide) start<T, kScaled, true, true>(g, nrows, stream);
-    else start<T, kScaled, true, false>(g, nrows, stream);
-  } else {
-    if (wide) start<T, kScaled, false, true>(g, nrows, stream);
-    else start<T, kScaled, false, false>(g, nrows, stream);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run<T, kScaled>(g, vec, one, stream);
+}
+
+// The one-table entry points' body: payload [C, dim], scales [C] (K6;
+// nullptr for K1 and K5), slots [batch, hot] int32 -> out [batch, dim] f32,
+// contiguous.
+template <typename T, bool kScaled>
+int launch_one(const void* payload, const void* scales, const void* slots,
+               int hot, long long batch, int dim, void* out,
+               cudaStream_t stream) {
+  if (hot < 0 || batch < 0 || dim < 0 || batch > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || dim == 0) return static_cast<int>(cudaGetLastError());
+  GroupN<1> g;
+  g.t[0].payload = payload;
+  g.t[0].scales = static_cast<const float*>(scales);
+  g.t[0].slots = static_cast<const int32_t*>(slots);
+  g.t[0].hot = hot;
+  g.out = static_cast<float*>(out);
+  g.out_stride = dim;
+  g.batch = static_cast<int>(batch);
+  g.tables = 1;
+  g.dim = dim;
+  const bool vec = dim % 4 == 0 && aligned(out, 16) &&
+                   aligned(payload, 4 * sizeof(T));
+  return run<T, kScaled>(g, vec, hot == 1, stream);
 }
 
 }  // namespace pooled

@@ -9,6 +9,7 @@ tensors each wrapper runs its plain version.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -23,6 +24,45 @@ MAX_SMEM_BYTES = 227 * 1024
 
 def num_pairs(f: int, self_interaction: bool = False) -> int:
     return f * (f + 1) // 2 if self_interaction else f * (f - 1) // 2
+
+
+#: lanes that split one K2 tile's D (``kFwdSlices`` in the CUDA source)
+FWD_SLICES = 8
+
+
+def fwd_tiles(f: int) -> list:
+    """K2's 4 x 4 tiles of the padded Gram's lower triangle, in the
+    kernel's order: tile ``t = I(I+1)/2 + J`` is ``(I, J)``, ``J <= I``."""
+    nt = -(-f // 4)
+    return [(ti, tj) for ti in range(nt) for tj in range(ti + 1)]
+
+
+def fwd_pair_map(f: int, self_interaction: bool = False) -> np.ndarray:
+    """The map K2's block builds once (``pmap``): ``[tiles, 16]`` int, entry
+    ``e`` of tile ``(I, J)`` is the Gram entry ``(4I + e // 4, 4J + e %
+    4)`` and holds its index in ``np.tril_indices`` order, or -1 where the
+    entry is above the diagonal (on it, without ``self_interaction``) or
+    past ``F``. After the reduce-scatter, lane ``s`` of a tile's
+    :data:`FWD_SLICES` holds entries ``2s`` and ``2s + 1``."""
+    tiles = fwd_tiles(f)
+    out = np.full((len(tiles), 16), -1, dtype=np.int64)
+    for t, (ti, tj) in enumerate(tiles):
+        for e in range(16):
+            i, j = 4 * ti + e // 4, 4 * tj + e % 4
+            if i < f and (j < i or (self_interaction and j == i)):
+                out[t, e] = (i * (i + 1) // 2 if self_interaction
+                             else i * (i - 1) // 2) + j
+    return out
+
+
+def fwd_smem_bytes(f: int, d: int, p: int) -> int:
+    """Shared memory of one K2 block (``FwdLayout`` in the CUDA source):
+    two f32 copies of ``x[b]`` with F padded to whole tiles of 4 rows and
+    D to whole quads, two output rows of ``P + 3`` floats padded to a quad
+    (a row may start anywhere in a 16-byte group), the tile map and the
+    16-entry pair map of each tile."""
+    fp, dp, pp = -(-f // 4) * 4, -(-d // 4) * 4, (p + 6) // 4 * 4
+    return 4 * (2 * fp * dp + 2 * pp + 17 * len(fwd_tiles(f)))
 
 
 def bwd_smem_bytes(f: int, d: int, p: int) -> int:
@@ -43,10 +83,13 @@ def interaction_fwd(x: torch.Tensor, *,
         return interaction_fwd_plain(x, self_interaction=self_interaction)
     _build.require_cuda("x", x, (torch.float32,), 3)
     b, f, d = x.shape
-    _build.require(f * (d + 1) * 4 <= MAX_SMEM_BYTES,
-                   f"x[b] of {f}x{d} floats does not fit in shared memory")
-    out = torch.empty((b, num_pairs(f, self_interaction)),
-                      dtype=torch.float32, device=x.device)
+    p = num_pairs(f, self_interaction)
+    _build.require(fwd_smem_bytes(f, d, p) <= MAX_SMEM_BYTES,
+                   f"two x[b] of {f}x{d} floats and their maps do not fit "
+                   "in shared memory")
+    out = torch.empty((b, p), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
     _build.launch(NAME, "repro_interaction_fwd", x.device, x.data_ptr(),
                   out.data_ptr(), b, f, d, int(self_interaction))
     return out

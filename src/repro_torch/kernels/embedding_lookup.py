@@ -35,9 +35,8 @@ def lookup_fwd(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     -> sum-pooled ``[B, D]`` f32; duplicate ids count multiply."""
     if _build.on_cpu(table, rows):
         return lookup_fwd_plain(table, rows)
-    out = pooled.launch(NAME, "repro_lookup_fwd", (table,), None, (rows,),
-                        TABLE_DTYPES)
-    return out.view(out.shape[0], out.shape[2])
+    return pooled.launch_one(NAME, "repro_lookup_fwd_one", table, None, rows,
+                             TABLE_DTYPES)
 
 
 def lookup_fwd_grouped_plain(tables: Sequence[torch.Tensor],

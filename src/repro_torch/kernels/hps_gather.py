@@ -2,11 +2,12 @@
 
 Counterparts of ``repro/kernels/hps_gather.py::gather_rows`` (K5) and
 ``::dequant_gather_rows`` (K6). On CUDA tensors the wrappers launch the
-hand-written kernel; on CPU tensors they run the plain versions. K6 is the
-grouped pooled read of ``kernels/pooled.py`` with per-row scales:
-:func:`dequant_gather_grouped` reads and sums every table of a served int8
-batch in one launch, :func:`dequant_gather_rows` is the same kernel with one
-table and one slot a row. The
+hand-written kernel; on CPU tensors they run the plain versions. Both are
+the pooled read of ``kernels/pooled.py``: K5 (:func:`gather_rows`) its
+one-table launch with one slot a row and no scale; K6 the same with
+per-row scales, :func:`dequant_gather_grouped` reading and summing every
+table of a served int8 batch in one launch and :func:`dequant_gather_rows`
+the one-table launch with one slot a row. The
 striped multi-device bodies (``sharded_gather_rows`` and its dequant twin)
 belong to the multi-GPU slice.
 """
@@ -33,16 +34,15 @@ def gather_rows(payload: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     -> ``[N, D]`` f32, a zero row for each hole."""
     if _build.on_cpu(payload, slots):
         return gather_rows_plain(payload, slots)
-    _build.require_cuda("payload", payload, PAYLOAD_DTYPES, 2)
-    _build.require_cuda("slots", slots, (torch.int32,), 1)
-    _build.require(payload.device == slots.device,
-                   f"payload on {payload.device}, slots on {slots.device}")
-    n, d = slots.shape[0], payload.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=payload.device)
-    _build.launch(GATHER, "repro_gather_rows", payload.device,
-                  payload.data_ptr(), _build.DTYPE_CODES[payload.dtype],
-                  slots.data_ptr(), out.data_ptr(), n, d)
-    return out
+    return pooled.launch_one(GATHER, "repro_gather_rows", payload, None,
+                             _one_slot_a_row(slots), PAYLOAD_DTYPES)
+
+
+def _one_slot_a_row(slots: torch.Tensor) -> torch.Tensor:
+    """``slots [N]`` as the pooled read's ``[N, 1]`` block."""
+    if slots.dim() != 1:
+        raise ValueError(f"slots must be 1-D, got {tuple(slots.shape)}")
+    return slots.view(-1, 1)
 
 
 def dequant_gather_rows(payload: torch.Tensor, scales: torch.Tensor,
@@ -51,11 +51,9 @@ def dequant_gather_rows(payload: torch.Tensor, scales: torch.Tensor,
     int32 (-1 = hole) -> ``[N, D]`` f32 ``float(payload[s]) * scales[s]``."""
     if _build.on_cpu(payload, scales, slots):
         return dequant_gather_rows_plain(payload, scales, slots)
-    _build.require_cuda("slots", slots, (torch.int32,), 1)
-    n = slots.shape[0]
-    out = pooled.launch(DEQUANT, "repro_dequant_gather_rows", (payload,),
-                        (scales,), (slots.view(n, 1),), COMPRESSED_DTYPES)
-    return out.view(n, out.shape[2])
+    return pooled.launch_one(DEQUANT, "repro_dequant_gather_rows_one",
+                             payload, scales, _one_slot_a_row(slots),
+                             COMPRESSED_DTYPES)
 
 
 def dequant_pooled_plain(payload: torch.Tensor, scales: torch.Tensor,

@@ -8,7 +8,10 @@ place. The descriptors go to the C entry point as arrays of pointers in
 host memory and reach the kernel in its parameters, so a launch copies
 nothing to the card and waits for nothing: it can be captured in a CUDA
 graph. More tables take several launches, each writing its slice of
-``out`` (:func:`table_launches`).
+``out`` (:func:`table_launches`). One table takes :func:`launch_one`: its
+C entry gets the table's pointers as scalars, so the host builds no
+pointer arrays, and its checks run inline, building a message only when
+one fails.
 """
 from __future__ import annotations
 
@@ -94,4 +97,35 @@ def launch(kernel: str, entry: str, payloads: Sequence[torch.Tensor],
         _build.launch(kernel, entry, out.device, *head, ctypes.addressof(ss),
                       ctypes.addressof(hh), t1 - t0, code, b, d,
                       out.data_ptr() + t0 * d * out.element_size(), n * d)
+    return out
+
+
+def launch_one(kernel: str, entry: str, payload: torch.Tensor,
+               scales: Optional[torch.Tensor], slots: torch.Tensor,
+               dtypes) -> torch.Tensor:
+    """Read one table ``payload [C, D]`` (CUDA) at ``slots [B, H]`` int32
+    through the one-table C entry ``entry`` (K6's when ``scales [C]`` f32
+    is given) -> ``[B, D]`` f32, one launch counted as one of ``kernel``.
+    The checks are :func:`_check`'s, inline; where one fails, ``_check``
+    raises with its message."""
+    ps, ss, di = payload.shape, slots.shape, payload.get_device()
+    if not (payload.is_cuda and payload.dtype in dtypes and len(ps) == 2
+            and payload.is_contiguous() and slots.dtype is torch.int32
+            and len(ss) == 2 and slots.is_contiguous()
+            and slots.get_device() == di
+            and (scales is None or (scales.dtype is torch.float32
+                                    and scales.ndim == 1
+                                    and scales.shape[0] == ps[0]
+                                    and scales.is_contiguous()
+                                    and scales.get_device() == di))):
+        _check((payload,), None if scales is None else (scales,), (slots,),
+               dtypes)
+    b, d = ss[0], ps[1]
+    out = torch.empty((b, d), dtype=torch.float32, device=payload.device)
+    if out.numel() == 0:
+        return out
+    head = (payload.data_ptr(),) if scales is None else (
+        payload.data_ptr(), scales.data_ptr())
+    _build.launch(kernel, entry, out.device, *head, slots.data_ptr(), ss[1],
+                  _build.DTYPE_CODES[payload.dtype], b, d, out.data_ptr())
     return out

@@ -34,7 +34,8 @@ import numpy as np
 
 from repro_torch.kernels import _build, ops, pooled
 from repro_torch.kernels.dot_interaction import (
-    bwd_smem_bytes, interaction_bwd, interaction_bwd_plain, interaction_fwd,
+    FWD_SLICES, bwd_smem_bytes, fwd_pair_map, fwd_smem_bytes, fwd_tiles,
+    interaction_bwd, interaction_bwd_plain, interaction_fwd,
     interaction_fwd_plain)
 from repro_torch.kernels.embedding_lookup import (
     lookup_bwd, lookup_bwd_chunked_plain, lookup_bwd_plain, lookup_fwd,
@@ -145,6 +146,43 @@ def test_interaction_order_is_tril_indices(J):
     np.testing.assert_allclose(want, gram[:, i, j], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ops.dot_interaction(torch.from_numpy(x))
                                .numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("self_int", [False, True])
+def test_interaction_fwd_pair_map(self_int):
+    """K2's tile -> pair map (the kernel's ``pmap``, mirrored) covers every
+    pair of ``np.tril_indices`` exactly once, at its own (i, j), for F =
+    1..40; the tiles are the padded Gram's lower triangle of 4 x 4 tiles,
+    and a tile's 16 entries fall two to each of its FWD_SLICES lanes."""
+    assert FWD_SLICES * 2 == 16
+    for f in range(1, 41):
+        tiles = fwd_tiles(f)
+        nt = -(-f // 4)
+        assert len(tiles) == nt * (nt + 1) // 2
+        assert tiles == sorted(tiles) and all(j <= i for i, j in tiles)
+        pmap = fwd_pair_map(f, self_int)
+        i, j = np.tril_indices(f, 0 if self_int else -1)
+        seen = np.zeros(len(i), dtype=np.int64)
+        for t, (ti, tj) in enumerate(tiles):
+            for e, p in enumerate(pmap[t]):
+                if p < 0:
+                    continue
+                seen[p] += 1
+                assert (4 * ti + e // 4, 4 * tj + e % 4) == (i[p], j[p])
+        assert (seen == 1).all(), f"F={f}"
+
+
+def test_interaction_fwd_smem_layout():
+    """The wrapper's shared-memory check follows K2's layout: two f32
+    copies of x[b] (F padded to tiles of 4 rows, D to quads), two output
+    rows of P + 3 floats padded to a quad, the tile map and the 16-entry
+    pair map of each tile."""
+    assert fwd_smem_bytes(27, 128, 351) == 4 * (2 * 28 * 128 + 2 * 356
+                                                + 17 * 28)
+    assert fwd_smem_bytes(5, 13, 10) == 4 * (2 * 8 * 16 + 2 * 16 + 17 * 3)
+    assert fwd_smem_bytes(40, 128, 820) == 4 * (2 * 40 * 128 + 2 * 824
+                                                + 17 * 55)
+    assert fwd_smem_bytes(1, 1, 0) == 4 * (2 * 4 * 4 + 2 * 4 + 17)
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +514,30 @@ def test_wrappers_reject_mixed_or_other_devices():
                                [torch.ones(4), torch.ones(4)], [r, r])
 
 
+@pytest.mark.parametrize("case", ["cpu_payload", "slots_int64", "slots_1d",
+                                  "scales_short", "payload_dtype"])
+def test_one_table_launch_rejects(case):
+    """The one-table launch (K1, K5 and K6's single-table reads) runs its
+    checks inline and raises on what they refuse, before any build or
+    launch: no fallback to the plain version."""
+    pay = torch.zeros((4, 8))
+    slots = torch.zeros((3, 1), dtype=torch.int32)
+    scales, dtypes = None, (torch.float32,)
+    if case == "slots_int64":
+        slots = slots.long()
+    elif case == "slots_1d":
+        slots = slots.view(-1)
+    elif case == "scales_short":
+        pay, scales, dtypes = pay.to(torch.int8), torch.ones(3), (torch.int8,)
+    elif case == "payload_dtype":
+        pay = pay.to(torch.bfloat16)
+    _build.LAUNCHES.reset()
+    with pytest.raises(ValueError):
+        pooled.launch_one("k", "repro_gather_rows", pay, scales, slots,
+                          dtypes)
+    assert _build.LAUNCHES.snapshot() == {}
+
+
 def test_plain_path_launches_nothing():
     """CPU tensors run the plain versions: no kernel is built or counted."""
     _build.LAUNCHES.reset()
@@ -517,29 +579,80 @@ def test_cuda_lookup_fwd(cuda, dtype, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [0, 1, 300, 4103])
+@pytest.mark.parametrize("f", [1, 2, 8, 27, 28, 40])
+@pytest.mark.parametrize("d", [16, 33, 128])
 @pytest.mark.parametrize("self_int", [False, True])
-def test_cuda_interaction_fwd(cuda, self_int, monkeypatch):
-    x = torch.randn((300, 27, 128),
-                    generator=torch.Generator().manual_seed(0)).to(cuda)
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    got = interaction_fwd(x, self_interaction=self_int)
-    want = interaction_fwd_plain(x, self_interaction=self_int)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+def test_cuda_interaction_fwd(cuda, b, f, d, self_int):
+    """K2 within 1e-5 of its plain version, computed in f64 from the same
+    f32 x (the exact dots: at unit-variance x and D 128 the f32 plain
+    version's own rounding exceeds 1e-5 at B 4103, while the kernel's
+    stays under it; ``chip_smoke.py`` prints both errors):
+    F of one tile or less, whole tiles (8, 28), DLRM's 27 and 40 (two
+    rounds of the block's items); D 16 and 128 (the cp.async path) and 33
+    (element-wise); B 0, 1, 300 and 4103 (more samples than the grid); and
+    at D 128 an x view one float into its storage (the element-wise
+    path). Two launches give the same bits; one launch a call, none for an
+    empty result."""
+    g = torch.Generator().manual_seed(b + 100 * f + d)
+    x = torch.randn((b, f, d), generator=g).to(cuda)
+    views = [x]
+    if d == 128:
+        flat = torch.empty(x.numel() + 1, device=cuda)
+        views.append(flat[1:].view(b, f, d))
+        views[1].copy_(x)
+    want = interaction_fwd_plain(x.double(), self_interaction=self_int)
+    for xv in views:
+        _build.LAUNCHES.reset()
+        got = interaction_fwd(xv, self_interaction=self_int)
+        again = interaction_fwd(xv, self_interaction=self_int)
+        torch.cuda.synchronize()
+        launched = 2 if got.numel() else 0
+        assert _build.LAUNCHES.snapshot() == (
+            {"interaction_fwd": launched} if launched else {})
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.equal(got, again), "two launches differ"
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_interaction_fwd_rejects_oversized(cuda):
+    """Two x[b] that do not fit in a block's shared memory raise before
+    any launch (the wrapper checks K2's own layout)."""
+    x = torch.zeros((2, 27, 4096), device=cuda)
+    assert fwd_smem_bytes(27, 4096, 351) > 227 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        interaction_fwd(x)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("payload_dtype", ["f32", "f16", "int8"])
-def test_cuda_gathers(cuda, payload_dtype):
-    rng = np.random.default_rng(0)
-    rows = rng.standard_normal((777, 128)).astype(np.float32)
+@pytest.mark.parametrize("d", [1, 33, 128, 3072])
+@pytest.mark.parametrize("n", [0, 1, 1031])
+def test_cuda_gathers(cuda, payload_dtype, d, n):
+    """K5 (f32 and f16 payloads) and K6's row read (f16 and int8 with
+    scales), bit-exact to their plain versions with holes, at D 1 and 33
+    (element-wise), 128 and 3072 (vector units), N 0, 1 and 1031; K5 also
+    from a payload one element into its storage (element-wise). One
+    ``gather_rows`` launch a K5 call, none for an empty result."""
+    rng = np.random.default_rng(d + n)
+    rows = rng.standard_normal((777, d)).astype(np.float32)
     stored, scales = quantize_rows(rows, payload_dtype)
     p = torch.from_numpy(stored).to(cuda)
     slots = torch.from_numpy(
-        rng.integers(-1, 777, size=1031).astype(np.int32)).to(cuda)
+        rng.integers(-1, 777, size=n).astype(np.int32)).to(cuda)
     if payload_dtype != "int8":        # int8 rows are read through K6
-        assert torch.equal(gather_rows(p, slots),
-                           gather_rows_plain(p, slots))
+        flat = torch.empty(p.numel() + 1, dtype=p.dtype, device=cuda)
+        shifted = flat[1:].view(p.shape)
+        shifted.copy_(p)
+        for pay in (p, shifted):
+            _build.LAUNCHES.reset()
+            got = gather_rows(pay, slots)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES.snapshot() == (
+                {"gather_rows": 1} if n else {})
+            assert got.shape == (n, d) and got.dtype == torch.float32
+            assert torch.equal(got, gather_rows_plain(pay, slots))
     if scales is None:
         scales = (rng.random(777) + 0.5).astype(np.float32)
     if payload_dtype != "f32":

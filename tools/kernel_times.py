@@ -71,12 +71,20 @@ def _dlrm_k1(cs, dev):
     return lambda: k1.lookup_fwd(mega, rows), 10
 
 
-def _k2(cs, dev):
+def _k2(cs, dev, b: int):
     import torch
     from repro_torch.kernels import dot_interaction as k2
-    x, _ = cs.interaction_bwd_inputs(torch.Generator().manual_seed(2), dev,
-                                     cs.RUN.train_batch)
+    x, _ = cs.interaction_bwd_inputs(torch.Generator().manual_seed(2), dev, b)
     return lambda: k2.interaction_fwd(x), 20
+
+
+def _k5(cs, dev, payload_dtype: str):
+    from repro_torch.kernels import hps_gather as k56
+    pays, sets = cs.served_inputs(cs.RUN, dev, payload_dtype)
+    (p, sc), slots = pays[0], sets[0][0].view(-1)
+    if sc is None:
+        return lambda: k56.gather_rows(p, slots), 20
+    return lambda: k56.dequant_gather_rows(p, sc, slots), 20
 
 
 def _k7(cs, dev, b: int):
@@ -107,21 +115,28 @@ def _k8(cs, dev):
 
 
 #: case -> builder ``(chip_smoke, device) -> (call, CUDA graph reps)``: the
-#: served pooled read of all 26 tables through ``core.hps.hps._pooled_stack``
-#: (f32 and int8, ``served_inputs``, a new batch of slots each call), K1 at
-#: the LM token tables (``lm_k1_inputs``) and at the largest DLRM embedding
-#: group, K2 at the DLRM training shape, K3 at the LM token tables
+#: launch floor (``chip_smoke.launch_floor_call``, a one-element ``add_``),
+#: the served pooled read of all 26 tables through
+#: ``core.hps.hps._pooled_stack`` (f32 and int8, ``served_inputs``, a new
+#: batch of slots each call), the cache query's row read of one served
+#: table (K5 on the f32 payload, K6 on the int8 one), K1 at the LM token
+#: tables (``lm_k1_inputs``) and at the largest DLRM embedding group, K2 at
+#: the served and the DLRM training shape, K3 at the LM token tables
 #: (``lm_k3_check``'s inputs) and at the largest DLRM embedding group
 #: (``kernel_phase``'s), K4 at the DLRM training shape
 #: (``interaction_bwd_inputs``), K7 at the LM prefill shape (a) and the LM
 #: training shape, and K8 at the LM training shape (a)
 CASES = {
+    "launch floor": lambda cs, dev: (cs.launch_floor_call(dev), 100),
     "pooled_stack f32": lambda cs, dev: _pooled_stack(cs, dev, "f32"),
     "pooled_stack int8": lambda cs, dev: _pooled_stack(cs, dev, "int8"),
+    "gather_rows query": lambda cs, dev: _k5(cs, dev, "f32"),
+    "dequant_gather_rows query": lambda cs, dev: _k5(cs, dev, "int8"),
     "lookup_fwd lm_hot": lambda cs, dev: _lm_k1(cs, dev, 0),
     "lookup_fwd lm_cold": lambda cs, dev: _lm_k1(cs, dev, 1),
     "lookup_fwd dlrm": _dlrm_k1,
-    "interaction_fwd dlrm": _k2,
+    "interaction_fwd served": lambda cs, dev: _k2(cs, dev, cs.RUN.batch),
+    "interaction_fwd dlrm": lambda cs, dev: _k2(cs, dev, cs.RUN.train_batch),
     "lookup_bwd lm_hot": lambda cs, dev: _lm_k3(cs, dev, 0),
     "lookup_bwd lm_cold": lambda cs, dev: _lm_k3(cs, dev, 1),
     "lookup_bwd dlrm": _dlrm_k3,
@@ -157,7 +172,7 @@ def main() -> int:
     for name in args.cases or CASES:
         fn, reps = CASES[name](cs, dev)
         ms[name] = cs.graph_ms(fn, reps)
-        wrapper[name] = cs.time_ms(fn, 20)
+        wrapper[name] = cs.time_ms(fn, 100)
         del fn
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "src": args.src,
