@@ -17,19 +17,24 @@ Phases, in order; any failure exits non-zero:
    and K3 (the lookup's adjoint) and K4 (the interaction's) at the
    training shapes, and hold each against its plain PyTorch version on
    the card; time kernel, plain version and one library call with CUDA
-   events. K7 (flash-attention forward) likewise at minitron-4b's prefill
-   shape, recurrentgemma's local-attention shape and an odd f32 length,
-   and K8 (its backward) at minitron-4b's training shape, recurrentgemma's
-   local attention at S 2500 and an odd f32 length, with
+   events. K1 and K3 again at full-vocabulary ``wdl-criteo``'s ``dist``
+   group (D 16) and its wide twins (D 1), and the grouped served read (K1,
+   K6) and the cache query (K5, K6) at D 16 and D 1: the shapes of DCN,
+   WDL and DeepFM, each time kept under its kernel's ``shapes`` in the
+   JSON line. K7 (flash-attention forward) likewise at minitron-4b's
+   prefill shape, recurrentgemma's local-attention shape and an odd f32
+   length, and K8 (its backward) at minitron-4b's training shape,
+   recurrentgemma's local attention at S 2500 and an odd f32 length, with
    ``scaled_dot_product_attention``'s backward (forward + backward minus
    forward) as K8's yardstick.
 4. Train: declare full-width ``dlrm-criteo`` (26 tables at D=128, 13 dense
    features, bottom MLP 512-256-128, top MLP 1024-1024-512-256-1, bf16
    compute) through the port's graph API and ``fit()`` it at batch
    ``RUN.train_batch`` on the synthetic reader: warm-up steps, then timed
-   steps; the loss must fall, K3 and K4 must launch on every step, and
-   the first steps with the plain versions must give the same losses.
-   The one cut: each table's vocabulary is capped at ``RUN.vocab_cap``.
+   steps; the loss must fall, K1 and K3 must launch once per embedding
+   group and K2 and K4 once on every step, and the first steps with the
+   plain versions must give the same losses. The one cut: each table's
+   vocabulary is capped at ``RUN.vocab_cap``.
 5. Deploy: ``Model.deploy()`` writes the trained model's serving bundle.
 6. Serve: rebuild the server from ``ps.json`` on ``cuda`` and push
    batch-1024 Zipf requests through ``submit`` on the stream engine, once
@@ -39,7 +44,16 @@ Phases, in order; any failure exits non-zero:
    model's ``predict``; that the kernels' launch counters rose; and that
    one pooled read of the 26 tables is one K1 (f32) or one K6 (int8)
    launch.
-7. LM serve: full-width ``minitron-4b`` (hybrid token embedding, random
+7. The other recipes: phases 4-6 for full-width ``wdl-criteo`` with no
+   cut (26 tables at D 16 over 33,762,590 rows and their dim-1 wide twins,
+   deep MLP 1024-1024-1), K1 and K3 launched for both collections every
+   step, served through two HPSes (one pooled read of each is one
+   launch); then ``dcn-criteo`` (6 cross layers, deep 1024-1024, a 1-unit
+   combine) and ``deepfm-criteo`` (deep 400-400-400-1, FM), each
+   vocabulary capped at ``RUN.vocab_cap``, through ``fit``
+   (``RUN.recipe_timed_steps`` timed), deploy, rebuild and ``predict``
+   with an f32 L1, held to the same bounds.
+8. LM serve: full-width ``minitron-4b`` (hybrid token embedding, random
    weights from a seed) prefills a 2 x 4096 Zipf(1.2) batch through K1 and
    K7, held against the plain path (K1 first alone, bit-exact, on both
    token tables at the prefill's and a decode step's rows); then a
@@ -47,15 +61,15 @@ Phases, in order; any failure exits non-zero:
    KV cache, held against the prefill of the same tokens, and 32 greedy
    tokens are decoded. The cut:
    ``prefill_32k``'s batch 32 x 32768 becomes 2 x 4096.
-8. LM train, checked: a depth-2 copy of ``minitron-4b`` at full width
+9. LM train, checked: a depth-2 copy of ``minitron-4b`` at full width
    takes one gradient on the kernels (K1, K3, K7, K8) and on the plain
    path; the loss and every parameter's gradient must agree.
-9. LM train: full-width ``minitron-4b`` (hybrid token table, seed-0
+10. LM train: full-width ``minitron-4b`` (hybrid token table, seed-0
    weights, bf16 compute) takes SGD steps on one 1 x 4096 Zipf(1.2) batch
    through K1 and K7 forward and K8 and K3 backward (K3 first alone at the
    LM's shapes), one warm-up and timed steps; the loss must fall at every
    step. The cut: ``train_4k``'s batch 256 x 4096 becomes 1 x 4096.
-10. One JSON line of per-kernel numbers, then the device line last.
+11. One JSON line of per-kernel numbers, then the device line last.
 
 Needs ``torch.cuda.is_available()`` and the package under ``src/``; with
 either missing it prints no result and exits 2.
@@ -87,11 +101,15 @@ SERVE_TOL = {"f32": 2e-2, "int8": 1e-1}
 TRAIN_TOL = 2e-2
 #: the run: vocabulary cap per table (the one cut), L1 rows per table,
 #: request batch, warm-up and measured requests, seed; training batch,
-#: warm-up and timed steps, steps on the plain versions, learning rate
+#: warm-up and timed steps, steps on the plain versions, learning rate;
+#: DCN's and DeepFM's timed steps and learning rate (at 1e-3 the first
+#: AdamW step lifts DCN's loss from 0.70 to 0.94, and six steps do not
+#: bring it back under the first)
 RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             batch=1024, warmup=4, requests=16, seed=0,
                             train_batch=4096, warm_steps=2, timed_steps=8,
-                            plain_steps=3, lr=1e-3,
+                            plain_steps=3, lr=1e-3, recipe_timed_steps=4,
+                            recipe_lr=3e-4,
                             attn_seq=4096, attn_odd_seq=1000,
                             lm_arch="minitron-4b", lm_batch=2, lm_seq=4096,
                             lm_timed=5, prompt=64, decode_steps=32,
@@ -197,32 +215,56 @@ def zipf_ids(rng, vocab: int, size, a: float = 1.1):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def recipe_config(args, arch: str, capped: bool):
+    """A recipe of the registry at full width; with ``capped`` each
+    vocabulary is cut to ``args.vocab_cap`` rows."""
+    import dataclasses
+    from repro_torch.configs.registry import RECSYS_ARCHS
+    cfg = RECSYS_ARCHS[arch]
+    if not capped:
+        return cfg
+    return dataclasses.replace(cfg, tables=tuple(
+        dataclasses.replace(t, vocab_size=min(t.vocab_size, args.vocab_cap))
+        for t in cfg.tables))
+
+
 def capped_config(args):
     """Full-width ``dlrm-criteo`` with each vocabulary capped (the cut)."""
-    import dataclasses
-    from repro_torch.configs.registry import dlrm_criteo
-    return dataclasses.replace(dlrm_criteo, tables=tuple(
-        dataclasses.replace(t, vocab_size=min(t.vocab_size, args.vocab_cap))
-        for t in dlrm_criteo.tables))
+    return recipe_config(args, "dlrm-criteo", capped=True)
 
 
-def training_rows(args, dev):
-    """K3's inputs as the training run gives them: the embedding groups
-    the planner makes, ``{key: (group rows, that group's row ids of the
-    first training batch, [B * T_g, 1])}``."""
+def training_rows(args, dev, cfg=None, wide: bool = False):
+    """K1's and K3's inputs as the training run gives them: the embedding
+    groups the planner makes for ``cfg`` (capped ``dlrm-criteo`` unless
+    given; with ``wide``, the one ``dp`` group of its dim-1 twins), ``{key:
+    (group rows, that group's row ids of the first training batch, [B *
+    T_g, 1])}``."""
     from repro_torch.configs.base import SINGLE_DEVICE
     from repro_torch.core.embedding.collection import EmbeddingCollection
     from repro_torch.core.embedding.planner import resolve_strategies
     from repro_torch.data.synthetic import SyntheticCTR
+    from repro_torch.models.recsys.model import wide_tables
     from repro_torch.train.trainer import put_batch
-    cfg = capped_config(args)
-    coll = EmbeddingCollection(
-        resolve_strategies(cfg.tables, SINGLE_DEVICE, args.train_batch),
-        device=dev)
+    cfg = cfg or capped_config(args)
+    tables = wide_tables(cfg) if wide else resolve_strategies(
+        cfg.tables, SINGLE_DEVICE, args.train_batch)
+    coll = EmbeddingCollection(tables, device=dev)
     batch = put_batch(SyntheticCTR(cfg, args.train_batch,
                                    seed=args.seed).batch(0), dev)
     return {k: (coll.groups[k].total_rows, r.reshape(-1, r.shape[-1]))
             for k, r in coll.group_rows(batch["cat"]).items()}
+
+
+def wdl_training_rows(args, dev) -> dict:
+    """K1's and K3's inputs at full-vocabulary ``wdl-criteo``'s largest
+    deep group (``dist``, D 16) and at its wide twins (``wide``, D 1):
+    ``{label: (rows of the group, row ids [B * T_g, 1], D)}``."""
+    cfg = recipe_config(args, "wdl-criteo", capped=False)
+    deep = training_rows(args, dev, cfg)
+    wide = training_rows(args, dev, cfg, wide=True)
+    big = max(deep, key=lambda k: deep[k][0])
+    return {f"wdl {big}": (*deep[big], cfg.embedding_dim),
+            "wdl wide": (*wide["dp"], 1)}
 
 
 #: batches of slots a served-read timing turns through: each call of a
@@ -231,16 +273,18 @@ def training_rows(args, dev):
 SLOT_SETS = 20
 
 
-def served_inputs(args, dev, payload_dtype: str, sets: int = 1) -> tuple:
+def served_inputs(args, dev, payload_dtype: str, sets: int = 1,
+                  d: int = 128) -> tuple:
     """K1's (``"f32"``) or K6's (``"int8"``) inputs as a served batch gives
-    them: for each of ``dlrm-criteo``'s tables an L1 payload ``[cache
-    rows, 128]`` (int8 with per-row scales, or f32), and ``sets`` batches
-    of one ``[batch, 1]`` block of uniform slots a table, made on ``dev``
-    from the run's seed -> ``(payloads as (payload, scales) pairs, [slot
-    blocks of batch 0, ...])``."""
+    them: for each of the 26 Criteo tables an L1 payload ``[cache rows,
+    d]`` (int8 with per-row scales, or f32; ``d`` 128 for ``dlrm-criteo``,
+    16 for the other recipes' deep tables and 1 for their wide twins), and
+    ``sets`` batches of one ``[batch, 1]`` block of uniform slots a table,
+    made on ``dev`` from the run's seed -> ``(payloads as (payload,
+    scales) pairs, [slot blocks of batch 0, ...])``."""
     import torch
     g = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    c, b, d = args.cache_capacity, args.batch, 128
+    c, b = args.cache_capacity, args.batch
     pays = []
     for _ in capped_config(args).tables:
         if payload_dtype == "int8":
@@ -299,7 +343,7 @@ def kernel_phase(args, dev):
                    torch.randn((B, F - 1, D), generator=g) * 0.3], 1)
     x = x.to(torch.bfloat16).float().to(dev).contiguous()
     li, lj = torch.tril_indices(F, F, -1, device=dev)
-    out, device, device_lib = {}, {}, {}
+    out, device, device_lib, shapes = {}, {}, {}, {}
     floor = graph_ms(launch_floor_call(dev), 100)
     print(f"launch floor: {floor:.4f} ms device (a one-element add_, CUDA "
           "graph replay)")
@@ -325,17 +369,24 @@ def kernel_phase(args, dev):
             device_lib[name] = graph_ms(lib, reps)
         return out[name]
 
-    def shape_line(name, shape, fn, plain, lib, nbytes, flops, reps=20):
-        """A kernel's times at another main-path shape, printed only."""
+    def shape_line(name, shape, fn, plain, lib, nbytes, flops, reps=20,
+                   err=None):
+        """A kernel's times at another main-path shape: printed, and kept
+        under the kernel's ``shapes`` in the JSON line."""
         bms, by = bound_ms(nbytes, flops)
         dms = graph_ms(fn, reps)
+        rec = {"shape": shape, "ms": time_ms(fn, 20), "device_ms": dms,
+               "bound_ms": bms, "bound_by": by, "plain_ms": time_ms(plain, 20),
+               "library_ms": time_ms(lib, 20),
+               "library_device_ms": graph_ms(lib, reps), "max_abs_err": err}
+        shapes.setdefault(name, []).append(rec)
         print(f"kernel {name} at {shape}: device {dms:.4f} ms (CUDA graph "
               f"replay, {100 * bms / dms:.1f}% of the bound, "
               f"{100 * max(bms, floor) / dms:.1f}% of the larger of bound "
               f"and launch floor), wrapper "
-              f"{time_ms(fn, 20):.4f} ms, bound {bms:.4f} ms by {by}, plain "
-              f"{time_ms(plain, 20):.4f} ms, library {time_ms(lib, 20):.4f} "
-              f"ms (device {graph_ms(lib, reps):.4f} ms)")
+              f"{rec['ms']:.4f} ms, bound {bms:.4f} ms by {by}, plain "
+              f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
+              f"ms (device {rec['library_device_ms']:.4f} ms)")
 
     def k1_line(label, table, rows, reps=20):
         # the bound reads each distinct valid row once (a Zipf batch
@@ -528,8 +579,12 @@ def kernel_phase(args, dev):
         k1_line(label, table, rows, reps=10)
         del table
     torch.cuda.empty_cache()
+    recipe_kernels(args, dev, shape_line)
+    torch.cuda.empty_cache()
     attention_kernel(args, record, g, dev)
     attention_bwd_kernel(args, record, g, dev)
+    for name, recs in shapes.items():
+        out[name]["shapes"] = recs
     for rec in out.values():
         dl = device_lib.get(rec["name"])
         dms, bms = device[rec["name"]], rec["bound_ms"]
@@ -601,6 +656,127 @@ def served_record(args, dev, payload_dtype, record):
            rotating(fn, sets), rotating(plain, sets), rotating(lib, sets),
            ids * 4 + distinct * row_bytes + len(tabs) * b * d * 4,
            flops * valid * d)
+
+
+def recipe_kernels(args, dev, shape_line):
+    """K1, K3, K5 and K6 at the shapes DCN, WDL and DeepFM give them, held
+    against their plain versions and timed (``shape_line``): K1 and K3 at
+    full-vocabulary ``wdl-criteo``'s ``dist`` group (D 16) and at its wide
+    twins (D 1) on the first training batch's ids; the grouped served read
+    of the 26 tables (K1 f32, K6 int8) and the cache query's row read (K5
+    f32, K6 int8) at D 16 and D 1."""
+    import torch
+    from repro_torch.kernels import embedding_lookup as k1
+    from repro_torch.kernels import hps_gather as k56
+    gm = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    for label, (v, rows, d) in wdl_training_rows(args, dev).items():
+        mega = torch.randn((v, d), generator=gm, device=dev)
+        got = k1.lookup_fwd(mega, rows)
+        check(torch.equal(got, k1.lookup_fwd_plain(mega, rows)),
+              f"lookup_fwd {label}: not bit-exact at rows [{rows.shape[0]}, "
+              f"1] into [{v}, {d}]")
+        keep = rows >= 0
+        n = rows.shape[0]
+        distinct = int(torch.unique(rows[keep]).numel())
+        valid = int(keep.sum())
+        shape = (f"{label}: rows [{n},1] ({distinct} distinct ids) into "
+                 f"[{v},{d}]")
+        shape_line("lookup_fwd", shape, lambda: k1.lookup_fwd(mega, rows),
+                   lambda: k1.lookup_fwd_plain(mega, rows),
+                   lambda: (mega.index_select(0, rows.view(-1).clamp_min(0))
+                            * keep.view(-1, 1)),
+                   n * 4 + distinct * d * 4 + n * d * 4, valid * d, 10, 0.0)
+        del mega
+        dp = torch.randn((n, d), generator=gm, device=dev)
+        got = k1.lookup_bwd((v, d), rows, dp)
+        check(torch.equal(got, k1.lookup_bwd((v, d), rows, dp)),
+              f"lookup_bwd {label}: two launches differ")
+        check(torch.equal(got, k1.lookup_bwd_chunked_plain((v, d), rows,
+                                                           dp)),
+              f"lookup_bwd {label}: not bit-exact to its chunked plain "
+              "version")
+        want = k1.lookup_bwd_plain((v, d), rows, dp)
+        scale = k1.lookup_bwd_plain((v, d), rows, dp.abs())
+        check(bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all()),
+              f"lookup_bwd {label}: above 1e-5 of the summed magnitudes")
+        err = (got - want).abs().max().item()
+        del got, want, scale
+        flat, src = rows.view(-1)[keep.view(-1)].long(), dp[keep.view(-1)]
+        shape_line("lookup_bwd", shape, lambda: k1.lookup_bwd((v, d), rows,
+                                                              dp),
+                   lambda: k1.lookup_bwd_plain((v, d), rows, dp),
+                   lambda: torch.zeros((v, d), device=dev).index_add_(
+                       0, flat, src),
+                   valid * d * 4 + n * 4 + v * d * 4, valid * d, 4, err)
+        del dp, flat, src
+        torch.cuda.empty_cache()
+    b, c = args.batch, args.cache_capacity
+    for d in (16, 1):
+        for pd in ("f32", "int8"):
+            # enough batches of slots that the replayed reads leave L2 at
+            # D 16 (the 26 payloads of D 1 fit in L2 whole, as in serving)
+            sets = 64 if d > 1 else SLOT_SETS
+            pays, slot_sets = served_inputs(args, dev, pd, sets, d=d)
+            tabs, scs = [p for p, _ in pays], [sc for _, sc in pays]
+            if pd == "f32":
+                name, row_bytes = "lookup_fwd", d * 4
+
+                def fn(sl):
+                    return k1.lookup_fwd_grouped(tabs, sl)
+
+                def plain(sl):
+                    return k1.lookup_fwd_grouped_plain(tabs, sl)
+
+                def lib(sl):
+                    return torch.stack([t.index_select(0, s.view(-1))
+                                        for t, s in zip(tabs, sl)], 1)
+            else:
+                name, row_bytes = "dequant_gather_rows", d + 4
+
+                def fn(sl):
+                    return k56.dequant_gather_grouped(tabs, scs, sl)
+
+                def plain(sl):
+                    return k56.dequant_gather_grouped_plain(tabs, scs, sl)
+
+                def lib(sl):
+                    return torch.stack([
+                        q.index_select(0, s.view(-1)).float()
+                        * cs.index_select(0, s.view(-1))[:, None]
+                        for q, cs, s in zip(tabs, scs, sl)], 1)
+            slots = slot_sets[0]
+            got = fn(slots)
+            check(torch.equal(got, plain(slots)) and torch.equal(
+                got, fn(slots)), f"{name} grouped at D {d}: not bit-exact "
+                "or two launches differ")
+            distinct = sum(int(torch.unique(s).numel()) for s in slots)
+            shape_line(name, f"grouped: {len(tabs)} x [{b},1] into "
+                       f"[{c},{d}] {pd}", rotating(fn, slot_sets),
+                       rotating(plain, slot_sets), rotating(lib, slot_sets),
+                       len(tabs) * b * 4 + distinct * row_bytes
+                       + len(tabs) * b * d * 4,
+                       (2 if pd == "int8" else 1) * len(tabs) * b * d,
+                       sets, 0.0)
+            # the cache query's row read of one table (K5 f32, K6 int8)
+            (p0, s0), q = pays[0], slots[0].view(-1)
+            if s0 is None:
+                qn, qfn = "gather_rows", lambda: k56.gather_rows(p0, q)
+                qplain = lambda: k56.gather_rows_plain(p0, q)
+                qlib = lambda: p0.index_select(0, q)
+            else:
+                qn = "dequant_gather_rows"
+                qfn = lambda: k56.dequant_gather_rows(p0, s0, q)
+                qplain = lambda: k56.dequant_gather_rows_plain(p0, s0, q)
+                qlib = lambda: p0.index_select(0, q).float() \
+                    * s0.index_select(0, q)[:, None]
+            check(torch.equal(qfn(), qplain()),
+                  f"{qn} query at D {d} {pd}: not bit-exact")
+            shape_line(qn, f"the {pd} cache query: slots [{b}] into "
+                       f"[{c},{d}]", qfn, qplain, qlib,
+                       b * row_bytes + b * 4 + b * d * 4,
+                       (b * d if pd == "int8" else 0), 20, 0.0)
+            del pays, slot_sets, tabs, scs
+    torch.cuda.empty_cache()
 
 
 def interaction_bwd_inputs(g, dev, b: int, f: int = 27, d: int = 128):
@@ -781,9 +957,10 @@ def attention_bwd_kernel(args, record, g, dev):
 # ---------------------------------------------------------------------------
 
 def declare(args, cfg):
-    """The ``dlrm-criteo`` graph through the port's graph API."""
-    from repro_torch.api import CreateSolver, DataReaderParams, dlrm_graph
-    return dlrm_graph(cfg, solver=CreateSolver(
+    """``cfg``'s recipe graph (DLRM, DCN, WDL or DeepFM) through the port's
+    graph API."""
+    from repro_torch.api import CreateSolver, DataReaderParams, recipe_graph
+    return recipe_graph(cfg, solver=CreateSolver(
         batch_size=args.train_batch, lr=args.lr, seed=args.seed),
         reader=DataReaderParams(num_dense_features=cfg.num_dense_features,
                                 seed=args.seed))
@@ -851,29 +1028,26 @@ def profile(label: str, fn) -> None:
           + f"; wrapper launches {wrappers}")
 
 
-def train_phase(args, dev):
-    """fit() full-width DLRM; returns the trained model and the launch
-    counts of its run."""
+def train_phase(args, dev, cfg, timed_steps: int):
+    """fit() ``cfg`` at full width; returns the trained model and the
+    launch counts of its run. Every step must launch K1 and K3 once for
+    each embedding group of every collection (the deep tables' and, for WDL
+    and DeepFM, the wide twins'), and DLRM's K2 and K4 once."""
     import numpy as np
     import torch
     from repro_torch.data.synthetic import SyntheticCTR
     from repro_torch.kernels._build import LAUNCHES
     from repro_torch.train.trainer import Trainer
 
-    from repro_torch.configs.registry import dlrm_criteo
-    cfg = capped_config(args)
-    full_rows = sum(t.vocab_size for t in dlrm_criteo.tables)
-    rows = sum(t.vocab_size for t in cfg.tables)
-    print(f"reduced: vocabulary capped at {args.vocab_cap} rows per table: "
-          f"{rows} rows ({rows * 128 * 4 / 1e9:.2f} GB f32) instead of "
-          f"{full_rows} ({full_rows * 128 * 4 / 1e9:.2f} GB); widths, 26 "
-          f"tables, hotness and both MLPs as published")
-    steps = args.warm_steps + args.timed_steps
+    steps = args.warm_steps + timed_steps
     t0 = time.perf_counter()
     m = declare(args, cfg).compile(device=dev)
-    print("train groups: " + ", ".join(
-        f"{k} {g.num_tables} tables {g.total_rows} rows"
-        for k, g in m.model.embedding.groups.items()))
+    colls = m.model.collections()
+    print(f"train {cfg.name} groups: " + "; ".join(
+        f"{key}: " + ", ".join(f"{k} {g.num_tables} tables {g.total_rows} "
+                               f"rows at D {g.dim}"
+                               for k, g in c.groups.items())
+        for key, c in colls.items()))
     reader = SyntheticCTR(cfg, args.train_batch, seed=args.seed)
     per_step, data_ms = [], []
 
@@ -894,58 +1068,69 @@ def train_phase(args, dev):
     per_step.append(launches)
     losses = [h["loss"] for h in hist]
     check(len(hist) == steps and np.isfinite(losses).all(),
-          f"train: {len(hist)} steps, losses {losses}")
-    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
-    groups = len(m.model.embedding.groups)
+          f"train {cfg.name}: {len(hist)} steps, losses {losses}")
+    check(losses[-1] < losses[0],
+          f"train {cfg.name}: loss did not fall: {losses}")
+    groups = sum(len(c.groups) for c in colls.values())
+    want = {"lookup_fwd": groups, "lookup_bwd": groups}
+    if cfg.model == "dlrm":
+        want.update(interaction_fwd=1, interaction_bwd=1)
     for i in range(steps):
         d = {k: per_step[i + 1].get(k, 0) - per_step[i].get(k, 0)
-             for k in ("lookup_bwd", "interaction_bwd")}
-        check(d == {"lookup_bwd": groups, "interaction_bwd": 1},
-              f"train step {i}: launches {d}, want K3 once per embedding "
-              f"group ({groups}) and K4 once")
+             for k in want}
+        check(d == want, f"train {cfg.name} step {i}: launches {d}, want "
+              f"{want} (K1 and K3 once per embedding group of "
+              f"{list(colls)})")
     ms = [h["time"] * 1e3 for h in hist[args.warm_steps:]]
     p50 = float(np.median(ms))
-    print(f"train on {torch.cuda.get_device_name(0)}: {steps} steps at "
-          f"batch {args.train_batch} ({args.warm_steps} warm-up) in "
-          f"{time.perf_counter() - t0:.1f} s with set-up; step p50 "
+    print(f"train {cfg.name} on {torch.cuda.get_device_name(0)}: {steps} "
+          f"steps at batch {args.train_batch} ({args.warm_steps} warm-up) "
+          f"in {time.perf_counter() - t0:.1f} s with set-up; step p50 "
           f"{p50:.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}), "
           f"{args.train_batch / p50 * 1e3:.0f} samples/s; loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak memory "
           f"{peak:.2f} GiB; synthetic batch on the host p50 "
           f"{float(np.median(data_ms[args.warm_steps:])):.2f} ms of each "
-          f"step; launches {launches}")
+          f"step; launches per step {want}; launches {launches}")
 
     # one more step, profiled, from the trained state (not kept)
     tr = Trainer(m.model, m.solver.to_train_config(), reader.batch)
-    profile("train step", lambda: tr.train(
+    profile(f"{cfg.name} train step", lambda: tr.train(
         1, initial_state=(m.params, None)))
+    del tr
 
     # the first steps again on the plain versions, from the same init
     plain = declare(args, cfg).compile(device=dev, use_kernels=False)
     ph = plain.fit(reader.batch, steps=args.plain_steps)
     err = max(abs(a["loss"] - b["loss"]) for a, b in zip(ph, hist))
-    check(err <= TRAIN_TOL, f"train: plain-version losses "
+    check(err <= TRAIN_TOL, f"train {cfg.name}: plain-version losses "
           f"{[h['loss'] for h in ph]} vs {losses[:args.plain_steps]}")
-    print(f"train plain versions: first {args.plain_steps} losses within "
-          f"{err:.3g} of the kernel path (bound {TRAIN_TOL})")
+    print(f"train {cfg.name} plain versions: first {args.plain_steps} "
+          f"losses within {err:.3g} of the kernel path (bound {TRAIN_TOL})")
     del plain, ph
+    gc.collect()
     torch.cuda.empty_cache()
     return m, launches
 
 
 def deploy_phase(args, m, bundle_dir):
     """Model.deploy() the trained model; returns what the serving checks
-    need: the config, the bundle's PDB and the dense params."""
+    need: the config, the bundle's PDB (every table, the wide twins
+    included) and the dense params."""
     from repro_torch.core.hps.persistent_db import PersistentDB
+    from repro_torch.models.recsys.model import wide_tables
     t0 = time.perf_counter()
     server = m.deploy(bundle_dir, cache_capacity=args.cache_capacity,
                       max_batch=args.batch)
     server.close()
     pdb = PersistentDB(os.path.join(bundle_dir, "pdb"))
-    for t in m.cfg.tables:
+    tables = m.cfg.tables + (wide_tables(m.cfg) if m.model.wide is not None
+                             else ())
+    for t in tables:
         pdb.open_table(m.name, t.name)
-    print(f"deploy: {len(m.cfg.tables)} trained tables written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    rows = sum(t.vocab_size * t.dim for t in tables)
+    print(f"deploy {m.name}: {len(tables)} trained tables ({rows * 4 / 1e9:.2f}"
+          f" GB f32) written in {time.perf_counter() - t0:.1f} s")
     return m.cfg, pdb, m.dense_params()
 
 
@@ -967,24 +1152,32 @@ def make_requests(args, cfg, n, stream):
 
 
 def plain_predict(cfg, pdb, params, dev, dense, cat):
-    """The plain path: pooled rows straight from the PDB memmap, the dense
-    net with the plain dot interaction, then the sigmoid."""
+    """The plain path: pooled rows straight from the PDB memmap (the deep
+    tables and, for WDL and DeepFM, their wide twins), the dense net with
+    the plain ops, then the sigmoid -> ``(probabilities, [deep rows, wide
+    rows or None])``."""
     import numpy as np
     import torch
-    from repro_torch.models.recsys.model import RecsysModel
-    emb = np.stack([pdb.fetch(cfg.name, t.name, cat[:, ti, 0])
-                    for ti, t in enumerate(cfg.tables)], axis=1)
+    from repro_torch.models.recsys.model import RecsysModel, wide_tables
     model = RecsysModel(cfg, device=dev, use_kernels=False)
+    sets = [cfg.tables] + ([wide_tables(cfg)] if model.wide is not None
+                           else [])
+    rows = [np.stack([pdb.fetch(cfg.name, t.name, cat[:, ti, 0])
+                      for ti, t in enumerate(ts)], axis=1) for ts in sets]
     with torch.no_grad():
         logit = model.apply_dense(params, torch.from_numpy(dense).to(dev),
-                                  torch.from_numpy(emb).to(dev))
-    return torch.sigmoid(logit).cpu().numpy(), emb
+                                  *(torch.from_numpy(r).to(dev)
+                                    for r in rows))
+    return torch.sigmoid(logit).cpu().numpy(), rows + [None] * (2 - len(rows))
 
 
 def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
-                trained=None):
-    """Serve the bundle; with ``trained`` (the api.Model that deployed it)
-    the served predictions are also held against its ``predict``."""
+                trained=None, submit: bool = True):
+    """Serve the bundle: requests through ``submit`` on the stream engine
+    (``submit``), then one at a time through ``predict``; with ``trained``
+    (the api.Model that deployed it) the served predictions are also held
+    against its ``predict``. Wide models serve through two HPSes; one
+    pooled read of each must be one launch."""
     import numpy as np
     import torch
     from repro_torch.kernels._build import LAUNCHES
@@ -992,21 +1185,27 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
 
     server, _ = build_server_from_config(ps_path, device=dev,
                                          payload_dtype=payload_dtype)
+    hpses = server._hpses()
     warm = make_requests(args, cfg, args.warmup, 1)
     reqs = make_requests(args, cfg, args.requests, 2)
     try:
         for dense, cat in warm:                  # fill L1, warm the caches
             server.predict(dense, cat)
         server.reset_latencies()
-        before = {k: c.counters() for k, c in server.hps.caches.items()}
-        server.start()
+        before = [{k: c.counters() for k, c in h.caches.items()}
+                  for h in hpses]
         torch.cuda.synchronize()
         LAUNCHES.reset()
         t0 = time.perf_counter()
-        handles = [server.submit(d, c) for d, c in reqs]
-        preds = [h.get(timeout=600) for h in handles]
-        probe = server.hps.caches[cfg.tables[0].name].query(
-            reqs[0][1][:, 0, 0].astype(np.int64))
+        if submit:
+            server.start()
+            handles = [server.submit(d, c) for d, c in reqs]
+            preds = [h.get(timeout=600) for h in handles]
+        else:
+            preds = [server.predict(d, c) for d, c in reqs]
+        # the cache query of each HPS's first table (K5 f32, K6 int8)
+        probes = [h.caches[h.tables[0].name].query(
+            reqs[0][1][:, 0, 0].astype(np.int64)) for h in hpses]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = LAUNCHES.snapshot()
@@ -1014,81 +1213,97 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
         for p in preds:
             if isinstance(p, Exception):
                 raise p
-        after = {k: c.counters() for k, c in server.hps.caches.items()}
-        hits = sum(after[k]["hits"] - before[k]["hits"] for k in after)
-        miss = sum(after[k]["misses"] - before[k]["misses"] for k in after)
-        pct = server.latency_percentiles()      # submit burst, queueing in
+        after = [{k: c.counters() for k, c in h.caches.items()}
+                 for h in hpses]
+        hit = []
+        for b4, af in zip(before, after):
+            hits = sum(af[k]["hits"] - b4[k]["hits"] for k in af)
+            miss = sum(af[k]["misses"] - b4[k]["misses"] for k in af)
+            hit.append(hits / max(1, hits + miss))
+        pct = server.latency_percentiles()      # queueing in, for submit
         server.reset_latencies()
-        for dense, cat in reqs[:8]:             # one request at a time
+        for dense, cat in reqs[:8]:             # again, one at a time
             server.predict(dense, cat)
         seq = server.latency_percentiles()
-        profile("predict", lambda: server.predict(*reqs[8 % len(reqs)]))
+        profile(f"{cfg.name} predict",
+                lambda: server.predict(*reqs[8 % len(reqs)]))
 
         # predictions against the plain path
         err = 0.0
         for (dense, cat), p in zip(reqs, preds):
             check(p.shape == (args.batch,) and np.isfinite(p).all(),
-                  f"{payload_dtype}: bad prediction block {p.shape}")
-            want, emb = plain_predict(cfg, pdb, params, dev, dense, cat)
+                  f"{cfg.name} {payload_dtype}: bad prediction block "
+                  f"{p.shape}")
+            want, _ = plain_predict(cfg, pdb, params, dev, dense, cat)
             err = max(err, float(np.abs(p - want).max()))
         tol = SERVE_TOL[payload_dtype]
-        check(err <= tol, f"{payload_dtype}: served predictions deviate "
-              f"{err} from the plain path (bound {tol})")
+        check(err <= tol, f"{cfg.name} {payload_dtype}: served predictions "
+              f"deviate {err} from the plain path (bound {tol})")
         trained_err = None
         if trained is not None:
             trained_err = max(
                 float(np.abs(p - trained.predict(
                     {"dense": d, "cat": c})).max())
                 for (d, c), p in zip(reqs, preds))
-            check(trained_err <= TRAIN_TOL, f"{payload_dtype}: served "
-                  f"predictions deviate {trained_err} from the trained "
-                  f"Model.predict (bound {TRAIN_TOL})")
-        # the pooled L1 read itself: bit-exact for f32, within half a
-        # quantization step for int8
+            check(trained_err <= TRAIN_TOL, f"{cfg.name} {payload_dtype}: "
+                  f"served predictions deviate {trained_err} from the "
+                  f"trained Model.predict (bound {TRAIN_TOL})")
+        # the pooled L1 read of each HPS: one launch, bit-exact for f32,
+        # within half a quantization step for int8
         dense, cat = reqs[-1]
         pooled_k = ("lookup_fwd" if payload_dtype == "f32"
                     else "dequant_gather_rows")
-        LAUNCHES.reset()
-        got = server.hps.lookup(cat)
-        torch.cuda.synchronize()
-        one_read = LAUNCHES.snapshot()
-        check(one_read == {pooled_k: 1}, f"{payload_dtype}: one pooled read "
-              f"of {len(cfg.tables)} tables launched {one_read}, want one "
-              f"{pooled_k}")
-        got = got.cpu().numpy()
-        _, emb = plain_predict(cfg, pdb, params, dev, dense, cat)
-        if payload_dtype == "f32":
-            check(np.array_equal(got, emb), "f32 L1 read is not bit-exact")
-        else:
-            step = np.abs(emb).max(axis=2, keepdims=True) / 127.0
-            check(bool((np.abs(got - emb) <= 0.5 * step + 1e-6).all()),
-                  "int8 L1 read exceeds half a quantization step")
-        first = probe.cpu().numpy()
-        want_rows = pdb.fetch(cfg.name, cfg.tables[0].name,
-                              reqs[0][1][:, 0, 0])
-        check(np.abs(first - want_rows).max() <= (
-            0 if payload_dtype == "f32" else
-            np.abs(want_rows).max() / 254 + 1e-6),
-            "DeviceEmbeddingCache.query rows disagree with the PDB")
+        _, rows = plain_predict(cfg, pdb, params, dev, dense, cat)
+        one_read = []
+        for h, emb, probe in zip(hpses, rows, probes):
+            LAUNCHES.reset()
+            got = h.lookup(cat)
+            torch.cuda.synchronize()
+            one_read.append(LAUNCHES.snapshot())
+            check(one_read[-1] == {pooled_k: 1}, f"{cfg.name} "
+                  f"{payload_dtype}: one pooled read of {len(h.tables)} "
+                  f"tables at D {h.tables[0].dim} launched {one_read[-1]}, "
+                  f"want one {pooled_k}")
+            got = got.cpu().numpy()
+            if payload_dtype == "f32":
+                check(np.array_equal(got, emb), f"{cfg.name}: f32 L1 read "
+                      f"at D {h.tables[0].dim} is not bit-exact")
+            else:
+                step = np.abs(emb).max(axis=2, keepdims=True) / 127.0
+                check(bool((np.abs(got - emb) <= 0.5 * step + 1e-6).all()),
+                      f"{cfg.name}: int8 L1 read at D {h.tables[0].dim} "
+                      "exceeds half a quantization step")
+            want_rows = pdb.fetch(cfg.name, h.tables[0].name,
+                                  reqs[0][1][:, 0, 0])
+            check(np.abs(probe.cpu().numpy() - want_rows).max() <= (
+                0 if payload_dtype == "f32" else
+                np.abs(want_rows).max() / 254 + 1e-6),
+                f"{cfg.name}: DeviceEmbeddingCache.query rows disagree "
+                "with the PDB")
     finally:
         server.close()
     # f32 reads go through K1 (pooled) and K5 (the cache query); int8
     # reads through K6 for both
     need = (["lookup_fwd", "gather_rows"] if payload_dtype == "f32"
-            else ["dequant_gather_rows"]) + ["interaction_fwd"]
+            else ["dequant_gather_rows"])
+    if cfg.model == "dlrm":
+        need.append("interaction_fwd")
     for k in need:
         check(launches.get(k, 0) > 0,
-              f"{payload_dtype}: kernel {k} was not launched on the main "
-              f"path (counts {launches})")
-    hit = hits / max(1, hits + miss)
-    print(f"serve {payload_dtype} on {torch.cuda.get_device_name(0)}: "
-          f"{len(reqs)} requests x {args.batch} rows in {wall:.2f} s "
-          f"through submit (per-group p50 {pct['p50']:.2f} ms, p99 "
-          f"{pct['p99']:.2f} ms, queueing included); one request at a "
-          f"time through predict: p50 {seq['p50']:.2f} ms; "
-          f"L1 hit rate {hit:.4f}; max |p - plain| {err:.3g} "
-          f"(bound {tol}); one pooled read of {len(cfg.tables)} tables: "
-          f"launches {one_read}"
+              f"{cfg.name} {payload_dtype}: kernel {k} was not launched on "
+              f"the main path (counts {launches})")
+    how = (f"through submit (per-group p50 {pct['p50']:.2f} ms, p99 "
+           f"{pct['p99']:.2f} ms, queueing included)" if submit else
+           f"through predict (p50 {pct['p50']:.2f} ms)") \
+        + "; the first 8 again through predict"
+    print(f"serve {cfg.name} {payload_dtype} on "
+          f"{torch.cuda.get_device_name(0)}: {len(reqs)} requests x "
+          f"{args.batch} rows in {wall:.2f} s {how}: p50 "
+          f"{seq['p50']:.2f} ms; L1 hit rate "
+          + ", ".join(f"D {h.tables[0].dim} HPS {r:.4f}"
+                      for h, r in zip(hpses, hit))
+          + f"; max |p - plain| {err:.3g} (bound {tol}); one pooled read "
+          f"a HPS: launches {one_read}"
           + ("" if trained_err is None else
              f"; max |p - Model.predict| {trained_err:.3g} (bound "
              f"{TRAIN_TOL})") + f"; launches {launches}")
@@ -1438,24 +1653,68 @@ def lm_train_phase(args, dev, cfg):
     return launches
 
 
-def recsys_phases(args, dev):
-    """Phases 4-6; returns the launch counts of their main paths."""
+def recipe_run(args, dev, cfg, timed_steps, payloads, submit, total):
+    """Train ``cfg`` (:func:`train_phase`), deploy it, rebuild the server
+    from ``ps.json`` and serve it with each L1 payload type of
+    ``payloads``; adds the main paths' launch counts to ``total``."""
     import torch
     bundle_dir = os.path.join(ROOT, "_smoke_bundle")
     shutil.rmtree(bundle_dir, ignore_errors=True)
     try:
-        model, total = train_phase(args, dev)
+        model, launches = train_phase(args, dev, cfg, timed_steps)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
         cfg, pdb, params = deploy_phase(args, model, bundle_dir)
         ps = os.path.join(bundle_dir, "ps.json")
-        for pd in ("f32", "int8"):
+        for pd in payloads:
             launches, _ = serve_phase(args, ps, cfg, pdb, params, dev, pd,
-                                      trained=model)
+                                      trained=model, submit=submit)
             for k, n in launches.items():
                 total[k] = total.get(k, 0) + n
     finally:
         shutil.rmtree(bundle_dir, ignore_errors=True)
     del model, params, pdb
+    gc.collect()
     torch.cuda.empty_cache()
+
+
+def reduced_line(args, cfg, full) -> str:
+    rows = sum(t.vocab_size for t in cfg.tables)
+    full_rows = sum(t.vocab_size for t in full.tables)
+    d = cfg.embedding_dim
+    return (f"reduced: {cfg.name} vocabulary capped at {args.vocab_cap} "
+            f"rows per table: {rows} rows ({rows * d * 4 / 1e9:.2f} GB f32) "
+            f"instead of {full_rows} ({full_rows * d * 4 / 1e9:.2f} GB), to "
+            f"keep the smoke's time; widths, 26 tables, hotness and the "
+            f"dense layers as published")
+
+
+def recsys_phases(args, dev):
+    """Phases 4-6 (DLRM, its vocabulary capped: train, deploy, serve
+    through submit with f32 and int8 L1), then phase 7: WDL at full width
+    and vocabulary through the same, on two HPSes, then DCN and DeepFM
+    (capped) through fit, deploy, rebuild and predict (f32). Returns the
+    launch counts of their main paths."""
+    total = {}
+    dlrm = capped_config(args)
+    print(reduced_line(args, dlrm,
+                       recipe_config(args, "dlrm-criteo", capped=False)))
+    recipe_run(args, dev, dlrm, args.timed_steps, ("f32", "int8"), True,
+               total)
+    wdl = recipe_config(args, "wdl-criteo", capped=False)
+    rows = sum(t.vocab_size for t in wdl.tables)
+    print(f"wdl-criteo at full width and vocabulary: {rows} rows "
+          f"({rows * wdl.embedding_dim * 4 / 1e9:.2f} GB f32 deep, "
+          f"{rows * 4 / 1e9:.3f} GB wide), no cut")
+    recipe_run(args, dev, wdl, args.timed_steps, ("f32", "int8"), True,
+               total)
+    short = types.SimpleNamespace(**{**vars(args), "lr": args.recipe_lr})
+    for arch in ("dcn-criteo", "deepfm-criteo"):
+        cfg = recipe_config(args, arch, capped=True)
+        print(reduced_line(args, cfg,
+                           recipe_config(args, arch, capped=False)))
+        recipe_run(short, dev, cfg, args.recipe_timed_steps, ("f32",), False,
+                   total)
     return total
 
 
@@ -1499,12 +1758,12 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
-    # 4-6. train, deploy, serve
+    # 4-7. train, deploy, serve: DLRM, WDL, DCN, DeepFM
     total = recsys_phases(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 7. LM serve
+    # 8. LM serve
     from repro_torch.configs.registry import get_lm_config
     lm_cfg = get_lm_config(args.lm_arch)
     for k, n in lm_phase(args, dev, lm_cfg).items():
@@ -1512,7 +1771,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 8-9. LM train: the kernels against the plain path at depth 2, then
+    # 9-10. LM train: the kernels against the plain path at depth 2, then
     # the full-width steps
     lm_grad_check(args, dev, lm_cfg)
     gc.collect()
@@ -1520,7 +1779,7 @@ def main() -> int:
     for k, n in lm_train_phase(args, dev, lm_cfg).items():
         total[k] = total.get(k, 0) + n
 
-    # 10. kernels line, then the device line last
+    # 11. kernels line, then the device line last
     for name, rec in kernels.items():
         rec["launches"] = total.get(name, 0)
         check(rec["launches"] > 0, f"{name}: no launches on the main path")

@@ -5,9 +5,15 @@ The layer declarations (``Solver``, ``DataReaderParams``, ``Input``,
 ``SparseEmbedding``, ``DenseLayer``) carry the JAX package's field sets,
 so a ``graph.json`` (format ``repro-graph-v1``) written by either package
 loads in the other and lowers to the same ``recsys_config_hash``. This
-port lowers the canonical DLRM recipe (bottom MLP, dot interaction,
-concat, top MLP, sigmoid); any other graph raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+port lowers the four paper recipes onto their canonical configs, as the
+reference recognises them: DLRM (bottom MLP, dot interaction, concat, top
+MLP), DCN (concat, cross net and deep MLP, a 1-unit combine head), and
+Wide&Deep and DeepFM, whose second ``SparseEmbedding`` group is the dim-1
+twin of the first (the wide branch; WDL's wide head becomes the
+first-order term, DeepFM's ``fm`` layer its first- and second-order
+terms). Any other graph (the ops ``add|multiply|relu|slice|reduce_sum``,
+``model="graph"``, several independent groups) raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 
 The paper's workflow runs through :class:`Model`::
 
@@ -16,6 +22,9 @@ The paper's workflow runs through :class:`Model`::
     m.fit(steps=100)              # synthetic reader, one device
     m.save("ckpt")                # graph.json + logical checkpoint
     server = m.deploy("bundle")   # pdb/ graph.json dense.npz ps.json
+
+(``dlrm_graph`` / ``dcn_graph`` / ``wdl_graph`` / ``deepfm_graph``, or
+``recipe_graph``, declare a registry config's graph).
 
 and ``launch/serve.py::build_server_from_config`` (either package's)
 serves the bundle. Not ported yet: the ETC backend (``Solver.etc``), the
@@ -38,7 +47,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys.dense_graph import (
     RESERVED_NAMES, GraphError, compile_layers, spec_from_layer,
 )
-from repro_torch.roadmap import FRONT_DOORS, MULTI_DEVICE, not_ported
+from repro_torch.roadmap import FRONT_DOORS, MULTI_DEVICE, RECIPES_3B, \
+    not_ported
 
 GRAPH_FORMAT = "repro-graph-v1"
 
@@ -170,8 +180,8 @@ DENSE_LAYER_TYPES = ("mlp", "cross", "dot_interaction", "fm", "concat",
 @dataclasses.dataclass
 class DenseLayer:
     """One named dense layer, wired by tensor names (the JAX package's
-    vocabulary; this slice executes mlp, dot_interaction, concat and
-    sigmoid)."""
+    vocabulary; the port executes mlp, cross, dot_interaction, fm, concat
+    and sigmoid)."""
     type: str
     bottom_names: Sequence[str]
     top_names: Sequence[str]
@@ -200,7 +210,7 @@ class DenseLayer:
 
 
 # ---------------------------------------------------------------------------
-# Lowering: layer graph -> RecsysConfig (the canonical DLRM recipe)
+# Lowering: layer graph -> RecsysConfig (the four canonical recipes)
 # ---------------------------------------------------------------------------
 
 def _check_embeddings(inp: Input, embs: List[SparseEmbedding]) -> None:
@@ -219,6 +229,25 @@ def _check_embeddings(inp: Input, embs: List[SparseEmbedding]) -> None:
                 f"SparseEmbedding top_name {e.top_name!r} is reserved "
                 "for the embedding parameter groups")
         produced.add(e.top_name)
+
+
+def _split_embeddings(embs: List[SparseEmbedding]
+                      ) -> Tuple[SparseEmbedding, Optional[SparseEmbedding]]:
+    """``(deep, wide)``: one group, or exactly two where one is the dim-1
+    exact twin of the other (same vocab sizes, ``combiner="sum"``), the
+    wide branch of WDL and DeepFM. Other groups are part 3b."""
+    if len(embs) == 1:
+        return embs[0], None
+    if len(embs) == 2:
+        wides = [e for e in embs if e.dim == 1]
+        if len(wides) == 1:
+            wide = wides[0]
+            deep = next(e for e in embs if e is not wide)
+            if wide.vocab_sizes == deep.vocab_sizes and \
+                    wide.combiner == "sum":
+                return deep, wide
+    raise not_ported("a graph with several independent SparseEmbedding "
+                     "groups (RecsysConfig.extra_groups)", RECIPES_3B)
 
 
 def _find(layers: List[DenseLayer], type_: str,
@@ -284,28 +313,166 @@ def _classify_dlrm(name, inp, deep, layers):
         top_mlp=top.units, embedding_dim=deep.dim)
 
 
+def _classify_dcn(name, inp, deep, layers):
+    """The reference's DCN recognition: concat(dense, emb) into an
+    optional cross net and a deep MLP, both concatenated into a 1-unit
+    combine head."""
+    flats = _find(layers, "concat", (inp.dense_name, deep.top_name))
+    if len(flats) != 1:
+        return None
+    flat = flats[0]
+    used = [flat]
+    crosses = _find(layers, "cross")
+    if len(crosses) > 1:
+        return None
+    crossed = flat.top
+    cross = crosses[0] if crosses else None
+    if cross is not None:
+        if tuple(cross.bottom_names) != (flat.top,):
+            return None
+        crossed = cross.top
+        used.append(cross)
+    mlps = [l for l in layers if l.type == "mlp"]
+    deeps = [l for l in mlps if tuple(l.bottom_names) == (flat.top,)]
+    if len(deeps) != 1:
+        return None
+    deep_mlp = deeps[0]
+    if deep_mlp.final_activation or not deep_mlp.units:
+        return None
+    used.append(deep_mlp)
+    boths = _find(layers, "concat", (crossed, deep_mlp.top))
+    if len(boths) != 1:
+        return None
+    used.append(boths[0])
+    combines = [l for l in mlps
+                if tuple(l.bottom_names) == (boths[0].top,)]
+    if len(combines) != 1:
+        return None
+    combine = combines[0]
+    if combine.units != (1,) or combine.final_activation:
+        return None
+    used.append(combine)
+    if not _take_sigmoid(layers, (combine.top,), used, required=False):
+        return None
+    if len(used) != len(layers):
+        return None
+    return RecsysConfig(
+        name=name, model="dcn", tables=deep.to_tables(),
+        num_dense_features=inp.dense_dim, bottom_mlp=(),
+        top_mlp=deep_mlp.units, embedding_dim=deep.dim,
+        num_cross_layers=cross.num_layers if cross is not None else 0)
+
+
+def _classify_flat_deep(inp, deep, layers):
+    """The concat + 1-logit deep tower that DeepFM and WDL share."""
+    flats = _find(layers, "concat", (inp.dense_name, deep.top_name))
+    if len(flats) != 1:
+        return None
+    flat = flats[0]
+    deeps = [l for l in layers if l.type == "mlp"
+             and tuple(l.bottom_names) == (flat.top,)]
+    if len(deeps) != 1:
+        return None
+    deep_mlp = deeps[0]
+    if deep_mlp.final_activation or not deep_mlp.units or \
+            deep_mlp.units[-1] != 1:
+        return None
+    return flat, deep_mlp
+
+
+def _classify_deepfm(name, inp, deep, wide, layers):
+    pair = _classify_flat_deep(inp, deep, layers)
+    if pair is None:
+        return None
+    flat, deep_mlp = pair
+    fms = _find(layers, "fm")
+    if len(fms) != 1:
+        return None
+    fm = fms[0]
+    if len(fm.bottom_names) != 3 or set(fm.bottom_names) != \
+            {inp.dense_name, wide.top_name, deep.top_name}:
+        return None
+    used = [flat, deep_mlp, fm]
+    if not _take_sigmoid(layers, (fm.top, deep_mlp.top), used,
+                         required=True):
+        return None
+    if len(used) != len(layers):
+        return None
+    return RecsysConfig(
+        name=name, model="deepfm", tables=deep.to_tables(),
+        num_dense_features=inp.dense_dim, bottom_mlp=(),
+        top_mlp=deep_mlp.units[:-1], embedding_dim=deep.dim)
+
+
+def _classify_wdl(name, inp, deep, wide, layers):
+    """WDL: the deep tower plus a 1-unit head over ``[dense, wide]``, which
+    lowers to the first-order term (the wide branch pooled with fixed
+    weight 1, as the paper's recipe)."""
+    pair = _classify_flat_deep(inp, deep, layers)
+    if pair is None:
+        return None
+    flat, deep_mlp = pair
+    heads = [l for l in layers if l.type == "mlp"
+             and set(l.bottom_names) == {inp.dense_name, wide.top_name}]
+    if len(heads) != 1:
+        return None
+    head = heads[0]
+    if head.units != (1,) or head.final_activation:
+        return None
+    used = [flat, deep_mlp, head]
+    if not _take_sigmoid(layers, (head.top, deep_mlp.top), used,
+                         required=True):
+        return None
+    if len(used) != len(layers):
+        return None
+    return RecsysConfig(
+        name=name, model="wdl", tables=deep.to_tables(),
+        num_dense_features=inp.dense_dim, bottom_mlp=(),
+        top_mlp=deep_mlp.units[:-1], embedding_dim=deep.dim)
+
+
+def _classify_canonical(name, inp, deep, wide, layers):
+    """The canonical config of one of the four paper recipes, or None."""
+    types = {l.type for l in layers}
+    if types - {"mlp", "cross", "dot_interaction", "fm", "concat",
+                "sigmoid"}:
+        return None
+    if "dot_interaction" in types:
+        if wide is not None:
+            return None
+        return _classify_dlrm(name, inp, deep, layers)
+    if "fm" in types:
+        if wide is None:
+            return None
+        return _classify_deepfm(name, inp, deep, wide, layers)
+    if wide is not None:
+        return _classify_wdl(name, inp, deep, wide, layers)
+    return _classify_dcn(name, inp, deep, layers)
+
+
 def lower_graph(name: str, inp: Optional[Input],
                 embs: List[SparseEmbedding],
                 layers: List[DenseLayer]) -> RecsysConfig:
-    """Validate the layer graph and lower it onto the canonical DLRM
-    config. :class:`GraphError` names the offending layer or tensor of an
-    invalid graph; a valid graph of another shape raises
-    ``NotImplementedError``."""
+    """Validate the layer graph and lower it onto the canonical config of
+    one of the four paper recipes. :class:`GraphError` names the offending
+    layer or tensor of an invalid graph; a valid graph of another shape
+    raises ``NotImplementedError`` (the reference lowers it to
+    ``model="graph"``, part 3b of the ROADMAP item)."""
     if inp is None:
         raise GraphError("the graph needs an Input layer")
     if not embs:
         raise GraphError("the graph needs at least one SparseEmbedding")
     _check_embeddings(inp, embs)
-    if len(embs) != 1:
-        raise not_ported("a graph with several SparseEmbedding groups")
-    deep = embs[0]
+    deep, wide = _split_embeddings(embs)
     compile_layers(
         [spec_from_layer(l) for l in layers], dense_name=inp.dense_name,
         num_dense=inp.dense_dim, emb_name=deep.top_name,
-        num_tables=len(deep.vocab_sizes), emb_dim=deep.dim)
-    cfg = _classify_dlrm(name, inp, deep, layers)
+        num_tables=len(deep.vocab_sizes), emb_dim=deep.dim,
+        wide_name=wide.top_name if wide is not None else None)
+    cfg = _classify_canonical(name, inp, deep, wide, layers)
     if cfg is None:
-        raise not_ported("a graph that is not the canonical DLRM recipe")
+        raise not_ported('a graph that is none of the four paper recipes '
+                         '(model="graph")', RECIPES_3B)
     return cfg
 
 
@@ -439,7 +606,8 @@ class Model:
     # -- inference ------------------------------------------------------------------
 
     def predict(self, batch: Dict) -> np.ndarray:
-        """Probabilities ``[B]`` for a host batch (``dense``, ``cat``)."""
+        """Probabilities ``[B]`` for a host batch (``dense``, ``cat``); wide
+        models look their wide twins up in the same ``cat`` columns."""
         if self._params is None:
             raise RuntimeError("fit() or load() before predict()")
         from repro_torch.train.trainer import put_batch
@@ -488,16 +656,19 @@ class Model:
 
     def deploy(self, directory: str, *, cache_capacity: int = 4096,
                max_batch: int = 1024, payload_dtype: str = "f32"):
-        """Write the serving bundle (``pdb/`` with every table,
-        ``graph.json``, ``dense.npz``, ``ps.json``) and return an
-        ``InferenceServer`` rebuilt from it on this model's device. Either
-        package's ``build_server_from_config`` serves the bundle."""
+        """Write the serving bundle (``pdb/`` with every table, the
+        ``*_wide`` twins of WDL and DeepFM included, ``graph.json``,
+        ``dense.npz``, ``ps.json`` with ``wide`` set for those) and return
+        an ``InferenceServer`` rebuilt from it on this model's device.
+        Either package's ``build_server_from_config`` serves the
+        bundle."""
         if self._params is None:
             raise RuntimeError("fit() or load() before deploy()")
         from repro_torch.launch.serve import build_server_from_config
         from repro_torch.serve.server import write_bundle
-        tables = self._model.embedding.logical_tables(
-            self._params["embedding"])
+        tables = {}
+        for key, coll in self._model.collections().items():
+            tables.update(coll.logical_tables(self._params[key]))
         write_bundle(directory, self, self.dense_params(), tables,
                      cache_capacity=cache_capacity, max_batch=max_batch,
                      payload_dtype=payload_dtype)
@@ -557,15 +728,14 @@ class Model:
         return m
 
 
-def dlrm_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
-               reader: Optional[DataReaderParams] = None) -> Model:
-    """The canonical DLRM recipe graph for a ``model="dlrm"`` config, as
-    ``repro/configs/dlrm_criteo.py::build_model`` declares it (tables
-    named by ``cfg``); it lowers back to ``cfg``."""
-    if cfg.model != "dlrm":
-        raise not_ported(f"model {cfg.model!r}")
+def _recipe_model(cfg: RecsysConfig, solver: Optional[Solver],
+                  reader: Optional[DataReaderParams], *,
+                  wide: bool = False) -> Model:
+    """A Model with the Input and the deep group of ``cfg`` (tables named
+    by ``cfg``) and, with ``wide``, their dim-1 twin group ``"wide"``."""
     t0 = cfg.tables[0]
     hot = [t.hotness for t in cfg.tables]
+    hotness = hot[0] if len(set(hot)) == 1 else hot
     m = Model(solver or Solver(),
               reader or DataReaderParams(
                   num_dense_features=cfg.num_dense_features),
@@ -573,19 +743,103 @@ def dlrm_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
     m.add(Input(dense_dim=cfg.num_dense_features))
     m.add(SparseEmbedding(
         vocab_sizes=[t.vocab_size for t in cfg.tables],
-        dim=cfg.embedding_dim, top_name="emb",
-        hotness=hot[0] if len(set(hot)) == 1 else hot,
+        dim=cfg.embedding_dim, top_name="emb", hotness=hotness,
         combiner=t0.combiner, strategy=t0.strategy,
         hot_fraction=t0.hot_fraction,
         table_names=[t.name for t in cfg.tables]))
+    if wide:
+        m.add(SparseEmbedding(
+            vocab_sizes=[t.vocab_size for t in cfg.tables], dim=1,
+            top_name="wide", hotness=hotness))
+    return m
+
+
+def _lowers_back(m: Model, cfg: RecsysConfig) -> Model:
+    if m.to_recsys_config() != cfg:
+        raise ValueError(f"{cfg.name}: the {cfg.model} graph does not lower "
+                         "back to the config (tables differ in combiner, "
+                         "strategy or hot_fraction)")
+    return m
+
+
+def dlrm_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
+               reader: Optional[DataReaderParams] = None) -> Model:
+    """The canonical DLRM recipe graph for a ``model="dlrm"`` config, as
+    ``repro/configs/dlrm_criteo.py::build_model`` declares it (tables
+    named by ``cfg``); it lowers back to ``cfg``."""
+    if cfg.model != "dlrm":
+        raise ValueError(f"{cfg.name}: model {cfg.model!r} is not dlrm")
+    m = _recipe_model(cfg, solver, reader)
     m.add(DenseLayer("mlp", ["dense"], ["bot"], units=cfg.bottom_mlp,
                      final_activation=True))
     m.add(DenseLayer("dot_interaction", ["bot", "emb"], ["interaction"]))
     m.add(DenseLayer("concat", ["bot", "interaction"], ["top_in"]))
     m.add(DenseLayer("mlp", ["top_in"], ["logit"], units=cfg.top_mlp))
     m.add(DenseLayer("sigmoid", ["logit"], ["prob"]))
-    if m.to_recsys_config() != cfg:
-        raise ValueError(f"{cfg.name}: the DLRM graph does not lower back "
-                         "to the config (tables differ in combiner, "
-                         "strategy or hot_fraction)")
-    return m
+    return _lowers_back(m, cfg)
+
+
+def dcn_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
+              reader: Optional[DataReaderParams] = None) -> Model:
+    """DCN as ``repro/configs/dcn_criteo.py::build_model`` declares it:
+    the cross net and the deep MLP over concat(dense, emb), combined by a
+    1-unit head; it lowers back to ``cfg``."""
+    if cfg.model != "dcn":
+        raise ValueError(f"{cfg.name}: model {cfg.model!r} is not dcn")
+    m = _recipe_model(cfg, solver, reader)
+    m.add(DenseLayer("concat", ["dense", "emb"], ["flat"]))
+    m.add(DenseLayer("cross", ["flat"], ["crossed"],
+                     num_layers=cfg.num_cross_layers))
+    m.add(DenseLayer("mlp", ["flat"], ["deep"], units=cfg.top_mlp))
+    m.add(DenseLayer("concat", ["crossed", "deep"], ["both"]))
+    m.add(DenseLayer("mlp", ["both"], ["logit"], units=(1,)))
+    m.add(DenseLayer("sigmoid", ["logit"], ["prob"]))
+    return _lowers_back(m, cfg)
+
+
+def wdl_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
+              reader: Optional[DataReaderParams] = None) -> Model:
+    """Wide&Deep as ``repro/configs/wdl_criteo.py::build_model`` declares
+    it: the deep tower with its 1-unit head over concat(dense, emb), a
+    1-unit wide head over ``[dense, wide]`` (the dim-1 twins), and the
+    sigmoid over both logits; it lowers back to ``cfg``."""
+    if cfg.model != "wdl":
+        raise ValueError(f"{cfg.name}: model {cfg.model!r} is not wdl")
+    m = _recipe_model(cfg, solver, reader, wide=True)
+    m.add(DenseLayer("concat", ["dense", "emb"], ["flat"]))
+    m.add(DenseLayer("mlp", ["flat"], ["deep_out"],
+                     units=tuple(cfg.top_mlp) + (1,)))
+    m.add(DenseLayer("mlp", ["dense", "wide"], ["wide_out"], units=(1,)))
+    m.add(DenseLayer("sigmoid", ["wide_out", "deep_out"], ["prob"]))
+    return _lowers_back(m, cfg)
+
+
+def deepfm_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
+                 reader: Optional[DataReaderParams] = None) -> Model:
+    """DeepFM as ``repro/configs/deepfm_criteo.py::build_model`` declares
+    it: the deep tower over concat(dense, emb), the ``fm`` layer over
+    ``[dense, wide, emb]``, and the sigmoid over both; it lowers back to
+    ``cfg``."""
+    if cfg.model != "deepfm":
+        raise ValueError(f"{cfg.name}: model {cfg.model!r} is not deepfm")
+    m = _recipe_model(cfg, solver, reader, wide=True)
+    m.add(DenseLayer("concat", ["dense", "emb"], ["flat"]))
+    m.add(DenseLayer("mlp", ["flat"], ["deep_out"],
+                     units=tuple(cfg.top_mlp) + (1,)))
+    m.add(DenseLayer("fm", ["dense", "wide", "emb"], ["fm_out"]))
+    m.add(DenseLayer("sigmoid", ["fm_out", "deep_out"], ["prob"]))
+    return _lowers_back(m, cfg)
+
+
+#: the graph function of each recipe, by ``RecsysConfig.model``
+RECIPE_GRAPHS = {"dlrm": dlrm_graph, "dcn": dcn_graph, "wdl": wdl_graph,
+                 "deepfm": deepfm_graph}
+
+
+def recipe_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
+                 reader: Optional[DataReaderParams] = None) -> Model:
+    """The graph of ``cfg``'s recipe (:data:`RECIPE_GRAPHS`); it lowers
+    back to ``cfg``."""
+    if cfg.model not in RECIPE_GRAPHS:
+        raise not_ported(f"model {cfg.model!r}", RECIPES_3B)
+    return RECIPE_GRAPHS[cfg.model](cfg, solver=solver, reader=reader)

@@ -1,6 +1,7 @@
 """Registry entries copied from ``repro.configs.registry``: the recsys
-configs the port serves and trains (DLRM on Criteo and its smoke
-reduction), and the ten LM architectures with ``get_lm_config`` and
+configs the port serves and trains (the paper's four recipes on Criteo,
+``RECSYS_ARCHS``, and their smoke reduction), and the ten LM
+architectures with ``get_lm_config`` and
 ``reduce_for_smoke``, so the tests build the same reduced configs on both
 sides."""
 from __future__ import annotations
@@ -147,6 +148,29 @@ dlrm_criteo = RecsysConfig(
     num_dense_features=13,
     bottom_mlp=(512, 256, 128), top_mlp=(1024, 1024, 512, 256, 1),
     embedding_dim=128)
+
+dcn_criteo = RecsysConfig(
+    name="dcn-criteo", model="dcn",
+    tables=_criteo_tables(16),
+    num_dense_features=13,
+    bottom_mlp=(), top_mlp=(1024, 1024), embedding_dim=16,
+    num_cross_layers=6)
+
+deepfm_criteo = RecsysConfig(
+    name="deepfm-criteo", model="deepfm",
+    tables=_criteo_tables(16),
+    num_dense_features=13,
+    bottom_mlp=(), top_mlp=(400, 400, 400), embedding_dim=16)
+
+wdl_criteo = RecsysConfig(
+    name="wdl-criteo", model="wdl",
+    tables=_criteo_tables(16),
+    num_dense_features=13,
+    bottom_mlp=(), top_mlp=(1024, 1024), embedding_dim=16)
+
+RECSYS_ARCHS: Dict[str, RecsysConfig] = {
+    c.name: c for c in (dlrm_criteo, dcn_criteo, deepfm_criteo, wdl_criteo)
+}
 
 
 def reduce_recsys_for_smoke(cfg: RecsysConfig) -> RecsysConfig:

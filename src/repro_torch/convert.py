@@ -59,25 +59,51 @@ def state_to_flat(tree: Mapping) -> Dict[str, np.ndarray]:
             else np.asarray(v) for k, v in flatten(tree)}
 
 
+def _mlp_shapes(name: str, dims) -> Dict[str, tuple]:
+    out = {}
+    for i in range(len(dims) - 1):
+        out[f"{name}/w{i}"] = (dims[i], dims[i + 1])
+        out[f"{name}/b{i}"] = (dims[i + 1],)
+    return out
+
+
+def dense_shapes(cfg: RecsysConfig) -> Dict[str, tuple]:
+    """Every dense parameter of ``cfg``'s recipe, ``{key-path: shape}``:
+    DLRM's ``bottom``/``top`` MLPs; DCN's ``cross`` layers, ``deep`` MLP
+    and ``combine`` head; WDL's and DeepFM's ``deep`` MLP (with its 1-unit
+    head), ``dense_w`` and the scalar ``bias``."""
+    nd, t, d = cfg.num_dense_features, cfg.num_tables, cfg.embedding_dim
+    in_dim = nd + t * d
+    if cfg.model == "dlrm":
+        f = t + 1
+        return {**_mlp_shapes("bottom", [nd, *cfg.bottom_mlp]),
+                **_mlp_shapes("top", [cfg.bottom_mlp[-1] + f * (f - 1) // 2,
+                                      *cfg.top_mlp])}
+    if cfg.model == "dcn":
+        cross = {}
+        for i in range(cfg.num_cross_layers):
+            cross[f"cross/w{i}"] = cross[f"cross/b{i}"] = (in_dim,)
+        return {**cross, **_mlp_shapes("deep", [in_dim, *cfg.top_mlp]),
+                **_mlp_shapes("combine", [in_dim + cfg.top_mlp[-1], 1])}
+    if cfg.model in ("wdl", "deepfm"):
+        return {**_mlp_shapes("deep", [in_dim, *cfg.top_mlp, 1]),
+                "dense_w": (nd,), "bias": ()}
+    raise ValueError(f"no dense layout for model {cfg.model!r}")
+
+
 def check_dense(cfg: RecsysConfig, params: Mapping) -> None:
-    """Raise ``ValueError`` unless ``params`` has DLRM's dense layout for
-    ``cfg`` (``bottom``/``top`` MLPs of the configured widths)."""
-    f = cfg.num_tables + 1
-    want = {"bottom": [cfg.num_dense_features, *cfg.bottom_mlp],
-            "top": [cfg.bottom_mlp[-1] + f * (f - 1) // 2, *cfg.top_mlp]}
-    if set(params) != set(want):
-        raise ValueError(f"dense params {sorted(params)} != {sorted(want)}")
-    for name, dims in want.items():
-        for i in range(len(dims) - 1):
-            w, b = params[name][f"w{i}"], params[name][f"b{i}"]
-            if tuple(w.shape) != (dims[i], dims[i + 1]) or \
-                    tuple(b.shape) != (dims[i + 1],):
-                raise ValueError(
-                    f"{name}/w{i} {tuple(w.shape)}, b{i} {tuple(b.shape)}: "
-                    f"want ({dims[i]}, {dims[i + 1]}) and ({dims[i + 1]},)")
-        if len(params[name]) != 2 * (len(dims) - 1):
-            raise ValueError(f"{name}: {len(params[name])} arrays, want "
-                             f"{2 * (len(dims) - 1)}")
+    """Raise ``ValueError`` unless ``params`` has the dense layout of
+    ``cfg``'s recipe (:func:`dense_shapes`): the same key-paths, each of
+    its configured shape."""
+    want = dense_shapes(cfg)
+    got = {k: tuple(v.shape) for k, v in flatten(params)}
+    if set(got) != set(want):
+        raise ValueError(
+            f"{cfg.model} dense params: {sorted(set(got) - set(want))} "
+            f"unexpected, {sorted(set(want) - set(got))} missing")
+    for k, shape in want.items():
+        if got[k] != shape:
+            raise ValueError(f"{k}: {got[k]}, want {shape}")
 
 
 #: The reference ``LMModel.init`` tree, flattened to numpy under its

@@ -6,7 +6,10 @@ table files, written by either package — is all this needs.
 :func:`build_server_from_config` re-lowers the graph (config hash
 verified), reloads the dense weights, reopens the PDB tables and stands
 up the ``HPS`` + ``InferenceServer`` on the requested device (``cuda``
-unless told otherwise). Ensemble bundles come with ``MultiModelServer``
+unless told otherwise); a wide bundle (WDL, DeepFM: ``"wide": true``)
+gets a second ``HPS`` over the ``*_wide`` twins on the same PDB, with the
+bundle's L1 capacity and payload type. Ensemble bundles come with
+``MultiModelServer``
 (ROADMAP item "The rest of the serving engine").
 """
 from __future__ import annotations
@@ -26,7 +29,7 @@ from repro_torch.convert import check_dense, dense_from_flat
 from repro_torch.core.hps.hps import HPS
 from repro_torch.core.hps.persistent_db import PersistentDB
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.recsys.model import RecsysModel
+from repro_torch.models.recsys.model import RecsysModel, wide_tables
 from repro_torch.serve.server import InferenceServer
 
 
@@ -51,10 +54,6 @@ def build_server_from_config(ps_path: str, *, device: DeviceLike = None,
         hcfg = dataclasses.replace(hcfg, cache_capacity=cache_capacity)
     if payload_dtype is not None:
         hcfg = dataclasses.replace(hcfg, payload_dtype=payload_dtype)
-    if hcfg.wide:
-        raise NotImplementedError(
-            "wide bundles (wdl/deepfm) are the ROADMAP item 'The other "
-            "recipes and graphs'")
     graph = Model.from_json(os.path.join(base, hcfg.graph_path))
     cfg = graph.to_recsys_config()
     if hcfg.config_hash and recsys_config_hash(cfg) != hcfg.config_hash:
@@ -69,13 +68,21 @@ def build_server_from_config(ps_path: str, *, device: DeviceLike = None,
                                 device=dev)
     check_dense(cfg, dense)
     pdb = PersistentDB(os.path.join(base, hcfg.pdb_root))
-    for t in hcfg.tables:
-        pdb.open_table(hcfg.model, t.name)
-    hps = HPS(hcfg.model, cfg.tables, pdb,
-              cache_capacity=hcfg.cache_capacity,
-              cache_shards=hcfg.cache_shards,
-              payload_dtype=hcfg.payload_dtype, device=dev)
     model = RecsysModel(cfg, device=dev,
                         global_batch=graph.solver.batch_size)
-    server = InferenceServer(model, dense, hps, max_batch=hcfg.max_batch)
+    if hcfg.wide != (model.wide is not None):
+        raise ValueError(f"model {hcfg.model!r}: ps.json says wide="
+                         f"{hcfg.wide} for a {cfg.model} graph")
+    table_sets = [cfg.tables] + ([wide_tables(cfg)] if hcfg.wide else [])
+    hpses = []
+    for tables in table_sets:
+        for t in tables:
+            pdb.open_table(hcfg.model, t.name)
+        hpses.append(HPS(hcfg.model, tables, pdb,
+                         cache_capacity=hcfg.cache_capacity,
+                         cache_shards=hcfg.cache_shards,
+                         payload_dtype=hcfg.payload_dtype, device=dev))
+    server = InferenceServer(model, dense, hpses[0],
+                             wide_hps=hpses[1] if hcfg.wide else None,
+                             max_batch=hcfg.max_batch)
     return server, graph

@@ -1,5 +1,6 @@
 """Dense layers of the recsys models (counterpart of
-``repro/models/recsys/layers.py``: ``mlp_init``, ``mlp_apply``, the loss
+``repro/models/recsys/layers.py``: ``mlp_init``, ``mlp_apply``, DCN's
+``cross_init`` / ``cross_apply``, DeepFM's ``fm_second_order``, the loss
 ``bce_with_logits`` and the eval metric ``auc``).
 
 ``mlp_apply`` reproduces the JAX rounding order exactly: operands rounded
@@ -9,7 +10,9 @@ would round its output before the bias, so the product here is an f32
 matmul of the already-rounded operands (bf16 x bf16 products are exact in
 f32). TF32 must be off for that matmul to be f32 on the card; the serving
 entry points pin ``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32`` to False.
+``torch.backends.cudnn.allow_tf32`` to False. ``cross_apply`` keeps the
+reference's order the same way: ``x . w`` an f32 product of the rounded
+operands, then each elementwise op of the update in the compute dtype.
 """
 from __future__ import annotations
 
@@ -61,6 +64,46 @@ def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
             h = torch.relu(h)
         h = h.to(compute_dtype)
     return h.float()
+
+
+def cross_init(generator: torch.Generator, dim: int, n_layers: int, *,
+               device=None) -> Dict[str, torch.Tensor]:
+    """DCN cross layers: ``w{i} [dim]`` normal / sqrt(dim) and zero
+    ``b{i} [dim]``, drawn on the CPU from ``generator``."""
+    params = {}
+    for i in range(n_layers):
+        w = torch.randn((dim,), generator=generator,
+                        dtype=torch.float32) / math.sqrt(dim)
+        params[f"w{i}"] = w.to(device)
+        params[f"b{i}"] = torch.zeros((dim,), dtype=torch.float32,
+                                      device=device)
+    return params
+
+
+def cross_apply(params: Dict[str, torch.Tensor], x0: torch.Tensor, *,
+                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """DCN cross network ``x_{l+1} = x0 * (x_l . w_l) + b_l + x_l``:
+    ``x0 [B, n]`` -> ``[B, n]`` f32. ``x_l . w_l`` accumulates in f32 over
+    the rounded operands and is rounded once; the update rounds after each
+    op, in the reference's order."""
+    n = len(params) // 2
+    x0c = x0.to(compute_dtype)
+    x = x0c
+    for i in range(n):
+        w = params[f"w{i}"].to(compute_dtype)
+        xw = torch.matmul(x.float(), w.float())
+        x = x0c * xw[:, None].to(compute_dtype) \
+            + params[f"b{i}"].to(compute_dtype) + x
+    return x.float()
+
+
+def fm_second_order(emb: torch.Tensor) -> torch.Tensor:
+    """FM pairwise term in f32: ``emb [B, T, D]`` -> ``[B, D]``,
+    ``0.5 * ((sum_t v_t)^2 - sum_t v_t^2)``."""
+    e = emb.float()
+    s = e.sum(dim=1)
+    sq = (e * e).sum(dim=1)
+    return 0.5 * (s * s - sq)
 
 
 def bce_with_logits(logits: torch.Tensor,

@@ -6,8 +6,13 @@ to ``max_batch`` rows, the HPS resolves the pooled embeddings on the
 device (L1 -> L2 -> L3) and the dense net computes the logits; the sigmoid
 is applied after the dense net, outside it, as in the reference.
 
+Wide models (WDL, DeepFM) serve through two HPSes: the deep one and
+``wide_hps`` over the tables' dim-1 twins, which read the same ``cat``
+columns; the dense net takes both pooled blocks.
+
 Engines: ``"stream"`` (default) feeds coalesced request groups through
-``HPS.lookup_stream(materialize=False)``: while group *i-1*'s prediction
+``HPS.lookup_stream(materialize=False)`` (one stream per HPS, each fed the
+same groups): while group *i-1*'s prediction
 copies to the host, group *i*'s gathers and dense net run on the device
 and group *i+1*'s index probes run on the HPS host workers; the one host
 sync per group is the prediction itself. ``"sync"`` drains a group and
@@ -20,6 +25,7 @@ engine").
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -106,19 +112,23 @@ def write_bundle(directory: str, graph, dense_params: Dict,
 
     ``graph`` is a :class:`repro_torch.api.Model`; ``dense_params`` its
     param tree (embedding keys, if present, are left out of ``dense.npz``);
-    ``tables`` maps table names to ``[V, D]`` arrays. Pass ``tables=None``
+    ``tables`` maps table names to ``[V, D]`` arrays, the ``<name>_wide``
+    ``[V, 1]`` twins of a wide model included (``ps.json`` then says
+    ``wide``). Pass ``tables=None``
     when the PDB under ``directory/pdb`` already holds them (written by
     :func:`deploy_tables` or ``PersistentDB.create_table``), e.g. tables
     too large to hold in memory at once.
     """
     from repro_torch.convert import dense_to_flat
+    from repro_torch.models.recsys.model import WIDE_MODELS, wide_tables
     from repro_torch.train.train_step import split_params
     cfg = graph.to_recsys_config()
+    wide = cfg.model in WIDE_MODELS
     os.makedirs(directory, exist_ok=True)
     pdb_root = os.path.join(directory, "pdb")
     if tables is not None:
         deploy_tables(tables, PersistentDB(pdb_root), graph.name)
-    for t in cfg.tables:
+    for t in cfg.tables + (wide_tables(cfg) if wide else ()):
         meta = os.path.join(pdb_root, f"{graph.name}__{t.name}.json")
         if not os.path.exists(meta):
             raise FileNotFoundError(f"table {t.name!r} missing from {pdb_root}")
@@ -127,7 +137,7 @@ def write_bundle(directory: str, graph, dense_params: Dict,
              **dense_to_flat(split_params(dense_params)[1]))
     hcfg = HPSConfig(
         model=graph.name, pdb_root="pdb", graph_path="graph.json",
-        dense_weights_path="dense.npz", tables=cfg.tables,
+        dense_weights_path="dense.npz", tables=cfg.tables, wide=wide,
         cache_capacity=cache_capacity, max_batch=max_batch,
         payload_dtype=payload_dtype, config_hash=recsys_config_hash(cfg))
     with open(os.path.join(directory, "ps.json"), "w") as f:
@@ -151,12 +161,15 @@ class InferenceServer:
     }
 
     def __init__(self, model, dense_params: Dict, hps: HPS, *,
-                 max_batch: int = 1024, engine: str = "stream"):
+                 wide_hps: Optional[HPS] = None, max_batch: int = 1024,
+                 engine: str = "stream"):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, "
                              f"got {engine!r}")
         self.model = model
         self.hps = hps
+        #: the HPS of a wide model's dim-1 twins (same cat columns)
+        self.wide_hps = wide_hps
         self.device = hps.device
         self.dense_params = dense_params
         self.max_batch = max_batch
@@ -175,20 +188,27 @@ class InferenceServer:
         with self._stats_lock:
             self.latency.record((time.perf_counter() - t0) * 1e3)
 
-    def _dense_forward(self, dense: np.ndarray,
-                       emb: torch.Tensor) -> torch.Tensor:
+    def _hpses(self) -> tuple:
+        return (self.hps,) if self.wide_hps is None \
+            else (self.hps, self.wide_hps)
+
+    def _dense_forward(self, dense: np.ndarray, emb: torch.Tensor,
+                       wide: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The dense net + sigmoid on the device, shared by both engines."""
         d = torch.from_numpy(np.ascontiguousarray(dense, np.float32)) \
             .to(self.device)
         with torch.no_grad():
             return torch.sigmoid(self.model.apply_dense(
-                self.dense_params, d, emb))
+                self.dense_params, d, emb, wide))
 
     def predict(self, dense: np.ndarray, cat: np.ndarray) -> np.ndarray:
-        """One blocking lookup + dense net; returns ``[B]`` probabilities."""
+        """One blocking lookup (two for a wide model: the twins share the
+        deep tables' ``cat`` columns) + dense net; returns ``[B]``
+        probabilities."""
         t0 = time.perf_counter()
-        emb = self.hps.lookup(cat, pipelined=len(self.hps.tables) > 1)
-        out = self._dense_forward(dense, emb).cpu().numpy()
+        blocks = [h.lookup(cat, pipelined=len(h.tables) > 1)
+                  for h in self._hpses()]
+        out = self._dense_forward(dense, *blocks).cpu().numpy()
         self._record_latency(t0)
         return out
 
@@ -285,12 +305,18 @@ class InferenceServer:
                 fifo.append((reqs, dense, time.perf_counter()))
                 yield cat
 
+        # one stream per HPS, each fed the same groups: the wide twins
+        # read the deep tables' cat columns, and zip binds each group's
+        # blocks before its one sync
+        hpses = self._hpses()
+        streams = [h.lookup_stream(src, materialize=False) for h, src in
+                   zip(hpses, itertools.tee(cats(), len(hpses)))]
         in_flight: deque = deque()          # (reqs, t0, device preds)
         current = None
         try:
-            for emb in self.hps.lookup_stream(cats(), materialize=False):
+            for blocks in zip(*streams):
                 current = fifo.popleft()
-                out = self._dense_forward(current[1], emb)
+                out = self._dense_forward(current[1], *blocks)
                 in_flight.append((current[0], current[2], out))
                 current = None
                 if len(in_flight) > 1:
@@ -367,7 +393,8 @@ class InferenceServer:
         if shed:
             with self._admit_lock:
                 self.requests_shed += shed
-        self.hps.close()
+        for h in self._hpses():
+            h.close()
 
     def latency_percentiles(self) -> Dict[str, float]:
         with self._stats_lock:

@@ -627,12 +627,13 @@ def test_cuda_interaction_fwd_rejects_oversized(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("payload_dtype", ["f32", "f16", "int8"])
-@pytest.mark.parametrize("d", [1, 33, 128, 3072])
+@pytest.mark.parametrize("d", [1, 16, 33, 128, 3072])
 @pytest.mark.parametrize("n", [0, 1, 1031])
 def test_cuda_gathers(cuda, payload_dtype, d, n):
     """K5 (f32 and f16 payloads) and K6's row read (f16 and int8 with
-    scales), bit-exact to their plain versions with holes, at D 1 and 33
-    (element-wise), 128 and 3072 (vector units), N 0, 1 and 1031; K5 also
+    scales), bit-exact to their plain versions with holes, at D 1 (the
+    wide twins) and 33 (element-wise), 16 (the DCN / WDL / DeepFM tables),
+    128 and 3072 (vector units), N 0, 1 and 1031; K5 also
     from a payload one element into its storage (element-wise). One
     ``gather_rows`` launch a K5 call, none for an empty result."""
     rng = np.random.default_rng(d + n)
@@ -667,6 +668,10 @@ def test_cuda_gathers(cuda, payload_dtype, d, n):
     (3194, 1, 64, 128), (100_000, 1, 64, 128), (1000, 3, 64, 128),
     (50, 1, 3000, 128),
     (12800, 1, 562, 3072),      # the LM's hot token table, its head's run
+    # the DCN / WDL / DeepFM tables (D 16, a dist-like group among them)
+    # and their dim-1 wide twins: one column tile, most lanes idle
+    (100_000, 1, 64, 16), (1000, 3, 64, 16), (50, 1, 3000, 16),
+    (100_000, 1, 64, 1), (1000, 3, 64, 1), (50, 1, 3000, 1),
 ])
 def test_cuda_lookup_bwd(cuda, v, h, hot_rows, d):
     """Bit-exact to the chunked plain version (the kernel's order of adds),
@@ -864,7 +869,7 @@ def _grouped_pair(pays, slots):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["f32", "f16", "int8"])
 @pytest.mark.parametrize("t", [1, 26, 70])
-@pytest.mark.parametrize("d", [1, 33, 128])
+@pytest.mark.parametrize("d", [1, 16, 33, 128])
 def test_cuda_grouped_pooled_read(cuda, mode, t, d):
     """The grouped kernel against its plain route: bit-exact at H = 1;
     with H_t of 1 and 3 bit-exact to the plain rows added in the kernel's

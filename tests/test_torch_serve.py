@@ -102,10 +102,11 @@ def test_registry_config_hash_matches_jax():
 
 
 def test_other_graphs_are_not_ported(tmp_path):
-    from repro.configs import dcn_criteo
-    path = dcn_criteo.build_model(smoke=True).graph_to_json(
+    # a generic graph (multiply, reduce_sum, add, relu) is part 3b
+    from repro.configs import twotower_criteo
+    path = twotower_criteo.build_model(smoke=True).graph_to_json(
         str(tmp_path / "g.json"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
         api.Model.from_json(path)
     m = api.Model(name="bad")
     m.add(api.Input(dense_dim=4))

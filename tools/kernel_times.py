@@ -47,12 +47,28 @@ def _dlrm_k3(cs, dev):
     return lambda: k1.lookup_bwd((v, 128), rows, dp), 4
 
 
-def _pooled_stack(cs, dev, payload_dtype: str):
+def _pooled_stack(cs, dev, payload_dtype: str, d: int = 128):
     from repro_torch.core.hps.hps import _pooled_stack
-    pays, sets = cs.served_inputs(cs.RUN, dev, payload_dtype, cs.SLOT_SETS)
+    # at D 16 more batches than the 20 of D 128, so replays leave L2 too
+    sets = 64 if d == 16 else cs.SLOT_SETS
+    pays, slots = cs.served_inputs(cs.RUN, dev, payload_dtype, sets, d=d)
     combiners = ("sum",) * len(pays)
     return cs.rotating(lambda sl: _pooled_stack(pays, sl, combiners),
-                       sets), 20
+                       slots), sets
+
+
+def _wdl(cs, dev, which: int, backward: bool):
+    """K1 or K3 at full-vocabulary wdl-criteo's ``dist`` group (0) or its
+    wide twins (1), on the first training batch's ids."""
+    import torch
+    from repro_torch.kernels import embedding_lookup as k1
+    v, rows, d = list(cs.wdl_training_rows(cs.RUN, dev).values())[which]
+    g = torch.Generator(device=dev).manual_seed(which)
+    if backward:
+        dp = torch.randn((rows.shape[0], d), generator=g, device=dev)
+        return lambda: k1.lookup_bwd((v, d), rows, dp), 4
+    mega = torch.randn((v, d), generator=g, device=dev)
+    return lambda: k1.lookup_fwd(mega, rows), 10
 
 
 def _lm_k1(cs, dev, table: int):
@@ -78,9 +94,9 @@ def _k2(cs, dev, b: int):
     return lambda: k2.interaction_fwd(x), 20
 
 
-def _k5(cs, dev, payload_dtype: str):
+def _k5(cs, dev, payload_dtype: str, d: int = 128):
     from repro_torch.kernels import hps_gather as k56
-    pays, sets = cs.served_inputs(cs.RUN, dev, payload_dtype)
+    pays, sets = cs.served_inputs(cs.RUN, dev, payload_dtype, d=d)
     (p, sc), slots = pays[0], sets[0][0].view(-1)
     if sc is None:
         return lambda: k56.gather_rows(p, slots), 20
@@ -125,7 +141,10 @@ def _k8(cs, dev):
 #: (``lm_k3_check``'s inputs) and at the largest DLRM embedding group
 #: (``kernel_phase``'s), K4 at the DLRM training shape
 #: (``interaction_bwd_inputs``), K7 at the LM prefill shape (a) and the LM
-#: training shape, and K8 at the LM training shape (a)
+#: training shape, and K8 at the LM training shape (a); then the shapes of
+#: DCN, WDL and DeepFM: K1 and K3 at full-vocabulary wdl-criteo's ``dist``
+#: group (D 16) and its wide twins (D 1) (``wdl_training_rows``), and the
+#: served pooled read and the cache query at D 16 and D 1
 CASES = {
     "launch floor": lambda cs, dev: (cs.launch_floor_call(dev), 100),
     "pooled_stack f32": lambda cs, dev: _pooled_stack(cs, dev, "f32"),
@@ -144,6 +163,19 @@ CASES = {
     "flash_fwd (a)": lambda cs, dev: _k7(cs, dev, cs.RUN.lm_batch),
     "flash_fwd train": lambda cs, dev: _k7(cs, dev, cs.RUN.lm_train_batch),
     "flash_bwd (a)": _k8,
+    "lookup_fwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, False),
+    "lookup_fwd wdl wide": lambda cs, dev: _wdl(cs, dev, 1, False),
+    "lookup_bwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, True),
+    "lookup_bwd wdl wide": lambda cs, dev: _wdl(cs, dev, 1, True),
+    "pooled_stack f32 d16": lambda cs, dev: _pooled_stack(cs, dev, "f32", 16),
+    "pooled_stack int8 d16": lambda cs, dev: _pooled_stack(cs, dev, "int8",
+                                                           16),
+    "pooled_stack f32 d1": lambda cs, dev: _pooled_stack(cs, dev, "f32", 1),
+    "pooled_stack int8 d1": lambda cs, dev: _pooled_stack(cs, dev, "int8", 1),
+    "gather_rows query d16": lambda cs, dev: _k5(cs, dev, "f32", 16),
+    "dequant_gather_rows query d16": lambda cs, dev: _k5(cs, dev, "int8", 16),
+    "gather_rows query d1": lambda cs, dev: _k5(cs, dev, "f32", 1),
+    "dequant_gather_rows query d1": lambda cs, dev: _k5(cs, dev, "int8", 1),
 }
 
 
