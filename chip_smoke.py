@@ -20,8 +20,11 @@ Phases, in order; any failure exits non-zero:
    events. K1 and K3 again at full-vocabulary ``wdl-criteo``'s ``dist``
    group (D 16) and its wide twins (D 1), and the grouped served read (K1,
    K6) and the cache query (K5, K6) at D 16 and D 1: the shapes of DCN,
-   WDL and DeepFM, each time kept under its kernel's ``shapes`` in the
-   JSON line. K7 (flash-attention forward) likewise at minitron-4b's
+   WDL and DeepFM; then K1 and K3 at full-vocabulary ``neumf-criteo``'s
+   largest ``deep`` group (D 64) and ``ctx`` group (D 8), the grouped
+   served read of its three HPSes (13 x D 64, 9 x D 16, 4 x D 8) and the
+   cache query at D 64 and D 8; each time kept under its kernel's
+   ``shapes`` in the JSON line. K7 (flash-attention forward) likewise at minitron-4b's
    prefill shape, recurrentgemma's local-attention shape and an odd f32
    length, and K8 (its backward) at minitron-4b's training shape,
    recurrentgemma's local attention at S 2500 and an odd f32 length, with
@@ -53,7 +56,16 @@ Phases, in order; any failure exits non-zero:
    vocabulary capped at ``RUN.vocab_cap``, through ``fit``
    (``RUN.recipe_timed_steps`` timed), deploy, rebuild and ``predict``
    with an f32 L1, held to the same bounds.
-8. LM serve: full-width ``minitron-4b`` (hybrid token embedding, random
+8. The graph recipes (``model="graph"``): phases 4-6 for full-width
+   ``neumf-criteo`` with no cut (three embedding groups: 13 ``deep``
+   tables at D 64 over 20,802,983 rows, 9 ``gmf`` at D 16 over
+   12,530,733, 4 ``ctx`` at D 8 over 428,874; towers 256-64, head 64),
+   K1 and K3 once per planner group of all three collections every step,
+   served through three HPSes, one a group (one pooled read of each is one
+   launch); then ``twotower-criteo`` (26 tables at D 64, towers 256-64,
+   head 64) and ``crossdeep-criteo`` (D 16, 4 cross layers, deep
+   1024-256), each vocabulary capped at ``RUN.vocab_cap``, as DCN.
+9. LM serve: full-width ``minitron-4b`` (hybrid token embedding, random
    weights from a seed) prefills a 2 x 4096 Zipf(1.2) batch through K1 and
    K7, held against the plain path (K1 first alone, bit-exact, on both
    token tables at the prefill's and a decode step's rows); then a
@@ -61,15 +73,15 @@ Phases, in order; any failure exits non-zero:
    KV cache, held against the prefill of the same tokens, and 32 greedy
    tokens are decoded. The cut:
    ``prefill_32k``'s batch 32 x 32768 becomes 2 x 4096.
-9. LM train, checked: a depth-2 copy of ``minitron-4b`` at full width
+10. LM train, checked: a depth-2 copy of ``minitron-4b`` at full width
    takes one gradient on the kernels (K1, K3, K7, K8) and on the plain
    path; the loss and every parameter's gradient must agree.
-10. LM train: full-width ``minitron-4b`` (hybrid token table, seed-0
+11. LM train: full-width ``minitron-4b`` (hybrid token table, seed-0
    weights, bf16 compute) takes SGD steps on one 1 x 4096 Zipf(1.2) batch
    through K1 and K7 forward and K8 and K3 backward (K3 first alone at the
    LM's shapes), one warm-up and timed steps; the loss must fall at every
    step. The cut: ``train_4k``'s batch 256 x 4096 becomes 1 x 4096.
-11. One JSON line of per-kernel numbers, then the device line last.
+12. One JSON line of per-kernel numbers, then the device line last.
 
 Needs ``torch.cuda.is_available()`` and the package under ``src/``; with
 either missing it prints no result and exits 2.
@@ -216,16 +228,27 @@ def zipf_ids(rng, vocab: int, size, a: float = 1.1):
 # ---------------------------------------------------------------------------
 
 def recipe_config(args, arch: str, capped: bool):
-    """A recipe of the registry at full width; with ``capped`` each
-    vocabulary is cut to ``args.vocab_cap`` rows."""
+    """A recipe at full width: a paper recipe of the registry, or a graph
+    recipe as its module's ``build_model()`` lowers it; with ``capped``
+    each vocabulary (of every group) is cut to ``args.vocab_cap`` rows."""
     import dataclasses
-    from repro_torch.configs.registry import RECSYS_ARCHS
-    cfg = RECSYS_ARCHS[arch]
+    import importlib
+    from repro_torch.configs.registry import RECSYS_ARCHS, RECSYS_RECIPES
+    if arch in RECSYS_ARCHS:
+        cfg = RECSYS_ARCHS[arch]
+    else:
+        cfg = importlib.import_module(RECSYS_RECIPES[arch]).build_model() \
+            .to_recsys_config()
     if not capped:
         return cfg
-    return dataclasses.replace(cfg, tables=tuple(
-        dataclasses.replace(t, vocab_size=min(t.vocab_size, args.vocab_cap))
-        for t in cfg.tables))
+
+    def cap(tables):
+        return tuple(dataclasses.replace(
+            t, vocab_size=min(t.vocab_size, args.vocab_cap)) for t in tables)
+
+    return dataclasses.replace(cfg, tables=cap(cfg.tables), extra_groups=tuple(
+        dataclasses.replace(g, tables=cap(g.tables))
+        for g in cfg.extra_groups))
 
 
 def capped_config(args):
@@ -233,12 +256,13 @@ def capped_config(args):
     return recipe_config(args, "dlrm-criteo", capped=True)
 
 
-def training_rows(args, dev, cfg=None, wide: bool = False):
+def training_rows(args, dev, cfg=None, wide: bool = False, group=None):
     """K1's and K3's inputs as the training run gives them: the embedding
-    groups the planner makes for ``cfg`` (capped ``dlrm-criteo`` unless
-    given; with ``wide``, the one ``dp`` group of its dim-1 twins), ``{key:
-    (group rows, that group's row ids of the first training batch, [B *
-    T_g, 1])}``."""
+    groups the planner makes for ``cfg``'s primary tables (capped
+    ``dlrm-criteo`` unless given; with ``wide``, the one ``dp`` group of
+    their dim-1 twins; with ``group``, the tables of that extra group),
+    ``{key: (group rows, that group's row ids of the first training batch,
+    [B * T_g, 1])}``."""
     from repro_torch.configs.base import SINGLE_DEVICE
     from repro_torch.core.embedding.collection import EmbeddingCollection
     from repro_torch.core.embedding.planner import resolve_strategies
@@ -246,13 +270,22 @@ def training_rows(args, dev, cfg=None, wide: bool = False):
     from repro_torch.models.recsys.model import wide_tables
     from repro_torch.train.trainer import put_batch
     cfg = cfg or capped_config(args)
+    lo, tables = 0, cfg.tables
+    if group is not None:                # its columns follow the earlier
+        lo = len(cfg.tables)             # groups' in ``cat``
+        for g in cfg.extra_groups:
+            if g.name == group:
+                tables = g.tables
+                break
+            lo += len(g.tables)
     tables = wide_tables(cfg) if wide else resolve_strategies(
-        cfg.tables, SINGLE_DEVICE, args.train_batch)
+        tables, SINGLE_DEVICE, args.train_batch)
     coll = EmbeddingCollection(tables, device=dev)
-    batch = put_batch(SyntheticCTR(cfg, args.train_batch,
-                                   seed=args.seed).batch(0), dev)
+    cat = put_batch(SyntheticCTR(cfg, args.train_batch,
+                                 seed=args.seed).batch(0), dev)["cat"]
+    cat = cat[:, lo:lo + len(tables)]
     return {k: (coll.groups[k].total_rows, r.reshape(-1, r.shape[-1]))
-            for k, r in coll.group_rows(batch["cat"]).items()}
+            for k, r in coll.group_rows(cat).items()}
 
 
 def wdl_training_rows(args, dev) -> dict:
@@ -267,6 +300,21 @@ def wdl_training_rows(args, dev) -> dict:
             "wdl wide": (*wide["dp"], 1)}
 
 
+def neumf_training_rows(args, dev) -> dict:
+    """K1's and K3's inputs at full-vocabulary ``neumf-criteo``'s largest
+    group of the primary collection (``deep``, D 64) and of its ``ctx``
+    group (D 8), in :func:`wdl_training_rows`' form."""
+    cfg = recipe_config(args, "neumf-criteo", capped=False)
+    out = {}
+    for name, dim, group in (("deep", cfg.embedding_dim, None),
+                             ("ctx", None, "ctx")):
+        rows = training_rows(args, dev, cfg, group=group)
+        big = max(rows, key=lambda k: rows[k][0])
+        dim = dim or next(g.dim for g in cfg.extra_groups if g.name == group)
+        out[f"neumf {name} {big}"] = (*rows[big], dim)
+    return out
+
+
 #: batches of slots a served-read timing turns through: each call of a
 #: replayed CUDA graph reads rows the last 19 did not (20 x 13.6 MB of f32
 #: rows, more than the card's 50 MB L2), as a new batch would
@@ -274,19 +322,21 @@ SLOT_SETS = 20
 
 
 def served_inputs(args, dev, payload_dtype: str, sets: int = 1,
-                  d: int = 128) -> tuple:
+                  d: int = 128, tables: int = 26) -> tuple:
     """K1's (``"f32"``) or K6's (``"int8"``) inputs as a served batch gives
-    them: for each of the 26 Criteo tables an L1 payload ``[cache rows,
-    d]`` (int8 with per-row scales, or f32; ``d`` 128 for ``dlrm-criteo``,
-    16 for the other recipes' deep tables and 1 for their wide twins), and
-    ``sets`` batches of one ``[batch, 1]`` block of uniform slots a table,
-    made on ``dev`` from the run's seed -> ``(payloads as (payload,
-    scales) pairs, [slot blocks of batch 0, ...])``."""
+    them: for each of ``tables`` tables (an HPS's: the 26 Criteo tables,
+    or NeuMF's 13, 9 or 4) an L1 payload ``[cache rows, d]`` (int8 with
+    per-row scales, or f32; ``d`` 128 for ``dlrm-criteo``, 16 for the
+    other recipes' deep tables and 1 for their wide twins, 64, 16 and 8 for
+    NeuMF's groups), and ``sets`` batches of one ``[batch, 1]`` block of
+    uniform slots a table, made on ``dev`` from the run's seed ->
+    ``(payloads as (payload, scales) pairs, [slot blocks of batch 0,
+    ...])``."""
     import torch
     g = torch.Generator(device=dev).manual_seed(args.seed + 1)
     c, b = args.cache_capacity, args.batch
     pays = []
-    for _ in capped_config(args).tables:
+    for _ in range(tables):
         if payload_dtype == "int8":
             p = torch.randint(-127, 128, (c, d), generator=g, device=dev,
                               dtype=torch.int8)
@@ -579,7 +629,11 @@ def kernel_phase(args, dev):
         k1_line(label, table, rows, reps=10)
         del table
     torch.cuda.empty_cache()
-    recipe_kernels(args, dev, shape_line)
+    recipe_kernels(args, dev, shape_line, wdl_training_rows(args, dev),
+                   ((26, 16), (26, 1)), (16, 1))
+    torch.cuda.empty_cache()
+    recipe_kernels(args, dev, shape_line, neumf_training_rows(args, dev),
+                   ((13, 64), (9, 16), (4, 8)), (64, 8))
     torch.cuda.empty_cache()
     attention_kernel(args, record, g, dev)
     attention_bwd_kernel(args, record, g, dev)
@@ -658,18 +712,21 @@ def served_record(args, dev, payload_dtype, record):
            flops * valid * d)
 
 
-def recipe_kernels(args, dev, shape_line):
-    """K1, K3, K5 and K6 at the shapes DCN, WDL and DeepFM give them, held
-    against their plain versions and timed (``shape_line``): K1 and K3 at
-    full-vocabulary ``wdl-criteo``'s ``dist`` group (D 16) and at its wide
-    twins (D 1) on the first training batch's ids; the grouped served read
-    of the 26 tables (K1 f32, K6 int8) and the cache query's row read (K5
-    f32, K6 int8) at D 16 and D 1."""
+def recipe_kernels(args, dev, shape_line, training, served, query_dims):
+    """K1, K3, K5 and K6 at the shapes the recipes beyond DLRM give them,
+    held against their plain versions and timed (``shape_line``): K1 and
+    K3 at each group of ``training`` (:func:`wdl_training_rows`' form) on
+    the first training batch's ids; the grouped served read (K1 f32, K6
+    int8) at each ``(tables, D)`` of ``served``, and the cache query's row
+    read (K5 f32, K6 int8) at each D of ``query_dims``. WDL's call: its
+    ``dist`` group (D 16) and wide twins (D 1), 26 tables at D 16 and D 1;
+    NeuMF's: its ``deep`` (D 64) and ``ctx`` (D 8) groups, its three HPSes'
+    13 x D 64, 9 x D 16 and 4 x D 8, queries at D 64 and D 8."""
     import torch
     from repro_torch.kernels import embedding_lookup as k1
     from repro_torch.kernels import hps_gather as k56
     gm = torch.Generator(device=dev).manual_seed(args.seed + 4)
-    for label, (v, rows, d) in wdl_training_rows(args, dev).items():
+    for label, (v, rows, d) in training.items():
         mega = torch.randn((v, d), generator=gm, device=dev)
         got = k1.lookup_fwd(mega, rows)
         check(torch.equal(got, k1.lookup_fwd_plain(mega, rows)),
@@ -711,12 +768,13 @@ def recipe_kernels(args, dev, shape_line):
         del dp, flat, src
         torch.cuda.empty_cache()
     b, c = args.batch, args.cache_capacity
-    for d in (16, 1):
+    for t, d in served:
         for pd in ("f32", "int8"):
             # enough batches of slots that the replayed reads leave L2 at
             # D 16 (the 26 payloads of D 1 fit in L2 whole, as in serving)
             sets = 64 if d > 1 else SLOT_SETS
-            pays, slot_sets = served_inputs(args, dev, pd, sets, d=d)
+            pays, slot_sets = served_inputs(args, dev, pd, sets, d=d,
+                                            tables=t)
             tabs, scs = [p for p, _ in pays], [sc for _, sc in pays]
             if pd == "f32":
                 name, row_bytes = "lookup_fwd", d * 4
@@ -757,6 +815,9 @@ def recipe_kernels(args, dev, shape_line):
                        + len(tabs) * b * d * 4,
                        (2 if pd == "int8" else 1) * len(tabs) * b * d,
                        sets, 0.0)
+            if d not in query_dims:
+                del pays, slot_sets, tabs, scs
+                continue
             # the cache query's row read of one table (K5 f32, K6 int8)
             (p0, s0), q = pays[0], slots[0].view(-1)
             if s0 is None:
@@ -1031,8 +1092,9 @@ def profile(label: str, fn) -> None:
 def train_phase(args, dev, cfg, timed_steps: int):
     """fit() ``cfg`` at full width; returns the trained model and the
     launch counts of its run. Every step must launch K1 and K3 once for
-    each embedding group of every collection (the deep tables' and, for WDL
-    and DeepFM, the wide twins'), and DLRM's K2 and K4 once."""
+    each planner group of every collection (the primary tables', the wide
+    twins' of WDL and DeepFM, each extra group's of an N-group graph), and
+    DLRM's K2 and K4 once."""
     import numpy as np
     import torch
     from repro_torch.data.synthetic import SyntheticCTR
@@ -1115,8 +1177,8 @@ def train_phase(args, dev, cfg, timed_steps: int):
 
 def deploy_phase(args, m, bundle_dir):
     """Model.deploy() the trained model; returns what the serving checks
-    need: the config, the bundle's PDB (every table, the wide twins
-    included) and the dense params."""
+    need: the config, the bundle's PDB (every table, the wide twins and the
+    extra groups' tables included) and the dense params."""
     from repro_torch.core.hps.persistent_db import PersistentDB
     from repro_torch.models.recsys.model import wide_tables
     t0 = time.perf_counter()
@@ -1124,8 +1186,8 @@ def deploy_phase(args, m, bundle_dir):
                       max_batch=args.batch)
     server.close()
     pdb = PersistentDB(os.path.join(bundle_dir, "pdb"))
-    tables = m.cfg.tables + (wide_tables(m.cfg) if m.model.wide is not None
-                             else ())
+    tables = m.cfg.all_tables + (wide_tables(m.cfg) if m.model.wide
+                                 is not None else ())
     for t in tables:
         pdb.open_table(m.name, t.name)
     rows = sum(t.vocab_size * t.dim for t in tables)
@@ -1146,29 +1208,48 @@ def make_requests(args, cfg, n, stream):
         dense = rng.standard_normal((args.batch, cfg.num_dense_features)
                                     ).astype(np.float32)
         cat = np.stack([zipf_ids(rng, t.vocab_size, (args.batch, 1))
-                        for t in cfg.tables], axis=1).astype(np.int32)
+                        for t in cfg.all_tables], axis=1).astype(np.int32)
         reqs.append((dense, cat))
     return reqs
 
 
+def table_sets(cfg):
+    """``(lookup key, tables, cat columns)`` of every HPS of ``cfg``'s
+    bundle, in the server's order: the primary tables, the wide twins (the
+    primary columns), then each extra group."""
+    from repro_torch.models.recsys.model import has_wide, wide_tables
+    n = len(cfg.tables)
+    out = [("embedding", cfg.tables, (0, n))]
+    if has_wide(cfg):
+        out.append(("embedding", wide_tables(cfg), (0, n)))
+    for g in cfg.extra_groups:
+        out.append((f"embedding@{g.name}", g.tables, (n, n + len(g.tables))))
+        n += len(g.tables)
+    return out
+
+
 def plain_predict(cfg, pdb, params, dev, dense, cat):
-    """The plain path: pooled rows straight from the PDB memmap (the deep
-    tables and, for WDL and DeepFM, their wide twins), the dense net with
-    the plain ops, then the sigmoid -> ``(probabilities, [deep rows, wide
-    rows or None])``."""
+    """The plain path: pooled rows straight from the PDB memmap (every
+    table set: the primary tables, a wide model's twins, each extra group's
+    tables, each from its own ``cat`` columns), the dense net with the
+    plain ops, then the sigmoid -> ``(probabilities, [rows of each table
+    set, in the server's HPS order])``."""
     import numpy as np
     import torch
-    from repro_torch.models.recsys.model import RecsysModel, wide_tables
+    from repro_torch.models.recsys.model import RecsysModel
     model = RecsysModel(cfg, device=dev, use_kernels=False)
-    sets = [cfg.tables] + ([wide_tables(cfg)] if model.wide is not None
-                           else [])
-    rows = [np.stack([pdb.fetch(cfg.name, t.name, cat[:, ti, 0])
-                      for ti, t in enumerate(ts)], axis=1) for ts in sets]
+    sets = table_sets(cfg)
+    rows = [np.stack([pdb.fetch(cfg.name, t.name, cat[:, lo + ti, 0])
+                      for ti, t in enumerate(ts)], axis=1)
+            for _, ts, (lo, _) in sets]
+    blocks = [torch.from_numpy(r).to(dev) for r in rows]
+    wide = blocks[1] if model.wide is not None else None
+    extras = dict(zip((g.name for g in cfg.extra_groups),
+                      blocks[len(blocks) - len(cfg.extra_groups):])) or None
     with torch.no_grad():
         logit = model.apply_dense(params, torch.from_numpy(dense).to(dev),
-                                  *(torch.from_numpy(r).to(dev)
-                                    for r in rows))
-    return torch.sigmoid(logit).cpu().numpy(), rows + [None] * (2 - len(rows))
+                                  blocks[0], wide, extras=extras)
+    return torch.sigmoid(logit).cpu().numpy(), rows
 
 
 def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
@@ -1176,8 +1257,9 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
     """Serve the bundle: requests through ``submit`` on the stream engine
     (``submit``), then one at a time through ``predict``; with ``trained``
     (the api.Model that deployed it) the served predictions are also held
-    against its ``predict``. Wide models serve through two HPSes; one
-    pooled read of each must be one launch."""
+    against its ``predict``. Wide models serve through two HPSes, an
+    N-group model through one an extra group more; one pooled read of each
+    must be one launch."""
     import numpy as np
     import torch
     from repro_torch.kernels._build import LAUNCHES
@@ -1185,7 +1267,8 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
 
     server, _ = build_server_from_config(ps_path, device=dev,
                                          payload_dtype=payload_dtype)
-    hpses = server._hpses()
+    hpses = [h for _, h in server._hpses()]
+    keys = [k for k, _ in server._hpses()]
     warm = make_requests(args, cfg, args.warmup, 1)
     reqs = make_requests(args, cfg, args.requests, 2)
     try:
@@ -1204,8 +1287,10 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
         else:
             preds = [server.predict(d, c) for d, c in reqs]
         # the cache query of each HPS's first table (K5 f32, K6 int8)
-        probes = [h.caches[h.tables[0].name].query(
-            reqs[0][1][:, 0, 0].astype(np.int64)) for h in hpses]
+        firsts = [server._group_cat(reqs[0][1], k)[:, 0, 0].astype(np.int64)
+                  for k in keys]
+        probes = [h.caches[h.tables[0].name].query(ids)
+                  for h, ids in zip(hpses, firsts)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = LAUNCHES.snapshot()
@@ -1255,9 +1340,10 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
                     else "dequant_gather_rows")
         _, rows = plain_predict(cfg, pdb, params, dev, dense, cat)
         one_read = []
-        for h, emb, probe in zip(hpses, rows, probes):
+        for h, key, emb, probe, ids in zip(hpses, keys, rows, probes,
+                                           firsts):
             LAUNCHES.reset()
-            got = h.lookup(cat)
+            got = h.lookup(server._group_cat(cat, key))
             torch.cuda.synchronize()
             one_read.append(LAUNCHES.snapshot())
             check(one_read[-1] == {pooled_k: 1}, f"{cfg.name} "
@@ -1273,8 +1359,7 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
                 check(bool((np.abs(got - emb) <= 0.5 * step + 1e-6).all()),
                       f"{cfg.name}: int8 L1 read at D {h.tables[0].dim} "
                       "exceeds half a quantization step")
-            want_rows = pdb.fetch(cfg.name, h.tables[0].name,
-                                  reqs[0][1][:, 0, 0])
+            want_rows = pdb.fetch(cfg.name, h.tables[0].name, ids)
             check(np.abs(probe.cpu().numpy() - want_rows).max() <= (
                 0 if payload_dtype == "f32" else
                 np.abs(want_rows).max() / 254 + 1e-6),
@@ -1300,7 +1385,7 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
           f"{torch.cuda.get_device_name(0)}: {len(reqs)} requests x "
           f"{args.batch} rows in {wall:.2f} s {how}: p50 "
           f"{seq['p50']:.2f} ms; L1 hit rate "
-          + ", ".join(f"D {h.tables[0].dim} HPS {r:.4f}"
+          + ", ".join(f"{len(h.tables)} x D {h.tables[0].dim} HPS {r:.4f}"
                       for h, r in zip(hpses, hit))
           + f"; max |p - plain| {err:.3g} (bound {tol}); one pooled read "
           f"a HPS: launches {one_read}"
@@ -1679,42 +1764,59 @@ def recipe_run(args, dev, cfg, timed_steps, payloads, submit, total):
 
 
 def reduced_line(args, cfg, full) -> str:
-    rows = sum(t.vocab_size for t in cfg.tables)
-    full_rows = sum(t.vocab_size for t in full.tables)
-    d = cfg.embedding_dim
+    rows = sum(t.vocab_size for t in cfg.all_tables)
+    full_rows = sum(t.vocab_size for t in full.all_tables)
+    gb = sum(t.vocab_size * t.dim for t in cfg.all_tables) * 4 / 1e9
+    full_gb = sum(t.vocab_size * t.dim for t in full.all_tables) * 4 / 1e9
     return (f"reduced: {cfg.name} vocabulary capped at {args.vocab_cap} "
-            f"rows per table: {rows} rows ({rows * d * 4 / 1e9:.2f} GB f32) "
-            f"instead of {full_rows} ({full_rows * d * 4 / 1e9:.2f} GB), to "
-            f"keep the smoke's time; widths, 26 tables, hotness and the "
-            f"dense layers as published")
+            f"rows per table: {rows} rows ({gb:.2f} GB f32) instead of "
+            f"{full_rows} ({full_gb:.2f} GB), to keep the smoke's time; "
+            f"widths, {len(cfg.all_tables)} tables, hotness and the dense "
+            "layers as published")
+
+
+def full_line(cfg) -> str:
+    """What a run at the full vocabulary holds, by table set."""
+    from repro_torch.models.recsys.model import has_wide, wide_tables
+    sets = [("", cfg.tables)] + [(f"{g.name} ", g.tables)
+                                 for g in cfg.extra_groups]
+    if has_wide(cfg):
+        sets.append(("wide ", wide_tables(cfg)))
+    return f"{cfg.name} at full width and vocabulary, no cut: " + "; ".join(
+        f"{label}{len(ts)} tables at D {ts[0].dim} over "
+        f"{sum(t.vocab_size for t in ts)} rows "
+        f"({sum(t.vocab_size * t.dim for t in ts) * 4 / 1e9:.3f} GB f32)"
+        for label, ts in sets)
 
 
 def recsys_phases(args, dev):
     """Phases 4-6 (DLRM, its vocabulary capped: train, deploy, serve
     through submit with f32 and int8 L1), then phase 7: WDL at full width
     and vocabulary through the same, on two HPSes, then DCN and DeepFM
-    (capped) through fit, deploy, rebuild and predict (f32). Returns the
-    launch counts of their main paths."""
+    (capped) through fit, deploy, rebuild and predict (f32); then phase 8:
+    NeuMF at full width and vocabulary through the same as WDL, on three
+    HPSes, then the two-tower and cross-deep graphs (capped) as DCN.
+    Returns the launch counts of their main paths."""
     total = {}
     dlrm = capped_config(args)
     print(reduced_line(args, dlrm,
                        recipe_config(args, "dlrm-criteo", capped=False)))
     recipe_run(args, dev, dlrm, args.timed_steps, ("f32", "int8"), True,
                total)
-    wdl = recipe_config(args, "wdl-criteo", capped=False)
-    rows = sum(t.vocab_size for t in wdl.tables)
-    print(f"wdl-criteo at full width and vocabulary: {rows} rows "
-          f"({rows * wdl.embedding_dim * 4 / 1e9:.2f} GB f32 deep, "
-          f"{rows * 4 / 1e9:.3f} GB wide), no cut")
-    recipe_run(args, dev, wdl, args.timed_steps, ("f32", "int8"), True,
-               total)
     short = types.SimpleNamespace(**{**vars(args), "lr": args.recipe_lr})
-    for arch in ("dcn-criteo", "deepfm-criteo"):
-        cfg = recipe_config(args, arch, capped=True)
-        print(reduced_line(args, cfg,
-                           recipe_config(args, arch, capped=False)))
-        recipe_run(short, dev, cfg, args.recipe_timed_steps, ("f32",), False,
+    for full, capped in (("wdl-criteo", ("dcn-criteo", "deepfm-criteo")),
+                         ("neumf-criteo", ("twotower-criteo",
+                                           "crossdeep-criteo"))):
+        cfg = recipe_config(args, full, capped=False)
+        print(full_line(cfg))
+        recipe_run(args, dev, cfg, args.timed_steps, ("f32", "int8"), True,
                    total)
+        for arch in capped:
+            cfg = recipe_config(args, arch, capped=True)
+            print(reduced_line(args, cfg,
+                               recipe_config(args, arch, capped=False)))
+            recipe_run(short, dev, cfg, args.recipe_timed_steps, ("f32",),
+                       False, total)
     return total
 
 
@@ -1758,12 +1860,13 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
-    # 4-7. train, deploy, serve: DLRM, WDL, DCN, DeepFM
+    # 4-8. train, deploy, serve: DLRM, WDL, DCN, DeepFM; NeuMF, two-tower,
+    # cross-deep
     total = recsys_phases(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 8. LM serve
+    # 9. LM serve
     from repro_torch.configs.registry import get_lm_config
     lm_cfg = get_lm_config(args.lm_arch)
     for k, n in lm_phase(args, dev, lm_cfg).items():
@@ -1771,7 +1874,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 9-10. LM train: the kernels against the plain path at depth 2, then
+    # 10-11. LM train: the kernels against the plain path at depth 2, then
     # the full-width steps
     lm_grad_check(args, dev, lm_cfg)
     gc.collect()
@@ -1779,7 +1882,7 @@ def main() -> int:
     for k, n in lm_train_phase(args, dev, lm_cfg).items():
         total[k] = total.get(k, 0) + n
 
-    # 11. kernels line, then the device line last
+    # 12. kernels line, then the device line last
     for name, rec in kernels.items():
         rec["launches"] = total.get(name, 0)
         check(rec["launches"] > 0, f"{name}: no launches on the main path")

@@ -4,16 +4,18 @@
 The layer declarations (``Solver``, ``DataReaderParams``, ``Input``,
 ``SparseEmbedding``, ``DenseLayer``) carry the JAX package's field sets,
 so a ``graph.json`` (format ``repro-graph-v1``) written by either package
-loads in the other and lowers to the same ``recsys_config_hash``. This
-port lowers the four paper recipes onto their canonical configs, as the
-reference recognises them: DLRM (bottom MLP, dot interaction, concat, top
-MLP), DCN (concat, cross net and deep MLP, a 1-unit combine head), and
-Wide&Deep and DeepFM, whose second ``SparseEmbedding`` group is the dim-1
-twin of the first (the wide branch; WDL's wide head becomes the
-first-order term, DeepFM's ``fm`` layer its first- and second-order
-terms). Any other graph (the ops ``add|multiply|relu|slice|reduce_sum``,
-``model="graph"``, several independent groups) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+loads in the other and lowers to the same ``recsys_config_hash``. Lowering
+is the reference's: every graph is first compiled (the validation), then
+the four paper recipes lower onto their canonical configs as the reference
+recognises them: DLRM (bottom MLP, dot interaction, concat, top MLP), DCN
+(concat, cross net and deep MLP, a 1-unit combine head), and Wide&Deep and
+DeepFM, whose second ``SparseEmbedding`` group is the dim-1 twin of the
+first (the wide branch; WDL's wide head becomes the first-order term,
+DeepFM's ``fm`` layer its first- and second-order terms). Any other graph
+lowers to ``model="graph"`` with its layer DAG embedded: a dim-1 twin group
+still makes the wide branch, and every further ``SparseEmbedding`` group
+is an extra group (``RecsysConfig.extra_groups``) with its own collection,
+``cat`` columns and, deployed, its own HPS.
 
 The paper's workflow runs through :class:`Model`::
 
@@ -23,8 +25,9 @@ The paper's workflow runs through :class:`Model`::
     m.save("ckpt")                # graph.json + logical checkpoint
     server = m.deploy("bundle")   # pdb/ graph.json dense.npz ps.json
 
-(``dlrm_graph`` / ``dcn_graph`` / ``wdl_graph`` / ``deepfm_graph``, or
-``recipe_graph``, declare a registry config's graph).
+(``dlrm_graph`` / ``dcn_graph`` / ``wdl_graph`` / ``deepfm_graph`` and
+``graph_model``, or ``recipe_graph``, declare a config's graph; the graph
+recipes' ``build_model`` is in ``configs/*_criteo.py``).
 
 and ``launch/serve.py::build_server_from_config`` (either package's)
 serves the bundle. Not ported yet: the ETC backend (``Solver.etc``), the
@@ -41,14 +44,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import (
-    EmbeddingTableConfig, RecsysConfig, TrainConfig, recsys_config_hash,
+    EmbeddingTableConfig, RecsysConfig, SparseGroupConfig, TrainConfig,
+    recsys_config_hash,
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys.dense_graph import (
-    RESERVED_NAMES, GraphError, compile_layers, spec_from_layer,
+    RESERVED_NAMES, GraphError, compile_layers, graph_spec, spec_from_layer,
+    spec_layers,
 )
-from repro_torch.roadmap import FRONT_DOORS, MULTI_DEVICE, RECIPES_3B, \
-    not_ported
+from repro_torch.roadmap import FRONT_DOORS, MULTI_DEVICE, not_ported
 
 GRAPH_FORMAT = "repro-graph-v1"
 
@@ -159,9 +163,12 @@ class SparseEmbedding:
                     f"{len(self.table_names)} table_names for "
                     f"{len(self.vocab_sizes)} vocab_sizes")
 
-    def to_tables(self) -> Tuple[EmbeddingTableConfig, ...]:
+    def to_tables(self, *, default_prefix: str = ""
+                  ) -> Tuple[EmbeddingTableConfig, ...]:
+        """The group's tables; unnamed tables are
+        ``<default_prefix>f<i>``."""
         names = self.table_names or tuple(
-            f"f{i}" for i in range(len(self.vocab_sizes)))
+            f"{default_prefix}f{i}" for i in range(len(self.vocab_sizes)))
         hot = self.hotness if not isinstance(self.hotness, int) else \
             (self.hotness,) * len(self.vocab_sizes)
         return tuple(
@@ -180,8 +187,11 @@ DENSE_LAYER_TYPES = ("mlp", "cross", "dot_interaction", "fm", "concat",
 @dataclasses.dataclass
 class DenseLayer:
     """One named dense layer, wired by tensor names (the JAX package's
-    vocabulary; the port executes mlp, cross, dot_interaction, fm, concat
-    and sigmoid)."""
+    vocabulary): ``mlp`` over its implicitly concatenated bottoms,
+    ``cross``, ``dot_interaction``, ``fm`` over ``[dense, wide, emb]``,
+    ``concat``, elementwise ``add`` / ``multiply`` / ``relu``, ``slice``
+    ``[start:stop]`` of a feature block, ``reduce_sum`` to a logit column,
+    and the terminal ``sigmoid`` over summed logits."""
     type: str
     bottom_names: Sequence[str]
     top_names: Sequence[str]
@@ -210,7 +220,7 @@ class DenseLayer:
 
 
 # ---------------------------------------------------------------------------
-# Lowering: layer graph -> RecsysConfig (the four canonical recipes)
+# Lowering: layer graph -> RecsysConfig (recipe recognition, else "graph")
 # ---------------------------------------------------------------------------
 
 def _check_embeddings(inp: Input, embs: List[SparseEmbedding]) -> None:
@@ -232,12 +242,15 @@ def _check_embeddings(inp: Input, embs: List[SparseEmbedding]) -> None:
 
 
 def _split_embeddings(embs: List[SparseEmbedding]
-                      ) -> Tuple[SparseEmbedding, Optional[SparseEmbedding]]:
-    """``(deep, wide)``: one group, or exactly two where one is the dim-1
-    exact twin of the other (same vocab sizes, ``combiner="sum"``), the
-    wide branch of WDL and DeepFM. Other groups are part 3b."""
+                      ) -> Tuple[SparseEmbedding, Optional[SparseEmbedding],
+                                 List[SparseEmbedding]]:
+    """``(deep, wide, extras)``: exactly two groups where one is the dim-1
+    exact twin of the other (same vocab sizes, ``combiner="sum"``) are the
+    deep group and its wide branch (WDL, DeepFM); otherwise the first
+    declared group is the primary one and every further group an extra
+    with its own dim, collection and HPS."""
     if len(embs) == 1:
-        return embs[0], None
+        return embs[0], None, []
     if len(embs) == 2:
         wides = [e for e in embs if e.dim == 1]
         if len(wides) == 1:
@@ -245,9 +258,8 @@ def _split_embeddings(embs: List[SparseEmbedding]
             deep = next(e for e in embs if e is not wide)
             if wide.vocab_sizes == deep.vocab_sizes and \
                     wide.combiner == "sum":
-                return deep, wide
-    raise not_ported("a graph with several independent SparseEmbedding "
-                     "groups (RecsysConfig.extra_groups)", RECIPES_3B)
+                return deep, wide, []
+    return embs[0], None, list(embs[1:])
 
 
 def _find(layers: List[DenseLayer], type_: str,
@@ -453,27 +465,55 @@ def _classify_canonical(name, inp, deep, wide, layers):
 def lower_graph(name: str, inp: Optional[Input],
                 embs: List[SparseEmbedding],
                 layers: List[DenseLayer]) -> RecsysConfig:
-    """Validate the layer graph and lower it onto the canonical config of
-    one of the four paper recipes. :class:`GraphError` names the offending
-    layer or tensor of an invalid graph; a valid graph of another shape
-    raises ``NotImplementedError`` (the reference lowers it to
-    ``model="graph"``, part 3b of the ROADMAP item)."""
+    """Validate the layer graph (wiring, shapes, one terminal) by
+    compiling it, then lower it onto the canonical config of one of the
+    four paper recipes when it is one, else onto a ``model="graph"``
+    config with the DAG embedded. :class:`GraphError` names the offending
+    layer or tensor of an invalid graph, and a table name used by two
+    groups."""
     if inp is None:
         raise GraphError("the graph needs an Input layer")
     if not embs:
         raise GraphError("the graph needs at least one SparseEmbedding")
     _check_embeddings(inp, embs)
-    deep, wide = _split_embeddings(embs)
+    deep, wide, extras = _split_embeddings(embs)
+    specs = [spec_from_layer(l) for l in layers]
     compile_layers(
-        [spec_from_layer(l) for l in layers], dense_name=inp.dense_name,
-        num_dense=inp.dense_dim, emb_name=deep.top_name,
-        num_tables=len(deep.vocab_sizes), emb_dim=deep.dim,
-        wide_name=wide.top_name if wide is not None else None)
-    cfg = _classify_canonical(name, inp, deep, wide, layers)
-    if cfg is None:
-        raise not_ported('a graph that is none of the four paper recipes '
-                         '(model="graph")', RECIPES_3B)
-    return cfg
+        specs, dense_name=inp.dense_name, num_dense=inp.dense_dim,
+        emb_name=deep.top_name, num_tables=len(deep.vocab_sizes),
+        emb_dim=deep.dim,
+        wide_name=wide.top_name if wide is not None else None,
+        extra_embs={e.top_name: (len(e.vocab_sizes), e.dim)
+                    for e in extras})
+    if not extras:
+        cfg = _classify_canonical(name, inp, deep, wide, layers)
+        if cfg is not None:
+            return cfg
+    extra_groups = tuple(
+        SparseGroupConfig(
+            name=e.top_name,
+            tables=e.to_tables(default_prefix=f"{e.top_name}_"),
+            dim=e.dim)
+        for e in extras)
+    seen = set()
+    for t in deep.to_tables() + tuple(t for g in extra_groups
+                                      for t in g.tables):
+        if t.name in seen:
+            raise GraphError(
+                f"table name {t.name!r} is used by more than one "
+                "SparseEmbedding group; table names must be globally "
+                "unique (set table_names explicitly)")
+        seen.add(t.name)
+    return RecsysConfig(
+        name=name, model="graph", tables=deep.to_tables(),
+        num_dense_features=inp.dense_dim, bottom_mlp=(), top_mlp=(),
+        embedding_dim=deep.dim,
+        dense_graph=graph_spec(
+            inp.dense_name, deep.top_name,
+            wide.top_name if wide is not None else None, specs,
+            extras=tuple(e.top_name for e in extras)),
+        wide_branch=wide is not None,
+        extra_groups=extra_groups)
 
 
 class Model:
@@ -656,12 +696,12 @@ class Model:
 
     def deploy(self, directory: str, *, cache_capacity: int = 4096,
                max_batch: int = 1024, payload_dtype: str = "f32"):
-        """Write the serving bundle (``pdb/`` with every table, the
-        ``*_wide`` twins of WDL and DeepFM included, ``graph.json``,
-        ``dense.npz``, ``ps.json`` with ``wide`` set for those) and return
-        an ``InferenceServer`` rebuilt from it on this model's device.
-        Either package's ``build_server_from_config`` serves the
-        bundle."""
+        """Write the serving bundle (``pdb/`` with every table: the
+        ``*_wide`` twins of a wide model and every extra group's tables
+        included; ``graph.json``, ``dense.npz``, ``ps.json`` with ``wide``
+        set for a wide model) and return an ``InferenceServer`` rebuilt
+        from it on this model's device, one HPS per table set. Either
+        package's ``build_server_from_config`` serves the bundle."""
         if self._params is None:
             raise RuntimeError("fit() or load() before deploy()")
         from repro_torch.launch.serve import build_server_from_config
@@ -728,29 +768,37 @@ class Model:
         return m
 
 
+def _group(tables: Sequence[EmbeddingTableConfig], dim: int,
+           top_name: str) -> SparseEmbedding:
+    """The ``SparseEmbedding`` that declares ``tables`` (named, with
+    their hotness; combiner, strategy and hot fraction of the first)."""
+    t0 = tables[0]
+    hot = [t.hotness for t in tables]
+    return SparseEmbedding(
+        vocab_sizes=[t.vocab_size for t in tables], dim=dim,
+        top_name=top_name, hotness=hot[0] if len(set(hot)) == 1 else hot,
+        combiner=t0.combiner, strategy=t0.strategy,
+        hot_fraction=t0.hot_fraction, table_names=[t.name for t in tables])
+
+
 def _recipe_model(cfg: RecsysConfig, solver: Optional[Solver],
                   reader: Optional[DataReaderParams], *,
-                  wide: bool = False) -> Model:
+                  emb_name: str = "emb", wide_name: Optional[str] = None,
+                  dense_name: str = "dense") -> Model:
     """A Model with the Input and the deep group of ``cfg`` (tables named
-    by ``cfg``) and, with ``wide``, their dim-1 twin group ``"wide"``."""
-    t0 = cfg.tables[0]
-    hot = [t.hotness for t in cfg.tables]
-    hotness = hot[0] if len(set(hot)) == 1 else hot
+    by ``cfg``, tensor ``emb_name``) and, with ``wide_name``, their dim-1
+    twin group."""
     m = Model(solver or Solver(),
               reader or DataReaderParams(
                   num_dense_features=cfg.num_dense_features),
               name=cfg.name)
-    m.add(Input(dense_dim=cfg.num_dense_features))
-    m.add(SparseEmbedding(
-        vocab_sizes=[t.vocab_size for t in cfg.tables],
-        dim=cfg.embedding_dim, top_name="emb", hotness=hotness,
-        combiner=t0.combiner, strategy=t0.strategy,
-        hot_fraction=t0.hot_fraction,
-        table_names=[t.name for t in cfg.tables]))
-    if wide:
+    m.add(Input(dense_dim=cfg.num_dense_features, dense_name=dense_name))
+    deep = _group(cfg.tables, cfg.embedding_dim, emb_name)
+    m.add(deep)
+    if wide_name:
         m.add(SparseEmbedding(
-            vocab_sizes=[t.vocab_size for t in cfg.tables], dim=1,
-            top_name="wide", hotness=hotness))
+            vocab_sizes=deep.vocab_sizes, dim=1, top_name=wide_name,
+            hotness=deep.hotness))
     return m
 
 
@@ -805,7 +853,7 @@ def wdl_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
     sigmoid over both logits; it lowers back to ``cfg``."""
     if cfg.model != "wdl":
         raise ValueError(f"{cfg.name}: model {cfg.model!r} is not wdl")
-    m = _recipe_model(cfg, solver, reader, wide=True)
+    m = _recipe_model(cfg, solver, reader, wide_name="wide")
     m.add(DenseLayer("concat", ["dense", "emb"], ["flat"]))
     m.add(DenseLayer("mlp", ["flat"], ["deep_out"],
                      units=tuple(cfg.top_mlp) + (1,)))
@@ -822,7 +870,7 @@ def deepfm_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
     ``cfg``."""
     if cfg.model != "deepfm":
         raise ValueError(f"{cfg.name}: model {cfg.model!r} is not deepfm")
-    m = _recipe_model(cfg, solver, reader, wide=True)
+    m = _recipe_model(cfg, solver, reader, wide_name="wide")
     m.add(DenseLayer("concat", ["dense", "emb"], ["flat"]))
     m.add(DenseLayer("mlp", ["flat"], ["deep_out"],
                      units=tuple(cfg.top_mlp) + (1,)))
@@ -831,15 +879,39 @@ def deepfm_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
     return _lowers_back(m, cfg)
 
 
+def graph_model(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
+                reader: Optional[DataReaderParams] = None) -> Model:
+    """The graph of a ``model="graph"`` config, rebuilt from the config
+    alone: the Input, the primary group, the dim-1 twins of a wide branch,
+    each extra group, and the layers of ``cfg.dense_graph``; it lowers
+    back to ``cfg`` (so a config whose vocabularies were cut still
+    declares, trains and deploys)."""
+    if cfg.model != "graph":
+        raise ValueError(f"{cfg.name}: model {cfg.model!r} is not graph")
+    dense_name, emb_name, wide_name, specs, extras = \
+        spec_layers(cfg.dense_graph)
+    m = _recipe_model(cfg, solver, reader, emb_name=emb_name,
+                      wide_name=wide_name, dense_name=dense_name)
+    by_name = {g.name: g for g in cfg.extra_groups}
+    for name in extras:
+        m.add(_group(by_name[name].tables, by_name[name].dim, name))
+    for s in specs:
+        m.add(DenseLayer(s.type, s.bottoms, [s.top], units=s.units,
+                         num_layers=s.num_layers,
+                         final_activation=s.final_activation,
+                         start=s.start, stop=s.stop))
+    return _lowers_back(m, cfg)
+
+
 #: the graph function of each recipe, by ``RecsysConfig.model``
 RECIPE_GRAPHS = {"dlrm": dlrm_graph, "dcn": dcn_graph, "wdl": wdl_graph,
-                 "deepfm": deepfm_graph}
+                 "deepfm": deepfm_graph, "graph": graph_model}
 
 
 def recipe_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
                  reader: Optional[DataReaderParams] = None) -> Model:
-    """The graph of ``cfg``'s recipe (:data:`RECIPE_GRAPHS`); it lowers
-    back to ``cfg``."""
+    """The graph of ``cfg`` (:data:`RECIPE_GRAPHS`: a paper recipe, or a
+    ``model="graph"`` config's own DAG); it lowers back to ``cfg``."""
     if cfg.model not in RECIPE_GRAPHS:
-        raise not_ported(f"model {cfg.model!r}", RECIPES_3B)
+        raise ValueError(f"{cfg.name}: unknown model {cfg.model!r}")
     return RECIPE_GRAPHS[cfg.model](cfg, solver=solver, reader=reader)

@@ -36,6 +36,18 @@ class EmbeddingTableConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SparseGroupConfig:
+    """One extra embedding group beyond the primary tables (an N-group
+    model's independently-dimensioned ``SparseEmbedding``): its own
+    ``EmbeddingCollection`` under param key ``embedding@<name>`` and its
+    own HPS at serve time. ``name`` is the group's graph tensor name; all
+    its tables share ``dim``."""
+    name: str
+    tables: Tuple[EmbeddingTableConfig, ...]
+    dim: int
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
     model: str                       # "dlrm"|"dcn"|"deepfm"|"wdl"|"graph"
@@ -46,17 +58,28 @@ class RecsysConfig:
     embedding_dim: int               # shared D across tables (DLRM-style)
     num_cross_layers: int = 3        # DCN only
     dtype: str = "bf16"              # compute dtype
-    #: model == "graph" only: the serialized dense-layer DAG
+    #: model == "graph" only: the serialized dense-layer DAG, one
+    #: ("inputs", dense, emb, wide[, extras]) header and one (type,
+    #: bottoms, top, attrs) tuple per layer (``dense_graph.graph_spec``)
     dense_graph: Tuple = ()
     #: model == "graph" only: whether a dim-1 wide twin branch exists
     wide_branch: bool = False
-    #: model == "graph" only: extra independently-dimensioned groups
-    #: (kept so the field set, and so the hash, matches the reference)
-    extra_groups: Tuple = ()
+    #: model == "graph" only: the embedding groups past the primary
+    #: ``tables``, in declared order
+    extra_groups: Tuple[SparseGroupConfig, ...] = ()
 
     @property
     def num_tables(self) -> int:
         return len(self.tables)
+
+    @property
+    def all_tables(self) -> Tuple[EmbeddingTableConfig, ...]:
+        """The primary tables, then each extra group's: the ``cat``
+        column layout."""
+        out = tuple(self.tables)
+        for g in self.extra_groups:
+            out += tuple(g.tables)
+        return out
 
 
 def recsys_config_to_dict(cfg: RecsysConfig) -> Dict:
@@ -73,14 +96,21 @@ def recsys_config_to_dict(cfg: RecsysConfig) -> Dict:
 
 
 def recsys_config_from_dict(d: Dict) -> RecsysConfig:
-    if d.get("dense_graph") or d.get("extra_groups"):
-        raise NotImplementedError(
-            "generic-graph and N-group configs are ported by the ROADMAP "
-            "item 'The other recipes and graphs'")
     tables = tuple(EmbeddingTableConfig(**t) for t in d["tables"])
     rest = {k: v for k, v in d.items() if k != "tables"}
     for k in ("bottom_mlp", "top_mlp"):
         rest[k] = tuple(rest[k])
+    if rest.get("dense_graph"):
+        from repro_torch.models.recsys.dense_graph import (
+            dense_graph_from_jsonable)
+        rest["dense_graph"] = dense_graph_from_jsonable(rest["dense_graph"])
+    if rest.get("extra_groups"):
+        rest["extra_groups"] = tuple(
+            SparseGroupConfig(
+                name=g["name"],
+                tables=tuple(EmbeddingTableConfig(**t) for t in g["tables"]),
+                dim=g["dim"])
+            for g in rest["extra_groups"])
     return RecsysConfig(tables=tables, **rest)
 
 

@@ -59,36 +59,35 @@ def state_to_flat(tree: Mapping) -> Dict[str, np.ndarray]:
             else np.asarray(v) for k, v in flatten(tree)}
 
 
-def _mlp_shapes(name: str, dims) -> Dict[str, tuple]:
-    out = {}
-    for i in range(len(dims) - 1):
-        out[f"{name}/w{i}"] = (dims[i], dims[i + 1])
-        out[f"{name}/b{i}"] = (dims[i + 1],)
-    return out
-
-
 def dense_shapes(cfg: RecsysConfig) -> Dict[str, tuple]:
-    """Every dense parameter of ``cfg``'s recipe, ``{key-path: shape}``:
-    DLRM's ``bottom``/``top`` MLPs; DCN's ``cross`` layers, ``deep`` MLP
-    and ``combine`` head; WDL's and DeepFM's ``deep`` MLP (with its 1-unit
-    head), ``dense_w`` and the scalar ``bias``."""
-    nd, t, d = cfg.num_dense_features, cfg.num_tables, cfg.embedding_dim
-    in_dim = nd + t * d
-    if cfg.model == "dlrm":
-        f = t + 1
-        return {**_mlp_shapes("bottom", [nd, *cfg.bottom_mlp]),
-                **_mlp_shapes("top", [cfg.bottom_mlp[-1] + f * (f - 1) // 2,
-                                      *cfg.top_mlp])}
-    if cfg.model == "dcn":
-        cross = {}
-        for i in range(cfg.num_cross_layers):
-            cross[f"cross/w{i}"] = cross[f"cross/b{i}"] = (in_dim,)
-        return {**cross, **_mlp_shapes("deep", [in_dim, *cfg.top_mlp]),
-                **_mlp_shapes("combine", [in_dim + cfg.top_mlp[-1], 1])}
-    if cfg.model in ("wdl", "deepfm"):
-        return {**_mlp_shapes("deep", [in_dim, *cfg.top_mlp, 1]),
-                "dense_w": (nd,), "bias": ()}
-    raise ValueError(f"no dense layout for model {cfg.model!r}")
+    """Every dense parameter of ``cfg``, ``{key-path: shape}``, by a walk
+    of its compiled program (``dense_graph.program_for``): an ``mlp``
+    node's ``w{i}``/``b{i}``, a ``cross`` node's ``w{i}``/``b{i}`` of the
+    block's width, an ``fm`` node's ``w``/``b`` and the canonical
+    first-order term's ``dense_w``/``bias``. The embedding collections'
+    keys (``embedding``, ``wide_embedding``, ``embedding@<group>``) are
+    not dense."""
+    from repro_torch.models.recsys.dense_graph import program_for
+    out: Dict[str, tuple] = {}
+    for n in program_for(cfg, use_kernels=False).nodes:
+        if n.op in ("mlp", "cross", "fm"):
+            prefix = "/".join(n.params["p"])
+        if n.op == "mlp":
+            dims = [n.attrs["in_dim"], *n.attrs["units"]]
+            for i in range(len(dims) - 1):
+                out[f"{prefix}/w{i}"] = (dims[i], dims[i + 1])
+                out[f"{prefix}/b{i}"] = (dims[i + 1],)
+        elif n.op == "cross":
+            for i in range(n.attrs["num_layers"]):
+                out[f"{prefix}/w{i}"] = out[f"{prefix}/b{i}"] = \
+                    (n.attrs["in_dim"],)
+        elif n.op == "fm":
+            out[f"{prefix}/w"], out[f"{prefix}/b"] = \
+                (n.attrs["in_dim"],), ()
+        elif n.op == "first_order":
+            out["/".join(n.params["w"])] = (cfg.num_dense_features,)
+            out["/".join(n.params["b"])] = ()
+    return out
 
 
 def check_dense(cfg: RecsysConfig, params: Mapping) -> None:

@@ -6,9 +6,11 @@ table files, written by either package — is all this needs.
 :func:`build_server_from_config` re-lowers the graph (config hash
 verified), reloads the dense weights, reopens the PDB tables and stands
 up the ``HPS`` + ``InferenceServer`` on the requested device (``cuda``
-unless told otherwise); a wide bundle (WDL, DeepFM: ``"wide": true``)
-gets a second ``HPS`` over the ``*_wide`` twins on the same PDB, with the
-bundle's L1 capacity and payload type. Ensemble bundles come with
+unless told otherwise); a wide bundle (WDL, DeepFM, a graph with a wide
+branch: ``"wide": true``) gets a second ``HPS`` over the ``*_wide`` twins
+and an N-group graph one ``HPS`` per extra group (its tables come from the
+lowered config, as the reference's), all on the one PDB, with the bundle's
+L1 capacity and payload type. Ensemble bundles come with
 ``MultiModelServer``
 (ROADMAP item "The rest of the serving engine").
 """
@@ -73,16 +75,18 @@ def build_server_from_config(ps_path: str, *, device: DeviceLike = None,
     if hcfg.wide != (model.wide is not None):
         raise ValueError(f"model {hcfg.model!r}: ps.json says wide="
                          f"{hcfg.wide} for a {cfg.model} graph")
-    table_sets = [cfg.tables] + ([wide_tables(cfg)] if hcfg.wide else [])
-    hpses = []
-    for tables in table_sets:
+
+    def hps(tables):
         for t in tables:
             pdb.open_table(hcfg.model, t.name)
-        hpses.append(HPS(hcfg.model, tables, pdb,
-                         cache_capacity=hcfg.cache_capacity,
-                         cache_shards=hcfg.cache_shards,
-                         payload_dtype=hcfg.payload_dtype, device=dev))
-    server = InferenceServer(model, dense, hpses[0],
-                             wide_hps=hpses[1] if hcfg.wide else None,
-                             max_batch=hcfg.max_batch)
+        return HPS(hcfg.model, tables, pdb,
+                   cache_capacity=hcfg.cache_capacity,
+                   cache_shards=hcfg.cache_shards,
+                   payload_dtype=hcfg.payload_dtype, device=dev)
+
+    server = InferenceServer(
+        model, dense, hps(cfg.tables),
+        wide_hps=hps(wide_tables(cfg)) if hcfg.wide else None,
+        extra_hps={g.name: hps(g.tables) for g in cfg.extra_groups},
+        max_batch=hcfg.max_batch)
     return server, graph

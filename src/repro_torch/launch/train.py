@@ -26,8 +26,7 @@ import torch
 from repro_torch.configs.registry import LM_ARCHS, reduce_for_smoke
 from repro_torch.models.lm.backbone import LMModel
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.roadmap import (FRONT_DOORS, MULTI_DEVICE, RECIPES,
-                                 not_ported)
+from repro_torch.roadmap import FRONT_DOORS, MULTI_DEVICE, not_ported
 from repro_torch.tree import flatten, tree_map
 
 #: the reference's recsys recipes (its ``RECSYS_RECIPES``)
@@ -77,8 +76,8 @@ def lm_sgd_step_(model: LMModel, params: Dict, tokens: torch.Tensor,
 def _refuse(args) -> None:
     """Raise for what the port leaves out, naming its ROADMAP item."""
     if args.arch in RECSYS_ARCHS:
-        raise not_ported(f"--arch {args.arch} (the recsys recipe "
-                         "modules)", RECIPES)
+        raise not_ported(f"--arch {args.arch} (the recsys branch of the "
+                         "launcher)", FRONT_DOORS)
     if args.mesh != "auto":
         raise not_ported(f"--mesh {args.mesh}", MULTI_DEVICE)
     if args.mode != "gspmd":

@@ -1,18 +1,23 @@
 """Dense-graph compiler and executor (counterpart of
-``repro/models/recsys/dense_graph.py``), for the ops the four paper
-recipes use: ``mlp``, ``cross``, ``dot_interaction``, ``fm``, ``concat``
+``repro/models/recsys/dense_graph.py``).
+
+``compile_layers`` validates a layer DAG (unknown tensors, duplicate
+names, cycles, arity, shapes, one terminal, every embedding input read:
+the primary group, the dim-1 wide twins and each extra group), toposorts
+it and emits a :class:`DenseGraphProgram`, whose ``apply`` runs the node
+list and whose ``init`` draws every param-bearing node's weights. The ops
+are the reference's: ``mlp``, ``cross``, ``dot_interaction``, ``fm``,
+``concat``, ``add``, ``multiply``, ``relu``, ``slice``, ``reduce_sum``
 and the terminal ``sigmoid``, plus the internal ``first_order`` and
 ``fm_second`` of the canonical WDL and DeepFM programs.
+``canonical_program`` binds each paper recipe's historical parameter
+names (``bottom``/``top``; ``cross``/``deep``/``combine``;
+``deep``/``dense_w``/``bias``); :func:`program_for` compiles any config,
+``model="graph"`` from its serialized ``dense_graph``
+(:func:`graph_spec` / :func:`spec_layers`).
 
-``compile_layers`` validates the layer DAG (unknown tensors, duplicate
-names, cycles, arity, shapes, one terminal, every embedding read, the
-dim-1 wide input included), toposorts it and emits a
-:class:`DenseGraphProgram`; ``canonical_program`` binds each recipe's
-historical parameter names (``bottom``/``top``; ``cross``/``deep``/
-``combine``; ``deep``/``dense_w``/``bias``). The remaining ops
-(``add|multiply|relu|slice|reduce_sum``) and generic ``model="graph"``
-programs raise ``NotImplementedError``: the ROADMAP item "The other
-recipes and graphs", part 3b.
+Shapes are per sample: ``(n,)`` a ``[B, n]`` feature block, ``(T, D)`` a
+pooled embedding block ``[B, T, D]``, ``()`` a logit column ``[B]``.
 """
 from __future__ import annotations
 
@@ -24,12 +29,9 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import dot_interaction_ref
 from repro_torch.models.recsys import layers as dlayers
-from repro_torch.roadmap import RECIPES_3B, not_ported
 
 #: params that can never be shadowed by a layer output
 RESERVED_NAMES = ("embedding", "wide_embedding")
-#: ops this slice executes
-PORTED_OPS = ("mlp", "cross", "dot_interaction", "fm", "concat", "sigmoid")
 #: internal ops of the canonical WDL and DeepFM programs (never declared)
 INTERNAL_OPS = ("first_order", "fm_second")
 
@@ -72,6 +74,70 @@ def spec_from_layer(layer) -> LayerSpec:
         final_activation=bool(layer.final_activation),
         start=int(getattr(layer, "start", 0)),
         stop=int(getattr(layer, "stop", 0)))
+
+
+# -- the serializable spec (RecsysConfig.dense_graph) ------------------------
+
+def graph_spec(dense_name: str, emb_name: str, wide_name: Optional[str],
+               specs: Sequence[LayerSpec],
+               extras: Sequence[str] = ()) -> Tuple:
+    """The hashable tuple embedded in ``RecsysConfig.dense_graph``: one
+    ``("inputs", dense, emb, wide)`` header (a 5th element names the extra
+    embedding inputs of an N-group model, omitted when there are none)
+    and one ``(type, bottoms, top, attrs)`` tuple per layer, exactly as
+    the reference writes it (so the config hash agrees)."""
+    head: Tuple = ("inputs", dense_name, emb_name, wide_name or "")
+    if extras:
+        head = head + (tuple(extras),)
+    out: List[Tuple] = [head]
+    for s in specs:
+        attrs: List[Tuple] = []
+        if s.type == "mlp":
+            attrs = [("final_activation", s.final_activation),
+                     ("units", tuple(s.units))]
+        elif s.type == "cross":
+            attrs = [("num_layers", s.num_layers)]
+        elif s.type == "slice":
+            attrs = [("start", s.start), ("stop", s.stop)]
+        out.append((s.type, tuple(s.bottoms), s.top, tuple(attrs)))
+    return tuple(out)
+
+
+def spec_layers(dense_graph: Tuple) -> Tuple[str, str, Optional[str],
+                                             List[LayerSpec],
+                                             Tuple[str, ...]]:
+    """Inverse of :func:`graph_spec`: ``(dense, emb, wide or None, specs,
+    extra input names)``."""
+    if not dense_graph or dense_graph[0][0] != "inputs":
+        raise GraphError("dense_graph spec is missing its inputs header")
+    head = dense_graph[0]
+    _, dense_name, emb_name, wide_name = head[:4]
+    extras = tuple(head[4]) if len(head) > 4 else ()
+    specs = []
+    for typ, bottoms, top, attrs in dense_graph[1:]:
+        kw = dict(attrs)
+        specs.append(LayerSpec(
+            type=typ, bottoms=tuple(bottoms), top=top,
+            units=tuple(kw.get("units", ())),
+            num_layers=int(kw.get("num_layers", 0)),
+            final_activation=bool(kw.get("final_activation", False)),
+            start=int(kw.get("start", 0)), stop=int(kw.get("stop", 0))))
+    return dense_name, emb_name, (wide_name or None), specs, extras
+
+
+def dense_graph_from_jsonable(g) -> Tuple:
+    """Rebuild the tuple spec from its JSON (lists) form."""
+    if not g:
+        return ()
+    head = list(g[0])
+    if len(head) > 4:
+        head[4] = tuple(head[4])
+    out: List[Tuple] = [tuple(head)]
+    for typ, bottoms, top, attrs in g[1:]:
+        out.append((typ, tuple(bottoms), top,
+                    tuple((k, tuple(v) if isinstance(v, (list, tuple))
+                           else v) for k, v in attrs)))
+    return tuple(out)
 
 
 def _flat_dim(shape: Tuple[int, ...]) -> int:
@@ -134,15 +200,41 @@ def _infer_shape(s: LayerSpec, shp: Dict[str, Tuple[int, ...]]
     if s.type == "concat":
         _arity(s, 1)
         return (sum(_flat_dim(b) for b in bs),)
+    if s.type in ("add", "multiply"):
+        _arity(s, 2)
+        for b, bshape in zip(s.bottoms[1:], bs[1:]):
+            if bshape != bs[0]:
+                raise GraphError(
+                    f"{s.type} -> {s.top!r} needs equal shapes, but "
+                    f"{_fmt(b, bshape)} != {_fmt(s.bottoms[0], bs[0])}")
+        return bs[0]
+    if s.type == "relu":
+        _arity(s, 1, 1)
+        return bs[0]
+    if s.type == "slice":
+        _arity(s, 1, 1)
+        if len(bs[0]) != 1:
+            raise GraphError(
+                f"slice -> {s.top!r} cuts a 2-D feature block, but "
+                f"{_fmt(s.bottoms[0], bs[0])} is not [B, n]")
+        if not (0 <= s.start < s.stop <= bs[0][0]):
+            raise GraphError(
+                f"slice -> {s.top!r}: [{s.start}:{s.stop}] out of range "
+                f"for {_fmt(s.bottoms[0], bs[0])}")
+        return (s.stop - s.start,)
+    if s.type == "reduce_sum":
+        _arity(s, 1, 1)
+        return ()
     if s.type == "sigmoid":
         _arity(s, 1)
         for b, bshape in zip(s.bottoms, bs):
             if bshape not in ((), (1,)):
                 raise GraphError(
                     f"sigmoid sums logit-shaped bottoms ([B] or [B, 1]), "
-                    f"but {_fmt(b, bshape)} is wider")
+                    f"but {_fmt(b, bshape)} is wider; end the branch "
+                    "with a 1-unit head or a reduce_sum")
         return ()
-    raise not_ported(f"DenseLayer type {s.type!r}", RECIPES_3B)
+    raise GraphError(f"unknown DenseLayer type {s.type!r}")
 
 
 def _toposort(specs: List[LayerSpec], available: set) -> List[LayerSpec]:
@@ -171,18 +263,18 @@ def _toposort(specs: List[LayerSpec], available: set) -> List[LayerSpec]:
 
 
 class DenseGraphProgram:
-    """A compiled dense graph: topo-ordered nodes and one ``apply``.
+    """A compiled dense graph: topo-ordered nodes, per-tensor shapes, one
+    ``apply`` and a per-layer ``init``.
 
     ``use_kernels`` routes ``dot_interaction`` through K2, and its
     gradient through K4 (the wrappers launch the CUDA kernels on CUDA
     tensors); ``False`` runs the plain version on any device, the in-port
-    reference path. ``inputs`` names the ``dense``, ``emb`` and (wide
-    models) ``wide`` tensors.
+    reference path. ``inputs`` names the ``dense``, ``emb``, (wide models)
+    ``wide`` and (N-group models) ``extras`` tensors.
     """
 
     def __init__(self, nodes: List[Node], shapes: Dict[str, Tuple],
-                 inputs: Dict[str, Optional[str]],
-                 logit_bottoms: Tuple[str, ...], *,
+                 inputs: Dict, logit_bottoms: Tuple[str, ...], *,
                  use_kernels: bool = True):
         self.nodes = nodes
         self.shapes = shapes
@@ -190,16 +282,44 @@ class DenseGraphProgram:
         self.logit_bottoms = logit_bottoms
         self.use_kernels = use_kernels
 
+    def init(self, generator: torch.Generator, *, device=None) -> Dict:
+        """Weights of every param-bearing node (``mlp``, ``cross``,
+        ``fm``), keyed by the node's param path, drawn in node order from
+        ``generator`` (a CPU generator) and moved to ``device``: the
+        reference's tree and shapes (its ``jax.random`` draws cannot be
+        reproduced; parity runs start from its exported values)."""
+        params: Dict = {}
+        for n in self.nodes:
+            if n.op == "mlp":
+                p = dlayers.mlp_init(generator, n.attrs["in_dim"],
+                                     n.attrs["units"], device=device)
+            elif n.op == "cross":
+                p = dlayers.cross_init(generator, n.attrs["in_dim"],
+                                       n.attrs["num_layers"], device=device)
+            elif n.op == "fm":
+                p = {"w": (torch.randn((n.attrs["in_dim"],),
+                                       generator=generator)
+                           * 0.01).to(device),
+                     "b": torch.zeros((), device=device)}
+            else:
+                continue
+            params[n.params["p"][0]] = p
+        return params
+
     def make_env(self, dense: torch.Tensor, emb: torch.Tensor,
-                 wide: Optional[torch.Tensor],
-                 compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+                 wide: Optional[torch.Tensor], compute_dtype: torch.dtype,
+                 extras: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
         """Entry casts as in the reference: dense f32, the embedding block
-        in the compute dtype, the wide block as delivered (the compute
-        dtype from the training lookup, the HPS's f32 when serving)."""
+        and each extra group's block in the compute dtype, the wide block
+        as delivered (the compute dtype from the training lookup, the
+        HPS's f32 when serving)."""
         env = {self.inputs["dense"]: dense.float(),
                self.inputs["emb"]: emb.to(compute_dtype)}
         if self.inputs.get("wide") and wide is not None:
             env[self.inputs["wide"]] = wide
+        for name in self.inputs.get("extras", ()):
+            env[name] = extras[name].to(compute_dtype)
         return env
 
     def apply(self, params: Dict, env: Dict[str, torch.Tensor],
@@ -241,6 +361,22 @@ class DenseGraphProgram:
                 # mixed dtypes promote (f32 dense + compute-dtype
                 # embeddings -> f32), as jnp.concatenate does
                 env[n.output] = torch.cat([x2d(v) for v in xs], dim=1)
+            elif n.op == "add":
+                out = xs[0]
+                for v in xs[1:]:
+                    out = out + v
+                env[n.output] = out
+            elif n.op == "multiply":
+                out = xs[0]
+                for v in xs[1:]:
+                    out = out * v
+                env[n.output] = out
+            elif n.op == "relu":
+                env[n.output] = torch.relu(xs[0])
+            elif n.op == "slice":
+                env[n.output] = xs[0][:, n.attrs["start"]:n.attrs["stop"]]
+            elif n.op == "reduce_sum":
+                env[n.output] = col(xs[0])
             elif n.op == "first_order":
                 env[n.output] = _first_order(xs[0], xs[1], fetch(n, "w"),
                                              fetch(n, "b"))
@@ -273,19 +409,25 @@ def _first_order(dense: torch.Tensor, wide: torch.Tensor, w: torch.Tensor,
 def compile_layers(specs: Sequence[LayerSpec], *, dense_name: str,
                    num_dense: int, emb_name: str, num_tables: int,
                    emb_dim: int, wide_name: Optional[str] = None,
+                   extra_embs: Optional[Dict[str, Tuple[int, int]]] = None,
                    use_kernels: bool = True) -> DenseGraphProgram:
     """Validate + toposort + shape-infer the layer DAG and emit the
     program. ``wide_name`` names the dim-1 wide input ``[T, 1]`` of wide
-    models. Failures raise :class:`GraphError` naming the layer or
-    tensor; ops beyond :data:`PORTED_OPS` raise ``NotImplementedError``."""
+    models; ``extra_embs`` maps each extra embedding group's name to its
+    per-sample ``(tables, dim)``. Failures raise :class:`GraphError`
+    naming the layer or tensor."""
     specs = list(specs)
-    for s in specs:
-        if s.type not in PORTED_OPS + INTERNAL_OPS:
-            raise not_ported(f"DenseLayer type {s.type!r}", RECIPES_3B)
+    extra_embs = dict(extra_embs or {})
     inputs: Dict[str, Tuple[int, ...]] = {dense_name: (num_dense,),
                                           emb_name: (num_tables, emb_dim)}
     if wide_name:
         inputs[wide_name] = (num_tables, 1)
+    for name, (t_n, d_n) in extra_embs.items():
+        if name in inputs:
+            raise GraphError(
+                f"extra SparseEmbedding group name {name!r} collides "
+                "with another graph input")
+        inputs[name] = (t_n, d_n)
     produced = set(inputs)
     for s in specs:
         if s.top in produced:
@@ -315,7 +457,8 @@ def compile_layers(specs: Sequence[LayerSpec], *, dense_name: str,
         raise GraphError(
             f"the graph must end in exactly one terminal tensor, got "
             f"{sorted(s.top for s in terminals)}")
-    for name in (emb_name,) + ((wide_name,) if wide_name else ()):
+    for name in (emb_name,) + ((wide_name,) if wide_name else ()) \
+            + tuple(extra_embs):
         if name not in consumed:
             raise GraphError(
                 f"SparseEmbedding output {name!r} is never read by any "
@@ -347,6 +490,8 @@ def compile_layers(specs: Sequence[LayerSpec], *, dense_name: str,
             attrs = {"num_layers": s.num_layers,
                      "in_dim": shapes[s.bottoms[0]][0]}
             params = {"p": path}
+        elif s.type == "slice":
+            attrs = {"start": s.start, "stop": s.stop}
         elif s.type == "first_order":
             # canonical_program rebinds these to the top-level
             # ("dense_w", "bias") entries
@@ -373,7 +518,8 @@ def compile_layers(specs: Sequence[LayerSpec], *, dense_name: str,
                           attrs=attrs, params=params))
     return DenseGraphProgram(
         nodes, shapes,
-        {"dense": dense_name, "emb": emb_name, "wide": wide_name},
+        {"dense": dense_name, "emb": emb_name, "wide": wide_name,
+         "extras": tuple(extra_embs)},
         logit_bottoms, use_kernels=use_kernels)
 
 
@@ -423,7 +569,7 @@ def canonical_program(cfg, *, use_kernels: bool = True) -> DenseGraphProgram:
         ]
         wide = "wide"
     else:
-        raise not_ported(f"model {cfg.model!r}", RECIPES_3B)
+        raise ValueError(f"no canonical program for model {cfg.model!r}")
     prog = compile_layers(
         specs, dense_name="dense", num_dense=nd, emb_name="emb",
         num_tables=t, emb_dim=d, wide_name=wide, use_kernels=use_kernels)
@@ -432,3 +578,25 @@ def canonical_program(cfg, *, use_kernels: bool = True) -> DenseGraphProgram:
         if n.op == "first_order":
             n.params = {"w": ("dense_w",), "b": ("bias",)}
     return prog
+
+
+def program_for(cfg, *, use_kernels: bool = True) -> DenseGraphProgram:
+    """The program of any config: a paper recipe's canonical program, or
+    ``cfg.dense_graph`` compiled for ``model="graph"``."""
+    if cfg.model != "graph":
+        return canonical_program(cfg, use_kernels=use_kernels)
+    dense_name, emb_name, wide_name, specs, extras = \
+        spec_layers(cfg.dense_graph)
+    by_name = {g.name: g for g in cfg.extra_groups}
+    missing = [n for n in extras if n not in by_name]
+    if missing:
+        raise GraphError(
+            f"dense_graph header names extra embedding inputs {missing} "
+            "with no matching extra_groups entry in the config")
+    return compile_layers(
+        specs, dense_name=dense_name, num_dense=cfg.num_dense_features,
+        emb_name=emb_name, num_tables=len(cfg.tables),
+        emb_dim=cfg.embedding_dim, wide_name=wide_name,
+        extra_embs={n: (len(by_name[n].tables), by_name[n].dim)
+                    for n in extras},
+        use_kernels=use_kernels)

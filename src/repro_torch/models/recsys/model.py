@@ -1,15 +1,21 @@
-"""The paper's four recipes as ``RecsysModel`` (counterpart of
-``repro/models/recsys/model.py``): DLRM, DCN, DeepFM and Wide&Deep. The
-sparse half is the embedding collection and, for WDL and DeepFM, a second
-collection of the tables' dim-1 "wide" twins (param key
-``wide_embedding``, every twin ``data_parallel``); the dense half is the
-recipe's layers (``bottom``/``top``; ``cross``/``deep``/``combine``;
-``deep``/``dense_w``/``bias``), run by the compiled dense program.
+"""``RecsysModel`` (counterpart of ``repro/models/recsys/model.py``): the
+paper's four recipes, DLRM, DCN, DeepFM and Wide&Deep, and any
+``model="graph"`` config. The sparse half is the primary embedding
+collection (param key ``embedding``); for WDL, DeepFM and a graph with
+``wide_branch``, a second collection of the tables' dim-1 "wide" twins
+(``wide_embedding``, every twin ``data_parallel``, reading the primary
+``cat`` columns); and for an N-group graph one collection per extra group
+(``embedding@<group>``), each reading its own ``cat`` columns. The dense
+half is the compiled dense program: the recipe's layers under their
+historical names (``bottom``/``top``; ``cross``/``deep``/``combine``;
+``deep``/``dense_w``/``bias``), or a graph's layers keyed by their output
+tensor.
 
 ``apply(params, batch)`` returns logits ``[B]``; ``loss_fn`` adds BCE.
-batch = {"dense": [B, Nd] f32, "cat": [B, T, H] int32 (-1 pad), "label": [B]}
-Serving calls ``apply_dense`` with pooled embeddings (and the wide block)
-from the HPS.
+batch = {"dense": [B, Nd] f32, "cat": [B, T, H] int32 (-1 pad), "label": [B]};
+``cat`` lays the groups' columns out as ``[primary | group1 | group2 ...]``
+(:meth:`RecsysModel.group_columns`). Serving calls ``apply_dense`` with
+pooled embeddings (the wide block, the extra groups' blocks) from the HPS.
 """
 from __future__ import annotations
 
@@ -24,13 +30,18 @@ from repro_torch.core.embedding.collection import EmbeddingCollection
 from repro_torch.core.embedding.planner import resolve_strategies
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys import dense_graph, layers
-from repro_torch.roadmap import RECIPES_3B, not_ported
 
-#: the recipes this port builds (``model="graph"`` is the ROADMAP item
-#: "The other recipes and graphs", part 3b)
+#: the paper's recipes (any other graph is ``model="graph"``)
 MODELS = ("dlrm", "dcn", "deepfm", "wdl")
 #: the recipes with a dim-1 wide branch
 WIDE_MODELS = ("deepfm", "wdl")
+
+
+def has_wide(cfg: RecsysConfig) -> bool:
+    """Whether ``cfg`` has the dim-1 wide twins (WDL, DeepFM, or a graph
+    with ``wide_branch``)."""
+    return cfg.model in WIDE_MODELS or (cfg.model == "graph"
+                                        and cfg.wide_branch)
 
 
 def wide_tables(cfg: RecsysConfig) -> Tuple[EmbeddingTableConfig, ...]:
@@ -55,8 +66,8 @@ class RecsysModel:
     def __init__(self, cfg: RecsysConfig, *, device: DeviceLike = None,
                  use_kernels: bool = True, global_batch: int = 256,
                  comm: str = "allgather_rs"):
-        if cfg.model not in MODELS:
-            raise not_ported(f"model {cfg.model!r}", RECIPES_3B)
+        if cfg.model not in MODELS + ("graph",):
+            raise ValueError(f"unknown model {cfg.model!r}")
         if cfg.model == "dlrm" and cfg.bottom_mlp[-1] != cfg.embedding_dim:
             raise ValueError(
                 "DLRM needs bottom_mlp[-1] == embedding_dim for the "
@@ -66,20 +77,32 @@ class RecsysModel:
         self.device = resolve_device(device)
         self.compute_dtype = layers.compute_dtype(cfg.dtype)
         self.use_kernels = use_kernels
-        self.embedding = EmbeddingCollection(
-            resolve_strategies(cfg.tables, SINGLE_DEVICE, global_batch),
-            comm=comm, compute_dtype=self.compute_dtype, device=self.device,
-            use_kernels=use_kernels)
+
+        def collection(tables):
+            return EmbeddingCollection(
+                tables, comm=comm, compute_dtype=self.compute_dtype,
+                device=self.device, use_kernels=use_kernels)
+
+        self.embedding = collection(
+            resolve_strategies(cfg.tables, SINGLE_DEVICE, global_batch))
         #: the wide twins, pooled through the same K1 / K3 path on CUDA
         #: (the reference gathers them with plain jnp: the same function)
         self.wide: Optional[EmbeddingCollection] = None
-        if cfg.model in WIDE_MODELS:
-            self.wide = EmbeddingCollection(
-                wide_tables(cfg), comm=comm,
-                compute_dtype=self.compute_dtype, device=self.device,
-                use_kernels=use_kernels)
-        self.program = dense_graph.canonical_program(
-            cfg, use_kernels=use_kernels)
+        if has_wide(cfg):
+            self.wide = collection(wide_tables(cfg))
+        #: one collection per extra group, each with its own planner
+        #: groups (param key ``embedding@<name>``)
+        self.extra: Dict[str, EmbeddingCollection] = {
+            g.name: collection(resolve_strategies(g.tables, SINGLE_DEVICE,
+                                                  global_batch))
+            for g in cfg.extra_groups}
+        cols = {"embedding": (0, len(cfg.tables))}
+        off = len(cfg.tables)
+        for g in cfg.extra_groups:
+            cols[f"embedding@{g.name}"] = (off, off + len(g.tables))
+            off += len(g.tables)
+        self._group_cols = cols
+        self.program = dense_graph.program_for(cfg, use_kernels=use_kernels)
         if self.device.type == "cuda":
             layers.pin_f32_matmul()
 
@@ -88,21 +111,33 @@ class RecsysModel:
         out = {"embedding": self.embedding}
         if self.wide is not None:
             out["wide_embedding"] = self.wide
+        for name, coll in self.extra.items():
+            out[f"embedding@{name}"] = coll
         return out
+
+    def group_columns(self) -> Dict[str, Tuple[int, int]]:
+        """``cat`` column ``(start, stop)`` per lookup key (the wide twins
+        read the primary columns, so they are not listed)."""
+        return dict(self._group_cols)
 
     def init(self, generator: Optional[torch.Generator] = None) -> Dict:
         """The param tree on the model's device, drawn from ``generator``
         (a CPU generator; seed 0 if omitted): the dense layers first, then
-        the tables, then the wide twins. ``{"embedding": {group:
-        mega-table}, ...}`` plus, by recipe, ``bottom``/``top`` (DLRM),
-        ``cross``/``deep``/``combine`` (DCN) or ``deep``/``dense_w``/
-        ``bias`` and ``wide_embedding`` (DeepFM, WDL)."""
+        the tables, the wide twins and the extra groups in declared order.
+        ``{"embedding": {group: mega-table}, ...}`` plus, by recipe,
+        ``bottom``/``top`` (DLRM), ``cross``/``deep``/``combine`` (DCN) or
+        ``deep``/``dense_w``/``bias`` and ``wide_embedding`` (DeepFM,
+        WDL); a graph's layers under their output tensor's name,
+        ``wide_embedding`` with ``wide_branch`` and one
+        ``embedding@<group>`` per extra group."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         cfg, dev = self.cfg, self.device
         nd = cfg.num_dense_features
         in_dim = nd + cfg.num_tables * cfg.embedding_dim
-        if cfg.model == "dlrm":
+        if cfg.model == "graph":
+            params = self.program.init(generator, device=dev)
+        elif cfg.model == "dlrm":
             f = cfg.num_tables + 1
             top_in = cfg.bottom_mlp[-1] + f * (f - 1) // 2
             params = {
@@ -129,31 +164,51 @@ class RecsysModel:
                 "bias": torch.zeros((), device=dev),
             }
         params["embedding"] = self.embedding.init(generator)
-        if self.wide is not None:
-            params["wide_embedding"] = self.wide.init(generator)
+        for key, coll in self.collections().items():
+            if key != "embedding":
+                params[key] = coll.init(generator)
         return params
 
     def apply(self, params: Dict, batch: Dict) -> torch.Tensor:
-        """Logits ``[B]`` from a device batch (``dense``, ``cat``); the wide
-        twins read the same ``cat`` columns as the deep tables."""
-        emb = self.embedding.lookup(params["embedding"], batch["cat"])
+        """Logits ``[B]`` from a device batch (``dense``, ``cat``): each
+        collection pools its own ``cat`` columns; the wide twins read the
+        primary tables' columns."""
+        cat = batch["cat"]
+
+        def columns(key):
+            lo, hi = self._group_cols[key]
+            return cat[:, lo:hi]
+
+        emb = self.embedding.lookup(params["embedding"], columns("embedding"))
         wide = None
         if self.wide is not None:
-            wide = self.wide.lookup(params["wide_embedding"], batch["cat"])
-        return self.apply_dense(params, batch["dense"], emb, wide)
+            wide = self.wide.lookup(params["wide_embedding"],
+                                    columns("embedding"))
+        extras = {name: coll.lookup(params[f"embedding@{name}"],
+                                    columns(f"embedding@{name}"))
+                  for name, coll in self.extra.items()}
+        return self.apply_dense(params, batch["dense"], emb, wide,
+                                extras=extras)
 
     def apply_dense(self, params: Dict, dense: torch.Tensor,
-                    emb: torch.Tensor,
-                    wide: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    emb: torch.Tensor, wide: Optional[torch.Tensor] = None,
+                    *, extras: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
         """Logits ``[B]`` from dense features ``[B, Nd]``, pooled
-        embeddings ``[B, T, D]`` and, for wide models, the pooled wide
-        twins ``[B, T, 1]`` (the serving entry point)."""
+        embeddings ``[B, T, D]``, for wide models the pooled wide twins
+        ``[B, T, 1]`` and for N-group models each extra group's pooled
+        block by group name (the serving entry point)."""
         if (wide is None) != (self.wide is None):
             raise ValueError(
                 f"model {self.cfg.model!r} "
                 + ("needs" if self.wide is not None else "takes no")
                 + " wide block")
-        env = self.program.make_env(dense, emb, wide, self.compute_dtype)
+        missing = set(self.extra) - set(extras or {})
+        if missing:
+            raise ValueError(f"model {self.cfg.name!r} needs the pooled "
+                             f"blocks of extra groups {sorted(missing)}")
+        env = self.program.make_env(dense, emb, wide, self.compute_dtype,
+                                    extras=extras)
         return self.program.apply(params, env, self.compute_dtype)
 
     def loss_fn(self, params: Dict, batch: Dict) -> torch.Tensor:

@@ -5,11 +5,6 @@ naming its item, on the recsys and the LM side alike.
 """
 from __future__ import annotations
 
-#: the recsys recipes and graphs beyond DLRM (the default item)
-RECIPES = "The other recipes and graphs (queue 1 item 3)"
-#: its second part: generic graphs, the remaining ops and N groups
-RECIPES_3B = ("The other recipes and graphs (queue 1 item 3, part 3b: "
-              "generic graphs and N groups)")
 MULTI_DEVICE = "Multi-GPU (queue 1 item 4)"
 FRONT_DOORS = "Front doors, benchmarks and CI (queue 1 item 6)"
 #: queue 1 item 7: the LM families and paths after dense-LM training
@@ -21,7 +16,7 @@ ENCDEC = "encoder-decoder and frontends (seamless, pixtral)"
 SEQPAR = "seqpar_attention with multi-GPU"
 
 
-def not_ported(what: str, item: str = RECIPES) -> NotImplementedError:
+def not_ported(what: str, item: str) -> NotImplementedError:
     """The error a part of the reference that the port lacks raises: it
     names the ROADMAP item that ports it."""
     return NotImplementedError(

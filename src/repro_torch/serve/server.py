@@ -6,13 +6,16 @@ to ``max_batch`` rows, the HPS resolves the pooled embeddings on the
 device (L1 -> L2 -> L3) and the dense net computes the logits; the sigmoid
 is applied after the dense net, outside it, as in the reference.
 
-Wide models (WDL, DeepFM) serve through two HPSes: the deep one and
-``wide_hps`` over the tables' dim-1 twins, which read the same ``cat``
-columns; the dense net takes both pooled blocks.
+Wide models (WDL, DeepFM, a graph with a wide branch) serve through a
+second HPS, ``wide_hps``, over the tables' dim-1 twins, which read the
+primary tables' ``cat`` columns; an N-group model serves each extra group
+through its own HPS (``extra_hps``, by group name), which reads the
+group's own ``cat`` columns (``RecsysModel.group_columns``). The dense
+net takes every pooled block.
 
 Engines: ``"stream"`` (default) feeds coalesced request groups through
 ``HPS.lookup_stream(materialize=False)`` (one stream per HPS, each fed the
-same groups): while group *i-1*'s prediction
+same groups, cut to its columns): while group *i-1*'s prediction
 copies to the host, group *i*'s gathers and dense net run on the device
 and group *i+1*'s index probes run on the HPS host workers; the one host
 sync per group is the prediction itself. ``"sync"`` drains a group and
@@ -32,7 +35,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -113,22 +116,22 @@ def write_bundle(directory: str, graph, dense_params: Dict,
     ``graph`` is a :class:`repro_torch.api.Model`; ``dense_params`` its
     param tree (embedding keys, if present, are left out of ``dense.npz``);
     ``tables`` maps table names to ``[V, D]`` arrays, the ``<name>_wide``
-    ``[V, 1]`` twins of a wide model included (``ps.json`` then says
-    ``wide``). Pass ``tables=None``
+    ``[V, 1]`` twins of a wide model (``ps.json`` then says ``wide``) and
+    every extra group's tables included. Pass ``tables=None``
     when the PDB under ``directory/pdb`` already holds them (written by
     :func:`deploy_tables` or ``PersistentDB.create_table``), e.g. tables
     too large to hold in memory at once.
     """
     from repro_torch.convert import dense_to_flat
-    from repro_torch.models.recsys.model import WIDE_MODELS, wide_tables
+    from repro_torch.models.recsys.model import has_wide, wide_tables
     from repro_torch.train.train_step import split_params
     cfg = graph.to_recsys_config()
-    wide = cfg.model in WIDE_MODELS
+    wide = has_wide(cfg)
     os.makedirs(directory, exist_ok=True)
     pdb_root = os.path.join(directory, "pdb")
     if tables is not None:
         deploy_tables(tables, PersistentDB(pdb_root), graph.name)
-    for t in cfg.tables + (wide_tables(cfg) if wide else ()):
+    for t in cfg.all_tables + (wide_tables(cfg) if wide else ()):
         meta = os.path.join(pdb_root, f"{graph.name}__{t.name}.json")
         if not os.path.exists(meta):
             raise FileNotFoundError(f"table {t.name!r} missing from {pdb_root}")
@@ -161,15 +164,22 @@ class InferenceServer:
     }
 
     def __init__(self, model, dense_params: Dict, hps: HPS, *,
-                 wide_hps: Optional[HPS] = None, max_batch: int = 1024,
-                 engine: str = "stream"):
+                 wide_hps: Optional[HPS] = None,
+                 extra_hps: Optional[Dict[str, HPS]] = None,
+                 max_batch: int = 1024, engine: str = "stream"):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, "
                              f"got {engine!r}")
         self.model = model
         self.hps = hps
-        #: the HPS of a wide model's dim-1 twins (same cat columns)
+        #: the HPS of a wide model's dim-1 twins (the primary columns)
         self.wide_hps = wide_hps
+        #: one HPS per extra group of an N-group model, by group name
+        self.extra_hps: Dict[str, HPS] = dict(extra_hps or {})
+        #: ``cat`` column span per lookup key; empty for single-group
+        #: models, whose every lookup reads the whole ``cat`` block
+        self._cols: Dict[str, Tuple[int, int]] = \
+            dict(model.group_columns()) if self.extra_hps else {}
         self.device = hps.device
         self.dense_params = dense_params
         self.max_batch = max_batch
@@ -188,27 +198,47 @@ class InferenceServer:
         with self._stats_lock:
             self.latency.record((time.perf_counter() - t0) * 1e3)
 
-    def _hpses(self) -> tuple:
-        return (self.hps,) if self.wide_hps is None \
-            else (self.hps, self.wide_hps)
+    def _hpses(self) -> List[Tuple[str, HPS]]:
+        """``(lookup key, HPS)`` for every HPS, in the order the blocks
+        feed the dense net: the primary, the wide twins (which read the
+        primary columns, so share its key), then each extra group."""
+        out = [("embedding", self.hps)]
+        if self.wide_hps is not None:
+            out.append(("embedding", self.wide_hps))
+        out += [(f"embedding@{name}", h)
+                for name, h in self.extra_hps.items()]
+        return out
 
-    def _dense_forward(self, dense: np.ndarray, emb: torch.Tensor,
-                       wide: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The dense net + sigmoid on the device, shared by both engines."""
+    def _group_cat(self, cat: np.ndarray, key: str) -> np.ndarray:
+        """The ``cat`` columns of one lookup key (the whole block for a
+        single-group model)."""
+        if not self._cols:
+            return cat
+        lo, hi = self._cols[key]
+        return cat[:, lo:hi]
+
+    def _dense_forward(self, dense: np.ndarray,
+                       blocks: List[torch.Tensor]) -> torch.Tensor:
+        """The dense net + sigmoid on the device, shared by both engines;
+        ``blocks`` are the pooled blocks in :meth:`_hpses` order."""
         d = torch.from_numpy(np.ascontiguousarray(dense, np.float32)) \
             .to(self.device)
+        emb, rest = blocks[0], list(blocks[1:])
+        wide = rest.pop(0) if self.wide_hps is not None else None
+        extras = dict(zip(self.extra_hps, rest)) or None
         with torch.no_grad():
             return torch.sigmoid(self.model.apply_dense(
-                self.dense_params, d, emb, wide))
+                self.dense_params, d, emb, wide, extras=extras))
 
     def predict(self, dense: np.ndarray, cat: np.ndarray) -> np.ndarray:
-        """One blocking lookup (two for a wide model: the twins share the
-        deep tables' ``cat`` columns) + dense net; returns ``[B]``
-        probabilities."""
+        """One blocking lookup per HPS (the wide twins read the primary
+        tables' ``cat`` columns, each extra group its own) + dense net;
+        returns ``[B]`` probabilities."""
         t0 = time.perf_counter()
-        blocks = [h.lookup(cat, pipelined=len(h.tables) > 1)
-                  for h in self._hpses()]
-        out = self._dense_forward(dense, *blocks).cpu().numpy()
+        blocks = [h.lookup(self._group_cat(cat, key),
+                           pipelined=len(h.tables) > 1)
+                  for key, h in self._hpses()]
+        out = self._dense_forward(dense, blocks).cpu().numpy()
         self._record_latency(t0)
         return out
 
@@ -305,18 +335,23 @@ class InferenceServer:
                 fifo.append((reqs, dense, time.perf_counter()))
                 yield cat
 
-        # one stream per HPS, each fed the same groups: the wide twins
-        # read the deep tables' cat columns, and zip binds each group's
-        # blocks before its one sync
+        # one stream per HPS, each fed the same groups cut to its
+        # columns (the wide twins read the primary ones), and zip binds
+        # each group's blocks, in order, before its one sync
+        def cut(src, key):
+            for c in src:
+                yield self._group_cat(c, key)
+
         hpses = self._hpses()
-        streams = [h.lookup_stream(src, materialize=False) for h, src in
+        streams = [h.lookup_stream(cut(src, key), materialize=False)
+                   for (key, h), src in
                    zip(hpses, itertools.tee(cats(), len(hpses)))]
         in_flight: deque = deque()          # (reqs, t0, device preds)
         current = None
         try:
             for blocks in zip(*streams):
                 current = fifo.popleft()
-                out = self._dense_forward(current[1], *blocks)
+                out = self._dense_forward(current[1], blocks)
                 in_flight.append((current[0], current[2], out))
                 current = None
                 if len(in_flight) > 1:
@@ -393,7 +428,7 @@ class InferenceServer:
         if shed:
             with self._admit_lock:
                 self.requests_shed += shed
-        for h in self._hpses():
+        for _, h in self._hpses():
             h.close()
 
     def latency_percentiles(self) -> Dict[str, float]:

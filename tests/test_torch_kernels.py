@@ -672,6 +672,10 @@ def test_cuda_gathers(cuda, payload_dtype, d, n):
     # and their dim-1 wide twins: one column tile, most lanes idle
     (100_000, 1, 64, 16), (1000, 3, 64, 16), (50, 1, 3000, 16),
     (100_000, 1, 64, 1), (1000, 3, 64, 1), (50, 1, 3000, 1),
+    # the graph recipes' groups: NeuMF deep and two-tower (D 64), NeuMF
+    # ctx (D 8)
+    (100_000, 1, 64, 64), (1000, 3, 64, 64), (50, 1, 3000, 64),
+    (100_000, 1, 64, 8), (1000, 3, 64, 8), (50, 1, 3000, 8),
 ])
 def test_cuda_lookup_bwd(cuda, v, h, hot_rows, d):
     """Bit-exact to the chunked plain version (the kernel's order of adds),
@@ -824,7 +828,11 @@ def _cuda_grouped(cuda, mode, t, d, hots, g, offset=False):
     pays, slots = [], []
     for i in range(t):
         c = 200 + i
-        if mode == "int8":
+        if mode == "int8" and offset:
+            p = torch.randint(-127, 128, (c * d + 1,), generator=g,
+                              dtype=torch.int8)[1:].view(c, d)
+            sc = torch.rand((c,), generator=g) + 0.5
+        elif mode == "int8":
             p = torch.randint(-127, 128, (c, d), generator=g,
                               dtype=torch.int8)
             sc = torch.rand((c,), generator=g) + 0.5
@@ -905,6 +913,47 @@ def test_cuda_grouped_unaligned_payload(cuda, mode):
     pays, slots = _cuda_grouped(cuda, mode, 3, 128, (1,), g, offset=True)
     fn, want, _ = _grouped_pair(pays, slots)
     assert torch.equal(fn(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(13, 64), (9, 16), (4, 8)])
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+@pytest.mark.parametrize("offset", [False, True])
+def test_cuda_grouped_read_graph_groups(cuda, t, d, mode, offset):
+    """The served read of each NeuMF HPS (13 tables at D 64, 9 at D 16, 4
+    at D 8), f32 (K1) and int8 (K6): one launch, bit-exact to the plain
+    version; with ``offset`` every payload starts one element off its
+    unit (an int8 row of D 8 is 8 bytes: the element-wise path)."""
+    g = torch.Generator().manual_seed(t * 100 + d)
+    pays, slots = _cuda_grouped(cuda, mode, t, d, (1,), g, offset=offset)
+    fn, want, name = _grouped_pair(pays, slots)
+    _build.LAUNCHES.reset()
+    got = fn()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot() == {name: 1}
+    assert got.shape == (97, t, d)
+    assert torch.equal(got, want)
+    assert torch.equal(got, fn())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 8])
+@pytest.mark.parametrize("h", [1, 3])
+def test_cuda_lookup_fwd_graph_widths(cuda, d, h):
+    """K1 at the graph recipes' training widths (D 64: NeuMF deep and the
+    two-tower tables; D 8: NeuMF ctx): bit-exact at H = 1, within 1e-6 at
+    H = 3; two launches give the same bits."""
+    g = torch.Generator().manual_seed(d + h)
+    table = torch.randn((5000, d), generator=g).to(cuda)
+    rows = torch.randint(-1, 5000, (4099, h), generator=g,
+                         dtype=torch.int32).to(cuda)
+    got, want = lookup_fwd(table, rows), lookup_fwd_plain(table, rows)
+    torch.cuda.synchronize()
+    if h == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, lookup_fwd(table, rows))
 
 
 @pytest.mark.cuda

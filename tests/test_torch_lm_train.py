@@ -397,7 +397,7 @@ def test_launcher_smoke_on_cpu_learns_and_launches_nothing():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "dlrm-criteo"], "item 3"),
+    (["--arch", "dlrm-criteo"], "item 6"),
     (["--mesh", "2x1"], "item 4"),
     (["--mode", "manual"], "item 4"),
     (["--comm", "all_to_all"], "item 4"),

@@ -140,22 +140,43 @@ def test_graph_errors_and_part_3b_still_raise():
     m.add(api.DenseLayer("sigmoid", ["fm", "deep"], ["prob"]))
     with pytest.raises(api.GraphError, match="wide"):
         m.to_recsys_config()                # the wide group is never read
-    # a wide graph that is none of the recipes: model="graph", part 3b
+    # a wide graph that is none of the recipes lowers to model="graph"
+    # with the wide branch, as in the reference, and loads
     m = api.Model(name="wide-generic")
     m.add(api.Input(dense_dim=4))
     m.add(api.SparseEmbedding(vocab_sizes=[10, 20], dim=4))
     m.add(api.SparseEmbedding(vocab_sizes=[10, 20], dim=1, top_name="wide"))
     m.add(api.DenseLayer("mlp", ["dense", "emb", "wide"], ["logit"],
                          units=(4, 1)))
-    with pytest.raises(NotImplementedError, match="part 3b"):
-        m.to_recsys_config()
-    # two groups that are not a wide twin: N groups, part 3b
+    cfg = m.to_recsys_config()
+    assert (cfg.model, cfg.wide_branch, cfg.extra_groups) == \
+        ("graph", True, ())
+    jm = japi.Model(name="wide-generic")
+    jm.add(japi.Input(dense_dim=4))
+    jm.add(japi.SparseEmbedding(vocab_sizes=[10, 20], dim=4))
+    jm.add(japi.SparseEmbedding(vocab_sizes=[10, 20], dim=1,
+                                top_name="wide"))
+    jm.add(japi.DenseLayer("mlp", ["dense", "emb", "wide"], ["logit"],
+                           units=(4, 1)))
+    assert recsys_config_hash(cfg) == jhash(jm.to_recsys_config())
+    m.compile(device="cpu")
+    assert set(m.model.collections()) == {"embedding", "wide_embedding"}
+    # two groups that are not a wide twin: the second is an extra group
     m = api.Model(name="two-groups")
     m.add(api.Input(dense_dim=4))
     m.add(api.SparseEmbedding(vocab_sizes=[10, 20], dim=4))
     m.add(api.SparseEmbedding(vocab_sizes=[10, 30], dim=1, top_name="w"))
-    with pytest.raises(NotImplementedError, match="part 3b"):
-        m.to_recsys_config()
+    with pytest.raises(api.GraphError, match="terminal"):
+        m.to_recsys_config()                # nothing reads the groups
+    m.add(api.DenseLayer("concat", ["dense", "emb", "w"], ["flat"]))
+    m.add(api.DenseLayer("mlp", ["flat"], ["logit"], units=(1,)))
+    cfg = m.to_recsys_config()
+    assert (cfg.model, cfg.wide_branch) == ("graph", False)
+    assert [(g.name, g.dim, [t.name for t in g.tables])
+            for g in cfg.extra_groups] == [("w", 1, ["w_f0", "w_f1"])]
+    m.compile(device="cpu")
+    assert m.model.group_columns() == {"embedding": (0, 2),
+                                       "embedding@w": (2, 4)}
 
 
 # ---------------------------------------------------------------------------

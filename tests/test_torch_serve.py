@@ -102,12 +102,18 @@ def test_registry_config_hash_matches_jax():
 
 
 def test_other_graphs_are_not_ported(tmp_path):
-    # a generic graph (multiply, reduce_sum, add, relu) is part 3b
+    # a generic graph (multiply, reduce_sum, add, relu) written by JAX
+    # now loads in the port, at the reference's hash, and compiles
     from repro.configs import twotower_criteo
-    path = twotower_criteo.build_model(smoke=True).graph_to_json(
-        str(tmp_path / "g.json"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        api.Model.from_json(path)
+    jm = twotower_criteo.build_model(smoke=True)
+    path = jm.graph_to_json(str(tmp_path / "g.json"))
+    pm = api.Model.from_json(path)          # verifies the embedded hash
+    cfg = pm.to_recsys_config()
+    assert cfg.model == "graph"
+    assert recsys_config_hash(cfg) == jhash(jm.to_recsys_config())
+    pm.compile(device="cpu")
+    assert {n.op for n in pm.model.program.nodes} >= {
+        "multiply", "reduce_sum", "add", "relu"}
     m = api.Model(name="bad")
     m.add(api.Input(dense_dim=4))
     m.add(api.SparseEmbedding(vocab_sizes=[10], dim=4))

@@ -47,22 +47,27 @@ def _dlrm_k3(cs, dev):
     return lambda: k1.lookup_bwd((v, 128), rows, dp), 4
 
 
-def _pooled_stack(cs, dev, payload_dtype: str, d: int = 128):
+def _pooled_stack(cs, dev, payload_dtype: str, d: int = 128,
+                  tables: int = 26):
     from repro_torch.core.hps.hps import _pooled_stack
-    # at D 16 more batches than the 20 of D 128, so replays leave L2 too
-    sets = 64 if d == 16 else cs.SLOT_SETS
-    pays, slots = cs.served_inputs(cs.RUN, dev, payload_dtype, sets, d=d)
+    # at D 8-64 more batches than the 20 of D 128, so replays leave L2 too
+    sets = 64 if 1 < d < 128 else cs.SLOT_SETS
+    pays, slots = cs.served_inputs(cs.RUN, dev, payload_dtype, sets, d=d,
+                                   tables=tables)
     combiners = ("sum",) * len(pays)
     return cs.rotating(lambda sl: _pooled_stack(pays, sl, combiners),
                        slots), sets
 
 
-def _wdl(cs, dev, which: int, backward: bool):
+def _wdl(cs, dev, which: int, backward: bool, arch: str = "wdl"):
     """K1 or K3 at full-vocabulary wdl-criteo's ``dist`` group (0) or its
-    wide twins (1), on the first training batch's ids."""
+    wide twins (1), or (``arch="neumf"``) at neumf-criteo's largest
+    ``deep`` (0) or ``ctx`` (1) group, on the first training batch's
+    ids."""
     import torch
     from repro_torch.kernels import embedding_lookup as k1
-    v, rows, d = list(cs.wdl_training_rows(cs.RUN, dev).values())[which]
+    fn = cs.wdl_training_rows if arch == "wdl" else cs.neumf_training_rows
+    v, rows, d = list(fn(cs.RUN, dev).values())[which]
     g = torch.Generator(device=dev).manual_seed(which)
     if backward:
         dp = torch.randn((rows.shape[0], d), generator=g, device=dev)
@@ -144,7 +149,10 @@ def _k8(cs, dev):
 #: training shape, and K8 at the LM training shape (a); then the shapes of
 #: DCN, WDL and DeepFM: K1 and K3 at full-vocabulary wdl-criteo's ``dist``
 #: group (D 16) and its wide twins (D 1) (``wdl_training_rows``), and the
-#: served pooled read and the cache query at D 16 and D 1
+#: served pooled read and the cache query at D 16 and D 1; then NeuMF's:
+#: K1 and K3 at its largest ``deep`` (D 64) and ``ctx`` (D 8) groups
+#: (``neumf_training_rows``), the served read of its three HPSes (13 x D
+#: 64, 9 x D 16, 4 x D 8) and the cache query at D 64 and D 8
 CASES = {
     "launch floor": lambda cs, dev: (cs.launch_floor_call(dev), 100),
     "pooled_stack f32": lambda cs, dev: _pooled_stack(cs, dev, "f32"),
@@ -176,6 +184,18 @@ CASES = {
     "dequant_gather_rows query d16": lambda cs, dev: _k5(cs, dev, "int8", 16),
     "gather_rows query d1": lambda cs, dev: _k5(cs, dev, "f32", 1),
     "dequant_gather_rows query d1": lambda cs, dev: _k5(cs, dev, "int8", 1),
+    "lookup_fwd neumf deep": lambda cs, dev: _wdl(cs, dev, 0, False, "neumf"),
+    "lookup_fwd neumf ctx": lambda cs, dev: _wdl(cs, dev, 1, False, "neumf"),
+    "lookup_bwd neumf deep": lambda cs, dev: _wdl(cs, dev, 0, True, "neumf"),
+    "lookup_bwd neumf ctx": lambda cs, dev: _wdl(cs, dev, 1, True, "neumf"),
+    **{f"pooled_stack {pd} {t}x{d}":
+       (lambda pd, t, d: lambda cs, dev: _pooled_stack(cs, dev, pd, d, t))(
+           pd, t, d)
+       for t, d in ((13, 64), (9, 16), (4, 8)) for pd in ("f32", "int8")},
+    "gather_rows query d64": lambda cs, dev: _k5(cs, dev, "f32", 64),
+    "dequant_gather_rows query d64": lambda cs, dev: _k5(cs, dev, "int8", 64),
+    "gather_rows query d8": lambda cs, dev: _k5(cs, dev, "f32", 8),
+    "dequant_gather_rows query d8": lambda cs, dev: _k5(cs, dev, "int8", 8),
 }
 
 
