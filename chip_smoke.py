@@ -47,6 +47,29 @@ Phases, in order; any failure exits non-zero:
    model's ``predict``; that the kernels' launch counters rose; and that
    one pooled read of the 26 tables is one K1 (f32) or one K6 (int8)
    launch.
+6b. Online (DLRM's bundle, full width): rebuild with ``cache_shards=2``
+   on the one card and serve the same requests as the unstriped server
+   (f32 and int8): equal predictions and launches, the pooled read still
+   one K1 / K6 launch and bit-exact, the cache query bit-exact, each
+   kernel on the stripes' flat view bit-exact to its plain version. Then,
+   striped f32 with a ``MessageBus`` and the bundle's ``refresh_budget``,
+   closed-loop ``submit`` traffic while a ``Producer`` publishes new rows
+   for the ``RUN.online_ids`` hottest ids of every table at versions
+   1..``RUN.online_versions``: each version's publish -> applied and ->
+   visible lag (``update_versions()`` reaches it and a probe batch's f32
+   L1 rows equal the published rows bit for bit), ``predict`` p50 with and
+   without the update stream, rows refreshed, the L1 hit rate, and
+   ``refresh_step``'s host and device time with a full backlog; the served
+   predictions against the plain path from the updated PDB
+   (``SERVE_TOL["f32"]``); an int8 L1 on the same bus catches up through
+   its own loop, its refreshed rows within half a quantization step of the
+   published ones and its predictions within ``SERVE_TOL["int8"]``; then
+   ``resize_caches`` to half the capacity keeps every hot row and serves
+   within the same bound. Full-width WDL and NeuMF (phases 7 and 8) take
+   one update version on their bundles the same way: each of their two or
+   three HPSes applies every message (``updates_applied`` = messages x
+   HPSes, as in the reference), and every HPS's f32 L1 reads the
+   published rows bit for bit.
 7. The other recipes: phases 4-6 for full-width ``wdl-criteo`` with no
    cut (26 tables at D 16 over 33,762,590 rows and their dim-1 wide twins,
    deep MLP 1024-1024-1), K1 and K3 launched for both collections every
@@ -116,7 +139,9 @@ TRAIN_TOL = 2e-2
 #: warm-up and timed steps, steps on the plain versions, learning rate;
 #: DCN's and DeepFM's timed steps and learning rate (at 1e-3 the first
 #: AdamW step lifts DCN's loss from 0.70 to 0.94, and six steps do not
-#: bring it back under the first)
+#: bring it back under the first); the online phase's hottest ids a table
+#: that each update rewrites, update versions, and requests served before
+#: the first update
 RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             batch=1024, warmup=4, requests=16, seed=0,
                             train_batch=4096, warm_steps=2, timed_steps=8,
@@ -128,7 +153,8 @@ RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             attn_bwd_local_seq=2500, lm_train_batch=1,
                             lm_train_warm=1, lm_train_timed=5,
                             lm_train_lr=3e-4,
-                            lm_check_layers=2)
+                            lm_check_layers=2, online_ids=4096,
+                            online_versions=4, online_quiet=48)
 #: K7 against its plain version: bf16 ``o`` (one bf16 ulp of |o| < 4,
 #: where the kernel's bf16 ``p`` and the plain f32 ``p`` round apart) and
 #: the f32 ``lse``; f32 inputs: the f32 sum-order bound
@@ -1396,6 +1422,481 @@ def serve_phase(args, ps_path, cfg, pdb, params, dev, payload_dtype,
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: DLRM's online path: the striped L1, online updates, resize
+# ---------------------------------------------------------------------------
+
+def launches_of(fn):
+    """``fn()`` and the kernel launches it made (differences of the
+    counts, so a caller's counting is left alone)."""
+    import torch
+    from repro_torch.kernels._build import LAUNCHES
+    before = LAUNCHES.snapshot()
+    out = fn()
+    torch.cuda.synchronize()
+    after = LAUNCHES.snapshot()
+    return out, {k: n - before.get(k, 0) for k, n in sorted(after.items())
+                 if n != before.get(k, 0)}
+
+
+def counted(total, fn):
+    """``fn()`` as a main path: the launch counts set to 0 just before it
+    and added to ``total`` just after."""
+    import torch
+    from repro_torch.kernels._build import LAUNCHES
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, n in LAUNCHES.snapshot().items():
+        total[k] = total.get(k, 0) + n
+    return out
+
+
+def striped_ps(ps_path: str, shards: int) -> str:
+    """A ps.json beside ``ps_path`` for the same bundle with its L1 striped
+    ``shards`` ways (the bundle's ``cache_shards``)."""
+    with open(ps_path) as f:
+        d = json.load(f)
+    d["cache_shards"] = shards
+    out = os.path.join(os.path.dirname(ps_path), f"ps_striped{shards}.json")
+    with open(out, "w") as f:
+        json.dump(d, f, indent=1)
+    return out
+
+
+def hot_ids(args, cfg) -> list:
+    """Each table's ``args.online_ids`` hottest ids (the Zipf draws are
+    frequency-ranked: id r is the r-th hottest), fewer where the
+    vocabulary is smaller."""
+    import numpy as np
+    return [np.arange(min(args.online_ids, t.vocab_size)) for t in cfg.tables]
+
+
+def probe_cat(args, cfg, hot) -> "np.ndarray":
+    """One ``[online_ids, T, 1]`` batch over every table's hot ids (a
+    table with fewer hot ids repeats them)."""
+    import numpy as np
+    n = args.online_ids
+    return np.stack([h[np.arange(n) % len(h)] for h in hot],
+                    axis=1)[:, :, None].astype(np.int32)
+
+
+def striped_check(args, ps, ps2, cfg, dev, payload_dtype, total):
+    """The same requests through the unstriped and the 2-way striped L1 on
+    the one card: equal predictions and launches, a pooled read of the 26
+    tables one K1 (f32) or K6 (int8) launch and bit-exact, the cache query
+    (K5 / K6) bit-exact; then each kernel on the stripes' flat view against
+    its plain version on the same card tensors."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_lookup import lookup_fwd_grouped_plain
+    from repro_torch.kernels.hps_gather import (
+        dequant_gather_grouped_plain, dequant_gather_rows_plain,
+        gather_rows_plain)
+    from repro_torch.launch.serve import build_server_from_config
+    f32 = payload_dtype == "f32"
+    pooled_k = "lookup_fwd" if f32 else "dequant_gather_rows"
+    query_k = "gather_rows" if f32 else "dequant_gather_rows"
+    flat, _ = build_server_from_config(ps, device=dev,
+                                       payload_dtype=payload_dtype)
+    striped, _ = build_server_from_config(ps2, device=dev,
+                                          payload_dtype=payload_dtype)
+    reqs = make_requests(args, cfg, args.warmup + 4, 3)
+    try:
+        check(all(c.shards == 2 for c in striped.hps.caches.values()),
+              "the striped bundle did not stripe the L1")
+
+        def serve():
+            per_batch = []
+            for dense, cat in reqs:
+                (a, la), (b, lb) = [launches_of(lambda s=s: s.predict(
+                    dense, cat)) for s in (flat, striped)]
+                check(np.array_equal(a, b), f"{payload_dtype}: striped "
+                      "predictions differ from the unstriped ones")
+                check(la == lb, f"{payload_dtype}: a striped batch "
+                      f"launched {lb}, the unstriped one {la}")
+                per_batch.append(lb)
+            cat = reqs[-1][1]
+            ids = cat[:, 0, 0].astype(np.int64)
+            out = []
+            for s in (flat, striped):
+                read, lr = launches_of(lambda: s.hps.lookup(cat))
+                check(lr == {pooled_k: 1}, f"{payload_dtype}: one pooled "
+                      f"read of 26 tables launched {lr}, want one "
+                      f"{pooled_k}")
+                rows, lq = launches_of(
+                    lambda: s.hps.caches[cfg.tables[0].name].query(ids))
+                check(lq == {query_k: 1}, f"{payload_dtype}: one cache "
+                      f"query launched {lq}, want one {query_k}")
+                out.append((read, rows))
+            check(torch.equal(out[0][0], out[1][0]) and torch.equal(
+                out[0][1], out[1][1]), f"{payload_dtype}: striped L1 reads "
+                "are not bit-exact to the unstriped ones")
+            return per_batch
+
+        per_batch = counted(total, serve)
+        # each kernel on the flat view against its plain version
+        cat = reqs[-1][1]
+        pays, slots = [], []
+        for ti, t in enumerate(cfg.tables):
+            cache = striped.hps.caches[t.name]
+            plan = cache.probe(cat[:, ti, 0].astype(np.int64))
+            snap = cache.commit(plan)
+            pays.append(ops.striped_view(snap))
+            slots.append(torch.from_numpy(ops.flatten_striped_slots(
+                snap[0], plan.slots.astype(np.int32)).reshape(-1, 1)).to(
+                    dev))
+        got = ops.grouped_pooled_lookup(pays, slots)
+        if f32:
+            want = lookup_fwd_grouped_plain([p for p, _ in pays], slots)
+            rows = ops.cache_gather(pays[0][0], slots[0].view(-1))
+            want_rows = gather_rows_plain(pays[0][0], slots[0].view(-1))
+        else:
+            want = dequant_gather_grouped_plain(
+                [p for p, _ in pays], [sc for _, sc in pays], slots)
+            rows = ops.cache_gather(pays[0][0], slots[0].view(-1),
+                                    scales=pays[0][1])
+            want_rows = dequant_gather_rows_plain(
+                pays[0][0], pays[0][1], slots[0].view(-1))
+        check(torch.equal(got, want) and torch.equal(rows, want_rows),
+              f"{payload_dtype}: a kernel on the striped flat view is not "
+              "bit-exact to its plain version")
+    finally:
+        flat.close()
+        striped.close()
+    print(f"online striped {payload_dtype}: {len(reqs)} batches served from "
+          "the unstriped and the 2-way striped L1 on one card: predictions "
+          "equal, launches per batch equal "
+          f"({per_batch[-1]}); one pooled read {{'{pooled_k}': 1}} and one "
+          f"query {{'{query_k}': 1}} a read, bit-exact to the unstriped "
+          "store; the kernels on the flat view bit-exact to their plain "
+          "versions")
+
+
+def online_phase(args, ps, cfg, pdb, params, dev, total):
+    """DLRM's online path, served from its bundle at full width on the one
+    card: the striped L1 against the unstriped one (f32 and int8); then,
+    on a 2-way striped f32 L1 with a ``MessageBus``, ``submit`` traffic
+    while a ``Producer`` publishes new rows for every table's hottest ids
+    at versions 1..N: each version's publish -> visible lag, the ``predict``
+    p50 with and without the update stream, the rows refreshed, the L1
+    hit rate and ``refresh_step``'s host and device time with a full
+    backlog; the served predictions against the plain path from the
+    updated PDB; an int8 L1 on the same bus requantizes its refreshed rows
+    from the f32 lower levels; and ``resize_caches`` to half the capacity
+    keeps the hottest rows. Adds the launches of its served paths to
+    ``total``."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core.hps.message_bus import MessageBus, Producer
+    from repro_torch.launch.serve import build_server_from_config
+
+    ps2 = striped_ps(ps, 2)
+    for pd in ("f32", "int8"):
+        striped_check(args, ps, ps2, cfg, dev, pd, total)
+
+    bus = MessageBus()
+    server, _ = build_server_from_config(ps2, device=dev, bus=bus)
+    server8, _ = build_server_from_config(ps2, device=dev, bus=bus,
+                                          payload_dtype="int8")
+    hps = server.hps
+    hot = hot_ids(args, cfg)
+    probe = probe_cat(args, cfg, hot)
+    reqs = make_requests(args, cfg, 16, 4)
+    warm = make_requests(args, cfg, args.warmup, 1)
+    rng = np.random.default_rng((args.seed, 21))
+    published = []                   # per version: [rows of each table]
+    lags = []
+    records = []                     # (done time, latency ms)
+    stop = threading.Event()
+    errors = []
+
+    def traffic():
+        """Closed-loop requests through ``submit``: one in flight."""
+        try:
+            for dense, cat in itertools.cycle(reqs):
+                if stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                out = server.submit(dense, cat).get(timeout=600)
+                if isinstance(out, Exception):
+                    raise out
+                records.append((time.perf_counter(), 1e3 * (
+                    time.perf_counter() - t0)))
+        except Exception as exc:     # surfaced by the main thread
+            errors.append(exc)
+
+    def p50(t_lo, t_hi):
+        ms = [m for t, m in records if t_lo <= t < t_hi]
+        return (float(np.percentile(ms, 50)), len(ms)) if ms else \
+            (float("nan"), 0)
+
+    def hit_counts(h):
+        c = [c.counters() for c in h.caches.values()]
+        return sum(x["hits"] for x in c), sum(x["misses"] for x in c)
+
+    def expected(version_rows):
+        """The probe batch's rows of one version, ``[n, T, D]`` on the
+        card."""
+        n = args.online_ids
+        return torch.from_numpy(np.stack(
+            [r[np.arange(n) % len(r)] for r in version_rows],
+            axis=1)).to(dev)
+
+    try:
+        # both windows below see the same warm L1: the traffic's requests
+        # and every hot id are resident before the first measured request
+        for s in (server, server8):
+            for dense, cat in warm + reqs:
+                s.predict(dense, cat)
+            s.hps.lookup(probe)
+        resident = sum(int(np.isin(h, hps.caches[t.name].resident_ids())
+                           .sum()) for h, t in zip(hot, cfg.tables))
+
+        def updates():
+            server.start()
+            worker = threading.Thread(target=traffic, daemon=True)
+            worker.start()
+            h0 = hit_counts(hps)
+            t_quiet = time.perf_counter()
+            while len(records) < args.online_quiet and not errors and \
+                    worker.is_alive():
+                time.sleep(0.005)
+            t_upd = time.perf_counter()
+            h1 = hit_counts(hps)
+            prod = Producer(bus, cfg.name, max_batch_rows=1 << 30)
+            for v in range(1, args.online_versions + 1):
+                rows = [(rng.standard_normal((len(h), cfg.embedding_dim))
+                         * 0.3).astype(np.float32) for h in hot]
+                want = expected(rows)
+                for t, h, r in zip(cfg.tables, hot, rows):
+                    prod.send(t.name, h, r)
+                t_pub = time.perf_counter()
+                prod.flush(version=v)
+                t_applied = None
+                # cheap polls (versions, backlog) until the loop has
+                # drained the version, then a probe read to confirm: the
+                # lag runs to the end of the first probe that matches
+                while not errors:
+                    check(time.perf_counter() - t_pub < 300, f"update "
+                          f"version {v} not visible within 300 s")
+                    seen = server.update_versions()
+                    if t_applied is None and all(
+                            seen.get(t.name, 0) >= v for t in cfg.tables):
+                        t_applied = time.perf_counter()
+                    if t_applied is not None and \
+                            not hps.refresh_backlog() and \
+                            torch.equal(hps.lookup(probe), want):
+                        break
+                    time.sleep(0.001)
+                lags.append((1e3 * (t_applied - t_pub),
+                             1e3 * (time.perf_counter() - t_pub)))
+                published.append(rows)
+            t_done = time.perf_counter()
+            n_done = len(records)
+            while len(records) < n_done + 4 and not errors and \
+                    worker.is_alive():
+                time.sleep(0.005)       # a few requests after convergence
+            stop.set()
+            worker.join(timeout=600)
+            server.stop()
+            check(not errors, f"online traffic failed: {errors[:1]}")
+            check(not worker.is_alive(), "online traffic did not stop")
+            return h0, h1, t_quiet, t_upd, t_done
+
+        h0, h1, t_quiet, t_upd, t_done = counted(total, updates)
+        quiet, n_quiet = p50(t_quiet, t_upd)
+        busy, n_busy = p50(t_upd, t_done)
+        counters = server.counters()
+        # the quiet window's traffic alone (the probes of the update
+        # window read hot rows)
+        hit = (h1[0] - h0[0]) / max(1, (h1[0] - h0[0]) + (h1[1] - h0[1]))
+
+        # refresh_step with a full backlog: host wall and device time
+        def step():
+            hps.refresh_step(server.refresh_budget)
+            torch.cuda.synchronize()
+
+        hps.schedule_refresh()
+        step_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        profile(f"dlrm-criteo refresh_step ({len(cfg.tables)} x "
+                f"{server.refresh_budget} rows, full backlog)", step)
+
+        # the updated PDB is the reference now
+        for t, h, r in zip(cfg.tables, hot, published[-1]):
+            check(np.array_equal(pdb.fetch(cfg.name, t.name, h), r),
+                  f"{t.name}: the PDB does not hold the last update")
+        check(torch.equal(hps.lookup(probe), expected(published[-1])),
+              "the f32 L1 does not hold the last update")
+        err = max(float(np.abs(server.predict(d, c) - plain_predict(
+            cfg, pdb, params, dev, d, c)[0]).max()) for d, c in reqs[:4])
+        check(err <= SERVE_TOL["f32"], f"online f32: served predictions "
+              f"deviate {err} from the plain path on the updated PDB "
+              f"(bound {SERVE_TOL['f32']})")
+
+        # the int8 L1 on the same bus: its loop applies every version and
+        # requantizes the refreshed rows from the f32 lower levels
+        def int8_catch_up():
+            server8.start()
+            t0 = time.perf_counter()
+            for dense, cat in itertools.cycle(reqs):
+                out = server8.submit(dense, cat).get(timeout=600)
+                if isinstance(out, Exception):
+                    raise out
+                seen = server8.update_versions()
+                if all(seen.get(t.name, 0) >= args.online_versions
+                       for t in cfg.tables) and \
+                        not server8.hps.refresh_backlog():
+                    break
+                check(time.perf_counter() - t0 < 300, "the int8 L1 did "
+                      "not catch up within 300 s")
+            server8.stop()
+            return 1e3 * (time.perf_counter() - t0)
+
+        ms8 = counted(total, int8_catch_up)
+        want = expected(published[-1])
+        got8 = server8.hps.lookup(probe)
+        step8 = want.abs().amax(dim=2, keepdim=True) / 127.0
+        check(bool(((got8 - want).abs() <= step8 / 2 + 1e-6).all()),
+              "online int8: refreshed rows exceed half a quantization step "
+              "of the published f32 rows")
+        err8 = max(float(np.abs(server8.predict(d, c) - plain_predict(
+            cfg, pdb, params, dev, d, c)[0]).max()) for d, c in reqs[:4])
+        check(err8 <= SERVE_TOL["int8"], f"online int8: served predictions "
+              f"deviate {err8} from the plain path on the updated PDB "
+              f"(bound {SERVE_TOL['int8']})")
+        counters8 = server8.counters()
+
+        # resize to half the capacity: the hottest rows stay
+        half = args.cache_capacity // 2
+        occupied = [len(hps.caches[t.name].resident_ids())
+                    for t in cfg.tables]
+        kept = hps.resize_caches(half)
+        want_kept = sum(min(o, half) for o in occupied)
+        check(kept == want_kept, f"resize kept {kept} rows, want "
+              f"{want_kept}")
+        check(all(np.isin(h, hps.caches[t.name].resident_ids()).all()
+                  for h, t in zip(hot, cfg.tables)),
+              "resize evicted one of the hottest rows")
+
+        def after_resize():
+            return [server.predict(d, c) for d, c in reqs[:4]]
+
+        preds = counted(total, after_resize)
+        err_r = max(float(np.abs(p - plain_predict(
+            cfg, pdb, params, dev, d, c)[0]).max())
+            for p, (d, c) in zip(preds, reqs[:4]))
+        check(err_r <= SERVE_TOL["f32"], f"after resize: served predictions "
+              f"deviate {err_r} from the plain path (bound "
+              f"{SERVE_TOL['f32']})")
+    finally:
+        stop.set()
+        server.close()
+        server8.close()
+    print(f"online dlrm-criteo on {torch.cuda.get_device_name(0)}: 2-way "
+          f"striped f32 L1, refresh_budget {server.refresh_budget}; "
+          f"{args.online_versions} versions of {args.online_ids} hottest "
+          f"ids x {len(cfg.tables)} tables ({resident} of "
+          f"{sum(len(h) for h in hot)} resident) under closed-loop submit "
+          "traffic; publish -> applied / visible ms: "
+          + ", ".join(f"v{i + 1} {a:.1f} / {b:.1f}"
+                      for i, (a, b) in enumerate(lags))
+          + f"; request p50 through submit (one in flight) {quiet:.2f} ms "
+          f"quiet ({n_quiet} requests), {busy:.2f} ms under updates "
+          f"({n_busy}); rows refreshed "
+          f"{counters['rows_refreshed']}, updates applied "
+          f"{counters['updates_applied']}; L1 hit rate {hit:.4f} (quiet "
+          "window); "
+          f"refresh_step host wall ms (full backlog, {len(cfg.tables)} "
+          f"x {server.refresh_budget} rows): "
+          + ", ".join(f"{m:.2f}" for m in step_ms)
+          + f"; max |p - plain| on the updated PDB {err:.3g} (bound "
+          f"{SERVE_TOL['f32']}); int8 L1 caught up in {ms8:.0f} ms, "
+          f"{counters8['rows_refreshed']} rows requantized, max |p - plain| "
+          f"{err8:.3g} (bound {SERVE_TOL['int8']}); resize to {half}: kept "
+          f"{kept} rows, every hot id resident, max |p - plain| "
+          f"{err_r:.3g}")
+
+
+def online_fanout(args, ps, cfg, pdb, params, dev, total):
+    """One update version on a bundle served by several HPSes (a wide
+    model's two, an N-group model's one a group): new rows for the
+    ``args.online_ids`` hottest ids of every table, published on a
+    ``MessageBus`` while the server's loop runs. Each HPS's consumer
+    writes EVERY message to its L2/L3 and marks only its own L1, as the
+    reference's does, so ``updates_applied`` is messages x HPSes; every
+    HPS's f32 L1 then reads the published rows of its own tables bit for
+    bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hps.message_bus import MessageBus, Producer
+    from repro_torch.launch.serve import build_server_from_config
+    bus = MessageBus()
+    server, _ = build_server_from_config(ps, device=dev, bus=bus)
+    hpses = server._hpses()
+    sets = table_sets(cfg)
+    n = args.online_ids
+    cols = cfg.all_tables
+    probe = np.stack([np.arange(n) % min(n, t.vocab_size) for t in cols],
+                     axis=1)[:, :, None].astype(np.int32)
+    rng = np.random.default_rng((args.seed, 22))
+    rows = {t.name: (rng.standard_normal((min(n, t.vocab_size), t.dim))
+                     * 0.3).astype(np.float32)
+            for _, ts, _ in sets for t in ts}
+    try:
+        for dense, cat in make_requests(args, cfg, args.warmup, 1):
+            server.predict(dense, cat)
+        prod = Producer(bus, cfg.name, max_batch_rows=1 << 30)
+        for name, r in rows.items():
+            prod.send(name, np.arange(len(r)), r)
+
+        def run():
+            server.start()
+            t0 = time.perf_counter()
+            prod.flush(version=1)
+            while True:
+                seen = server.update_versions()
+                if all(seen.get(k, 0) >= 1 for k in rows) and not any(
+                        h.refresh_backlog() for _, h in hpses):
+                    break
+                check(time.perf_counter() - t0 < 300, f"{cfg.name}: the "
+                      "update was not applied within 300 s")
+                time.sleep(0.002)
+            server.stop()
+            return 1e3 * (time.perf_counter() - t0)
+
+        ms = counted(total, run)
+        counters = server.counters()
+        want_applied = len(rows) * len(hpses)
+        check(counters["updates_applied"] == want_applied,
+              f"{cfg.name}: {counters['updates_applied']} updates applied, "
+              f"want {want_applied} ({len(rows)} messages x {len(hpses)} "
+              "HPSes)")
+        for (key, h), (_, ts, (lo, _)) in zip(hpses, sets):
+            got = h.lookup(server._group_cat(probe, key))
+            want = np.stack([rows[t.name][probe[:, lo + i, 0]]
+                             for i, t in enumerate(ts)], axis=1)
+            check(torch.equal(got, torch.from_numpy(want).to(dev)),
+                  f"{cfg.name}: the f32 L1 of the {len(ts)} x D "
+                  f"{ts[0].dim} HPS does not read the published rows")
+    finally:
+        server.close()
+    print(f"online fan-out {cfg.name}: {len(rows)} messages (one version, "
+          f"the {n} hottest ids of every table) through {len(hpses)} "
+          f"HPSes: updates applied {counters['updates_applied']} (= "
+          f"messages x HPSes: each HPS writes every table to its L2/L3, as "
+          f"the reference's), rows refreshed {counters['rows_refreshed']}, "
+          f"applied and refreshed in {ms:.0f} ms under the serving loop; "
+          "every HPS's f32 L1 bit-exact to the published rows")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: serve full-width minitron-4b: prefill, then KV-cache decode
 # ---------------------------------------------------------------------------
 
@@ -1738,10 +2239,13 @@ def lm_train_phase(args, dev, cfg):
     return launches
 
 
-def recipe_run(args, dev, cfg, timed_steps, payloads, submit, total):
+def recipe_run(args, dev, cfg, timed_steps, payloads, submit, total,
+               online=None):
     """Train ``cfg`` (:func:`train_phase`), deploy it, rebuild the server
     from ``ps.json`` and serve it with each L1 payload type of
-    ``payloads``; adds the main paths' launch counts to ``total``."""
+    ``payloads``, then run ``online`` (:func:`online_phase` or
+    :func:`online_fanout`) on the same bundle; adds the main paths' launch
+    counts to ``total``."""
     import torch
     bundle_dir = os.path.join(ROOT, "_smoke_bundle")
     shutil.rmtree(bundle_dir, ignore_errors=True)
@@ -1756,6 +2260,8 @@ def recipe_run(args, dev, cfg, timed_steps, payloads, submit, total):
                                       trained=model, submit=submit)
             for k, n in launches.items():
                 total[k] = total.get(k, 0) + n
+        if online is not None:
+            online(args, ps, cfg, pdb, params, dev, total)
     finally:
         shutil.rmtree(bundle_dir, ignore_errors=True)
     del model, params, pdb
@@ -1791,7 +2297,8 @@ def full_line(cfg) -> str:
 
 def recsys_phases(args, dev):
     """Phases 4-6 (DLRM, its vocabulary capped: train, deploy, serve
-    through submit with f32 and int8 L1), then phase 7: WDL at full width
+    through submit with f32 and int8 L1) and 6b (its online path), then
+    phase 7 (with 6b's fan-out count for the full-width recipes): WDL at full width
     and vocabulary through the same, on two HPSes, then DCN and DeepFM
     (capped) through fit, deploy, rebuild and predict (f32); then phase 8:
     NeuMF at full width and vocabulary through the same as WDL, on three
@@ -1802,7 +2309,7 @@ def recsys_phases(args, dev):
     print(reduced_line(args, dlrm,
                        recipe_config(args, "dlrm-criteo", capped=False)))
     recipe_run(args, dev, dlrm, args.timed_steps, ("f32", "int8"), True,
-               total)
+               total, online=online_phase)
     short = types.SimpleNamespace(**{**vars(args), "lr": args.recipe_lr})
     for full, capped in (("wdl-criteo", ("dcn-criteo", "deepfm-criteo")),
                          ("neumf-criteo", ("twotower-criteo",
@@ -1810,7 +2317,7 @@ def recsys_phases(args, dev):
         cfg = recipe_config(args, full, capped=False)
         print(full_line(cfg))
         recipe_run(args, dev, cfg, args.timed_steps, ("f32", "int8"), True,
-                   total)
+                   total, online=online_fanout)
         for arch in capped:
             cfg = recipe_config(args, arch, capped=True)
             print(reduced_line(args, cfg,

@@ -695,13 +695,17 @@ class Model:
         return split_params(self._params)[1]
 
     def deploy(self, directory: str, *, cache_capacity: int = 4096,
-               max_batch: int = 1024, payload_dtype: str = "f32"):
+               cache_shards: int = 1, refresh_budget: int = 512,
+               max_batch: int = 1024, payload_dtype: str = "f32",
+               vdb=None, bus=None):
         """Write the serving bundle (``pdb/`` with every table: the
         ``*_wide`` twins of a wide model and every extra group's tables
         included; ``graph.json``, ``dense.npz``, ``ps.json`` with ``wide``
-        set for a wide model) and return an ``InferenceServer`` rebuilt
-        from it on this model's device, one HPS per table set. Either
-        package's ``build_server_from_config`` serves the bundle."""
+        set for a wide model, the L1 striping ``cache_shards`` and the
+        ``refresh_budget``) and return an ``InferenceServer`` rebuilt
+        from it on this model's device, one HPS per table set, over the
+        given VolatileDB and message bus. Either package's
+        ``build_server_from_config`` serves the bundle."""
         if self._params is None:
             raise RuntimeError("fit() or load() before deploy()")
         from repro_torch.launch.serve import build_server_from_config
@@ -710,10 +714,13 @@ class Model:
         for key, coll in self._model.collections().items():
             tables.update(coll.logical_tables(self._params[key]))
         write_bundle(directory, self, self.dense_params(), tables,
-                     cache_capacity=cache_capacity, max_batch=max_batch,
+                     cache_capacity=cache_capacity,
+                     cache_shards=cache_shards,
+                     refresh_budget=refresh_budget, max_batch=max_batch,
                      payload_dtype=payload_dtype)
         server, _ = build_server_from_config(
-            os.path.join(directory, "ps.json"), device=self.device)
+            os.path.join(directory, "ps.json"), device=self.device,
+            vdb=vdb, bus=bus)
         return server
 
     def graph_dict(self) -> Dict:

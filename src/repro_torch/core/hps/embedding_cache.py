@@ -15,8 +15,13 @@ takes the cache lock next flushes a deferred scatter, so the index and
 the payload agree whenever the lock is held, and every plan's snapshot
 binds before a later query can evict the slots it reads.
 
-Online-update refresh and capacity resize come with the refresh slice
-(ROADMAP item "The rest of the serving engine").
+Refresh is hotness-scheduled, as in the reference: online updates (or a
+poll cycle) mark resident rows dirty; ``refresh_chunk`` claims up to a
+per-cycle budget of the dirtiest-and-hottest rows (the LFU counters order
+the backlog), re-pulls them from the lower levels with the lock released,
+and scatters only rows whose id->slot binding survived, so refresh
+interleaves with serving instead of stopping the world. ``resize``
+rebuilds the cache at another capacity, keeping the hottest rows.
 """
 from __future__ import annotations
 
@@ -46,25 +51,36 @@ class LookupPlan:
 
 class DeviceEmbeddingCache:
 
-    # every listed attribute is touched only under self._lock
+    # every listed attribute is touched only under self._lock; fetch_fn
+    # is the injected L2/L3 fall-through, which takes the VDB/PDB locks
+    # and the HPS L3 counters' lock (declared for the lock-order pass)
     _GUARDED_BY = {
         "_id_of": "_lock", "_freq": "_lock", "_next_free": "_lock",
         "_sorted_ids": "_lock", "_sorted_slots": "_lock",
         "_pending": "_lock", "_pending_plan": "_lock",
-        "hits": "_lock", "misses": "_lock",
+        "_dirty": "_lock", "hits": "_lock", "misses": "_lock",
+        "rows_refreshed": "_lock", "refresh_chunks": "_lock",
+    }
+    _LOCKS_OF = {
+        "fetch_fn": ("VolatileDB._lock", "PersistentDB._lock",
+                     "HPS._l3_stats_lock"),
     }
 
     def __init__(self, capacity: int, dim: int, *,
                  fetch_fn: Callable[[np.ndarray], np.ndarray],
-                 decay: float = 0.99, shards: int = 1,
+                 decay: float = 0.99, shards: int = 1, mesh=None,
+                 refresh_chunk_rows: int = 1024,
                  payload_dtype: str = "f32", device: DeviceLike = None):
-        """``fetch_fn(missing_ids) -> rows`` pulls from VDB/PDB."""
+        """``fetch_fn(missing_ids) -> rows`` pulls from VDB/PDB.
+        ``shards`` stripes the payload (``payload_store``);
+        ``refresh_chunk_rows`` is the default refresh budget a chunk."""
         self.capacity = capacity
         self.dim = dim
         self.fetch_fn = fetch_fn
         self.decay = decay
         self.payload_dtype = payload_dtype
         self._store = ShardedPayloadStore(capacity, dim, shards=shards,
+                                          mesh=mesh,
                                           payload_dtype=payload_dtype,
                                           device=device)
         self.device = self._store.device
@@ -77,7 +93,18 @@ class DeviceEmbeddingCache:
         self.misses = 0
         self._pending: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._pending_plan: Optional[LookupPlan] = None
+        # refresh scheduler state
+        self._dirty = np.zeros(capacity, bool)
+        self.refresh_chunk_rows = refresh_chunk_rows
+        self.rows_refreshed = 0
+        self.refresh_chunks = 0
         self._lock = threading.RLock()
+        self._refresh_thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    @property
+    def shards(self) -> int:
+        return self._store.shards
 
     @property
     def payload(self):
@@ -103,6 +130,11 @@ class DeviceEmbeddingCache:
         order = np.argsort(occ, kind="stable").astype(np.int64)
         self._sorted_ids = occ[order]
         self._sorted_slots = order
+
+    def resident_ids(self) -> np.ndarray:
+        """Ids currently resident in the cache (sorted)."""
+        with self._lock:
+            return self._sorted_ids.copy()
 
     # -- two-stage query ---------------------------------------------------------
 
@@ -203,6 +235,7 @@ class DeviceEmbeddingCache:
             self._next_free = n_occ + free
             self._id_of[dest] = miss_ids[sel]
             self._freq[dest] = counts[miss][sel].astype(np.float64)
+            self._dirty[dest] = False      # fresh from the lower levels
             self._rebuild_index_locked()
             if ins:  # the ONE device scatter, deferred to commit()
                 self._pending = (dest, rows[sel])
@@ -235,13 +268,157 @@ class DeviceEmbeddingCache:
                                device=self.device)
         bucket = 1 << (n - 1).bit_length()
         spad = np.pad(slots, (0, bucket - n), constant_values=-1)
-        spad_t = torch.from_numpy(spad.astype(np.int32)).to(self.device)
-        out = self._store.gather(payload, spad_t)[:n]
+        out = self._store.gather(payload, spad.astype(np.int32))[:n]
         if len(ov_idx):  # rare: batch exceeded evictable capacity
             out[torch.from_numpy(ov_idx).to(self.device)] = \
                 torch.from_numpy(ov_rows).to(self.device)
         return out
 
-    def counters(self) -> dict:
+    # -- hotness-scheduled refresh (propagation of online updates) ---------------
+
+    def mark_dirty(self, ids: np.ndarray) -> int:
+        """Schedule resident rows among ``ids`` for refresh (the lower
+        levels changed under them). Returns how many were resident."""
+        ids = np.unique(np.asarray(ids, np.int64))
         with self._lock:
-            return {"hits": self.hits, "misses": self.misses}
+            slots = self._find_locked(ids)
+            slots = slots[slots >= 0]
+            self._dirty[slots] = True
+            return len(slots)
+
+    def mark_all_dirty(self) -> int:
+        """Schedule every resident row (the poll-cycle fallback when no
+        update stream says which rows changed)."""
+        with self._lock:
+            n = self._next_free
+            self._dirty[:n] = True
+            return n
+
+    def refresh_backlog(self) -> int:
+        """Rows currently scheduled for refresh."""
+        with self._lock:
+            return int(self._dirty[:self._next_free].sum())
+
+    def refresh_chunk(self, budget: Optional[int] = None) -> int:
+        """Refresh up to ``budget`` scheduled rows, hottest first.
+
+        Claims the selected rows (clears their dirty bit) under the lock,
+        re-pulls them from the lower levels with the lock RELEASED (the
+        slow IO never blocks serving), then scatters only rows whose
+        id->slot binding survived the interim; an update that lands
+        mid-fetch re-marks the row, so the next chunk repairs it. Returns
+        the number of rows refreshed on the device."""
+        budget = self.refresh_chunk_rows if budget is None else budget
+        if budget <= 0:
+            return 0
+        with self._lock:
+            self._flush_pending_locked()
+            occ = self._next_free
+            cand = np.nonzero(self._dirty[:occ])[0]
+            if len(cand) == 0:
+                return 0
+            if len(cand) > budget:
+                hot = np.argpartition(-self._freq[cand], budget - 1)
+                cand = cand[hot[:budget]]
+            slots = np.sort(cand).astype(np.int64)
+            self._dirty[slots] = False            # claimed
+            ids = self._id_of[slots].copy()
+        rows = np.asarray(self.fetch_fn(ids), np.float32)   # slow IO
+        with self._lock:
+            keep = self._find_locked(ids) == slots  # binding may have moved
+            kept = int(keep.sum())
+            if kept:
+                self._scatter_locked(slots[keep], rows[keep])
+            self.rows_refreshed += kept
+            self.refresh_chunks += 1
+            return kept
+
+    def refresh_once(self, chunk: Optional[int] = None) -> int:
+        """Re-pull every resident row from the lower levels, in
+        hotness-ordered bounded chunks (the full-repull convenience)."""
+        marked = self.mark_all_dirty()
+        if marked == 0:
+            return 0
+        chunk = chunk or self.refresh_chunk_rows
+        total = 0
+        # enough rounds to drain what was just marked; rows re-marked
+        # concurrently are the next cycle's work
+        for _ in range(-(-marked // chunk) + 1):
+            if self.refresh_backlog() == 0:
+                break
+            total += self.refresh_chunk(chunk)
+        return total
+
+    # -- capacity rebalance ------------------------------------------------------
+
+    def resize(self, new_capacity: int) -> int:
+        """Rebuild the cache at ``new_capacity``, keeping the hottest
+        resident rows (the LFU counters order the survivors); returns how
+        many were kept. A rare control-plane operation. The survivors are
+        re-pulled from the lower levels, so compressed payloads requantize
+        from full-precision rows, never from their own rounded ones."""
+        if new_capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {new_capacity}")
+        if self._store.shards > new_capacity:
+            raise ValueError(
+                f"new_capacity={new_capacity} is below the store's "
+                f"shard count {self._store.shards}")
+        with self._lock:
+            if new_capacity == self.capacity:
+                return self._next_free
+            self._flush_pending_locked()
+            n_occ = self._next_free
+            keep = min(n_occ, new_capacity)
+            ids = freqs = rows = None
+            if keep:
+                hot = np.argsort(-self._freq[:n_occ],
+                                 kind="stable")[:keep].astype(np.int64)
+                ids = self._id_of[hot].copy()
+                freqs = self._freq[hot].copy()
+                # lock-ok: LOCK002 resize is a rare control-plane op; re-pulling survivors under the lock keeps index and payload atomic
+                rows = np.asarray(self.fetch_fn(ids), np.float32)
+            self._store = ShardedPayloadStore(
+                new_capacity, self.dim, shards=self._store.shards,
+                payload_dtype=self.payload_dtype, device=self.device)
+            self.capacity = new_capacity
+            self._id_of = np.full(new_capacity, -1, np.int64)
+            self._freq = np.zeros(new_capacity, np.float64)
+            self._dirty = np.zeros(new_capacity, bool)
+            self._next_free = keep
+            if keep:
+                dest = np.arange(keep, dtype=np.int64)
+                self._id_of[dest] = ids
+                self._freq[dest] = freqs
+                self._scatter_locked(dest, rows)
+            self._rebuild_index_locked()
+            return keep
+
+    def start_refresh(self, interval_s: float):
+        """Run :meth:`refresh_once` every ``interval_s`` seconds on a
+        thread of its own, until :meth:`stop_refresh`."""
+        def loop():
+            while not self._stop.wait(interval_s):
+                self.refresh_once()
+        self._refresh_thread = threading.Thread(target=loop, daemon=True)
+        self._refresh_thread.start()
+
+    def stop_refresh(self):
+        self._stop.set()
+        if self._refresh_thread:
+            self._refresh_thread.join()
+            self._refresh_thread = None
+        self._stop.clear()
+
+    def counters(self) -> dict:
+        """Lock-consistent snapshot of the serving counters."""
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "rows_refreshed": self.rows_refreshed,
+                    "refresh_chunks": self.refresh_chunks}
+
+    @property
+    def hit_rate(self) -> float:
+        with self._lock:
+            hits, misses = self.hits, self.misses
+        n = hits + misses
+        return hits / n if n else 0.0

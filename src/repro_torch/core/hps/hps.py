@@ -9,12 +9,19 @@ stage (the one payload scatter + the slot block's transfer); the pooled
 (one K1 launch, or one K6 for int8 payloads). ``pipelined=True``
 double-buffers the two stages on host workers (table *t+1* probes while
 table *t* scatters), and ``lookup_stream`` extends the pipeline across
-queries. Every plan gathers from its own payload snapshot (see
+queries; ``lookup_stage_sync`` is the no-overlap engine the others are
+compared with. Every plan gathers from its own payload snapshot (see
 ``payload_store``), so all engines give identical results.
 
-Online updates (the message bus, dirty marking, refresh) and the striped
-multi-device L1 are later slices (ROADMAP items "The rest of the serving
-engine" and "Multi-GPU").
+With ``cache_shards=N`` the caches stripe their payloads on the one
+device; the device stage remaps each slot block onto the stripes' flat
+view on the host, so the pooled read stays one launch.
+
+Online updates: the ``bus`` Consumer applies trainer messages to L2/L3
+and marks the touched L1 rows dirty (``apply_updates``); the
+hotness-scheduled refresh (``refresh_step``, driven by the serving loop,
+see ``serve.server``) then re-pulls them in bounded chunks, hot rows
+first.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import EmbeddingTableConfig
 from repro_torch.core.hps.embedding_cache import DeviceEmbeddingCache, LookupPlan
+from repro_torch.core.hps.message_bus import Consumer, MessageBus
 from repro_torch.core.hps.persistent_db import PersistentDB
 from repro_torch.core.hps.volatile_db import VolatileDB
 from repro_torch.device import DeviceLike, resolve_device
@@ -57,8 +65,8 @@ def _pooled_stack(payloads: Sequence[tuple], slots: Sequence[torch.Tensor],
 
 class HPS:
 
-    # the L3 counters have their own lock (probe fetches race), the lazy
-    # host pool is built under _pool_lock
+    # the L3 counters have their own lock (probe and refresh fetches
+    # race), the lazy host pool is built under _pool_lock
     _GUARDED_BY = {
         "_l3_fetch_calls": "_l3_stats_lock",
         "_l3_fetch_rows": "_l3_stats_lock",
@@ -70,7 +78,9 @@ class HPS:
                  pdb: PersistentDB, *,
                  vdb: Optional[VolatileDB] = None,
                  cache_capacity: int = 4096,
-                 cache_shards: int = 1,
+                 bus: Optional[MessageBus] = None,
+                 cache_shards: int = 1, cache_mesh=None,
+                 refresh_chunk_rows: int = 1024,
                  payload_dtype: str = "f32",
                  device: DeviceLike = None):
         self.model_name = model_name
@@ -91,7 +101,9 @@ class HPS:
             self.caches[t.name] = DeviceEmbeddingCache(
                 min(cache_capacity, t.vocab_size), t.dim,
                 fetch_fn=self._make_fetch(t.name), shards=cache_shards,
+                mesh=cache_mesh, refresh_chunk_rows=refresh_chunk_rows,
                 payload_dtype=payload_dtype, device=self.device)
+        self.consumer = Consumer(bus, model_name) if bus else None
         self._host_pool: Optional[ThreadPoolExecutor] = None
         self._pool_lock = threading.Lock()
         #: the lookahead the adaptive ``lookup_stream`` last settled on
@@ -200,10 +212,15 @@ class HPS:
     def _device_stage(self, ti: int, plan: LookupPlan, b: int, bp: int,
                       h: int) -> Tuple[torch.Tensor, tuple]:
         """Flush the plan's deferred scatter, bind its snapshot, and ship
-        the slot block (int32, padded to ``bp`` rows with -1)."""
+        the slot block (int32, padded to ``bp`` rows with -1). A striped
+        snapshot goes out as its flat view, the slots remapped onto it
+        here on the host."""
         payload = self.caches[self.tables[ti].name].commit(plan)
         slots = np.pad(plan.slots.reshape(b, h), ((0, bp - b), (0, 0)),
                        constant_values=-1).astype(np.int32)
+        if self.cache_shards > 1:
+            slots = ops.flatten_striped_slots(payload[0], slots)
+            payload = ops.striped_view(payload)
         return torch.from_numpy(slots).to(self.device), payload
 
     def _collect_plan(self, ti: int, plan: LookupPlan, b: int, bp: int,
@@ -282,6 +299,37 @@ class HPS:
                 self._collect_plan(ti, self._probe(ti, blocks), b, bp,
                                    blocks, slot_blocks, payloads, overflow)
         return self._finalize(payloads, slot_blocks, blocks, overflow, b)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def lookup_stage_sync(self, cat: np.ndarray,
+                          hotness: Optional[List[int]] = None
+                          ) -> torch.Tensor:
+        """Fully stage-synchronous lookup: wait for each table's device
+        scatter before the next host probe, and for the pooled read before
+        returning; no overlap of any kind. The no-overlap engine the
+        pipelined ones are compared with; the same result as
+        :meth:`lookup`."""
+        cat = np.asarray(cat)
+        blocks = self._split_query(cat, hotness)
+        self._check_dims()
+        b = cat.shape[0]
+        if b == 0:
+            return torch.zeros((0, len(self.tables), self.tables[0].dim),
+                               dtype=torch.float32, device=self.device)
+        bp = 1 << (b - 1).bit_length()
+        slot_blocks: List[torch.Tensor] = []
+        payloads: List[tuple] = []
+        overflow: List[Overflow] = []
+        for ti in range(len(self.tables)):
+            self._collect_plan(ti, self._probe(ti, blocks), b, bp, blocks,
+                               slot_blocks, payloads, overflow)
+            self._sync()                            # no overlap
+        out = self._finalize(payloads, slot_blocks, blocks, overflow, b)
+        self._sync()
+        return out
 
     def _timed_probe(self, ti: int, blocks: List[np.ndarray],
                      rec: List[float]) -> LookupPlan:
@@ -373,6 +421,60 @@ class HPS:
                 for f in futs:
                     f.cancel()
 
+    # -- online updates -------------------------------------------------------------
+
+    def apply_updates(self) -> int:
+        """Poll the message bus into VDB+PDB and schedule the touched L1
+        rows for refresh (the hotness scheduler drains them). As in the
+        reference, every table of the model goes to L2/L3, and only this
+        HPS's own tables are marked dirty; returns #messages applied."""
+        if self.consumer is None:
+            return 0
+
+        def apply(table, ids, rows):
+            self.pdb.upsert(self.model_name, table, ids, rows)
+            self.vdb.insert(self._vdb_key(table), ids, rows)
+            cache = self.caches.get(table)
+            if cache is not None:
+                cache.mark_dirty(ids)
+
+        return self.consumer.poll(apply)
+
+    def schedule_refresh(self) -> int:
+        """Mark every resident L1 row stale (the poll-cycle fallback when
+        no update stream identifies the changed rows)."""
+        return sum(c.mark_all_dirty() for c in self.caches.values())
+
+    def refresh_step(self, budget: Optional[int] = None) -> int:
+        """Drain one bounded, hotness-ordered chunk of the refresh backlog
+        per table; the serving loop calls this between batches."""
+        return sum(c.refresh_chunk(budget) for c in self.caches.values())
+
+    def refresh_backlog(self) -> int:
+        return sum(c.refresh_backlog() for c in self.caches.values())
+
+    def refresh_caches(self) -> int:
+        """Full re-pull of every resident row (offline convenience)."""
+        return sum(c.refresh_once() for c in self.caches.values())
+
+    def resize_caches(self, capacity: int) -> int:
+        """Rebuild every table's L1 at ``min(capacity, vocab)`` rows,
+        keeping the hottest residents; returns the rows kept across
+        tables."""
+        kept = 0
+        for t in self.tables:
+            kept += self.caches[t.name].resize(min(capacity, t.vocab_size))
+        self.cache_capacity = capacity
+        return kept
+
+    def start_refresh(self, interval_s: float):
+        for c in self.caches.values():
+            c.start_refresh(interval_s)
+
+    def stop_refresh(self):
+        for c in self.caches.values():
+            c.stop_refresh()
+
     # -- metrics ---------------------------------------------------------------------
 
     def stats(self) -> Dict:
@@ -390,6 +492,12 @@ class HPS:
             "l2_misses": l2["misses"],
             "l2": l2,
             "l3_fetches": l3,
+            "refresh": {
+                "rows_refreshed": sum(c["rows_refreshed"]
+                                      for c in l1.values()),
+                "chunks": sum(c["refresh_chunks"] for c in l1.values()),
+                "backlog": self.refresh_backlog(),
+            },
             "stream": {"depth": self.stream_depth,
                        "depth_peak": self.stream_depth_peak},
         }

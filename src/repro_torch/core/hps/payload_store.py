@@ -1,12 +1,22 @@
-"""Physical storage for the L1 device payload (counterpart of
-``repro/core/hps/payload_store.py``, single-payload case).
+"""Physical storage for the L1 device payload, counterpart of
+``repro/core/hps/payload_store.py`` on one device.
 
 ``DeviceEmbeddingCache`` resolves ids to logical slots; this module owns
-the device tensor the slots index. Payload precision is a storage knob:
-``"f32"`` (bit-exact), ``"f16"`` (half the bytes) or ``"int8"`` (per-row
-absmax quantization plus an f32 scale per row). Rows quantize on the host
-with the reference's numpy code, so both packages store identical bytes;
-reads dequantize inside the gather kernel (K6).
+where a slot physically lives. ``shards=1`` is a single ``[C, D]``
+payload; ``shards=N`` stripes it as the companion HPS paper (arXiv
+2210.08804) does: slot ``s`` lives on stripe ``s % N`` at local row
+``s // N`` of an ``[N, Cl, D]`` tensor, padded as the reference pads it,
+so both packages hold the same bytes. On one card the stripes are read
+through their flat ``[N * Cl, D]`` view with the slots remapped on the
+host (``ops.flatten_striped_slots``), so K5, K6 and the grouped pooled
+read run unchanged and striping adds no launch. Stripes laid out across
+devices (the reference's cache mesh) are the multi-GPU slice's.
+
+Payload precision is a storage knob: ``"f32"`` (bit-exact), ``"f16"``
+(half the bytes) or ``"int8"`` (per-row absmax quantization plus an f32
+scale per row, striped with its row). Rows quantize on the host with the
+reference's numpy code, so both packages store identical bytes; reads
+dequantize inside the gather kernel (K6).
 
 Snapshots are immutable by CLONE-ON-WRITE: ``scatter`` builds a new
 payload tensor (a device copy of the old one with the new rows written)
@@ -16,10 +26,7 @@ exactly the rows it resolved, even while another thread scatters. The old
 tensor is freed when its last snapshot goes; kernels already queued on it
 are ordered before that reuse by the CUDA caching allocator on the same
 stream. The cost is one payload copy per scatter (one per table per query
-with misses).
-
-Only ``shards=1`` is ported; the striped payload belongs to the multi-GPU
-slice (ROADMAP item "Multi-GPU").
+with misses, and per refresh chunk).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.roadmap import MULTI_DEVICE, not_ported
 
 PAYLOAD_DTYPES = ("f32", "f16", "int8")
 
@@ -38,6 +46,19 @@ _STORAGE = {"f32": torch.float32, "f16": torch.float16, "int8": torch.int8}
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def row_bytes(dim: int, payload_dtype: str = "f32") -> int:
+    """Device bytes one resident row costs in a given storage mode (int8
+    includes its 4-byte per-row f32 scale)."""
+    if payload_dtype == "f32":
+        return 4 * dim
+    if payload_dtype == "f16":
+        return 2 * dim
+    if payload_dtype == "int8":
+        return dim + 4
+    raise ValueError(f"unknown payload_dtype {payload_dtype!r}; "
+                     f"expected one of {PAYLOAD_DTYPES}")
 
 
 def quantize_rows(rows: np.ndarray, payload_dtype: str
@@ -63,39 +84,64 @@ def quantize_rows(rows: np.ndarray, payload_dtype: str
 
 
 class ShardedPayloadStore:
-    """A single ``[C, D]`` device payload in one of the
-    ``PAYLOAD_DTYPES`` storage modes (plus ``[C]`` f32 scales for int8)."""
+    """Physical slot storage on one device: a single ``[C, D]`` payload
+    (``shards=1``) or ``[N, Cl, D]`` stripes (``shards=N``), in one of the
+    ``PAYLOAD_DTYPES`` storage modes (plus ``[C]`` or ``[N, Cl]`` f32
+    scales for int8)."""
 
     def __init__(self, capacity: int, dim: int, *, shards: int = 1,
-                 payload_dtype: str = "f32", device: DeviceLike = None):
-        if shards != 1:
-            raise NotImplementedError(
-                "the striped L1 payload (cache_shards > 1) is ported with "
-                "the ROADMAP item 'Multi-GPU'")
+                 mesh=None, payload_dtype: str = "f32",
+                 device: DeviceLike = None):
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if shards > capacity:
+            raise ValueError(
+                f"shards={shards} exceeds capacity={capacity}")
         if payload_dtype not in _STORAGE:
             raise ValueError(f"unknown payload_dtype {payload_dtype!r}; "
                              f"expected one of {PAYLOAD_DTYPES}")
+        if mesh is not None:
+            raise not_ported("the L1 striped across devices (a cache mesh)",
+                             MULTI_DEVICE)
         self.capacity = capacity
         self.dim = dim
-        self.shards = 1
+        self.shards = shards
         self.payload_dtype = payload_dtype
         self.device = resolve_device(device)
-        # physical rows padded as the reference pads them to its gather
-        # tile, so both stores have the same shape
-        bc = min(512, _round_up(capacity, 8))
-        self.phys_rows = _round_up(capacity, bc)
-        self._payload = torch.zeros((self.phys_rows, dim),
+        # rows padded to the reference's gather tile, so both stores have
+        # the same shape: [C, D] for one stripe, [N, Cl, D] for N
+        local_cap = -(-capacity // shards)
+        bc = min(512, _round_up(local_cap, 8))
+        self.local_rows = _round_up(local_cap, bc)
+        self.phys_rows = shards * self.local_rows
+        need = self.phys_rows * row_bytes(dim, payload_dtype)
+        if self.device.type == "cuda":
+            have = torch.cuda.get_device_properties(self.device).total_memory
+            if need > have:
+                raise not_ported(
+                    f"an L1 of {need} bytes, more than the {have} bytes of "
+                    "one card, striped across devices", MULTI_DEVICE)
+        shape = ((self.phys_rows,) if shards == 1
+                 else (shards, self.local_rows))
+        self._payload = torch.zeros(shape + (dim,),
                                     dtype=_STORAGE[payload_dtype],
                                     device=self.device)
-        self._scales = (torch.ones((self.phys_rows,), dtype=torch.float32,
+        self._scales = (torch.ones(shape, dtype=torch.float32,
                                    device=self.device)
                         if payload_dtype == "int8" else None)
 
+    def _flat_slots(self, slots: np.ndarray) -> torch.Tensor:
+        """Logical slots as rows of the flat payload view, on the device."""
+        if self.shards > 1:
+            slots = ops.flatten_striped_slots(self._payload, slots)
+        return torch.from_numpy(np.asarray(slots, np.int64)).to(self.device)
+
     def scatter(self, slots: np.ndarray, rows: np.ndarray) -> None:
         """Write ``rows`` (f32, quantized here) at ``slots`` into a copy of
-        the payload and rebind to it. Slot counts are padded to a multiple
-        of 64 by repeating the first slot, as the reference does
-        (idempotent: the repeated writes carry the same row)."""
+        the payload and rebind to it (slot ``s`` at stripe ``s % N``, local
+        row ``s // N``). Slot counts are padded to a multiple of 64 by
+        repeating the first slot, as the reference does (idempotent: the
+        repeated writes carry the same row)."""
         rows, scales = quantize_rows(np.asarray(rows), self.payload_dtype)
         pad = _round_up(len(slots), 64) - len(slots)
         if pad:
@@ -105,24 +151,29 @@ class ShardedPayloadStore:
             if scales is not None:
                 scales = np.concatenate(
                     [scales, np.broadcast_to(scales[:1], (pad,))])
-        idx = torch.from_numpy(np.asarray(slots, np.int64)).to(self.device)
+        idx = self._flat_slots(slots)
         payload = self._payload.clone()
-        payload.index_copy_(0, idx, torch.from_numpy(
+        payload.view(-1, self.dim).index_copy_(0, idx, torch.from_numpy(
             np.ascontiguousarray(rows)).to(self.device))
         if scales is not None:
             new_scales = self._scales.clone()
-            new_scales.index_copy_(0, idx, torch.from_numpy(
+            new_scales.view(-1).index_copy_(0, idx, torch.from_numpy(
                 np.ascontiguousarray(scales)).to(self.device))
             self._scales = new_scales
         self._payload = payload
 
     def snapshot(self):
-        """The current ``(payload, scales)`` pair (``scales`` is None
-        outside int8). No later scatter writes into these tensors."""
+        """The current ``(payload, scales)`` pair (``[C, D]`` or
+        ``[N, Cl, D]``; ``scales`` is None outside int8). No later scatter
+        writes into these tensors."""
         return (self._payload, self._scales)
 
-    def gather(self, snapshot, slots: torch.Tensor) -> torch.Tensor:
-        """Logical ``slots [n]`` int32 (-1 = hole) -> ``[n, D]`` f32 rows
-        off a snapshot of this store (K5, or K6 when compressed)."""
+    def gather(self, snapshot, slots) -> torch.Tensor:
+        """Logical ``slots [n]`` (-1 = hole: an int32 tensor on this
+        store's device, or numpy, remapped on the host) -> ``[n, D]`` f32
+        rows off a snapshot of this store (K5, or K6 when compressed)."""
         payload, scales = snapshot
-        return ops.cache_gather(payload, slots, scales=scales)
+        if self.shards > 1:
+            return ops.sharded_cache_gather(payload, slots, scales=scales)
+        return ops.cache_gather(payload, ops.slot_tensor(slots, self.device),
+                                scales=scales)

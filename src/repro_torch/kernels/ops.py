@@ -1,6 +1,7 @@
 """Entry points over the kernels (counterparts of ``repro/kernels/ops.py``):
 the serving reads ``grouped_pooled_lookup`` (every table of a batch in one
-launch), ``pooled_cache_lookup`` and ``cache_gather``, the
+launch), ``pooled_cache_lookup``, ``cache_gather`` and its striped twin
+``sharded_cache_gather`` (one device), the
 differentiable ``fused_embedding_lookup`` / ``kernel_pool`` and
 ``dot_interaction`` that training runs, and the LM's ``flash_attention``.
 
@@ -13,8 +14,9 @@ become ``torch.autograd.Function``s whose backward is the adjoint kernel
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -58,6 +60,59 @@ def cache_gather(payload: torch.Tensor, slots: torch.Tensor, *,
     if scales is not None:
         return dequant_gather_rows(payload, scales, slots)
     return gather_rows(payload, slots)
+
+
+def slot_tensor(slots: Union[np.ndarray, torch.Tensor],
+                device: torch.device) -> torch.Tensor:
+    """Slots as the int32 tensor the reads take: a tensor passes through,
+    a numpy block is copied to ``device``."""
+    if isinstance(slots, torch.Tensor):
+        return slots
+    return torch.from_numpy(np.ascontiguousarray(slots, np.int32)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# The striped L1 payload on one device: stripes [N, Cl, D], slot s at
+# [s % N, s // N] (the reference's host-shard branch)
+# ---------------------------------------------------------------------------
+
+def flatten_striped_slots(stripes: torch.Tensor,
+                          slots: Union[np.ndarray, torch.Tensor]):
+    """Remap GLOBAL slot ids onto the row-major flattening of ``stripes``
+    (``[N, Cl, D] -> [N * Cl, D]``: slot ``s`` becomes row
+    ``(s % N) * Cl + s // N``), keeping -1 holes. Numpy slots are remapped
+    on the host, where the serving path builds its slot blocks, so the
+    striping adds no device work; tensor slots on their device."""
+    n, cl = stripes.shape[0], stripes.shape[1]
+    if isinstance(slots, torch.Tensor):
+        flat = (slots % n) * cl + torch.div(slots, n, rounding_mode="floor")
+        return torch.where(slots >= 0, flat, -1).to(slots.dtype)
+    slots = np.asarray(slots)
+    return np.where(slots >= 0, (slots % n) * cl + slots // n,
+                    -1).astype(slots.dtype)
+
+
+def striped_view(snapshot: tuple) -> tuple:
+    """A striped ``(stripes [N, Cl, D], scales [N, Cl] or None)`` snapshot
+    as the flat ``[N * Cl, D]`` rows (and ``[N * Cl]`` scales) the
+    one-device kernels read: views, free for the contiguous stripes."""
+    stripes, scales = snapshot
+    return (stripes.view(-1, stripes.shape[-1]),
+            None if scales is None else scales.view(-1))
+
+
+def sharded_cache_gather(stripes: torch.Tensor,
+                         slots: Union[np.ndarray, torch.Tensor], *,
+                         scales: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """``stripes [N, Cl, D]``, GLOBAL ``slots [n]`` (-1 = hole) -> ``[n, D]``
+    f32: :func:`cache_gather` (K5, or K6 with ``scales [N, Cl]``) on the
+    flat view with the remapped slots, row for row the reference's
+    host-shard read. Stripes laid out across devices (the reference's
+    ``mesh`` branch) are the multi-GPU slice's."""
+    flat, flat_scales = striped_view((stripes, scales))
+    idx = slot_tensor(flatten_striped_slots(stripes, slots), stripes.device)
+    return cache_gather(flat, idx, scales=flat_scales)
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,10 @@ unless told otherwise); a wide bundle (WDL, DeepFM, a graph with a wide
 branch: ``"wide": true``) gets a second ``HPS`` over the ``*_wide`` twins
 and an N-group graph one ``HPS`` per extra group (its tables come from the
 lowered config, as the reference's), all on the one PDB, with the bundle's
-L1 capacity and payload type. Ensemble bundles come with
-``MultiModelServer``
-(ROADMAP item "The rest of the serving engine").
+L1 capacity, striping and payload type over the caller's VolatileDB and
+message bus, and the server drains the bundle's refresh budget a tick.
+Ensemble bundles come with ``MultiModelServer`` (ROADMAP item "The rest
+of the serving engine").
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ from repro_torch.configs.base import (
 )
 from repro_torch.convert import check_dense, dense_from_flat
 from repro_torch.core.hps.hps import HPS
+from repro_torch.core.hps.message_bus import MessageBus
 from repro_torch.core.hps.persistent_db import PersistentDB
+from repro_torch.core.hps.volatile_db import VolatileDB
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys.model import RecsysModel, wide_tables
 from repro_torch.serve.server import InferenceServer
@@ -41,11 +44,16 @@ def load_ps_config(path: str) -> HPSConfig:
 
 
 def build_server_from_config(ps_path: str, *, device: DeviceLike = None,
+                             vdb: Optional[VolatileDB] = None,
+                             bus: Optional[MessageBus] = None,
                              cache_capacity: Optional[int] = None,
                              payload_dtype: Optional[str] = None
                              ) -> Tuple[InferenceServer, Model]:
     """ps.json -> ``(InferenceServer, api.Model)`` on ``device``.
 
+    ``vdb`` is the L2 every HPS shares (each HPS makes its own if None,
+    as the reference's); ``bus`` the message bus whose updates every HPS
+    applies (none if None).
     ``cache_capacity`` and ``payload_dtype`` override the bundle's L1
     rows per table and storage precision (the PDB rows stay f32).
     """
@@ -76,10 +84,16 @@ def build_server_from_config(ps_path: str, *, device: DeviceLike = None,
         raise ValueError(f"model {hcfg.model!r}: ps.json says wide="
                          f"{hcfg.wide} for a {cfg.model} graph")
 
-    def hps(tables):
+    # every table set opens before any HPS is built: each HPS's consumer
+    # writes every table of the model to the PDB, as the reference's
+    sets = [cfg.tables] + ([wide_tables(cfg)] if hcfg.wide else []) \
+        + [g.tables for g in cfg.extra_groups]
+    for tables in sets:
         for t in tables:
             pdb.open_table(hcfg.model, t.name)
-        return HPS(hcfg.model, tables, pdb,
+
+    def hps(tables):
+        return HPS(hcfg.model, tables, pdb, vdb=vdb, bus=bus,
                    cache_capacity=hcfg.cache_capacity,
                    cache_shards=hcfg.cache_shards,
                    payload_dtype=hcfg.payload_dtype, device=dev)
@@ -88,5 +102,5 @@ def build_server_from_config(ps_path: str, *, device: DeviceLike = None,
         model, dense, hps(cfg.tables),
         wide_hps=hps(wide_tables(cfg)) if hcfg.wide else None,
         extra_hps={g.name: hps(g.tables) for g in cfg.extra_groups},
-        max_batch=hcfg.max_batch)
+        max_batch=hcfg.max_batch, refresh_budget=hcfg.refresh_budget)
     return server, graph

@@ -22,9 +22,17 @@ sync per group is the prediction itself. ``"sync"`` drains a group and
 runs one blocking :meth:`InferenceServer.predict` per group. Both give the
 same predictions: every lookup plan gathers from its own payload snapshot.
 
-Admission control, ``stage_sync``, refresh ticks and ``MultiModelServer``
-are later slices (ROADMAP "Open items", "The rest of the serving
-engine").
+The serve loop also drives update propagation (no bare timer thread):
+between pipeline stages, after each ``sync`` group and while idle it
+polls the message bus into L2/L3 (marking the touched L1 rows dirty) and
+drains one bounded, hotness-ordered refresh chunk of every HPS
+(``refresh_budget`` rows a table), so refresh interleaves with serving; a
+periodic ``refresh_poll_s`` full-mark sweeps rows whose updates arrived
+out of band. ``update_versions`` reports the newest update version
+applied per table, the serving half of the freshness contract.
+
+Admission control, ``stage_sync`` and ``MultiModelServer`` are later
+slices (ROADMAP "Open items", "The rest of the serving engine").
 """
 from __future__ import annotations
 
@@ -105,7 +113,8 @@ def deploy_tables(tables: Dict[str, np.ndarray], pdb: PersistentDB,
 
 def write_bundle(directory: str, graph, dense_params: Dict,
                  tables: Optional[Dict[str, np.ndarray]] = None, *,
-                 cache_capacity: int = 4096, max_batch: int = 1024,
+                 cache_capacity: int = 4096, cache_shards: int = 1,
+                 refresh_budget: int = 512, max_batch: int = 1024,
                  payload_dtype: str = "f32") -> HPSConfig:
     """Write a single-model serving bundle under ``directory``:
     ``pdb/`` (the tables), ``graph.json``, ``dense.npz`` (the dense
@@ -120,7 +129,9 @@ def write_bundle(directory: str, graph, dense_params: Dict,
     every extra group's tables included. Pass ``tables=None``
     when the PDB under ``directory/pdb`` already holds them (written by
     :func:`deploy_tables` or ``PersistentDB.create_table``), e.g. tables
-    too large to hold in memory at once.
+    too large to hold in memory at once. ``cache_shards`` (the L1
+    striping) and ``refresh_budget`` (rows a refresh chunk) go into
+    ``ps.json`` as the reference writes them.
     """
     from repro_torch.convert import dense_to_flat
     from repro_torch.models.recsys.model import has_wide, wide_tables
@@ -141,7 +152,8 @@ def write_bundle(directory: str, graph, dense_params: Dict,
     hcfg = HPSConfig(
         model=graph.name, pdb_root="pdb", graph_path="graph.json",
         dense_weights_path="dense.npz", tables=cfg.tables, wide=wide,
-        cache_capacity=cache_capacity, max_batch=max_batch,
+        cache_capacity=cache_capacity, cache_shards=cache_shards,
+        refresh_budget=refresh_budget, max_batch=max_batch,
         payload_dtype=payload_dtype, config_hash=recsys_config_hash(cfg))
     with open(os.path.join(directory, "ps.json"), "w") as f:
         json.dump(hps_config_to_dict(hcfg), f, indent=1)
@@ -159,6 +171,8 @@ class InferenceServer:
     _GUARDED_BY = {
         "latency": "_stats_lock",
         "requests_delivered": "_stats_lock",
+        "updates_applied": "_stats_lock",
+        "rows_refreshed": "_stats_lock",
         "_closed": "_admit_lock",
         "requests_shed": "_admit_lock",
     }
@@ -166,7 +180,9 @@ class InferenceServer:
     def __init__(self, model, dense_params: Dict, hps: HPS, *,
                  wide_hps: Optional[HPS] = None,
                  extra_hps: Optional[Dict[str, HPS]] = None,
-                 max_batch: int = 1024, engine: str = "stream"):
+                 max_batch: int = 1024, refresh_budget: int = 512,
+                 refresh_poll_s: Optional[float] = None,
+                 engine: str = "stream"):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, "
                              f"got {engine!r}")
@@ -184,9 +200,16 @@ class InferenceServer:
         self.dense_params = dense_params
         self.max_batch = max_batch
         self.engine = engine
+        #: rows re-pulled per table and refresh chunk, one chunk a tick
+        self.refresh_budget = refresh_budget
+        #: period of the full-mark sweep (None = only bus-marked rows)
+        self.refresh_poll_s = refresh_poll_s
+        self._last_poll = time.monotonic()
         self._stats_lock = threading.Lock()
         self.latency = LatencyWindow()
         self.requests_delivered = 0
+        self.updates_applied = 0
+        self.rows_refreshed = 0
         self._admit_lock = threading.Lock()
         self._closed = False
         self.requests_shed = 0
@@ -240,6 +263,44 @@ class InferenceServer:
                   for key, h in self._hpses()]
         out = self._dense_forward(dense, blocks).cpu().numpy()
         self._record_latency(t0)
+        return out
+
+    # -- refresh scheduling (runs on the serve loop, between batches) -------------
+
+    def _refresh_tick(self) -> None:
+        """One serving-loop tick of update propagation over every HPS:
+        bus -> L2/L3 (+ dirty marks), the periodic full-mark sweep, and
+        ONE bounded hotness-ordered refresh chunk, never a stop-the-world
+        re-pull. Safe anywhere between pipeline stages: in-flight plans
+        hold their own payload snapshots, so a refresh scatter never tears
+        a query's view."""
+        sweep = False
+        if self.refresh_poll_s is not None:
+            now = time.monotonic()
+            if now - self._last_poll >= self.refresh_poll_s:
+                self._last_poll = now
+                sweep = True
+        applied = refreshed = 0            # the bus/refresh IO runs
+        for _, hps in self._hpses():       # unlocked; the counters move
+            if hps.consumer is not None:   # in one step below
+                applied += hps.apply_updates()
+            if sweep:
+                hps.schedule_refresh()
+            if hps.refresh_backlog():
+                refreshed += hps.refresh_step(self.refresh_budget)
+        if applied or refreshed:
+            with self._stats_lock:
+                self.updates_applied += applied
+                self.rows_refreshed += refreshed
+
+    def update_versions(self) -> Dict[str, int]:
+        """Highest online-update version applied per table, across every
+        HPS of this server: the serving half of the freshness contract (a
+        freshness probe polls this until the published version lands)."""
+        out: Dict[str, int] = {}
+        for _, hps in self._hpses():
+            if hps.consumer is not None:
+                out.update(hps.consumer.last_versions)
         return out
 
     # -- queued/batched path --------------------------------------------------------
@@ -354,6 +415,7 @@ class InferenceServer:
                 out = self._dense_forward(current[1], blocks)
                 in_flight.append((current[0], current[2], out))
                 current = None
+                self._refresh_tick()        # between pipeline stages
                 if len(in_flight) > 1:
                     self._materialize(in_flight.popleft())
             while in_flight:
@@ -381,12 +443,14 @@ class InferenceServer:
             try:
                 first = self._q.get(timeout=0.05)
             except queue.Empty:
+                self._refresh_tick()        # idle: drain the backlog
                 continue
             if self.engine == "stream":
                 self._serve_burst_stream(first)
                 continue
             group = self._coalesce(first)
-            if group is None:
+            if group is None:               # errors already delivered
+                self._refresh_tick()
                 continue
             reqs, dense, cat = group
             try:
@@ -395,6 +459,7 @@ class InferenceServer:
                 self._deliver_error(reqs, exc)  # callers get the error
             else:
                 self._deliver(reqs, preds)
+            self._refresh_tick()            # interleave with serving
 
     def start(self):
         with self._admit_lock:
@@ -441,7 +506,9 @@ class InferenceServer:
 
     def counters(self) -> Dict[str, int]:
         with self._stats_lock:
-            out = {"groups_served": self.latency.count,
+            out = {"updates_applied": self.updates_applied,
+                   "rows_refreshed": self.rows_refreshed,
+                   "groups_served": self.latency.count,
                    "requests_delivered": self.requests_delivered}
         with self._admit_lock:
             out["requests_shed"] = self.requests_shed

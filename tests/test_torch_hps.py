@@ -13,20 +13,23 @@ that plan's result unchanged (clone-on-write snapshots); and the pooled
 read of all tables (``_pooled_stack``, one grouped read) matches the
 reference's with holes, H_t of 1 and 3, the mean combiner, with and
 without the mean applied (bit-exact on the H = 1 tables, <= 1e-6 on the
-others)."""
+others).
+
+The ``cuda`` cases run the striped L1 on the card: a striped HPS's
+pooled read is one K1 (f32) or K6 (int8) launch and its cache query one
+K5 / K6 launch, each bit-exact to the unstriped HPS on the card and to
+the plain versions on the CPU; after an update, ``refresh_step`` on the
+card leaves the L1 reading the PDB's new rows (f32 bit-exact, int8
+within half a quantization step)."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import threading
+import types
 
-import jax.numpy as jnp
 import numpy as np
 
-from repro.configs.base import EmbeddingTableConfig as JTable
-from repro.core.hps.hps import HPS as JHPS
-from repro.core.hps.hps import _pooled_stack as j_pooled_stack
-from repro.core.hps.persistent_db import PersistentDB as JPDB
 from repro_torch.configs.base import EmbeddingTableConfig
 from repro_torch.core.hps.embedding_cache import DeviceEmbeddingCache
 from repro_torch.core.hps.hps import HPS, _pooled_stack
@@ -43,12 +46,26 @@ def _tables(cls, hotness=1):
 
 
 @pytest.fixture(scope="module")
-def pdb_root(tmp_path_factory):
+def J():
+    """The JAX reference (imported here, not at module level, so the
+    ``cuda`` cases below also run where only torch is installed)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.configs.base import EmbeddingTableConfig as JTable
+    from repro.core.hps.hps import HPS as JHPS
+    from repro.core.hps.hps import _pooled_stack as j_pooled_stack
+    from repro.core.hps.persistent_db import PersistentDB as JPDB
+    return types.SimpleNamespace(jnp=jnp, Table=JTable, HPS=JHPS,
+                                 pooled_stack=j_pooled_stack, PDB=JPDB)
+
+
+@pytest.fixture(scope="module")
+def pdb_root(tmp_path_factory, J):
     """Tables written by the JAX package's PDB."""
     root = str(tmp_path_factory.mktemp("pdb"))
-    pdb = JPDB(root)
+    pdb = J.PDB(root)
     rng = np.random.default_rng(0)
-    for t in _tables(JTable):
+    for t in _tables(J.Table):
         pdb.create_table("m", t.name, t.vocab_size, t.dim,
                          initial=rng.standard_normal(
                              (t.vocab_size, t.dim)).astype(np.float32))
@@ -71,10 +88,10 @@ def _stream(n=6, b=48, h=1, seed=1):
     return out
 
 
-def test_port_reads_jax_pdb_and_back(pdb_root, tmp_path):
-    jpdb, pdb = JPDB(pdb_root), PersistentDB(pdb_root)
+def test_port_reads_jax_pdb_and_back(J, pdb_root, tmp_path):
+    jpdb, pdb = J.PDB(pdb_root), PersistentDB(pdb_root)
     ids = np.array([0, 7, 49, 3, 3])
-    for t in _tables(JTable):
+    for t in _tables(J.Table):
         jpdb.open_table("m", t.name)
         pdb.open_table("m", t.name)
         assert pdb.table_shape("m", t.name) == (t.vocab_size, DIM)
@@ -83,20 +100,20 @@ def test_port_reads_jax_pdb_and_back(pdb_root, tmp_path):
     # and the JAX package reads a table the port wrote
     rows = np.arange(40, dtype=np.float32).reshape(10, 4)
     PersistentDB(str(tmp_path)).create_table("p", "x", 10, 4, initial=rows)
-    back = JPDB(str(tmp_path))
+    back = J.PDB(str(tmp_path))
     back.open_table("p", "x")
     np.testing.assert_array_equal(back.fetch("p", "x", np.arange(10)), rows)
 
 
-def _rounding_bound(pdb_root, cat, payload_dtype):
+def _rounding_bound(J, pdb_root, cat, payload_dtype):
     """The exact pooled rows of one-hot ``cat [B, T, 1]`` from the PDB (f32;
     a -1 id pools to zero) and, elementwise, how far an L1 read of the
     ``payload_dtype`` payload may lie from them: half an f16 ulp of each
     value, or half an int8 step (``max|row| / 127 / 2``) of each row; 0 for
     f32."""
-    pdb = JPDB(pdb_root)
+    pdb = J.PDB(pdb_root)
     exact = []
-    for ti, t in enumerate(_tables(JTable)):
+    for ti, t in enumerate(_tables(J.Table)):
         pdb.open_table("m", t.name)
         ids = cat[:, ti, 0]
         rows = pdb.fetch("m", t.name, np.maximum(ids, 0)).astype(np.float32)
@@ -113,12 +130,12 @@ def _rounding_bound(pdb_root, cat, payload_dtype):
     return exact, bound
 
 
-def _pair(pdb_root, payload_dtype, capacity, hotness):
-    jpdb, pdb = JPDB(pdb_root), PersistentDB(pdb_root)
-    for t in _tables(JTable):
+def _pair(J, pdb_root, payload_dtype, capacity, hotness):
+    jpdb, pdb = J.PDB(pdb_root), PersistentDB(pdb_root)
+    for t in _tables(J.Table):
         jpdb.open_table("m", t.name)
         pdb.open_table("m", t.name)
-    j = JHPS("m", _tables(JTable, hotness), jpdb, cache_capacity=capacity,
+    j = J.HPS("m", _tables(J.Table, hotness), jpdb, cache_capacity=capacity,
              payload_dtype=payload_dtype)
     p = HPS("m", _tables(EmbeddingTableConfig, hotness), pdb,
             cache_capacity=capacity, payload_dtype=payload_dtype,
@@ -128,9 +145,9 @@ def _pair(pdb_root, payload_dtype, capacity, hotness):
 
 @pytest.mark.parametrize("mode", ["sequential", "pipelined", "stream"])
 @pytest.mark.parametrize("payload_dtype", ["f32", "f16", "int8"])
-def test_lookup_matches_jax_bit_exact(pdb_root, payload_dtype, mode):
+def test_lookup_matches_jax_bit_exact(J, pdb_root, payload_dtype, mode):
     # capacity 16 < unique ids per batch: eviction AND overflow
-    j, p = _pair(pdb_root, payload_dtype, capacity=16, hotness=1)
+    j, p = _pair(J, pdb_root, payload_dtype, capacity=16, hotness=1)
     cats = _stream()
     # more distinct ids in one table block than L1 rows: overflow happens
     assert max(len(np.unique(c[:, ti][c[:, ti] >= 0]))
@@ -151,7 +168,7 @@ def test_lookup_matches_jax_bit_exact(pdb_root, payload_dtype, mode):
                 continue
             # lossy payloads at the adaptive depth: both packages within
             # the payload's rounding bound of the f32 rows
-            exact, bound = _rounding_bound(pdb_root, c, payload_dtype)
+            exact, bound = _rounding_bound(J, pdb_root, c, payload_dtype)
             assert (np.abs(g - exact) <= bound).all()
             assert (np.abs(np.asarray(w) - exact) <= bound).all()
         if mode == "stream":
@@ -165,7 +182,7 @@ def test_lookup_matches_jax_bit_exact(pdb_root, payload_dtype, mode):
             # on fresh caches.
             j.close()
             p.close()
-            j, p = _pair(pdb_root, payload_dtype, capacity=16, hotness=1)
+            j, p = _pair(J, pdb_root, payload_dtype, capacity=16, hotness=1)
             for g, w in zip(p.lookup_stream(cats, depth=1),
                             j.lookup_stream(cats, depth=1)):
                 np.testing.assert_array_equal(g, np.asarray(w))
@@ -179,9 +196,9 @@ def test_lookup_matches_jax_bit_exact(pdb_root, payload_dtype, mode):
 
 
 @pytest.mark.parametrize("payload_dtype", ["f32", "int8"])
-def test_multi_hot_lookup_matches_jax(pdb_root, payload_dtype):
+def test_multi_hot_lookup_matches_jax(J, pdb_root, payload_dtype):
     """H=3 sums three rows per table: the sum order may differ, <= 1e-6."""
-    j, p = _pair(pdb_root, payload_dtype, capacity=64, hotness=3)
+    j, p = _pair(J, pdb_root, payload_dtype, capacity=64, hotness=3)
     try:
         for c in _stream(n=4, b=20, h=3, seed=7):
             np.testing.assert_allclose(p.lookup(c).numpy(),
@@ -195,7 +212,7 @@ def test_multi_hot_lookup_matches_jax(pdb_root, payload_dtype):
 @pytest.mark.parametrize("payload_dtype", ["f32", "f16", "int8"])
 @pytest.mark.parametrize("d", [1, DIM])
 @pytest.mark.parametrize("apply_mean", [True, False])
-def test_pooled_stack_matches_jax(payload_dtype, d, apply_mean):
+def test_pooled_stack_matches_jax(J, payload_dtype, d, apply_mean):
     rng = np.random.default_rng(d)
     hots = (1, 3, 1, 3)
     combiners = ("sum", "mean", "mean", "sum")
@@ -206,10 +223,10 @@ def test_pooled_stack_matches_jax(payload_dtype, d, apply_mean):
         s = rng.integers(-1, 20, size=(16, h)).astype(np.int32)
         s[0] = -1                                       # a row of holes
         slots.append(s)
-    want = np.asarray(j_pooled_stack(
-        tuple((jnp.asarray(p), None if sc is None else jnp.asarray(sc))
+    want = np.asarray(J.pooled_stack(
+        tuple((J.jnp.asarray(p), None if sc is None else J.jnp.asarray(sc))
               for p, sc in pays),
-        tuple(jnp.asarray(s) for s in slots), combiners, apply_mean))
+        tuple(J.jnp.asarray(s) for s in slots), combiners, apply_mean))
     got = _pooled_stack(
         [(torch.from_numpy(p), None if sc is None else torch.from_numpy(sc))
          for p, sc in pays],
@@ -221,8 +238,8 @@ def test_pooled_stack_matches_jax(payload_dtype, d, apply_mean):
             np.testing.assert_array_equal(got[:, t], want[:, t])
 
 
-def test_cache_query_matches_jax(pdb_root):
-    j, p = _pair(pdb_root, "f32", capacity=16, hotness=1)
+def test_cache_query_matches_jax(J, pdb_root):
+    j, p = _pair(J, pdb_root, "f32", capacity=16, hotness=1)
     ids = np.array([5, 5, -1, 200, 9, 17, 250, 3, 1, 0, 299, 42] * 3)
     jc, pc = j.caches["t0"], p.caches["t0"]
     for k in range(3):
@@ -296,3 +313,113 @@ def test_concurrent_scatters_never_tear_a_snapshot():
     finally:
         sys.setswitchinterval(old)
     assert not errors
+
+
+# ---------------------------------------------------------------------------
+# on the card: the striped L1 through K1, K5 and K6, and a refresh
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+def _port_tables(root):
+    """The module's tables, written by the port's PDB under ``root``."""
+    pdb = PersistentDB(root)
+    rng = np.random.default_rng(0)
+    for t in _tables(EmbeddingTableConfig):
+        pdb.create_table("m", t.name, t.vocab_size, t.dim,
+                         initial=rng.standard_normal(
+                             (t.vocab_size, t.dim)).astype(np.float32))
+    pdb.flush()
+    return pdb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 3])
+@pytest.mark.parametrize("payload_dtype", ["f32", "int8"])
+def test_cuda_striped_reads_match_unstriped(tmp_path, cuda, shards,
+                                            payload_dtype):
+    from repro_torch.kernels._build import LAUNCHES
+    pdb = _port_tables(str(tmp_path))
+    tables = _tables(EmbeddingTableConfig)
+    hps = {(dev.type, n): HPS("m", tables, pdb, cache_capacity=16,
+                              cache_shards=n, payload_dtype=payload_dtype,
+                              device=dev)
+           for dev in (cuda, torch.device("cpu")) for n in (1, shards)}
+    pooled = "lookup_fwd" if payload_dtype == "f32" else \
+        "dequant_gather_rows"
+    query = "gather_rows" if payload_dtype == "f32" else \
+        "dequant_gather_rows"
+    try:
+        for c in _stream(n=4, b=300):
+            outs = {}
+            for key, h in hps.items():
+                LAUNCHES.reset()
+                outs[key] = h.lookup(c).cpu()
+                torch.cuda.synchronize()
+                assert LAUNCHES.snapshot() == (
+                    {pooled: 1} if key[0] == "cuda" else {}), key
+            for key, out in outs.items():
+                assert torch.equal(out, outs[("cpu", 1)]), key
+            ids = c[:, 0, 0].astype(np.int64)
+            rows = {}
+            for key, h in hps.items():
+                LAUNCHES.reset()
+                rows[key] = h.caches["t0"].query(ids).cpu()
+                torch.cuda.synchronize()
+                assert LAUNCHES.snapshot() == (
+                    {query: 1} if key[0] == "cuda" else {}), key
+            for key, r in rows.items():
+                assert torch.equal(r, rows[("cpu", 1)]), key
+    finally:
+        for h in hps.values():
+            h.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("payload_dtype", ["f32", "int8"])
+def test_cuda_refresh_after_an_update(tmp_path, cuda, shards, payload_dtype):
+    from repro_torch.core.hps.message_bus import MessageBus, Producer
+    pdb = _port_tables(str(tmp_path))
+    bus = MessageBus()
+    hps = HPS("m", _tables(EmbeddingTableConfig), pdb, cache_capacity=64,
+              cache_shards=shards, bus=bus, payload_dtype=payload_dtype,
+              device=cuda)
+    cat = _stream(n=1, b=200, seed=3)[0]
+    hps.lookup(cat)                              # fill the L1
+    rng = np.random.default_rng(8)
+    prod = Producer(bus, "m")
+    for t in hps.tables:
+        prod.send(t.name, np.arange(t.vocab_size), rng.standard_normal(
+            (t.vocab_size, DIM)).astype(np.float32) * 3)
+    prod.flush(version=1)
+    assert hps.apply_updates() == len(VOCABS)
+    assert hps.refresh_backlog() > 0
+    while hps.refresh_backlog():
+        hps.refresh_step(budget=16)
+    torch.cuda.synchronize()
+    exact, bound = _port_rounding_bound(pdb, cat, payload_dtype)
+    got = hps.lookup(cat).cpu().numpy()
+    assert (np.abs(got - exact) <= bound).all()
+    hps.close()
+
+
+def _port_rounding_bound(pdb, cat, payload_dtype):
+    """:func:`_rounding_bound`'s f32 rows and int8 bound, read through the
+    port's PDB (f32: bound 0)."""
+    exact = []
+    for ti, t in enumerate(_tables(EmbeddingTableConfig)):
+        ids = cat[:, ti, 0]
+        rows = pdb.fetch("m", t.name, np.maximum(ids, 0))
+        exact.append(np.where(ids[:, None] >= 0, rows, 0.0))
+    exact = np.stack(exact, axis=1).astype(np.float32)
+    if payload_dtype == "int8":
+        step = np.abs(exact).max(axis=-1, keepdims=True) / 127.0
+        return exact, np.broadcast_to(step / 2 * (1 + 1e-5), exact.shape)
+    return exact, np.zeros_like(exact)

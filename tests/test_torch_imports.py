@@ -41,6 +41,7 @@ def test_module_imports(mod):
 
 
 def test_imports_with_jax_and_repro_blocked():
+    assert "repro_torch.core.hps.message_bus" in _modules()
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"

@@ -47,6 +47,29 @@ def _dlrm_k3(cs, dev):
     return lambda: k1.lookup_bwd((v, 128), rows, dp), 4
 
 
+def _striped(cs, dev, payload_dtype: str, query: bool = False):
+    """The served pooled read of all 26 tables (or, with ``query``, the
+    cache query's row read of one) on the flat view of 2-way striped L1
+    payloads, the slots remapped onto it before the timing, as
+    ``HPS._device_stage`` remaps them on the host."""
+    from repro_torch.core.hps.hps import _pooled_stack
+    from repro_torch.kernels import ops
+    sets = 1 if query else cs.SLOT_SETS
+    pays, slots = cs.served_inputs(cs.RUN, dev, payload_dtype, sets)
+    half = cs.RUN.cache_capacity // 2
+    stripes = [(p.view(2, half, -1), None if sc is None else sc.view(2, half))
+               for p, sc in pays]
+    flat = [ops.striped_view(st) for st in stripes]
+    slots = [[ops.flatten_striped_slots(st[0], s)
+              for st, s in zip(stripes, batch)] for batch in slots]
+    if query:
+        (p, sc), sl = flat[0], slots[0][0].view(-1)
+        return lambda: ops.cache_gather(p, sl, scales=sc), 20
+    combiners = ("sum",) * len(flat)
+    return cs.rotating(lambda sl: _pooled_stack(flat, sl, combiners),
+                       slots), sets
+
+
 def _pooled_stack(cs, dev, payload_dtype: str, d: int = 128,
                   tables: int = 26):
     from repro_torch.core.hps.hps import _pooled_stack
@@ -152,7 +175,9 @@ def _k8(cs, dev):
 #: served pooled read and the cache query at D 16 and D 1; then NeuMF's:
 #: K1 and K3 at its largest ``deep`` (D 64) and ``ctx`` (D 8) groups
 #: (``neumf_training_rows``), the served read of its three HPSes (13 x D
-#: 64, 9 x D 16, 4 x D 8) and the cache query at D 64 and D 8
+#: 64, 9 x D 16, 4 x D 8) and the cache query at D 64 and D 8; then the
+#: served read and the cache query on a 2-way striped L1's flat view
+#: (``striped``, the online phase's ``cache_shards=2``)
 CASES = {
     "launch floor": lambda cs, dev: (cs.launch_floor_call(dev), 100),
     "pooled_stack f32": lambda cs, dev: _pooled_stack(cs, dev, "f32"),
@@ -196,6 +221,12 @@ CASES = {
     "dequant_gather_rows query d64": lambda cs, dev: _k5(cs, dev, "int8", 64),
     "gather_rows query d8": lambda cs, dev: _k5(cs, dev, "f32", 8),
     "dequant_gather_rows query d8": lambda cs, dev: _k5(cs, dev, "int8", 8),
+    "pooled_stack f32 striped": lambda cs, dev: _striped(cs, dev, "f32"),
+    "pooled_stack int8 striped": lambda cs, dev: _striped(cs, dev, "int8"),
+    "gather_rows query striped":
+        lambda cs, dev: _striped(cs, dev, "f32", query=True),
+    "dequant_gather_rows query striped":
+        lambda cs, dev: _striped(cs, dev, "int8", query=True),
 }
 
 
