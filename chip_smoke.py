@@ -70,12 +70,35 @@ Phases, in order; any failure exits non-zero:
    three HPSes applies every message (``updates_applied`` = messages x
    HPSes, as in the reference), and every HPS's f32 L1 reads the
    published rows bit for bit.
+6c. The rest of the serving engine, on DLRM's bundle and that of
+   ``dcn-criteo`` (6 cross layers, deep 1024-1024, a 1-unit combine; its
+   vocabulary capped at ``RUN.vocab_cap``, trained through ``fit``
+   (``RUN.recipe_timed_steps`` timed), deployed, rebuilt and served
+   through ``predict`` with an f32 L1 first, as phase 7's capped
+   recipes): (a) a burst of the ``RUN.requests`` measured requests after
+   ``RUN.warmup`` through each of the ``stream``, ``sync`` and
+   ``stage_sync`` engines (delivered p50 / p99, per-group p50, rows/s;
+   the f32 predictions equal bit for bit); (b) ``set_admission(
+   queue_depth=8, slo_ms=2 x the stream per-group p50)`` and a burst of
+   64 requests, with deadline batching and the fixed-batch arm (every
+   handle resolves; delivered + shed + expired = 64; the counts and the
+   delivered p50 / p99); (c) ``deploy_ensemble([DLRM, DCN])`` with
+   ``cache_budget`` 2 x ``RUN.cache_capacity``, rebuilt from its
+   ``ps.json`` alone: each member's predictions equal its single-model
+   server's bit for bit, one K1 launch a batch, each member's closed-loop
+   p50 / p99 against its single-model server's and its L1 hit rate; then
+   traffic to DLRM alone and ``rebalance_now()`` (its wall time, the
+   capacities before and after; predictions after the resize equal those
+   before bit for bit); (d) the hot-path twin
+   (``repro_torch.analysis.HotPathMonitor``) and
+   ``torch.cuda.set_sync_debug_mode("warn")`` over 16 closed-loop stream
+   groups after warm-up, DLRM alone and the ensemble's DLRM member with
+   admission on: one sync a group in both, no fresh kernel build.
 7. The other recipes: phases 4-6 for full-width ``wdl-criteo`` with no
    cut (26 tables at D 16 over 33,762,590 rows and their dim-1 wide twins,
    deep MLP 1024-1024-1), K1 and K3 launched for both collections every
    step, served through two HPSes (one pooled read of each is one
-   launch); then ``dcn-criteo`` (6 cross layers, deep 1024-1024, a 1-unit
-   combine) and ``deepfm-criteo`` (deep 400-400-400-1, FM), each
+   launch); then ``deepfm-criteo`` (deep 400-400-400-1, FM), its
    vocabulary capped at ``RUN.vocab_cap``, through ``fit``
    (``RUN.recipe_timed_steps`` timed), deploy, rebuild and ``predict``
    with an f32 L1, held to the same bounds.
@@ -1897,6 +1920,330 @@ def online_fanout(args, ps, cfg, pdb, params, dev, total):
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: the rest of the serving engine on DLRM's and DCN's bundles
+# ---------------------------------------------------------------------------
+
+def burst(submit, reqs):
+    """Submit every request at once, then collect the handles in order:
+    ``(outputs, delivered ms of each)``; a handle's delivery is read when
+    its ``get`` returns (the handles resolve in order)."""
+    sent = [(time.perf_counter(), submit(d, c)) for d, c in reqs]
+    outs, ms = [], []
+    for t0, h in sent:
+        outs.append(h.get(timeout=600))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return outs, ms
+
+
+def closed_loop(submit, reqs):
+    """One request in flight: ``(outputs, ms of each)``; raises the first
+    failed request's error."""
+    outs, ms = [], []
+    for d, c in reqs:
+        t0 = time.perf_counter()
+        out = submit(d, c).get(timeout=600)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if isinstance(out, BaseException):
+            raise out
+        outs.append(out)
+    return outs, ms
+
+
+def pct(ms, q) -> float:
+    import numpy as np
+    return float(np.percentile(ms, q)) if ms else float("nan")
+
+
+def sync_window(fn):
+    """``fn()`` with the hot-path twin armed and
+    ``torch.cuda.set_sync_debug_mode("warn")`` on over the same window ->
+    ``(output, twin summary, the syncs the debug mode reported, where)``."""
+    import collections
+    import warnings
+    import torch
+    from repro_torch.analysis import HotPathMonitor
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with HotPathMonitor() as mon:
+                out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    where = collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:"
+                                f"{w.lineno}" for w in syncs)
+    return out, mon.summary(), len(syncs), dict(where)
+
+
+def serving_engine_phase(args, dev, dlrm, dcn, total):
+    """The rest of the serving engine, at full width on the one card: (a)
+    DLRM through the ``stream``, ``sync`` and ``stage_sync`` engines (a
+    burst of the measured requests after warm-up, then the same requests
+    closed-loop; predictions equal bit for bit); (b) admission control under a burst of 64 (every handle
+    resolves; delivered + shed + expired = 64), deadline batching against
+    the fixed-batch arm; (c) ``deploy_ensemble([DLRM, DCN])`` rebuilt from
+    its ``ps.json`` alone: members equal to their single-model servers,
+    one K1 launch a batch, each member's p50 and hit rate, then traffic
+    skewed to DLRM and ``rebalance_now()`` (predictions unchanged across
+    the resize); (d) the hot-path twin and the sync debug mode over 16
+    stream groups, DLRM alone and an ensemble member with admission on.
+    ``dlrm`` / ``dcn`` are the trained ``api.Model``s, each deployed here
+    to a single-model bundle of its trained tables (DLRM's first bundle
+    took the online phase's updates). Adds the served paths' launches to
+    ``total``."""
+    import numpy as np
+    import torch
+    from repro_torch.api import deploy_ensemble
+    from repro_torch.launch.serve import build_server_from_config
+    from repro_torch.serve.server import ENGINES, InferenceServer
+
+    name = torch.cuda.get_device_name(0)
+    cfg = dlrm.cfg
+    single_ps = {}
+    for m in (dlrm, dcn):
+        d = os.path.join(ROOT, "_smoke_bundle", f"{m.name}-single")
+        shutil.rmtree(d, ignore_errors=True)
+        m.deploy(d, cache_capacity=args.cache_capacity,
+                 max_batch=args.batch).close()
+        single_ps[m.name] = os.path.join(d, "ps.json")
+    dlrm_ps, dcn_ps = single_ps[dlrm.name], single_ps[dcn.name]
+    warm = make_requests(args, cfg, args.warmup, 1)
+    reqs = make_requests(args, cfg, args.requests, 2)
+
+    def fresh(ps, engine="stream"):
+        base, _ = build_server_from_config(ps, device=dev)
+        return InferenceServer(base.model, base.dense_params, base.hps,
+                               max_batch=args.batch, engine=engine)
+
+    def release(*servers):
+        for s in servers:
+            s.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) the three engines
+    eng = {}
+    for engine in ENGINES:
+        server = fresh(dlrm_ps, engine)
+        try:
+            server.start()
+            closed_loop(server.submit, warm)
+            server.reset_serving_stats()
+            t0 = time.perf_counter()
+            outs, ms = counted(total, lambda: burst(server.submit, reqs))
+            wall = time.perf_counter() - t0
+            check(all(isinstance(o, np.ndarray) for o in outs),
+                  f"engine {engine}: a request failed: "
+                  f"{[o for o in outs if not isinstance(o, np.ndarray)][:1]}")
+            groups = server.latency_percentiles()
+            again, one = counted(total, lambda: closed_loop(server.submit,
+                                                            reqs))
+            server.stop()
+            check(all(np.array_equal(a, b) for a, b in zip(again, outs)),
+                  f"engine {engine}: a request served twice differs")
+            eng[engine] = (outs, ms, wall, groups, one)
+        finally:
+            release(server)
+    for engine in ENGINES[1:]:
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(eng[engine][0], eng["stream"][0])),
+              f"engine {engine}: predictions differ from the stream "
+              "engine's")
+    rows = args.requests * args.batch
+    print(f"engines dlrm-criteo f32 on {name}: a burst of {args.requests} "
+          f"requests x {args.batch} rows after {args.warmup} warm-up, then "
+          "the same requests closed-loop (one in flight, L1 warm), "
+          "predictions equal bit for bit across engines; " + "; ".join(
+              f"{e}: burst delivered p50 {pct(ms, 50):.2f} ms p99 "
+              f"{pct(ms, 99):.2f} ms, per-group p50 {g['p50']:.2f} ms (from "
+              f"the group's entry into the pipeline), {rows / wall:.0f} "
+              f"rows/s; closed-loop p50 {pct(one, 50):.2f} ms p99 "
+              f"{pct(one, 99):.2f} ms"
+              for e, (_, ms, wall, g, one) in eng.items()))
+
+    # (b) admission control under a burst of 64
+    slo = 2 * pct(eng["stream"][4], 50)
+    burst_reqs = [reqs[i % len(reqs)] for i in range(64)]
+    server = fresh(dlrm_ps)
+    arms = {}
+    try:
+        for deadline in (True, False):
+            server.set_admission(queue_depth=8, slo_ms=slo,
+                                 deadline_batching=deadline)
+            server.start()
+            closed_loop(server.submit, warm + reqs)    # both arms warm
+            server.reset_serving_stats()
+            outs, ms = counted(total, lambda: burst(server.submit,
+                                                          burst_reqs))
+            server.stop()
+            c = server.counters()
+            kinds = [type(o).__name__ for o in outs]
+            delivered = [m for o, m in zip(outs, ms)
+                         if isinstance(o, np.ndarray)]
+            check(all(isinstance(o, (np.ndarray, Exception)) for o in outs),
+                  "admission: a handle did not resolve")
+            check(c["requests_delivered"] + c["requests_shed"]
+                  + c["requests_expired"] == len(burst_reqs),
+                  f"admission: delivered + shed + expired != "
+                  f"{len(burst_reqs)} ({c})")
+            check(kinds.count("ndarray") == c["requests_delivered"] and
+                  kinds.count("ServerOverloaded") == c["requests_shed"]
+                  + c["requests_expired"],
+                  f"admission: handles {sorted(set(kinds))} disagree with "
+                  f"the counters {c}")
+            arms["deadline" if deadline else "fixed"] = (c, delivered)
+    finally:
+        release(server)
+    print(f"admission dlrm-criteo on {name}: queue_depth 8, slo_ms "
+          f"{slo:.2f} (2 x the stream engine's closed-loop p50), L1 warm "
+          f"with the burst's {len(reqs)} distinct requests, a burst of "
+          f"{len(burst_reqs)} requests x {args.batch} rows, every handle "
+          "resolved; " + "; ".join(
+              f"{arm}: delivered {c['requests_delivered']}, shed "
+              f"{c['requests_shed']}, expired {c['requests_expired']}, SLO "
+              f"violations {c['slo_violations']}, delivered p50 "
+              f"{pct(d, 50):.2f} ms p99 {pct(d, 99):.2f} ms"
+              for arm, (c, d) in arms.items()))
+
+    # (c) the ensemble: deploy, rebuild from ps.json alone, rebalance
+    ens_dir = os.path.join(ROOT, "_smoke_bundle", "ensemble")
+    shutil.rmtree(ens_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    release(deploy_ensemble([dlrm, dcn], ens_dir,
+                            cache_budget=2 * args.cache_capacity,
+                            max_batch=args.batch))
+    t_deploy = time.perf_counter() - t0
+    ens, graphs = build_server_from_config(os.path.join(ens_dir, "ps.json"),
+                                           device=dev,
+                                           cache_budget=2 * args.cache_capacity)
+    members = {dlrm.name: (dlrm_ps, warm, reqs),
+               dcn.name: (dcn_ps, make_requests(args, dcn.cfg, args.warmup,
+                                                1),
+                          make_requests(args, dcn.cfg, args.requests, 2))}
+    check(sorted(ens.models) == sorted(members) == sorted(graphs),
+          f"ensemble members {ens.models}")
+    try:
+        single = {}
+        for mname, (ps, mwarm, mreqs) in members.items():
+            solo = fresh(ps)
+            try:
+                solo.start()
+                closed_loop(solo.submit, mwarm)
+                outs, ms = counted(total, lambda: closed_loop(solo.submit,
+                                                              mreqs))
+                solo.stop()
+                single[mname] = (outs, ms)
+            finally:
+                release(solo)
+        for mname, (_, mwarm, _) in members.items():
+            for d, c in mwarm:
+                ens.predict(mname, d, c)
+        ens.rebalance_now()              # absorb the warm-up misses
+        caps0 = ens.rebalance_stats()["capacities"]
+        ens.start()
+        member = {}
+        for mname, (_, _, mreqs) in members.items():
+            s = ens[mname]
+            h0 = [c.counters() for c in s.hps.caches.values()]
+            outs, ms = counted(total, lambda: closed_loop(
+                lambda d, c: ens.submit(mname, d, c), mreqs))
+            h1 = [c.counters() for c in s.hps.caches.values()]
+            hits = sum(b["hits"] - a["hits"] for a, b in zip(h0, h1))
+            miss = sum(b["misses"] - a["misses"] for a, b in zip(h0, h1))
+            member[mname] = (outs, ms, hits / max(1, hits + miss))
+            check(all(np.array_equal(a, b) for a, b in
+                      zip(outs, single[mname][0])),
+                  f"ensemble member {mname}: predictions differ from its "
+                  "single-model server's")
+        ens.stop()
+        for mname, (_, _, mreqs) in members.items():
+            want = {"lookup_fwd": 1}
+            if mname == dlrm.name:
+                want["interaction_fwd"] = 1
+            _, got = launches_of(lambda: ens.predict(mname, *mreqs[0]))
+            check(got == want, f"ensemble member {mname}: one batch "
+                  f"launched {got}, want {want}")
+        before = {m: [ens.predict(m, d, c) for d, c in mreqs[:4]]
+                  for m, (_, _, mreqs) in members.items()}
+        skew = make_requests(args, cfg, args.requests, 5)
+        ens.start()
+        counted(total, lambda: closed_loop(
+            lambda d, c: ens.submit(dlrm.name, d, c), skew))
+        ens.stop()
+        t0 = time.perf_counter()
+        caps1 = ens.rebalance_now()
+        t_rebalance = time.perf_counter() - t0
+        check(caps1[dlrm.name] > caps0[dlrm.name] and
+              caps1[dcn.name] < caps0[dcn.name],
+              f"rebalance toward DLRM: {caps0} -> {caps1}")
+
+        def after_resize():
+            return {m: [ens.predict(m, d, c) for d, c in mreqs[:4]]
+                    for m, (_, _, mreqs) in members.items()}
+
+        after = counted(total, after_resize)
+        for m in members:
+            check(all(np.array_equal(a, b) for a, b in
+                      zip(after[m], before[m])),
+                  f"ensemble member {m}: predictions changed across the "
+                  "rebalance's resize")
+        print(f"ensemble dlrm-criteo + dcn-criteo on {name}: "
+              f"deploy_ensemble (cache_budget {2 * args.cache_capacity}) "
+              f"wrote the bundle in {t_deploy:.1f} s, rebuilt from ps.json "
+              "alone; members equal their single-model servers bit for bit,"
+              " one K1 launch a batch; closed-loop submit p50 / p99 ms, "
+              "member against single-model: " + "; ".join(
+                  f"{m} {pct(member[m][1], 50):.2f} / "
+                  f"{pct(member[m][1], 99):.2f} against "
+                  f"{pct(single[m][1], 50):.2f} / "
+                  f"{pct(single[m][1], 99):.2f}, L1 hit rate "
+                  f"{member[m][2]:.4f}" for m in members)
+              + f"; {len(skew)} requests to {dlrm.name} alone, then "
+              f"rebalance_now() in {1e3 * t_rebalance:.0f} ms: capacities "
+              f"{caps0} -> {caps1}; predictions after the resize equal "
+              "those before bit for bit")
+
+        # (d) the twin over 16 stream groups: DLRM alone, then the
+        # ensemble's DLRM member with admission on
+        runs = {}
+        solo = fresh(dlrm_ps)
+        try:
+            solo.start()
+            closed_loop(solo.submit, warm)
+            runs["dlrm-criteo alone"] = counted(total, lambda: sync_window(
+                lambda: closed_loop(solo.submit, reqs[:16])))
+            solo.stop()
+        finally:
+            release(solo)
+        s = ens[dlrm.name]
+        s.set_admission(queue_depth=64, slo_ms=60_000.0)
+        s.start()
+        closed_loop(s.submit, warm)
+        s.reset_serving_stats()
+        runs["ensemble member dlrm-criteo, admission on"] = counted(
+            total, lambda: sync_window(lambda: closed_loop(s.submit,
+                                                           reqs[:16])))
+        s.stop()
+    finally:
+        release(ens)
+        shutil.rmtree(ens_dir, ignore_errors=True)
+    groups = min(16, len(reqs))
+    for label, (_, summ, debug, where) in runs.items():
+        check(summ["syncs"] == groups and summ["compiles"] == 0,
+              f"sanitizer, {label}: {summ} over {groups} groups")
+        check(debug == groups, f"sanitizer, {label}: the sync debug mode "
+              f"saw {debug} syncs over {groups} groups, at {where}")
+    print(f"sanitizer on {name}: {groups} stream groups after warm-up; " +
+          "; ".join(f"{label}: twin syncs {summ['syncs']} (d2h "
+                    f"{summ['d2h']}, block {summ['block']}), fresh kernel "
+                    f"builds {summ['compiles']}, set_sync_debug_mode syncs "
+                    f"{debug} at {where}"
+                    for label, (_, summ, debug, where) in runs.items()))
+
+
+# ---------------------------------------------------------------------------
 # phase 7: serve full-width minitron-4b: prefill, then KV-cache decode
 # ---------------------------------------------------------------------------
 
@@ -2240,14 +2587,15 @@ def lm_train_phase(args, dev, cfg):
 
 
 def recipe_run(args, dev, cfg, timed_steps, payloads, submit, total,
-               online=None):
+               online=None, keep=False):
     """Train ``cfg`` (:func:`train_phase`), deploy it, rebuild the server
     from ``ps.json`` and serve it with each L1 payload type of
     ``payloads``, then run ``online`` (:func:`online_phase` or
     :func:`online_fanout`) on the same bundle; adds the main paths' launch
-    counts to ``total``."""
+    counts to ``total``. With ``keep`` the trained ``api.Model`` stays for
+    a later phase and is returned."""
     import torch
-    bundle_dir = os.path.join(ROOT, "_smoke_bundle")
+    bundle_dir = os.path.join(ROOT, "_smoke_bundle", cfg.name)
     shutil.rmtree(bundle_dir, ignore_errors=True)
     try:
         model, launches = train_phase(args, dev, cfg, timed_steps)
@@ -2264,9 +2612,12 @@ def recipe_run(args, dev, cfg, timed_steps, payloads, submit, total,
             online(args, ps, cfg, pdb, params, dev, total)
     finally:
         shutil.rmtree(bundle_dir, ignore_errors=True)
+    if keep:
+        return model
     del model, params, pdb
     gc.collect()
     torch.cuda.empty_cache()
+    return None
 
 
 def reduced_line(args, cfg, full) -> str:
@@ -2297,21 +2648,37 @@ def full_line(cfg) -> str:
 
 def recsys_phases(args, dev):
     """Phases 4-6 (DLRM, its vocabulary capped: train, deploy, serve
-    through submit with f32 and int8 L1) and 6b (its online path), then
-    phase 7 (with 6b's fan-out count for the full-width recipes): WDL at full width
-    and vocabulary through the same, on two HPSes, then DCN and DeepFM
-    (capped) through fit, deploy, rebuild and predict (f32); then phase 8:
-    NeuMF at full width and vocabulary through the same as WDL, on three
-    HPSes, then the two-tower and cross-deep graphs (capped) as DCN.
-    Returns the launch counts of their main paths."""
+    through submit with f32 and int8 L1), 6b (its online path), DCN
+    (capped) through fit, deploy, rebuild and predict (f32), and 6c (the
+    serving engine on both bundles); then phase 7 (with 6b's fan-out
+    count for the full-width recipes): WDL at full width and vocabulary
+    through the same, on two HPSes, then DeepFM (capped) as DCN; then
+    phase 8: NeuMF at full width and vocabulary through the same as WDL,
+    on three HPSes, then the two-tower and cross-deep graphs (capped) as
+    DCN. Returns the launch counts of their main paths."""
+    import torch
     total = {}
     dlrm = capped_config(args)
     print(reduced_line(args, dlrm,
                        recipe_config(args, "dlrm-criteo", capped=False)))
-    recipe_run(args, dev, dlrm, args.timed_steps, ("f32", "int8"), True,
-               total, online=online_phase)
     short = types.SimpleNamespace(**{**vars(args), "lr": args.recipe_lr})
-    for full, capped in (("wdl-criteo", ("dcn-criteo", "deepfm-criteo")),
+    dlrm_model = recipe_run(args, dev, dlrm, args.timed_steps,
+                            ("f32", "int8"), True, total,
+                            online=online_phase, keep=True)
+    dcn = recipe_config(args, "dcn-criteo", capped=True)
+    print(reduced_line(args, dcn,
+                       recipe_config(args, "dcn-criteo", capped=False)))
+    dcn_model = recipe_run(short, dev, dcn, args.recipe_timed_steps,
+                           ("f32",), False, total, keep=True)
+    try:
+        serving_engine_phase(args, dev, dlrm_model, dcn_model, total)
+    finally:
+        shutil.rmtree(os.path.join(ROOT, "_smoke_bundle"),
+                      ignore_errors=True)
+    del dlrm_model, dcn_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for full, capped in (("wdl-criteo", ("deepfm-criteo",)),
                          ("neumf-criteo", ("twotower-criteo",
                                            "crossdeep-criteo"))):
         cfg = recipe_config(args, full, capped=False)

@@ -30,8 +30,10 @@ The paper's workflow runs through :class:`Model`::
 recipes' ``build_model`` is in ``configs/*_criteo.py``).
 
 and ``launch/serve.py::build_server_from_config`` (either package's)
-serves the bundle. Not ported yet: the ETC backend (``Solver.etc``), the
-criteo reader, and meshes of more than one device.
+serves the bundle; :func:`deploy_ensemble` writes one bundle for several
+models, served by one ``MultiModelServer``. Not ported yet: the ETC
+backend (``Solver.etc``), the criteo reader, and meshes of more than one
+device.
 """
 from __future__ import annotations
 
@@ -694,6 +696,36 @@ class Model:
         from repro_torch.train.train_step import split_params
         return split_params(self._params)[1]
 
+    def _write_bundle_member(self, pdb, bundle_dir: str, sub: str, *,
+                             cache_capacity: int, cache_shards: int,
+                             refresh_budget: int, max_batch: int,
+                             payload_dtype: str = "f32"):
+        """Export THIS model into a deployment bundle: every table (the
+        ``*_wide`` twins of a wide model and every extra group's tables
+        included) into the (possibly shared) PDB, ``graph.json`` and
+        ``dense.npz`` under ``bundle_dir/sub``; returns the relocatable
+        HPSConfig, its paths relative to ``bundle_dir``."""
+        from repro_torch.serve.server import write_bundle_member
+        tables = {}
+        for key, coll in self._model.collections().items():
+            tables.update(coll.logical_tables(self._params[key]))
+        return write_bundle_member(
+            pdb, bundle_dir, sub, self, self.dense_params(), tables,
+            cache_capacity=cache_capacity, cache_shards=cache_shards,
+            refresh_budget=refresh_budget, max_batch=max_batch,
+            payload_dtype=payload_dtype)
+
+    def _build_server(self, pdb, hcfg, *, vdb=None, bus=None):
+        """This model's HPSes + InferenceServer over storage that holds
+        its tables (``serve.server.build_server``), on a frozen copy of
+        the dense weights: a later ``fit()`` does not move a deployed
+        server's."""
+        from repro_torch.serve.server import build_server
+        from repro_torch.tree import tree_map
+        dense = tree_map(lambda t: t.detach().clone(), self.dense_params())
+        return build_server(self._model, pdb, hcfg, dense, vdb=vdb,
+                            bus=bus)
+
     def deploy(self, directory: str, *, cache_capacity: int = 4096,
                cache_shards: int = 1, refresh_budget: int = 512,
                max_batch: int = 1024, payload_dtype: str = "f32",
@@ -702,26 +734,24 @@ class Model:
         ``*_wide`` twins of a wide model and every extra group's tables
         included; ``graph.json``, ``dense.npz``, ``ps.json`` with ``wide``
         set for a wide model, the L1 striping ``cache_shards`` and the
-        ``refresh_budget``) and return an ``InferenceServer`` rebuilt
-        from it on this model's device, one HPS per table set, over the
-        given VolatileDB and message bus. Either package's
-        ``build_server_from_config`` serves the bundle."""
+        ``refresh_budget``) and return an ``InferenceServer`` over it on
+        this model's device, one HPS per table set, over the given
+        VolatileDB and message bus. Either package's
+        ``build_server_from_config`` serves the bundle; to serve several
+        models from one bundle, see :func:`deploy_ensemble`."""
         if self._params is None:
             raise RuntimeError("fit() or load() before deploy()")
-        from repro_torch.launch.serve import build_server_from_config
-        from repro_torch.serve.server import write_bundle
-        tables = {}
-        for key, coll in self._model.collections().items():
-            tables.update(coll.logical_tables(self._params[key]))
-        write_bundle(directory, self, self.dense_params(), tables,
-                     cache_capacity=cache_capacity,
-                     cache_shards=cache_shards,
-                     refresh_budget=refresh_budget, max_batch=max_batch,
-                     payload_dtype=payload_dtype)
-        server, _ = build_server_from_config(
-            os.path.join(directory, "ps.json"), device=self.device,
-            vdb=vdb, bus=bus)
-        return server
+        from repro_torch.configs.base import hps_config_to_dict
+        from repro_torch.core.hps.persistent_db import PersistentDB
+        os.makedirs(directory, exist_ok=True)
+        pdb = PersistentDB(os.path.join(directory, "pdb"))
+        hcfg = self._write_bundle_member(
+            pdb, directory, "", cache_capacity=cache_capacity,
+            cache_shards=cache_shards, refresh_budget=refresh_budget,
+            max_batch=max_batch, payload_dtype=payload_dtype)
+        with open(os.path.join(directory, "ps.json"), "w") as f:
+            json.dump(hps_config_to_dict(hcfg), f, indent=1)
+        return self._build_server(pdb, hcfg, vdb=vdb, bus=bus)
 
     def graph_dict(self) -> Dict:
         layers: List[Dict] = []
@@ -922,3 +952,107 @@ def recipe_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
     if cfg.model not in RECIPE_GRAPHS:
         raise ValueError(f"{cfg.name}: unknown model {cfg.model!r}")
     return RECIPE_GRAPHS[cfg.model](cfg, solver=solver, reader=reader)
+
+
+# ---------------------------------------------------------------------------
+# Ensemble deployment: several models, one storage backend
+# ---------------------------------------------------------------------------
+
+def _hotness_demand(tables: Sequence[EmbeddingTableConfig]) -> int:
+    """A model's L1 working-set proxy from its table hotness stats: ids
+    per sample x expected hot rows (the ``hot_fraction`` share of each
+    vocabulary the planner treats as the hot set)."""
+    return max(1, sum(
+        t.hotness * max(1, min(t.vocab_size,
+                               round(t.vocab_size * t.hot_fraction)))
+        for t in tables))
+
+
+def hotness_cache_capacities(models: Sequence[Model],
+                             budget: int) -> Dict[str, int]:
+    """Split one total L1 row ``budget`` across ensemble members in
+    proportion to their table-hotness working sets (each model gets at
+    least 64 rows so a cold member still serves)."""
+    demand = {m.name: _hotness_demand(m.cfg.all_tables) for m in models}
+    total = sum(demand.values())
+    return {name: max(64, int(round(budget * d / total)))
+            for name, d in demand.items()}
+
+
+def deploy_ensemble(models: Sequence[Model], directory: str, *,
+                    cache_capacity: Union[int, Dict[str, int],
+                                          None] = None,
+                    cache_budget: Optional[int] = None,
+                    cache_shards: int = 1,
+                    refresh_budget: int = 512, max_batch: int = 1024,
+                    payload_dtype: str = "f32",
+                    rebalance_interval_s: Optional[float] = None,
+                    vdb=None, bus=None):
+    """Write ONE multi-model serving bundle and return a ready
+    :class:`~repro_torch.serve.server.MultiModelServer` (the reference's
+    ``api.deploy_ensemble``; either package serves the bundle).
+
+    Every member's tables land in one shared ``pdb/`` (namespaced per
+    model on disk), each member's ``graph.json`` and ``dense.npz`` under
+    ``<name>/``, and the bundle's ``ps.json`` holds one
+    :class:`~repro_torch.configs.base.EnsembleConfig`. The in-process
+    server shares one VolatileDB and one message bus across the models,
+    with one L1 per model, on each model's device.
+
+    L1 sizing: by default the total row budget (``cache_budget``, default
+    ``4096 * len(models)``) is split in proportion to the members'
+    table-hotness working sets (:func:`hotness_cache_capacities`);
+    ``cache_capacity=<int>`` gives every model the same capacity, and a
+    ``{model: rows}`` dict pins some members (the rest keep their
+    hotness share). ``rebalance_interval_s`` (off by default) re-splits
+    the budget from the observed L1 misses at most once per interval.
+    ``payload_dtype`` applies to every member's L1.
+    """
+    from repro_torch.configs.base import (EnsembleConfig,
+                                          ensemble_config_to_dict)
+    from repro_torch.core.hps.message_bus import MessageBus
+    from repro_torch.core.hps.persistent_db import PersistentDB
+    from repro_torch.core.hps.volatile_db import VolatileDB
+    from repro_torch.serve.server import MultiModelServer
+    if not models:
+        raise GraphError("deploy_ensemble needs at least one model")
+    names = [m.name for m in models]
+    if len(set(names)) != len(names):
+        raise GraphError(f"ensemble model names must be unique: {names}")
+    for m in models:
+        if m._params is None:
+            raise RuntimeError(
+                f"model {m.name!r}: fit() or load() before deploy")
+    for m in models:
+        m._require_compiled()
+    budget = cache_budget if cache_budget is not None \
+        else 4096 * len(models)
+    capacities = hotness_cache_capacities(models, budget)
+    if isinstance(cache_capacity, int):
+        capacities = {m.name: cache_capacity for m in models}
+    elif isinstance(cache_capacity, dict):
+        unknown = set(cache_capacity) - set(names)
+        if unknown:
+            raise GraphError(
+                f"cache_capacity overrides for unknown models: "
+                f"{sorted(unknown)}")
+        capacities.update(cache_capacity)
+    os.makedirs(directory, exist_ok=True)
+    pdb = PersistentDB(os.path.join(directory, "pdb"))   # shared L3
+    vdb = vdb if vdb is not None else VolatileDB()       # shared L2
+    bus = bus if bus is not None else MessageBus()       # shared bus
+    hcfgs = []
+    servers = {}
+    for m in models:
+        hcfg = m._write_bundle_member(
+            pdb, directory, m.name, cache_capacity=capacities[m.name],
+            cache_shards=cache_shards, refresh_budget=refresh_budget,
+            max_batch=max_batch, payload_dtype=payload_dtype)
+        hcfgs.append(hcfg)
+        servers[m.name] = m._build_server(pdb, hcfg, vdb=vdb, bus=bus)
+    ens = EnsembleConfig(models=tuple(hcfgs))
+    with open(os.path.join(directory, "ps.json"), "w") as f:
+        json.dump(ensemble_config_to_dict(ens), f, indent=1)
+    return MultiModelServer(servers, vdb=vdb, pdb=pdb, bus=bus,
+                            cache_budget=budget,
+                            rebalance_interval_s=rebalance_interval_s)

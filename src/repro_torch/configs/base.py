@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 # embedding placement strategies (the planner's vocabulary)
 LOCALIZED = "localized"      # whole table on one device, all-to-all after pool
@@ -199,13 +199,43 @@ class MeshConfig:
 SINGLE_DEVICE = MeshConfig((1, 1), ("data", "model"))
 
 
-def ps_config_from_dict(d: Dict) -> HPSConfig:
-    """ps.json -> :class:`HPSConfig`. Ensemble bundles
-    (``repro-ps-ensemble-v1``) are a later slice."""
+@dataclasses.dataclass(frozen=True)
+class EnsembleConfig:
+    """A multi-model deployment bundle: several models' parameter-server
+    specs served from ONE storage backend process.
+
+    All member configs share one ``pdb_root`` (the PDB namespaces tables
+    per model) and, at serve time, one VolatileDB and one message bus.
+    """
+    models: Tuple[HPSConfig, ...]
+
+    def __post_init__(self):
+        names = [m.model for m in self.models]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate model names in ensemble: {names}")
+        roots = {m.pdb_root for m in self.models}
+        if len(roots) != 1:
+            raise ValueError(
+                f"ensemble members must share one pdb_root, got {roots}")
+
+
+def ensemble_config_to_dict(cfg: EnsembleConfig) -> Dict:
+    return {"format": "repro-ps-ensemble-v1",
+            "models": [hps_config_to_dict(m) for m in cfg.models]}
+
+
+def ensemble_config_from_dict(d: Dict) -> EnsembleConfig:
+    if d.get("format") != "repro-ps-ensemble-v1":
+        raise ValueError(f"unknown ensemble format {d.get('format')!r}")
+    return EnsembleConfig(models=tuple(hps_config_from_dict(m)
+                                       for m in d["models"]))
+
+
+def ps_config_from_dict(d: Dict) -> Union[HPSConfig, EnsembleConfig]:
+    """Format-sniffing loader: a ps.json holds either one model's
+    :class:`HPSConfig` or a multi-model :class:`EnsembleConfig`."""
     if d.get("format") == "repro-ps-ensemble-v1":
-        raise NotImplementedError(
-            "ensemble bundles (MultiModelServer) are ported by the ROADMAP "
-            "item 'The rest of the serving engine'")
+        return ensemble_config_from_dict(d)
     return hps_config_from_dict(d)
 
 

@@ -35,6 +35,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import device as devmod
 from repro_torch.configs.base import EmbeddingTableConfig
 from repro_torch.core.hps.embedding_cache import DeviceEmbeddingCache, LookupPlan
 from repro_torch.core.hps.message_bus import Consumer, MessageBus
@@ -221,7 +222,7 @@ class HPS:
         if self.cache_shards > 1:
             slots = ops.flatten_striped_slots(payload[0], slots)
             payload = ops.striped_view(payload)
-        return torch.from_numpy(slots).to(self.device), payload
+        return devmod.to_device(slots, self.device), payload
 
     def _collect_plan(self, ti: int, plan: LookupPlan, b: int, bp: int,
                       blocks: List[np.ndarray],
@@ -300,10 +301,6 @@ class HPS:
                                    blocks, slot_blocks, payloads, overflow)
         return self._finalize(payloads, slot_blocks, blocks, overflow, b)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def lookup_stage_sync(self, cat: np.ndarray,
                           hotness: Optional[List[int]] = None
                           ) -> torch.Tensor:
@@ -326,9 +323,9 @@ class HPS:
         for ti in range(len(self.tables)):
             self._collect_plan(ti, self._probe(ti, blocks), b, bp, blocks,
                                slot_blocks, payloads, overflow)
-            self._sync()                            # no overlap
+            devmod.synchronize(self.device)         # no overlap
         out = self._finalize(payloads, slot_blocks, blocks, overflow, b)
-        self._sync()
+        devmod.synchronize(self.device)
         return out
 
     def _timed_probe(self, ti: int, blocks: List[np.ndarray],

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import device as devmod
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.roadmap import MULTI_DEVICE, not_ported
@@ -134,7 +135,7 @@ class ShardedPayloadStore:
         """Logical slots as rows of the flat payload view, on the device."""
         if self.shards > 1:
             slots = ops.flatten_striped_slots(self._payload, slots)
-        return torch.from_numpy(np.asarray(slots, np.int64)).to(self.device)
+        return devmod.to_device(np.asarray(slots, np.int64), self.device)
 
     def scatter(self, slots: np.ndarray, rows: np.ndarray) -> None:
         """Write ``rows`` (f32, quantized here) at ``slots`` into a copy of
@@ -153,12 +154,12 @@ class ShardedPayloadStore:
                     [scales, np.broadcast_to(scales[:1], (pad,))])
         idx = self._flat_slots(slots)
         payload = self._payload.clone()
-        payload.view(-1, self.dim).index_copy_(0, idx, torch.from_numpy(
-            np.ascontiguousarray(rows)).to(self.device))
+        payload.view(-1, self.dim).index_copy_(
+            0, idx, devmod.to_device(rows, self.device))
         if scales is not None:
             new_scales = self._scales.clone()
-            new_scales.view(-1).index_copy_(0, idx, torch.from_numpy(
-                np.ascontiguousarray(scales)).to(self.device))
+            new_scales.view(-1).index_copy_(
+                0, idx, devmod.to_device(scales, self.device))
             self._scales = new_scales
         self._payload = payload
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -32,3 +33,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, copied without a stream
+    sync (``non_blocking``): CUDA stages pageable memory before the
+    copy call returns, so ``a`` may be dropped at once, and the host does
+    not wait for the device work queued before the copy, as a blocking
+    copy would (``memcpy_and_sync``: one wait per table and batch on the
+    served path)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device,
+                                                         non_blocking=True)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device``: ``torch.cuda.synchronize``
+    on a card; the CPU runs its work as it is issued, so there is nothing
+    to wait for. The stage-synchronous engine's fence between stages
+    (the hot-path sanitizer counts it on either device)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

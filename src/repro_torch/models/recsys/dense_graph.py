@@ -355,8 +355,11 @@ class DenseGraphProgram:
                 env[n.output] = kops.dot_interaction(feats) \
                     if self.use_kernels else dot_interaction_ref(feats)
             elif n.op == "cross":
+                # zero layers: the identity, with no params (an empty
+                # group has no leaf, so the flat forms do not keep it)
+                p = fetch(n, "p") if n.attrs["num_layers"] else {}
                 env[n.output] = dlayers.cross_apply(
-                    fetch(n, "p"), xs[0], compute_dtype=compute_dtype)
+                    p, xs[0], compute_dtype=compute_dtype)
             elif n.op == "concat":
                 # mixed dtypes promote (f32 dense + compute-dtype
                 # embeddings -> f32), as jnp.concatenate does

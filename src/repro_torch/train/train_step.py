@@ -21,7 +21,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.optim import optimizers as dense_opt_lib
 from repro_torch.optim.optimizers import clip_by_global_norm
 from repro_torch.optim.sparse import make_sparse
-from repro_torch.tree import flatten, tree_map, unflatten
+from repro_torch.tree import flatten, tree_map, unflatten_like
 
 SPARSE_KEYS = ("embedding", "wide_embedding")
 
@@ -56,11 +56,11 @@ def value_and_grad(fn: Callable, params: Dict, *args
     paths = flatten(params)
     leaves = [v.detach().requires_grad_(True) for _, v in paths]
     keys = [k for k, _ in paths]
-    loss = fn(unflatten(dict(zip(keys, leaves))), *args)
+    loss = fn(unflatten_like(params, dict(zip(keys, leaves))), *args)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
-    return loss.detach(), unflatten(dict(zip(keys, grads)))
+    return loss.detach(), unflatten_like(params, dict(zip(keys, grads)))
 
 
 def _apply_updates(params, grads, opt_state, dense_opt, sparse_opt, tcfg):

@@ -34,6 +34,19 @@ def unflatten(flat: Mapping[str, object]) -> Dict:
     return out
 
 
+def unflatten_like(template: Mapping, flat: Mapping[str, object],
+                   prefix: str = "") -> Dict:
+    """:func:`unflatten` into ``template``'s structure: its empty
+    subtrees (a zero-layer cross network's ``{}``) come back too, as
+    ``jax.tree_util`` keeps them."""
+    out: Dict = {}
+    for k, v in template.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        out[k] = (unflatten_like(v, flat, path) if isinstance(v, Mapping)
+                  else flat[path])
+    return out
+
+
 def leaves(tree: Mapping) -> List:
     return [v for _, v in flatten(tree)]
 

@@ -41,7 +41,10 @@ def test_module_imports(mod):
 
 
 def test_imports_with_jax_and_repro_blocked():
-    assert "repro_torch.core.hps.message_bus" in _modules()
+    for mod in ("core.hps.message_bus", "analysis.hotpath",
+                "analysis.concurrency", "analysis.lockorder",
+                "analysis.__main__", "loadgen.metrics"):
+        assert f"repro_torch.{mod}" in _modules()
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
@@ -51,6 +54,9 @@ def test_imports_with_jax_and_repro_blocked():
         "repro_torch.__path__, prefix='repro_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
+        "from repro_torch.analysis import HotPathMonitor\n"
+        "with HotPathMonitor():\n"        # the twin arms without jax
+        "    pass\n"
         "bad = [k for k, v in sys.modules.items() if v is not None and "
         "(k.split('.')[0] in ('jax', 'jaxlib', 'repro'))]\n"
         "assert not bad, bad\n"

@@ -10,7 +10,8 @@
 functions and its run settings (``chip_smoke.RUN``), so that its shapes and
 ids follow the smoke's. Each time is the mean of calls replayed from a CUDA
 graph (``chip_smoke.graph_ms``), beside the wrapper's time (CUDA events
-around back-to-back calls, ``chip_smoke.time_ms``). Prints the card's name
+around back-to-back calls, ``chip_smoke.time_ms``). The ``library ...``
+cases time a kernel's library yardstick on the same inputs. Prints the card's name
 and power limit, then one JSON line. Needs a CUDA device; exits 2 without
 one.
 """
@@ -47,14 +48,11 @@ def _dlrm_k3(cs, dev):
     return lambda: k1.lookup_bwd((v, 128), rows, dp), 4
 
 
-def _striped(cs, dev, payload_dtype: str, query: bool = False):
-    """The served pooled read of all 26 tables (or, with ``query``, the
-    cache query's row read of one) on the flat view of 2-way striped L1
-    payloads, the slots remapped onto it before the timing, as
+def _striped_inputs(cs, dev, payload_dtype: str, sets: int):
+    """2-way striped L1 payloads of the 26 served tables as their flat
+    views, and ``sets`` batches of slots remapped onto them, as
     ``HPS._device_stage`` remaps them on the host."""
-    from repro_torch.core.hps.hps import _pooled_stack
     from repro_torch.kernels import ops
-    sets = 1 if query else cs.SLOT_SETS
     pays, slots = cs.served_inputs(cs.RUN, dev, payload_dtype, sets)
     half = cs.RUN.cache_capacity // 2
     stripes = [(p.view(2, half, -1), None if sc is None else sc.view(2, half))
@@ -62,12 +60,45 @@ def _striped(cs, dev, payload_dtype: str, query: bool = False):
     flat = [ops.striped_view(st) for st in stripes]
     slots = [[ops.flatten_striped_slots(st[0], s)
               for st, s in zip(stripes, batch)] for batch in slots]
+    return flat, slots
+
+
+def _striped(cs, dev, payload_dtype: str, query: bool = False):
+    """The served pooled read of all 26 tables (or, with ``query``, the
+    cache query's row read of one) on the flat view of 2-way striped L1
+    payloads."""
+    from repro_torch.core.hps.hps import _pooled_stack
+    from repro_torch.kernels import ops
+    sets = 1 if query else cs.SLOT_SETS
+    flat, slots = _striped_inputs(cs, dev, payload_dtype, sets)
     if query:
         (p, sc), sl = flat[0], slots[0][0].view(-1)
         return lambda: ops.cache_gather(p, sl, scales=sc), 20
     combiners = ("sum",) * len(flat)
     return cs.rotating(lambda sl: _pooled_stack(flat, sl, combiners),
                        slots), sets
+
+
+def _striped_library(cs, dev, payload_dtype: str, query: bool = False):
+    """The library yardstick of :func:`_striped` on the same inputs: each
+    table's ``index_select`` (dequantized for int8) + ``sum`` and one
+    ``torch.stack``, as ``chip_smoke.served_record`` times it; the query's
+    one ``index_select``."""
+    import torch
+    sets = 1 if query else cs.SLOT_SETS
+    flat, slots = _striped_inputs(cs, dev, payload_dtype, sets)
+    if query:
+        (p, _), sl = flat[0], slots[0][0].view(-1)
+        return lambda: p.index_select(0, sl), 20
+    b, d = cs.RUN.batch, flat[0][0].shape[1]
+
+    def lib(sl):
+        return torch.stack([
+            (p.index_select(0, s.view(-1)).float() if sc is None else
+             p.index_select(0, s.view(-1)).float()
+             * sc.index_select(0, s.view(-1))[:, None]).view(b, -1, d).sum(1)
+            for (p, sc), s in zip(flat, sl)], 1)
+    return cs.rotating(lib, slots), sets
 
 
 def _pooled_stack(cs, dev, payload_dtype: str, d: int = 128,
@@ -227,6 +258,12 @@ CASES = {
         lambda cs, dev: _striped(cs, dev, "f32", query=True),
     "dequant_gather_rows query striped":
         lambda cs, dev: _striped(cs, dev, "int8", query=True),
+    "library pooled_stack f32 striped":
+        lambda cs, dev: _striped_library(cs, dev, "f32"),
+    "library pooled_stack int8 striped":
+        lambda cs, dev: _striped_library(cs, dev, "int8"),
+    "library gather_rows query striped":
+        lambda cs, dev: _striped_library(cs, dev, "f32", query=True),
 }
 
 
