@@ -23,8 +23,10 @@ Phases, in order; any failure exits non-zero:
    WDL and DeepFM; then K1 and K3 at full-vocabulary ``neumf-criteo``'s
    largest ``deep`` group (D 64) and ``ctx`` group (D 8), the grouped
    served read of its three HPSes (13 x D 64, 9 x D 16, 4 x D 8) and the
-   cache query at D 64 and D 8; each time kept under its kernel's
-   ``shapes`` in the JSON line. K7 (flash-attention forward) likewise at minitron-4b's
+   cache query at D 64 and D 8; K1 and K3 at phase 6d's ETC cache (the
+   first training batch's slots offset onto the flattened [26 x 131072,
+   128] cache); each time kept under its kernel's ``shapes`` in the JSON
+   line. K7 (flash-attention forward) likewise at minitron-4b's
    prefill shape, recurrentgemma's local-attention shape and an odd f32
    length, and K8 (its backward) at minitron-4b's training shape,
    recurrentgemma's local attention at S 2500 and an odd f32 length, with
@@ -94,6 +96,25 @@ Phases, in order; any failure exits non-zero:
    ``torch.cuda.set_sync_debug_mode("warn")`` over 16 closed-loop stream
    groups after warm-up, DLRM alone and the ensemble's DLRM member with
    admission on: one sync a group in both, no fresh kernel build.
+6d. ETC and online training, on capped ``dlrm-criteo``: (i) ``fit()``
+   with ``Solver(etc=ETCParams(cache_rows=RUN.etc_cache_rows, ps="staged",
+   passes=RUN.etc_passes))`` from phase 4's initial weights over its
+   batches: every step one K1 and one K3 launch over the flattened cache
+   and one K2 and one K4, no eviction, the losses within ``TRAIN_TOL`` of
+   phase 4's and of the plain versions' first steps; the step's reader,
+   host ``prepare`` and device step against phase 4's step, and one
+   profiled ETC step; (ii) an evicting fit (``RUN.etc_evict_rows`` rows a
+   table, ``ps="cached"`` under ``_smoke_bundle/``, one pass): it evicts,
+   its loss falls, after the flush each resident row of the PS equals its
+   cache row bit for bit, and the pulls, evictions, ``prepare`` ms and
+   flush + ``fsync`` seconds; (iii) phase 4's trained model deployed live
+   (external ``VolatileDB`` + ``MessageBus``, f32 L1, stream engine) while
+   an ``OnlineTrainer`` with an ``UpdatePublisher`` trains
+   ``RUN.etc_passes`` passes of ``RUN.etc_online_steps`` steps: each
+   version's rows and publish -> visible lag (``wait_visible``), one host
+   sync a served group by the hot-path twin while the consumer applies it,
+   and the probe from its baseline onto the oracle (the trained rows under
+   the deployed dense net) within ``SERVE_TOL["f32"]``.
 7. The other recipes: phases 4-6 for full-width ``wdl-criteo`` with no
    cut (26 tables at D 16 over 33,762,590 rows and their dim-1 wide twins,
    deep MLP 1024-1024-1), K1 and K3 launched for both collections every
@@ -164,7 +185,8 @@ TRAIN_TOL = 2e-2
 #: AdamW step lifts DCN's loss from 0.70 to 0.94, and six steps do not
 #: bring it back under the first); the online phase's hottest ids a table
 #: that each update rewrites, update versions, and requests served before
-#: the first update
+#: the first update; phase 6d's ETC cache rows a table, passes, the
+#: evicting run's cache rows, and the freshness loop's steps a pass
 RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             batch=1024, warmup=4, requests=16, seed=0,
                             train_batch=4096, warm_steps=2, timed_steps=8,
@@ -177,7 +199,9 @@ RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             lm_train_warm=1, lm_train_timed=5,
                             lm_train_lr=3e-4,
                             lm_check_layers=2, online_ids=4096,
-                            online_versions=4, online_quiet=48)
+                            online_versions=4, online_quiet=48,
+                            etc_cache_rows=131072, etc_passes=2,
+                            etc_evict_rows=8192, etc_online_steps=4)
 #: K7 against its plain version: bf16 ``o`` (one bf16 ulp of |o| < 4,
 #: where the kernel's bf16 ``p`` and the plain f32 ``p`` round apart) and
 #: the f32 ``lse``; f32 inputs: the f32 sum-order bound
@@ -362,6 +386,33 @@ def neumf_training_rows(args, dev) -> dict:
         dim = dim or next(g.dim for g in cfg.extra_groups if g.name == group)
         out[f"neumf {name} {big}"] = (*rows[big], dim)
     return out
+
+
+def etc_training_rows(args, dev) -> dict:
+    """K1's and K3's inputs as phase 6d's ETC step gives them: the first
+    training batch of capped ``dlrm-criteo`` staged by a fresh cache of
+    ``args.etc_cache_rows`` rows a table (``prepare``: its slots), each
+    table's slots offset onto the flattened ``[T * C, D]`` cache, as
+    ``cached_lookup`` reads it, in :func:`wdl_training_rows`' form."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.core.etc.cache import EmbeddingTrainingCache
+    from repro_torch.core.etc.parameter_server import StagedPS
+    from repro_torch.data.synthetic import SyntheticCTR
+    cfg = capped_config(args)
+    with warnings.catch_warnings():      # the small tables fit whole
+        warnings.simplefilter("ignore", RuntimeWarning)
+        etc = EmbeddingTrainingCache(cfg.tables, args.etc_cache_rows,
+                                     StagedPS(cfg.tables, seed=args.seed),
+                                     device=dev)
+    cat = SyntheticCTR(cfg, args.train_batch, seed=args.seed).batch(0)["cat"]
+    params, rem = etc.prepare(etc.init_params(), cat)
+    del params
+    t, c = len(cfg.tables), etc.capacity
+    rows = np.where(rem >= 0, rem + np.arange(t).reshape(1, t, 1) * c, -1)
+    rows = torch.from_numpy(rows.reshape(-1, rem.shape[-1]).astype(np.int32))
+    return {"etc cache": (t * c, rows.to(dev), cfg.embedding_dim)}
 
 
 #: batches of slots a served-read timing turns through: each call of a
@@ -683,6 +734,9 @@ def kernel_phase(args, dev):
     torch.cuda.empty_cache()
     recipe_kernels(args, dev, shape_line, neumf_training_rows(args, dev),
                    ((13, 64), (9, 16), (4, 8)), (64, 8))
+    torch.cuda.empty_cache()
+    recipe_kernels(args, dev, shape_line, etc_training_rows(args, dev), (),
+                   ())
     torch.cuda.empty_cache()
     attention_kernel(args, record, g, dev)
     attention_bwd_kernel(args, record, g, dev)
@@ -1066,14 +1120,20 @@ def attention_bwd_kernel(args, record, g, dev):
 # phases 4-5: train full-width DLRM through fit(), then deploy it
 # ---------------------------------------------------------------------------
 
-def declare(args, cfg):
+def declare(args, cfg, etc=None):
     """``cfg``'s recipe graph (DLRM, DCN, WDL or DeepFM) through the port's
-    graph API."""
+    graph API; with ``etc`` (an ``ETCParams``) its ``fit()`` trains
+    through the Embedding Training Cache."""
     from repro_torch.api import CreateSolver, DataReaderParams, recipe_graph
     return recipe_graph(cfg, solver=CreateSolver(
-        batch_size=args.train_batch, lr=args.lr, seed=args.seed),
+        batch_size=args.train_batch, lr=args.lr, seed=args.seed, etc=etc),
         reader=DataReaderParams(num_dense_features=cfg.num_dense_features,
                                 seed=args.seed))
+
+
+#: each in-memory fit of :func:`train_phase` by config name: its losses
+#: and step p50 (ms), which phase 6d's ETC fit is held against
+FIT_HISTORY = {}
 
 
 #: device kernels by kind, by a piece of their name (first match wins); K1
@@ -1194,6 +1254,7 @@ def train_phase(args, dev, cfg, timed_steps: int):
               f"{list(colls)})")
     ms = [h["time"] * 1e3 for h in hist[args.warm_steps:]]
     p50 = float(np.median(ms))
+    FIT_HISTORY[cfg.name] = {"losses": losses, "p50": p50}
     print(f"train {cfg.name} on {torch.cuda.get_device_name(0)}: {steps} "
           f"steps at batch {args.train_batch} ({args.warm_steps} warm-up) "
           f"in {time.perf_counter() - t0:.1f} s with set-up; step p50 "
@@ -2247,6 +2308,274 @@ def serving_engine_phase(args, dev, dlrm, dcn, total):
 # phase 7: serve full-width minitron-4b: prefill, then KV-cache decode
 # ---------------------------------------------------------------------------
 
+def etc_phase(args, dev, trained, total):
+    """Phase 6d: ETC-staged training and the train-while-serving loop at
+    full width on the one card, on ``trained``'s config (capped
+    ``dlrm-criteo``). (i) A full-coverage ETC fit (``cache_rows``
+    ``args.etc_cache_rows``, ``StagedPS``, ``args.etc_passes`` passes)
+    from phase 4's initial weights over phase 4's batches: every step one
+    K1 and one K3 launch over the ``[T * C, D]`` cache and one K2 and one
+    K4, no eviction, losses within ``TRAIN_TOL`` of phase 4's in-memory
+    fit and of the plain versions' first steps; the step's host
+    ``prepare`` and the rest, against the in-memory step, and a profiled
+    ETC step. (ii) An evicting fit (``args.etc_evict_rows`` rows,
+    ``CachedPS`` under the smoke's scratch, 1 pass): it evicts, its loss
+    falls, and after the flush every resident row of the PS equals its
+    cache row bit for bit. (iii) ``trained`` deployed live (an external
+    VolatileDB and MessageBus, an f32 L1, the stream engine) while an
+    ``OnlineTrainer`` with an ``UpdatePublisher`` runs
+    ``args.etc_passes`` passes of ``args.etc_online_steps`` steps: each
+    version visible (``wait_visible``) with one host sync a served group
+    by the hot-path twin while the consumer applies it, then the probe
+    converges onto the oracle (trained rows under the deployed dense net)
+    within ``SERVE_TOL["f32"]``. Adds every run's launches to ``total``."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.analysis import HotPathMonitor
+    from repro_torch.configs.base import ETCParams
+    from repro_torch.core.hps.message_bus import MessageBus
+    from repro_torch.core.hps.volatile_db import VolatileDB
+    from repro_torch.data.synthetic import SyntheticCTR
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.online import (OnlineTrainer, UpdatePublisher,
+                                    probe_prediction, wait_visible)
+    from repro_torch.train.trainer import put_batch
+
+    name = torch.cuda.get_device_name(0)
+    cfg = trained.cfg
+    reader = SyntheticCTR(cfg, args.train_batch, seed=args.seed)
+    steps = args.warm_steps + args.timed_steps
+    mem = FIT_HISTORY[cfg.name]
+    t_, d_ = len(cfg.tables), cfg.embedding_dim
+
+    def gb(rows):
+        return t_ * rows * d_ * 4 / 1e9
+
+    # (i) full coverage, from phase 4's init over its batches
+    calls = []
+
+    def data_fn(step):              # launch counts as each call begins,
+        snap = LAUNCHES.snapshot()  # and the reader's host time
+        t0 = time.perf_counter()
+        batch = reader.batch(step)
+        calls.append((step, snap, time.perf_counter() - t0))
+        return batch
+
+    m = declare(args, cfg, etc=ETCParams(
+        cache_rows=args.etc_cache_rows, passes=args.etc_passes)
+    ).compile(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():      # the small tables fit whole
+        warnings.simplefilter("ignore", RuntimeWarning)
+        hist = counted(total, lambda: m.fit(data_fn, steps=steps))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    end = LAUNCHES.snapshot()
+    ot = m._online
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == steps and np.isfinite(losses).all(),
+          f"etc fit: {len(hist)} steps, losses {losses}")
+    check(ot.etc.evictions == 0, f"etc fit: {ot.etc.evictions} evictions "
+          "in a cache that holds every id the run touches")
+    err = max(abs(a - b) for a, b in zip(losses, mem["losses"]))
+    check(err <= TRAIN_TOL, f"etc fit: losses {losses} against the "
+          f"in-memory {mem['losses']} (bound {TRAIN_TOL})")
+    # the training call of step s is its last; its launches run up to the
+    # next call (the next step's, or the next pass's staging after this
+    # pass's flush, which launches K5 only)
+    last = {s: i for i, (s, _, _) in enumerate(calls)}
+    snaps = [snap for _, snap, _ in calls] + [end]
+    want = {"lookup_fwd": 1, "lookup_bwd": 1, "interaction_fwd": 1,
+            "interaction_bwd": 1}
+    for s in range(steps):
+        a, b = snaps[last[s]], snaps[last[s] + 1]
+        d = {k: b.get(k, 0) - a.get(k, 0) for k in want}
+        check(d == want, f"etc fit step {s}: launches {d}, want {want} "
+              "(one K1 and one K3 over the flattened cache, K2 and K4)")
+    timed = range(args.warm_steps, steps)
+    read = [calls[last[s]][2] * 1e3 for s in timed]
+    prep = [hist[s]["prepare_s"] * 1e3 for s in timed]
+    rest = [hist[s]["step_s"] * 1e3 for s in timed]
+    tot = [a + b + c for a, b, c in zip(read, prep, rest)]
+    p50 = float(np.median(tot))
+    print(f"etc fit {cfg.name} on {name}: cache [{t_}, "
+          f"{ot.etc.capacity}, {d_}] f32 ({gb(ot.etc.capacity):.2f} GB) "
+          f"+ acc, StagedPS, {args.etc_passes} passes, {steps} steps at "
+          f"batch {args.train_batch} ({args.warm_steps} warm-up) in "
+          f"{wall:.1f} s with the PS seed, staging and export; {ot.etc.pulls}"
+          f" pulls, 0 evictions; step p50 {p50:.2f} ms = reader "
+          f"{float(np.median(read)):.2f} + host prepare "
+          f"{float(np.median(prep)):.2f} + step to the loss's read "
+          f"{float(np.median(rest)):.2f} ms; in-memory step p50 "
+          f"{mem['p50']:.2f} ms (phase 4): ratio {p50 / mem['p50']:.2f}; "
+          f"losses within {err:.3g} of the in-memory fit (bound "
+          f"{TRAIN_TOL}); peak memory {peak:.2f} GiB (phase 4's trained "
+          f"model held too); launches a step "
+          f"{want}; pass flushes "
+          + ", ".join(f"{p['flush_s']:.2f} s" for p in ot.pass_log)
+          + f"; launches {end}")
+    # one more step, profiled (its prepare on the host first, not kept)
+    batch = reader.batch(steps)
+    ot._cache_params, rem = ot.etc.prepare(ot._cache_params, batch["cat"])
+    xb = put_batch({"dense": batch["dense"], "label": batch["label"],
+                    "cat": rem}, dev)
+    profile(f"{cfg.name} ETC step", lambda: ot._step_fn(
+        ot._dense, ot._dstate, ot._cache_params, xb["dense"], xb["label"],
+        xb["cat"]))
+    del m, ot, xb
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = declare(args, cfg, etc=ETCParams(
+        cache_rows=args.etc_cache_rows, passes=args.etc_passes)
+    ).compile(device=dev, use_kernels=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        ph = plain.fit(reader.batch, steps=args.plain_steps)
+    perr = max(abs(a["loss"] - b) for a, b in zip(ph, losses))
+    check(perr <= TRAIN_TOL, f"etc fit plain versions: losses "
+          f"{[h['loss'] for h in ph]} vs {losses[:args.plain_steps]}")
+    print(f"etc fit plain versions: first {args.plain_steps} losses within "
+          f"{perr:.3g} of the kernel path (bound {TRAIN_TOL})")
+    del plain, ph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) an evicting cache over the disk tier
+    root = os.path.join(ROOT, "_smoke_bundle", "etc_ps")
+    shutil.rmtree(root, ignore_errors=True)
+    m = declare(args, cfg, etc=ETCParams(
+        cache_rows=args.etc_evict_rows, ps="cached", ps_root=root,
+        passes=1)).compile(device=dev)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        h2 = counted(total, lambda: m.fit(reader.batch,
+                                          steps=args.timed_steps))
+    wall = time.perf_counter() - t0
+    ot = m._online
+    l2 = [h["loss"] for h in h2]
+    check(ot.etc.evictions > 0, "etc evicting fit: no eviction")
+    check(np.isfinite(l2).all() and l2[-1] < l2[0],
+          f"etc evicting fit: loss did not fall: {l2}")
+    resident = 0
+    for ti, t in enumerate(cfg.tables):
+        ids, rows = ot.etc.dirty_rows(ot._cache_params, ti)
+        check(np.array_equal(ot.ps.pull(t.name, ids), rows),
+              f"etc evicting fit: table {t.name}: PS rows differ from the "
+              "flushed cache rows")
+        resident += ids.size
+    prep = [h["prepare_s"] * 1e3 for h in h2]
+    print(f"etc evicting fit {cfg.name}: cache [{t_}, {ot.etc.capacity}, "
+          f"{d_}] f32 ({gb(ot.etc.capacity):.3f} GB), CachedPS memmaps "
+          f"({gb(max(t.vocab_size for t in cfg.tables)) / t_:.2f} GB the "
+          f"largest table), 1 pass of {args.timed_steps} steps in "
+          f"{wall:.1f} s with the PS set-up; {ot.etc.pulls} pulls, "
+          f"{ot.etc.evictions} evictions; host prepare p50 "
+          f"{float(np.median(prep)):.2f} ms (max {max(prep):.2f}); loss "
+          f"{l2[0]:.4f} -> {l2[-1]:.4f}; flush + fsync "
+          f"{ot.pass_log[-1]['flush_s']:.2f} s; {resident} resident rows "
+          "equal in the PS bit for bit")
+    del m, ot
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (iii) the train-while-serving loop on the deployed model
+    live = os.path.join(ROOT, "_smoke_bundle", f"{cfg.name}-live")
+    shutil.rmtree(live, ignore_errors=True)
+    vdb, bus = VolatileDB(), MessageBus()
+    server = trained.deploy(live, cache_capacity=args.cache_capacity,
+                            max_batch=args.batch, vdb=vdb, bus=bus)
+    deployed = trained.dense_params()
+    dense, cat = make_requests(args, cfg, 1, 7)[0]
+    names = [t.name for t in cfg.tables]
+    seen = []
+
+    class VisiblePublisher(UpdatePublisher):
+        """Waits, as each version goes out, until the live server shows
+        it, with the hot-path twin armed over the wait (the trainer is
+        paused, so every sync counted is the server's)."""
+
+        def publish(self, updates):
+            v = super().publish(updates)
+            g0 = server.counters()["groups_served"]
+            with HotPathMonitor("etc-freshness") as mon:
+                res = wait_visible(server, self, v, dense, cat,
+                                   baseline=seen[-1], tables=names,
+                                   timeout_s=300)
+            groups = server.counters()["groups_served"] - g0
+            summ = mon.summary()
+            check(summ["syncs"] == groups and summ["compiles"] == 0,
+                  f"etc freshness v{v}: {summ['syncs']} host syncs over "
+                  f"{groups} served groups, {summ['compiles']} builds")
+            seen.append(res["prediction"])
+            rec = self.history()[-1]
+            lags.append(f"v{v} {rec['rows']} rows visible in "
+                        f"{res['lag_s'] * 1e3:.1f} ms ({res['polls']} "
+                        f"probes, {summ['syncs']} syncs over {groups} "
+                        "groups)")
+            return v
+
+    lags = []
+
+    def loop():
+        server.start()
+        closed_loop(server.submit, make_requests(args, cfg, args.warmup, 1))
+        seen.append(probe_prediction(server, dense, cat, timeout_s=300))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            ot = OnlineTrainer(trained, ETCParams(
+                cache_rows=args.etc_cache_rows, passes=args.etc_passes),
+                publisher=VisiblePublisher(bus, trained.name))
+            oh = ot.fit(lambda s: reader.batch(1000 + s),
+                        args.etc_passes * args.etc_online_steps)
+        new = ot.export_params()
+        with torch.no_grad():
+            oracle = torch.sigmoid(trained.model.apply(
+                {**deployed, "embedding": new["embedding"]},
+                put_batch({"dense": dense, "cat": cat}, dev))).cpu().numpy()
+        final, probes = seen[-1], 0
+        deadline = time.monotonic() + 300
+        while np.abs(final - oracle).max() > SERVE_TOL["f32"]:
+            check(time.monotonic() < deadline, "etc freshness: live "
+                  f"predictions stuck {np.abs(final - oracle).max():.2e} "
+                  f"from the oracle (bound {SERVE_TOL['f32']})")
+            final = probe_prediction(server, dense, cat, timeout_s=300)
+            probes += 1
+        return oh, ot, oracle, final, probes
+
+    try:
+        oh, ot, oracle, final, probes = counted(total, loop)
+        counters = server.counters()
+    finally:
+        server.close()
+    d_base = float(np.abs(seen[0] - oracle).max())
+    d_final = float(np.abs(final - oracle).max())
+    check(d_final < d_base, f"etc freshness: the probe did not move toward "
+          f"the oracle ({d_base:.3g} -> {d_final:.3g})")
+    check(len(lags) == args.etc_passes, f"etc freshness: {len(lags)} "
+          f"versions visible, want {args.etc_passes}")
+    print(f"etc freshness {cfg.name} on {name}: live f32 L1 of "
+          f"{args.cache_capacity} rows a table, stream engine, batch "
+          f"{args.batch}; OnlineTrainer {args.etc_passes} passes x "
+          f"{args.etc_online_steps} steps (cache {args.etc_cache_rows} rows "
+          f"a table, StagedPS seeded from the trained tables), losses "
+          f"{oh[0]['loss']:.4f} -> {oh[-1]['loss']:.4f}; " + "; ".join(lags)
+          + f"; probe to oracle {d_base:.3g} -> {d_final:.3g} (bound "
+          f"{SERVE_TOL['f32']}, {probes} more probes); "
+          f"{counters['updates_applied']} update messages applied, "
+          f"{counters['rows_refreshed']} L1 rows refreshed; {ot.etc.pulls} "
+          f"pulls, {ot.etc.evictions} evictions; pass flushes "
+          + ", ".join(f"{p['flush_s']:.2f} s" for p in ot.pass_log))
+    del ot
+    shutil.rmtree(live, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def lm_embed_check(model, plain, params, tokens) -> str:
     """K1 against its plain version at the LM's shapes: each token table's
     lookup (ids masked to -1 where the other hybrid table holds the token)
@@ -2672,10 +3001,14 @@ def recsys_phases(args, dev):
                            ("f32",), False, total, keep=True)
     try:
         serving_engine_phase(args, dev, dlrm_model, dcn_model, total)
+        del dcn_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        etc_phase(args, dev, dlrm_model, total)
     finally:
         shutil.rmtree(os.path.join(ROOT, "_smoke_bundle"),
                       ignore_errors=True)
-    del dlrm_model, dcn_model
+    del dlrm_model
     gc.collect()
     torch.cuda.empty_cache()
     for full, capped in (("wdl-criteo", ("deepfm-criteo",)),

@@ -31,9 +31,11 @@ recipes' ``build_model`` is in ``configs/*_criteo.py``).
 
 and ``launch/serve.py::build_server_from_config`` (either package's)
 serves the bundle; :func:`deploy_ensemble` writes one bundle for several
-models, served by one ``MultiModelServer``. Not ported yet: the ETC
-backend (``Solver.etc``), the criteo reader, and meshes of more than one
-device.
+models, served by one ``MultiModelServer``. ``Solver(etc=ETCParams(...))``
+routes ``fit()`` through the Embedding Training Cache
+(``repro_torch.online.OnlineTrainer``), and ``DataReaderParams(
+source="criteo", path=...)`` reads a Criteo TSV. Not ported yet: meshes
+of more than one device.
 """
 from __future__ import annotations
 
@@ -46,15 +48,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import (
-    EmbeddingTableConfig, RecsysConfig, SparseGroupConfig, TrainConfig,
-    recsys_config_hash,
+    EmbeddingTableConfig, ETCParams, RecsysConfig, SparseGroupConfig,
+    TrainConfig, recsys_config_hash,
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.recsys.dense_graph import (
     RESERVED_NAMES, GraphError, compile_layers, graph_spec, spec_from_layer,
     spec_layers,
 )
-from repro_torch.roadmap import FRONT_DOORS, MULTI_DEVICE, not_ported
+from repro_torch.roadmap import MULTI_DEVICE, not_ported
 
 GRAPH_FORMAT = "repro-graph-v1"
 
@@ -79,14 +81,28 @@ class Solver:
     a2a_threshold: int = 65536
     ckpt_interval: int = 50
     seed: int = 0
-    #: ETC-staged training knobs in their JSON (dict) form; carried, not
-    #: interpreted, until the online-training slice
-    etc: Optional[Dict] = None
+    #: ETC-staged training (HugeCTR's Embedding Training Cache): set to
+    #: ``ETCParams(cache_rows=..., ps="staged"|"cached", passes=N)`` and
+    #: ``fit()`` trains through a fixed-capacity device row cache backed
+    #: by a parameter server instead of full in-device tables —
+    #: ``cache_rows`` bounds device rows per table, ``ps`` picks the
+    #: durable tier ("cached" needs ``ps_root``, survives restarts and
+    #: fsyncs on flush), ``passes`` splits the run into keyset-staged
+    #: passes whose boundaries flush the cache and (via
+    #: ``repro_torch.online``) publish versioned updates to live servers.
+    #: None (default) keeps the in-memory trainer.
+    etc: Optional[ETCParams] = None
 
     def __post_init__(self):
-        if self.etc is not None and not isinstance(self.etc, dict):
-            raise GraphError(f"Solver.etc must be a dict, got "
-                             f"{type(self.etc).__name__}")
+        if self.etc is not None and not isinstance(self.etc, ETCParams):
+            if not isinstance(self.etc, dict):
+                raise GraphError(
+                    f"Solver.etc must be an ETCParams (or its dict "
+                    f"form), got {type(self.etc).__name__}")
+            try:                   # JSON round-trip: Solver(**d["solver"])
+                self.etc = ETCParams(**self.etc)
+            except (TypeError, ValueError) as e:
+                raise GraphError(f"Solver.etc: {e}")
         if self.mode not in ("gspmd", "manual"):
             raise GraphError(
                 f"Solver.mode must be 'gspmd' or 'manual', got "
@@ -539,6 +555,7 @@ class Model:
         self._tcfg: Optional[TrainConfig] = None
         self._params = None
         self._opt_state = None
+        self._online = None           # OnlineTrainer after an ETC fit()
         self.stragglers = 0
 
     def add(self, layer) -> "Model":
@@ -608,12 +625,18 @@ class Model:
     def _reader_data_fn(self) -> Callable[[int], Dict]:
         r = self.reader or DataReaderParams(
             num_dense_features=self.cfg.num_dense_features)
-        if r.source != "synthetic":
-            raise not_ported(f"DataReaderParams(source={r.source!r})",
-                             FRONT_DOORS)
-        from repro_torch.data.synthetic import SyntheticCTR
-        return SyntheticCTR(self.cfg, self.batch_size, seed=r.seed,
-                            zipf_a=r.zipf_a).batch
+        if r.source == "synthetic":
+            from repro_torch.data.synthetic import SyntheticCTR
+            return SyntheticCTR(self.cfg, self.batch_size, seed=r.seed,
+                                zipf_a=r.zipf_a).batch
+        from repro_torch.data import criteo
+        if r.path is None:
+            raise GraphError("DataReaderParams(source='criteo') needs "
+                             "a path")
+        # seekable batch(step): criteo runs get the same deterministic
+        # replay contract as the synthetic reader (the ETC's keyset
+        # staging replays the reader by step)
+        return criteo.CriteoReader(r.path, self.cfg, self.batch_size).batch
 
     def fit(self, data_fn: Optional[Callable[[int], Dict]] = None,
             steps: int = 100, *, ckpt_dir: Optional[str] = None,
@@ -625,11 +648,12 @@ class Model:
         checkpoint in ``ckpt_dir`` if present, else from weights already
         held (e.g. after :meth:`load`)."""
         self._require_compiled()
-        if self.solver.etc is not None:
-            raise not_ported("ETC-staged fit() (Solver.etc)",
-                             "ETC and online training (queue 1 item 5)")
         if data_fn is None:
             data_fn = self._reader_data_fn()
+        if self.solver.etc is not None:
+            return self._fit_etc(data_fn, steps, ckpt_dir=ckpt_dir,
+                                 log_every=log_every, seed=seed,
+                                 failure_injector=failure_injector)
         from repro_torch.train.trainer import Trainer
         trainer = Trainer(self._model, self._tcfg, data_fn,
                           ckpt_dir=ckpt_dir,
@@ -644,6 +668,32 @@ class Model:
         self._opt_state = out["opt_state"]
         self.stragglers = out["stragglers"]
         return out["history"]
+
+    def _fit_etc(self, data_fn, steps, *, ckpt_dir, log_every, seed,
+                 failure_injector, publisher=None) -> List[Dict]:
+        """``fit()`` through the Embedding Training Cache (Solver.etc):
+        keyset-staged passes over a fixed-capacity device cache, the
+        parameter server as the durable tier, and — when ``publisher``
+        is attached — one versioned online update per pass boundary.
+        After training the PS contents are imported back into
+        ``params``, so predict/save/deploy see a normal model."""
+        if ckpt_dir is not None:
+            raise GraphError(
+                "ETC-staged fit() does not take ckpt_dir: durability "
+                "goes through the parameter server — use "
+                "ETCParams(ps='cached', ps_root=...) instead")
+        if failure_injector is not None:
+            raise GraphError(
+                "ETC-staged fit() does not support failure_injector")
+        from repro_torch.online.trainer import OnlineTrainer
+        ot = OnlineTrainer(
+            self, self.solver.etc, publisher=publisher,
+            seed=self.solver.seed if seed is None else seed)
+        history = ot.fit(data_fn, steps, log_every=log_every)
+        self._params = ot.export_params()
+        self._opt_state = None
+        self._online = ot
+        return history
 
     # -- inference ------------------------------------------------------------------
 

@@ -163,6 +163,59 @@ def hps_config_from_dict(d: Dict) -> HPSConfig:
     return HPSConfig(tables=tables, **rest)
 
 
+@dataclasses.dataclass
+class ETCParams:
+    """Embedding Training Cache knobs (``Solver(etc=ETCParams(...))``).
+
+    Declares that ``fit()`` should train the embedding tables through the
+    ETC — a fixed-capacity device row cache staged against a host/disk
+    parameter server — instead of holding every table in device memory
+    (the paper's §1 "Online training" / incremental-training mode).
+
+    * ``cache_rows`` — device cache capacity per table (rows).
+    * ``ps`` — parameter-server tier: ``"staged"`` (host memory) or
+      ``"cached"`` (disk memmaps under ``ps_root``).
+    * ``ps_root`` — directory for the cached PS tables (required when
+      ``ps="cached"``); reopening the same root resumes training from
+      the flushed state.
+    * ``ps_shards`` — staged-PS shard count (simulated cluster spread).
+    * ``passes`` — keyset-staged passes per ``fit()``: the step budget
+      splits into this many passes, each pass pre-stages its keyset
+      (the hottest ids of its data window) before stepping and flushes
+      the cache back to the PS at the pass boundary — HugeCTR's
+      ``wdl_etc`` source-per-pass workflow.
+
+    JSON round-trips through ``Solver`` serialization (graph.json), so a
+    deployed graph remembers how it was trained.
+    """
+    cache_rows: int = 4096
+    ps: str = "staged"
+    ps_root: Optional[str] = None
+    ps_shards: int = 1
+    passes: int = 1
+
+    def __post_init__(self):
+        if self.ps not in ("staged", "cached"):
+            raise ValueError(
+                f"ETCParams.ps must be 'staged' or 'cached', got "
+                f"{self.ps!r}")
+        if self.cache_rows <= 0:
+            raise ValueError(
+                f"ETCParams.cache_rows must be positive, got "
+                f"{self.cache_rows}")
+        if self.ps_shards <= 0:
+            raise ValueError(
+                f"ETCParams.ps_shards must be positive, got "
+                f"{self.ps_shards}")
+        if self.passes <= 0:
+            raise ValueError(
+                f"ETCParams.passes must be positive, got {self.passes}")
+        if self.ps == "cached" and not self.ps_root:
+            raise ValueError(
+                "ETCParams(ps='cached') needs ps_root (the memmap "
+                "directory)")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters (the JAX package's field set and

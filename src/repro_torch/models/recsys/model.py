@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import (
@@ -233,3 +234,42 @@ def import_logical_params(model: RecsysModel, params: Dict) -> Dict:
         if key in out:
             out[key] = coll.import_logical(out[key])
     return out
+
+
+def logical_tables(collection: EmbeddingCollection,
+                   emb_params: Dict) -> Dict[str, np.ndarray]:
+    """Per-table LOGICAL weights (unpadded, hot+cold merged) keyed by
+    table name, host f32: the export shape the PDB, the ETC's parameter
+    server and the portable converter consume."""
+    return collection.logical_tables(emb_params)
+
+
+def import_logical_tables(collection: EmbeddingCollection, emb_params: Dict,
+                          tables: Dict[str, np.ndarray]) -> Dict:
+    """Inverse of :func:`logical_tables`: write per-table FULL weight
+    arrays back into the collection's logical layout and import it onto
+    the collection's device. ``emb_params`` supplies the layout template
+    (and the values of any table absent from ``tables``) — the ETC trainer
+    uses this to fold parameter-server contents back into a servable
+    param tree."""
+    logical = {k: v.detach().float().cpu().numpy().copy()
+               for k, v in collection.export_logical(emb_params).items()}
+    for gname, group in collection.groups.items():
+        if gname == "cold":
+            continue               # written through "hot" below
+        for i, t in enumerate(group.tables):
+            if t.name not in tables:
+                continue
+            full = np.asarray(tables[t.name], np.float32)
+            if full.shape != (t.vocab_size, t.dim):
+                raise ValueError(
+                    f"table {t.name}: got {full.shape}, want "
+                    f"({t.vocab_size}, {t.dim})")
+            lo, hi = group.table_rows(i)
+            if gname == "hot":
+                clo, chi = collection.groups["cold"].table_rows(i)
+                logical["hot"][lo:hi] = full[:hi - lo]
+                logical["cold"][clo:chi] = full[hi - lo:]
+            else:
+                logical[gname][lo:hi] = full
+    return collection.import_logical(logical)

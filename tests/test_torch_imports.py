@@ -43,7 +43,10 @@ def test_module_imports(mod):
 def test_imports_with_jax_and_repro_blocked():
     for mod in ("core.hps.message_bus", "analysis.hotpath",
                 "analysis.concurrency", "analysis.lockorder",
-                "analysis.__main__", "loadgen.metrics"):
+                "analysis.__main__", "loadgen.metrics",
+                "core.etc.cache", "core.etc.parameter_server",
+                "online.trainer", "online.publisher", "online.freshness",
+                "launch.online_train", "data.criteo"):
         assert f"repro_torch.{mod}" in _modules()
     code = (
         "import sys, importlib, pkgutil\n"

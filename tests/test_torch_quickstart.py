@@ -107,17 +107,21 @@ def test_saved_models_load_in_the_other_package(trained, tmp_path):
 
 
 def test_unported_training_options_raise():
-    m = _quickstart(api)
-    m.solver.etc = {"cache_rows": 64}
-    m.compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="ETC"):
-        m.fit(steps=1)
+    """What the port leaves out raises, naming its ROADMAP item; the ETC
+    backend and the criteo reader, ported since, train or raise the
+    reference's ``GraphError``."""
+    from repro_torch.models.recsys.dense_graph import GraphError
     m = _quickstart(api)
     m.solver.mode = "manual"
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         m.compile(device="cpu")
     m = _quickstart(api)
+    m.solver.etc = api.ETCParams(cache_rows=1000)
+    m.compile(device="cpu")
+    hist = m.fit(steps=1)
+    assert m._online is not None and np.isfinite(hist[0]["loss"])
+    m = _quickstart(api)
     m.reader.source = "criteo"
     m.compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="criteo"):
+    with pytest.raises(GraphError, match="needs a path"):
         m.fit(steps=1)

@@ -707,7 +707,9 @@ def test_stage_sync_reference_syncs_more(served):
 
 def test_timed_paths_run_uninstrumented():
     """The sanitizer is opt-in: no module of the port outside
-    ``analysis/``, and not the kernel timer, imports it."""
+    ``analysis/``, and not the kernel timer, imports it, except a
+    launcher under its ``sanitize`` flag (``launch/online_train.py
+    --sanitize``, as the reference's launcher)."""
     paths = [os.path.join(ROOT, "tools", "kernel_times.py")]
     src = os.path.join(ROOT, "src", "repro_torch")
     for dirpath, _, files in os.walk(src):
@@ -715,13 +717,33 @@ def test_timed_paths_run_uninstrumented():
             continue
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
+
+    def imports_sanitizer(node):
+        if isinstance(node, ast.Import):
+            return any(a.name.startswith("repro_torch.analysis")
+                       for a in node.names)
+        return isinstance(node, ast.ImportFrom) and (
+            node.module or "").startswith("repro_torch.analysis")
+
+    def visit(node, guarded, path):
+        if imports_sanitizer(node):
+            assert guarded, path
+        if isinstance(node, ast.If) and any(
+                isinstance(n, ast.Name) and n.id == "sanitize"
+                for n in ast.walk(node.test)):
+            for child in node.body:
+                visit(child, True, path)
+            for child in node.orelse:
+                visit(child, guarded, path)
+            return
+        for child in ast.iter_child_nodes(node):
+            visit(child, guarded, path)
+
+    guarded_in = []
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read())
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                assert not any(a.name.startswith("repro_torch.analysis")
-                               for a in node.names), path
-            elif isinstance(node, ast.ImportFrom):
-                assert not (node.module or "").startswith(
-                    "repro_torch.analysis"), path
+        visit(tree, False, path)
+        if any(imports_sanitizer(n) for n in ast.walk(tree)):
+            guarded_in.append(os.path.relpath(path, ROOT))
+    assert guarded_in == ["src/repro_torch/launch/online_train.py"]

@@ -116,11 +116,12 @@ def _pooled_stack(cs, dev, payload_dtype: str, d: int = 128,
 def _wdl(cs, dev, which: int, backward: bool, arch: str = "wdl"):
     """K1 or K3 at full-vocabulary wdl-criteo's ``dist`` group (0) or its
     wide twins (1), or (``arch="neumf"``) at neumf-criteo's largest
-    ``deep`` (0) or ``ctx`` (1) group, on the first training batch's
-    ids."""
+    ``deep`` (0) or ``ctx`` (1) group, or (``arch="etc"``) at phase 6d's
+    flattened ETC cache, on the first training batch's ids."""
     import torch
     from repro_torch.kernels import embedding_lookup as k1
-    fn = cs.wdl_training_rows if arch == "wdl" else cs.neumf_training_rows
+    fn = {"wdl": cs.wdl_training_rows, "neumf": cs.neumf_training_rows,
+          "etc": cs.etc_training_rows}[arch]
     v, rows, d = list(fn(cs.RUN, dev).values())[which]
     g = torch.Generator(device=dev).manual_seed(which)
     if backward:
@@ -208,7 +209,8 @@ def _k8(cs, dev):
 #: (``neumf_training_rows``), the served read of its three HPSes (13 x D
 #: 64, 9 x D 16, 4 x D 8) and the cache query at D 64 and D 8; then the
 #: served read and the cache query on a 2-way striped L1's flat view
-#: (``striped``, the online phase's ``cache_shards=2``)
+#: (``striped``, the online phase's ``cache_shards=2``); then K1 and K3
+#: over phase 6d's flattened ETC cache (``etc_training_rows``)
 CASES = {
     "launch floor": lambda cs, dev: (cs.launch_floor_call(dev), 100),
     "pooled_stack f32": lambda cs, dev: _pooled_stack(cs, dev, "f32"),
@@ -264,6 +266,8 @@ CASES = {
         lambda cs, dev: _striped_library(cs, dev, "int8"),
     "library gather_rows query striped":
         lambda cs, dev: _striped_library(cs, dev, "f32", query=True),
+    "lookup_fwd etc": lambda cs, dev: _wdl(cs, dev, 0, False, "etc"),
+    "lookup_bwd etc": lambda cs, dev: _wdl(cs, dev, 0, True, "etc"),
 }
 
 
