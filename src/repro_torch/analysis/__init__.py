@@ -31,8 +31,12 @@ rules over the port, ``python -m repro_torch.analysis --check``:
 counterpart of LOCK003: wraps live locks during a test hammer and
 asserts the OBSERVED acquisition graph is acyclic.
 
-The reachability pass (DEAD001) has no twin: the reference's
-``python -m repro.analysis --root src/repro_torch`` keeps checking it.
+``deadcode`` — import-graph reachability, the reference's pass with the
+port's roots (``python -m repro_torch.analysis --rules lock,dead``):
+    * ``DEAD001`` — module unreachable from every entry point
+      (``launch/*``, ``api``, ``__main__`` modules, ``chip_smoke.py``,
+      ``tools/*.py``, ``tests/test_torch_*.py``).
+    * ``DEAD002`` — module reachable only from tests (informational).
 
 Conventions are the reference's: ``_GUARDED_BY`` / ``_LOCKS_OF`` class
 attributes, ``# lock-ok: RULE reason`` inline waivers. The port keeps no

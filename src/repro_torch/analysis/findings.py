@@ -28,10 +28,13 @@ class Finding:
     symbol: str = ""           # "Class.method" when known
     waived: bool = False
     waive_reason: str = ""
+    #: informational (DEAD002): reported, never fails ``--check``
+    advice: bool = False
 
     def format(self) -> str:
         sym = f" [{self.symbol}]" if self.symbol else ""
-        tag = " (waived)" if self.waived else ""
+        tag = " (waived)" if self.waived else \
+              " (info)" if self.advice else ""
         return f"{self.file}:{self.line} {self.rule} {self.message}" \
                f"{sym}{tag}"
 

@@ -709,6 +709,39 @@ class Model:
             return torch.sigmoid(self._model.apply(self._params, dev)) \
                 .cpu().numpy()
 
+    # -- introspection ----------------------------------------------------------------
+
+    def summary(self) -> str:
+        """The graph, a line a layer (the reference's text); printed and
+        returned."""
+        cfg = self.to_recsys_config()
+        lines = [f'Model "{self.name}" -> {cfg.model} '
+                 f'({cfg.num_tables} tables, '
+                 f'{cfg.total_embedding_params / 1e6:.2f}M embedding '
+                 f'params)']
+        i = self._input
+        lines.append(f"  Input              {i.dense_name}[{i.dense_dim}]"
+                     f" {i.sparse_name} {i.label_name}")
+        for e in self._embeddings:
+            hot = e.hotness if isinstance(e.hotness, int) \
+                else f"{min(e.hotness)}..{max(e.hotness)}"
+            lines.append(
+                f"  SparseEmbedding    {e.bottom_name} -> {e.top_name}"
+                f"  T={len(e.vocab_sizes)} D={e.dim} hot={hot} "
+                f"combiner={e.combiner} strategy={e.strategy}")
+        for l in self._dense_layers:
+            extra = ""
+            if l.type == "mlp":
+                extra = f"  units={l.units}"
+            elif l.type == "cross":
+                extra = f"  num_layers={l.num_layers}"
+            lines.append(
+                f"  DenseLayer {l.type:<15} "
+                f"{list(l.bottom_names)} -> {l.top}{extra}")
+        out = "\n".join(lines)
+        print(out)
+        return out
+
     # -- persistence ------------------------------------------------------------------
 
     def save(self, directory: str, step: int = 0) -> str:
@@ -755,12 +788,11 @@ class Model:
         included) into the (possibly shared) PDB, ``graph.json`` and
         ``dense.npz`` under ``bundle_dir/sub``; returns the relocatable
         HPSConfig, its paths relative to ``bundle_dir``."""
-        from repro_torch.serve.server import write_bundle_member
-        tables = {}
-        for key, coll in self._model.collections().items():
-            tables.update(coll.logical_tables(self._params[key]))
+        from repro_torch.serve.server import (trained_tables,
+                                              write_bundle_member)
         return write_bundle_member(
-            pdb, bundle_dir, sub, self, self.dense_params(), tables,
+            pdb, bundle_dir, sub, self, self.dense_params(),
+            trained_tables(self._model, self._params),
             cache_capacity=cache_capacity, cache_shards=cache_shards,
             refresh_budget=refresh_budget, max_batch=max_batch,
             payload_dtype=payload_dtype)
@@ -1002,6 +1034,24 @@ def recipe_graph(cfg: RecsysConfig, *, solver: Optional[Solver] = None,
     if cfg.model not in RECIPE_GRAPHS:
         raise ValueError(f"{cfg.name}: unknown model {cfg.model!r}")
     return RECIPE_GRAPHS[cfg.model](cfg, solver=solver, reader=reader)
+
+
+def paper_recipe(arch: str, *, smoke: bool = False,
+                 solver: Optional[Solver] = None,
+                 reader: Optional[DataReaderParams] = None,
+                 mesh=None) -> Model:
+    """``configs/<arch>.py::build_model`` of a paper recipe: the graph of
+    the registry config ``arch``, or of its smoke cut
+    (``reduce_recsys_for_smoke``: six tables of at most 1000 rows, D=16,
+    the ``-smoke`` name). The model trains on one device: a ``mesh``
+    raises."""
+    from repro_torch.configs.registry import (
+        RECSYS_ARCHS, reduce_recsys_for_smoke)
+    if mesh is not None:
+        raise not_ported("build_model(mesh=...)", MULTI_DEVICE)
+    cfg = RECSYS_ARCHS[arch]
+    return recipe_graph(reduce_recsys_for_smoke(cfg) if smoke else cfg,
+                        solver=solver, reader=reader)
 
 
 # ---------------------------------------------------------------------------

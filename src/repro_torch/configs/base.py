@@ -34,6 +34,10 @@ class EmbeddingTableConfig:
     #: fraction of vocab treated as hot for HYBRID (planner may override)
     hot_fraction: float = 0.05
 
+    @property
+    def param_count(self) -> int:
+        return self.vocab_size * self.dim
+
 
 @dataclasses.dataclass(frozen=True)
 class SparseGroupConfig:
@@ -80,6 +84,10 @@ class RecsysConfig:
         for g in self.extra_groups:
             out += tuple(g.tables)
         return out
+
+    @property
+    def total_embedding_params(self) -> int:
+        return sum(t.param_count for t in self.all_tables)
 
 
 def recsys_config_to_dict(cfg: RecsysConfig) -> Dict:

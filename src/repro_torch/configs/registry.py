@@ -1,6 +1,6 @@
 """Registry entries copied from ``repro.configs.registry``: the recsys
 configs the port serves and trains (the paper's four recipes on Criteo,
-``RECSYS_ARCHS``, and their smoke reduction; the graph recipes' modules,
+``RECSYS_ARCHS``, and their smoke reduction; every recipe's module,
 ``RECSYS_RECIPES``), and the ten LM
 architectures with ``get_lm_config`` and
 ``reduce_for_smoke``, so the tests build the same reduced configs on both
@@ -173,12 +173,16 @@ RECSYS_ARCHS: Dict[str, RecsysConfig] = {
     c.name: c for c in (dlrm_criteo, dcn_criteo, deepfm_criteo, wdl_criteo)
 }
 
-#: the graph recipes that lower to ``model="graph"``, by arch id: the
-#: module whose ``build_model(smoke=...)`` declares each (the four paper
-#: recipes above are declared by ``api.recipe_graph``)
+#: every graph-API recipe module, selectable via ``--arch`` in the
+#: launchers: the four canonical paper recipes (which lower onto the
+#: registry configs above) PLUS novel architectures that lower to
+#: ``model="graph"``; each module's ``build_model(smoke=...)`` declares
+#: its graph
 RECSYS_RECIPES: Dict[str, str] = {
     arch: "repro_torch.configs." + arch.replace("-", "_")
-    for arch in ("twotower-criteo", "crossdeep-criteo", "neumf-criteo")
+    for arch in ("dlrm-criteo", "dcn-criteo", "deepfm-criteo",
+                 "wdl-criteo", "twotower-criteo", "crossdeep-criteo",
+                 "neumf-criteo")
 }
 
 

@@ -14,6 +14,7 @@ MOE = "MoE (granite)"
 XLSTM = "xLSTM"
 ENCDEC = "encoder-decoder and frontends (seamless, pixtral)"
 SEQPAR = "seqpar_attention with multi-GPU"
+LM_CKPT = "Checkpointed LM training (queue 1 item 7)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

@@ -145,6 +145,27 @@ def deploy_tables(tables: Dict[str, np.ndarray], pdb: PersistentDB,
     pdb.flush()
 
 
+def trained_tables(model, params: Dict) -> Dict[str, np.ndarray]:
+    """Every collection's logical ``[V, D]`` f32 tables by name: the deep
+    tables, the dim-1 ``*_wide`` twins of a wide model and each extra
+    group's. ``model`` is a ``RecsysModel``, ``params`` its param tree."""
+    tables: Dict[str, np.ndarray] = {}
+    for key, coll in model.collections().items():
+        tables.update(coll.logical_tables(params[key]))
+    return tables
+
+
+def deploy_from_training(model, params: Dict, pdb: PersistentDB,
+                         model_name: str) -> None:
+    """Export trained embedding tables into the PDB (ground truth copy).
+
+    EVERY collection exports: the deep tables, the dim-1 ``*_wide``
+    twins of wide models (wdl/deepfm), and each extra N-group
+    collection's tables — so the serving side can stand up one HPS per
+    dim class from the PDB alone."""
+    deploy_tables(trained_tables(model, params), pdb, model_name)
+
+
 def write_bundle_member(pdb: PersistentDB, bundle_dir: str, sub: str,
                         graph, dense_params: Dict,
                         tables: Optional[Dict[str, np.ndarray]] = None, *,

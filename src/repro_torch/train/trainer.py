@@ -18,21 +18,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.data.pipeline import put_batch
 from repro_torch.models.recsys.model import (
     export_logical_params, import_logical_params,
 )
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.train_step import build_train_step, init_opt_state
-
-
-def put_batch(batch: Dict[str, np.ndarray], device) -> Dict:
-    """A host batch (``dense``, ``cat``, ``label``) as tensors on
-    ``device``."""
-    dtypes = {"dense": torch.float32, "cat": torch.int32,
-              "label": torch.float32}
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-        device=device, dtype=dtypes.get(k))
-        for k, v in batch.items()}
 
 
 class Trainer:

@@ -46,7 +46,12 @@ def test_imports_with_jax_and_repro_blocked():
                 "analysis.__main__", "loadgen.metrics",
                 "core.etc.cache", "core.etc.parameter_server",
                 "online.trainer", "online.publisher", "online.freshness",
-                "launch.online_train", "data.criteo"):
+                "launch.online_train", "data.criteo",
+                "configs.dlrm_criteo", "configs.dcn_criteo",
+                "configs.deepfm_criteo", "configs.wdl_criteo",
+                "core.embedding.frequency", "data.pipeline",
+                "loadgen.workload", "loadgen.driver", "launch.serve",
+                "launch.loadtest", "launch.train", "analysis.deadcode"):
         assert f"repro_torch.{mod}" in _modules()
     code = (
         "import sys, importlib, pkgutil\n"

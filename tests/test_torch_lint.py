@@ -4,6 +4,10 @@ baseline entry, with the checked-in baseline (which stays empty). It also
 passes its own twin, ``python -m repro_torch.analysis --check``, whose
 LOCK002 table adds PyTorch's host syncs; the twin flags each of them
 under a lock in a small fixture, where the reference's table flags none.
+The twin's reachability pass (``--rules dead``) runs the reference's
+synthetic trees with the port's roots (``chip_smoke.py``, ``tools/``,
+``tests/test_torch_*.py``) and reports over the port what the reference's
+pass reports.
 
 Both gates are stdlib AST only, so this file needs neither torch nor
 jax."""
@@ -65,7 +69,7 @@ def test_twin_gate_passes_over_the_port(capsys):
     summary = capsys.readouterr().out.strip().splitlines()[-1]
     assert rc == 0, summary
     assert summary == ("repro_torch.analysis: 0 failing finding(s), "
-                       "5 waived"), summary
+                       "5 waived, 1 informational"), summary
 
 
 def test_twin_sees_the_reference_findings_over_the_port():
@@ -138,3 +142,99 @@ def test_twin_honors_an_inline_waiver(tmp_path):
     found = twin.lint_paths([str(path)], str(tmp_path))
     assert [(f.rule, f.waived, f.waive_reason) for f in found] == [
         ("LOCK002", True, "reviewed")]
+
+
+# ---------------------------------------------------------------------------
+# the twin's reachability pass: python -m repro_torch.analysis --rules dead
+# ---------------------------------------------------------------------------
+
+def _tree(tmp_path, files):
+    for rel, body in files.items():
+        p = tmp_path / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(body)
+    return str(tmp_path / "src" / "pkg")
+
+
+@pytest.mark.parametrize("test_file,testutil", [
+    ("test_torch_it.py", "test_only"), ("test_it.py", "orphans")],
+    ids=["port-test", "reference-test"])
+def test_twin_deadcode_on_synthetic_tree(tmp_path, test_file, testutil):
+    """The reference's synthetic tree on the twin: a port test
+    (``tests/test_torch_*.py``) is a test root, any other test is not."""
+    from repro_torch.analysis import deadcode as twin
+    src = _tree(tmp_path, {
+        "src/pkg/api.py": "import pkg.used\n",
+        "src/pkg/used.py": "x = 1\n",
+        "src/pkg/testutil.py": "y = 2\n",
+        "src/pkg/orphan.py": "z = 3\n",
+        "src/pkg/plugins/alpha.py": "w = 4\n",
+        "src/pkg/loader.py": 'NAME = "pkg.plugins." + "alpha"\n',
+        f"tests/{test_file}": "import pkg.testutil\n",
+    })
+    rep = twin.reachability(str(tmp_path), src)
+    assert "pkg.api" in rep.runtime and "pkg.used" in rep.runtime
+    # loader is NOT a runtime seed (not api/launch/scripts) => its prefix
+    # edge only matters once something reaches it
+    assert "pkg.testutil" in getattr(rep, testutil)
+    assert "pkg.orphan" in rep.orphans
+    fs = twin.lint(str(tmp_path), src)
+    dead1 = [f for f in fs if f.rule == "DEAD001"]
+    assert any("pkg.orphan" in f.message for f in dead1)
+    assert all(f.advice for f in fs if f.rule == "DEAD002")
+
+
+def test_twin_deadcode_dynamic_prefix_marks_subpackage(tmp_path):
+    from repro_torch.analysis import deadcode as twin
+    src = _tree(tmp_path, {
+        "src/pkg/api.py": 'MOD = "pkg.plugins." + NAME\n',
+        "src/pkg/plugins/alpha.py": "w = 4\n",
+        "src/pkg/plugins/beta.py": "v = 5\n",
+    })
+    rep = twin.reachability(str(tmp_path), src)
+    assert {"pkg.plugins.alpha", "pkg.plugins.beta"} <= rep.runtime
+    assert rep.orphans == set()
+
+
+def test_twin_deadcode_roots_are_the_ports_scripts(tmp_path):
+    """``chip_smoke.py`` and ``tools/*.py`` are runtime roots (the port's
+    scripts, as ``benchmarks/`` and ``examples/`` are the reference's)."""
+    from repro_torch.analysis import deadcode as twin
+    src = _tree(tmp_path, {
+        "src/pkg/api.py": "x = 0\n",
+        "src/pkg/smoke_only.py": "x = 1\n",
+        "src/pkg/tool_only.py": "x = 2\n",
+        "src/pkg/bench_only.py": "x = 3\n",
+        "chip_smoke.py": "import pkg.smoke_only\n",
+        "tools/kernel_times.py": "from pkg import tool_only\n",
+        "benchmarks/run.py": "import pkg.bench_only\n",
+    })
+    rep = twin.reachability(str(tmp_path), src)
+    assert {"pkg.smoke_only", "pkg.tool_only"} <= rep.runtime
+    assert rep.orphans == {"pkg.bench_only"}
+
+
+def test_twin_deadcode_over_the_port_equals_the_reference_pass():
+    """Over ``src/repro_torch`` the twin's DEAD findings are the
+    reference pass's: the port's scripts (``chip_smoke.py``, ``tools/``)
+    reach no module that ``launch/*``, ``api`` and ``__main__`` do not."""
+    from repro.analysis import deadcode as ref
+    from repro_torch.analysis import deadcode as twin
+    key = (lambda f: (f.rule, f.file, f.advice))
+    got = twin.lint(ROOT, PORT)
+    assert [key(f) for f in got] == [key(f) for f in ref.lint(ROOT, PORT)]
+    assert [f.rule for f in got if not f.advice] == []
+    scripts = twin.reachability(ROOT, PORT).runtime
+    without = twin.reachability(ROOT, PORT, runtime_roots=()).runtime
+    assert scripts - without == set()
+
+
+def test_twin_cli_runs_each_pass(capsys):
+    from repro_torch.analysis.__main__ import main as twin_main
+    for rules, tail in (("lock", "5 waived, 0 informational"),
+                        ("dead", "0 waived, 1 informational"),
+                        ("lock,dead", "5 waived, 1 informational")):
+        assert twin_main(["--root", PORT, "--check", "--rules", rules]) == 0
+        summary = capsys.readouterr().out.strip().splitlines()[-1]
+        assert summary == ("repro_torch.analysis: 0 failing finding(s), "
+                           + tail), summary

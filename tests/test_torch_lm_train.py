@@ -397,11 +397,10 @@ def test_launcher_smoke_on_cpu_learns_and_launches_nothing():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "dlrm-criteo"], "item 6"),
     (["--mesh", "2x1"], "item 4"),
     (["--mode", "manual"], "item 4"),
     (["--comm", "all_to_all"], "item 4"),
-    (["--ckpt-dir", "ckpt"], "item 6"),
+    (["--ckpt-dir", "ckpt"], "Checkpointed LM training"),
 ])
 def test_launcher_left_out_flags_raise(flags, item):
     argv = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", *flags]

@@ -709,7 +709,8 @@ def test_timed_paths_run_uninstrumented():
     """The sanitizer is opt-in: no module of the port outside
     ``analysis/``, and not the kernel timer, imports it, except a
     launcher under its ``sanitize`` flag (``launch/online_train.py
-    --sanitize``, as the reference's launcher)."""
+    --sanitize`` and ``launch/serve.py --sanitize``, as the reference's
+    launchers)."""
     paths = [os.path.join(ROOT, "tools", "kernel_times.py")]
     src = os.path.join(ROOT, "src", "repro_torch")
     for dirpath, _, files in os.walk(src):
@@ -746,4 +747,5 @@ def test_timed_paths_run_uninstrumented():
         visit(tree, False, path)
         if any(imports_sanitizer(n) for n in ast.walk(tree)):
             guarded_in.append(os.path.relpath(path, ROOT))
-    assert guarded_in == ["src/repro_torch/launch/online_train.py"]
+    assert sorted(guarded_in) == ["src/repro_torch/launch/online_train.py",
+                                  "src/repro_torch/launch/serve.py"]
