@@ -6,10 +6,11 @@ imports (plus dotted-module string literals, which cover the
 ``importlib``-driven recipe registry and config loading), and BFSes
 from the entry points:
 
-* **runtime roots** — ``<pkg>.launch.*``, ``<pkg>.api``, any
-  ``__main__`` module, and whatever the port's own scripts import
-  (``chip_smoke.py`` and ``tools/*.py``, as ``benchmarks/`` and
-  ``examples/`` are the reference's);
+* **runtime roots** — ``<pkg>.launch.*``, ``<pkg>.api``, the twins of
+  the reference's ``examples/`` (``<pkg>.examples.*``, each run by
+  ``python -m``), any ``__main__`` module, and whatever the port's own
+  scripts import (``chip_smoke.py`` and ``tools/*.py``, as
+  ``benchmarks/`` and ``examples/`` are the reference's);
 * **test roots** — whatever the port's tests import
   (``tests/test_torch_*.py``).
 
@@ -167,6 +168,7 @@ def reachability(repo_root: str, src_root: str, *,
     runtime_seeds = {m for m in mods
                      if m == f"{pkg}.api"
                      or m.startswith(f"{pkg}.launch")
+                     or m.startswith(f"{pkg}.examples")
                      or m.rsplit(".", 1)[-1] == "__main__"}
     runtime_seeds |= external_seeds(runtime_roots)
     test_seeds = external_seeds(test_roots)
@@ -205,8 +207,8 @@ def lint(repo_root: str, src_root: str, *,
             file=os.path.relpath(rep.modules[m], repo_root),
             line=1,
             message=f"module {m} is unreachable from every entry point "
-                    "(launch/*, api, __main__, chip_smoke.py, tools, "
-                    "tests/test_torch_*)"))
+                    "(launch/*, api, examples/*, __main__, chip_smoke.py, "
+                    "tools, tests/test_torch_*)"))
     if include_test_only:
         for m in sorted(rep.test_only):
             findings.append(Finding(

@@ -107,9 +107,11 @@ def check_dense(cfg: RecsysConfig, params: Mapping) -> None:
 
 #: The reference ``LMModel.init`` tree, flattened to numpy under its
 #: ``/``-joined key-paths (``embed_hot``, ``head``, ``final_norm/scale``,
-#: ``groups/0_attn/attn/wq`` ``[layers, D, Hq·Dh]``, ...), <-> the port's
-#: ``LMModel`` params, dtypes kept: the training state's conversion. An
-#: empty subtree (the norms of ``nonparam_ln``) has no leaf, so it comes
-#: back absent; the port's norms read an absent ``norm`` as empty.
+#: ``groups/0_attn/attn/wq`` ``[layers, D, Hq·Dh]``, a recurrent block's
+#: ``groups/0_rglru/rglru/{w_gelu,w_rnn,conv,wa,wx,lam,w_out,norm}``, ...),
+#: <-> the port's ``LMModel`` params, dtypes kept: the training state's
+#: conversion. An empty subtree (the norms of ``nonparam_ln``) has no
+#: leaf, so it comes back absent; the port's norms read an absent
+#: ``norm`` as empty.
 lm_params_from_flat = state_from_flat
 lm_params_to_flat = state_to_flat

@@ -31,22 +31,31 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import device as devmod
 from repro_torch.core.hps.payload_store import ShardedPayloadStore
 from repro_torch.device import DeviceLike
 
 
 class LookupPlan:
     """Host-stage output: resolved slots + out-of-band overflow rows,
-    with the payload snapshot bound at device-stage time (``commit``)."""
+    with the payload snapshot bound at device-stage time (``commit``).
+    ``store`` is the payload store the slots index (its stripe layout
+    maps them to flat rows); ``scatter`` is the plan's deferred scatter
+    as ``ShardedPayloadStore.prepare`` gives it (None when the probe
+    inserted nothing), which a caller may ship to the device with other
+    data and hand back to ``commit``."""
 
-    __slots__ = ("slots", "ov_idx", "ov_rows", "payload")
+    __slots__ = ("slots", "ov_idx", "ov_rows", "payload", "store",
+                 "scatter")
 
     def __init__(self, slots: np.ndarray, ov_idx: np.ndarray,
-                 ov_rows: np.ndarray, payload):
+                 ov_rows: np.ndarray, payload, store=None, scatter=None):
         self.slots = slots
         self.ov_idx = ov_idx
         self.ov_rows = ov_rows
         self.payload = payload
+        self.store = store
+        self.scatter = scatter
 
 
 class DeviceEmbeddingCache:
@@ -131,6 +140,27 @@ class DeviceEmbeddingCache:
         self._sorted_ids = occ[order]
         self._sorted_slots = order
 
+    def _update_index_locked(self, old_ids: np.ndarray, new_ids: np.ndarray,
+                             dest: np.ndarray) -> None:
+        """The index after ``new_ids`` moved into slots ``dest``, whose
+        previous residents were ``old_ids`` (-1 for a free slot): the
+        evicted ``(id, slot)`` pairs are dropped at their ``searchsorted``
+        positions and the inserted block, sorted, is spliced in. Equal to
+        :meth:`_rebuild_index_locked` (resident ids are unique), at
+        O(n + k log n) a probe instead of an ``argsort`` of every
+        resident id."""
+        ids, slots = self._sorted_ids, self._sorted_slots
+        gone = old_ids[old_ids >= 0]
+        if len(gone):
+            keep = np.ones(len(ids), bool)
+            keep[np.searchsorted(ids, gone)] = False
+            ids, slots = ids[keep], slots[keep]
+        order = np.argsort(new_ids)
+        add_ids, add_slots = new_ids[order], dest[order]
+        at = np.searchsorted(ids, add_ids)
+        self._sorted_ids = np.insert(ids, at, add_ids)
+        self._sorted_slots = np.insert(slots, at, add_slots)
+
     def resident_ids(self) -> np.ndarray:
         """Ids currently resident in the cache (sorted)."""
         with self._lock:
@@ -148,19 +178,25 @@ class DeviceEmbeddingCache:
             self._flush_pending_locked()
             slots, ov_idx, ov_rows = self._probe_locked(
                 np.asarray(ids, np.int64))
-            plan = LookupPlan(slots, ov_idx, ov_rows, None)
+            plan = LookupPlan(slots, ov_idx, ov_rows, None, self._store,
+                              self._pending)
             if self._pending is None:
                 plan.payload = self._store.snapshot()
             else:
                 self._pending_plan = plan
             return plan
 
-    def commit(self, plan: LookupPlan):
+    def commit(self, plan: LookupPlan, staged=None):
         """DEVICE stage: dispatch the plan's deferred scatter (if still
         pending) and return its snapshot. Gather from IT, not from
-        ``self.payload``."""
+        ``self.payload``. ``staged`` is ``plan.scatter`` already on the
+        device (``(idx, rows, scales)`` tensors), written instead of
+        copying it again; unused if another call flushed it first."""
         if plan.payload is None:
             with self._lock:
+                if staged is not None and self._pending_plan is plan:
+                    self._pending = None
+                    self._store.write(*staged)
                 self._flush_pending_locked()
         return plan.payload
 
@@ -172,9 +208,10 @@ class DeviceEmbeddingCache:
 
     def _flush_pending_locked(self) -> None:
         if self._pending is not None:
-            dest, rows = self._pending
+            prepared = self._pending
             self._pending = None
-            self._scatter_locked(dest, rows)
+            self._store.write(*devmod.to_device_many(prepared,
+                                                     self.device))
         if self._pending_plan is not None:
             self._pending_plan.payload = self._store.snapshot()
             self._pending_plan = None
@@ -233,12 +270,13 @@ class DeviceEmbeddingCache:
             sel, ovf = order[:ins], order[ins:]
 
             self._next_free = n_occ + free
+            old_ids = self._id_of[dest]
             self._id_of[dest] = miss_ids[sel]
             self._freq[dest] = counts[miss][sel].astype(np.float64)
             self._dirty[dest] = False      # fresh from the lower levels
-            self._rebuild_index_locked()
+            self._update_index_locked(old_ids, miss_ids[sel], dest)
             if ins:  # the ONE device scatter, deferred to commit()
-                self._pending = (dest, rows[sel])
+                self._pending = self._store.prepare(dest, rows[sel])
             miss_slots = np.full(k, -1, np.int64)
             miss_slots[sel] = dest
             slots_u[miss] = miss_slots

@@ -4,13 +4,15 @@
 Lookup path per table: L1 device cache -> L2 volatile DB -> L3 persistent
 DB, with promotion on miss at every level. Each table resolves through a
 HOST stage (sorted-index probe + one coalesced miss fetch) and a DEVICE
-stage (the one payload scatter + the slot block's transfer); the pooled
+stage (the one payload scatter + the slot block's transfer). A batch's
+device stage ships every table's slot block and deferred scatter in ONE
+pinned host-to-device copy (``device.to_device_many``); the pooled
 ``[B, T, D]`` output is then read on the device for all tables at once
-(one K1 launch, or one K6 for int8 payloads). ``pipelined=True``
-double-buffers the two stages on host workers (table *t+1* probes while
-table *t* scatters), and ``lookup_stream`` extends the pipeline across
-queries; ``lookup_stage_sync`` is the no-overlap engine the others are
-compared with. Every plan gathers from its own payload snapshot (see
+(one K1 launch, or one K6 for int8 payloads). ``pipelined=True`` runs the
+probes on two host workers, and ``lookup_stream`` probes query *i+1*
+while query *i* runs its device stage; ``lookup_stage_sync`` is the
+no-overlap engine the others are compared with (a copy and a wait a
+table). Every plan gathers from its own payload snapshot (see
 ``payload_store``), so all engines give identical results.
 
 With ``cache_shards=N`` the caches stripe their payloads on the one
@@ -29,7 +31,7 @@ import math
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -210,32 +212,36 @@ class HPS:
         flat = np.ascontiguousarray(blocks[ti], np.int64).reshape(-1)
         return self.caches[self.tables[ti].name].probe(flat)
 
-    def _device_stage(self, ti: int, plan: LookupPlan, b: int, bp: int,
-                      h: int) -> Tuple[torch.Tensor, tuple]:
-        """Flush the plan's deferred scatter, bind its snapshot, and ship
-        the slot block (int32, padded to ``bp`` rows with -1). A striped
-        snapshot goes out as its flat view, the slots remapped onto it
-        here on the host."""
-        payload = self.caches[self.tables[ti].name].commit(plan)
-        slots = np.pad(plan.slots.reshape(b, h), ((0, bp - b), (0, 0)),
-                       constant_values=-1).astype(np.int32)
-        if self.cache_shards > 1:
-            slots = ops.flatten_striped_slots(payload[0], slots)
-            payload = ops.striped_view(payload)
-        return devmod.to_device(slots, self.device), payload
-
-    def _collect_plan(self, ti: int, plan: LookupPlan, b: int, bp: int,
-                      blocks: List[np.ndarray],
+    def _device_stage(self, plans: Sequence[Tuple[int, LookupPlan]], b: int,
+                      bp: int, blocks: List[np.ndarray],
                       slot_blocks: List[torch.Tensor], payloads: List[tuple],
-                      overflow: List[Overflow]) -> tuple:
-        sb, payload = self._device_stage(ti, plan, b, bp,
-                                         blocks[ti].shape[1])
-        slot_blocks.append(sb)
-        payloads.append(payload)
-        if len(plan.ov_idx):
-            overflow.append((ti, plan.ov_idx, plan.ov_rows,
-                             blocks[ti].shape[1]))
-        return payload
+                      overflow: List[Overflow]) -> None:
+        """The device stage of ``(table index, plan)`` pairs: one copy to
+        the device carries every plan's slot block (int32, padded to
+        ``bp`` rows with -1) and every still-deferred scatter (its rows,
+        slots and scales), then each plan's scatter is written and its
+        snapshot bound (``commit``). A striped snapshot goes out as its
+        flat view, the slots remapped onto it here on the host."""
+        host: List[Optional[np.ndarray]] = []
+        for ti, plan in plans:
+            h = blocks[ti].shape[1]
+            slots = np.pad(plan.slots.reshape(b, h), ((0, bp - b), (0, 0)),
+                           constant_values=-1).astype(np.int32)
+            host.append(plan.store.flat_rows(slots))
+            staged = plan.scatter if plan.payload is None else None
+            host.extend(staged if staged is not None else (None,) * 3)
+        dev = devmod.to_device_many(host, self.device)
+        for k, (ti, plan) in enumerate(plans):
+            sb, staged = dev[4 * k], dev[4 * k + 1:4 * k + 4]
+            payload = self.caches[self.tables[ti].name].commit(
+                plan, None if staged[0] is None else staged)
+            if self.cache_shards > 1:
+                payload = ops.striped_view(payload)
+            slot_blocks.append(sb)
+            payloads.append(payload)
+            if len(plan.ov_idx):
+                overflow.append((ti, plan.ov_idx, plan.ov_rows,
+                                 blocks[ti].shape[1]))
 
     def _finalize(self, payloads: List[tuple],
                   slot_blocks: List[torch.Tensor],
@@ -286,19 +292,12 @@ class HPS:
         overflow: List[Overflow] = []
         if pipelined and T > 1:
             pool = self._host_worker()
-            futs: Dict[int, Future] = {
-                ti: pool.submit(self._probe, ti, blocks)
-                for ti in range(min(3, T))}          # 2 running + 1 queued
-            for ti in range(T):
-                plan = futs.pop(ti).result()
-                if ti + 3 < T:
-                    futs[ti + 3] = pool.submit(self._probe, ti + 3, blocks)
-                self._collect_plan(ti, plan, b, bp, blocks, slot_blocks,
-                                   payloads, overflow)
+            futs = [pool.submit(self._probe, ti, blocks) for ti in range(T)]
+            plans = [f.result() for f in futs]
         else:
-            for ti in range(T):
-                self._collect_plan(ti, self._probe(ti, blocks), b, bp,
-                                   blocks, slot_blocks, payloads, overflow)
+            plans = [self._probe(ti, blocks) for ti in range(T)]
+        self._device_stage(list(enumerate(plans)), b, bp, blocks,
+                           slot_blocks, payloads, overflow)
         return self._finalize(payloads, slot_blocks, blocks, overflow, b)
 
     def lookup_stage_sync(self, cat: np.ndarray,
@@ -321,8 +320,8 @@ class HPS:
         payloads: List[tuple] = []
         overflow: List[Overflow] = []
         for ti in range(len(self.tables)):
-            self._collect_plan(ti, self._probe(ti, blocks), b, bp, blocks,
-                               slot_blocks, payloads, overflow)
+            self._device_stage([(ti, self._probe(ti, blocks))], b, bp,
+                               blocks, slot_blocks, payloads, overflow)
             devmod.synchronize(self.device)         # no overlap
         out = self._finalize(payloads, slot_blocks, blocks, overflow, b)
         devmod.synchronize(self.device)
@@ -387,9 +386,8 @@ class HPS:
                 t0 = time.perf_counter()
                 bp = 1 << (b - 1).bit_length()
                 slot_blocks, payloads, overflow = [], [], []
-                for ti, plan in enumerate(plans):
-                    self._collect_plan(ti, plan, b, bp, blocks,
-                                       slot_blocks, payloads, overflow)
+                self._device_stage(list(enumerate(plans)), b, bp, blocks,
+                                   slot_blocks, payloads, overflow)
                 out = self._finalize(payloads, slot_blocks, blocks,
                                      overflow, b)
                 admit()                     # next query probes first ...

@@ -131,18 +131,20 @@ class ShardedPayloadStore:
                                    device=self.device)
                         if payload_dtype == "int8" else None)
 
-    def _flat_slots(self, slots: np.ndarray) -> torch.Tensor:
-        """Logical slots as rows of the flat payload view, on the device."""
+    def flat_rows(self, slots: np.ndarray) -> np.ndarray:
+        """Logical slots as rows of the flat payload view (slot ``s`` at
+        stripe ``s % N``, local row ``s // N``; -1 holes kept), on the
+        host."""
         if self.shards > 1:
-            slots = ops.flatten_striped_slots(self._payload, slots)
-        return devmod.to_device(np.asarray(slots, np.int64), self.device)
+            return ops.flatten_striped_slots(self._payload, slots)
+        return slots
 
-    def scatter(self, slots: np.ndarray, rows: np.ndarray) -> None:
-        """Write ``rows`` (f32, quantized here) at ``slots`` into a copy of
-        the payload and rebind to it (slot ``s`` at stripe ``s % N``, local
-        row ``s // N``). Slot counts are padded to a multiple of 64 by
-        repeating the first slot, as the reference does (idempotent: the
-        repeated writes carry the same row)."""
+    def prepare(self, slots: np.ndarray, rows: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+        """The host half of a scatter: ``(flat rows int64, stored rows,
+        scales or None)``, the rows quantized here. Slot counts are padded
+        to a multiple of 64 by repeating the first slot, as the reference
+        does (idempotent: the repeated writes carry the same row)."""
         rows, scales = quantize_rows(np.asarray(rows), self.payload_dtype)
         pad = _round_up(len(slots), 64) - len(slots)
         if pad:
@@ -152,16 +154,26 @@ class ShardedPayloadStore:
             if scales is not None:
                 scales = np.concatenate(
                     [scales, np.broadcast_to(scales[:1], (pad,))])
-        idx = self._flat_slots(slots)
+        return (self.flat_rows(np.asarray(slots, np.int64)), rows, scales)
+
+    def write(self, idx: torch.Tensor, rows: torch.Tensor,
+              scales: Optional[torch.Tensor]) -> None:
+        """The device half: ``prepare``'s arrays, on this store's device,
+        written into a copy of the payload, which the store rebinds to."""
         payload = self._payload.clone()
-        payload.view(-1, self.dim).index_copy_(
-            0, idx, devmod.to_device(rows, self.device))
+        payload.view(-1, self.dim).index_copy_(0, idx, rows)
         if scales is not None:
             new_scales = self._scales.clone()
-            new_scales.view(-1).index_copy_(
-                0, idx, devmod.to_device(scales, self.device))
+            new_scales.view(-1).index_copy_(0, idx, scales)
             self._scales = new_scales
         self._payload = payload
+
+    def scatter(self, slots: np.ndarray, rows: np.ndarray) -> None:
+        """Write ``rows`` (f32, quantized here) at ``slots`` into a copy of
+        the payload and rebind to it: ``prepare``, one copy to the
+        device, ``write``."""
+        self.write(*devmod.to_device_many(self.prepare(slots, rows),
+                                          self.device))
 
     def snapshot(self):
         """The current ``(payload, scales)`` pair (``[C, D]`` or

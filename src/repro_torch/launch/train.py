@@ -9,6 +9,8 @@ LM train steps it runs.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
       --steps 5 --batch 1 --seq 4096          # on the card, full width
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch recurrentgemma-9b --smoke --device cpu
 
 A recsys recipe (``RECSYS_RECIPES``) goes through the graph API as in the
 reference: its module's ``build_model(smoke=--smoke, solver=Solver(batch,

@@ -18,11 +18,16 @@ attention is the flash kernel K7 with K8 as its backward. With
 in-port reference path.
 
 Ported: ``init``, ``embed``, ``train_loss`` (with the chunked
-cross-entropy), ``prefill``, ``init_cache`` and ``decode_step`` for
-``block_pattern == ("attn",)`` without MoE, encoder or frontend
-(phi3-mini, minitron-4b, command-r-plus, olmo-1b), with ``remat`` "none"
-or "full". The other families and remat policies raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+cross-entropy), ``prefill``, ``init_cache`` and ``decode_step`` for the
+dense decoders (phi3-mini, minitron-4b, command-r-plus, olmo-1b) and the
+hybrid of RG-LRU and local-attention blocks (recurrentgemma: local
+attention is K7 / K8 with a window, its decode a rolling cache), with
+every ``remat`` policy of the reference. The MoE, xLSTM and
+encoder-decoder families raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
+
+Layers run group-major, as the reference scans them: every layer of
+pattern slot 0, then of slot 1, ..., then the tail.
 """
 from __future__ import annotations
 
@@ -30,17 +35,35 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    noop_context_fn,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_lookup import lookup_fwd_plain
+from repro_torch.models.lm import rglru as rg
 from repro_torch.models.lm import transformer as tf
 from repro_torch.tree import tree_map
 
 EMBED_MODES = ("replicated", "sharded", "hybrid")
 REMATS = ("none", "full", "dots", "group")
+KINDS = ("attn", "local_attn", "rglru")
+
+#: the matmul ops whose outputs ``remat="dots"`` saves, as
+#: ``jax.checkpoint_policies.checkpoint_dots`` saves ``dot_general``'s
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
 
 
 def _check_ported(cfg: LMConfig) -> None:
@@ -52,11 +75,9 @@ def _check_ported(cfg: LMConfig) -> None:
         raise tf.not_ported(f"{cfg.name}: encoder layers and modality "
                             "frontends", tf.ENCDEC)
     for kind in cfg.block_pattern:
-        if kind in ("rglru", "local_attn"):
-            raise tf.not_ported(f"{cfg.name}: {kind} blocks", tf.RGLRU)
         if kind in ("mlstm", "slstm"):
             raise tf.not_ported(f"{cfg.name}: {kind} blocks", tf.XLSTM)
-        if kind != "attn":
+        if kind not in KINDS:
             raise ValueError(kind)
 
 
@@ -74,8 +95,11 @@ class LMModel:
     given ``"cpu"``); ``embed_mode="auto"`` picks as the reference does:
     ``hybrid`` from 100,000 tokens, else ``sharded`` above 2**26 table
     entries, else ``replicated``. ``loss_chunk`` is the cross-entropy's
-    sequence chunk; ``remat="full"`` recomputes each layer in backward
-    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``."""
+    sequence chunk. ``remat`` is the reference's policy for the pattern
+    groups' layers (the tail is never recomputed): ``"full"`` recomputes
+    each layer in backward (``torch.utils.checkpoint``, as
+    ``jax.checkpoint``), ``"dots"`` saves only the matmuls' outputs
+    (``checkpoint_dots``), ``"group"`` is the nested sqrt(L) remat."""
 
     def __init__(self, cfg: LMConfig, *, device: DeviceLike = None,
                  embed_mode: str = "auto", hot_fraction: float = 0.05,
@@ -84,8 +108,6 @@ class LMModel:
         _check_ported(cfg)
         if remat not in REMATS:
             raise ValueError(f"remat {remat!r} not in {REMATS}")
-        if remat in ("dots", "group"):
-            raise tf.not_ported(f'remat="{remat}"', tf.LM_REMAT)
         self.cfg = cfg
         self.loss_chunk = loss_chunk
         self.remat = remat
@@ -141,10 +163,19 @@ class LMModel:
             params["head"] = tf._normal(g, (d, self.vocab_pad), scale, dev)
         params["final_norm"] = tf.norm_init(cfg, device=dev)
         params["groups"] = {
-            key: {"attn": tf.attn_init(g, cfg, stack=(n,), device=dev),
-                  "ffn": tf.ffn_init(g, cfg, stack=(n,), device=dev)}
-            for key, _, n in self._group_keys()}
+            key: self._block_init(g, kind, n)
+            for key, kind, n in self._group_keys()}
         return params
+
+    def _block_init(self, g: torch.Generator, kind: str, n: int) -> Dict:
+        """``n`` stacked layers of one kind: ``{"attn", "ffn"}`` for
+        (local) attention, ``{"rglru", "ffn"}`` for a recurrent block."""
+        cfg, dev = self.cfg, self.device
+        mix = (rg.rglru_init(g, cfg, stack=(n,), device=dev)
+               if kind == "rglru"
+               else tf.attn_init(g, cfg, stack=(n,), device=dev))
+        return {"rglru" if kind == "rglru" else "attn": mix,
+                "ffn": tf.ffn_init(g, cfg, stack=(n,), device=dev)}
 
     # ----------------------------------------------------------------- embed
 
@@ -189,25 +220,55 @@ class LMModel:
 
     def _apply_block(self, kind: str, bp: Dict, x, *, positions,
                      cache=None, cache_pos=None):
-        x, new_cache = tf.attn_apply(
-            bp["attn"], x, self.cfg, positions=positions, causal=True,
-            cache=cache, cache_pos=cache_pos, use_kernels=self.use_kernels)
-        return tf.ffn_apply(bp["ffn"], x, self.cfg), new_cache
+        """One layer; ``cache`` is a (local) attention layer's ``(k, v)``
+        or a recurrent layer's state, and the new one is returned."""
+        cfg = self.cfg
+        if kind == "rglru":
+            x, new_cache = rg.rglru_apply(bp["rglru"], x, cfg, state=cache)
+        else:
+            window = cfg.local_attn_window if kind == "local_attn" else None
+            x, new_cache = tf.attn_apply(
+                bp["attn"], x, cfg, positions=positions, causal=True,
+                window=window, cache=cache, cache_pos=cache_pos,
+                use_kernels=self.use_kernels)
+        return tf.ffn_apply(bp["ffn"], x, cfg), new_cache
 
     def _run_stack(self, params: Dict, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
-        """Every layer in order; returns the final hidden states. With
-        ``remat="full"`` each layer runs under ``checkpoint``: backward
-        keeps its input only and runs it again."""
+        """Every layer in order; returns the final hidden states. Under
+        ``checkpoint`` backward keeps a layer's input and runs it again:
+        every layer with ``"full"``; with ``"dots"`` too, but keeping the
+        matmuls' outputs; with ``"group"`` each of ``outer`` blocks of a
+        group's layers (``outer`` the largest divisor of the layer count
+        at most its square root), and each layer inside it. The tail
+        layers run plain, as in the reference."""
         def block(h, lp, kind):
             return self._apply_block(kind, lp, h, positions=positions)[0]
 
+        def run(h, lps, kind):
+            for lp in lps:
+                h = checkpoint(block, h, lp, kind, use_reentrant=False)
+            return h
+
         for key, kind, n in self._group_keys():
-            for lp in _layers(params["groups"][key], n):
-                if self.remat == "full":
-                    x = checkpoint(block, x, lp, kind, use_reentrant=False)
-                else:
+            lps = _layers(params["groups"][key], n)
+            if key.startswith("tail") or self.remat == "none":
+                for lp in lps:
                     x = block(x, lp, kind)
+            elif self.remat == "group":
+                outer = max(1, math.isqrt(n))
+                while n % outer:
+                    outer -= 1
+                inner = n // outer
+                for o in range(outer):
+                    x = checkpoint(run, x, lps[o * inner:(o + 1) * inner],
+                                   kind, use_reentrant=False)
+            else:
+                ctx = _dots_context if self.remat == "dots" else \
+                    noop_context_fn
+                for lp in lps:
+                    x = checkpoint(block, x, lp, kind, use_reentrant=False,
+                                   context_fn=ctx)
         return x
 
     # ---------------------------------------------------------------- train
@@ -271,21 +332,32 @@ class LMModel:
         return self._logits(params, x[:, -1])
 
     def init_cache(self, b: int, max_seq: int) -> Dict:
-        """Zero KV caches, ``(k, v)`` each ``[layers, B, max_seq, Hkv, Dh]``
-        in the compute type, per stacked group."""
-        hkv, hd = self.cfg.num_kv_heads, self.cfg.resolved_head_dim
+        """Zero decode state per stacked group: an attention group's KV
+        cache ``(k, v)``, each ``[layers, B, S, Hkv, Dh]`` in the compute
+        type with S ``max_seq`` (``min(max_seq, window)`` for local
+        attention, a rolling cache); a recurrent group's
+        ``{"h": [layers, B, D], "conv": [layers, B, 3, D]}`` in f32."""
+        cfg = self.cfg
+        hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
-        def zeros(n):
-            return torch.zeros((n, b, max_seq, hkv, hd), dtype=self.cd,
-                               device=self.device)
-        return {"groups": {key: (zeros(n), zeros(n))
-                           for key, _, n in self._group_keys()}}
+        def blk_cache(kind, n):
+            if kind == "rglru":
+                return rg.rglru_zero_state(cfg, b, stack=(n,),
+                                           device=self.device)
+            s = min(max_seq, cfg.local_attn_window) \
+                if kind == "local_attn" else max_seq
+            return tuple(torch.zeros((n, b, s, hkv, hd), dtype=self.cd,
+                                     device=self.device) for _ in range(2))
+        return {"groups": {key: blk_cache(kind, n)
+                           for key, kind, n in self._group_keys()}}
 
     def decode_step(self, params: Dict, tokens, cache: Dict, pos
                     ) -> Tuple[torch.Tensor, Dict]:
         """``tokens [B, 1]``, ``pos [B]`` -> (f32 logits ``[B,
-        logits_size]``, the cache). Each layer's new K/V are written into
-        ``cache`` in place at ``pos``; the returned cache is that one."""
+        logits_size]``, the cache). Each layer's new K/V (at ``pos``, or
+        ``pos % S`` in a rolling cache) and each recurrent layer's new
+        state are written into ``cache`` in place; the returned cache is
+        that one."""
         tokens = self._tokens(tokens)
         pos = self._tokens(pos)
         x = self.embed(params, tokens)
@@ -293,10 +365,18 @@ class LMModel:
         new_cache: Dict = {"groups": {}}
         for key, kind, n in self._group_keys():
             gp = params["groups"][key]
-            kc, vc = cache["groups"][key]
+            gc = cache["groups"][key]
             for i, lp in enumerate(_layers(gp, n)):
-                x, _ = self._apply_block(kind, lp, x, positions=positions,
-                                         cache=(kc[i], vc[i]), cache_pos=pos)
-            new_cache["groups"][key] = (kc, vc)
+                if kind == "rglru":
+                    x, st = self._apply_block(
+                        kind, lp, x, positions=positions,
+                        cache={k: v[i] for k, v in gc.items()})
+                    for k, v in st.items():
+                        gc[k][i].copy_(v)
+                else:
+                    x, _ = self._apply_block(
+                        kind, lp, x, positions=positions,
+                        cache=(gc[0][i], gc[1][i]), cache_pos=pos)
+            new_cache["groups"][key] = gc
         x = tf.norm_apply(params.get("final_norm", {}), x, self.cfg)
         return self._logits(params, x[:, 0]), new_cache

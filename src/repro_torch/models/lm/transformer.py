@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels import ops
 from repro_torch.roadmap import (  # noqa: F401 (the backbone's items too)
-    ENCDEC, LM_REMAT, MOE, RGLRU, SEQPAR, XLSTM, not_ported,
+    ENCDEC, MOE, SEQPAR, XLSTM, not_ported,
 )
 
 
@@ -106,8 +106,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Single-token attention: ``q [B, 1, Hq, Dh]`` against the whole cache
     ``[B, Smax, Hkv, Dh]``; entries past ``pos [B]`` are masked. In f32.
-    (The reference's ``window`` here serves local attention, which this
-    slice leaves out.)"""
+    (Local attention decodes against a rolling cache instead:
+    :func:`_rolling_decode`.)"""
     b, _, hq, dh = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -123,9 +123,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(b, 1, hq, dh).to(q.dtype)
 
 
-def _rolling_decode(*args, **kwargs):
-    """Decode against a rolling (windowed) cache: local attention."""
-    raise not_ported("decode against a rolling window cache", RGLRU)
+def _rolling_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, pos: torch.Tensor,
+                    smax: int) -> torch.Tensor:
+    """Decode against a rolling (windowed) cache of ``smax`` entries, the
+    token at position ``p`` stored at entry ``p % smax``: entry ``i`` holds
+    position ``pos - pos % smax + i`` if ``i <= pos % smax``, else that
+    less ``smax``. Entries of negative position (the window not yet
+    filled) are masked; all are valid once it has. In f32."""
+    b, _, hq, dh = q.shape
+    hkv = k_cache.shape[2]
+    g = hq // hkv
+    idx = torch.arange(smax, device=q.device)[None]           # [1, smax]
+    cur = pos[:, None] % smax
+    entry_pos = torch.where(idx <= cur, pos[:, None] - cur + idx,
+                            pos[:, None] - cur + idx - smax)
+    valid = entry_pos >= 0
+    qg = q.reshape(b, hkv, g, dh).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) \
+        / math.sqrt(dh)
+    s = torch.where(valid[:, None, None], s,
+                    torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.reshape(b, 1, hq, dh).to(q.dtype)
 
 
 def attn_init(generator: torch.Generator, cfg: LMConfig, *,
@@ -155,14 +176,13 @@ def attn_apply(params: Dict, x: torch.Tensor, cfg: LMConfig, *,
 
     * prefill and training: ``cache=None`` -> full-sequence attention
       through K7, with K8 as its backward (``use_kernels``), or the plain
-      version.
+      version; ``window`` keeps keys ``j > i - window`` (local attention).
     * decode: ``cache=(k_cache, v_cache)`` ``[B, Smax, Hkv, Dh]``, ``x [B,
-      1, D]``; the new K/V are written at ``cache_pos`` **in place** (the
+      1, D]``; the new K/V are written at ``cache_pos`` (at ``cache_pos %
+      Smax``, a rolling cache, with a ``window``) **in place** (the
       reference returns an updated copy; the port saves the copy of every
       layer's cache each step) and the token attends against the cache.
     """
-    if window is not None:
-        raise not_ported("local (windowed) attention in a model", RGLRU)
     if kv_from is not None:
         raise not_ported("cross-attention (kv_from)", ENCDEC)
     b = x.shape[0]
@@ -179,16 +199,22 @@ def attn_apply(params: Dict, x: torch.Tensor, cfg: LMConfig, *,
     new_cache = None
     if cache is not None:
         k_cache, v_cache = cache
+        smax = k_cache.shape[1]
         bidx = torch.arange(b, device=x.device)
         slot = cache_pos.long()
+        if window is not None:
+            slot = slot % smax
         k_cache[bidx, slot] = k[:, 0]
         v_cache[bidx, slot] = v[:, 0]
         new_cache = (k_cache, v_cache)
-        o = decode_attention(q, k_cache, v_cache, cache_pos)
+        if window is not None:
+            o = _rolling_decode(q, k_cache, v_cache, cache_pos, smax)
+        else:
+            o = decode_attention(q, k_cache, v_cache, cache_pos)
     else:
         attend = ops.flash_attention if use_kernels \
             else ops.flash_attention_plain
-        o = attend(q, k, v, causal)
+        o = attend(q, k, v, causal, window)
     out = o.reshape(b, -1, hq * hd) @ params["wo"].to(cd)
     return x + out, new_cache
 

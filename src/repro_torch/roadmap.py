@@ -6,10 +6,7 @@ naming its item, on the recsys and the LM side alike.
 from __future__ import annotations
 
 MULTI_DEVICE = "Multi-GPU (queue 1 item 4)"
-FRONT_DOORS = "Front doors, benchmarks and CI (queue 1 item 6)"
-#: queue 1 item 7: the LM families and paths after dense-LM training
-LM_REMAT = "LM remat policies dots and group"
-RGLRU = "rglru + local_attn (recurrentgemma)"
+#: queue 1 item 7: the LM families and paths after recurrentgemma
 MOE = "MoE (granite)"
 XLSTM = "xLSTM"
 ENCDEC = "encoder-decoder and frontends (seamless, pixtral)"

@@ -316,6 +316,102 @@ def test_concurrent_scatters_never_tear_a_snapshot():
 
 
 # ---------------------------------------------------------------------------
+# the L1 miss path: the index kept by a merge, the batch staged in one copy
+# ---------------------------------------------------------------------------
+
+def _miss_heavy(n=12, b=40, vocab=400, seed=7):
+    """Batches of Zipf-skewed ids over a vocabulary >> the L1, ~10% pads:
+    every batch misses, evicts and (at capacity 16) overflows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        ids = (rng.zipf(1.3, b) + 37 * k) % vocab
+        ids[rng.random(b) < 0.1] = -1
+        out.append(ids.astype(np.int64))
+    return out
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("payload_dtype", ["f32", "int8"])
+def test_incremental_index_and_slots_match_jax(J, payload_dtype, shards):
+    """After every probe of a miss-heavy stream the sorted index equals a
+    full rebuild's, and the slots, overflow, LFU counters, residents and
+    payload bytes equal the JAX cache's bit for bit. Every other plan
+    commits through the staged path (its scatter shipped with
+    ``to_device_many``, as the HPS device stage ships a batch)."""
+    from repro.core.hps.embedding_cache import DeviceEmbeddingCache as JC
+    from repro_torch import device as devmod
+    store = np.random.default_rng(8).standard_normal((400, DIM)).astype(
+        np.float32)
+    jc = JC(16, DIM, fetch_fn=lambda ids: store[ids], shards=shards,
+            payload_dtype=payload_dtype)
+    pc = DeviceEmbeddingCache(16, DIM, fetch_fn=lambda ids: store[ids],
+                              shards=shards, payload_dtype=payload_dtype,
+                              device="cpu")
+    overflowed = 0
+    for k, ids in enumerate(_miss_heavy()):
+        jp, pp = jc.probe(ids), pc.probe(ids)
+        overflowed += len(pp.ov_idx)
+        occ = pc._id_of[:pc._next_free]
+        order = np.argsort(occ, kind="stable")
+        np.testing.assert_array_equal(pc._sorted_ids, occ[order])
+        np.testing.assert_array_equal(pc._sorted_slots, order)
+        np.testing.assert_array_equal(pp.slots, jp.slots)
+        np.testing.assert_array_equal(pp.ov_idx, jp.ov_idx)
+        np.testing.assert_array_equal(pp.ov_rows, jp.ov_rows)
+        np.testing.assert_array_equal(pc._id_of, jc._id_of)
+        np.testing.assert_array_equal(pc._freq, jc._freq)
+        np.testing.assert_array_equal(pc._sorted_ids, jc._sorted_ids)
+        np.testing.assert_array_equal(pc._sorted_slots, jc._sorted_slots)
+        staged = None
+        if k % 2 and pp.scatter is not None:
+            staged = devmod.to_device_many(pp.scatter, torch.device("cpu"))
+        payload, scales = pc.commit(pp, staged)
+        jpay, jscales = jc.commit(jp)
+        np.testing.assert_array_equal(payload.numpy(), np.asarray(jpay))
+        if payload_dtype == "int8":
+            np.testing.assert_array_equal(scales.numpy(),
+                                          np.asarray(jscales))
+    assert pc.misses == jc.misses and pc.hits == jc.hits
+    assert overflowed and pc.misses > 5 * pc.hits
+
+
+def test_staged_scatter_flushed_by_another_probe_is_not_written_twice():
+    """A plan's deferred scatter that a later probe flushed first binds
+    the plan's snapshot then; its staged copy is ignored at commit."""
+    from repro_torch import device as devmod
+    store = np.arange(64 * 4, dtype=np.float32).reshape(64, 4)
+    cache = DeviceEmbeddingCache(4, 4, fetch_fn=lambda ids: store[ids],
+                                 device="cpu")
+    plan = cache.probe(np.array([0, 1]))
+    staged = devmod.to_device_many(plan.scatter, torch.device("cpu"))
+    later = cache.probe(np.array([5, 6]))      # flushes plan's scatter
+    snap = plan.payload
+    assert snap is not None
+    assert cache.commit(plan, staged) is snap
+    cache.commit(later)
+    rows = cache._store.gather(snap, torch.tensor(plan.slots, dtype=torch.int32))
+    np.testing.assert_array_equal(rows.numpy(), store[[0, 1]])
+
+
+def _check_to_device_many(device):
+    from repro_torch import device as devmod
+    arrays = [np.arange(5, dtype=np.int32), None,
+              np.ones((3, 2), np.float16), np.array([-1, 7], np.int64),
+              np.zeros(0, np.int8), np.full((2, 3), 0.5, np.float32)]
+    out = devmod.to_device_many(arrays, device)
+    assert out[1] is None
+    for a, t in zip(arrays, out):
+        if a is not None:
+            assert t.shape == a.shape and t.device.type == device.type
+            np.testing.assert_array_equal(t.cpu().numpy(), a)
+
+
+def test_to_device_many_packs_typed_views():
+    _check_to_device_many(torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
 # on the card: the striped L1 through K1, K5 and K6, and a refresh
 # ---------------------------------------------------------------------------
 
@@ -337,6 +433,11 @@ def _port_tables(root):
                              (t.vocab_size, t.dim)).astype(np.float32))
     pdb.flush()
     return pdb
+
+
+@pytest.mark.cuda
+def test_cuda_to_device_many_is_one_pinned_copy(cuda):
+    _check_to_device_many(cuda)
 
 
 @pytest.mark.cuda

@@ -51,7 +51,12 @@ def test_imports_with_jax_and_repro_blocked():
                 "configs.deepfm_criteo", "configs.wdl_criteo",
                 "core.embedding.frequency", "data.pipeline",
                 "loadgen.workload", "loadgen.driver", "launch.serve",
-                "launch.loadtest", "launch.train", "analysis.deadcode"):
+                "launch.loadtest", "launch.train", "analysis.deadcode",
+                "models.lm.rglru", "examples.quickstart",
+                "examples.train_dlrm_e2e", "examples.serve_online_updates",
+                "examples.loadtest_ensemble", "examples.novel_archs",
+                "examples.etc_terabyte_training",
+                "examples.lm_pretrain_smoke"):
         assert f"repro_torch.{mod}" in _modules()
     code = (
         "import sys, importlib, pkgutil\n"

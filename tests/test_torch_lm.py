@@ -390,7 +390,7 @@ def test_prefill_on_cpu_launches_nothing():
 @pytest.mark.parametrize("arch,item", [
     ("granite-moe-1b-a400m", "MoE"),
     ("granite-moe-3b-a800m", "MoE"),
-    ("recurrentgemma-9b", "rglru"),
+    ("xlstm-125m", "mlstm"),
     ("xlstm-125m", "xLSTM"),
     ("seamless-m4t-large-v2", "encoder-decoder"),
     ("pixtral-12b", "frontends"),
@@ -407,8 +407,6 @@ def test_left_out_paths_raise():
     pos = torch.zeros((1, 4), dtype=torch.int64)
     blk = params["groups"]["0_attn"]
     layer = {k: v[0] for k, v in blk["attn"].items() if k != "norm"}
-    with pytest.raises(NotImplementedError, match="local_attn"):
-        tf.attn_apply(layer, x, cfg, positions=pos, window=4)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         tf.attn_apply(layer, x, cfg, positions=pos, kv_from=x)
     with pytest.raises(NotImplementedError, match="multi-GPU"):

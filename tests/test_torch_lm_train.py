@@ -29,8 +29,8 @@ Seeded numpy inputs go through both packages:
   ``specs.lm_step_fn``, and its SGD twin): the loss trajectory <= 1e-5
   relative, the final params <= ``TRAJ_PARAM_TOL``; the in-place SGD step
   gives ``optimizers.make("sgd")``'s values bit for bit.
-* (e) ``remat="full"`` gives the loss and gradients of ``"none"``;
-  ``"dots"`` and ``"group"`` raise.
+* (e) ``remat="full"`` gives the loss and gradients of ``"none"``; a
+  policy the reference does not have raises.
 * (f) ``python -m repro_torch.launch.train --smoke --device cpu``: the loss
   falls over 5 steps and no kernel launches.
 
@@ -375,9 +375,11 @@ def test_remat_full_matches_none():
         torch.testing.assert_close(r, g, rtol=0, atol=1e-6, msg=k)
 
 
-@pytest.mark.parametrize("remat", ["dots", "group"])
+@pytest.mark.parametrize("remat", ["dot", "nested"])
 def test_other_remat_policies_raise(remat):
-    with pytest.raises(NotImplementedError, match="remat"):
+    """Every policy of the reference is ported (``dots`` and ``group``:
+    ``tests/test_torch_lm_remat.py``); a name outside them raises."""
+    with pytest.raises(ValueError, match="remat"):
         LMModel(reduce_for_smoke(LM_ARCHS["olmo-1b"]), device="cpu",
                 remat=remat)
 
