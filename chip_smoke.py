@@ -178,8 +178,9 @@ Phases, in order; any failure exits non-zero:
    step. The cut: ``train_4k``'s batch 256 x 4096 becomes 1 x 4096.
 12. Remat: full-width ``minitron-4b`` takes one gradient at 1 x 4096
    under each of ``remat`` "none", "full", "dots" and "group" from one set
-   of weights: the losses equal within ``REMAT_TOL``, each policy's peak
-   memory and gradient time.
+   of weights: each policy's peak memory and gradient time, then every
+   parameter's gradient (and the loss) held against "none"'s within
+   ``REMAT_TOL``.
 13. recurrentgemma serve: full-width, full-depth ``recurrentgemma-9b``
    (38 layers: 12 x (rglru, rglru, local_attn) + 2 rglru, d 4096, hybrid
    token table, seed-0 f32 weights, bf16 compute) as phase 9: a 2 x 4096
@@ -187,6 +188,11 @@ Phases, in order; any failure exits non-zero:
    against the plain path, a 64-token decode replay into a 4096-token
    cache (rolling 2048-entry caches for the local layers, the RG-LRU
    state for the recurrent ones) against the prefill, 32 greedy tokens.
+   At 38 layers the bf16 replay is held by its correlation and an f32
+   replay on the plain path; full-width copies at 5 and 12 layers replay
+   in bf16 on the kernels and on the plain path, the 5-layer one held to
+   the reference's bound (``DECODE_TOL``, set for 5 layers), and the
+   drift is printed by depth.
 14. recurrentgemma train: a full-width copy at depth 5 (one pattern
    period and the 2-layer tail) as phases 10 and 11: one gradient on the
    kernels (K1, K3, K7, K8) against the plain path, then SGD steps on one
@@ -231,8 +237,11 @@ TRAIN_TOL = 2e-2
 #: saved bits and K1 / K3 are deterministic, so only a lost or corrupted
 #: state moves them
 RESUME_TOL = 1e-6
-#: the remat policies' losses against "none"'s: the recomputed layers run
-#: the same kernels on the same inputs, so only a wrong recompute moves them
+#: the remat policies' gradients against "none"'s, per parameter, relative
+#: L2 (and their losses, relative): the recomputed layers run the same
+#: deterministic kernels on the same inputs, so only a wrong recompute
+#: moves the gradients (the forward pass, and so the loss, is the same
+#: under every policy)
 REMAT_TOL = 1e-6
 #: the run: vocabulary cap per table (the one cut), L1 rows per table,
 #: request batch, warm-up and measured requests, seed; training batch,
@@ -255,7 +264,8 @@ RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             lm_train_warm=1, lm_train_timed=5,
                             lm_train_lr=3e-4,
                             lm_check_layers=2, rg_arch="recurrentgemma-9b",
-                            rg_train_layers=5, online_ids=4096,
+                            rg_train_layers=5,
+                            rg_decode_depths=(5, 12, 24), online_ids=4096,
                             online_versions=4, online_quiet=48,
                             etc_cache_rows=131072, etc_passes=2,
                             etc_evict_rows=8192, etc_online_steps=4)
@@ -282,7 +292,9 @@ ATTN_BWD_TOL_F32 = 1e-4
 #: loss, 8.1e-3 and 0.99996 at worst)
 LM_GRAD_TOL = types.SimpleNamespace(loss_rel=1e-3, rel=5e-2, cos=0.999)
 #: decode against prefill: the reference's bound for the same check
-#: (tests/test_models_smoke.py::test_decode_matches_prefill)
+#: (tests/test_models_smoke.py::test_decode_matches_prefill, a 5-layer
+#: model); holds minitron at full depth and recurrentgemma's full-width
+#: 5-layer copy on both paths (``decode_depths``)
 DECODE_TOL = types.SimpleNamespace(rtol=0.1, atol=0.15, corr=0.99)
 #: decode against prefill in f32 on the plain path, relative to the largest
 #: |logit|: the same function summed in another order. Checks the decode
@@ -3069,12 +3081,73 @@ def f32_decode_check(dev, cfg, params, prompt) -> str:
             f"{DECODE_F32_TOL} x max |logit| {top:.4g})")
 
 
+def decode_depths(args, dev, cfg, depths) -> None:
+    """bf16 decode drift by depth: full-width copies of ``cfg`` cut to each
+    of ``depths`` layers (random seed weights) replay the first
+    ``args.prompt`` tokens of :func:`lm_phase`'s batch through
+    ``decode_step``, on the kernels and on the plain path, each held
+    against its own path's prefill of the same tokens. The shallowest
+    copy is held to the reference's bound (``DECODE_TOL``, which the
+    reference sets for a 5-layer model); every depth prints its max abs
+    error and correlation."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm.backbone import LMModel
+    b, s, p = args.lm_batch, args.lm_seq, args.prompt
+    rng = np.random.default_rng((args.seed, 7))
+    prompt = torch.from_numpy(zipf_ids(rng, cfg.vocab_size, (b, s),
+                                       a=1.2)[:, :p].copy()).to(dev)
+    v = cfg.vocab_size
+    parts = []
+    for depth in depths:
+        small = dataclasses.replace(cfg, num_layers=depth)
+        params = None
+        for kernels in (True, False):
+            model = LMModel(small, device=dev, use_kernels=kernels)
+            if params is None:
+                params = model.init(torch.Generator(device=dev).manual_seed(
+                    args.seed))
+            with torch.inference_mode():
+                cache = model.init_cache(b, s)
+                for i in range(p):
+                    step, cache = model.decode_step(
+                        params, prompt[:, i:i + 1], cache,
+                        torch.full((b,), i, device=dev))
+                want = model.prefill(params, {"tokens": prompt})
+            got = step[:, :v].float().cpu().numpy()
+            ref = want[:, :v].float().cpu().numpy()
+            dmax = float(np.abs(got - ref).max())
+            corr = float(np.corrcoef(got.ravel(), ref.ravel())[0, 1])
+            close = bool(np.allclose(got, ref, rtol=DECODE_TOL.rtol,
+                                     atol=DECODE_TOL.atol))
+            path = "kernels" if kernels else "plain"
+            if depth == depths[0]:
+                check(close and corr > DECODE_TOL.corr, f"bf16 decode of "
+                      f"{cfg.name} cut to {depth} layers on the {path} "
+                      f"path after {p} tokens vs prefill: max abs {dmax}, "
+                      f"correlation {corr}")
+            parts.append(f"{depth} layers {path} {dmax:.4g} / {corr:.6f}"
+                         + (" (bound held)" if close else ""))
+            del cache, step, want, model
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"decode drift {cfg.name} by depth on "
+          f"{torch.cuda.get_device_name(0)}: full-width copies, random "
+          f"weights (seed {args.seed}), bf16 compute, a {p}-token prompt "
+          f"replayed into a {s}-entry cache against the same path's "
+          "prefill, max abs / correlation: " + "; ".join(parts)
+          + f"; {depths[0]} layers held to rtol {DECODE_TOL.rtol}, atol "
+          f"{DECODE_TOL.atol}, corr > {DECODE_TOL.corr} on both paths")
+
+
 def lm_phase(args, dev, cfg, f32_replay: bool = False):
     """Prefill and decode ``cfg`` at full width and depth with random
     weights; returns the launch counts of the kernel path's run. With
-    ``f32_replay`` (a model too deep for the bf16 decode bound) the bf16
-    replay is held by its correlation and the decode state by
-    :func:`f32_decode_check`."""
+    ``f32_replay`` (a model deeper than the bf16 decode bound was set
+    for) the bf16 replay is held by its correlation and the decode state
+    by :func:`f32_decode_check`; :func:`decode_depths` holds the same
+    model cut to 5 layers to the bf16 bound."""
     import numpy as np
     import torch
     from repro_torch.configs.base import LM_SHAPE_BY_NAME
@@ -3394,11 +3467,12 @@ def lm_train_phase(args, dev, cfg, depth_cut: str = ""):
 def remat_phase(args, dev, cfg):
     """One gradient of full-width ``cfg`` at ``args.lm_train_batch`` x
     ``args.lm_seq`` under each remat policy, from one set of weights: the
-    losses (equal within ``REMAT_TOL``), the peak memory and the time of
-    each."""
+    peak memory and the time of each, then every policy's gradients
+    against none's."""
     import torch
     from repro_torch.launch.train import lm_value_and_grad
     from repro_torch.models.lm.backbone import REMATS, LMModel
+    from repro_torch.tree import flatten
     params = None
     tokens = lm_tokens(args, cfg, dev, args.lm_train_batch, args.lm_seq)
     rows = {}
@@ -3421,18 +3495,44 @@ def remat_phase(args, dev, cfg):
                        (torch.cuda.max_memory_allocated() - base) / 2**30,
                        torch.cuda.max_memory_allocated() / 2**30)
         del grads, loss
+    # the gradients, once the peaks are read: none's held on the card,
+    # each other policy's against them parameter by parameter
     ref = rows["none"][0]
-    for remat, (loss, *_) in rows.items():
-        check(abs(loss - ref) <= REMAT_TOL * abs(ref), f"remat {remat}: "
-              f"loss {loss} against none's {ref} (bound {REMAT_TOL} "
-              "relative)")
+    _, want = lm_value_and_grad(LMModel(cfg, device=dev, remat="none"),
+                                params, tokens)
+    want = flatten(want)
+    worst = {}
+    for remat in REMATS[1:]:
+        loss, grads = lm_value_and_grad(LMModel(cfg, device=dev,
+                                                remat=remat), params, tokens)
+        check(abs(float(loss) - ref) <= REMAT_TOL * abs(ref), f"remat "
+              f"{remat}: loss {float(loss)} against none's {ref} (bound "
+              f"{REMAT_TOL} relative)")
+        rel_max, diff_max = 0.0, 0.0
+        for (key, g), (_, w) in zip(flatten(grads), want):
+            diff = (g - w).float()          # f32 norms: one temporary
+            d = diff.norm().item()
+            rel = d / max(w.float().norm().item(), 1e-30)
+            check(rel <= REMAT_TOL, f"remat {remat}: gradient {key} "
+                  f"relative L2 error {rel} against none's (bound "
+                  f"{REMAT_TOL})")
+            rel_max = max(rel_max, rel)
+            diff_max = max(diff_max, diff.abs().max().item())
+            del diff
+        worst[remat] = (rel_max, diff_max)
+        del grads
+    del want
     print(f"remat {cfg.name} on {torch.cuda.get_device_name(0)}: one "
           f"gradient at {args.lm_train_batch} x {args.lm_seq} tokens, full "
           "width and depth; per policy loss, gradient ms, peak GiB above "
           "the weights (peak GiB in all): "
           + "; ".join(f"{r} {loss:.6f}, {ms:.2f} ms, {extra:.2f} ({peak:.2f})"
                       f" GiB" for r, (loss, ms, extra, peak) in rows.items())
-          + f" (losses within {REMAT_TOL} relative of none's)")
+          + f"; against none's gradients ({len(flatten(params))} "
+          "parameters), worst relative L2 error / max |diff|: "
+          + "; ".join(f"{r} {rel:.3g} / {d:.3g}"
+                      for r, (rel, d) in worst.items())
+          + f" (bound {REMAT_TOL}; losses within {REMAT_TOL} relative)")
     del params
 
 
@@ -3670,6 +3770,7 @@ def main() -> int:
         total[k] = total.get(k, 0) + n
     gc.collect()
     torch.cuda.empty_cache()
+    decode_depths(args, dev, rg_cfg, args.rg_decode_depths)
     lm_grad_check(args, dev, rg_cfg, args.rg_train_layers)
     gc.collect()
     torch.cuda.empty_cache()

@@ -10,10 +10,14 @@ decisions on the same query stream.
 The query splits into a HOST stage (``probe``: index probe + coalesced
 miss fetch; the payload scatter is deferred) and a DEVICE stage
 (``commit``: the one payload scatter + snapshot binding), so a pipelined
-caller overlaps table *t+1*'s probe with table *t*'s scatter. Whoever
-takes the cache lock next flushes a deferred scatter, so the index and
-the payload agree whenever the lock is held, and every plan's snapshot
-binds before a later query can evict the slots it reads.
+caller overlaps table *t+1*'s probe with table *t*'s scatter, and query
+*i+1*'s probes with query *i*'s device stage. Deferred scatters queue in
+probe order, and a probe leaves them queued: the host index may run
+ahead of the payload, which is read only through a plan's snapshot or
+after a flush. A commit (or any call that reads the payload) writes the
+queued scatters in order up to its plan, binding each plan's snapshot
+right after its own scatter, so a snapshot is taken before any later
+query's scatter (copy-on-write) overwrites the slots it reads.
 
 Refresh is hotness-scheduled, as in the reference: online updates (or a
 poll cycle) mark resident rows dirty; ``refresh_chunk`` claims up to a
@@ -26,7 +30,8 @@ rebuilds the cache at another capacity, keeping the hottest rows.
 from __future__ import annotations
 
 import threading
-from typing import Callable, Optional, Tuple
+from collections import deque
+from typing import Callable, Deque, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,7 +71,7 @@ class DeviceEmbeddingCache:
     _GUARDED_BY = {
         "_id_of": "_lock", "_freq": "_lock", "_next_free": "_lock",
         "_sorted_ids": "_lock", "_sorted_slots": "_lock",
-        "_pending": "_lock", "_pending_plan": "_lock",
+        "_pending": "_lock",
         "_dirty": "_lock", "hits": "_lock", "misses": "_lock",
         "rows_refreshed": "_lock", "refresh_chunks": "_lock",
     }
@@ -100,8 +105,8 @@ class DeviceEmbeddingCache:
         self._sorted_slots = np.empty(0, np.int64)
         self.hits = 0
         self.misses = 0
-        self._pending: Optional[Tuple[np.ndarray, np.ndarray]] = None
-        self._pending_plan: Optional[LookupPlan] = None
+        #: plans whose snapshot is not bound yet, in probe order
+        self._pending: Deque[LookupPlan] = deque()
         # refresh scheduler state
         self._dirty = np.zeros(capacity, bool)
         self.refresh_chunk_rows = refresh_chunk_rows
@@ -130,7 +135,7 @@ class DeviceEmbeddingCache:
         if len(self._sorted_ids) == 0:
             return np.full(len(ids), -1, np.int64)
         pos = np.searchsorted(self._sorted_ids, ids)
-        pos = np.clip(pos, 0, len(self._sorted_ids) - 1)
+        np.minimum(pos, len(self._sorted_ids) - 1, out=pos)
         found = self._sorted_ids[pos] == ids
         return np.where(found, self._sorted_slots[pos], -1)
 
@@ -171,33 +176,30 @@ class DeviceEmbeddingCache:
     def probe(self, ids: np.ndarray) -> LookupPlan:
         """HOST stage: resolve ``ids [n]`` (-1 = pad) to payload slots,
         fetching + index-inserting misses; the payload scatter is deferred
-        to ``commit``. An all-hit plan binds its snapshot at once; one
-        with insertions binds when the scatter flushes (in ``commit`` or
-        the next locked call on this cache, whichever is first)."""
+        to ``commit``. A plan binds its snapshot at once when it inserted
+        nothing and no scatter is queued; else it queues, and binds when
+        the queue flushes up to it (its own ``commit``, a later plan's, or
+        a call that reads the payload, whichever is first)."""
         with self._lock:
-            self._flush_pending_locked()
-            slots, ov_idx, ov_rows = self._probe_locked(
+            slots, ov_idx, ov_rows, scatter = self._probe_locked(
                 np.asarray(ids, np.int64))
             plan = LookupPlan(slots, ov_idx, ov_rows, None, self._store,
-                              self._pending)
-            if self._pending is None:
+                              scatter)
+            if scatter is None and not self._pending:
                 plan.payload = self._store.snapshot()
             else:
-                self._pending_plan = plan
+                self._pending.append(plan)
             return plan
 
     def commit(self, plan: LookupPlan, staged=None):
-        """DEVICE stage: dispatch the plan's deferred scatter (if still
-        pending) and return its snapshot. Gather from IT, not from
+        """DEVICE stage: write the queued scatters up to the plan's own
+        and return its snapshot. Gather from IT, not from
         ``self.payload``. ``staged`` is ``plan.scatter`` already on the
         device (``(idx, rows, scales)`` tensors), written instead of
         copying it again; unused if another call flushed it first."""
         if plan.payload is None:
             with self._lock:
-                if staged is not None and self._pending_plan is plan:
-                    self._pending = None
-                    self._store.write(*staged)
-                self._flush_pending_locked()
+                self._flush_pending_locked(plan, staged)
         return plan.payload
 
     def acquire_slots(self, ids: np.ndarray
@@ -206,23 +208,31 @@ class DeviceEmbeddingCache:
         plan = self.probe(ids)
         return plan.slots, plan.ov_idx, plan.ov_rows, self.commit(plan)
 
-    def _flush_pending_locked(self) -> None:
-        if self._pending is not None:
-            prepared = self._pending
-            self._pending = None
-            self._store.write(*devmod.to_device_many(prepared,
-                                                     self.device))
-        if self._pending_plan is not None:
-            self._pending_plan.payload = self._store.snapshot()
-            self._pending_plan = None
+    def _flush_pending_locked(self, upto: Optional[LookupPlan] = None,
+                              staged=None) -> None:
+        """Write the queued scatters in probe order, each plan's snapshot
+        bound right after its own, up to ``upto`` (all when None);
+        ``upto``'s scatter is ``staged`` when given."""
+        while self._pending:
+            plan = self._pending.popleft()
+            if plan.scatter is not None:
+                self._store.write(*(
+                    staged if plan is upto and staged is not None
+                    else devmod.to_device_many(plan.scatter, self.device)))
+            plan.payload = self._store.snapshot()
+            if plan is upto:
+                return
 
     def _probe_locked(self, ids: np.ndarray
-                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 Optional[tuple]]:
+        """``(slots, overflow positions, overflow rows, the deferred
+        scatter as ShardedPayloadStore.prepare gives it or None)``."""
         n = len(ids)
         empty = (np.empty(0, np.int64),
                  np.empty((0, self.dim), np.float32))
         if n == 0:
-            return np.empty(0, np.int64), *empty
+            return np.empty(0, np.int64), *empty, None
         valid = ids >= 0
         uniq, inv = np.unique(np.where(valid, ids, -1), return_inverse=True)
         counts = np.bincount(inv, minlength=len(uniq))
@@ -234,12 +244,12 @@ class DeviceEmbeddingCache:
         real_mask = uniq >= 0
         self.hits += int(counts[found].sum())
         self.misses += int(counts[real_mask & ~found].sum())
-        if found.any():
-            np.add.at(self._freq, slots_u[found],
-                      counts[found].astype(np.float64))
+        if found.any():   # distinct ids, distinct slots: no repeats
+            self._freq[slots_u[found]] += counts[found]
 
         miss = real_mask & ~found
         ov_idx, ov_rows = empty
+        scatter = None
         if miss.any():
             miss_ids = uniq[miss]
             # lock-ok: LOCK002 probe fetch under the lock preserves same-table ordering; the pipelined engine keeps it off the hot thread
@@ -276,7 +286,7 @@ class DeviceEmbeddingCache:
             self._dirty[dest] = False      # fresh from the lower levels
             self._update_index_locked(old_ids, miss_ids[sel], dest)
             if ins:  # the ONE device scatter, deferred to commit()
-                self._pending = self._store.prepare(dest, rows[sel])
+                scatter = self._store.prepare(dest, rows[sel])
             miss_slots = np.full(k, -1, np.int64)
             miss_slots[sel] = dest
             slots_u[miss] = miss_slots
@@ -289,7 +299,7 @@ class DeviceEmbeddingCache:
                 ov_idx = np.nonzero(per_elem >= 0)[0].astype(np.int64)
                 ov_rows = rows[ovf][per_elem[ov_idx]]
 
-        return slots_u[inv].astype(np.int64), ov_idx, ov_rows
+        return slots_u[inv].astype(np.int64), ov_idx, ov_rows, scatter
 
     def _scatter_locked(self, slots: np.ndarray, rows: np.ndarray) -> None:
         self._store.scatter(slots, rows)

@@ -4,15 +4,16 @@
 Lookup path per table: L1 device cache -> L2 volatile DB -> L3 persistent
 DB, with promotion on miss at every level. Each table resolves through a
 HOST stage (sorted-index probe + one coalesced miss fetch) and a DEVICE
-stage (the one payload scatter + the slot block's transfer). A batch's
-device stage ships every table's slot block and deferred scatter in ONE
-pinned host-to-device copy (``device.to_device_many``); the pooled
-``[B, T, D]`` output is then read on the device for all tables at once
-(one K1 launch, or one K6 for int8 payloads). ``pipelined=True`` runs the
-probes on two host workers, and ``lookup_stream`` probes query *i+1*
-while query *i* runs its device stage; ``lookup_stage_sync`` is the
-no-overlap engine the others are compared with (a copy and a wait a
-table). Every plan gathers from its own payload snapshot (see
+stage (the one payload scatter + the slot block's transfer). In
+``lookup`` and ``lookup_stream`` a batch's device stage ships every
+table's slot block and deferred scatter in ONE pinned host-to-device
+copy (``device.to_device_many``); the pooled ``[B, T, D]`` output is then
+read on the device for all tables at once (one K1 launch, or one K6 for
+int8 payloads). ``pipelined=True`` runs the probes on two host workers,
+and ``lookup_stream`` probes query *i+1* while query *i* runs its device
+stage; ``lookup_stage_sync`` is the no-overlap engine the others are
+compared with (each table's arrays in plain copies of their own, then a
+wait). Every plan gathers from its own payload snapshot (see
 ``payload_store``), so all engines give identical results.
 
 With ``cache_shards=N`` the caches stripe their payloads on the one
@@ -215,13 +216,15 @@ class HPS:
     def _device_stage(self, plans: Sequence[Tuple[int, LookupPlan]], b: int,
                       bp: int, blocks: List[np.ndarray],
                       slot_blocks: List[torch.Tensor], payloads: List[tuple],
-                      overflow: List[Overflow]) -> None:
+                      overflow: List[Overflow], one_copy: bool = True
+                      ) -> None:
         """The device stage of ``(table index, plan)`` pairs: one copy to
         the device carries every plan's slot block (int32, padded to
         ``bp`` rows with -1) and every still-deferred scatter (its rows,
         slots and scales), then each plan's scatter is written and its
-        snapshot bound (``commit``). A striped snapshot goes out as its
-        flat view, the slots remapped onto it here on the host."""
+        snapshot bound (``commit``). ``one_copy=False`` ships each array
+        in a plain copy of its own instead. A striped snapshot goes out
+        as its flat view, the slots remapped onto it here on the host."""
         host: List[Optional[np.ndarray]] = []
         for ti, plan in plans:
             h = blocks[ti].shape[1]
@@ -230,7 +233,9 @@ class HPS:
             host.append(plan.store.flat_rows(slots))
             staged = plan.scatter if plan.payload is None else None
             host.extend(staged if staged is not None else (None,) * 3)
-        dev = devmod.to_device_many(host, self.device)
+        dev = (devmod.to_device_many(host, self.device) if one_copy else
+               [None if a is None else devmod.to_device(a, self.device)
+                for a in host])
         for k, (ti, plan) in enumerate(plans):
             sb, staged = dev[4 * k], dev[4 * k + 1:4 * k + 4]
             payload = self.caches[self.tables[ti].name].commit(
@@ -303,9 +308,10 @@ class HPS:
     def lookup_stage_sync(self, cat: np.ndarray,
                           hotness: Optional[List[int]] = None
                           ) -> torch.Tensor:
-        """Fully stage-synchronous lookup: wait for each table's device
-        scatter before the next host probe, and for the pooled read before
-        returning; no overlap of any kind. The no-overlap engine the
+        """Fully stage-synchronous lookup: each table's arrays go to the
+        device in plain copies of their own, and its scatter is waited
+        for before the next host probe, the pooled read before returning;
+        no overlap of any kind. The no-overlap engine the
         pipelined ones are compared with; the same result as
         :meth:`lookup`."""
         cat = np.asarray(cat)
@@ -321,7 +327,8 @@ class HPS:
         overflow: List[Overflow] = []
         for ti in range(len(self.tables)):
             self._device_stage([(ti, self._probe(ti, blocks))], b, bp,
-                               blocks, slot_blocks, payloads, overflow)
+                               blocks, slot_blocks, payloads, overflow,
+                               one_copy=False)
             devmod.synchronize(self.device)         # no overlap
         out = self._finalize(payloads, slot_blocks, blocks, overflow, b)
         devmod.synchronize(self.device)

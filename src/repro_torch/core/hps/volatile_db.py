@@ -52,7 +52,7 @@ class _Shard:
         if len(self.sorted_ids) == 0:
             return np.full(len(ids), -1, np.int64)
         pos = np.searchsorted(self.sorted_ids, ids)
-        pos = np.clip(pos, 0, len(self.sorted_ids) - 1)
+        np.minimum(pos, len(self.sorted_ids) - 1, out=pos)
         return np.where(self.sorted_ids[pos] == ids,
                         self.sorted_slots[pos], -1)
 

@@ -7,6 +7,7 @@ measure the GPU cannot quietly measure the host.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -50,12 +51,13 @@ def to_device_many(arrays: Sequence[Optional[np.ndarray]],
                    device: torch.device) -> List[Optional[torch.Tensor]]:
     """Host arrays as tensors on ``device`` through ONE host-to-device
     copy (None stays None): on a card they are packed at 16-byte aligned
-    offsets into one pinned buffer, so the copy neither stages pageable
-    memory nor waits for the work queued before it, and each result is a
-    typed view of the one device buffer. (A pageable copy first waits
-    for the stream: one wait per array.) The pinned block is reused only
-    once its copy is done (the caching host allocator records it). On
-    the CPU each array becomes a tensor over its own memory."""
+    offsets straight into one pinned buffer, copied without a stream
+    sync, and each result is a typed view of the one device buffer. One
+    copy call a batch instead of one an array: each call gives up the
+    interpreter lock and must win it back from the threads probing the
+    next tables. The pinned block is reused only once its copy is done
+    (the caching host allocator records it). On the CPU each array
+    becomes a tensor over its own memory."""
     arrays = [None if a is None else np.ascontiguousarray(a)
               for a in arrays]
     if device.type != "cuda":
@@ -65,11 +67,15 @@ def to_device_many(arrays: Sequence[Optional[np.ndarray]],
         offs.append(n)
         if a is not None:
             n += -(-a.nbytes // 16) * 16
-    packed = np.empty(max(n, 16), np.uint8)
+    pinned = torch.empty(max(n, 16), dtype=torch.uint8, pin_memory=True)
+    # a numpy view by address: ``Tensor.numpy`` is a transfer to the
+    # hot-path twin (``analysis/hotpath.py``), whatever the device
+    packed = np.ctypeslib.as_array((ctypes.c_uint8 * pinned.numel())
+                                   .from_address(pinned.data_ptr()))
     for a, o in zip(arrays, offs):
         if a is not None:
             packed[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dev = torch.from_numpy(packed).pin_memory().to(device, non_blocking=True)
+    dev = pinned.to(device, non_blocking=True)
     return [None if a is None else
             dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
             .view(a.shape) for a, o in zip(arrays, offs)]

@@ -377,21 +377,65 @@ def test_incremental_index_and_slots_match_jax(J, payload_dtype, shards):
 
 
 def test_staged_scatter_flushed_by_another_probe_is_not_written_twice():
-    """A plan's deferred scatter that a later probe flushed first binds
-    the plan's snapshot then; its staged copy is ignored at commit."""
+    """A later probe leaves a plan's deferred scatter queued; the later
+    probe's commit writes the queue in probe order, binding the plan's
+    snapshot after its own scatter, and the plan's staged copy is then
+    ignored at its commit."""
     from repro_torch import device as devmod
     store = np.arange(64 * 4, dtype=np.float32).reshape(64, 4)
     cache = DeviceEmbeddingCache(4, 4, fetch_fn=lambda ids: store[ids],
                                  device="cpu")
     plan = cache.probe(np.array([0, 1]))
     staged = devmod.to_device_many(plan.scatter, torch.device("cpu"))
-    later = cache.probe(np.array([5, 6]))      # flushes plan's scatter
+    later = cache.probe(np.array([5, 6]))      # queued behind plan
+    assert plan.payload is None and later.payload is None
+    cache.commit(later)                        # flushes plan's scatter
     snap = plan.payload
     assert snap is not None
     assert cache.commit(plan, staged) is snap
-    cache.commit(later)
     rows = cache._store.gather(snap, torch.tensor(plan.slots, dtype=torch.int32))
     np.testing.assert_array_equal(rows.numpy(), store[[0, 1]])
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("payload_dtype", ["f32", "int8"])
+def test_probes_ahead_of_commits_match_jax(J, payload_dtype, shards):
+    """Each query probed before the one ahead of it commits (as the
+    stream engine's host workers run ahead of its device stage): the
+    slots and every plan's snapshot equal the JAX cache's, probed and
+    committed in turn, bit for bit; the scatters queue, and no probe
+    writes the payload."""
+    from repro.core.hps.embedding_cache import DeviceEmbeddingCache as JC
+    from repro_torch import device as devmod
+    store = np.random.default_rng(9).standard_normal((400, DIM)).astype(
+        np.float32)
+    jc = JC(16, DIM, fetch_fn=lambda ids: store[ids], shards=shards,
+            payload_dtype=payload_dtype)
+    pc = DeviceEmbeddingCache(16, DIM, fetch_fn=lambda ids: store[ids],
+                              shards=shards, payload_dtype=payload_dtype,
+                              device="cpu")
+    stream = _miss_heavy(seed=11)
+    want = []
+    for ids in stream:
+        jp = jc.probe(ids)
+        want.append((jp.slots, jc.commit(jp)))
+    plans = [pc.probe(stream[0])]
+    for k, ids in enumerate(stream):
+        if k + 1 < len(stream):
+            before = pc._store.snapshot()[0]
+            plans.append(pc.probe(stream[k + 1]))   # runs ahead
+            assert pc._store.snapshot()[0] is before
+        plan = plans[k]
+        staged = (devmod.to_device_many(plan.scatter, torch.device("cpu"))
+                  if k % 2 and plan.scatter is not None else None)
+        payload, scales = pc.commit(plan, staged)
+        jslots, (jpay, jscales) = want[k]
+        np.testing.assert_array_equal(plan.slots, jslots)
+        np.testing.assert_array_equal(payload.numpy(), np.asarray(jpay))
+        if payload_dtype == "int8":
+            np.testing.assert_array_equal(scales.numpy(),
+                                          np.asarray(jscales))
+    assert not pc._pending
 
 
 def _check_to_device_many(device):

@@ -15,7 +15,8 @@ rows a table; written once into ``--bundle``). Then, on one fresh server:
    seeded permutation of each vocabulary, as ``launch.loadtest`` sends):
    p50 / p99 ms and the L1 hit rate of each;
 2. the host profile (``cProfile``) of 32 more ``Workload`` requests
-   through ``predict``: the functions with the most cumulative time;
+   through ``predict``: the functions with the most cumulative time, then
+   those with the most time of their own (numpy's C calls among them);
 3. 32 more fresh ``Workload`` requests through ``submit`` one at a time
    (closed loop) for each engine, ``stream``, ``sync``, ``stage_sync``:
    p50 / p99 ms and the L1 hit rate of each;
@@ -108,6 +109,8 @@ def measure(cs, ps: str, dev, rows: int, qps_list) -> dict:
         prof.disable()
         buf = io.StringIO()
         pstats.Stats(prof, stream=buf).sort_stats("cumulative") \
+            .print_stats(25)
+        pstats.Stats(prof, stream=buf).sort_stats("tottime") \
             .print_stats(25)
         print(buf.getvalue())
         for i, engine in enumerate(("stream", "sync", "stage_sync")):

@@ -12,17 +12,24 @@ vocabulary capped at ``--vocab`` rows (random f32 rows from a seed),
 net with seed-0 weights; the bundle format is shared by every checkout.
 Then, for each engine the checkout's server has, a fresh server from the
 bundle serves ``RUN.warmup`` warm-up and ``RUN.requests`` measured
-batch-``RUN.batch`` Zipf(1.1) requests (``chip_smoke.make_requests``) one
-at a time through ``submit``, and the same requests again through
-``predict``. Prints the card's name and power limit, then one JSON line of
-p50 / p99 ms. Needs a CUDA device; exits 2 without one.
+batch-``RUN.batch`` Zipf(1.1) requests (``chip_smoke.make_requests``): all
+at once through ``submit`` (a burst, as ``chip_smoke.py``'s engine phase
+sends it: delivered rows/s), then one at a time through ``submit``, then
+through ``predict``. Prints the card's name and power limit, then one JSON
+line of p50 / p99 ms and the bursts' rows/s. ``--profile ENGINE`` also
+prints the host profile (``cProfile``, every thread) of that engine's
+burst: the functions with the most time of their own, then the most
+cumulative time. Needs a CUDA device; exits 2 without one.
 """
 from __future__ import annotations
 
 import argparse
+import cProfile
 import dataclasses
+import io
 import json
 import os
+import pstats
 import subprocess
 import sys
 import time
@@ -57,9 +64,10 @@ def _bundle(cs, directory: str, vocab: int) -> str:
     return ps
 
 
-def measure(cs, ps: str, dev) -> dict:
-    """``{"submit <engine>" / "predict after <engine>": [p50, p99]}`` over
-    the measured requests, a fresh server from ``ps`` for each engine."""
+def measure(cs, ps: str, dev, profile: str = "") -> dict:
+    """``{"submit <engine>" / "predict after <engine>": [p50, p99],
+    "burst <engine> rows/s": r}`` over the measured requests, a fresh
+    server from ``ps`` for each engine."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import build_server_from_config
@@ -78,6 +86,19 @@ def measure(cs, ps: str, dev) -> dict:
         try:
             server.start()
             cs.closed_loop(server.submit, warm)
+            prof = cProfile.Profile() if engine == profile else None
+            if prof is not None:
+                prof.enable()
+            t0 = time.perf_counter()
+            cs.burst(server.submit, reqs)
+            rate = len(reqs) * cs.RUN.batch / (time.perf_counter() - t0)
+            if prof is not None:
+                prof.disable()
+                for key in ("tottime", "cumulative"):
+                    buf = io.StringIO()
+                    pstats.Stats(prof, stream=buf).sort_stats(key) \
+                        .print_stats(25)
+                    print(f"burst {engine}, by {key}:\n{buf.getvalue()}")
             _, ms = cs.closed_loop(server.submit, reqs)
             server.stop()
             pred = []
@@ -91,6 +112,7 @@ def measure(cs, ps: str, dev) -> dict:
                                    float(np.percentile(ms, 99))]
         out[f"predict after {engine}"] = [float(np.percentile(pred, 50)),
                                           float(np.percentile(pred, 99))]
+        out[f"burst {engine} rows/s"] = rate
         del server, built
         torch.cuda.empty_cache()
     return out
@@ -104,6 +126,8 @@ def main() -> int:
                     default=os.path.join(ROOT, ".archive",
                                          "serve_times_bundle"))
     ap.add_argument("--vocab", type=int, default=1 << 20)
+    ap.add_argument("--profile", default="",
+                    help="an engine whose burst is profiled")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -116,9 +140,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     out = measure(cs, _bundle(cs, args.bundle, args.vocab),
-                  torch.device("cuda", 0))
+                  torch.device("cuda", 0), args.profile)
     print(json.dumps({"label": args.label, "src": args.src,
-                      "p50_p99_ms": out}))
+                      "times": out}))
     return 0
 
 
