@@ -18,24 +18,34 @@
 // tensor cores' operand) before the PV product and sums l from the
 // unrounded p; for f32 inputs the rounding is a no-op.
 //
-// What bounds it: operations. At the prefill shape (q [48, 4096, 128], k/v
-// [16, 4096, 128], bf16, causal) it moves 135 MB (q, k, v, o, lse once each:
-// 0.04 ms at 3.35 TB/s) for 2.06e11 flops of the two products (0.21 ms at the
-// 989 TFLOP/s bf16 tensor-core peak).
+// What bounds it: operations. At minitron-4b's prefill (q [48, 4096, 128],
+// k/v [16, 4096, 128], bf16, causal) it moves 135 MB (q, k, v, o, lse once
+// each: 0.04 ms at 3.35 TB/s) for 2.06e11 flops of the two products (0.21
+// ms at the 989 TFLOP/s bf16 tensor-core peak); at recurrentgemma-9b's
+// (q [32, 4096, 256], k/v [2, 4096, 256], window 2048) 143 MB (0.04 ms)
+// for the same 2.06e11 flops of the window's band (0.2085 ms).
 //
-// Two kernels:
-// * flash_fwd_mma_kernel (bf16): 4 warps, a 64-query tile (16 rows a warp),
-//   64-key tiles. Q, K and V are copied row-major into shared memory with
-//   16-byte cp.async (rows padded by 8 elements, so the eight rows an
-//   ldmatrix reads fall on 32 distinct banks); the fragments come through
-//   ldmatrix (.trans for V, whose B operand runs along the key axis), and
-//   S = Q K^T and O += P V run on the tensor cores as mma.sync.m16n8k16
-//   bf16 -> f32. The S accumulator's layout is the A operand's layout of
-//   the PV product, so P goes from registers to the tensor cores without
-//   touching shared memory (the FlashAttention-2 arrangement). No
-//   multi-stage pipeline, TMA or wgmma yet: each key tile is copied, then
-//   used, with two __syncthreads a tile; the other blocks on the SM (four
-//   at D = 128) overlap one block's copies.
+// Four kernels:
+// * bf16 at D = 128, flash_fwd_wgmma_kernel (namespace wg, below): one
+//   warpgroup, Q in registers, K and V through a two-stage TMA ring,
+//   wgmma products.
+// * bf16 at D = 256, flash_fwd_wgmma256_kernel (namespace wg256, below):
+//   two consumer warpgroups on two query heads of a GQA group and a
+//   producer warpgroup that feeds both through a TMA ring; registers
+//   168 a thread at launch, 240 for each consumer thread (setmaxnreg),
+//   shared memory 193 KB (one block an SM).
+// * flash_fwd_mma_kernel (bf16 at D 16-96): 4 warps, a 64-query tile (16
+//   rows a warp), 64-key tiles. Q, K and V are copied row-major into shared
+//   memory with 16-byte cp.async (rows padded by 8 elements, so the eight
+//   rows an ldmatrix reads fall on 32 distinct banks); the fragments come
+//   through ldmatrix (.trans for V, whose B operand runs along the key
+//   axis), and S = Q K^T and O += P V run on the tensor cores as
+//   mma.sync.m16n8k16 bf16 -> f32. The S accumulator's layout is the A
+//   operand's layout of the PV product, so P goes from registers to the
+//   tensor cores without touching shared memory (the FlashAttention-2
+//   arrangement). No multi-stage pipeline, TMA or wgmma: each key tile is
+//   copied, then used, with two __syncthreads a tile; the other blocks on
+//   the SM overlap one block's copies.
 // * flash_fwd_f32_kernel (f32; any of the supported D): 4 warps, 16
 //   queries (4 rows a warp), 32-key tiles staged as f32. Lane j scores key j
 //   of the tile; the row's max and sum are warp shuffles; lane c accumulates
@@ -317,13 +327,7 @@ using hopper::wg::mnmajor;
 
 constexpr float kLn2 = 0.6931471805599453f;
 
-// 2^x on the special-function unit (2 ulp; 0 for -inf, subnormal results
-// flushed to 0, far below what a bf16 p or the f32 sum l can hold)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using hopper::ex2;
 
 constexpr int kThreadsWg = 128;          // one warpgroup
 constexpr int kStages = 2;               // the copy ring of K, V
@@ -522,6 +526,230 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 256 on wgmma: two consumer warpgroups and a producer
+// ---------------------------------------------------------------------------
+
+namespace wg256 {
+
+using hopper::ex2;
+using hopper::wg::aligned_shared;
+using hopper::wg::kmajor;
+using hopper::wg::kTile;
+using hopper::wg::load_rows;
+using hopper::wg::mnmajor;
+using wg::kLn2;
+
+constexpr int kH = 4;                               // 64-column halves
+constexpr int kD = 64 * kH;
+constexpr int kTileBytes = hopper::wg::tile_bytes<kH>();   // [64, 256]: 32 KB
+constexpr int kConsumers = 256;                     // two warpgroups
+constexpr int kThreads256 = kConsumers + 128;       // and the producer
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kStages = 2;                          // the copy ring of K, V
+constexpr size_t kSmem = 1024 + 2 * kTileBytes + kStages * 2 * kTileBytes +
+                         64;                        // 193 KB: one block an SM
+
+// One block per (KV head, pair of its query heads, 64-query tile). The two
+// heads of a pair walk the same key band, so each K, V tile that the
+// producer warpgroup brings in feeds both consumer warpgroups, one head
+// each (an odd group leaves the last pair's second warpgroup idle: it only
+// paces the ring). A warpgroup keeps its Q tile in shared memory (S = Q K^T as SS
+// m64n64k16, 16 k steps: Q as a register A operand would cost 64 registers
+// beside O's 128) and P from S's accumulator goes straight into O += P V
+// (RS m64n256k16, V read MN-major). The producer keeps kStages tiles in
+// flight: it refills a stage once all 256 consumer threads have released it
+// (the empty barrier), so copies overlap both warpgroups' products. Masking
+// and the online softmax are the D = 128 kernel's.
+__global__ void __launch_bounds__(kThreads256, 1)
+    flash_fwd_wgmma256_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              __nv_bfloat16* __restrict__ o,
+                              float* __restrict__ lse, int s, int group,
+                              int pairs, int causal, int window,
+                              float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = aligned_shared(smem_raw);     // a Q tile a warpgroup
+  unsigned char* ring = qs + 2 * kTileBytes;        // K, V a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 *
+                                               kTileBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_bar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // pairs fastest: the last query tiles of every head, which visit the most
+  // causal key tiles, start first
+  const int nq = (s + kTile - 1) / kTile;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const int hk = static_cast<int>(blockIdx.x) / pairs;
+  const int h0 = 2 * (static_cast<int>(blockIdx.x) % pairs);
+  const int nheads = min(2, group - h0);
+  int t0, t1;
+  key_tiles(q0, min(q0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  const int items = t1 - t0;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, kConsumers);
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {             // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      hopper::mbar_expect_tx(q_bar, nheads * kTileBytes);
+      for (int c = 0; c < nheads; ++c) {
+        load_rows<kH>(qs + c * kTileBytes, &tq, q_bar, q0,
+                      hk * group + h0 + c);
+      }
+      for (int i = 0; i < items; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) hopper::mbar_wait(empty + st, (i / kStages - 1) & 1);
+        unsigned char* ks = ring + st * 2 * kTileBytes;
+        const int k0 = (t0 + i) * kTile;
+        hopper::mbar_expect_tx(full + st, 2 * kTileBytes);
+        load_rows<kH>(ks, &tk, full + st, k0, hk);
+        load_rows<kH>(ks + kTileBytes, &tv, full + st, k0, hk);
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wgi = warp >> 2;                        // this warpgroup's head
+  const bool active = wgi < nheads;
+  const int bh = hk * group + h0 + wgi;
+  const unsigned char* qt = qs + wgi * kTileBytes;
+  const int g = lane >> 2, t = lane & 3;
+  const int qrow = q0 + (warp & 3) * 16 + g;        // queries qrow, qrow + 8
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    hi[r] = causal ? min(qrow + 8 * r, s - 1) : s - 1;
+    lo[r] = window > 0 ? qrow + 8 * r - window + 1 : 0;
+  }
+  const int whi = causal ? min(q0, s - 1) : s - 1;
+  const int wlo = window > 0 ? q0 + kTile - window : 0;
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float m_run[2] = {kMasked, kMasked};
+  float l_run[2] = {0.f, 0.f};
+  hopper::mbar_wait(q_bar, 0);
+  for (int i = 0; i < items; ++i) {
+    const int st = i % kStages;
+    const unsigned char* ks = ring + st * 2 * kTileBytes;
+    const unsigned char* vs = ks + kTileBytes;
+    const int k0 = (t0 + i) * kTile;
+    hopper::mbar_wait(full + st, (i / kStages) & 1);
+    if (active) {
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      hopper::fence_regs(sc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {        // S = Q K^T
+        hopper::wgmma_m64n64k16_ss(sc, kmajor(qt, kk), kmajor(ks, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      const bool whole = k0 >= wlo && k0 + kTile - 1 <= whi;
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int r = (x >> 1) & 1;
+        const int key = k0 + (x >> 2) * 8 + 2 * t + (x & 1);
+        const bool in = whole | ((key >= lo[r]) & (key <= hi[r]));
+        sc[x] = in ? sc[x] : -INFINITY;          // a select, no branch
+        mx[r] = fmaxf(mx[r], sc[x]);
+      }
+      float corr[2], mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = ex2((m_run[r] - mx[r]) * scale_log2);
+        m_run[r] = mx[r];
+        mc[r] = mx[r] * scale_log2;
+        l_run[r] *= corr[r];
+      }
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int r = (x >> 1) & 1;
+        sc[x] = ex2(fmaf(sc[x], scale_log2, -mc[r]));
+        l_run[r] += sc[x];
+      }
+#pragma unroll
+      for (int x = 0; x < 128; ++x) acc[x] *= corr[(x >> 1) & 1];
+      uint32_t pa[4][4];
+      hopper::acc_to_a(pa, sc);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {     // O += P V
+        hopper::wgmma_m64n256k16_rs_tb(acc, pa[kk], mnmajor(vs, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+    }
+    hopper::mbar_arrive(empty + st);                // the stage is read
+  }
+  if (!active) return;
+
+  const int64_t qoff = static_cast<int64_t>(bh) * s * kD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    const int row = qrow + r * 8;
+    if (row >= s) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    __nv_bfloat16* out = o + qoff + static_cast<int64_t>(row) * kD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      *reinterpret_cast<uint32_t*>(out + j * 8) =
+          pack_bf16(acc[4 * j + 2 * r] / l, acc[4 * j + 2 * r + 1] / l);
+    }
+    if (t == 0) {
+      lse[static_cast<int64_t>(bh) * s + row] =
+          m_run[r] * scale_log2 * kLn2 + logf(l);
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           long long bh, int group, int s, int causal, int window,
+           float scale, cudaStream_t stream) {
+  const long long bkv = bh / group;
+  const int pairs = (group + 1) / 2;
+  CUtensorMap tq, tk, tv;
+  int rc = hopper::tensor_map_bf16(&tq, q, kD, s, bh, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tk, k, kD, s, bkv, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, s, bkv, kTile);
+  if (rc == 0) rc = set_smem(flash_fwd_wgmma256_kernel, kSmem);
+  if (rc != 0) return rc;
+  const dim3 grid(static_cast<unsigned>(bkv * pairs), (s + kTile - 1) / kTile);
+  flash_fwd_wgmma256_kernel<<<grid, kThreads256, kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      s, group, pairs, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg256
+
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                void* lse, long long bh, int group, int s, int causal,
@@ -561,6 +789,9 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
     if constexpr (D == wg::kD) {
       return wg::launch(q, k, v, o, lse, bh, group, s, causal, window, scale,
                         stream);
+    } else if constexpr (D == wg256::kD) {
+      return wg256::launch(q, k, v, o, lse, bh, group, s, causal, window,
+                           scale, stream);
     } else {
       return launch_mma<D>(q, k, v, o, lse, bh, group, s, causal, window,
                            scale, stream);

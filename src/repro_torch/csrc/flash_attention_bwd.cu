@@ -35,42 +35,69 @@
 // What bounds it: operations. At minitron-4b's training shape (q/o/do
 // [24, 4096, 128], k/v [8, 4096, 128], bf16, causal) the least work is five
 // causal products (S, dP, dV, dK, dQ: 2.58e11 flop, 0.26 ms at the 989
-// TFLOP/s bf16 tensor-core peak) against 135 MB moved (0.04 ms at 3.35 TB/s).
-// The two-kernel split recomputes S and dP in the dq kernel: seven products.
+// TFLOP/s bf16 tensor-core peak) against 135 MB moved (0.04 ms at 3.35 TB/s);
+// at recurrentgemma-9b's (q/o/do [16, 4096, 256], k/v [1, 4096, 256],
+// window 2048) five products of the band, 2.58e11 flop (0.2606 ms), against
+// 143 MB (0.04 ms). The two-kernel split recomputes S and dP in the dq
+// kernel: seven products.
 //
-// bf16 at D = 128 (the LM's training shape) runs on Hopper's warpgroup
-// products (hopper_common.cuh), each kernel fed by a ring of two stages of
-// TMA tile loads that complete on mbarriers: while a warpgroup computes on
-// one stage, the next tile is in flight into the other, and one thread
-// refills a stage once every reader is done with it. Operands sit in
-// 128-byte-swizzled shared memory; S and dP run shared-memory x
-// shared-memory (m64n64k16), and p and ds go from the accumulators'
-// registers straight into the next products as the register A operand
-// (m64n128k16, the streamed tile read MN-major).
+// bf16 at D = 128 and D = 256 runs on Hopper's warpgroup products
+// (hopper_common.cuh), each kernel fed by a ring of TMA tile loads that
+// complete on mbarriers: while a warpgroup computes on one stage, the next
+// tile is in flight into another. Operands sit in 128-byte-swizzled shared
+// memory; S and dP run shared-memory x shared-memory, and p and ds go from
+// the accumulators' registers straight into the next products as the
+// register A operand (the streamed tile read MN-major).
 //
-// * dk/dv: one block per (KV head, 64-key tile), one warpgroup (two
-//   blocks an SM), K and V resident, the group's query heads and the band's
-//   64-query tiles streamed (Q, dO and the tile's lse and D); dk and dv (64
-//   + 64 f32 a thread) and S^T, dP^T (32 + 32) stay under the register
-//   limit. The first key tiles of every head, which the most causal query
-//   tiles see, start first.
-// * dq: one block per (query head, 64-query tile), one warpgroup, Q and dO
-//   resident and K, V streamed. dq recomputes S and dP rather than taking
-//   dS from the dk/dv kernel: handing dS over would need either f32 atomics
-//   into dq (an order that changes from run to run) or a per-(head, query
-//   tile) counter that makes the key tiles add in turn (FA3's deterministic
-//   mode), a cross-block protocol left for later. Seven products, no
-//   atomics, the same bits on every run.
+// At D = 128 one warpgroup a block; one thread refills a stage once every
+// reader is done with it:
+// * dk/dv: one block per (KV head, 64-key tile), two blocks an SM, K and V
+//   resident, the group's query heads and the band's 64-query tiles
+//   streamed (Q, dO and the tile's lse and D); dk and dv (64 + 64 f32 a
+//   thread) and S^T, dP^T (32 + 32) stay under the register limit. The
+//   first key tiles of every head, which the most causal query tiles see,
+//   start first.
+// * dq: one block per (query head, 64-query tile), Q and dO resident and K,
+//   V streamed. dq recomputes S and dP rather than taking dS from the dk/dv
+//   kernel: handing dS over would need either f32 atomics into dq (an order
+//   that changes from run to run) or a per-(head, query tile) counter that
+//   makes the key tiles add in turn (FA3's deterministic mode), a
+//   cross-block protocol left for later. Seven products, no atomics, the
+//   same bits on every run.
 //
-// bf16 at the other D keeps the mma.sync kernels (K7's pieces from
+// At D = 256 (recurrentgemma's local attention) a [64, 256] f32 accumulator
+// is 128 registers a thread, so a block has two consumer warpgroups and a
+// producer warpgroup that keeps the TMA ring full and refills a stage once
+// all 256 consumer threads have released it (an empty mbarrier); launched
+// at 168 registers a thread, the producer drops to 24 and the consumers
+// rise to 240 (setmaxnreg). One block an SM:
+// * dk/dv (211 KB of shared memory): K and V of 64 keys resident; the
+//   ring's two stages hold a (query head, 64-query tile) item's Q, dO, lse
+//   and D. dk and dv cannot share a warpgroup (256 registers), so
+//   warpgroup 0 forms S^T and the f32 P^T, hands P^T over through 16 KB of
+//   shared memory (two named barriers) and adds dV += P^T dO; warpgroup 1
+//   forms dP^T, dS^T from that P^T, and adds dK += dS^T Q. Software-
+//   pipelined: each warpgroup queues the next item's first product behind
+//   this item's second. recurrentgemma has one KV head, so S / 64 blocks
+//   would leave half of the 132 SMs idle: the grid splits each GQA group's
+//   query heads `splits` ways (the wrapper's dkv_splits, from the SM count:
+//   8 at S 4096), each block writes f32 partial dk, dv into a workspace, and
+//   a reduce kernel sums the splits in split order into bf16 (no atomics;
+//   the same bits on every run of one card model).
+// * dq (225 KB): two query heads of a GQA group, one a consumer warpgroup,
+//   each with its Q and dO resident, share the band's 64-key K and V
+//   tiles, streamed through separate rings (K two stages, V one, released
+//   as soon as dP is done); S and dP as SS m64n64k16, dQ += dS K as RS
+//   m64n256k16.
+//
+// bf16 at D 16-96 keeps the mma.sync kernels (K7's pieces from
 // flash_common.cuh: 16-byte cp.async staging of row-major tiles, ldmatrix,
 // mma.sync.m16n8k16, one stage, no overlap of copies with products); the
 // dq kernel there has one block per (query head, 64-query tile) and the
-// dk/dv kernel one per (KV head, 64-key tile), 8 warps at D = 256, each
-// holding half of the columns (a [16, 256] f32 dk + dv accumulator is 256
-// registers a thread). f32 inputs take FMA kernels (TF32 would not keep
-// f32's precision): dq with 16 queries a block, one key of a 32-key tile a
-// lane; dk/dv with 16 keys a block, one query of a 32-query tile a lane.
+// dk/dv kernel one per (KV head, 64-key tile), 4 warps. f32 inputs take FMA
+// kernels (TF32 would not keep f32's precision): dq with 16 queries a
+// block, one key of a 32-key tile a lane; dk/dv with 16 keys a block, one
+// query of a 32-query tile a lane.
 // The wrapper pads lse and D to whole 64-query tiles (row stride ls).
 #include <math.h>
 
@@ -196,15 +223,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// the dk/dv kernel's warps split the columns kSplit ways (each warp of a
-// column part recomputes its keys' S^T and dP^T)
 template <int D>
-struct DkvSplit {
-  static constexpr int kSplit = D > 128 ? 2 : 1;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads * DkvSplit<D>::kSplit)
+__global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
@@ -214,10 +234,7 @@ __global__ void __launch_bounds__(kThreads * DkvSplit<D>::kSplit)
                              __nv_bfloat16* __restrict__ dk,
                              __nv_bfloat16* __restrict__ dv, int s, int ls,
                              int group, int causal, int window, float scale) {
-  constexpr int kSplit = DkvSplit<D>::kSplit;
-  constexpr int kNthreads = kThreads * kSplit;
-  constexpr int kCols = D / kSplit;          // dk/dv columns a warp holds
-  constexpr int kNt = kCols / 8;
+  constexpr int kNt = D / 8;
   constexpr int kStride = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -232,11 +249,10 @@ __global__ void __launch_bounds__(kThreads * DkvSplit<D>::kSplit)
   const int hk = blockIdx.y;
   const int64_t kvoff = static_cast<int64_t>(hk) * s * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp & 3, c0 = (warp >> 2) * kCols;
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = k0 + wr * 16 + g;     // this thread's keys: row0, row0+8
-  stage_rows<D, kTile, kNthreads>(ks, k + kvoff, k0, s);
-  stage_rows<D, kTile, kNthreads>(vs, v + kvoff, k0, s);
+  const int row0 = k0 + warp * 16 + g;   // this thread's keys: row0, row0+8
+  stage_rows<D, kTile>(ks, k + kvoff, k0, s);
+  stage_rows<D, kTile>(vs, v + kvoff, k0, s);
 
   float dk_acc[kNt][4], dv_acc[kNt][4];
 #pragma unroll
@@ -255,9 +271,9 @@ __global__ void __launch_bounds__(kThreads * DkvSplit<D>::kSplit)
     for (int qt = t0; qt < t1; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();                      // the last tile's readers are done
-      stage_rows<D, kTile, kNthreads>(qs, q + qoff, q0, s);
-      stage_rows<D, kTile, kNthreads>(dos, dout + qoff, q0, s);
-      for (int i = threadIdx.x; i < kTile; i += kNthreads) {
+      stage_rows<D, kTile>(qs, q + qoff, q0, s);
+      stage_rows<D, kTile>(dos, dout + qoff, q0, s);
+      for (int i = threadIdx.x; i < kTile; i += kThreads) {
         const bool in = q0 + i < s;
         lse_s[i] = in ? lse[static_cast<int64_t>(bh) * ls + q0 + i] : 0.f;
         dc_s[i] = in ? dcap[static_cast<int64_t>(bh) * ls + q0 + i] : 0.f;
@@ -268,7 +284,7 @@ __global__ void __launch_bounds__(kThreads * DkvSplit<D>::kSplit)
       // P^T = exp(S^T scale - lse), S^T = K Q^T: this warp's 16 keys x 64
       // queries
       float st[8][4];
-      warp_abt<D>(st, ks + wr * 16 * kStride, qs, lane);
+      warp_abt<D>(st, ks + warp * 16 * kStride, qs, lane);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -282,9 +298,9 @@ __global__ void __launch_bounds__(kThreads * DkvSplit<D>::kSplit)
       }
       uint32_t pa[4][4];
       to_a_frags(pa, st);
-      warp_pb<D, kNt>(dv_acc, pa, dos + c0, lane);         // dV += P^T dO
+      warp_pb<D, kNt>(dv_acc, pa, dos, lane);              // dV += P^T dO
       float dpt[8][4];
-      warp_abt<D>(dpt, vs + wr * 16 * kStride, dos, lane);  // dP^T = V dO^T
+      warp_abt<D>(dpt, vs + warp * 16 * kStride, dos, lane);  // dP^T = V dO^T
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -294,7 +310,7 @@ __global__ void __launch_bounds__(kThreads * DkvSplit<D>::kSplit)
         }
       }
       to_a_frags(pa, dpt);
-      warp_pb<D, kNt>(dk_acc, pa, qs + c0, lane);          // dK += dS^T Q
+      warp_pb<D, kNt>(dk_acc, pa, qs, lane);               // dK += dS^T Q
     }
   }
 
@@ -302,7 +318,7 @@ __global__ void __launch_bounds__(kThreads * DkvSplit<D>::kSplit)
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
     if (row >= s) continue;
-    const int64_t off = kvoff + static_cast<int64_t>(row) * D + c0 + 2 * t;
+    const int64_t off = kvoff + static_cast<int64_t>(row) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < kNt; ++n) {
       *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
@@ -865,22 +881,496 @@ __global__ void __launch_bounds__(kDqThreads)
   }
 }
 
-// the four tensor maps of one call: q and do over [bh, s, 128], k and v
-// over [bkv, s, 128], boxes of 64 rows
+// the four tensor maps of one call: q and do over [bh, s, d], k and v
+// over [bkv, s, d], boxes of 64 rows (d 128 or 256)
 struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
 inline int make_maps(Maps* m, const void* q, const void* k, const void* v,
-                     const void* dout, long long bh, long long bkv, int s) {
-  int rc = hopper::tensor_map_bf16(&m->q, q, kD, s, bh, kTile);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&m->k, k, kD, s, bkv, kTile);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&m->v, v, kD, s, bkv, kTile);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&m->dout, dout, kD, s, bh, kTile);
+                     const void* dout, long long bh, long long bkv, int s,
+                     int d = kD) {
+  int rc = hopper::tensor_map_bf16(&m->q, q, d, s, bh, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&m->k, k, d, s, bkv, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&m->v, v, d, s, bkv, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&m->dout, dout, d, s, bh, kTile);
   return rc;
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------------
+// bf16 at D = 256 on wgmma: two consumer warpgroups and a producer
+// ---------------------------------------------------------------------------
+
+namespace wg256 {
+
+using hopper::ex2;
+using hopper::wg::aligned_shared;
+using hopper::wg::kmajor;
+using hopper::wg::kTile;
+using hopper::wg::load_rows;
+using hopper::wg::mnmajor;
+
+constexpr int kH = 4;                               // 64-column halves
+constexpr int kD = 64 * kH;
+constexpr int kTileBytes = hopper::wg::tile_bytes<kH>();   // [64, 256]: 32 KB
+constexpr int kConsumers = 256;                     // two warpgroups
+constexpr int kThreads256 = kConsumers + 128;       // and the producer
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+// ---- dk/dv: one block per (64-key tile, KV head, split of its group)
+
+constexpr int kDkvStages = 2;            // the copy ring of Q, dO, lse, D
+// Q, dO, then lse and D (64 f32 each), padded so that every stage's tiles
+// start on a 1024-byte boundary
+constexpr int kDkvStage = 2 * kTileBytes + 1024;
+constexpr int kPBytes = 32 * kConsumers / 2 * 4;    // P^T, f32: 16 KB
+constexpr size_t kDkvSmem = 1024 + 2 * kTileBytes + kDkvStages * kDkvStage +
+                            kPBytes + 64;           // 211 KB
+constexpr int kPFull = 1, kPEmpty = 2;              // named barriers
+
+// K and V of the block's 64 keys stay resident; the producer streams
+// (query head, 64-query tile) items of the band through the ring. dk and dv
+// do not fit one warpgroup (2 x 128 f32 a thread), so each warpgroup owns
+// one: warpgroup 0 forms S^T = K Q^T and P^T = exp(S^T scale - lse), hands
+// the f32 P^T to warpgroup 1 through shared memory (coalesced: element x of
+// thread c at x * 128 + c) and adds dV += P^T dO; warpgroup 1 forms dP^T =
+// V dO^T, then dS^T = P^T (dP^T - D) scale from that f32 P^T, and adds
+// dK += dS^T Q. Four products, two a warpgroup, each accumulator 128
+// registers. The group's query heads [hb, he) of the block's split are
+// walked in order; with splits > 1 the block writes its f32 partial dk, dv
+// into the workspace ws [2, splits, bkv, s, 256] and the split reduce sums
+// them in split order, so the bits never depend on block timing.
+__global__ void __launch_bounds__(kThreads256, 1)
+    flash_bwd_dkv_wgmma256_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ dcap,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               float* __restrict__ ws, int s, int ls, int group, int splits,
+               int causal, int window, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = aligned_shared(smem_raw);     // [64, 256]
+  unsigned char* vs = ks + kTileBytes;              // [64, 256]
+  unsigned char* ring = vs + kTileBytes;
+  float* pbuf = reinterpret_cast<float*>(ring + kDkvStages * kDkvStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(pbuf) + kPBytes);
+  uint64_t* kv_bar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kDkvStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // (head, split) fastest: the first key tiles, which the most causal query
+  // tiles see, start first
+  const int k0 = static_cast<int>(blockIdx.y) * kTile;
+  const int hk = static_cast<int>(blockIdx.x) / splits;
+  const int split = static_cast<int>(blockIdx.x) % splits;
+  const int hb = split * group / splits, he = (split + 1) * group / splits;
+  int t0, t1;
+  query_tiles(k0, min(k0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  const int nqt = t1 - t0;
+  const int items = (he - hb) * nqt;        // (query head, query tile)
+
+  if (tid == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int i = 0; i < kDkvStages; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, kConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {             // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      hopper::mbar_expect_tx(kv_bar, 2 * kTileBytes);
+      load_rows<kH>(ks, &tk, kv_bar, k0, hk);
+      load_rows<kH>(vs, &tv, kv_bar, k0, hk);
+      for (int i = 0; i < items; ++i) {
+        const int st = i % kDkvStages;
+        if (i >= kDkvStages) {
+          hopper::mbar_wait(empty + st, (i / kDkvStages - 1) & 1);
+        }
+        unsigned char* stage = ring + st * kDkvStage;
+        const int bh = hk * group + hb + i / nqt;
+        const int q0 = (t0 + i % nqt) * kTile;
+        hopper::mbar_expect_tx(full + st, 2 * kTileBytes + 2 * kTile * 4);
+        load_rows<kH>(stage, &tq, full + st, q0, bh);
+        load_rows<kH>(stage + kTileBytes, &tdo, full + st, q0, bh);
+        const int64_t off = static_cast<int64_t>(bh) * ls + q0;
+        hopper::bulk_load(stage + 2 * kTileBytes, lse + off, kTile * 4,
+                          full + st);
+        hopper::bulk_load(stage + 2 * kTileBytes + kTile * 4, dcap + off,
+                          kTile * 4, full + st);
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wgi = warp >> 2;      // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int ctid = tid & 127;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow = k0 + (warp & 3) * 16 + g;        // keys krow, krow + 8
+  const unsigned char* a_res = wgi == 0 ? ks : vs;  // the resident A
+  const float scale_log2 = scale * kLog2e;
+
+  // the stage of item i: Q, dO, lse, D
+  auto stage = [&](int i) { return ring + (i % kDkvStages) * kDkvStage; };
+  // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1) of item i:
+  // 64 keys x 64 queries, issued once the item's stage has landed
+  float sc[32];
+  auto first_product = [&](int i) {
+    const unsigned char* qs = stage(i);
+    const unsigned char* b_st = wgi == 0 ? qs : qs + kTileBytes;
+    hopper::mbar_wait(full + i % kDkvStages, (i / kDkvStages) & 1);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    hopper::fence_regs(sc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      hopper::wgmma_m64n64k16_ss(sc, kmajor(a_res, kk), kmajor(b_st, kk), 1);
+    }
+    hopper::wgmma_commit();
+  };
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  hopper::mbar_wait(kv_bar, 0);
+  if (items > 0) first_product(0);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  // software-pipelined: item i's second product (dV or dK) is issued, then
+  // item i + 1's first product behind it, so each warpgroup keeps the
+  // tensor cores fed while it waits, and the elementwise work of item i + 1
+  // starts as soon as its own product is done
+  for (int i = 0; i < items; ++i) {
+    const unsigned char* qs = stage(i);
+    const unsigned char* dos = qs + kTileBytes;
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * kTileBytes);
+    const float* dc_s = lse_s + kTile;
+    const int q0 = (t0 + i % nqt) * kTile;
+
+    if (wgi == 0) {
+      // P^T = exp(S^T scale - lse) = 2^(s c - lse log2e), c = scale
+      // log2e, then 0 where masked (no branch); a tile the band covers
+      // whole needs no mask
+      const bool whole = q0 + kTile <= s && k0 + kTile <= s &&
+                         (!causal || k0 + kTile - 1 <= q0) &&
+                         (window <= 0 || q0 + kTile - 1 - window < k0);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int c = (x >> 2) * 8 + 2 * t + (x & 1);
+        const bool in = whole | visible_bwd(q0 + c, krow + ((x >> 1) & 1) * 8,
+                                            s, causal, window);
+        const float p = ex2(fmaf(sc[x], scale_log2, -lse_s[c] * kLog2e));
+        sc[x] = in ? p : 0.f;
+      }
+      if (i > 0) hopper::named_sync(kPEmpty, kConsumers);   // last P^T read
+#pragma unroll
+      for (int x = 0; x < 32; ++x) pbuf[x * 128 + ctid] = sc[x];
+      hopper::named_arrive(kPFull, kConsumers);
+    } else {
+      // dS^T = P^T (dP^T - D) scale, from warpgroup 0's f32 P^T
+      hopper::named_sync(kPFull, kConsumers);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int c = (x >> 2) * 8 + 2 * t + (x & 1);
+        sc[x] = pbuf[x * 128 + ctid] * (sc[x] - dc_s[c]) * scale;
+      }
+      if (i + 1 < items) hopper::named_arrive(kPEmpty, kConsumers);
+    }
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): the queries
+    // along k, the streamed tile read MN-major
+    const unsigned char* b_acc = wgi == 0 ? dos : qs;
+    uint32_t pa[4][4];
+    hopper::acc_to_a(pa, sc);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      hopper::wgmma_m64n256k16_rs_tb(acc, pa[kk], mnmajor(b_acc, kk), 1);
+    }
+    hopper::wgmma_commit();
+    if (i + 1 < items) {
+      first_product(i + 1);
+      hopper::wgmma_wait<1>();              // item i's second product
+    } else {
+      hopper::wgmma_wait<0>();
+    }
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pa);
+    hopper::mbar_arrive(empty + i % kDkvStages);    // item i's stage is read
+    hopper::wgmma_wait<0>();                // item i + 1's first product
+    hopper::fence_regs(sc);
+  }
+
+  const int bkv = static_cast<int>(gridDim.x) / splits;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow + r * 8;
+    if (row >= s) continue;
+    const int64_t off =
+        (static_cast<int64_t>(hk) * s + row) * kD + 2 * t;
+    if (splits == 1) {
+      __nv_bfloat16* out = (wgi == 0 ? dv : dk) + off;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        *reinterpret_cast<uint32_t*>(out + j * 8) =
+            pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    } else {
+      // ws [2, splits, bkv, s, 256]: dk's partials first
+      float* out = ws + (static_cast<int64_t>(1 - wgi) * splits + split) *
+                            bkv * s * kD + off;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        *reinterpret_cast<float2*>(out + j * 8) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dk, dv = the sum of ws [2, splits, n] over splits, in split order, as bf16
+__global__ void flash_bwd_split_reduce_kernel(const float* __restrict__ ws,
+                                              __nv_bfloat16* __restrict__ dk,
+                                              __nv_bfloat16* __restrict__ dv,
+                                              long long n, int splits) {
+  const int which = blockIdx.y;                     // 0: dk, 1: dv
+  const float4* src = reinterpret_cast<const float4*>(ws) +
+                      static_cast<int64_t>(which) * splits * (n / 4);
+  uint2* dst = reinterpret_cast<uint2*>(which == 0 ? dk : dv);
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n / 4; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float4 a = src[i];
+    for (int j = 1; j < splits; ++j) {
+      const float4 b = src[static_cast<int64_t>(j) * (n / 4) + i];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    dst[i] = make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
+  }
+}
+
+// ---- dq: one block per (KV head, pair of its query heads, 64-query tile)
+
+constexpr int kDqKStages = 2;                       // the copy ring of K
+constexpr int kDqVStages = 1;                       // and of V
+constexpr size_t kDqSmem = 1024 + 4 * kTileBytes +
+                           (kDqKStages + kDqVStages) * kTileBytes +
+                           64;                      // 225 KB
+
+// As the forward: the pair's two heads walk the same key band, each
+// consumer warpgroup keeps its head's Q and dO resident and the producer
+// streams the band's 64-key K and V tiles. Four resident tiles leave room
+// for three more, so K and V take separate rings: V, which only dP reads,
+// is released as soon as both warpgroups' dP is done and gets one stage; K,
+// which dQ reads too, gets two. Per tile, S = Q K^T and dP = dO V^T (SS
+// m64n64k16, 16 k steps each), dS = p (dP - D) scale, dQ += dS K (RS
+// m64n256k16, K read MN-major). dq recomputes S and dP rather than taking
+// dS from the dk/dv kernel: no atomics, the same bits on every run.
+__global__ void __launch_bounds__(kThreads256, 1)
+    flash_bwd_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tdo,
+              const float* __restrict__ lse, const float* __restrict__ dcap,
+              __nv_bfloat16* __restrict__ dq, int s, int ls, int group,
+              int pairs, int causal, int window, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = aligned_shared(smem_raw);     // Q of each warpgroup
+  unsigned char* dos = qs + 2 * kTileBytes;         // dO of each warpgroup
+  unsigned char* kring = dos + 2 * kTileBytes;      // K a stage
+  unsigned char* vring = kring + kDqKStages * kTileBytes;   // V
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(vring +
+                                                kDqVStages * kTileBytes);
+  uint64_t* kempty = kfull + kDqKStages;
+  uint64_t* vfull = kempty + kDqKStages;
+  uint64_t* vempty = vfull + kDqVStages;
+  uint64_t* q_bar = vempty + kDqVStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int nq = (s + kTile - 1) / kTile;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const int hk = static_cast<int>(blockIdx.x) / pairs;
+  const int h0 = 2 * (static_cast<int>(blockIdx.x) % pairs);
+  const int nheads = min(2, group - h0);
+  int t0, t1;
+  key_tiles(q0, min(q0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  const int items = t1 - t0;
+
+  if (tid == 0) {
+    for (int i = 0; i < kDqKStages; ++i) {
+      hopper::mbar_init(kfull + i, 1);
+      hopper::mbar_init(kempty + i, kConsumers);
+    }
+    for (int i = 0; i < kDqVStages; ++i) {
+      hopper::mbar_init(vfull + i, 1);
+      hopper::mbar_init(vempty + i, kConsumers);
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {             // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      hopper::mbar_expect_tx(q_bar, nheads * 2 * kTileBytes);
+      for (int c = 0; c < nheads; ++c) {
+        const int bh = hk * group + h0 + c;
+        load_rows<kH>(qs + c * kTileBytes, &tq, q_bar, q0, bh);
+        load_rows<kH>(dos + c * kTileBytes, &tdo, q_bar, q0, bh);
+      }
+      for (int i = 0; i < items; ++i) {
+        const int k0 = (t0 + i) * kTile;
+        const int ks = i % kDqKStages, vst = i % kDqVStages;
+        if (i >= kDqKStages) {
+          hopper::mbar_wait(kempty + ks, (i / kDqKStages - 1) & 1);
+        }
+        hopper::mbar_expect_tx(kfull + ks, kTileBytes);
+        load_rows<kH>(kring + ks * kTileBytes, &tk, kfull + ks, k0, hk);
+        if (i >= kDqVStages) {
+          hopper::mbar_wait(vempty + vst, (i / kDqVStages - 1) & 1);
+        }
+        hopper::mbar_expect_tx(vfull + vst, kTileBytes);
+        load_rows<kH>(vring + vst * kTileBytes, &tv, vfull + vst, k0, hk);
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wgi = warp >> 2;                        // this warpgroup's head
+  const bool active = wgi < nheads;
+  const int bh = hk * group + h0 + wgi;
+  const unsigned char* qt = qs + wgi * kTileBytes;
+  const unsigned char* dot = dos + wgi * kTileBytes;
+  const int g = lane >> 2, t = lane & 3;
+  const int qrow = q0 + (warp & 3) * 16 + g;        // queries qrow, qrow + 8
+  // the keys [lo, hi] each of this thread's two rows sees (visible_bwd:
+  // none for a row past s)
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    hi[r] = row >= s ? -1 : causal ? row : s - 1;
+    lo[r] = window > 0 ? row - window + 1 : 0;
+  }
+  const float scale_log2 = scale * kLog2e;
+  float lse_l[2] = {0.f, 0.f}, dc_r[2] = {0.f, 0.f};   // lse log2e, D
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int64_t off = static_cast<int64_t>(bh) * ls + qrow + r * 8;
+      lse_l[r] = lse[off] * kLog2e;                 // rows up to ls exist
+      dc_r[r] = dcap[off];
+    }
+  }
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  hopper::mbar_wait(q_bar, 0);
+  for (int i = 0; i < items; ++i) {
+    const int ks = i % kDqKStages, vst = i % kDqVStages;
+    const unsigned char* kt = kring + ks * kTileBytes;
+    const unsigned char* vt = vring + vst * kTileBytes;
+    const int k0 = (t0 + i) * kTile;
+    hopper::mbar_wait(kfull + ks, (i / kDqKStages) & 1);
+    hopper::mbar_wait(vfull + vst, (i / kDqVStages) & 1);
+    if (!active) {                // an odd group's idle half paces the rings
+      hopper::mbar_arrive(vempty + vst);
+      hopper::mbar_arrive(kempty + ks);
+      continue;
+    }
+    float sc[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sc[e] = 0.f;
+      dp[e] = 0.f;
+    }
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {          // S = Q K^T
+      hopper::wgmma_m64n64k16_ss(sc, kmajor(qt, kk), kmajor(kt, kk), 1);
+    }
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {          // dP = dO V^T
+      hopper::wgmma_m64n64k16_ss(dp, kmajor(dot, kk), kmajor(vt, kk), 1);
+    }
+    hopper::wgmma_commit();
+
+    // p, while dP is still on the tensor cores; a tile the band covers
+    // whole needs no mask
+    const bool whole = q0 + kTile <= s && k0 + kTile <= s &&
+                       (!causal || k0 + kTile - 1 <= q0) &&
+                       (window <= 0 || q0 + kTile - 1 - window < k0);
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sc);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int r = (x >> 1) & 1;
+      const int key = k0 + (x >> 2) * 8 + 2 * t + (x & 1);
+      const bool in = whole | ((key >= lo[r]) & (key <= hi[r]));
+      const float p = ex2(fmaf(sc[x], scale_log2, -lse_l[r]));
+      sc[x] = in ? p : 0.f;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
+    hopper::mbar_arrive(vempty + vst);              // V is read
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      dp[x] = sc[x] * (dp[x] - dc_r[(x >> 1) & 1]) * scale;   // dS
+    }
+    uint32_t da[4][4];
+    hopper::acc_to_a(da, dp);
+    hopper::fence_regs(da);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {       // dQ += dS K
+      hopper::wgmma_m64n256k16_rs_tb(acc, da[kk], mnmajor(kt, kk), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+    hopper::mbar_arrive(kempty + ks);               // K is read
+  }
+  if (!active) return;
+
+  const int64_t qoff = static_cast<int64_t>(bh) * s * kD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + r * 8;
+    if (row >= s) continue;
+    __nv_bfloat16* out = dq + qoff + static_cast<int64_t>(row) * kD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      *reinterpret_cast<uint32_t*>(out + j * 8) =
+          pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+}  // namespace wg256
 
 // ---------------------------------------------------------------------------
 // D = rowsum(do * o)
@@ -927,12 +1417,29 @@ struct Args {
   cudaStream_t stream;
 };
 
-// bf16 at D = 128 takes the wgmma kernels, bf16 at every other D the
-// mma.sync kernels, f32 the FMA kernels
+// bf16 at D = 128 and 256 takes the wgmma kernels, bf16 at every other D
+// the mma.sync kernels, f32 the FMA kernels
 template <int D>
 int launch_dq(int dtype, const Args& a, long long bh, void* dq) {
   if (dtype == 2) {
-    if constexpr (D == wg::kD) {
+    if constexpr (D == wg256::kD) {
+      wg::Maps m;
+      const int pairs = (a.group + 1) / 2;
+      int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bh, bh / a.group,
+                             a.s, wg256::kD);
+      if (rc == 0) {
+        rc = set_smem(wg256::flash_bwd_dq_wgmma256_kernel, wg256::kDqSmem);
+      }
+      if (rc != 0) return rc;
+      const dim3 grid(static_cast<unsigned>(bh / a.group * pairs),
+                      (a.s + wg::kTile - 1) / wg::kTile);
+      wg256::flash_bwd_dq_wgmma256_kernel<<<grid, wg256::kThreads256,
+                                            wg256::kDqSmem, a.stream>>>(
+          m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dq),
+          a.s, a.ls, a.group, pairs, a.causal, a.window, a.scale);
+      return static_cast<int>(cudaGetLastError());
+    } else if constexpr (D == wg::kD) {
       wg::Maps m;
       int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bh,
                              bh / a.group, a.s);
@@ -978,10 +1485,43 @@ int launch_dq(int dtype, const Args& a, long long bh, void* dq) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// splits > 1 (bf16 at D = 256 only): the dk/dv kernel writes f32 partials
+// into ws [2, splits, bkv, s, 256], and the split reduce sums them into dk
+// and dv
 template <int D>
-int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv) {
+int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
+               void* ws, int splits) {
+  if (splits != 1 && !(dtype == 2 && D == wg256::kD)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 2) {
-    if constexpr (D == wg::kD) {
+    if constexpr (D == wg256::kD) {
+      wg::Maps m;
+      int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bkv * a.group,
+                             bkv, a.s, wg256::kD);
+      if (rc == 0) {
+        rc = set_smem(wg256::flash_bwd_dkv_wgmma256_kernel, wg256::kDkvSmem);
+      }
+      if (rc != 0) return rc;
+      const dim3 grid(static_cast<unsigned>(bkv * splits),
+                      (a.s + wg::kTile - 1) / wg::kTile);
+      wg256::flash_bwd_dkv_wgmma256_kernel<<<grid, wg256::kThreads256,
+                                             wg256::kDkvSmem, a.stream>>>(
+          m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), static_cast<float*>(ws), a.s, a.ls,
+          a.group, splits, a.causal, a.window, a.scale);
+      rc = static_cast<int>(cudaGetLastError());
+      if (rc != 0 || splits == 1) return rc;
+      const long long n = bkv * a.s * wg256::kD;
+      const long long blocks = (n / 4 + 255) / 256;
+      const dim3 rgrid(static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                       2);
+      wg256::flash_bwd_split_reduce_kernel<<<rgrid, 256, 0, a.stream>>>(
+          static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), n, splits);
+      return static_cast<int>(cudaGetLastError());
+    } else if constexpr (D == wg::kD) {
       wg::Maps m;
       int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bkv * a.group, bkv,
                              a.s);
@@ -1001,8 +1541,7 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv) {
       const int rc = set_smem(flash_bwd_dkv_mma_kernel<D>, smem);
       if (rc != 0) return rc;
       const dim3 grid((a.s + kTile - 1) / kTile, static_cast<unsigned>(bkv));
-      flash_bwd_dkv_mma_kernel<D>
-          <<<grid, kThreads * DkvSplit<D>::kSplit, smem, a.stream>>>(
+      flash_bwd_dkv_mma_kernel<D><<<grid, kThreads, smem, a.stream>>>(
               static_cast<const __nv_bfloat16*>(a.q),
               static_cast<const __nv_bfloat16*>(a.k),
               static_cast<const __nv_bfloat16*>(a.v),
@@ -1061,9 +1600,10 @@ int prepare(Args* a, const void* q, const void* k, const void* v,
 // q, o, do [bh, s, d]; k, v [bkv, s, d]; lse and dcap = rowsum(do * o)
 // [bh, ls] f32 (rows padded to ls, a multiple of 64, ls >= s; dcap written
 // by repro_flash_bwd_dq); dq [bh, s, d]; dk, dv [bkv, s, d]; all contiguous
-// and 16-byte aligned. dtype: 0 =
-// float32, 2 = bfloat16 (q, k, v, do and the outputs share it). window <=
-// 0: no window. d in {16, 32, 64, 96, 128, 256}.
+// and 16-byte aligned. dtype: 0 = float32, 2 = bfloat16 (q, k, v, do and
+// the outputs share it). window <= 0: no window. d in {16, 32, 64, 96, 128,
+// 256}. splits: the dk/dv grid's split of each GQA group (1, or for bf16 at
+// d = 256 up to bh / bkv, with ws an f32 workspace [2, splits, bkv, s, d]).
 // The dq entry point first writes dcap = rowsum(do * o) from o (the
 // forward's output, q's type), then launches the dq kernel; the dk/dv entry
 // point reads that dcap, so it runs after this one on the same stream.
@@ -1100,16 +1640,19 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* dcap,
-                                   void* dk, void* dv, int dtype,
-                                   long long bh, long long bkv, int s, int d,
-                                   int ls, int causal, int window,
-                                   void* stream) {
+                                   void* dk, void* dv, void* ws, int splits,
+                                   int dtype, long long bh, long long bkv,
+                                   int s, int d, int ls, int causal,
+                                   int window, void* stream) {
   Args a;
   const int rc = prepare(&a, q, k, v, dout, lse, dcap, bh, bkv, s, d, ls,
                          causal, window, stream);
   if (rc != 0) return rc;
+  if (splits < 1 || splits > a.group || (splits > 1 && ws == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (bh == 0 || s == 0) return static_cast<int>(cudaGetLastError());
-#define REPRO_DKV(D) launch_dkv<D>(dtype, a, bkv, dk, dv)
+#define REPRO_DKV(D) launch_dkv<D>(dtype, a, bkv, dk, dv, ws, splits)
   REPRO_FLASH_BWD_DISPATCH(REPRO_DKV)
 #undef REPRO_DKV
 }

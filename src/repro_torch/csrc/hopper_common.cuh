@@ -1,10 +1,10 @@
-// Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
-// tile loads and bulk copies that complete on them, warpgroup matrix
-// multiplies (wgmma) on bf16 operands in 128-byte-swizzled shared memory,
-// and the [64, 128] tile helpers (namespace wg) of the flash-attention
-// kernels at D = 128: K7's forward (flash_attention.cu) and K8's backward
-// (flash_attention_bwd.cu). Kept apart from flash_common.cuh so that other
-// kernels can take them up.
+// Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, named
+// barriers, TMA tile loads and bulk copies that complete on them, warpgroup
+// matrix multiplies (wgmma) on bf16 operands in 128-byte-swizzled shared
+// memory, and the [64, 64 * H] tile helpers (namespace wg) of the
+// flash-attention kernels: K7's forward (flash_attention.cu) and K8's
+// backward (flash_attention_bwd.cu) at D = 128 (H = 2) and D = 256 (H = 4).
+// Kept apart from flash_common.cuh so that other kernels can take them up.
 //
 // The shared-memory layout every piece here agrees on, a "swizzled tile": a
 // row-major [R, 64 * H] bf16 operand stored as H column halves of 64 (128
@@ -12,7 +12,8 @@
 // its 16-byte chunk c at chunk c ^ (r % 8). It is what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B and a box of 64 columns writes, and what a
 // wgmma descriptor with the 128-byte swizzle reads; base is 1024-byte
-// aligned (the swizzle repeats every 8 rows of 128 bytes).
+// aligned (the swizzle repeats every 8 rows of 128 bytes). ("Half" keeps
+// the name of D = 128's two 64-column parts; at D = 256 there are four.)
 #pragma once
 
 #include <cuda.h>
@@ -61,6 +62,40 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(a), "r"(parity)
         : "memory");
   }
+}
+
+// one plain arrival (a consumer's release of a ring stage)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar))
+               : "memory");
+}
+
+// named barriers 1-15 (0 is __syncthreads) over `threads` threads, a
+// multiple of 32: sync waits for all of them, arrive counts this warp in
+// without waiting (the writer's side of a hand-over through shared memory;
+// the fence makes its writes visible to the threads that sync)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// warp specialisation: a warpgroup lowers (dec) or raises (inc) its
+// per-thread register limit; every warp of the warpgroup executes it. A
+// kernel of three warpgroups is compiled at 168 registers a thread (the
+// 384 threads' share of the SM's 64 K); a producer warpgroup at 24 frees
+// exactly what two consumer warpgroups at 240 take
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---------------------------------------------------------------------------
@@ -122,6 +157,15 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the special-function unit (2 ulp; 0 for -inf, subnormal results
+// flushed to 0, far below what a bf16 p or the f32 sum l can hold): one
+// instruction and no branch, where exp2f handles subnormals apart
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // keeps the compiler from moving reads or writes of registers that an
@@ -210,6 +254,50 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A B for one m64n256k16 step: A [64, 16] from registers (the
+// layout of an m64 accumulator), B [16, 256] MN-major in shared memory
+// (descriptor; the transpose flag set)
+__device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float (&d)[128],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // an m64n64 f32 accumulator as the bf16 A operand of four m64nNk16 steps
 // over its 64 columns: element 4j + 2r + e of a thread's 32 sits at row g +
 // 8r, column 8j + 2t + e, which is the register A operand's layout, so
@@ -228,37 +316,49 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
 }
 
 // ---------------------------------------------------------------------------
-// [64, 128] bf16 tiles: a streamed tile of 64 queries or keys at D = 128
+// [64, 64 H] bf16 tiles: a streamed or resident tile of 64 queries or keys
+// at D = 64 H; the default H = 2 is D = 128's [64, 128] tile
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
-constexpr int kD = 128;
+constexpr int kD = 128;                    // D = 128: the H = 2 instance
 constexpr int kTile = 64;                  // queries or keys a streamed tile
 constexpr int kHalf = kTile * 128;         // bytes of a 64-row half: 8 KB
-constexpr int kTileBytes = 2 * kHalf;      // a [64, 128] swizzled tile
 constexpr uint32_t kSwSbo = 1024;          // 8 rows of 128 bytes
 
-// K-major descriptor of k step kk (16 columns) of a swizzled [64, 128] tile
+template <int H = 2>
+__host__ __device__ constexpr int tile_bytes() {
+  return H * kHalf;
+}
+constexpr int kTileBytes = tile_bytes();   // a [64, 128] swizzled tile
+
+// K-major descriptor of k step kk (16 columns) of a swizzled [64, 64 H]
+// tile: the step's half is kk / 4, whatever H
 __device__ __forceinline__ uint64_t kmajor(const unsigned char* tile,
                                            int kk) {
   return desc_sw128(tile + (kk >> 2) * kHalf + (kk & 3) * 32, 16, kSwSbo);
 }
 
-// MN-major descriptor of k step kk (16 rows) of a swizzled [64, 128] tile,
-// read as the [k, n] B operand of an n = 128 product
+// MN-major descriptor of k step kk (16 rows) of a swizzled [64, 64 H]
+// tile, read as the [k, n] B operand of an n = 64 H product: the product
+// steps from half to half by the leading byte offset, so one descriptor
+// serves every H
 __device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile,
                                             int kk) {
   return desc_sw128(tile + kk * 16 * 128, kHalf, kSwSbo);
 }
 
-// rows [r0, r0 + 64) of plane `plane` into a swizzled [64, 128] tile, one
+// rows [r0, r0 + 64) of plane `plane` into a swizzled [64, 64 H] tile, one
 // TMA box a column half
+template <int H = 2>
 __device__ __forceinline__ void load_rows(unsigned char* tile,
                                           const CUtensorMap* map,
                                           uint64_t* bar, int r0, int plane) {
-  tma_load_3d(tile, map, bar, 0, r0, plane);
-  tma_load_3d(tile + kHalf, map, bar, 64, r0, plane);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    tma_load_3d(tile + h * kHalf, map, bar, 64 * h, r0, plane);
+  }
 }
 
 // the first 1024-byte boundary of dynamic shared memory (allocate 1024
@@ -266,6 +366,14 @@ __device__ __forceinline__ void load_rows(unsigned char* tile,
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(raw);
   return reinterpret_cast<unsigned char*>((p + 1023) & ~uintptr_t(1023));
+}
+
+// the same boundary, reached by pointer arithmetic on the __shared__ array
+// itself: the compiler then keeps the shared address space, and plain
+// loads and stores beside the tiles (lse, D, P^T) compile to LDS / STS
+// rather than to generic loads and stores
+__device__ __forceinline__ unsigned char* aligned_shared(unsigned char* raw) {
+  return raw + ((1024u - (saddr(raw) & 1023u)) & 1023u);
 }
 
 }  // namespace wg

@@ -735,6 +735,22 @@ _FWD_EXTRA["d128full"] = (1, 6, 2, 700, 128, None, torch.bfloat16, False)
 _FWD_EXTRA["d128s64"] = (1, 6, 2, 64, 128, None, torch.bfloat16, True)
 _FWD_EXTRA["d128s65"] = (1, 6, 2, 65, 128, None, torch.bfloat16, True)
 
+#: D 256, the wgmma kernels whose two warpgroups take two query heads of a
+#: GQA group (K7, K8's dq) or split one key tile's work (K8's dk/dv), at
+#: their edges: S shorter than the window, a window that no key tile (64,
+#: or dq's 32) divides, a window without the causal mask, BKV 2 with g = 16
+#: (the dk/dv split and reduce), g = 1 (one head a pair, one split), and
+#: enough key tiles that the dk/dv grid needs no split (g = 2)
+_D256 = {
+    "d256short": (1, 16, 1, 300, 256, 2048, torch.bfloat16, True),
+    "d256w300": (1, 6, 2, 700, 256, 300, torch.bfloat16, True),
+    "d256noncausal": (1, 6, 2, 700, 256, 300, torch.bfloat16, False),
+    "d256bkv2": (2, 16, 1, 1100, 256, 700, torch.bfloat16, True),
+    "d256g1": (1, 2, 2, 700, 256, None, torch.bfloat16, True),
+    "d256onesplit": (1, 8, 4, 4500, 256, 2048, torch.bfloat16, True),
+}
+_FWD_EXTRA.update(_D256)
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["a", "c", *_FWD_EXTRA])
@@ -783,6 +799,7 @@ _BWD_EXTRA = {f"d{d}": (1, 6, 2, 700, d, None, torch.bfloat16, True)
               for d in HEAD_DIMS}
 _BWD_EXTRA["d128w"] = (1, 6, 2, 700, 128, 300, torch.bfloat16, True)
 _BWD_EXTRA["d128full"] = (1, 6, 2, 700, 128, None, torch.bfloat16, False)
+_BWD_EXTRA.update(_D256)
 
 
 @pytest.mark.cuda
@@ -819,6 +836,35 @@ def test_cuda_flash_bwd(cuda, case):
         assert peak <= BF16_GRAD_RULE["peak"], f"{name}: peak {peak}"
         assert whole <= BF16_GRAD_RULE["whole"], f"{name}: rel L2 {whole}"
         assert worst <= 1.0, f"{name}: worst row at {worst} of its limit"
+
+
+#: dkv_splits at 132 SMs (an H100 SXM): ``(bkv, s, group) -> splits``
+_SPLITS_132 = {
+    (1, 4096, 16): 8,     # recurrentgemma's training shape: 64 key tiles
+    (1, 2500, 16): 8,     # case (b): 40 key tiles
+    (2, 1100, 16): 8,     # d256bkv2: 2 x 18 key tiles
+    (2, 700, 3): 3,       # d256: no divisor of 3 gives 2 blocks an SM
+    (2, 700, 1): 1,       # d256g1
+    (4, 4500, 2): 1,      # d256onesplit: 4 x 71 key tiles
+    (8, 4096, 3): 1,      # minitron-4b's KV heads at D 256
+}
+
+
+@pytest.mark.parametrize("shape", list(_SPLITS_132))
+def test_dkv_splits(shape):
+    """K8's dk/dv grid splits a GQA group at D 256 in bf16 only, into the
+    smallest divisor of g that gives DKV_WAVES blocks an SM; at splits 1
+    no workspace is used."""
+    from repro_torch.kernels.flash_attention import DKV_WAVES, dkv_splits
+    bkv, s, group = shape
+    got = dkv_splits(bkv, s, group, 256, torch.bfloat16, 132)
+    assert got == _SPLITS_132[shape]
+    assert group % got == 0
+    if got < group:
+        assert bkv * -(-s // 64) * got >= DKV_WAVES * 132
+    for d, dtype in ((128, torch.bfloat16), (256, torch.float32),
+                     (64, torch.bfloat16)):
+        assert dkv_splits(bkv, s, group, d, dtype, 132) == 1
 
 
 def _cuda_grouped(cuda, mode, t, d, hots, g, offset=False):

@@ -15,6 +15,8 @@ and a 2-layer rglru tail; d 64, window 8) and built from one JAX ``init``
   ``decode_step`` replay of 32 tokens (4 x the window, so the rolling
   buffer wraps) against JAX's steps and the port's own prefill;
 * ``train_loss`` and every gradient (``jax.value_and_grad``);
+* the bf16 decode drift at 12 and 24 layers: each package's bf16 replay
+  against its own f32 replay, the port's drift within a factor of JAX's;
 * ``lm_params_to_flat`` of the port's tree gives the JAX init back;
 * ``python -m repro_torch.launch.train --arch recurrentgemma-9b --smoke
   --device cpu``: the loss falls over 5 steps and no kernel launches.
@@ -340,3 +342,81 @@ def test_launcher_trains_recurrentgemma_on_cpu():
     assert len(losses) == 5 and np.isfinite(losses).all()
     assert losses[-1] < losses[0]
     assert _build.LAUNCHES.snapshot() == {}
+
+
+# ---------------------------------------------------------------------------
+# bf16 decode drift at depth
+# ---------------------------------------------------------------------------
+
+#: how far the port's bf16 drift from its own f32 logits may stand from
+#: JAX's drift from its own, either way (the two packages round to bf16 at
+#: the same places, but sum in other orders)
+DRIFT_FACTOR = 2.0
+
+
+def _replay(decode, init_cache, params, tokens, to_np):
+    """Logits of every step of a decode replay of ``tokens`` [B, T] from
+    an empty cache, stacked [T, B, V] in f32."""
+    n, steps = tokens.shape
+    cache, out = init_cache(n, steps), []
+    for t in range(steps):
+        logits, cache = decode(params, tokens[:, t:t + 1], cache,
+                               np.full((n,), t, np.int32))
+        out.append(to_np(logits))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("depth", [12, 24])
+def test_bf16_decode_drift_at_depth_matches_jax(depth):
+    """A ``reduce_for_smoke``-width recurrentgemma cut to ``depth`` layers
+    (4 or 8 periods of rglru, rglru, local_attn), one f32 init from
+    PRNGKey(0) carried across by ``convert``: a 16-token decode replay
+    (2 x the window, so the rolling cache wraps) in bf16 and in f32 in each
+    package. Each package's bf16 logits drift from its own f32 logits; the
+    port's drift (max abs over every step) stays within
+    :data:`DRIFT_FACTOR` of JAX's, either way."""
+    tokens = _tokens(11, (2, 16))
+    mesh = make_test_mesh((1, 1))
+    drift, scale = {}, {}
+    jparams = None
+    with mesh:
+        for dtype in ("f32", "bf16"):
+            jcfg, _ = (dataclasses.replace(c, num_layers=depth)
+                       for c in _cfgs(dtype))
+            model = JLMModel(jcfg, mesh, embed_mode="hybrid",
+                             hot_fraction=HOT, q_chunk=CHUNK, k_chunk=CHUNK,
+                             loss_chunk=CHUNK)
+            if jparams is None:
+                jparams = model.init(jax.random.PRNGKey(0))
+            step = jax.jit(model.decode_step)
+            drift[("jax", dtype)] = _replay(
+                lambda p, tk, c, pos: step(p, jnp.asarray(tk), c,
+                                           jnp.asarray(pos)),
+                model.init_cache, jparams, tokens,
+                lambda x: np.asarray(x.astype(jnp.float32)))
+    flat = _flat_np(jparams)
+    for dtype in ("f32", "bf16"):
+        _, pcfg = (dataclasses.replace(c, num_layers=depth)
+                   for c in _cfgs(dtype))
+        model = LMModel(pcfg, device="cpu", embed_mode="hybrid",
+                        hot_fraction=HOT, loss_chunk=CHUNK)
+        params = convert.lm_params_from_flat(flat, device="cpu")
+        with torch.inference_mode():
+            drift[("port", dtype)] = _replay(
+                lambda p, tk, c, pos: model.decode_step(
+                    p, torch.from_numpy(tk), c, torch.from_numpy(pos)),
+                model.init_cache, params, tokens,
+                lambda x: x.float().numpy())
+    # the f32 replays agree across packages, so both drifts are measured
+    # from the same logits
+    np.testing.assert_allclose(drift[("port", "f32")], drift[("jax", "f32")],
+                               rtol=0, atol=1e-4)
+    for pkg in ("jax", "port"):
+        scale[pkg] = float(np.abs(drift[(pkg, "f32")]).max())
+        drift[pkg] = float(np.abs(drift[(pkg, "bf16")]
+                                  - drift[(pkg, "f32")]).max())
+    assert drift["jax"] > 0 and drift["port"] > 0
+    ratio = drift["port"] / drift["jax"]
+    assert 1 / DRIFT_FACTOR <= ratio <= DRIFT_FACTOR, (
+        f"{depth} layers: bf16 drift port {drift['port']:.4g}, JAX "
+        f"{drift['jax']:.4g} (max |f32 logit| {scale['port']:.4g})")

@@ -10,7 +10,9 @@
 functions and its run settings (``chip_smoke.RUN``), so that its shapes and
 ids follow the smoke's. Each time is the mean of calls replayed from a CUDA
 graph (``chip_smoke.graph_ms``), beside the wrapper's time (CUDA events
-around back-to-back calls, ``chip_smoke.time_ms``). The ``library ...``
+around back-to-back calls, ``chip_smoke.time_ms``); K8's cases also give
+each of their kernels' device time (``parts_ms``, ``torch.profiler``).
+The ``library ...``
 cases time a kernel's library yardstick on the same inputs. Prints the card's name
 and power limit, then one JSON line. Needs a CUDA device; exits 2 without
 one.
@@ -190,6 +192,63 @@ def _k8(cs, dev):
     return lambda: k78.flash_bwd(*ins, causal=True), 5
 
 
+def _k7_rg(cs, dev):
+    """K7 at recurrentgemma-9b's prefill: ``RUN.lm_batch`` x (Hq 16, Hkv 1,
+    D 256), S ``RUN.attn_seq``, window 2048, as ``chip_smoke.py`` times it
+    under ``shapes``."""
+    import torch
+    from repro_torch.kernels import flash_attention as k78
+    hq, hkv, d, w = cs.rg_attn_shape()
+    b = cs.RUN.lm_batch
+    q, k, v = cs.randn_heads(torch.Generator().manual_seed(7), dev,
+                             (b * hq, b * hkv, b * hkv), cs.RUN.attn_seq, d,
+                             torch.bfloat16)
+    return lambda: k78.flash_fwd(q, k, v, causal=True, window=w), 5
+
+
+def _k8_rg(cs, dev, waves=None):
+    """K8 at recurrentgemma-9b's training shape (batch 1), window 2048;
+    with ``waves``, the dk/dv grid split for that many blocks an SM in
+    place of ``flash_attention.DKV_WAVES`` (a checkout without the split
+    ignores it)."""
+    import torch
+    from repro_torch.kernels import flash_attention as k78
+    hq, hkv, d, w = cs.rg_attn_shape()
+    ins = cs.flash_bwd_inputs(torch.Generator().manual_seed(8), dev, hq, hkv,
+                              cs.RUN.attn_seq, d, torch.bfloat16, w)
+
+    def call():
+        if waves is None:
+            return k78.flash_bwd(*ins, causal=True, window=w)
+        kept, k78.DKV_WAVES = getattr(k78, "DKV_WAVES", None), waves
+        try:
+            return k78.flash_bwd(*ins, causal=True, window=w)
+        finally:
+            k78.DKV_WAVES = kept
+    return call, 5
+
+
+def parts_ms(fn, calls: int = 10) -> dict:
+    """Device ms a call of each kernel ``fn`` launches (K8: the ``D =
+    rowsum(do o)`` kernel, dq, dk/dv and, where the dk/dv grid is split,
+    the split reduce), from ``torch.profiler`` over ``calls`` calls after a
+    warm-up; empty if the profiler records no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.device_time / 1e3 / calls
+    return out
+
+
 #: case -> builder ``(chip_smoke, device) -> (call, CUDA graph reps)``: the
 #: launch floor (``chip_smoke.launch_floor_call``, a one-element ``add_``),
 #: the served pooled read of all 26 tables through
@@ -201,7 +260,11 @@ def _k8(cs, dev):
 #: (``lm_k3_check``'s inputs) and at the largest DLRM embedding group
 #: (``kernel_phase``'s), K4 at the DLRM training shape
 #: (``interaction_bwd_inputs``), K7 at the LM prefill shape (a) and the LM
-#: training shape, and K8 at the LM training shape (a); then the shapes of
+#: training shape, and K8 at the LM training shape (a), K7 and K8 at
+#: recurrentgemma-9b's windowed D 256 prefill and training shapes (b)
+#: (each K8 case also split by launch, :data:`PARTS`; the ``waves`` cases
+#: split the dk/dv grid for 1 or 4 blocks an SM instead of 2); then the
+#: shapes of
 #: DCN, WDL and DeepFM: K1 and K3 at full-vocabulary wdl-criteo's ``dist``
 #: group (D 16) and its wide twins (D 1) (``wdl_training_rows``), and the
 #: served pooled read and the cache query at D 16 and D 1; then NeuMF's:
@@ -229,6 +292,10 @@ CASES = {
     "flash_fwd (a)": lambda cs, dev: _k7(cs, dev, cs.RUN.lm_batch),
     "flash_fwd train": lambda cs, dev: _k7(cs, dev, cs.RUN.lm_train_batch),
     "flash_bwd (a)": _k8,
+    "flash_fwd (b)": _k7_rg,
+    "flash_bwd (b)": _k8_rg,
+    **{f"flash_bwd (b) waves {n}":
+       (lambda n: lambda cs, dev: _k8_rg(cs, dev, n))(n) for n in (1, 4)},
     "lookup_fwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, False),
     "lookup_fwd wdl wide": lambda cs, dev: _wdl(cs, dev, 1, False),
     "lookup_bwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, True),
@@ -271,6 +338,11 @@ CASES = {
 }
 
 
+#: the cases whose device time is also given kernel by kernel
+#: (:func:`parts_ms`)
+PARTS = ("flash_bwd (a)", "flash_bwd (b)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
@@ -292,15 +364,18 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    ms, wrapper = {}, {}
+    ms, wrapper, parts = {}, {}, {}
     for name in args.cases or CASES:
         fn, reps = CASES[name](cs, dev)
         ms[name] = cs.graph_ms(fn, reps)
         wrapper[name] = cs.time_ms(fn, 100)
+        if name in PARTS:
+            parts[name] = parts_ms(fn)
         del fn
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "src": args.src,
-                      "device_ms": ms, "wrapper_ms": wrapper}))
+                      "device_ms": ms, "wrapper_ms": wrapper,
+                      "parts_ms": parts}))
     return 0
 
 
