@@ -34,7 +34,10 @@ Phases, in order; any failure exits non-zero:
    recurrentgemma's local attention at S 2500 and at its training shape
    (timed likewise) and an odd f32 length, with
    ``scaled_dot_product_attention``'s backward (forward + backward minus
-   forward) as K8's yardstick.
+   forward) as K8's yardstick; K7 and K8 also at granite-moe-3b-a800m's
+   D 64 prefill (q [48,4096,64], k/v [16,4096,64]) and training (q/o/do
+   [24,4096,64], k/v [8,4096,64]) shapes, held and timed under ``shapes``
+   beside ``sdpa``; K1 also at granite's and xLSTM's token tables.
 4. Train: declare full-width ``dlrm-criteo`` (26 tables at D=128, 13 dense
    features, bottom MLP 512-256-128, top MLP 1024-1024-512-256-1, bf16
    compute) through the port's graph API and ``fit()`` it at batch
@@ -198,9 +201,29 @@ Phases, in order; any failure exits non-zero:
    kernels (K1, K3, K7, K8) against the plain path, then SGD steps on one
    1 x 4096 batch, the loss falling at every step. The cut: all 38 layers'
    f32 weights and gradients take about 75 GB.
-15. The twins of ``examples/`` (``repro_torch.examples.*``), each once
+15. granite: full-width, full-depth ``granite-moe-3b-a800m`` (32 layers,
+   40 experts, top 8, Hq 24, Hkv 8, D 64, one ``sharded`` token table,
+   seed-0 f32 weights, bf16 compute) as phase 9: a 2 x 4096 prefill
+   through K1 and K7 (32 launches) against the plain path, with the
+   assignments the published capacity factor 1.25 drops and the tokens
+   routed to other experts on the kernels than on the plain path; the
+   decode replay on its copy whose capacity factor drops nothing (at the
+   published one a decode step routes only the batch's 2 tokens, and
+   drops what prefill keeps, by the reference's own semantics), 32 greedy
+   tokens at the published factor and the assignments a decode step
+   drops; then phase 10's check at depth 2 and phase 11's SGD steps at
+   full depth (K1 1, K3 1, K7 32, K8 64 launches a step).
+16. xLSTM: full-width, full-depth ``xlstm-125m`` (12 layers of mLSTM and
+   sLSTM, d 768, 4 heads) as phases 9-11 at sequence ``RUN.xlstm_seq``
+   (the recurrences run as Python loops over the time steps, about 270
+   launches a token forward): prefill through K1 against the plain path,
+   the decode replay against prefill, greedy tokens, a gradient of a
+   depth-2 copy (one mLSTM and one sLSTM layer) against the plain path,
+   SGD steps at full depth (K1 and K3 once a step); its profiled prefill
+   and step run ``RUN.xlstm_profile_seq`` tokens.
+17. The twins of ``examples/`` (``repro_torch.examples.*``), each once
    on the card at its smallest setting with its own checks.
-16. One JSON line of per-kernel numbers, then the device line last.
+18. One JSON line of per-kernel numbers, then the device line last.
 
 Needs ``torch.cuda.is_available()`` and the package under ``src/``; with
 either missing it prints no result and exits 2.
@@ -246,6 +269,11 @@ REMAT_TOL = 1e-6
 #: the run: vocabulary cap per table (the one cut), L1 rows per table,
 #: request batch, warm-up and measured requests, seed; training batch,
 #: warm-up and timed steps, steps on the plain versions, learning rate;
+#: the LM phases' archs, sequences, timed calls and cut depths (xLSTM's
+#: sequence and timed calls cut for time: its recurrences run as Python
+#: loops, about 270 launches a token forward, and its profiled calls run
+#: ``xlstm_profile_seq`` tokens: the profiler takes ~0.4 ms a device event
+#: to collect, minutes for a full call);
 #: DCN's and DeepFM's timed steps and learning rate (at 1e-3 the first
 #: AdamW step lifts DCN's loss from 0.70 to 0.94, and six steps do not
 #: bring it back under the first); the online phase's hottest ids a table
@@ -265,7 +293,11 @@ RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             lm_train_lr=3e-4,
                             lm_check_layers=2, rg_arch="recurrentgemma-9b",
                             rg_train_layers=5,
-                            rg_decode_depths=(5, 12, 24), online_ids=4096,
+                            rg_decode_depths=(5, 12, 24),
+                            granite_arch="granite-moe-3b-a800m",
+                            xlstm_arch="xlstm-125m", xlstm_seq=768,
+                            xlstm_timed=2, xlstm_train_timed=2,
+                            xlstm_profile_seq=32, online_ids=4096,
                             online_versions=4, online_quiet=48,
                             etc_cache_rows=131072, etc_passes=2,
                             etc_evict_rows=8192, etc_online_steps=4)
@@ -530,20 +562,25 @@ def rotating(fn, inputs):
     return lambda: fn(next(it))
 
 
-def lm_k1_inputs(args, dev) -> list:
-    """K1's inputs at the LM's token tables as a training step gives them:
-    ``(name, table, rows [N, 1])`` for the hot and the cold table of
-    ``args.lm_arch`` (random f32 tables, rows of :func:`lm_k3_inputs`)."""
+def lm_k1_inputs(args, dev, arch=None) -> list:
+    """K1's inputs at an LM's token tables as a training step of
+    ``args.lm_train_batch`` x ``args.lm_seq`` tokens gives them: ``(name,
+    table, rows [N, 1])`` for each token table of ``arch`` (default
+    ``args.lm_arch``: ``lm_hot`` and ``lm_cold``, its hybrid tables; an
+    arch with one table: ``<arch>``), random f32 tables, rows of
+    :func:`lm_k3_inputs`."""
     import torch
     from repro_torch.configs.registry import get_lm_config
     from repro_torch.models.lm.backbone import LMModel
-    cfg = get_lm_config(args.lm_arch)
+    cfg = get_lm_config(arch or args.lm_arch)
     tokens = lm_tokens(args, cfg, dev, args.lm_train_batch, args.lm_seq)
     g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    model = LMModel(cfg, device=dev)
+    names = (("lm_hot", "lm_cold") if model.embed_mode == "hybrid"
+             else (cfg.name,))
     return [(name, torch.randn(shape, generator=g, device=dev), rows)
             for name, (shape, rows, _) in zip(
-                ("lm_hot", "lm_cold"),
-                lm_k3_inputs(LMModel(cfg, device=dev), tokens))]
+                names, lm_k3_inputs(model, tokens))]
 
 
 def kernel_phase(args, dev):
@@ -806,13 +843,15 @@ def kernel_phase(args, dev):
     check(gb.dtype == torch.bfloat16 and torch.allclose(
         gb.float(), k2.interaction_bwd_plain(xb4, db4).float(),
         rtol=1e-2, atol=1e-2), "interaction_bwd bf16: above 1e-2")
-    # K1 at the LM's token tables (a training step's rows)
-    for label, table, rows in lm_k1_inputs(args, dev):
-        check(torch.equal(k1.lookup_fwd(table, rows),
-                          k1.lookup_fwd_plain(table, rows)),
-              f"lookup_fwd {label}: not bit-exact")
-        k1_line(label, table, rows, reps=10)
-        del table
+    # K1 at the LM's token tables (a training step's rows): minitron's
+    # hybrid pair, granite's and xLSTM's one table each
+    for arch in (args.lm_arch, args.granite_arch, args.xlstm_arch):
+        for label, table, rows in lm_k1_inputs(args, dev, arch):
+            check(torch.equal(k1.lookup_fwd(table, rows),
+                              k1.lookup_fwd_plain(table, rows)),
+                  f"lookup_fwd {label}: not bit-exact")
+            k1_line(label, table, rows, reps=10)
+            del table
     torch.cuda.empty_cache()
     recipe_kernels(args, dev, shape_line, wdl_training_rows(args, dev),
                    ((26, 16), (26, 1)), (16, 1))
@@ -1086,11 +1125,20 @@ def rg_attn_shape() -> tuple:
             cfg.local_attn_window)
 
 
+def granite_attn_shape(args) -> tuple:
+    """``(Hq, Hkv, D)`` of the attention of ``args.granite_arch``."""
+    from repro_torch.configs.registry import get_lm_config
+    cfg = get_lm_config(args.granite_arch)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+
 def attention_kernel(args, record, shape_line, g, dev):
     """K7 against its plain version at (a) minitron-4b's prefill shape
     (timed), (b) recurrentgemma's local attention at its prefill shape
     (timed, under the kernel's ``shapes``, with ``sdpa`` and the windowed
-    mask as the yardstick) and (c) an odd f32 length with GQA."""
+    mask as the yardstick), (c) an odd f32 length with GQA and (d)
+    granite-moe-3b-a800m's prefill at D 64 (timed under ``shapes``, with
+    ``sdpa`` as the yardstick)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k7
@@ -1142,6 +1190,24 @@ def attention_kernel(args, record, shape_line, g, dev):
     del q, k, v, o, po, q4, k4, v4
     # (c) an odd length in f32 with GQA g = 2
     held("(c)", *qkv(8, 4, args.attn_odd_seq, 64, torch.float32), "f32")
+    # (d) granite-moe-3b-a800m prefill: B 2, Hq 24, Hkv 8, D 64, S 4096,
+    # causal (the mma.sync route: D 64 has no wgmma kernel)
+    hq, hkv, d = granite_attn_shape(args)
+    q, k, v = qkv(b * hq, b * hkv, s, d, torch.bfloat16)
+    o, po = held("(d)", q, k, v, "bf16")
+    err = (o.float() - po.float()).abs().max().item()
+    q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, k, v))
+    pairs = s * (s + 1) // 2                   # causal (query, key) pairs
+    shape_line("flash_fwd", f"{args.granite_arch} prefill: q [{b * hq},{s},"
+               f"{d}], k/v [{b * hkv},{s},{d}] bf16, causal; library: sdpa",
+               lambda: k7.flash_fwd(q, k, v, causal=True),
+               lambda: flash_attention_ref(q, k, v, causal=True),
+               lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=True, enable_gqa=True),
+               2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * hq * s,
+               4 * b * hq * d * pairs, reps=5, err=err,
+               flops_per_s=BF16_TC_FLOPS, iters=10)
+    del q, k, v, o, po, q4, k4, v4
     # (a) minitron-4b prefill: B 2, Hq 24, Hkv 8, D 128, S 4096, causal
     hq, hkv, d = lm_attn_shape(args)
     q, k, v = qkv(b * hq, b * hkv, s, d, torch.bfloat16)
@@ -1165,8 +1231,10 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
     with ``scaled_dot_product_attention``'s backward as the yardstick), (b)
     recurrentgemma's local attention at an S no tile divides and at its
     training shape (timed, under the kernel's ``shapes``, with ``sdpa``'s
-    backward under the windowed mask as the yardstick) and (c) an odd f32
-    length with GQA."""
+    backward under the windowed mask as the yardstick), (c) an odd f32
+    length with GQA and (d) granite-moe-3b-a800m's training shape at D 64
+    (timed under ``shapes``, with ``sdpa``'s backward as the
+    yardstick)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k78
@@ -1245,6 +1313,31 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
     del ins, q, k, v, o, lse, do, q4, k4, v4
     # (c) an odd length in f32 with GQA g = 2
     held("(c)", inputs(8, 4, args.attn_odd_seq, 64, torch.float32), "f32")
+    # (d) granite-moe-3b-a800m training: B 1, Hq 24, Hkv 8, D 64, S 4096
+    (gq, gkv, gd), s = granite_attn_shape(args), args.attn_seq
+    ins = inputs(gq, gkv, s, gd, torch.bfloat16)
+    got, want = held("(d)", ins, "bf16")
+    err = (got - want).abs().max().item()
+    del got, want
+    q, k, v, o, lse, do = ins
+    q4, k4, v4 = (t.detach().view(1, -1, s, gd).requires_grad_()
+                  for t in (q, k, v))
+    do4 = do.view(1, gq, s, gd)
+
+    def sdpa_g():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+
+    shape_line("flash_bwd", f"{args.granite_arch} training: q/o/do "
+               f"[{gq},{s},{gd}], k/v [{gkv},{s},{gd}] bf16, causal; "
+               "library: sdpa, forward + backward minus forward",
+               lambda: k78.flash_bwd(*ins, causal=True),
+               lambda: flash_attention_bwd_ref(*ins, causal=True),
+               lambda: torch.autograd.grad(sdpa_g(), (q4, k4, v4), do4),
+               2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+               5 * 2 * gq * gd * (s * (s + 1) // 2), reps=5, err=err,
+               flops_per_s=BF16_TC_FLOPS, lib_minus=sdpa_g, iters=10)
+    del ins, q, k, v, o, lse, do, q4, k4, v4
     # (a) minitron-4b training: B 1, Hq 24, Hkv 8, D 128, S 4096, causal
     (hq, hkv, d), s = lm_attn_shape(args), args.attn_seq
     ins = inputs(hq, hkv, s, d, torch.bfloat16)
@@ -3052,6 +3145,58 @@ def lm_embed_check(model, plain, params, tokens) -> str:
             "(bound: bit-exact), embed bit-exact")
 
 
+def token_tables(model) -> int:
+    """Token tables of ``model``, each one K1 launch in a forward pass and
+    one K3 in backward: two for the hybrid embedding, else one."""
+    return 2 if model.embed_mode == "hybrid" else 1
+
+
+@contextlib.contextmanager
+def moe_routing():
+    """While open, records each MoE layer call of the port: its experts
+    ``sel`` and its dropped and routed assignments (``moe._top_k`` and
+    ``moe._bucket`` wrapped; ``moe_apply`` calls both through the module).
+    Reads the drop count to the host each call: for untimed runs."""
+    from repro_torch.models.lm import moe
+    rec = types.SimpleNamespace(sel=[], dropped=0, routed=0, capacity=set())
+    top_k, bucket = moe._top_k, moe._bucket
+
+    def rec_top_k(logits, k):
+        vals, sel = top_k(logits, k)
+        rec.sel.append(sel)
+        return vals, sel
+
+    def rec_bucket(owner, n_buckets, capacity):
+        slot = bucket(owner, n_buckets, capacity)
+        rec.dropped += int((slot >= n_buckets * capacity).sum())
+        rec.routed += slot.numel()
+        rec.capacity.add(capacity)
+        return slot
+
+    moe._top_k, moe._bucket = rec_top_k, rec_bucket
+    try:
+        yield rec
+    finally:
+        moe._top_k, moe._bucket = top_k, bucket
+
+
+def routing_flips(a, b) -> tuple:
+    """``(tokens x layers whose expert sets differ, tokens x layers)``
+    between two :func:`moe_routing` records of the same input."""
+    import torch
+    flips = sum(int((torch.sort(x, -1).values != torch.sort(y, -1).values)
+                    .any(-1).sum()) for x, y in zip(a.sel, b.sel))
+    return flips, sum(x[..., 0].numel() for x in a.sel)
+
+
+def no_drop(cfg):
+    """``cfg`` with a capacity factor of ``num_experts / top_k``: every
+    expert's bucket then holds all the tokens, and nothing drops."""
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+
+
 def attn_layers(model) -> int:
     """Layers of ``model`` that run attention (K7 in prefill and training,
     K8 in backward): the ``attn`` and ``local_attn`` ones."""
@@ -3141,13 +3286,21 @@ def decode_depths(args, dev, cfg, depths) -> None:
           f"{DECODE_TOL.atol}, corr > {DECODE_TOL.corr} on both paths")
 
 
-def lm_phase(args, dev, cfg, f32_replay: bool = False):
+def lm_phase(args, dev, cfg, f32_replay: bool = False, cut: str = "",
+             profile_seq=None):
     """Prefill and decode ``cfg`` at full width and depth with random
     weights; returns the launch counts of the kernel path's run. With
     ``f32_replay`` (a model deeper than the bf16 decode bound was set
     for) the bf16 replay is held by its correlation and the decode state
     by :func:`f32_decode_check`; :func:`decode_depths` holds the same
-    model cut to 5 layers to the bf16 bound."""
+    model cut to 5 layers to the bf16 bound. An MoE model replays the
+    prompt on its :func:`no_drop` copy (at the published factor decode
+    drops what prefill keeps: a step routes only the batch's tokens) and
+    prints the routing: the assignments dropped in prefill and in a
+    decode step, and the tokens whose experts differ between the kernels
+    and the plain path. ``cut`` says why the sequence is shorter than
+    ``prefill_32k``'s beyond the smoke's time; ``profile_seq`` cuts the
+    profiled prefill's tokens."""
     import numpy as np
     import torch
     from repro_torch.configs.base import LM_SHAPE_BY_NAME
@@ -3159,12 +3312,13 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False):
     b, s = args.lm_batch, args.lm_seq
     print(f"reduced: {cfg.name} prefill at batch {b} x seq {s} instead of "
           f"prefill_32k's {full.global_batch} x {full.seq_len}, to fit the "
-          f"smoke's time; widths, {cfg.num_layers} layers "
+          f"smoke's time{cut}; widths, {cfg.num_layers} layers "
           f"and the {cfg.vocab_size}-token vocabulary as published; random "
           f"weights (seed {args.seed})")
     model = LMModel(cfg, device=dev)
-    n_attn = attn_layers(model)
+    n_attn, n_tables = attn_layers(model), token_tables(model)
     plain = LMModel(cfg, device=dev, use_kernels=False)
+    routing = moe_routing if cfg.moe is not None else contextlib.nullcontext
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     torch.cuda.synchronize()
@@ -3183,13 +3337,14 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False):
         # 1. prefill: one warm-up, then timed calls
         torch.cuda.synchronize()
         LAUNCHES.reset()
-        logits = model.prefill(params, batch)
+        with routing() as k_routes:
+            logits = model.prefill(params, batch)
         torch.cuda.synchronize()
         first = LAUNCHES.snapshot()
         check(first.get("flash_fwd", 0) == n_attn
-              and first.get("lookup_fwd", 0) == 2,
+              and first.get("lookup_fwd", 0) == n_tables,
               f"prefill launches {first}: want K7 {n_attn} times "
-              "and K1 twice")
+              f"and K1 {n_tables}")
         torch.cuda.reset_peak_memory_stats()
         ms = []
         for _ in range(args.lm_timed):
@@ -3202,11 +3357,23 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False):
               and bool(torch.isfinite(logits).all()),
               f"prefill logits {tuple(logits.shape)} not finite or of the "
               "wrong shape")
-        want = plain.prefill(params, batch)
+        with routing() as p_routes:
+            want = plain.prefill(params, batch)
         err = (logits - want).abs().max().item()
         top = want.abs().max().item()
+        moe_line = ""
+        if cfg.moe is not None:
+            flips, decisions = routing_flips(k_routes, p_routes)
+            moe_line = (f"; routing: {k_routes.dropped} of "
+                        f"{k_routes.routed} assignments dropped (capacity "
+                        f"{sorted(k_routes.capacity)} a bucket, factor "
+                        f"{cfg.moe.capacity_factor}), {flips} of "
+                        f"{decisions} tokens x layers with other experts "
+                        "on the kernels than on the plain path")
+            del k_routes, p_routes
         check(err <= LM_LOGIT_TOL * top, f"prefill logits deviate {err} "
-              f"from the plain path (bound {LM_LOGIT_TOL} x {top})")
+              f"from the plain path (bound {LM_LOGIT_TOL} x {top})"
+              + moe_line)
         del want
         p50 = float(np.median(ms))
         print(f"prefill {cfg.name} on {torch.cuda.get_device_name(0)}: {b} "
@@ -3215,19 +3382,24 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False):
               f"max {max(ms):.2f}) over {args.lm_timed} calls, "
               f"{b * s / p50 * 1e3:.0f} tokens/s; peak memory {peak:.2f} GiB; "
               f"max |logit - plain| {err:.4g} (bound {LM_LOGIT_TOL} x max "
-              f"|logit| {top:.4g}); {k1_line}; launches per prefill {first}")
-        profile(f"prefill {cfg.name}", lambda: model.prefill(params, batch))
+              f"|logit| {top:.4g}); {k1_line}; launches per prefill {first}"
+              f"{moe_line}")
+        ptoks = tokens[:, :profile_seq]
+        profile(f"prefill {cfg.name} ({ptoks.shape[0]} x {ptoks.shape[1]} "
+                "tokens)", lambda: model.prefill(params, {"tokens": ptoks}))
 
         # 2. decode: replay a prompt into the cache, hold the last step
         # against prefill of the same tokens, then greedy tokens
         p = args.prompt
         prompt = tokens[:, :p]
-        cache = model.init_cache(b, s)
+        replay = model if cfg.moe is None else LMModel(no_drop(cfg),
+                                                       device=dev)
+        cache = replay.init_cache(b, s)
         for i in range(p):
-            step, cache = model.decode_step(
+            step, cache = replay.decode_step(
                 params, prompt[:, i:i + 1], cache,
                 torch.full((b,), i, device=dev))
-        full_logits = model.prefill(params, {"tokens": prompt})
+        full_logits = replay.prefill(params, {"tokens": prompt})
         v = cfg.vocab_size
         got, ref = step[:, :v].cpu().numpy(), full_logits[:, :v].cpu().numpy()
         dmax = float(np.abs(got - ref).max())
@@ -3237,9 +3409,11 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False):
         check((close or f32_replay) and corr > DECODE_TOL.corr,
               f"decode after {p} tokens vs prefill: max abs {dmax}, "
               f"correlation {corr}")
-        f32_line = ""
+        notes = "" if replay is model else (
+            f"; replayed on the copy with capacity factor "
+            f"{replay.cfg.moe.capacity_factor}, which drops nothing")
         if f32_replay:
-            f32_line = ("; bf16 bound held" if close else
+            notes = ("; bf16 bound held" if close else
                         "; bf16 bound not held (not checked at this "
                         "depth)") + "; " + f32_decode_check(
                             dev, cfg, params, prompt)
@@ -3254,6 +3428,14 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False):
             ms.append((time.perf_counter() - t) * 1e3)
         check(bool(torch.isfinite(step).all()), "decode logits not finite")
         launches = LAUNCHES.snapshot()
+        if cfg.moe is not None:
+            with moe_routing() as d_routes:
+                model.decode_step(params, tok, cache, torch.full(
+                    (b,), p + args.decode_steps, device=dev))
+            notes += (f"; a decode step at the published factor drops "
+                         f"{d_routes.dropped} of {d_routes.routed} "
+                         f"assignments (capacity "
+                         f"{sorted(d_routes.capacity)} a bucket)")
         dp50 = float(np.median(ms))
         # what the per-call f32 -> bf16 cast of the weights moves in a
         # step: every dense weight and the head read as f32, written bf16
@@ -3265,7 +3447,7 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False):
               f"replayed into a {s}-entry cache, last logits vs prefill max "
               f"abs {dmax:.4g}, correlation {corr:.6f} (bounds rtol "
               f"{DECODE_TOL.rtol}, atol {DECODE_TOL.atol}, corr > "
-              f"{DECODE_TOL.corr}{f32_line}); {args.decode_steps} greedy "
+              f"{DECODE_TOL.corr}{notes}); {args.decode_steps} greedy "
               f"steps at batch "
               f"{b}: step p50 {dp50:.2f} ms (min {min(ms):.2f}, max "
               f"{max(ms):.2f}), {b / dp50 * 1e3:.1f} tokens/s; the weights' "
@@ -3333,16 +3515,19 @@ def lm_grad_check(args, dev, cfg, layers: int):
 
 
 def lm_k3_inputs(model, tokens) -> list:
-    """K3's inputs at the LM's shapes: for the hot and the cold token table
-    of hybrid ``model``, ``(table shape, rows [N, 1], dpooled [N, d])``,
-    the batch's rows masked to -1 where the other table holds the token,
-    and one random ``dpooled`` shared by both."""
+    """K3's inputs at the LM's shapes: for each token table of ``model``
+    (the hot and the cold one of a hybrid table, else its one table),
+    ``(table shape, rows [N, 1], dpooled [N, d])``, a hybrid batch's rows
+    masked to -1 where the other table holds the token, and one random
+    ``dpooled`` shared by the tables."""
     import torch
     ids = tokens.reshape(-1, 1).to(torch.int32)
-    hot = ids < model.hot_rows
     g = torch.Generator(device=tokens.device).manual_seed(3)
     d = model.cfg.d_model
     dp = torch.randn((ids.shape[0], d), generator=g, device=tokens.device)
+    if model.embed_mode != "hybrid":
+        return [((model.vocab_pad, d), ids, dp)]
+    hot = ids < model.hot_rows
     return [((model.hot_rows, d), torch.where(hot, ids, -1), dp),
             ((model.cold_rows, d), torch.where(hot, -1, ids - model.hot_rows),
              dp)]
@@ -3399,10 +3584,13 @@ def lm_k3_check(model, tokens) -> str:
     return "K3 at " + "; ".join(parts)
 
 
-def lm_train_phase(args, dev, cfg, depth_cut: str = ""):
+def lm_train_phase(args, dev, cfg, depth_cut: str = "", cut: str = "",
+                   profile_seq=None):
     """SGD steps of full-width ``cfg`` on one fixed batch; returns the
     launch counts of the counted run (warm-up and timed steps).
-    ``depth_cut`` says why ``cfg`` runs at fewer layers than published."""
+    ``depth_cut`` says why ``cfg`` runs at fewer layers than published,
+    ``cut`` why the sequence is shorter than ``train_4k``'s beyond the
+    card's memory; ``profile_seq`` cuts the profiled step's tokens."""
     import numpy as np
     import torch
     from repro_torch.configs.base import LM_SHAPE_BY_NAME
@@ -3415,7 +3603,7 @@ def lm_train_phase(args, dev, cfg, depth_cut: str = ""):
     print(f"reduced: {cfg.name} training at batch {b} x seq {s} instead of "
           f"train_4k's {full.global_batch} x {full.seq_len} (one card's "
           f"memory: f32 weights and gradients and every layer's "
-          f"activations); widths"
+          f"activations){cut}; widths"
           + (f" and the {cfg.vocab_size}-token vocabulary as published, "
              f"{cfg.num_layers} layers ({depth_cut})" if depth_cut else
              f", {cfg.num_layers} layers and the {cfg.vocab_size}-token "
@@ -3423,12 +3611,12 @@ def lm_train_phase(args, dev, cfg, depth_cut: str = ""):
           + f"; random weights (seed {args.seed}); SGD at lr "
           f"{args.lm_train_lr}, remat 'none'")
     model = LMModel(cfg, device=dev, remat="none")
-    n_attn = attn_layers(model)
+    n_attn, n_tables = attn_layers(model), token_tables(model)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     tokens = lm_tokens(args, cfg, dev, b, s)
     print(lm_k3_check(model, tokens))
-    want = {"lookup_fwd": 2, "lookup_bwd": 2, "flash_fwd": n_attn,
-            "flash_bwd": 2 * n_attn}
+    want = {"lookup_fwd": n_tables, "lookup_bwd": n_tables,
+            "flash_fwd": n_attn, "flash_bwd": 2 * n_attn}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.reset()
@@ -3458,8 +3646,10 @@ def lm_train_phase(args, dev, cfg, depth_cut: str = ""):
           f"{b * s / p50 * 1e3:.0f} tokens/s; loss "
           + " -> ".join(f"{x:.4f}" for x in losses)
           + f"; peak memory {peak:.2f} GiB; launches per step {want}")
-    profile(f"lm train step {cfg.name}", lambda: lm_sgd_step_(
-        model, params, tokens, args.lm_train_lr))
+    ptoks = tokens[:, :profile_seq]
+    profile(f"lm train step {cfg.name} ({ptoks.shape[0]} x "
+            f"{ptoks.shape[1]} tokens)", lambda: lm_sgd_step_(
+                model, params, ptoks, args.lm_train_lr))
     del params
     return launches
 
@@ -3785,10 +3975,48 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 14. the example twins
+    # 15. granite-moe-3b-a800m: serve at full width and depth, the kernels
+    # against the plain path at depth 2, then train at full depth
+    g_cfg = get_lm_config(args.granite_arch)
+    for k, n in lm_phase(args, dev, g_cfg).items():
+        total[k] = total.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_grad_check(args, dev, g_cfg, args.lm_check_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in lm_train_phase(args, dev, g_cfg).items():
+        total[k] = total.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16. xlstm-125m at full width and depth on a shorter sequence: serve,
+    # a gradient against the plain path, train
+    x_cfg = get_lm_config(args.xlstm_arch)
+    xargs = types.SimpleNamespace(**{
+        **vars(args), "lm_seq": args.xlstm_seq, "lm_timed": args.xlstm_timed,
+        "lm_train_timed": args.xlstm_train_timed})
+    why = (f" (sequence {args.xlstm_seq}, not the other LM phases' "
+           f"{args.lm_seq}: the mLSTM / sLSTM recurrences run as Python "
+           "loops, about 270 launches a token forward)")
+    t0 = time.perf_counter()
+    for k, n in lm_phase(xargs, dev, x_cfg, cut=why,
+                         profile_seq=args.xlstm_profile_seq).items():
+        total[k] = total.get(k, 0) + n
+    lm_grad_check(xargs, dev, x_cfg, args.lm_check_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in lm_train_phase(xargs, dev, x_cfg, cut=why,
+                               profile_seq=args.xlstm_profile_seq).items():
+        total[k] = total.get(k, 0) + n
+    print(f"xlstm phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. the example twins
     twins_phase(dev)
 
-    # 15. kernels line, then the device line last
+    # 18. kernels line, then the device line last
     for name, rec in kernels.items():
         rec["launches"] = total.get(name, 0)
         check(rec["launches"] > 0, f"{name}: no launches on the main path")

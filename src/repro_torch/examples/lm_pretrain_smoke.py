@@ -6,9 +6,9 @@ vocabulary embedding, the paper's technique applied to LM token tables.
 Run:  PYTHONPATH=src python -m repro_torch.examples.lm_pretrain_smoke \
           [--device cpu] [--arch olmo-1b] [--steps 30]
 
-The dense decoders and recurrentgemma train; the families the port has
-not reached yet (MoE, xLSTM, the encoder-decoders) raise
-``NotImplementedError`` naming their ROADMAP item.
+The dense decoders, recurrentgemma, the MoE decoders (granite) and
+xLSTM train; the encoder-decoders, which the port has not reached yet,
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 import argparse
 

@@ -19,12 +19,13 @@ in-port reference path.
 
 Ported: ``init``, ``embed``, ``train_loss`` (with the chunked
 cross-entropy), ``prefill``, ``init_cache`` and ``decode_step`` for the
-dense decoders (phi3-mini, minitron-4b, command-r-plus, olmo-1b) and the
+dense decoders (phi3-mini, minitron-4b, command-r-plus, olmo-1b), the
 hybrid of RG-LRU and local-attention blocks (recurrentgemma: local
-attention is K7 / K8 with a window, its decode a rolling cache), with
-every ``remat`` policy of the reference. The MoE, xLSTM and
-encoder-decoder families raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+attention is K7 / K8 with a window, its decode a rolling cache), the MoE
+decoders (granite: every attention layer's FFN is ``moe.moe_apply``) and
+xLSTM (mLSTM and sLSTM blocks, no FFN), with every ``remat`` policy of
+the reference. The encoder-decoder families raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Layers run group-major, as the reference scans them: every layer of
 pattern slot 0, then of slot 1, ..., then the tail.
@@ -43,13 +44,17 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_lookup import lookup_fwd_plain
+from repro_torch.models.lm import moe
 from repro_torch.models.lm import rglru as rg
 from repro_torch.models.lm import transformer as tf
+from repro_torch.models.lm import xlstm as xl
 from repro_torch.tree import tree_map
 
 EMBED_MODES = ("replicated", "sharded", "hybrid")
 REMATS = ("none", "full", "dots", "group")
-KINDS = ("attn", "local_attn", "rglru")
+KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
+#: the kinds whose decode state is a dict of f32 tensors, not a KV cache
+RECURRENT = ("rglru", "mlstm", "slstm")
 
 #: the matmul ops whose outputs ``remat="dots"`` saves, as
 #: ``jax.checkpoint_policies.checkpoint_dots`` saves ``dot_general``'s
@@ -68,15 +73,11 @@ def _dots_context():
 
 def _check_ported(cfg: LMConfig) -> None:
     """Raise ``NotImplementedError`` (naming its ROADMAP item) for a config
-    outside the dense decoder family this slice ports."""
-    if cfg.moe is not None:
-        raise tf.not_ported(f"{cfg.name}: MoE blocks", tf.MOE)
+    outside the decoder families the port has."""
     if cfg.encoder_layers or cfg.frontend:
         raise tf.not_ported(f"{cfg.name}: encoder layers and modality "
                             "frontends", tf.ENCDEC)
     for kind in cfg.block_pattern:
-        if kind in ("mlstm", "slstm"):
-            raise tf.not_ported(f"{cfg.name}: {kind} blocks", tf.XLSTM)
         if kind not in KINDS:
             raise ValueError(kind)
 
@@ -169,13 +170,20 @@ class LMModel:
 
     def _block_init(self, g: torch.Generator, kind: str, n: int) -> Dict:
         """``n`` stacked layers of one kind: ``{"attn", "ffn"}`` for
-        (local) attention, ``{"rglru", "ffn"}`` for a recurrent block."""
-        cfg, dev = self.cfg, self.device
-        mix = (rg.rglru_init(g, cfg, stack=(n,), device=dev)
+        (local) attention (the FFN an MoE one for an MoE config's ``attn``
+        layers), ``{"rglru", "ffn"}`` for an RG-LRU block, ``{"mlstm"}``
+        or ``{"slstm"}`` for an xLSTM block."""
+        cfg, dev, stack = self.cfg, self.device, (n,)
+        if kind in ("mlstm", "slstm"):
+            init = xl.mlstm_init if kind == "mlstm" else xl.slstm_init
+            return {kind: init(g, cfg, stack=stack, device=dev)}
+        mix = (rg.rglru_init(g, cfg, stack=stack, device=dev)
                if kind == "rglru"
-               else tf.attn_init(g, cfg, stack=(n,), device=dev))
-        return {"rglru" if kind == "rglru" else "attn": mix,
-                "ffn": tf.ffn_init(g, cfg, stack=(n,), device=dev)}
+               else tf.attn_init(g, cfg, stack=stack, device=dev))
+        ffn = (moe.moe_init(g, cfg, stack=stack, device=dev)
+               if cfg.moe is not None and kind == "attn"
+               else tf.ffn_init(g, cfg, stack=stack, device=dev))
+        return {"rglru" if kind == "rglru" else "attn": mix, "ffn": ffn}
 
     # ----------------------------------------------------------------- embed
 
@@ -223,6 +231,9 @@ class LMModel:
         """One layer; ``cache`` is a (local) attention layer's ``(k, v)``
         or a recurrent layer's state, and the new one is returned."""
         cfg = self.cfg
+        if kind in ("mlstm", "slstm"):
+            apply = xl.mlstm_apply if kind == "mlstm" else xl.slstm_apply
+            return apply(bp[kind], x, cfg, state=cache)
         if kind == "rglru":
             x, new_cache = rg.rglru_apply(bp["rglru"], x, cfg, state=cache)
         else:
@@ -231,6 +242,9 @@ class LMModel:
                 bp["attn"], x, cfg, positions=positions, causal=True,
                 window=window, cache=cache, cache_pos=cache_pos,
                 use_kernels=self.use_kernels)
+        if cfg.moe is not None and kind == "attn":
+            # adds its own residual, as the FFN does
+            return moe.moe_apply(bp["ffn"], x, cfg), new_cache
         return tf.ffn_apply(bp["ffn"], x, cfg), new_cache
 
     def _run_stack(self, params: Dict, x: torch.Tensor,
@@ -335,15 +349,20 @@ class LMModel:
         """Zero decode state per stacked group: an attention group's KV
         cache ``(k, v)``, each ``[layers, B, S, Hkv, Dh]`` in the compute
         type with S ``max_seq`` (``min(max_seq, window)`` for local
-        attention, a rolling cache); a recurrent group's
-        ``{"h": [layers, B, D], "conv": [layers, B, 3, D]}`` in f32."""
+        attention, a rolling cache); a recurrent group's state in f32,
+        each leaf ``[layers, B, ...]``: ``{"h", "conv"}`` for RG-LRU,
+        ``{"C", "n", "m"}`` for mLSTM, ``{"c", "n", "h", "m"}`` for
+        sLSTM."""
         cfg = self.cfg
         hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        zero_state = {"rglru": rg.rglru_zero_state,
+                      "mlstm": xl.mlstm_zero_state,
+                      "slstm": xl.slstm_zero_state}
 
         def blk_cache(kind, n):
-            if kind == "rglru":
-                return rg.rglru_zero_state(cfg, b, stack=(n,),
-                                           device=self.device)
+            if kind in RECURRENT:
+                return zero_state[kind](cfg, b, stack=(n,),
+                                        device=self.device)
             s = min(max_seq, cfg.local_attn_window) \
                 if kind == "local_attn" else max_seq
             return tuple(torch.zeros((n, b, s, hkv, hd), dtype=self.cd,
@@ -367,7 +386,7 @@ class LMModel:
             gp = params["groups"][key]
             gc = cache["groups"][key]
             for i, lp in enumerate(_layers(gp, n)):
-                if kind == "rglru":
+                if kind in RECURRENT:
                     x, st = self._apply_block(
                         kind, lp, x, positions=positions,
                         cache={k: v[i] for k, v in gc.items()})

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels import ops
 from repro_torch.roadmap import (  # noqa: F401 (the backbone's items too)
-    ENCDEC, MOE, SEQPAR, XLSTM, not_ported,
+    ENCDEC, SEQPAR, not_ported,
 )
 
 

@@ -18,6 +18,11 @@ import repro_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
+#: the one-line ``configs/<lm arch>.py`` modules, as in the reference
+LM_MODULES = ("command_r_plus_104b", "granite_moe_1b_a400m",
+              "granite_moe_3b_a800m", "minitron_4b", "olmo_1b",
+              "phi3_mini_3_8b", "pixtral_12b", "recurrentgemma_9b",
+              "seamless_m4t_large_v2", "xlstm_125m")
 
 
 def _modules():
@@ -56,7 +61,8 @@ def test_imports_with_jax_and_repro_blocked():
                 "examples.train_dlrm_e2e", "examples.serve_online_updates",
                 "examples.loadtest_ensemble", "examples.novel_archs",
                 "examples.etc_terabyte_training",
-                "examples.lm_pretrain_smoke"):
+                "examples.lm_pretrain_smoke", "models.lm.moe",
+                "models.lm.xlstm", *(f"configs.{m}" for m in LM_MODULES)):
         assert f"repro_torch.{mod}" in _modules()
     code = (
         "import sys, importlib, pkgutil\n"
@@ -96,6 +102,18 @@ def test_source_names_no_jax_or_repro(path):
         for n in names:
             assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                 f"{path}:{node.lineno} imports {n}"
+
+
+@pytest.mark.parametrize("mod", LM_MODULES)
+def test_lm_config_module_matches_the_reference(mod):
+    """Each ``configs/<lm arch>.py`` names its arch and holds the
+    reference module's ``CONFIG``, field by field."""
+    import dataclasses
+    mine = importlib.import_module(f"repro_torch.configs.{mod}")
+    ref = importlib.import_module(f"repro.configs.{mod}")
+    assert mine.ARCH_ID == ref.ARCH_ID
+    assert mine.ARCH_ID.replace("-", "_").replace(".", "_") == mod
+    assert dataclasses.asdict(mine.CONFIG) == dataclasses.asdict(ref.CONFIG)
 
 
 def test_resolve_device():

@@ -388,10 +388,6 @@ def test_prefill_on_cpu_launches_nothing():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,item", [
-    ("granite-moe-1b-a400m", "MoE"),
-    ("granite-moe-3b-a800m", "MoE"),
-    ("xlstm-125m", "mlstm"),
-    ("xlstm-125m", "xLSTM"),
     ("seamless-m4t-large-v2", "encoder-decoder"),
     ("pixtral-12b", "frontends"),
 ])

@@ -398,6 +398,17 @@ def test_launcher_smoke_on_cpu_learns_and_launches_nothing():
     assert _build.LAUNCHES.snapshot() == {}
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-125m"])
+def test_launcher_smoke_trains_the_moe_and_xlstm_families(arch):
+    _build.LAUNCHES.reset()
+    losses = launch.main(["--arch", arch, "--smoke", "--steps", "5",
+                          "--batch", "32", "--seq", "32", "--lr", "5",
+                          "--device", "cpu", "--log-every", "1"])
+    assert len(losses) == 5 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+    assert _build.LAUNCHES.snapshot() == {}
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "2x1"], "item 4"),
     (["--mode", "manual"], "item 4"),

@@ -206,6 +206,30 @@ def _k7_rg(cs, dev):
     return lambda: k78.flash_fwd(q, k, v, causal=True, window=w), 5
 
 
+def _k7_granite(cs, dev):
+    """K7 at granite-moe-3b-a800m's prefill: ``RUN.lm_batch`` x (Hq 24,
+    Hkv 8, D 64), S ``RUN.attn_seq``, causal, as ``chip_smoke.py`` times it
+    under ``shapes`` (its case (d))."""
+    import torch
+    from repro_torch.kernels import flash_attention as k78
+    hq, hkv, d = cs.granite_attn_shape(cs.RUN)
+    b = cs.RUN.lm_batch
+    q, k, v = cs.randn_heads(torch.Generator().manual_seed(7), dev,
+                             (b * hq, b * hkv, b * hkv), cs.RUN.attn_seq, d,
+                             torch.bfloat16)
+    return lambda: k78.flash_fwd(q, k, v, causal=True), 5
+
+
+def _k8_granite(cs, dev):
+    """K8 at granite-moe-3b-a800m's training shape (batch 1), causal."""
+    import torch
+    from repro_torch.kernels import flash_attention as k78
+    hq, hkv, d = cs.granite_attn_shape(cs.RUN)
+    ins = cs.flash_bwd_inputs(torch.Generator().manual_seed(8), dev, hq, hkv,
+                              cs.RUN.attn_seq, d, torch.bfloat16)
+    return lambda: k78.flash_bwd(*ins, causal=True), 5
+
+
 def _k8_rg(cs, dev, waves=None):
     """K8 at recurrentgemma-9b's training shape (batch 1), window 2048;
     with ``waves``, the dk/dv grid split for that many blocks an SM in
@@ -263,8 +287,9 @@ def parts_ms(fn, calls: int = 10) -> dict:
 #: training shape, and K8 at the LM training shape (a), K7 and K8 at
 #: recurrentgemma-9b's windowed D 256 prefill and training shapes (b)
 #: (each K8 case also split by launch, :data:`PARTS`; the ``waves`` cases
-#: split the dk/dv grid for 1 or 4 blocks an SM instead of 2); then the
-#: shapes of
+#: split the dk/dv grid for 1 or 4 blocks an SM instead of 2), K7 and K8
+#: at granite-moe-3b-a800m's D 64 prefill and training shapes (c); then
+#: the shapes of
 #: DCN, WDL and DeepFM: K1 and K3 at full-vocabulary wdl-criteo's ``dist``
 #: group (D 16) and its wide twins (D 1) (``wdl_training_rows``), and the
 #: served pooled read and the cache query at D 16 and D 1; then NeuMF's:
@@ -296,6 +321,8 @@ CASES = {
     "flash_bwd (b)": _k8_rg,
     **{f"flash_bwd (b) waves {n}":
        (lambda n: lambda cs, dev: _k8_rg(cs, dev, n))(n) for n in (1, 4)},
+    "flash_fwd (c)": _k7_granite,
+    "flash_bwd (c)": _k8_granite,
     "lookup_fwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, False),
     "lookup_fwd wdl wide": lambda cs, dev: _wdl(cs, dev, 1, False),
     "lookup_bwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, True),
@@ -340,7 +367,7 @@ CASES = {
 
 #: the cases whose device time is also given kernel by kernel
 #: (:func:`parts_ms`)
-PARTS = ("flash_bwd (a)", "flash_bwd (b)")
+PARTS = ("flash_bwd (a)", "flash_bwd (b)", "flash_bwd (c)")
 
 
 def main() -> int:
