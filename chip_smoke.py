@@ -209,10 +209,12 @@ Phases, in order; any failure exits non-zero:
    routed to other experts on the kernels than on the plain path; the
    decode replay on its copy whose capacity factor drops nothing (at the
    published one a decode step routes only the batch's 2 tokens, and
-   drops what prefill keeps, by the reference's own semantics), 32 greedy
-   tokens at the published factor and the assignments a decode step
-   drops; then phase 10's check at depth 2 and phase 11's SGD steps at
-   full depth (K1 1, K3 1, K7 32, K8 64 launches a step).
+   drops what prefill keeps, by the reference's own semantics), held as
+   recurrentgemma's at full depth (correlation, and an f32 replay on the
+   plain path) and at 5 layers to the reference's bf16 bound on both
+   paths, 32 greedy tokens at the published factor and the assignments a
+   decode step drops; then phase 10's check at depth 2 and phase 11's SGD
+   steps at full depth (K1 1, K3 1, K7 32, K8 64 launches a step).
 16. xLSTM: full-width, full-depth ``xlstm-125m`` (12 layers of mLSTM and
    sLSTM, d 768, 4 heads) as phases 9-11 at sequence ``RUN.xlstm_seq``
    (the recurrences run as Python loops over the time steps, about 270
@@ -269,6 +271,7 @@ REMAT_TOL = 1e-6
 #: the run: vocabulary cap per table (the one cut), L1 rows per table,
 #: request batch, warm-up and measured requests, seed; training batch,
 #: warm-up and timed steps, steps on the plain versions, learning rate;
+#: the attention kernels' sequences (timed, odd, D 64 edges, K8's local);
 #: the LM phases' archs, sequences, timed calls and cut depths (xLSTM's
 #: sequence and timed calls cut for time: its recurrences run as Python
 #: loops, about 270 launches a token forward, and its profiled calls run
@@ -286,6 +289,7 @@ RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             plain_steps=3, lr=1e-3, recipe_timed_steps=4,
                             recipe_lr=3e-4,
                             attn_seq=4096, attn_odd_seq=1000,
+                            attn_edge_seq=700,
                             lm_arch="minitron-4b", lm_batch=2, lm_seq=4096,
                             lm_timed=5, prompt=64, decode_steps=32,
                             attn_bwd_local_seq=2500, lm_train_batch=1,
@@ -317,6 +321,11 @@ LM_LOGIT_TOL = 5e-2
 #: plain version keeps f32: each row's relative error stays a few bf16
 #: rounding steps), f32 within 1e-4 (the f32 sum-order bound)
 ATTN_BWD_TOL_F32 = 1e-4
+#: the share (%) of granite-moe-3b-a800m's prefill routing decisions
+#: (tokens x layers) that went to other experts on the kernels than on the
+#: plain path when K7 ran D 64 on mma.sync: exact bf16 ties in the router
+#: logits flip on K7's bf16 p; printed beside this run's share, not held
+ROUTING_FLIPS_MMA_SYNC = 8.9
 #: the depth-2 full-width model on the kernels against the plain path:
 #: relative loss, and per parameter the relative L2 error and the cosine of
 #: the gradients (bf16 compute: K7 and K8 round p and ds to bf16, the plain
@@ -325,8 +334,11 @@ ATTN_BWD_TOL_F32 = 1e-4
 LM_GRAD_TOL = types.SimpleNamespace(loss_rel=1e-3, rel=5e-2, cos=0.999)
 #: decode against prefill: the reference's bound for the same check
 #: (tests/test_models_smoke.py::test_decode_matches_prefill, a 5-layer
-#: model); holds minitron at full depth and recurrentgemma's full-width
-#: 5-layer copy on both paths (``decode_depths``)
+#: model); holds minitron at full depth and the full-width 5-layer copies
+#: of recurrentgemma and granite on both paths (``decode_depths``). At
+#: granite's full 32 layers bf16 routing ties make it a coin flip (seeds
+#: 0-3 on the card: the plain path misses it at seed 0, K7 on mma.sync at
+#: seed 3), so that replay is held as recurrentgemma's 38-layer one is
 DECODE_TOL = types.SimpleNamespace(rtol=0.1, atol=0.15, corr=0.99)
 #: decode against prefill in f32 on the plain path, relative to the largest
 #: |logit|: the same function summed in another order. Checks the decode
@@ -1093,12 +1105,13 @@ def randn_heads(g, dev, heads, s: int, d: int, dtype) -> list:
 
 
 def flash_bwd_inputs(g, dev, bh: int, bkv: int, s: int, d: int, dtype,
-                     window=None) -> tuple:
-    """K8's inputs: random ``q, k, v, do`` and K7's own causal ``o`` and
-    ``lse`` for them -> ``(q, k, v, o, lse, do)``."""
+                     window=None, causal=True) -> tuple:
+    """K8's inputs: random ``q, k, v, do`` and K7's own ``o`` and ``lse``
+    for them (causal unless told otherwise) -> ``(q, k, v, o, lse,
+    do)``."""
     from repro_torch.kernels import flash_attention as k78
     q, k, v, do = randn_heads(g, dev, (bh, bkv, bkv, bh), s, d, dtype)
-    o, lse = k78.flash_fwd(q, k, v, causal=True, window=window)
+    o, lse = k78.flash_fwd(q, k, v, causal=causal, window=window)
     return q, k, v, o, lse, do
 
 
@@ -1136,9 +1149,11 @@ def attention_kernel(args, record, shape_line, g, dev):
     """K7 against its plain version at (a) minitron-4b's prefill shape
     (timed), (b) recurrentgemma's local attention at its prefill shape
     (timed, under the kernel's ``shapes``, with ``sdpa`` and the windowed
-    mask as the yardstick), (c) an odd f32 length with GQA and (d)
+    mask as the yardstick), (c) an odd f32 length with GQA, (d)
     granite-moe-3b-a800m's prefill at D 64 (timed under ``shapes``, with
-    ``sdpa`` as the yardstick)."""
+    ``sdpa`` as the yardstick) and two edges of the D 64 route at
+    ``attn_edge_seq``: MHA without the causal mask (an encoder's
+    self-attention) and g = 2 with a window no tile divides."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k7
@@ -1147,12 +1162,12 @@ def attention_kernel(args, record, shape_line, g, dev):
     def qkv(bh, bkv, s, d, dtype):
         return randn_heads(g, dev, (bh, bkv, bkv), s, d, dtype)
 
-    def held(case, q, k, v, dtype, window=None):
-        o, lse = k7.flash_fwd(q, k, v, causal=True, window=window)
-        o2, lse2 = k7.flash_fwd(q, k, v, causal=True, window=window)
+    def held(case, q, k, v, dtype, window=None, causal=True):
+        o, lse = k7.flash_fwd(q, k, v, causal=causal, window=window)
+        o2, lse2 = k7.flash_fwd(q, k, v, causal=causal, window=window)
         check(torch.equal(o, o2) and torch.equal(lse, lse2),
               f"flash_fwd {case}: two launches differ")
-        po, plse = flash_attention_ref(q, k, v, causal=True, window=window)
+        po, plse = flash_attention_ref(q, k, v, causal=causal, window=window)
         err_o = (o.float() - po.float()).abs().max().item()
         err_l = (lse - plse).abs().max().item()
         tol_o, tol_l = ATTN_TOL[dtype]
@@ -1160,7 +1175,8 @@ def attention_kernel(args, record, shape_line, g, dev):
               f"flash_fwd {case}: max abs err o {err_o}, lse {err_l} (bounds "
               f"{tol_o}, {tol_l})")
         print(f"flash_fwd {case}: q {list(q.shape)} k/v {list(k.shape)} "
-              f"{dtype}, window {window}: max abs err o {err_o:.3g} (bound "
+              f"{dtype}, causal {causal}, window {window}: max abs err o "
+              f"{err_o:.3g} (bound "
               f"{tol_o}), lse {err_l:.3g} (bound {tol_l}); two launches "
               "bit-identical")
         return o, po
@@ -1190,8 +1206,15 @@ def attention_kernel(args, record, shape_line, g, dev):
     del q, k, v, o, po, q4, k4, v4
     # (c) an odd length in f32 with GQA g = 2
     held("(c)", *qkv(8, 4, args.attn_odd_seq, 64, torch.float32), "f32")
+    # the D 64 route's edges: an encoder's self-attention (MHA, no causal
+    # mask), then g = 2 with a window that no tile divides
+    e = args.attn_edge_seq
+    held("(d) g=1 non-causal", *qkv(4, 4, e, 64, torch.bfloat16), "bf16",
+         causal=False)
+    held("(d) g=2 window 300", *qkv(4, 2, e, 64, torch.bfloat16), "bf16",
+         window=300)
     # (d) granite-moe-3b-a800m prefill: B 2, Hq 24, Hkv 8, D 64, S 4096,
-    # causal (the mma.sync route: D 64 has no wgmma kernel)
+    # causal (the wgmma route of D 64)
     hq, hkv, d = granite_attn_shape(args)
     q, k, v = qkv(b * hq, b * hkv, s, d, torch.bfloat16)
     o, po = held("(d)", q, k, v, "bf16")
@@ -1232,9 +1255,9 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
     recurrentgemma's local attention at an S no tile divides and at its
     training shape (timed, under the kernel's ``shapes``, with ``sdpa``'s
     backward under the windowed mask as the yardstick), (c) an odd f32
-    length with GQA and (d) granite-moe-3b-a800m's training shape at D 64
-    (timed under ``shapes``, with ``sdpa``'s backward as the
-    yardstick)."""
+    length with GQA, (d) granite-moe-3b-a800m's training shape at D 64
+    (timed under ``shapes``, with ``sdpa``'s backward as the yardstick)
+    and K7's two D 64 edges at ``attn_edge_seq``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k78
@@ -1242,13 +1265,13 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
                                          flash_attention_bwd_ref,
                                          grad_row_error)
 
-    def inputs(bh, bkv, s, d, dtype, window=None):
-        return flash_bwd_inputs(g, dev, bh, bkv, s, d, dtype, window)
+    def inputs(bh, bkv, s, d, dtype, window=None, causal=True):
+        return flash_bwd_inputs(g, dev, bh, bkv, s, d, dtype, window, causal)
 
-    def held(case, ins, dtype, window=None):
-        got = k78.flash_bwd(*ins, causal=True, window=window)
-        again = k78.flash_bwd(*ins, causal=True, window=window)
-        want = flash_attention_bwd_ref(*ins, causal=True, window=window)
+    def held(case, ins, dtype, window=None, causal=True):
+        got = k78.flash_bwd(*ins, causal=causal, window=window)
+        again = k78.flash_bwd(*ins, causal=causal, window=window)
+        want = flash_attention_bwd_ref(*ins, causal=causal, window=window)
         errs = []
         for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
             check(torch.equal(x, y), f"flash_bwd {case} {name}: two "
@@ -1274,7 +1297,8 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
                         f"of its limit")
         q, k = ins[0], ins[1]
         print(f"flash_bwd {case}: q/o/do {list(q.shape)} k/v "
-              f"{list(k.shape)} {dtype}, window {window}: max abs err "
+              f"{list(k.shape)} {dtype}, causal {causal}, window {window}: "
+              "max abs err "
               + ", ".join(errs) + "; two launches bit-identical")
         return (torch.cat([x.float().flatten() for x in got]),
                 torch.cat([x.float().flatten() for x in want]))
@@ -1313,6 +1337,12 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
     del ins, q, k, v, o, lse, do, q4, k4, v4
     # (c) an odd length in f32 with GQA g = 2
     held("(c)", inputs(8, 4, args.attn_odd_seq, 64, torch.float32), "f32")
+    # the D 64 route's edges, as K7's
+    e = args.attn_edge_seq
+    held("(d) g=1 non-causal", inputs(4, 4, e, 64, torch.bfloat16,
+                                      causal=False), "bf16", causal=False)
+    held("(d) g=2 window 300", inputs(4, 2, e, 64, torch.bfloat16, 300),
+         "bf16", window=300)
     # (d) granite-moe-3b-a800m training: B 1, Hq 24, Hkv 8, D 64, S 4096
     (gq, gkv, gd), s = granite_attn_shape(args), args.attn_seq
     ins = inputs(gq, gkv, s, gd, torch.bfloat16)
@@ -3368,8 +3398,11 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False, cut: str = "",
                         f"{k_routes.routed} assignments dropped (capacity "
                         f"{sorted(k_routes.capacity)} a bucket, factor "
                         f"{cfg.moe.capacity_factor}), {flips} of "
-                        f"{decisions} tokens x layers with other experts "
-                        "on the kernels than on the plain path")
+                        f"{decisions} tokens x layers "
+                        f"({100 * flips / decisions:.1f}%; "
+                        f"{ROUTING_FLIPS_MMA_SYNC}% with K7 on mma.sync) with "
+                        "other experts on the kernels than on the plain "
+                        "path")
             del k_routes, p_routes
         check(err <= LM_LOGIT_TOL * top, f"prefill logits deviate {err} "
               f"from the plain path (bound {LM_LOGIT_TOL} x {top})"
@@ -3416,7 +3449,7 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False, cut: str = "",
             notes = ("; bf16 bound held" if close else
                         "; bf16 bound not held (not checked at this "
                         "depth)") + "; " + f32_decode_check(
-                            dev, cfg, params, prompt)
+                            dev, replay.cfg, params, prompt) + notes
         tok = step.argmax(-1, keepdim=True)
         ms = []
         for i in range(args.decode_steps):
@@ -3975,11 +4008,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 15. granite-moe-3b-a800m: serve at full width and depth, the kernels
-    # against the plain path at depth 2, then train at full depth
+    # 15. granite-moe-3b-a800m: serve at full width and depth (the decode
+    # replay held as recurrentgemma's, and a 5-layer copy to the bf16
+    # bound), the kernels against the plain path at depth 2, then train at
+    # full depth
     g_cfg = get_lm_config(args.granite_arch)
-    for k, n in lm_phase(args, dev, g_cfg).items():
+    for k, n in lm_phase(args, dev, g_cfg, f32_replay=True).items():
         total[k] = total.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_depths(args, dev, no_drop(g_cfg), (5,))
     gc.collect()
     torch.cuda.empty_cache()
     lm_grad_check(args, dev, g_cfg, args.lm_check_layers)

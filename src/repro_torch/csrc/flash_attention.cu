@@ -23,9 +23,21 @@
 // each: 0.04 ms at 3.35 TB/s) for 2.06e11 flops of the two products (0.21
 // ms at the 989 TFLOP/s bf16 tensor-core peak); at recurrentgemma-9b's
 // (q [32, 4096, 256], k/v [2, 4096, 256], window 2048) 143 MB (0.04 ms)
-// for the same 2.06e11 flops of the window's band (0.2085 ms).
+// for the same 2.06e11 flops of the window's band (0.2085 ms). At
+// granite-moe-3b-a800m's (q [48, 4096, 64], k/v [16, 4096, 64], causal)
+// 1.03e11 flops (0.104 ms), and beside them the softmax's 4.03e8 ex2, one
+// a score of the causal band: at 16 results a clock an SM on the special-
+// function units, about 0.096 ms. At D = 64 the exponentials cost about as
+// much as the products (at D = 128 half as much), so a warpgroup that runs
+// its softmax and then its products in turn is held near their sum; the D
+// = 64 kernel runs one warpgroup's softmax under the others' products.
 //
-// Four kernels:
+// Five kernels:
+// * bf16 at D = 64, flash_fwd_wgmma64_kernel (namespace wg64, below): three
+//   consumer warpgroups of 64 queries each and a producer warpgroup that
+//   streams 128-key K and V tiles to all three through a TMA ring; Q in
+//   shared memory; registers 128 a thread at launch, 160 for each
+//   consumer thread (setmaxnreg), shared memory 153 KB (one block an SM).
 // * bf16 at D = 128, flash_fwd_wgmma_kernel (namespace wg, below): one
 //   warpgroup, Q in registers, K and V through a two-stage TMA ring,
 //   wgmma products.
@@ -34,15 +46,15 @@
 //   producer warpgroup that feeds both through a TMA ring; registers
 //   168 a thread at launch, 240 for each consumer thread (setmaxnreg),
 //   shared memory 193 KB (one block an SM).
-// * flash_fwd_mma_kernel (bf16 at D 16-96): 4 warps, a 64-query tile (16
-//   rows a warp), 64-key tiles. Q, K and V are copied row-major into shared
-//   memory with 16-byte cp.async (rows padded by 8 elements, so the eight
-//   rows an ldmatrix reads fall on 32 distinct banks); the fragments come
-//   through ldmatrix (.trans for V, whose B operand runs along the key
-//   axis), and S = Q K^T and O += P V run on the tensor cores as
-//   mma.sync.m16n8k16 bf16 -> f32. The S accumulator's layout is the A
-//   operand's layout of the PV product, so P goes from registers to the
-//   tensor cores without touching shared memory (the FlashAttention-2
+// * flash_fwd_mma_kernel (bf16 at D 16, 32 and 96): 4 warps, a 64-query
+//   tile (16 rows a warp), 64-key tiles. Q, K and V are copied row-major
+//   into shared memory with 16-byte cp.async (rows padded by 8 elements,
+//   so the eight rows an ldmatrix reads fall on 32 distinct banks); the
+//   fragments come through ldmatrix (.trans for V, whose B operand runs
+//   along the key axis), and S = Q K^T and O += P V run on the tensor
+//   cores as mma.sync.m16n8k16 bf16 -> f32. The S accumulator's layout is
+//   the A operand's layout of the PV product, so P goes from registers to
+//   the tensor cores without touching shared memory (the FlashAttention-2
 //   arrangement). No multi-stage pipeline, TMA or wgmma: each key tile is
 //   copied, then used, with two __syncthreads a tile; the other blocks on
 //   the SM overlap one block's copies.
@@ -750,6 +762,289 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace wg256
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 64 on wgmma: two consumer warpgroups and a producer
+// ---------------------------------------------------------------------------
+
+namespace wg64 {
+
+using hopper::ex2;
+using hopper::wg::aligned_shared;
+using hopper::wg::kmajor;
+using hopper::wg::load_rows;
+using hopper::wg::mnmajor;
+using wg::kLn2;
+
+constexpr int kD = 64;
+constexpr int kWgs = 3;                             // consumer warpgroups
+constexpr int kBq = 64 * kWgs;                      // queries a block: 192
+constexpr int kBk = 128;                            // keys a streamed tile
+constexpr int kQBytes = 64 * 128;                   // a warpgroup's Q tile
+constexpr int kKvBytes = kBk * 128;                 // [128, 64] swizzled: 16 KB
+constexpr int kConsumers = 128 * kWgs;
+constexpr int kThreads64 = kConsumers + 128;        // and the producer
+// launched at 128 registers a thread (512 threads): the producer drops to
+// 24, which frees 32 more for each consumer thread
+constexpr int kProducerRegs = 24, kConsumerRegs = 160;
+constexpr int kStages = 4;                          // the copy ring of K, V
+constexpr size_t kSmem = 1024 + kWgs * kQBytes + kStages * 2 * kKvBytes +
+                         128;                       // 153 KB
+
+// One block per (query head, 192-query tile): each of three consumer
+// warpgroups owns 64 of the queries, with its Q tile in shared memory, and
+// all three share the band's 128-key K and V tiles, which the producer
+// warpgroup streams through a ring of kStages stages (a stage is refilled
+// once all consumer threads have released it). S = Q K^T is one m64n128k16
+// product over D (4 k steps, both operands K-major in shared memory), O +=
+// P V eight m64n64k16 steps with P from S's registers and V read MN-major.
+// At D = 64 the ex2 of the softmax costs about as much as the two products,
+// so the products of one warpgroup have to run under the softmax of
+// another: a warpgroup issues tile j's S and tile j - 1's PV together,
+// waits for both, then runs tile j's softmax, rescales O and converts P,
+// while the other two warpgroups' products occupy the tensor cores. (A
+// warpgroup that also overlaps its own softmax with its PV, two warpgroups
+// with Q in registers, explicit ping-pong turns and a second S buffer were
+// each slower on the H100.) Three warpgroups need Q out of the
+// registers: 64 of S, 32 of P and 32 of O fit the 160 a consumer gets. A
+// warpgroup walks only the key tiles its own queries see, and releases the
+// others untouched. Masking and the online softmax are the D = 128
+// kernel's.
+__global__ void __launch_bounds__(kThreads64, 1)
+    flash_fwd_wgmma64_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, int s, int group,
+                             int causal, int window, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = aligned_shared(smem_raw);     // Q a warpgroup
+  unsigned char* ring = qs + kWgs * kQBytes;        // K, V a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 *
+                                               kKvBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_bar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // heads fastest: the last query tiles of every head, which visit the
+  // most causal key tiles, start first
+  const int nq = (s + kBq - 1) / kBq;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kBq;
+  const int bh = blockIdx.x;
+  int t0, t1;
+  key_tiles(q0, min(q0 + kBq, s), s, kBk, causal, window, &t0, &t1);
+  const int items = t1 - t0;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, kConsumers);
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {             // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      const int hk = bh / group;
+      hopper::mbar_expect_tx(q_bar, kWgs * kQBytes);
+      for (int w = 0; w < kWgs; ++w) {
+        load_rows<1>(qs + w * kQBytes, &tq, q_bar, q0 + 64 * w, bh);
+      }
+      for (int i = 0; i < items; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) hopper::mbar_wait(empty + st, (i / kStages - 1) & 1);
+        unsigned char* ks = ring + st * 2 * kKvBytes;
+        const int k0 = (t0 + i) * kBk;
+        hopper::mbar_expect_tx(full + st, 2 * kKvBytes);
+        load_rows<1>(ks, &tk, full + st, k0, hk);         // 128-row boxes
+        load_rows<1>(ks + kKvBytes, &tv, full + st, k0, hk);
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  // the warpgroup's index, read from lane 0 so that the compiler knows it
+  // is the same in every thread of a warp: the branches that depend on it
+  // (the warpgroup's range of items, its masks) then do not count as
+  // divergent, and ptxas keeps the wgmma products asynchronous rather than
+  // serialising them
+  const int wgi = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + 64 * wgi;                    // this warpgroup's queries
+  const int qrow = qw0 + (warp & 3) * 16 + g;       // queries qrow, qrow + 8
+  // the block's items [a, b) that this warpgroup's queries see
+  int a = 0, b = 0;
+  if (qw0 < s) {
+    int w0, w1;
+    key_tiles(qw0, min(qw0 + 64, s), s, kBk, causal, window, &w0, &w1);
+    a = w0 - t0;
+    b = w1 - t0;
+  }
+  const unsigned char* qt = qs + wgi * kQBytes;
+  hopper::mbar_wait(q_bar, 0);
+  // the keys [lo, hi] each of this thread's two rows sees (visible()), and
+  // the keys [wlo, whi] every row of the warpgroup sees: a key tile inside
+  // the latter needs no mask
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    hi[r] = causal ? min(qrow + 8 * r, s - 1) : s - 1;
+    lo[r] = window > 0 ? qrow + 8 * r - window + 1 : 0;
+  }
+  const int whi = causal ? min(qw0, s - 1) : s - 1;
+  const int wlo = window > 0 ? qw0 + 64 - window : 0;
+
+  float sc[64];           // S of the newest tile, then its f32 p
+  uint32_t pa[8][4];      // p of the tile before, the PV product's A
+  float acc[32];          // O
+  float m_run[2] = {kMasked, kMasked};
+  float l_run[2] = {0.f, 0.f};   // this thread's columns only; summed over
+                                 // the quad at the end
+  float corr[2];
+  auto stage = [&](int i) { return ring + (i % kStages) * 2 * kKvBytes; };
+  auto release = [&](int i) { hopper::mbar_arrive(empty + i % kStages); };
+  auto issue_s = [&](int i) {                       // S = Q K^T of item i
+    const unsigned char* ks = stage(i);
+    hopper::mbar_wait(full + i % kStages, (i / kStages) & 1);
+    hopper::wgmma_fence();
+    hopper::wgmma_m64n128k16_ss_z(sc, kmajor(qt, 0), kmajor(ks, 0));
+#pragma unroll
+    for (int kk = 1; kk < kD / 16; ++kk) {
+      hopper::wgmma_m64n128k16_ss(sc, kmajor(qt, kk), kmajor(ks, kk), 1);
+    }
+    hopper::wgmma_commit();
+  };
+  auto issue_pv = [&](int i) {                      // O += P V of item i
+    const unsigned char* vs = stage(i) + kKvBytes;
+    hopper::fence_regs(pa);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk) {
+      hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk], mnmajor(vs, kk), 1);
+    }
+    hopper::wgmma_commit();
+  };
+  // mask (only a tile that crosses the diagonal, the window's lower edge or
+  // the ragged tail needs one), the running max of the raw scores over the
+  // quad that shares a row, then p = 2^(s c - m c), c = scale log2e, one
+  // FMA and one ex2 a score (0 where masked), and l from the f32 p
+  auto softmax = [&](int i) {
+    const int k0 = (t0 + i) * kBk;
+    if (k0 < wlo || k0 + kBk - 1 > whi) {
+#pragma unroll
+      for (int x = 0; x < 64; ++x) {
+        const int r = (x >> 1) & 1;
+        const int key = k0 + (x >> 2) * 8 + 2 * t + (x & 1);
+        sc[x] = (key >= lo[r]) & (key <= hi[r]) ? sc[x] : -INFINITY;
+      }
+    }
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int x = 0; x < 64; ++x) {
+      mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], sc[x]);
+    }
+    float mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2((m_run[r] - mx[r]) * scale_log2);
+      m_run[r] = mx[r];
+      mc[r] = mx[r] * scale_log2;
+      l_run[r] *= corr[r];
+    }
+#pragma unroll
+    for (int x = 0; x < 64; ++x) {
+      const int r = (x >> 1) & 1;
+      sc[x] = ex2(fmaf(sc[x], scale_log2, -mc[r]));
+      l_run[r] += sc[x];
+    }
+  };
+
+  for (int i = 0; i < a; ++i) {              // tiles only the other sees
+    hopper::mbar_wait(full + i % kStages, (i / kStages) & 1);
+    release(i);
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+  if (a < b) {
+    issue_s(a);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    softmax(a);                              // O is 0: nothing to rescale
+    hopper::acc_to_a128(pa, sc);
+    // tile i's S and tile i - 1's PV go to the tensor cores together and
+    // are waited for together; one warpgroup's softmax runs under the
+    // others' products
+    for (int i = a + 1; i < b; ++i) {
+      issue_s(i);
+      issue_pv(i - 1);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      release(i - 1);
+      softmax(i);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) acc[x] *= corr[(x >> 1) & 1];
+      hopper::acc_to_a128(pa, sc);
+    }
+    issue_pv(b - 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pa);
+    release(b - 1);
+  }
+  for (int i = b; i < items; ++i) {
+    hopper::mbar_wait(full + i % kStages, (i / kStages) & 1);
+    release(i);
+  }
+
+  const int64_t qoff = static_cast<int64_t>(bh) * s * kD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    const int row = qrow + r * 8;
+    if (row >= s) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    __nv_bfloat16* out = o + qoff + static_cast<int64_t>(row) * kD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out + j * 8) =
+          pack_bf16(acc[4 * j + 2 * r] / l, acc[4 * j + 2 * r + 1] / l);
+    }
+    if (t == 0) {
+      lse[static_cast<int64_t>(bh) * s + row] =
+          m_run[r] * scale_log2 * kLn2 + logf(l);
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           long long bh, int group, int s, int causal, int window,
+           float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int rc = hopper::tensor_map_bf16(&tq, q, kD, s, bh, 64);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tk, k, kD, s, bh / group, kBk);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, s, bh / group, kBk);
+  if (rc == 0) rc = set_smem(flash_fwd_wgmma64_kernel, kSmem);
+  if (rc != 0) return rc;
+  const dim3 grid(static_cast<unsigned>(bh), (s + kBq - 1) / kBq);
+  flash_fwd_wgmma64_kernel<<<grid, kThreads64, kSmem, stream>>>(
+      tq, tk, tv,
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, group,
+      causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg64
+
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                void* lse, long long bh, int group, int s, int causal,
@@ -792,6 +1087,9 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
     } else if constexpr (D == wg256::kD) {
       return wg256::launch(q, k, v, o, lse, bh, group, s, causal, window,
                            scale, stream);
+    } else if constexpr (D == wg64::kD) {
+      return wg64::launch(q, k, v, o, lse, bh, group, s, causal, window,
+                          scale, stream);
     } else {
       return launch_mma<D>(q, k, v, o, lse, bh, group, s, causal, window,
                            scale, stream);

@@ -23,11 +23,12 @@
 //   no atomics, the same bits on every run.
 //
 // Semantics, as the TPU kernels: D = rowsum(do * o) in f32 (a small kernel
-// that the dq entry point launches first; the JAX package computes it
-// outside its kernels); p = exp(s * scale - lse) with s in f32 and 0 where
-// masked; ds = p (dp - D) scale in f32; p and ds are rounded to the inputs'
-// type (bf16, the tensor cores' operand) before their products, as the TPU
-// kernel's astype does; accumulation in f32; outputs in the inputs' type.
+// that the dq entry point launches first, or at D = 64 in bf16 the dq
+// kernel itself; the JAX package computes it outside its kernels); p =
+// exp(s * scale - lse) with s in f32 and 0 where masked; ds = p (dp - D)
+// scale in f32; p and ds are rounded to the inputs' type (bf16, the tensor
+// cores' operand) before their products, as the TPU kernel's astype does;
+// accumulation in f32; outputs in the inputs' type.
 // lse is K7's: the natural log of the sum of exp of the *scaled* scores,
 // m + log(max(l, 1e-30)), so exp(s * scale - lse) is the forward's
 // normalised p.
@@ -39,9 +40,12 @@
 // at recurrentgemma-9b's (q/o/do [16, 4096, 256], k/v [1, 4096, 256],
 // window 2048) five products of the band, 2.58e11 flop (0.2606 ms), against
 // 143 MB (0.04 ms). The two-kernel split recomputes S and dP in the dq
-// kernel: seven products.
+// kernel: seven products. At granite-moe-3b-a800m's (q/o/do [24, 4096,
+// 64], k/v [8, 4096, 64], causal) the five products are 1.29e11 flop
+// (0.130 ms) and each kernel's p another 2.0e8 ex2 (~0.048 ms on the
+// special-function units), as much as a third of its products' time.
 //
-// bf16 at D = 128 and D = 256 runs on Hopper's warpgroup products
+// bf16 at D = 64, 128 and 256 runs on Hopper's warpgroup products
 // (hopper_common.cuh), each kernel fed by a ring of TMA tile loads that
 // complete on mbarriers: while a warpgroup computes on one stage, the next
 // tile is in flight into another. Operands sit in 128-byte-swizzled shared
@@ -90,7 +94,29 @@
 //   as soon as dP is done); S and dP as SS m64n64k16, dQ += dS K as RS
 //   m64n256k16.
 //
-// bf16 at D 16-96 keeps the mma.sync kernels (K7's pieces from
+// At D = 64 (granite's attention) each consumer warpgroup owns 64 rows of
+// a block, a producer warpgroup streams the other operands through a
+// 4-stage TMA ring (24 registers, setmaxnreg), and one warpgroup's
+// exponentials run under the others' products:
+// * dk/dv: one block per (KV head, 128-key tile), two consumer warpgroups
+//   (240 registers a thread); a warpgroup keeps its K and V in registers
+//   (the A operands of S^T and dP^T) and its dK, dV accumulators (32 + 32
+//   f32); the items, (64-query tile, query head) in that order, stream Q,
+//   dO, lse and D. No grid split: 256 blocks at granite's shape.
+// * dq: one block per (query head, 192-query tile), three consumer
+//   warpgroups (160 registers a thread) with their Q and dO tiles in shared
+//   memory; a warpgroup computes D = rowsum(do * o) of its rows itself (and
+//   writes it for dk/dv, so no D kernel runs), and the band's 64-key K and
+//   V tiles stream.
+// ptxas serialises wgmma products it cannot prove safe to overlap (its
+// C7514-C7520 notes): a branch on the warpgroup's index, read from
+// threadIdx, counts as divergent unless the index comes through a shuffle
+// from lane 0, and an accumulator that plain instructions write or read
+// while a product is in flight counts too; so the first k step of each
+// product writes its accumulator (scale-d false, an output-only asm) and
+// a warpgroup waits for all its products before its elementwise work.
+//
+// bf16 at D 16, 32 and 96 keeps the mma.sync kernels (K7's pieces from
 // flash_common.cuh: 16-byte cp.async staging of row-major tiles, ldmatrix,
 // mma.sync.m16n8k16, one stage, no overlap of copies with products); the
 // dq kernel there has one block per (query head, 64-query tile) and the
@@ -1373,6 +1399,509 @@ __global__ void __launch_bounds__(kThreads256, 1)
 }  // namespace wg256
 
 // ---------------------------------------------------------------------------
+// bf16 at D = 64 on wgmma: two consumer warpgroups and a producer
+// ---------------------------------------------------------------------------
+
+namespace wg64 {
+
+using hopper::ex2;
+using hopper::wg::aligned_shared;
+using hopper::wg::kmajor;
+using hopper::wg::load_rows;
+using hopper::wg::mnmajor;
+
+constexpr int kD = 64;
+constexpr int kTileBytes = hopper::wg::tile_bytes<1>();   // [64, 64]: 8 KB
+constexpr int kBlock = 128;            // keys a dk/dv block
+constexpr int kConsumers = 256;        // dk/dv's two consumer warpgroups
+constexpr int kThreads64 = kConsumers + 128;        // and the producer
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+// ---- dk/dv: one block per (128-key tile, KV head)
+
+constexpr int kDkvStages = 4;            // the copy ring of Q, dO, lse, D
+// Q, dO, then lse and D (64 f32 each), padded so that every stage's tiles
+// start on a 1024-byte boundary
+constexpr int kDkvStage = 2 * kTileBytes + 1024;
+constexpr size_t kDkvSmem = 1024 + kDkvStages * kDkvStage + 64;   // 69 KB
+
+// Each consumer warpgroup owns 64 of the block's keys: its K and V stay in
+// registers as the A operands of S^T = K Q^T and dP^T = V dO^T (64 keys x
+// 64 queries, 4 k steps over D each), and its dK and dV accumulators (32 +
+// 32 f32 a thread) with them; that takes about 200 of the 240 registers,
+// so a block has two consumer warpgroups, not three. The producer streams
+// the band's (64-query tile, query head) items, tile by tile and the
+// group's heads in order within a tile, through the ring; both warpgroups
+// read each item. Per item: S^T and dP^T, waited for with the item
+// before's dV and dK, then P^T = exp(S^T scale - lse), dS^T = P^T (dP^T -
+// D) scale, and dV += P^T dO, dK += dS^T Q (dO and Q read MN-major) with
+// the next item's S^T and dP^T queued behind them; the other warpgroup's
+// products run under one's elementwise work. A warpgroup walks only the
+// items its keys see (a prefix or a suffix of the block's) and releases
+// the others untouched. The order of the adds is fixed: no atomics, the
+// same bits on every run.
+__global__ void __launch_bounds__(kThreads64, 1)
+    flash_bwd_dkv_wgmma64_kernel(const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ dcap,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int s, int ls, int group, int causal, int window,
+               float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = aligned_shared(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDkvStages *
+                                               kDkvStage);
+  uint64_t* empty = full + kDkvStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // heads fastest: the first key tiles of every head, which the most
+  // causal query tiles see, start first
+  const int k0 = static_cast<int>(blockIdx.y) * kBlock;
+  const int hk = blockIdx.x;
+  int t0, t1;
+  query_tiles(k0, min(k0 + kBlock, s), s, kTile, causal, window, &t0, &t1);
+  const int items = (t1 - t0) * group;      // (query tile, query head)
+
+  if (tid == 0) {
+    for (int i = 0; i < kDkvStages; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, kConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {             // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      for (int i = 0; i < items; ++i) {
+        const int st = i % kDkvStages;
+        if (i >= kDkvStages) {
+          hopper::mbar_wait(empty + st, (i / kDkvStages - 1) & 1);
+        }
+        unsigned char* stage = ring + st * kDkvStage;
+        const int bh = hk * group + i % group;
+        const int q0 = (t0 + i / group) * kTile;
+        hopper::mbar_expect_tx(full + st, 2 * kTileBytes + 2 * kTile * 4);
+        load_rows<1>(stage, &tq, full + st, q0, bh);
+        load_rows<1>(stage + kTileBytes, &tdo, full + st, q0, bh);
+        const int64_t off = static_cast<int64_t>(bh) * ls + q0;
+        hopper::bulk_load(stage + 2 * kTileBytes, lse + off, kTile * 4,
+                          full + st);
+        hopper::bulk_load(stage + 2 * kTileBytes + kTile * 4, dcap + off,
+                          kTile * 4, full + st);
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  // the warpgroup's index, read from lane 0 so that the compiler knows it
+  // is the same in every thread of a warp: the branches that depend on it
+  // (the warpgroup's range of items, its masks) then do not count as
+  // divergent, and ptxas keeps the wgmma products asynchronous rather than
+  // serialising them
+  const int wgi = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + 64 * wgi;                    // this warpgroup's keys
+  const int krow = kw0 + (warp & 3) * 16 + g;       // keys krow, krow + 8
+  // the block's items [a, b) that this warpgroup's keys see
+  int a = 0, b = 0;
+  if (kw0 < s) {
+    int w0, w1;
+    query_tiles(kw0, min(kw0 + 64, s), s, kTile, causal, window, &w0, &w1);
+    if (w1 > w0) {
+      a = (w0 - t0) * group;
+      b = (w1 - t0) * group;
+    }
+  }
+  const int64_t kvoff = static_cast<int64_t>(hk) * s * kD;
+  uint32_t ka[4][4], va[4][4];
+  hopper::rows_to_a64(ka, k + kvoff, krow, s, t);
+  hopper::rows_to_a64(va, v + kvoff, krow, s, t);
+  const float scale_log2 = scale * kLog2e;
+
+  auto stage = [&](int i) { return ring + (i % kDkvStages) * kDkvStage; };
+  auto release = [&](int i) { hopper::mbar_arrive(empty + i % kDkvStages); };
+  // S^T = K Q^T and dP^T = V dO^T of item i, two commit groups, issued once
+  // the item's stage has landed
+  float sc[32], dp[32];
+  auto first_products = [&](int i) {
+    const unsigned char* qs = stage(i);
+    hopper::mbar_wait(full + i % kDkvStages, (i / kDkvStages) & 1);
+    hopper::wgmma_fence();
+    hopper::wgmma_m64n64k16_rs_z(sc, ka[0], kmajor(qs, 0));
+#pragma unroll
+    for (int kk = 1; kk < kD / 16; ++kk) {
+      hopper::wgmma_m64n64k16_rs(sc, ka[kk], kmajor(qs, kk), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_m64n64k16_rs_z(dp, va[0], kmajor(qs + kTileBytes, 0));
+#pragma unroll
+    for (int kk = 1; kk < kD / 16; ++kk) {
+      hopper::wgmma_m64n64k16_rs(dp, va[kk], kmajor(qs + kTileBytes, kk), 1);
+    }
+    hopper::wgmma_commit();
+  };
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    dk_acc[x] = 0.f;
+    dv_acc[x] = 0.f;
+  }
+  for (int i = 0; i < a; ++i) {              // items only the other sees
+    hopper::mbar_wait(full + i % kDkvStages, (i / kDkvStages) & 1);
+    release(i);
+  }
+  uint32_t pa[4][4], da[4][4];
+  if (a < b) first_products(a);
+  for (int i = a; i < b; ++i) {
+    const unsigned char* qs = stage(i);
+    const unsigned char* dos = qs + kTileBytes;
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * kTileBytes);
+    const float* dc_s = lse_s + kTile;
+    const int q0 = (t0 + i / group) * kTile;
+
+    // item i's S^T and dP^T, and the item before's dV and dK, are done (a
+    // partial wait would leave ptxas to serialise the products, since the
+    // elementwise work reads their accumulators): the other warpgroup's
+    // products run under this one's elementwise work
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    if (i > a) release(i - 1);
+    // P^T = exp(S^T scale - lse) = 2^(s c - lse log2e), c = scale log2e, 0
+    // where masked (only a tile the band does not cover whole needs the
+    // mask), then dS^T = P^T (dP^T - D) scale
+    const bool whole = q0 + kTile <= s && kw0 + 64 <= s &&
+                       (!causal || kw0 + 63 <= q0) &&
+                       (window <= 0 || q0 + kTile - 1 - window < kw0);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int c = (x >> 2) * 8 + 2 * t + (x & 1);
+      sc[x] = ex2(fmaf(sc[x], scale_log2, -lse_s[c] * kLog2e));
+    }
+    if (!whole) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int c = (x >> 2) * 8 + 2 * t + (x & 1);
+        sc[x] = visible_bwd(q0 + c, krow + ((x >> 1) & 1) * 8, s, causal,
+                            window)
+                    ? sc[x]
+                    : 0.f;
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int c = (x >> 2) * 8 + 2 * t + (x & 1);
+      dp[x] = sc[x] * (dp[x] - dc_s[c]) * scale;
+    }
+    hopper::acc_to_a(pa, sc);
+    hopper::acc_to_a(da, dp);
+    // dV += P^T dO and dK += dS^T Q (the queries along k, the streamed
+    // tiles read MN-major), one commit group, then the next item's S^T and
+    // dP^T behind them
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      hopper::wgmma_m64n64k16_rs_tb(dv_acc, pa[kk], mnmajor(dos, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      hopper::wgmma_m64n64k16_rs_tb(dk_acc, da[kk], mnmajor(qs, kk), 1);
+    }
+    hopper::wgmma_commit();
+    if (i + 1 < b) first_products(i + 1);
+  }
+  if (a < b) {
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    release(b - 1);
+  }
+  for (int i = b; i < items; ++i) {
+    hopper::mbar_wait(full + i % kDkvStages, (i / kDkvStages) & 1);
+    release(i);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow + r * 8;
+    if (row >= s) continue;
+    const int64_t off = kvoff + static_cast<int64_t>(row) * kD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + j * 8) =
+          pack_bf16(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + j * 8) =
+          pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ---- dq: one block per (query head, 192-query tile)
+
+constexpr int kDqWgs = 3;                           // consumer warpgroups
+constexpr int kDqBlock = 64 * kDqWgs;               // queries a block
+constexpr int kDqConsumers = 128 * kDqWgs;
+constexpr int kDqThreads = kDqConsumers + 128;      // and the producer
+constexpr int kDqConsumerRegs = 160;  // launched at 128: the producer's 24
+                                      // free 32 more for each consumer
+constexpr int kDqStages = 4;                        // the copy ring of K, V
+constexpr size_t kDqSmem = 1024 + kDqWgs * 2 * kTileBytes +
+                           kDqStages * 2 * kTileBytes + 128;   // 113 KB
+
+// Each of three consumer warpgroups owns 64 of the block's queries, with
+// its Q and dO tiles in shared memory (the A operands of S = Q K^T and dP =
+// dO V^T; in registers they would leave no room for a third warpgroup at
+// 160 registers), and all three share the band's 64-key K and V tiles,
+// which the producer streams through the ring. A warpgroup first computes
+// D = rowsum(do * o) of its rows (and writes it for the dk/dv kernel, so
+// no D kernel runs). Per tile: S and dP (4 k steps each), waited for with
+// the tile before's dQ, then p, dS = p (dP - D) scale and dQ += dS K (K
+// read MN-major), with the next tile's S and dP queued behind dQ; the
+// other warpgroups' products run under one's elementwise work. dq
+// recomputes S and dP rather than taking dS from the dk/dv kernel: no
+// atomics, the same bits on every run.
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_wgmma64_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __nv_bfloat16* __restrict__ o,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, float* __restrict__ dcap,
+              __nv_bfloat16* __restrict__ dq, int s, int ls, int group,
+              int causal, int window, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = aligned_shared(smem_raw);     // Q a warpgroup
+  unsigned char* dos = qs + kDqWgs * kTileBytes;    // dO a warpgroup
+  unsigned char* ring = dos + kDqWgs * kTileBytes;  // K, V a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDqStages * 2 *
+                                               kTileBytes);
+  uint64_t* empty = full + kDqStages;
+  uint64_t* q_bar = empty + kDqStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // heads fastest: the last query tiles of every head, which visit the
+  // most causal key tiles, start first
+  const int nq = (s + kDqBlock - 1) / kDqBlock;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kDqBlock;
+  const int bh = blockIdx.x;
+  int t0, t1;
+  key_tiles(q0, min(q0 + kDqBlock, s), s, kTile, causal, window, &t0, &t1);
+  const int items = t1 - t0;
+
+  if (tid == 0) {
+    for (int i = 0; i < kDqStages; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, kDqConsumers);
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kDqConsumers / 32) {           // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kDqConsumers) {
+      const int hk = bh / group;
+      hopper::mbar_expect_tx(q_bar, 2 * kDqWgs * kTileBytes);
+      for (int w = 0; w < kDqWgs; ++w) {
+        load_rows<1>(qs + w * kTileBytes, &tq, q_bar, q0 + 64 * w, bh);
+        load_rows<1>(dos + w * kTileBytes, &tdo, q_bar, q0 + 64 * w, bh);
+      }
+      for (int i = 0; i < items; ++i) {
+        const int st = i % kDqStages;
+        if (i >= kDqStages) {
+          hopper::mbar_wait(empty + st, (i / kDqStages - 1) & 1);
+        }
+        unsigned char* ks = ring + st * 2 * kTileBytes;
+        const int k0 = (t0 + i) * kTile;
+        hopper::mbar_expect_tx(full + st, 2 * kTileBytes);
+        load_rows<1>(ks, &tk, full + st, k0, hk);
+        load_rows<1>(ks + kTileBytes, &tv, full + st, k0, hk);
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kDqConsumerRegs>();
+
+  // the warpgroup's index, read from lane 0 so that the compiler knows it
+  // is the same in every thread of a warp: the branches that depend on it
+  // (the warpgroup's range of items, its masks) then do not count as
+  // divergent, and ptxas keeps the wgmma products asynchronous rather than
+  // serialising them
+  const int wgi = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int g = lane >> 2, t = lane & 3;
+  const unsigned char* qt = qs + wgi * kTileBytes;
+  const unsigned char* dot = dos + wgi * kTileBytes;
+  const int qw0 = q0 + 64 * wgi;                    // this warpgroup's queries
+  const int qrow = qw0 + (warp & 3) * 16 + g;       // queries qrow, qrow + 8
+  // the block's items [a, b) that this warpgroup's queries see
+  int a = 0, b = 0;
+  if (qw0 < s) {
+    int w0, w1;
+    key_tiles(qw0, min(qw0 + 64, s), s, kTile, causal, window, &w0, &w1);
+    a = w0 - t0;
+    b = w1 - t0;
+  }
+  const int64_t qoff = static_cast<int64_t>(bh) * s * kD;
+  // D = rowsum(do * o) of this thread's rows, from its dO fragments and the
+  // same elements of o, summed over the quad that shares the rows; written
+  // for the dk/dv kernel too (0 in the padding rows [s, ls))
+  float dc_r[2] = {0.f, 0.f};
+  {
+    uint32_t oa[4][4], ob[4][4];
+    hopper::rows_to_a64(oa, dout + qoff, qrow, s, t);
+    hopper::rows_to_a64(ob, o + qoff, qrow, s, t);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ob[kk][e]));
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&oa[kk][e]));
+        dc_r[e & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, dc_r[e & 1]));
+      }
+    }
+  }
+  // the keys [lo, hi] each of this thread's two rows sees (visible_bwd:
+  // none for a row past s), lse log2e of the rows
+  int lo[2], hi[2];
+  float lse_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    hi[r] = row >= s ? -1 : causal ? row : s - 1;
+    lo[r] = window > 0 ? row - window + 1 : 0;
+    const int64_t off = static_cast<int64_t>(bh) * ls + row;
+    lse_l[r] = row < s ? lse[off] * kLog2e : 0.f;
+    dc_r[r] += __shfl_xor_sync(0xffffffffu, dc_r[r], 1);
+    dc_r[r] += __shfl_xor_sync(0xffffffffu, dc_r[r], 2);
+    if (t == 0 && row < ls) dcap[off] = dc_r[r];
+  }
+  const float scale_log2 = scale * kLog2e;
+
+  auto stage = [&](int i) { return ring + (i % kDqStages) * 2 * kTileBytes; };
+  auto release = [&](int i) { hopper::mbar_arrive(empty + i % kDqStages); };
+  // S = Q K^T and dP = dO V^T of tile i, two commit groups
+  float sc[32], dp[32];
+  auto first_products = [&](int i) {
+    const unsigned char* ks = stage(i);
+    hopper::mbar_wait(full + i % kDqStages, (i / kDqStages) & 1);
+    hopper::wgmma_fence();
+    hopper::wgmma_m64n64k16_ss_z(sc, kmajor(qt, 0), kmajor(ks, 0));
+#pragma unroll
+    for (int kk = 1; kk < kD / 16; ++kk) {
+      hopper::wgmma_m64n64k16_ss(sc, kmajor(qt, kk), kmajor(ks, kk), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_m64n64k16_ss_z(dp, kmajor(dot, 0),
+                                 kmajor(ks + kTileBytes, 0));
+#pragma unroll
+    for (int kk = 1; kk < kD / 16; ++kk) {
+      hopper::wgmma_m64n64k16_ss(dp, kmajor(dot, kk),
+                                 kmajor(ks + kTileBytes, kk), 1);
+    }
+    hopper::wgmma_commit();
+  };
+
+  float acc[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+  for (int i = 0; i < a; ++i) {              // tiles only the other sees
+    hopper::mbar_wait(full + i % kDqStages, (i / kDqStages) & 1);
+    release(i);
+  }
+  uint32_t da[4][4];
+  hopper::mbar_wait(q_bar, 0);
+  if (a < b) first_products(a);
+  for (int i = a; i < b; ++i) {
+    const unsigned char* ks = stage(i);
+    const int k0 = (t0 + i) * kTile;
+    // tile i's S and dP, and the tile before's dQ, are done (as dk/dv's)
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+    if (i > a) release(i - 1);
+    // p, 0 where masked (a tile the band covers whole needs no mask), then
+    // dS = p (dP - D) scale
+    const bool whole = qw0 + 64 <= s && k0 + kTile <= s &&
+                       (!causal || k0 + kTile - 1 <= qw0) &&
+                       (window <= 0 || qw0 + 63 - window < k0);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      sc[x] = ex2(fmaf(sc[x], scale_log2, -lse_l[(x >> 1) & 1]));
+    }
+    if (!whole) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int r = (x >> 1) & 1;
+        const int key = k0 + (x >> 2) * 8 + 2 * t + (x & 1);
+        sc[x] = (key >= lo[r]) & (key <= hi[r]) ? sc[x] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      dp[x] = sc[x] * (dp[x] - dc_r[(x >> 1) & 1]) * scale;
+    }
+    hopper::acc_to_a(da, dp);
+    hopper::fence_regs(da);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {       // dQ += dS K
+      hopper::wgmma_m64n64k16_rs_tb(acc, da[kk], mnmajor(ks, kk), 1);
+    }
+    hopper::wgmma_commit();
+    if (i + 1 < b) first_products(i + 1);   // queued behind dQ
+  }
+  if (a < b) {
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+    release(b - 1);
+  }
+  for (int i = b; i < items; ++i) {
+    hopper::mbar_wait(full + i % kDqStages, (i / kDqStages) & 1);
+    release(i);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + r * 8;
+    if (row >= s) continue;
+    __nv_bfloat16* out = dq + qoff + static_cast<int64_t>(row) * kD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out + j * 8) =
+          pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+}  // namespace wg64
+
+// ---------------------------------------------------------------------------
 // D = rowsum(do * o)
 // ---------------------------------------------------------------------------
 
@@ -1417,10 +1946,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-// bf16 at D = 128 and 256 takes the wgmma kernels, bf16 at every other D
-// the mma.sync kernels, f32 the FMA kernels
+// bf16 at D = 64, 128 and 256 takes the wgmma kernels, bf16 at every other
+// D the mma.sync kernels, f32 the FMA kernels
+// o and a writable dcap reach the D = 64 kernel, which forms D itself
 template <int D>
-int launch_dq(int dtype, const Args& a, long long bh, void* dq) {
+int launch_dq(int dtype, const Args& a, long long bh, const void* o,
+              void* dcap, void* dq) {
   if (dtype == 2) {
     if constexpr (D == wg256::kD) {
       wg::Maps m;
@@ -1438,6 +1969,25 @@ int launch_dq(int dtype, const Args& a, long long bh, void* dq) {
           m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
           static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dq),
           a.s, a.ls, a.group, pairs, a.causal, a.window, a.scale);
+      return static_cast<int>(cudaGetLastError());
+    } else if constexpr (D == wg64::kD) {
+      wg::Maps m;
+      int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bh, bh / a.group,
+                             a.s, D);
+      if (rc == 0) {
+        rc = set_smem(wg64::flash_bwd_dq_wgmma64_kernel, wg64::kDqSmem);
+      }
+      if (rc != 0) return rc;
+      const dim3 grid(static_cast<unsigned>(bh),
+                      (a.s + wg64::kDqBlock - 1) / wg64::kDqBlock);
+      wg64::flash_bwd_dq_wgmma64_kernel<<<grid, wg64::kDqThreads,
+                                          wg64::kDqSmem, a.stream>>>(
+          m.q, m.dout, m.k, m.v,
+          static_cast<const __nv_bfloat16*>(o),
+          static_cast<const __nv_bfloat16*>(a.dout),
+          static_cast<const float*>(a.lse), static_cast<float*>(dcap),
+          static_cast<__nv_bfloat16*>(dq), a.s, a.ls, a.group, a.causal,
+          a.window, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else if constexpr (D == wg::kD) {
       wg::Maps m;
@@ -1520,6 +2070,28 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
       wg256::flash_bwd_split_reduce_kernel<<<rgrid, 256, 0, a.stream>>>(
           static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(dk),
           static_cast<__nv_bfloat16*>(dv), n, splits);
+      return static_cast<int>(cudaGetLastError());
+    } else if constexpr (D == wg64::kD) {
+      CUtensorMap tq, tdo;
+      int rc = hopper::tensor_map_bf16(&tq, a.q, D, a.s, bkv * a.group,
+                                       kTile);
+      if (rc == 0) {
+        rc = hopper::tensor_map_bf16(&tdo, a.dout, D, a.s, bkv * a.group,
+                                     kTile);
+      }
+      if (rc == 0) {
+        rc = set_smem(wg64::flash_bwd_dkv_wgmma64_kernel, wg64::kDkvSmem);
+      }
+      if (rc != 0) return rc;
+      const dim3 grid(static_cast<unsigned>(bkv),
+                      (a.s + wg64::kBlock - 1) / wg64::kBlock);
+      wg64::flash_bwd_dkv_wgmma64_kernel<<<grid, wg64::kThreads64,
+                                           wg64::kDkvSmem, a.stream>>>(
+          static_cast<const __nv_bfloat16*>(a.k),
+          static_cast<const __nv_bfloat16*>(a.v), tq, tdo,
+          static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+          a.s, a.ls, a.group, a.causal, a.window, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else if constexpr (D == wg::kD) {
       wg::Maps m;
@@ -1604,9 +2176,10 @@ int prepare(Args* a, const void* q, const void* k, const void* v,
 // the outputs share it). window <= 0: no window. d in {16, 32, 64, 96, 128,
 // 256}. splits: the dk/dv grid's split of each GQA group (1, or for bf16 at
 // d = 256 up to bh / bkv, with ws an f32 workspace [2, splits, bkv, s, d]).
-// The dq entry point first writes dcap = rowsum(do * o) from o (the
-// forward's output, q's type), then launches the dq kernel; the dk/dv entry
-// point reads that dcap, so it runs after this one on the same stream.
+// The dq entry point writes dcap = rowsum(do * o) from o (the forward's
+// output, q's type) with a kernel of its own before the dq kernel, or at d
+// = 64 in bf16 inside the dq kernel; the dk/dv entry point reads that
+// dcap, so it runs after this one on the same stream.
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* dcap, void* dq,
@@ -1620,19 +2193,18 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (bh == 0 || s == 0) return static_cast<int>(cudaGetLastError());
   const dim3 dgrid((ls + kThreads / 32 - 1) / (kThreads / 32),
                    static_cast<unsigned>(bh));
-  if (dtype == 2) {
+  if (dtype != 0 && dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    flash_bwd_dcap_kernel<<<dgrid, kThreads, 0, a.stream>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout),
+        static_cast<float*>(dcap), s, ls, d);
+  } else if (d != wg64::kD) {             // at d = 64 the dq kernel writes it
     flash_bwd_dcap_kernel<<<dgrid, kThreads, 0, a.stream>>>(
         static_cast<const __nv_bfloat16*>(o),
         static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(dcap),
         s, ls, d);
-  } else if (dtype == 0) {
-    flash_bwd_dcap_kernel<<<dgrid, kThreads, 0, a.stream>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout),
-        static_cast<float*>(dcap), s, ls, d);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
-#define REPRO_DQ(D) launch_dq<D>(dtype, a, bh, dq)
+#define REPRO_DQ(D) launch_dq<D>(dtype, a, bh, o, dcap, dq)
   REPRO_FLASH_BWD_DISPATCH(REPRO_DQ)
 #undef REPRO_DQ
 }

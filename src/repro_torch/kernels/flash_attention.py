@@ -6,7 +6,8 @@ Counterparts of ``repro/kernels/flash_attention.py::flash_fwd`` and
 D]`` -> (``o [BH, S, D]``, ``lse [BH, S]`` f32), and with ``o``, ``lse``
 and ``do`` -> (``dq``, ``dk``, ``dv``). On CUDA tensors each wrapper
 launches its hand-written kernels (bf16 on the tensor cores: ``wgmma``
-fed by TMA at D 128 and 256, ``mma.sync`` at D 16-96; f32 with FMAs); on
+fed by TMA at D 64, 128 and 256, ``mma.sync`` at D 16, 32 and 96; f32
+with FMAs); on
 CPU tensors it runs the plain version,
 ``ref.flash_attention_ref`` or ``ref.flash_attention_bwd_ref``. There is
 no fallback between the two: a CUDA launch that fails raises. Unlike the
@@ -87,9 +88,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``n`` reads KV head ``n // (BH / BKV)``), causal and/or within a
     ``window`` of keys ``j > i - window`` -> (``o`` in ``q``'s type,
     ``lse`` f32). f32 or bf16; D in :data:`HEAD_DIMS` on CUDA. One launch:
-    ``wgmma`` fed by TMA copy rings for bf16 at D = 128 and 256 (at 256 two
-    query heads of a GQA group share each K/V tile), ``mma.sync`` for bf16
-    at D 16-96, FMAs for f32."""
+    ``wgmma`` fed by TMA copy rings for bf16 at D = 64, 128 and 256 (at 64
+    three warpgroups of 64 queries share each 128-key K/V tile, at 256 two
+    query heads of a GQA group do), ``mma.sync`` for bf16 at D 16, 32 and
+    96, FMAs for f32."""
     _check_shapes(q, k, v, window)
     if _build.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -112,10 +114,11 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [BKV, S, D]`` and the forward's ``lse [BH, S]`` f32 -> (``dq`` in
     ``q``'s type, ``dk``, ``dv`` in ``k``'s), ``dk``/``dv`` summed over each
     GQA group of query heads. Two launches: the dq kernel and the dk/dv
-    kernel (on ``wgmma`` with TMA copy rings for bf16 at D = 128 and 256,
-    ``mma.sync`` for bf16 at D 16-96, FMAs for f32). ``D = rowsum(do *
-    o)``, which the JAX package computes outside its kernels, is written by
-    a small kernel the dq launch runs first. At D 256 in bf16 the dk/dv
+    kernel (on ``wgmma`` with TMA copy rings for bf16 at D = 64, 128 and
+    256, ``mma.sync`` for bf16 at D 16, 32 and 96, FMAs for f32). ``D =
+    rowsum(do * o)``, which the JAX package computes outside its kernels,
+    is written by a small kernel the dq launch runs first (at D 64 in bf16
+    by the dq kernel itself). At D 256 in bf16 the dk/dv
     launch splits each GQA group :func:`dkv_splits` ways across blocks;
     with more than one split its blocks write f32 partials into a
     workspace and a reduce kernel in the same launch sums them in split

@@ -724,16 +724,32 @@ def test_cuda_interaction_bwd(cuda, b, f, d, self_int, dtype, monkeypatch):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-#: K7's cuda cases besides (a) and (c): every D of HEAD_DIMS in bf16 at an
-#: S that no tile divides, with GQA g = 3, so that the D = 128 wgmma kernel
-#: and the mma.sync kernel of the other D are each held; D 128 with a
-#: window, without the causal mask, and at S 64 (one whole tile) and 65
+#: K7's cuda cases besides (a), (c) and (d): every D of HEAD_DIMS in bf16
+#: at an S that no tile divides, with GQA g = 3, so that the wgmma kernels
+#: (D 64, 128, 256) and the mma.sync kernels of the other D are each held;
+#: D 128 with a window, without the causal mask, and at S 64 (one whole
+#: tile) and 65
 _FWD_EXTRA = {f"d{d}": (1, 6, 2, 700, d, None, torch.bfloat16, True)
               for d in HEAD_DIMS}
 _FWD_EXTRA["d128w"] = (1, 6, 2, 700, 128, 300, torch.bfloat16, True)
 _FWD_EXTRA["d128full"] = (1, 6, 2, 700, 128, None, torch.bfloat16, False)
 _FWD_EXTRA["d128s64"] = (1, 6, 2, 64, 128, None, torch.bfloat16, True)
 _FWD_EXTRA["d128s65"] = (1, 6, 2, 65, 128, None, torch.bfloat16, True)
+
+#: D 64, the wgmma kernels whose two warpgroups take 64 queries (K7, K8's
+#: dq) or 64 keys (K8's dk/dv) each of a 128-row block, at their edges: a
+#: window no tile divides, no causal mask, S 64 (half a block: the second
+#: warpgroup has no rows) and 65, MHA without the causal mask (an encoder's
+#: self-attention, g = 1) and g = 2
+_D64 = {
+    "d64w": (1, 6, 2, 700, 64, 300, torch.bfloat16, True),
+    "d64full": (1, 6, 2, 700, 64, None, torch.bfloat16, False),
+    "d64s64": (1, 6, 2, 64, 64, None, torch.bfloat16, True),
+    "d64s65": (1, 6, 2, 65, 64, None, torch.bfloat16, True),
+    "d64g1": (1, 4, 4, 700, 64, None, torch.bfloat16, False),
+    "d64g2": (1, 4, 2, 700, 64, None, torch.bfloat16, True),
+}
+_FWD_EXTRA.update(_D64)
 
 #: D 256, the wgmma kernels whose two warpgroups take two query heads of a
 #: GQA group (K7, K8's dq) or split one key tile's work (K8's dk/dv), at
@@ -753,14 +769,16 @@ _FWD_EXTRA.update(_D256)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["a", "c", *_FWD_EXTRA])
+@pytest.mark.parametrize("case", ["a", "c", "d", *_FWD_EXTRA])
 def test_cuda_flash_fwd(cuda, case):
     """(a) minitron-4b's prefill shape, bf16 causal GQA g=3; (c) an odd
-    length in f32, GQA g=2; then :data:`_FWD_EXTRA`. Two launches give the
+    length in f32, GQA g=2; (d) granite-moe-3b-a800m's prefill shape at D
+    64, bf16 causal GQA g=3; then :data:`_FWD_EXTRA`. Two launches give the
     same bits."""
     b, hq, hkv, s, d, window, dtype, causal = {
         "a": (2, 24, 8, 4096, 128, None, torch.bfloat16, True),
         "c": (1, 8, 4, 1000, 64, None, torch.float32, True),
+        "d": (2, 24, 8, 4096, 64, None, torch.bfloat16, True),
         **_FWD_EXTRA}[case]
     tol_o, tol_l = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-3)
     g = torch.Generator().manual_seed(7)
@@ -792,29 +810,33 @@ def test_cuda_flash_bwd_rejects_misaligned_lse(cuda):
         flash_bwd(q, k, v, o, shifted, do, causal=True)
 
 
-#: K8's cuda cases besides (a)-(c): every D of HEAD_DIMS in bf16 at an S
+#: K8's cuda cases besides (a)-(d): every D of HEAD_DIMS in bf16 at an S
 #: that no tile divides, with GQA g = 3, and D 128 (the wgmma path) with a
-#: window and without the causal mask as well
+#: window and without the causal mask as well; then the D 256 and D 64 edges
 _BWD_EXTRA = {f"d{d}": (1, 6, 2, 700, d, None, torch.bfloat16, True)
               for d in HEAD_DIMS}
 _BWD_EXTRA["d128w"] = (1, 6, 2, 700, 128, 300, torch.bfloat16, True)
 _BWD_EXTRA["d128full"] = (1, 6, 2, 700, 128, None, torch.bfloat16, False)
 _BWD_EXTRA.update(_D256)
+_BWD_EXTRA.update(_D64)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["a", "b", "c", *_BWD_EXTRA])
+@pytest.mark.parametrize("case", ["a", "b", "c", "d", *_BWD_EXTRA])
 def test_cuda_flash_bwd(cuda, case):
     """(a) minitron-4b's training shape, bf16 causal GQA g=3; (b)
     recurrentgemma's local attention (Hq 16, Hkv 1, D 256, window 2048) at
-    an S that no tile divides; (c) an odd length in f32, GQA g=2; then each
-    D of HEAD_DIMS in bf16 at S 700 with GQA g=3, so that the D = 128
-    wgmma kernels and the mma.sync kernels of the other D are each held,
-    and D 128 with a window and with no causal mask."""
+    an S that no tile divides; (c) an odd length in f32, GQA g=2; (d)
+    granite-moe-3b-a800m's training shape at D 64, bf16 causal GQA g=3;
+    then each D of HEAD_DIMS in bf16 at S 700 with GQA g=3, so that the
+    wgmma kernels (D 64, 128, 256) and the mma.sync kernels of the other D
+    are each held, D 128 with a window and with no causal mask, and the D
+    256 and D 64 edges."""
     b, hq, hkv, s, d, window, dtype, causal = {
         "a": (1, 24, 8, 4096, 128, None, torch.bfloat16, True),
         "b": (1, 16, 1, 2500, 256, 2048, torch.bfloat16, True),
         "c": (1, 8, 4, 1000, 64, None, torch.float32, True),
+        "d": (1, 24, 8, 4096, 64, None, torch.bfloat16, True),
         **_BWD_EXTRA}[case]
     g = torch.Generator().manual_seed(8)
     q, k, v, do = (torch.randn((b * h, s, d), generator=g).to(dtype).to(cuda)
