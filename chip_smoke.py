@@ -37,7 +37,13 @@ Phases, in order; any failure exits non-zero:
    forward) as K8's yardstick; K7 and K8 also at granite-moe-3b-a800m's
    D 64 prefill (q [48,4096,64], k/v [16,4096,64]) and training (q/o/do
    [24,4096,64], k/v [8,4096,64]) shapes, held and timed under ``shapes``
-   beside ``sdpa``; K1 also at granite's and xLSTM's token tables.
+   beside ``sdpa``; K7 and K8 also at seamless-m4t-large-v2's three
+   shapes at D 64 (the encoder's non-causal [32,512,64], the decoder's
+   causal [32,4096,64] at g = 1, and the cross-attention, q [32,4096,64]
+   over the encoder's k/v [32,512,64]; K8 at batch 1, 16 heads) and
+   pixtral-12b's (q [64,4096,128], k/v [16,4096,128]), each held and timed
+   under ``shapes`` beside ``sdpa``; K1 also at granite's and xLSTM's token
+   tables.
 4. Train: declare full-width ``dlrm-criteo`` (26 tables at D=128, 13 dense
    features, bottom MLP 512-256-128, top MLP 1024-1024-512-256-1, bf16
    compute) through the port's graph API and ``fit()`` it at batch
@@ -223,9 +229,29 @@ Phases, in order; any failure exits non-zero:
    depth-2 copy (one mLSTM and one sLSTM layer) against the plain path,
    SGD steps at full depth (K1 and K3 once a step); its profiled prefill
    and step run ``RUN.xlstm_profile_seq`` tokens.
-17. The twins of ``examples/`` (``repro_torch.examples.*``), each once
+17. seamless: full-width, full-depth ``seamless-m4t-large-v2`` (24
+   encoder and 24 decoder layers, d 1024, 16 MHA heads at D 64, the
+   256,206-token hybrid tied table): a 2 x 4096 prefill with frames [2,
+   512, 1024] bf16 (``max(S // 8, 16)``, the reference's) through the
+   encoder and the decoder, K7 72 times (24 encoder, 24 causal
+   self-attention, 24 cross-attention with the encoder's 512 keys),
+   against the plain path; a 64-token prompt replayed through decode on
+   the kernels and on the plain path (decode never sees the frames, so
+   prefill is no yardstick), the cross cache left as it came, 32 greedy
+   tokens; a 2 + 2-layer full-width copy's gradient on the kernels
+   against the plain path; SGD steps at full depth on 1 x 4096 with
+   frames [1, 512, 1024], the loss falling at every step (K7 72, K8 144
+   launches a step).
+18. pixtral: full-width, full-depth ``pixtral-12b`` (40 layers, d 5120,
+   Hq 32, Hkv 8, D 128): a prefill of 2 x 4096 positions (1024 random bf16
+   patch positions ahead of 3072 text tokens, as ``repro/launch/specs.py``
+   splits them) against the plain path, the decode replay on both paths
+   and 32 greedy tokens as 17's; SGD steps on a full-width copy cut to
+   ``RUN.pixtral_train_layers`` layers (all 40 layers' f32 weights and
+   gradients take about 98 GB), the loss on the text positions only.
+19. The twins of ``examples/`` (``repro_torch.examples.*``), each once
    on the card at its smallest setting with its own checks.
-18. One JSON line of per-kernel numbers, then the device line last.
+20. One JSON line of per-kernel numbers, then the device line last.
 
 Needs ``torch.cuda.is_available()`` and the package under ``src/``; with
 either missing it prints no result and exits 2.
@@ -301,7 +327,10 @@ RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             granite_arch="granite-moe-3b-a800m",
                             xlstm_arch="xlstm-125m", xlstm_seq=768,
                             xlstm_timed=2, xlstm_train_timed=2,
-                            xlstm_profile_seq=32, online_ids=4096,
+                            xlstm_profile_seq=32,
+                            seamless_arch="seamless-m4t-large-v2",
+                            pixtral_arch="pixtral-12b",
+                            pixtral_train_layers=8, online_ids=4096,
                             online_versions=4, online_quiet=48,
                             etc_cache_rows=131072, etc_passes=2,
                             etc_evict_rows=8192, etc_online_steps=4)
@@ -1105,12 +1134,14 @@ def randn_heads(g, dev, heads, s: int, d: int, dtype) -> list:
 
 
 def flash_bwd_inputs(g, dev, bh: int, bkv: int, s: int, d: int, dtype,
-                     window=None, causal=True) -> tuple:
+                     window=None, causal=True, sk=None) -> tuple:
     """K8's inputs: random ``q, k, v, do`` and K7's own ``o`` and ``lse``
-    for them (causal unless told otherwise) -> ``(q, k, v, o, lse,
-    do)``."""
+    for them (causal unless told otherwise; ``k``, ``v`` over ``sk`` keys,
+    ``s`` if not given) -> ``(q, k, v, o, lse, do)``."""
     from repro_torch.kernels import flash_attention as k78
-    q, k, v, do = randn_heads(g, dev, (bh, bkv, bkv, bh), s, d, dtype)
+    q, k, v, do = (randn_heads(g, dev, (n,), t, d, dtype)[0]
+                   for n, t in ((bh, s), (bkv, sk or s), (bkv, sk or s),
+                                (bh, s)))
     o, lse = k78.flash_fwd(q, k, v, causal=causal, window=window)
     return q, k, v, o, lse, do
 
@@ -1145,6 +1176,34 @@ def granite_attn_shape(args) -> tuple:
     return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
 
+def encdec_attn_shapes(args, b: int) -> list:
+    """``(label, BH, BKV, Sq, Sk, D, causal)`` of the attention launches of
+    ``args.seamless_arch`` and ``args.pixtral_arch`` at batch ``b`` over
+    ``args.attn_seq`` positions: seamless's encoder (non-causal over the
+    ``max(S // 8, 16)`` frames of ``repro/launch/specs.py``), its
+    decoder's causal self-attention and its cross-attention (S queries
+    over the frames), then pixtral's causal GQA over its patch and text
+    positions together."""
+    from repro_torch.configs.registry import get_lm_config
+    sm = get_lm_config(args.seamless_arch)
+    px = get_lm_config(args.pixtral_arch)
+    s = args.attn_seq
+    f = max(s // 8, 16)
+    h, kv, d = sm.num_heads, sm.num_kv_heads, sm.resolved_head_dim
+    return [(f"{sm.name} encoder", b * h, b * kv, f, f, d, False),
+            (f"{sm.name} decoder self-attention", b * h, b * kv, s, s, d,
+             True),
+            (f"{sm.name} cross-attention", b * h, b * kv, s, f, d, False),
+            (px.name, b * px.num_heads, b * px.num_kv_heads, s, s,
+             px.resolved_head_dim, True)]
+
+
+def attn_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a head computes: the causal triangle, or every
+    pair of a non-causal (cross-)attention."""
+    return sq * (sq + 1) // 2 if causal else sq * sk
+
+
 def attention_kernel(args, record, shape_line, g, dev):
     """K7 against its plain version at (a) minitron-4b's prefill shape
     (timed), (b) recurrentgemma's local attention at its prefill shape
@@ -1153,7 +1212,11 @@ def attention_kernel(args, record, shape_line, g, dev):
     granite-moe-3b-a800m's prefill at D 64 (timed under ``shapes``, with
     ``sdpa`` as the yardstick) and two edges of the D 64 route at
     ``attn_edge_seq``: MHA without the causal mask (an encoder's
-    self-attention) and g = 2 with a window no tile divides."""
+    self-attention) and g = 2 with a window no tile divides; (e) the
+    encoder-decoder's and the vision prefix's prefill shapes
+    (:func:`encdec_attn_shapes`: seamless's encoder, decoder and
+    cross-attention, whose keys are the encoder's 512, and pixtral's),
+    each timed under ``shapes`` with ``sdpa`` as the yardstick."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k7
@@ -1231,6 +1294,27 @@ def attention_kernel(args, record, shape_line, g, dev):
                4 * b * hq * d * pairs, reps=5, err=err,
                flops_per_s=BF16_TC_FLOPS, iters=10)
     del q, k, v, o, po, q4, k4, v4
+
+    # (e) seamless's three shapes at D 64 and pixtral's at D 128
+    def prefill_shape(label, bh, bkv, sq, sk, d, causal):
+        q, = randn_heads(g, dev, (bh,), sq, d, torch.bfloat16)
+        k, v = randn_heads(g, dev, (bkv, bkv), sk, d, torch.bfloat16)
+        o, po = held(f"(e) {label}", q, k, v, "bf16", causal=causal)
+        err = (o.float() - po.float()).abs().max().item()
+        q4, k4, v4 = (t.view(b, -1, t.shape[1], d) for t in (q, k, v))
+        shape_line("flash_fwd", f"{label} prefill: q [{bh},{sq},{d}], k/v "
+                   f"[{bkv},{sk},{d}] bf16, "
+                   f"{'causal' if causal else 'non-causal'}; library: sdpa",
+                   lambda: k7.flash_fwd(q, k, v, causal=causal),
+                   lambda: flash_attention_ref(q, k, v, causal=causal),
+                   lambda: F.scaled_dot_product_attention(
+                       q4, k4, v4, is_causal=causal, enable_gqa=True),
+                   2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * bh * sq,
+                   4 * bh * d * attn_pairs(sq, sk, causal), reps=5, err=err,
+                   flops_per_s=BF16_TC_FLOPS, iters=10)
+
+    for shape in encdec_attn_shapes(args, b):
+        prefill_shape(*shape)
     # (a) minitron-4b prefill: B 2, Hq 24, Hkv 8, D 128, S 4096, causal
     hq, hkv, d = lm_attn_shape(args)
     q, k, v = qkv(b * hq, b * hkv, s, d, torch.bfloat16)
@@ -1257,7 +1341,10 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
     backward under the windowed mask as the yardstick), (c) an odd f32
     length with GQA, (d) granite-moe-3b-a800m's training shape at D 64
     (timed under ``shapes``, with ``sdpa``'s backward as the yardstick)
-    and K7's two D 64 edges at ``attn_edge_seq``."""
+    and K7's two D 64 edges at ``attn_edge_seq``, (e) the
+    encoder-decoder's and the vision prefix's training shapes
+    (:func:`encdec_attn_shapes` at batch 1: the cross-attention's dk and
+    dv are the encoder's 512 keys), timed under ``shapes`` as (d)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k78
@@ -1265,8 +1352,9 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
                                          flash_attention_bwd_ref,
                                          grad_row_error)
 
-    def inputs(bh, bkv, s, d, dtype, window=None, causal=True):
-        return flash_bwd_inputs(g, dev, bh, bkv, s, d, dtype, window, causal)
+    def inputs(bh, bkv, s, d, dtype, window=None, causal=True, sk=None):
+        return flash_bwd_inputs(g, dev, bh, bkv, s, d, dtype, window, causal,
+                                sk)
 
     def held(case, ins, dtype, window=None, causal=True):
         got = k78.flash_bwd(*ins, causal=causal, window=window)
@@ -1368,6 +1456,36 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
                5 * 2 * gq * gd * (s * (s + 1) // 2), reps=5, err=err,
                flops_per_s=BF16_TC_FLOPS, lib_minus=sdpa_g, iters=10)
     del ins, q, k, v, o, lse, do, q4, k4, v4
+
+    # (e) seamless's three shapes at D 64 and pixtral's at D 128, batch 1
+    def training_shape(label, bh, bkv, sq, sk, d, causal):
+        ins = inputs(bh, bkv, sq, d, torch.bfloat16, causal=causal, sk=sk)
+        got, want = held(f"(e) {label}", ins, "bf16", causal=causal)
+        err = (got - want).abs().max().item()
+        del got, want
+        q, k, v, o, lse, do = ins
+        q4, k4, v4 = (t.detach().view(1, -1, t.shape[1], d).requires_grad_()
+                      for t in (q, k, v))
+        do4 = do.view(1, bh, sq, d)
+
+        def sdpa_e():
+            return F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, enable_gqa=True)
+
+        shape_line("flash_bwd", f"{label} training: q/o/do [{bh},{sq},{d}], "
+                   f"k/v [{bkv},{sk},{d}] bf16, "
+                   f"{'causal' if causal else 'non-causal'}; library: sdpa, "
+                   "forward + backward minus forward",
+                   lambda: k78.flash_bwd(*ins, causal=causal),
+                   lambda: flash_attention_bwd_ref(*ins, causal=causal),
+                   lambda: torch.autograd.grad(sdpa_e(), (q4, k4, v4), do4),
+                   2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                   5 * 2 * bh * d * attn_pairs(sq, sk, causal), reps=5,
+                   err=err, flops_per_s=BF16_TC_FLOPS, lib_minus=sdpa_e,
+                   iters=10)
+
+    for shape in encdec_attn_shapes(args, args.lm_train_batch):
+        training_shape(*shape)
     # (a) minitron-4b training: B 1, Hq 24, Hkv 8, D 128, S 4096, causal
     (hq, hkv, d), s = lm_attn_shape(args), args.attn_seq
     ins = inputs(hq, hkv, s, d, torch.bfloat16)
@@ -3228,10 +3346,14 @@ def no_drop(cfg):
 
 
 def attn_layers(model) -> int:
-    """Layers of ``model`` that run attention (K7 in prefill and training,
-    K8 in backward): the ``attn`` and ``local_attn`` ones."""
+    """Attention launches of ``model`` in one forward pass (K7 in prefill
+    and training, K8 in backward): its ``attn`` and ``local_attn`` layers,
+    and an encoder-decoder's encoder layers and cross-attentions (one a
+    decoder layer)."""
+    cfg = model.cfg
     return sum(n for _, kind, n in model._group_keys()
-               if kind in ("attn", "local_attn"))
+               if kind in ("attn", "local_attn")) + (
+        cfg.encoder_layers + cfg.num_layers if cfg.encoder_layers else 0)
 
 
 def f32_decode_check(dev, cfg, params, prompt) -> str:
@@ -3493,6 +3615,140 @@ def lm_phase(args, dev, cfg, f32_replay: bool = False, cut: str = "",
     return launches
 
 
+def frontend_phase(args, dev, cfg):
+    """Prefill and decode the encoder-decoder or vision-prefix ``cfg`` at
+    full width and depth with random weights; returns the launch counts of
+    the kernel path's run. The prefill batch (:func:`lm_batch`:
+    ``args.lm_batch`` x ``args.lm_seq`` positions, frames through the
+    encoder or patches ahead of the text) runs on the kernels, K7 once an
+    attention launch (:func:`attn_layers`), and is held against the plain
+    path. Decode never sees the frames or the patches, as in the
+    reference, so a decode replay does not give prefill's logits: the
+    prompt is replayed through ``decode_step`` on both paths, from their
+    own empty caches (an encoder-decoder's cross cache the reference's
+    zeros), the last logits held against each other, then greedy steps
+    are timed."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import LM_SHAPE_BY_NAME
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.models.lm.backbone import LMModel
+    from repro_torch.tree import leaves
+
+    full = LM_SHAPE_BY_NAME["prefill_32k"]
+    b, s = args.lm_batch, args.lm_seq
+    print(f"reduced: {cfg.name} prefill at batch {b} x {s} positions "
+          f"instead of prefill_32k's {full.global_batch} x {full.seq_len}, "
+          f"to fit the smoke's time; widths, {cfg.num_layers} layers"
+          + (f", {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+             else "")
+          + f" and the {cfg.vocab_size}-token vocabulary as published; "
+          f"random weights (seed {args.seed}) and frontend inputs")
+    model = LMModel(cfg, device=dev)
+    plain = LMModel(cfg, device=dev, use_kernels=False)
+    n_attn, n_tables = attn_layers(model), token_tables(model)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in leaves(params))
+    print(f"lm init: {n / 1e9:.3f} B f32 params ({n * 4 / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s; embedding {model.embed_mode} "
+          f"(hot {model.hot_rows} rows, cold {model.cold_rows})")
+    batch = lm_batch(args, cfg, dev, b, s)
+    tokens = batch["tokens"]
+    with torch.inference_mode():
+        k1_line = lm_embed_check(model, plain, params, tokens)
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        logits = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        first = LAUNCHES.snapshot()
+        check(first.get("flash_fwd", 0) == n_attn
+              and first.get("lookup_fwd", 0) == n_tables,
+              f"prefill launches {first}: want K7 {n_attn} times "
+              f"and K1 {n_tables}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(args.lm_timed):
+            t = time.perf_counter()
+            model.prefill(params, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(tuple(logits.shape) == (b, model.logits_size)
+              and bool(torch.isfinite(logits).all()),
+              f"prefill logits {tuple(logits.shape)} not finite or of the "
+              "wrong shape")
+        want = plain.prefill(params, batch)
+        err = (logits - want).abs().max().item()
+        top = want.abs().max().item()
+        check(err <= LM_LOGIT_TOL * top, f"{cfg.name} prefill logits "
+              f"deviate {err} from the plain path (bound {LM_LOGIT_TOL} x "
+              f"{top})")
+        del want
+        p50 = float(np.median(ms))
+        print(f"prefill {cfg.name} on {torch.cuda.get_device_name(0)}: {b} "
+              f"x {s} {front_note(batch)}p50 {p50:.2f} ms (min "
+              f"{min(ms):.2f}, max {max(ms):.2f}) over {args.lm_timed} "
+              f"calls, {b * s / p50 * 1e3:.0f} positions/s; peak memory "
+              f"{peak:.2f} GiB; max |logit - plain| {err:.4g} (bound "
+              f"{LM_LOGIT_TOL} x max |logit| {top:.4g}); {k1_line}; "
+              f"launches per prefill {first}")
+        profile(f"prefill {cfg.name} ({b} x {s} positions)",
+                lambda: model.prefill(params, batch))
+
+        # decode: the prompt replayed on both paths, then greedy steps
+        p = args.prompt
+        prompt = tokens[:, :p]
+        caches = [m.init_cache(b, s) for m in (model, plain)]
+        steps = [None, None]
+        for i in range(p):
+            pos = torch.full((b,), i, device=dev)
+            for j, m in enumerate((model, plain)):
+                steps[j], caches[j] = m.decode_step(
+                    params, prompt[:, i:i + 1], caches[j], pos)
+        step, cache = steps[0], caches[0]
+        dmax = (step - steps[1]).abs().max().item()
+        dtop = steps[1].abs().max().item()
+        check(dmax <= LM_LOGIT_TOL * dtop, f"{cfg.name} decode after {p} "
+              f"tokens on the kernels vs the plain path: max abs {dmax} "
+              f"(bound {LM_LOGIT_TOL} x {dtop})")
+        del steps, caches
+        cross = ""
+        if cfg.encoder_layers:
+            check(all(not bool(t.any()) for t in cache["cross"]),
+                  f"{cfg.name} decode wrote into the cross cache")
+            shape = list(cache["cross"][0].shape)
+            cross = (f"; the cross caches {shape} left as init_cache made "
+                     "them (zeros), as the reference's decode leaves them")
+        tok = step.argmax(-1, keepdim=True)
+        ms = []
+        for i in range(args.decode_steps):
+            t = time.perf_counter()
+            step, cache = model.decode_step(
+                params, tok, cache, torch.full((b,), p + i, device=dev))
+            tok = step.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(step).all()), "decode logits not finite")
+        launches = LAUNCHES.snapshot()
+        dp50 = float(np.median(ms))
+        print(f"decode {cfg.name} on {torch.cuda.get_device_name(0)}: "
+              f"{p}-token prompt replayed into a {s}-entry cache on the "
+              f"kernels and on the plain path, last logits max abs "
+              f"{dmax:.4g} apart (bound {LM_LOGIT_TOL} x max |logit| "
+              f"{dtop:.4g}; no frames or patches reach decode, so prefill's "
+              f"logits are not its yardstick){cross}; {args.decode_steps} "
+              f"greedy steps at batch {b}: step p50 {dp50:.2f} ms (min "
+              f"{min(ms):.2f}, max {max(ms):.2f}), {b / dp50 * 1e3:.1f} "
+              "tokens/s")
+        profile(f"decode step {cfg.name}", lambda: model.decode_step(
+            params, tok, cache, torch.full((b,), p + args.decode_steps,
+                                           device=dev)))
+    del params, cache
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phases 8-9: train full-width minitron-4b
 # ---------------------------------------------------------------------------
@@ -3507,22 +3763,50 @@ def lm_tokens(args, cfg, dev, b, s):
                                      a=1.2)).to(dev)
 
 
+def lm_batch(args, cfg, dev, b: int, s: int) -> dict:
+    """The batch of ``cfg`` over ``s`` positions, shaped as
+    ``repro/launch/specs.py::lm_input_specs`` shapes it: tokens from
+    :func:`lm_tokens`; a vision config's ``frontend_seq`` patch positions
+    ahead of ``s - frontend_seq`` tokens, an audio config's ``max(s // 8,
+    16)`` frames, each random bf16 ``[b, n, d_model]`` from the run's
+    seed."""
+    import torch
+    s_text = s - (cfg.frontend_seq if cfg.frontend == "vision" else 0)
+    batch = {"tokens": lm_tokens(args, cfg, dev, b, s_text)}
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    n = {"vision": cfg.frontend_seq, "audio": max(s // 8, 16)}
+    if cfg.frontend in n:
+        key = "patches" if cfg.frontend == "vision" else "frames"
+        batch[key] = torch.randn((b, n[cfg.frontend], cfg.d_model),
+                                 generator=g, device=dev).to(torch.bfloat16)
+    return batch
+
+
+def depth_cut(cfg, layers: int):
+    """``cfg`` cut to ``layers`` decoder layers (and as many encoder
+    layers, at most its own)."""
+    return dataclasses.replace(
+        cfg, num_layers=layers,
+        encoder_layers=min(cfg.encoder_layers, layers))
+
+
 def lm_grad_check(args, dev, cfg, layers: int):
     """The kernels (K1, K3, K7, K8) against the plain path on a copy of
-    ``cfg`` cut to ``layers`` layers at full width: the loss and, per
-    parameter, the gradients' relative L2 error and cosine."""
-    import dataclasses
+    ``cfg`` cut to ``layers`` layers at full width (an encoder-decoder's
+    encoder too): the loss and, per parameter, the gradients' relative L2
+    error and cosine."""
     import torch
     from repro_torch.launch.train import lm_value_and_grad
     from repro_torch.models.lm.backbone import LMModel
     from repro_torch.tree import flatten
-    small = dataclasses.replace(cfg, num_layers=layers)
+    small = depth_cut(cfg, layers)
     model = LMModel(small, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
-    tokens = lm_tokens(args, cfg, dev, args.lm_train_batch, args.lm_seq)
-    loss, grads = lm_value_and_grad(model, params, tokens)
+    batch = lm_batch(args, cfg, dev, args.lm_train_batch, args.lm_seq)
+    tokens = batch["tokens"]
+    loss, grads = lm_value_and_grad(model, params, batch)
     plain = LMModel(small, device=dev, use_kernels=False)
-    ploss, pgrads = lm_value_and_grad(plain, params, tokens)
+    ploss, pgrads = lm_value_and_grad(plain, params, batch)
     dl = abs(float(loss) - float(ploss))
     tol = LM_GRAD_TOL
     check(dl <= tol.loss_rel * abs(float(ploss)), f"lm grad check: loss "
@@ -3537,8 +3821,13 @@ def lm_grad_check(args, dev, cfg, layers: int):
               f"{tol.cos})")
         worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
         lines.append(f"{key.replace('groups/', '')} {rel:.2e}/{cos:.6f}")
-    print(f"lm grad check: {cfg.name} cut to {small.num_layers} layers at "
-          f"full width, tokens [{tokens.shape[0]}, {tokens.shape[1]}]: loss "
+    front = "".join(f", {k} {list(v.shape)}" for k, v in batch.items()
+                    if k != "tokens")
+    enc = (f" (and {small.encoder_layers} encoder layers)"
+           if small.encoder_layers else "")
+    print(f"lm grad check: {cfg.name} cut to {small.num_layers} layers{enc} "
+          f"at full width, tokens [{tokens.shape[0]}, {tokens.shape[1]}]"
+          f"{front}: loss "
           f"{float(loss):.6f} on the kernels, {float(ploss):.6f} on the plain "
           f"path (|diff| {dl:.3g}, bound {tol.loss_rel} relative); gradients "
           f"relative L2 error / cosine per parameter: {'; '.join(lines)}; "
@@ -3646,7 +3935,8 @@ def lm_train_phase(args, dev, cfg, depth_cut: str = "", cut: str = "",
     model = LMModel(cfg, device=dev, remat="none")
     n_attn, n_tables = attn_layers(model), token_tables(model)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
-    tokens = lm_tokens(args, cfg, dev, b, s)
+    batch = lm_batch(args, cfg, dev, b, s)
+    tokens = batch["tokens"]
     print(lm_k3_check(model, tokens))
     want = {"lookup_fwd": n_tables, "lookup_bwd": n_tables,
             "flash_fwd": n_attn, "flash_bwd": 2 * n_attn}
@@ -3657,7 +3947,7 @@ def lm_train_phase(args, dev, cfg, depth_cut: str = "", cut: str = "",
     for i in range(args.lm_train_warm + args.lm_train_timed):
         before = LAUNCHES.snapshot()
         t = time.perf_counter()
-        loss = lm_sgd_step_(model, params, tokens, args.lm_train_lr)
+        loss = lm_sgd_step_(model, params, batch, args.lm_train_lr)
         losses.append(float(loss))           # the loss's copy to the host
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
@@ -3674,17 +3964,34 @@ def lm_train_phase(args, dev, cfg, depth_cut: str = "", cut: str = "",
     p50 = float(np.median(timed))
     print(f"lm train {cfg.name} on {torch.cuda.get_device_name(0)}: "
           f"{len(losses)} SGD "
-          f"steps at {b} x {s} tokens ({args.lm_train_warm} warm-up): step "
+          f"steps at {b} x {s} {front_note(batch)}({args.lm_train_warm} "
+          f"warm-up): step "
           f"p50 {p50:.2f} ms (min {min(timed):.2f}, max {max(timed):.2f}), "
-          f"{b * s / p50 * 1e3:.0f} tokens/s; loss "
+          f"{b * s / p50 * 1e3:.0f} positions/s; loss "
           + " -> ".join(f"{x:.4f}" for x in losses)
           + f"; peak memory {peak:.2f} GiB; launches per step {want}")
-    ptoks = tokens[:, :profile_seq]
+    pbatch = {**batch, "tokens": tokens[:, :profile_seq]}
+    ptoks = pbatch["tokens"]
     profile(f"lm train step {cfg.name} ({ptoks.shape[0]} x "
-            f"{ptoks.shape[1]} tokens)", lambda: lm_sgd_step_(
-                model, params, ptoks, args.lm_train_lr))
+            f"{ptoks.shape[1]} tokens{front_note(batch, ', ')})",
+            lambda: lm_sgd_step_(model, params, pbatch, args.lm_train_lr))
     del params
     return launches
+
+
+def front_note(batch, sep: str = "") -> str:
+    """What a batch holds besides its tokens, for a printed line: ``positions
+    (text tokens [b, n], patches [...] bf16) `` or ``tokens ``; with
+    ``sep``, ``sep`` and the frontend's input alone, or nothing."""
+    extra = [f"{k} {list(v.shape)} bf16" for k, v in batch.items()
+             if k != "tokens"]
+    if sep:
+        return sep + ", ".join(extra) if extra else ""
+    if not extra:
+        return "tokens "
+    t = batch["tokens"]
+    inner = ", ".join([f"text tokens [{t.shape[0]}, {t.shape[1]}]", *extra])
+    return f"positions ({inner}) "
 
 
 def remat_phase(args, dev, cfg):
@@ -4051,10 +4358,48 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 17. the example twins
+    # 17. seamless-m4t-large-v2 at full width and depth: serve (frames
+    # through the 24-layer encoder, cross-attention through K7 with the
+    # encoder's 512 keys), the kernels against the plain path on a copy cut
+    # to 2 + 2 layers, then SGD at full depth
+    sm_cfg = get_lm_config(args.seamless_arch)
+    t0 = time.perf_counter()
+    for k, n in frontend_phase(args, dev, sm_cfg).items():
+        total[k] = total.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_grad_check(args, dev, sm_cfg, args.lm_check_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in lm_train_phase(args, dev, sm_cfg).items():
+        total[k] = total.get(k, 0) + n
+    print(f"seamless phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18. pixtral-12b at full width and depth: serve (1024 patch positions
+    # ahead of 3072 text tokens), then SGD on a full-width copy cut in
+    # depth
+    px_cfg = get_lm_config(args.pixtral_arch)
+    t0 = time.perf_counter()
+    for k, n in frontend_phase(args, dev, px_cfg).items():
+        total[k] = total.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    px_small = depth_cut(px_cfg, args.pixtral_train_layers)
+    cut = (f"{args.pixtral_train_layers} of the published "
+           f"{px_cfg.num_layers}: f32 weights and gradients of all "
+           f"{px_cfg.num_layers} take about 98 GB")
+    for k, n in lm_train_phase(args, dev, px_small, cut).items():
+        total[k] = total.get(k, 0) + n
+    print(f"pixtral phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19. the example twins
     twins_phase(dev)
 
-    # 18. kernels line, then the device line last
+    # 20. kernels line, then the device line last
     for name, rec in kernels.items():
         rec["launches"] = total.get(name, 0)
         check(rec["launches"] > 0, f"{name}: no launches on the main path")

@@ -10,6 +10,11 @@
 // wholly outside the causal or window band are never visited, and the ragged
 // tail (S not a multiple of the tile) is masked, so any S works. GQA: query
 // head n reads KV head n / g straight from memory, with no replication.
+// Cross-attention (the encoder-decoder's decoder reading the encoder's
+// output: repro/models/lm/transformer.py::attn_apply with kv_from) has a
+// key length sk of its own: query tiles, o and lse run over the s queries,
+// key tiles, the ragged-tail mask and the K/V copies over the sk keys; such
+// a call is neither causal nor windowed, which the entry point checks.
 //
 // Semantics, as _fwd_kernel: scores in f32, a masked score is -1e30 and its
 // p is 0, m starts at -1e30, l and the accumulator in f32,
@@ -24,6 +29,8 @@
 // ms at the 989 TFLOP/s bf16 tensor-core peak); at recurrentgemma-9b's
 // (q [32, 4096, 256], k/v [2, 4096, 256], window 2048) 143 MB (0.04 ms)
 // for the same 2.06e11 flops of the window's band (0.2085 ms). At
+// seamless-m4t-large-v2's cross-attention (q [32, 4096, 64], k/v [32, 512,
+// 64], non-causal) 1.72e10 flops (0.017 ms) against 38 MB (0.011 ms). At
 // granite-moe-3b-a800m's (q [48, 4096, 64], k/v [16, 4096, 64], causal)
 // 1.03e11 flops (0.104 ms), and beside them the softmax's 4.03e8 ex2, one
 // a score of the causal band: at 16 results a clock an SM on the special-
@@ -89,8 +96,8 @@ __global__ void __launch_bounds__(kThreads)
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int s, int group,
-                         int causal, int window, float scale) {
+                         float* __restrict__ lse, int s, int sk,
+                         int group, int causal, int window, float scale) {
   using T = MmaTile<D>;
   constexpr int kNt = D / 8;                // output n-tiles of 8 columns
   constexpr int kStride = T::kStride;
@@ -104,7 +111,7 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * T::kBq;
   const int bh = blockIdx.y;
   const int64_t qoff = static_cast<int64_t>(bh) * s * D;
-  const int64_t kvoff = static_cast<int64_t>(bh / group) * s * D;
+  const int64_t kvoff = static_cast<int64_t>(bh / group) * sk * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
@@ -120,12 +127,12 @@ __global__ void __launch_bounds__(kThreads)
   float l_run[2] = {0.f, 0.f};    // this thread's columns only; summed over
                                   // the quad at the end
   int t0, t1;
-  key_tiles(q0, min(q0 + T::kBq, s), s, T::kBk, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + T::kBq, s), sk, T::kBk, causal, window, &t0, &t1);
   for (int kt = t0; kt < t1; ++kt) {
     const int k0 = kt * T::kBk;
     __syncthreads();                        // the last tile's readers are done
-    stage_rows<D, T::kBk>(ks, k + kvoff, k0, s);
-    stage_rows<D, T::kBk>(vs, v + kvoff, k0, s);
+    stage_rows<D, T::kBk>(ks, k + kvoff, k0, sk);
+    stage_rows<D, T::kBk>(vs, v + kvoff, k0, sk);
     cp_async_wait_all();
     __syncthreads();
 
@@ -141,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + (e >> 1) * 8;
         const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const float val = visible(row, key, s, causal, window)
+        const float val = visible(row, key, sk, causal, window)
                               ? sc[j][e] * scale
                               : kMasked;
         sc[j][e] = val;
@@ -222,7 +229,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int s, int group,
+                         float* __restrict__ lse, int s, int sk, int group,
                          int causal, int window, float scale) {
   constexpr int kRows = kF32Bq / (kThreads / 32);
   constexpr int kPer = (D + 31) / 32;       // output columns a lane
@@ -235,7 +242,7 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kF32Bq;
   const int bh = blockIdx.y;
   const int64_t qoff = static_cast<int64_t>(bh) * s * D;
-  const int64_t kvoff = static_cast<int64_t>(bh / group) * s * D;
+  const int64_t kvoff = static_cast<int64_t>(bh / group) * sk * D;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
 
@@ -253,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kPer; ++c) acc[i][c] = 0.f;
   }
   int t0, t1;
-  key_tiles(q0, min(q0 + kF32Bq, s), s, kF32Bk, causal, window, &t0,
+  key_tiles(q0, min(q0 + kF32Bq, s), sk, kF32Bk, causal, window, &t0,
             &t1);
   for (int kt = t0; kt < t1; ++kt) {
     const int k0 = kt * kF32Bk;
@@ -261,7 +268,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int idx = tid; idx < kF32Bk * D; idx += kThreads) {
       const int r = idx / D, c = idx - r * D;
       float kv = 0.f, vv = 0.f;
-      if (k0 + r < s) {
+      if (k0 + r < sk) {
         const int64_t off = kvoff + static_cast<int64_t>(k0) * D + idx;
         kv = k[off];
         vv = v[off];
@@ -280,7 +287,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = 0; d < D; ++d) {
         dot = fmaf(qs[qr * D + d], ks[lane * (D + 1) + d], dot);
       }
-      const bool vis = visible(row, key, s, causal, window);
+      const bool vis = visible(row, key, sk, causal, window);
       const float sv = vis ? dot * scale : kMasked;
       float mx = sv;
 #pragma unroll
@@ -354,8 +361,9 @@ __global__ void __launch_bounds__(kThreadsWg, 3)
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ lse, int s, int group,
-                           int causal, int window, float scale_log2) {
+                           float* __restrict__ lse, int s, int sk,
+                           int group, int causal, int window,
+                           float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = aligned_smem(smem_raw);            // K, V a stage
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 *
@@ -371,7 +379,7 @@ __global__ void __launch_bounds__(kThreadsWg, 3)
   const int bh = blockIdx.x;
   const int hk = bh / group;
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
   const int items = t1 - t0;
 
   auto issue = [&](int i) {                // key tile t0 + i into its stage
@@ -415,10 +423,10 @@ __global__ void __launch_bounds__(kThreadsWg, 3)
   int lo[2], hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    hi[r] = causal ? min(qrow + 8 * r, s - 1) : s - 1;
+    hi[r] = causal ? min(qrow + 8 * r, sk - 1) : sk - 1;
     lo[r] = window > 0 ? qrow + 8 * r - window + 1 : 0;
   }
-  const int whi = causal ? min(q0, s - 1) : s - 1;
+  const int whi = causal ? min(q0, sk - 1) : sk - 1;
   const int wlo = window > 0 ? q0 + kTile - window : 0;
 
   float acc[64];
@@ -521,18 +529,18 @@ __global__ void __launch_bounds__(kThreadsWg, 3)
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           long long bh, int group, int s, int causal, int window,
+           long long bh, int group, int s, int sk, int causal, int window,
            float scale, cudaStream_t stream) {
   CUtensorMap tk, tv;
-  int rc = hopper::tensor_map_bf16(&tk, k, kD, s, bh / group, kTile);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, s, bh / group, kTile);
+  int rc = hopper::tensor_map_bf16(&tk, k, kD, sk, bh / group, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, sk, bh / group, kTile);
   if (rc == 0) rc = set_smem(flash_fwd_wgmma_kernel, kSmem);
   if (rc != 0) return rc;
   const dim3 grid(static_cast<unsigned>(bh), (s + kTile - 1) / kTile);
   flash_fwd_wgmma_kernel<<<grid, kThreadsWg, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), tk, tv,
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, group,
-      causal, window, scale * kLog2e);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, sk,
+      group, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -578,8 +586,8 @@ __global__ void __launch_bounds__(kThreads256, 1)
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
                               __nv_bfloat16* __restrict__ o,
-                              float* __restrict__ lse, int s, int group,
-                              int pairs, int causal, int window,
+                              float* __restrict__ lse, int s, int sk,
+                              int group, int pairs, int causal, int window,
                               float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = aligned_shared(smem_raw);     // a Q tile a warpgroup
@@ -599,7 +607,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
   const int h0 = 2 * (static_cast<int>(blockIdx.x) % pairs);
   const int nheads = min(2, group - h0);
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
   const int items = t1 - t0;
 
   if (tid == 0) {
@@ -643,10 +651,10 @@ __global__ void __launch_bounds__(kThreads256, 1)
   int lo[2], hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    hi[r] = causal ? min(qrow + 8 * r, s - 1) : s - 1;
+    hi[r] = causal ? min(qrow + 8 * r, sk - 1) : sk - 1;
     lo[r] = window > 0 ? qrow + 8 * r - window + 1 : 0;
   }
-  const int whi = causal ? min(q0, s - 1) : s - 1;
+  const int whi = causal ? min(q0, sk - 1) : sk - 1;
   const int wlo = window > 0 ? q0 + kTile - window : 0;
 
   float acc[128];
@@ -743,20 +751,20 @@ __global__ void __launch_bounds__(kThreads256, 1)
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           long long bh, int group, int s, int causal, int window,
+           long long bh, int group, int s, int sk, int causal, int window,
            float scale, cudaStream_t stream) {
   const long long bkv = bh / group;
   const int pairs = (group + 1) / 2;
   CUtensorMap tq, tk, tv;
   int rc = hopper::tensor_map_bf16(&tq, q, kD, s, bh, kTile);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&tk, k, kD, s, bkv, kTile);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, s, bkv, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tk, k, kD, sk, bkv, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, sk, bkv, kTile);
   if (rc == 0) rc = set_smem(flash_fwd_wgmma256_kernel, kSmem);
   if (rc != 0) return rc;
   const dim3 grid(static_cast<unsigned>(bkv * pairs), (s + kTile - 1) / kTile);
   flash_fwd_wgmma256_kernel<<<grid, kThreads256, kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      s, group, pairs, causal, window, scale * kLog2e);
+      s, sk, group, pairs, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -814,8 +822,9 @@ __global__ void __launch_bounds__(kThreads64, 1)
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ o,
-                             float* __restrict__ lse, int s, int group,
-                             int causal, int window, float scale_log2) {
+                             float* __restrict__ lse, int s, int sk,
+                             int group, int causal, int window,
+                             float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = aligned_shared(smem_raw);     // Q a warpgroup
   unsigned char* ring = qs + kWgs * kQBytes;        // K, V a stage
@@ -832,7 +841,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kBq;
   const int bh = blockIdx.x;
   int t0, t1;
-  key_tiles(q0, min(q0 + kBq, s), s, kBk, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kBq, s), sk, kBk, causal, window, &t0, &t1);
   const int items = t1 - t0;
 
   if (tid == 0) {
@@ -880,7 +889,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
   int a = 0, b = 0;
   if (qw0 < s) {
     int w0, w1;
-    key_tiles(qw0, min(qw0 + 64, s), s, kBk, causal, window, &w0, &w1);
+    key_tiles(qw0, min(qw0 + 64, s), sk, kBk, causal, window, &w0, &w1);
     a = w0 - t0;
     b = w1 - t0;
   }
@@ -892,10 +901,10 @@ __global__ void __launch_bounds__(kThreads64, 1)
   int lo[2], hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    hi[r] = causal ? min(qrow + 8 * r, s - 1) : s - 1;
+    hi[r] = causal ? min(qrow + 8 * r, sk - 1) : sk - 1;
     lo[r] = window > 0 ? qrow + 8 * r - window + 1 : 0;
   }
-  const int whi = causal ? min(qw0, s - 1) : s - 1;
+  const int whi = causal ? min(qw0, sk - 1) : sk - 1;
   const int wlo = window > 0 ? qw0 + 64 - window : 0;
 
   float sc[64];           // S of the newest tile, then its f32 p
@@ -1027,19 +1036,19 @@ __global__ void __launch_bounds__(kThreads64, 1)
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           long long bh, int group, int s, int causal, int window,
+           long long bh, int group, int s, int sk, int causal, int window,
            float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int rc = hopper::tensor_map_bf16(&tq, q, kD, s, bh, 64);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&tk, k, kD, s, bh / group, kBk);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, s, bh / group, kBk);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tk, k, kD, sk, bh / group, kBk);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, sk, bh / group, kBk);
   if (rc == 0) rc = set_smem(flash_fwd_wgmma64_kernel, kSmem);
   if (rc != 0) return rc;
   const dim3 grid(static_cast<unsigned>(bh), (s + kBq - 1) / kBq);
   flash_fwd_wgmma64_kernel<<<grid, kThreads64, kSmem, stream>>>(
       tq, tk, tv,
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, group,
-      causal, window, scale * kLog2e);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, sk,
+      group, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1047,8 +1056,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
-               void* lse, long long bh, int group, int s, int causal,
-               int window, float scale, cudaStream_t stream) {
+               void* lse, long long bh, int group, int s, int sk,
+               int causal, int window, float scale, cudaStream_t stream) {
   using T = MmaTile<D>;
   const int rc = set_smem(flash_fwd_mma_kernel<D>, T::kSmem);
   if (rc != 0) return rc;
@@ -1057,14 +1066,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), s, group, causal, window, scale);
+      static_cast<float*>(lse), s, sk, group, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               void* lse, long long bh, int group, int s, int causal,
-               int window, float scale, cudaStream_t stream) {
+               void* lse, long long bh, int group, int s, int sk,
+               int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = f32_smem<D>();
   const int rc = set_smem(flash_fwd_f32_kernel<D>, smem);
   if (rc != 0) return rc;
@@ -1072,31 +1081,31 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), s, group, causal, window, scale);
+      static_cast<float*>(lse), s, sk, group, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           void* lse, long long bh, int group, int s, int causal, int window,
-           float scale, cudaStream_t stream) {
+           void* lse, long long bh, int group, int s, int sk, int causal,
+           int window, float scale, cudaStream_t stream) {
   if (dtype == 2) {
     if constexpr (D == wg::kD) {
-      return wg::launch(q, k, v, o, lse, bh, group, s, causal, window, scale,
-                        stream);
+      return wg::launch(q, k, v, o, lse, bh, group, s, sk, causal, window,
+                        scale, stream);
     } else if constexpr (D == wg256::kD) {
-      return wg256::launch(q, k, v, o, lse, bh, group, s, causal, window,
+      return wg256::launch(q, k, v, o, lse, bh, group, s, sk, causal, window,
                            scale, stream);
     } else if constexpr (D == wg64::kD) {
-      return wg64::launch(q, k, v, o, lse, bh, group, s, causal, window,
+      return wg64::launch(q, k, v, o, lse, bh, group, s, sk, causal, window,
                           scale, stream);
     } else {
-      return launch_mma<D>(q, k, v, o, lse, bh, group, s, causal, window,
+      return launch_mma<D>(q, k, v, o, lse, bh, group, s, sk, causal, window,
                            scale, stream);
     }
   }
   if (dtype == 0) {
-    return launch_f32<D>(q, k, v, o, lse, bh, group, s, causal, window,
+    return launch_f32<D>(q, k, v, o, lse, bh, group, s, sk, causal, window,
                          scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1104,27 +1113,36 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, o [bh, s, d]; k, v [bkv, s, d]; lse [bh, s] f32; all contiguous.
+// q, o [bh, s, d]; k, v [bkv, sk, d]; lse [bh, s] f32; all contiguous.
 // dtype: 0 = float32, 2 = bfloat16 (q, k, v and o share it). window <= 0:
-// no window. d in {16, 32, 64, 96, 128, 256}.
+// no window. d in {16, 32, 64, 96, 128, 256}. sk, the key length, is s
+// for self-attention; a cross-attention's sk of its own takes neither a
+// causal mask nor a window (no positions align across the two lengths).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int dtype, long long bh,
-                               long long bkv, int s, int d, int causal,
-                               int window, void* stream) {
+                               long long bkv, int s, int sk, int d,
+                               int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bkv <= 0 || bh % bkv != 0 || bh > 65535) {
+  if (bkv <= 0 || bh % bkv != 0 || bh > 65535 || sk <= 0 ||
+      (sk != s && (causal || window > 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bh == 0 || s == 0) return static_cast<int>(cudaGetLastError());
   const int group = static_cast<int>(bh / bkv);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   switch (d) {
-    case 16: return launch<16>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
-    case 32: return launch<32>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
-    case 64: return launch<64>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
-    case 96: return launch<96>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
-    case 128: return launch<128>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
-    case 256: return launch<256>(dtype, q, k, v, o, lse, bh, group, s, causal, window, scale, st);
+    case 16: return launch<16>(dtype, q, k, v, o, lse, bh, group, s, sk,
+                               causal, window, scale, st);
+    case 32: return launch<32>(dtype, q, k, v, o, lse, bh, group, s, sk,
+                               causal, window, scale, st);
+    case 64: return launch<64>(dtype, q, k, v, o, lse, bh, group, s, sk,
+                               causal, window, scale, st);
+    case 96: return launch<96>(dtype, q, k, v, o, lse, bh, group, s, sk,
+                               causal, window, scale, st);
+    case 128: return launch<128>(dtype, q, k, v, o, lse, bh, group, s, sk,
+                                 causal, window, scale, st);
+    case 256: return launch<256>(dtype, q, k, v, o, lse, bh, group, s, sk,
+                                 causal, window, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -132,14 +132,14 @@
 
 namespace {
 
-// a (query, key) pair inside the sequence and the band; the forward never
-// writes rows past s, so a padded query must not reach dk or dv
-__device__ __forceinline__ bool visible_bwd(int qi, int kj, int s, int causal,
-                                            int window) {
-  return qi < s && visible(qi, kj, s, causal, window);
+// a (query, key) pair inside the s queries, the sk keys and the band; the
+// forward never writes rows past s, so a padded query must not reach dk or dv
+__device__ __forceinline__ bool visible_bwd(int qi, int kj, int s, int sk,
+                                            int causal, int window) {
+  return qi < s && visible(qi, kj, sk, causal, window);
 }
 
-// the query tiles [t0, t1) whose queries see a key of [k0, k1)
+// the tiles [t0, t1) of s queries whose queries see a key of [k0, k1)
 __device__ __forceinline__ void query_tiles(int k0, int k1, int s, int bq,
                                             int causal, int window, int* t0,
                                             int* t1) {
@@ -169,7 +169,8 @@ __global__ void __launch_bounds__(kThreads)
                             const __nv_bfloat16* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ dcap,
-                            __nv_bfloat16* __restrict__ dq, int s, int ls,
+                            __nv_bfloat16* __restrict__ dq, int s, int sk,
+                            int ls,
                             int group, int causal, int window,
                             float scale) {
   constexpr int kNt = D / 8;
@@ -185,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kTile;
   const int bh = blockIdx.y;
   const int64_t qoff = static_cast<int64_t>(bh) * s * D;
-  const int64_t kvoff = static_cast<int64_t>(bh / group) * s * D;
+  const int64_t kvoff = static_cast<int64_t>(bh / group) * sk * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
@@ -206,12 +207,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   }
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
   for (int kt = t0; kt < t1; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();                        // the last tile's readers are done
-    stage_rows<D, kTile>(ks, k + kvoff, k0, s);
-    stage_rows<D, kTile>(vs, v + kvoff, k0, s);
+    stage_rows<D, kTile>(ks, k + kvoff, k0, sk);
+    stage_rows<D, kTile>(vs, v + kvoff, k0, sk);
     cp_async_wait_all();
     __syncthreads();
 
@@ -225,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
         const int r = e >> 1;
         const int key = k0 + j * 8 + 2 * t + (e & 1);
         const float p =
-            visible_bwd(row0 + r * 8, key, s, causal, window)
+            visible_bwd(row0 + r * 8, key, s, sk, causal, window)
                 ? exp2f((sc[j][e] * scale - lse_r[r]) * kLog2e)
                 : 0.f;
         sc[j][e] = p * (dp[j][e] - dc_r[r]) * scale;        // dS
@@ -258,7 +259,8 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ lse,
                              const float* __restrict__ dcap,
                              __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, int s, int ls,
+                             __nv_bfloat16* __restrict__ dv, int s, int sk,
+                             int ls,
                              int group, int causal, int window, float scale) {
   constexpr int kNt = D / 8;
   constexpr int kStride = D + 8;
@@ -273,12 +275,12 @@ __global__ void __launch_bounds__(kThreads)
   // the first key tiles, which the most causal query tiles see, start first
   const int k0 = static_cast<int>(blockIdx.x) * kTile;
   const int hk = blockIdx.y;
-  const int64_t kvoff = static_cast<int64_t>(hk) * s * D;
+  const int64_t kvoff = static_cast<int64_t>(hk) * sk * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = k0 + warp * 16 + g;   // this thread's keys: row0, row0+8
-  stage_rows<D, kTile>(ks, k + kvoff, k0, s);
-  stage_rows<D, kTile>(vs, v + kvoff, k0, s);
+  stage_rows<D, kTile>(ks, k + kvoff, k0, sk);
+  stage_rows<D, kTile>(vs, v + kvoff, k0, sk);
 
   float dk_acc[kNt][4], dv_acc[kNt][4];
 #pragma unroll
@@ -290,7 +292,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   int t0, t1;
-  query_tiles(k0, min(k0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  query_tiles(k0, min(k0 + kTile, sk), s, kTile, causal, window, &t0, &t1);
   for (int h = 0; h < group; ++h) {          // the group's query heads
     const int bh = hk * group + h;
     const int64_t qoff = static_cast<int64_t>(bh) * s * D;
@@ -316,8 +318,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = j * 8 + 2 * t + (e & 1);
-          st[j][e] = visible_bwd(q0 + c, row0 + (e >> 1) * 8, s, causal,
-                                 window)
+          st[j][e] = visible_bwd(q0 + c, row0 + (e >> 1) * 8, s, sk,
+                                 causal, window)
                          ? exp2f((st[j][e] * scale - lse_s[c]) * kLog2e)
                          : 0.f;
         }
@@ -343,7 +345,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
-    if (row >= s) continue;
+    if (row >= sk) continue;
     const int64_t off = kvoff + static_cast<int64_t>(row) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < kNt; ++n) {
@@ -390,7 +392,8 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ dcap,
-                            float* __restrict__ dq, int s, int ls, int group,
+                            float* __restrict__ dq, int s, int sk, int ls,
+                            int group,
                             int causal, int window, float scale) {
   constexpr int kPer = (D + 31) / 32;       // output columns a lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -403,7 +406,7 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kF32Rows;
   const int bh = blockIdx.y;
   const int64_t qoff = static_cast<int64_t>(bh) * s * D;
-  const int64_t kvoff = static_cast<int64_t>(bh / group) * s * D;
+  const int64_t kvoff = static_cast<int64_t>(bh / group) * sk * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   stage_f32<D, kF32Rows, D>(qs, q + qoff, q0, s);
   stage_f32<D, kF32Rows, D>(dos, dout + qoff, q0, s);
@@ -417,13 +420,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kPer; ++c) acc[i][c] = 0.f;
   }
   int t0, t1;
-  key_tiles(q0, min(q0 + kF32Rows, s), s, kF32Lanes, causal, window, &t0,
+  key_tiles(q0, min(q0 + kF32Rows, s), sk, kF32Lanes, causal, window, &t0,
             &t1);
   for (int kt = t0; kt < t1; ++kt) {
     const int k0 = kt * kF32Lanes;
     __syncthreads();
-    stage_f32<D, kF32Lanes, D + 1>(ks, k + kvoff, k0, s);
-    stage_f32<D, kF32Lanes, D + 1>(vs, v + kvoff, k0, s);
+    stage_f32<D, kF32Lanes, D + 1>(ks, k + kvoff, k0, sk);
+    stage_f32<D, kF32Lanes, D + 1>(vs, v + kvoff, k0, sk);
     __syncthreads();
     const int key = k0 + lane;
 #pragma unroll
@@ -435,7 +438,7 @@ __global__ void __launch_bounds__(kThreads)
         sdot = fmaf(qs[qr * D + d], ks[lane * (D + 1) + d], sdot);
         pdot = fmaf(dos[qr * D + d], vs[lane * (D + 1) + d], pdot);
       }
-      const float p = visible_bwd(q0 + qr, key, s, causal, window)
+      const float p = visible_bwd(q0 + qr, key, s, sk, causal, window)
                           ? expf(sdot * scale - lse_r[i])
                           : 0.f;
       const float ds = p * (pdot - dc_r[i]) * scale;
@@ -470,7 +473,8 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ lse,
                              const float* __restrict__ dcap,
                              float* __restrict__ dk, float* __restrict__ dv,
-                             int s, int ls, int group, int causal, int window,
+                             int s, int sk, int ls, int group, int causal,
+                             int window,
                              float scale) {
   constexpr int kPer = (D + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -481,10 +485,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const int k0 = static_cast<int>(blockIdx.x) * kF32Rows;
   const int hk = blockIdx.y;
-  const int64_t kvoff = static_cast<int64_t>(hk) * s * D;
+  const int64_t kvoff = static_cast<int64_t>(hk) * sk * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  stage_f32<D, kF32Rows, D>(ks, k + kvoff, k0, s);
-  stage_f32<D, kF32Rows, D>(vs, v + kvoff, k0, s);
+  stage_f32<D, kF32Rows, D>(ks, k + kvoff, k0, sk);
+  stage_f32<D, kF32Rows, D>(vs, v + kvoff, k0, sk);
   float dk_acc[kF32Per][kPer], dv_acc[kF32Per][kPer];
 #pragma unroll
   for (int i = 0; i < kF32Per; ++i) {
@@ -495,7 +499,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   int t0, t1;
-  query_tiles(k0, min(k0 + kF32Rows, s), s, kF32Lanes, causal, window, &t0,
+  query_tiles(k0, min(k0 + kF32Rows, sk), s, kF32Lanes, causal, window, &t0,
               &t1);
   for (int h = 0; h < group; ++h) {
     const int bh = hk * group + h;
@@ -520,7 +524,7 @@ __global__ void __launch_bounds__(kThreads)
           sdot = fmaf(ks[kr * D + d], qs[lane * (D + 1) + d], sdot);
           pdot = fmaf(vs[kr * D + d], dos[lane * (D + 1) + d], pdot);
         }
-        const float p = visible_bwd(qi, k0 + kr, s, causal, window)
+        const float p = visible_bwd(qi, k0 + kr, s, sk, causal, window)
                             ? expf(sdot * scale - lse_l)
                             : 0.f;
         const float ds = p * (pdot - dc_l) * scale;
@@ -542,7 +546,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < kF32Per; ++i) {
     const int row = k0 + warp * kF32Per + i;
-    if (row >= s) continue;
+    if (row >= sk) continue;
 #pragma unroll
     for (int c = 0; c < kPer; ++c) {
       const int d = lane + 32 * c;
@@ -583,7 +587,7 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
                const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ dcap,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-               int s, int ls, int group, int causal, int window,
+               int s, int sk, int ls, int group, int causal, int window,
                float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = aligned_smem(smem_raw);
@@ -602,7 +606,7 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
   const int k0 = static_cast<int>(blockIdx.y) * kTile;
   const int hk = blockIdx.x;
   int t0, t1;
-  query_tiles(k0, min(k0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  query_tiles(k0, min(k0 + kTile, sk), s, kTile, causal, window, &t0, &t1);
   const int nqt = t1 - t0;
   const int items = group * nqt;             // (query head, query tile)
 
@@ -673,7 +677,7 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
 
     // P^T = exp(S^T scale - lse), while dP^T is still on the tensor cores;
     // a tile the band covers whole needs no mask
-    const bool whole = q0 + kTile <= s && k0 + kTile <= s &&
+    const bool whole = q0 + kTile <= s && k0 + kTile <= sk &&
                        (!causal || k0 + kTile - 1 <= q0) &&
                        (window <= 0 || q0 + kTile - 1 - window < k0);
     hopper::wgmma_wait<1>();
@@ -686,7 +690,8 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
         const int x = 4 * j + e;
         const bool in =
             whole ||
-            visible_bwd(q0 + c, krow + (e >> 1) * 8, s, causal, window);
+            visible_bwd(q0 + c, krow + (e >> 1) * 8, s, sk, causal,
+                        window);
         sc[x] = in ? exp2f((sc[x] * scale - lse_s[c]) * kLog2e) : 0.f;
       }
     }
@@ -732,11 +737,11 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
     if (tid == 0 && i + kDkvStages < items) issue(i + kDkvStages);
   }
 
-  const int64_t kvoff = static_cast<int64_t>(hk) * s * kD;
+  const int64_t kvoff = static_cast<int64_t>(hk) * sk * kD;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = krow + r * 8;
-    if (row >= s) continue;
+    if (row >= sk) continue;
     const int64_t off = kvoff + static_cast<int64_t>(row) * kD + 2 * t;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -761,7 +766,7 @@ __global__ void __launch_bounds__(kDqThreads)
               const __grid_constant__ CUtensorMap tv,
               const __grid_constant__ CUtensorMap tdo,
               const float* __restrict__ lse, const float* __restrict__ dcap,
-              __nv_bfloat16* __restrict__ dq, int s, int ls, int group,
+              __nv_bfloat16* __restrict__ dq, int s, int sk, int ls, int group,
               int causal, int window, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = aligned_smem(smem_raw);
@@ -783,7 +788,7 @@ __global__ void __launch_bounds__(kDqThreads)
   const int bh = blockIdx.x;
   const int hk = bh / group;
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
   const int items = t1 - t0;
 
   auto issue = [&](int i) {
@@ -848,7 +853,7 @@ __global__ void __launch_bounds__(kDqThreads)
 
     // p, while dP is still on the tensor cores; a tile the band covers
     // whole needs no mask
-    const bool whole = q0 + kTile <= s && k0 + kTile <= s &&
+    const bool whole = q0 + kTile <= s && k0 + kTile <= sk &&
                        (!causal || k0 + kTile - 1 <= q0) &&
                        (window <= 0 || q0 + kTile - 1 - window < k0);
     hopper::wgmma_wait<1>();
@@ -861,7 +866,7 @@ __global__ void __launch_bounds__(kDqThreads)
         const int x = 4 * j + e;
         const bool in = whole || visible_bwd(qrow + r * 8,
                                              k0 + j * 8 + 2 * t + (e & 1), s,
-                                             causal, window);
+                                             sk, causal, window);
         sc[x] = in ? exp2f((sc[x] * scale - lse_r[r]) * kLog2e) : 0.f;
       }
     }
@@ -908,17 +913,17 @@ __global__ void __launch_bounds__(kDqThreads)
 }
 
 // the four tensor maps of one call: q and do over [bh, s, d], k and v
-// over [bkv, s, d], boxes of 64 rows (d 128 or 256)
+// over [bkv, sk, d], boxes of 64 rows (d 64, 128 or 256)
 struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
 inline int make_maps(Maps* m, const void* q, const void* k, const void* v,
                      const void* dout, long long bh, long long bkv, int s,
-                     int d = kD) {
+                     int sk, int d = kD) {
   int rc = hopper::tensor_map_bf16(&m->q, q, d, s, bh, kTile);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&m->k, k, d, s, bkv, kTile);
-  if (rc == 0) rc = hopper::tensor_map_bf16(&m->v, v, d, s, bkv, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&m->k, k, d, sk, bkv, kTile);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&m->v, v, d, sk, bkv, kTile);
   if (rc == 0) rc = hopper::tensor_map_bf16(&m->dout, dout, d, s, bh, kTile);
   return rc;
 }
@@ -975,7 +980,8 @@ __global__ void __launch_bounds__(kThreads256, 1)
                const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ dcap,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-               float* __restrict__ ws, int s, int ls, int group, int splits,
+               float* __restrict__ ws, int s, int sk, int ls, int group,
+               int splits,
                int causal, int window, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ks = aligned_shared(smem_raw);     // [64, 256]
@@ -997,7 +1003,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
   const int split = static_cast<int>(blockIdx.x) % splits;
   const int hb = split * group / splits, he = (split + 1) * group / splits;
   int t0, t1;
-  query_tiles(k0, min(k0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  query_tiles(k0, min(k0 + kTile, sk), s, kTile, causal, window, &t0, &t1);
   const int nqt = t1 - t0;
   const int items = (he - hb) * nqt;        // (query head, query tile)
 
@@ -1088,14 +1094,14 @@ __global__ void __launch_bounds__(kThreads256, 1)
       // P^T = exp(S^T scale - lse) = 2^(s c - lse log2e), c = scale
       // log2e, then 0 where masked (no branch); a tile the band covers
       // whole needs no mask
-      const bool whole = q0 + kTile <= s && k0 + kTile <= s &&
+      const bool whole = q0 + kTile <= s && k0 + kTile <= sk &&
                          (!causal || k0 + kTile - 1 <= q0) &&
                          (window <= 0 || q0 + kTile - 1 - window < k0);
 #pragma unroll
       for (int x = 0; x < 32; ++x) {
         const int c = (x >> 2) * 8 + 2 * t + (x & 1);
         const bool in = whole | visible_bwd(q0 + c, krow + ((x >> 1) & 1) * 8,
-                                            s, causal, window);
+                                            s, sk, causal, window);
         const float p = ex2(fmaf(sc[x], scale_log2, -lse_s[c] * kLog2e));
         sc[x] = in ? p : 0.f;
       }
@@ -1144,9 +1150,9 @@ __global__ void __launch_bounds__(kThreads256, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = krow + r * 8;
-    if (row >= s) continue;
+    if (row >= sk) continue;
     const int64_t off =
-        (static_cast<int64_t>(hk) * s + row) * kD + 2 * t;
+        (static_cast<int64_t>(hk) * sk + row) * kD + 2 * t;
     if (splits == 1) {
       __nv_bfloat16* out = (wgi == 0 ? dv : dk) + off;
 #pragma unroll
@@ -1157,7 +1163,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
     } else {
       // ws [2, splits, bkv, s, 256]: dk's partials first
       float* out = ws + (static_cast<int64_t>(1 - wgi) * splits + split) *
-                            bkv * s * kD + off;
+                            bkv * sk * kD + off;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         *reinterpret_cast<float2*>(out + j * 8) =
@@ -1214,7 +1220,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
               const __grid_constant__ CUtensorMap tv,
               const __grid_constant__ CUtensorMap tdo,
               const float* __restrict__ lse, const float* __restrict__ dcap,
-              __nv_bfloat16* __restrict__ dq, int s, int ls, int group,
+              __nv_bfloat16* __restrict__ dq, int s, int sk, int ls, int group,
               int pairs, int causal, int window, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = aligned_shared(smem_raw);     // Q of each warpgroup
@@ -1236,7 +1242,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
   const int h0 = 2 * (static_cast<int>(blockIdx.x) % pairs);
   const int nheads = min(2, group - h0);
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), s, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
   const int items = t1 - t0;
 
   if (tid == 0) {
@@ -1294,7 +1300,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qrow + 8 * r;
-    hi[r] = row >= s ? -1 : causal ? row : s - 1;
+    hi[r] = row >= s ? -1 : causal ? row : sk - 1;
     lo[r] = window > 0 ? row - window + 1 : 0;
   }
   const float scale_log2 = scale * kLog2e;
@@ -1345,7 +1351,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
 
     // p, while dP is still on the tensor cores; a tile the band covers
     // whole needs no mask
-    const bool whole = q0 + kTile <= s && k0 + kTile <= s &&
+    const bool whole = q0 + kTile <= s && k0 + kTile <= sk &&
                        (!causal || k0 + kTile - 1 <= q0) &&
                        (window <= 0 || q0 + kTile - 1 - window < k0);
     hopper::wgmma_wait<1>();
@@ -1447,7 +1453,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
                const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ dcap,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-               int s, int ls, int group, int causal, int window,
+               int s, int sk, int ls, int group, int causal, int window,
                float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = aligned_shared(smem_raw);
@@ -1462,7 +1468,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
   const int k0 = static_cast<int>(blockIdx.y) * kBlock;
   const int hk = blockIdx.x;
   int t0, t1;
-  query_tiles(k0, min(k0 + kBlock, s), s, kTile, causal, window, &t0, &t1);
+  query_tiles(k0, min(k0 + kBlock, sk), s, kTile, causal, window, &t0, &t1);
   const int items = (t1 - t0) * group;      // (query tile, query head)
 
   if (tid == 0) {
@@ -1510,18 +1516,18 @@ __global__ void __launch_bounds__(kThreads64, 1)
   const int krow = kw0 + (warp & 3) * 16 + g;       // keys krow, krow + 8
   // the block's items [a, b) that this warpgroup's keys see
   int a = 0, b = 0;
-  if (kw0 < s) {
+  if (kw0 < sk) {
     int w0, w1;
-    query_tiles(kw0, min(kw0 + 64, s), s, kTile, causal, window, &w0, &w1);
+    query_tiles(kw0, min(kw0 + 64, sk), s, kTile, causal, window, &w0, &w1);
     if (w1 > w0) {
       a = (w0 - t0) * group;
       b = (w1 - t0) * group;
     }
   }
-  const int64_t kvoff = static_cast<int64_t>(hk) * s * kD;
+  const int64_t kvoff = static_cast<int64_t>(hk) * sk * kD;
   uint32_t ka[4][4], va[4][4];
-  hopper::rows_to_a64(ka, k + kvoff, krow, s, t);
-  hopper::rows_to_a64(va, v + kvoff, krow, s, t);
+  hopper::rows_to_a64(ka, k + kvoff, krow, sk, t);
+  hopper::rows_to_a64(va, v + kvoff, krow, sk, t);
   const float scale_log2 = scale * kLog2e;
 
   auto stage = [&](int i) { return ring + (i % kDkvStages) * kDkvStage; };
@@ -1581,7 +1587,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
     // P^T = exp(S^T scale - lse) = 2^(s c - lse log2e), c = scale log2e, 0
     // where masked (only a tile the band does not cover whole needs the
     // mask), then dS^T = P^T (dP^T - D) scale
-    const bool whole = q0 + kTile <= s && kw0 + 64 <= s &&
+    const bool whole = q0 + kTile <= s && kw0 + 64 <= sk &&
                        (!causal || kw0 + 63 <= q0) &&
                        (window <= 0 || q0 + kTile - 1 - window < kw0);
 #pragma unroll
@@ -1593,8 +1599,8 @@ __global__ void __launch_bounds__(kThreads64, 1)
 #pragma unroll
       for (int x = 0; x < 32; ++x) {
         const int c = (x >> 2) * 8 + 2 * t + (x & 1);
-        sc[x] = visible_bwd(q0 + c, krow + ((x >> 1) & 1) * 8, s, causal,
-                            window)
+        sc[x] = visible_bwd(q0 + c, krow + ((x >> 1) & 1) * 8, s, sk,
+                            causal, window)
                     ? sc[x]
                     : 0.f;
       }
@@ -1641,7 +1647,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = krow + r * 8;
-    if (row >= s) continue;
+    if (row >= sk) continue;
     const int64_t off = kvoff + static_cast<int64_t>(row) * kD + 2 * t;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -1685,7 +1691,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
               const __nv_bfloat16* __restrict__ o,
               const __nv_bfloat16* __restrict__ dout,
               const float* __restrict__ lse, float* __restrict__ dcap,
-              __nv_bfloat16* __restrict__ dq, int s, int ls, int group,
+              __nv_bfloat16* __restrict__ dq, int s, int sk, int ls, int group,
               int causal, int window, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = aligned_shared(smem_raw);     // Q a warpgroup
@@ -1704,7 +1710,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kDqBlock;
   const int bh = blockIdx.x;
   int t0, t1;
-  key_tiles(q0, min(q0 + kDqBlock, s), s, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kDqBlock, s), sk, kTile, causal, window, &t0, &t1);
   const int items = t1 - t0;
 
   if (tid == 0) {
@@ -1757,7 +1763,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   int a = 0, b = 0;
   if (qw0 < s) {
     int w0, w1;
-    key_tiles(qw0, min(qw0 + 64, s), s, kTile, causal, window, &w0, &w1);
+    key_tiles(qw0, min(qw0 + 64, s), sk, kTile, causal, window, &w0, &w1);
     a = w0 - t0;
     b = w1 - t0;
   }
@@ -1789,7 +1795,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qrow + 8 * r;
-    hi[r] = row >= s ? -1 : causal ? row : s - 1;
+    hi[r] = row >= s ? -1 : causal ? row : sk - 1;
     lo[r] = window > 0 ? row - window + 1 : 0;
     const int64_t off = static_cast<int64_t>(bh) * ls + row;
     lse_l[r] = row < s ? lse[off] * kLog2e : 0.f;
@@ -1845,7 +1851,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     if (i > a) release(i - 1);
     // p, 0 where masked (a tile the band covers whole needs no mask), then
     // dS = p (dP - D) scale
-    const bool whole = qw0 + 64 <= s && k0 + kTile <= s &&
+    const bool whole = qw0 + 64 <= s && k0 + kTile <= sk &&
                        (!causal || k0 + kTile - 1 <= qw0) &&
                        (window <= 0 || qw0 + 63 - window < k0);
 #pragma unroll
@@ -1941,7 +1947,7 @@ __global__ void flash_bwd_dcap_kernel(const T* __restrict__ o,
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *dcap;
-  int s, ls, group, causal, window;
+  int s, sk, ls, group, causal, window;
   float scale;
   cudaStream_t stream;
 };
@@ -1957,7 +1963,7 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
       wg::Maps m;
       const int pairs = (a.group + 1) / 2;
       int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bh, bh / a.group,
-                             a.s, wg256::kD);
+                             a.s, a.sk, wg256::kD);
       if (rc == 0) {
         rc = set_smem(wg256::flash_bwd_dq_wgmma256_kernel, wg256::kDqSmem);
       }
@@ -1968,12 +1974,12 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
                                             wg256::kDqSmem, a.stream>>>(
           m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
           static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dq),
-          a.s, a.ls, a.group, pairs, a.causal, a.window, a.scale);
+          a.s, a.sk, a.ls, a.group, pairs, a.causal, a.window, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else if constexpr (D == wg64::kD) {
       wg::Maps m;
       int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bh, bh / a.group,
-                             a.s, D);
+                             a.s, a.sk, D);
       if (rc == 0) {
         rc = set_smem(wg64::flash_bwd_dq_wgmma64_kernel, wg64::kDqSmem);
       }
@@ -1986,13 +1992,13 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
           static_cast<const __nv_bfloat16*>(o),
           static_cast<const __nv_bfloat16*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<float*>(dcap),
-          static_cast<__nv_bfloat16*>(dq), a.s, a.ls, a.group, a.causal,
+          static_cast<__nv_bfloat16*>(dq), a.s, a.sk, a.ls, a.group, a.causal,
           a.window, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else if constexpr (D == wg::kD) {
       wg::Maps m;
       int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bh,
-                             bh / a.group, a.s);
+                             bh / a.group, a.s, a.sk);
       if (rc == 0) rc = set_smem(wg::flash_bwd_dq_wgmma_kernel, wg::kDqSmem);
       if (rc != 0) return rc;
       const dim3 grid(static_cast<unsigned>(bh),
@@ -2001,7 +2007,7 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
                                       a.stream>>>(
           m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
           static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dq),
-          a.s, a.ls, a.group, a.causal, a.window, a.scale);
+          a.s, a.sk, a.ls, a.group, a.causal, a.window, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else {
       constexpr size_t smem = mma_smem<D>();
@@ -2014,7 +2020,7 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
           static_cast<const __nv_bfloat16*>(a.v),
           static_cast<const __nv_bfloat16*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
-          static_cast<__nv_bfloat16*>(dq), a.s, a.ls, a.group, a.causal,
+          static_cast<__nv_bfloat16*>(dq), a.s, a.sk, a.ls, a.group, a.causal,
           a.window, a.scale);
     }
   } else if (dtype == 0) {
@@ -2027,7 +2033,7 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
-        static_cast<float*>(dq), a.s, a.ls, a.group, a.causal, a.window,
+        static_cast<float*>(dq), a.s, a.sk, a.ls, a.group, a.causal, a.window,
         a.scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2048,22 +2054,23 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
     if constexpr (D == wg256::kD) {
       wg::Maps m;
       int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bkv * a.group,
-                             bkv, a.s, wg256::kD);
+                             bkv, a.s, a.sk, wg256::kD);
       if (rc == 0) {
         rc = set_smem(wg256::flash_bwd_dkv_wgmma256_kernel, wg256::kDkvSmem);
       }
       if (rc != 0) return rc;
       const dim3 grid(static_cast<unsigned>(bkv * splits),
-                      (a.s + wg::kTile - 1) / wg::kTile);
+                      (a.sk + wg::kTile - 1) / wg::kTile);
       wg256::flash_bwd_dkv_wgmma256_kernel<<<grid, wg256::kThreads256,
                                              wg256::kDkvSmem, a.stream>>>(
           m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
           static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), static_cast<float*>(ws), a.s, a.ls,
+          static_cast<__nv_bfloat16*>(dv), static_cast<float*>(ws), a.s, a.sk,
+          a.ls,
           a.group, splits, a.causal, a.window, a.scale);
       rc = static_cast<int>(cudaGetLastError());
       if (rc != 0 || splits == 1) return rc;
-      const long long n = bkv * a.s * wg256::kD;
+      const long long n = bkv * a.sk * wg256::kD;
       const long long blocks = (n / 4 + 255) / 256;
       const dim3 rgrid(static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
                        2);
@@ -2084,35 +2091,35 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
       }
       if (rc != 0) return rc;
       const dim3 grid(static_cast<unsigned>(bkv),
-                      (a.s + wg64::kBlock - 1) / wg64::kBlock);
+                      (a.sk + wg64::kBlock - 1) / wg64::kBlock);
       wg64::flash_bwd_dkv_wgmma64_kernel<<<grid, wg64::kThreads64,
                                            wg64::kDkvSmem, a.stream>>>(
           static_cast<const __nv_bfloat16*>(a.k),
           static_cast<const __nv_bfloat16*>(a.v), tq, tdo,
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          a.s, a.ls, a.group, a.causal, a.window, a.scale);
+          a.s, a.sk, a.ls, a.group, a.causal, a.window, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else if constexpr (D == wg::kD) {
       wg::Maps m;
       int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bkv * a.group, bkv,
-                             a.s);
+                             a.s, a.sk);
       if (rc == 0) rc = set_smem(wg::flash_bwd_dkv_wgmma_kernel, wg::kDkvSmem);
       if (rc != 0) return rc;
       const dim3 grid(static_cast<unsigned>(bkv),
-                      (a.s + wg::kTile - 1) / wg::kTile);
+                      (a.sk + wg::kTile - 1) / wg::kTile);
       wg::flash_bwd_dkv_wgmma_kernel<<<grid, wg::kDkvThreads, wg::kDkvSmem,
                                        a.stream>>>(
           m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
           static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), a.s, a.ls, a.group, a.causal,
+          static_cast<__nv_bfloat16*>(dv), a.s, a.sk, a.ls, a.group, a.causal,
           a.window, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else {
       constexpr size_t smem = mma_smem<D>();
       const int rc = set_smem(flash_bwd_dkv_mma_kernel<D>, smem);
       if (rc != 0) return rc;
-      const dim3 grid((a.s + kTile - 1) / kTile, static_cast<unsigned>(bkv));
+      const dim3 grid((a.sk + kTile - 1) / kTile, static_cast<unsigned>(bkv));
       flash_bwd_dkv_mma_kernel<D><<<grid, kThreads, smem, a.stream>>>(
               static_cast<const __nv_bfloat16*>(a.q),
               static_cast<const __nv_bfloat16*>(a.k),
@@ -2121,19 +2128,20 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
               static_cast<const float*>(a.lse),
               static_cast<const float*>(a.dcap),
               static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-              a.s, a.ls, a.group, a.causal, a.window, a.scale);
+              a.s, a.sk, a.ls, a.group, a.causal, a.window, a.scale);
     }
   } else if (dtype == 0) {
     constexpr size_t smem = f32_smem<D>();
     const int rc = set_smem(flash_bwd_dkv_f32_kernel<D>, smem);
     if (rc != 0) return rc;
-    const dim3 grid((a.s + kF32Rows - 1) / kF32Rows,
+    const dim3 grid((a.sk + kF32Rows - 1) / kF32Rows,
                     static_cast<unsigned>(bkv));
     flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
-        static_cast<float*>(dk), static_cast<float*>(dv), a.s, a.ls, a.group,
+        static_cast<float*>(dk), static_cast<float*>(dv), a.s, a.sk, a.ls,
+        a.group,
         a.causal, a.window, a.scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2144,12 +2152,13 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
 // the checks both entry points make; fills a and returns 0, or an error
 int prepare(Args* a, const void* q, const void* k, const void* v,
             const void* dout, const void* lse, const void* dcap,
-            long long bh, long long bkv, int s, int d, int ls, int causal,
-            int window, void* stream) {
-  if (bkv <= 0 || bh % bkv != 0 || bh > 65535 || ls < s || ls % 64 != 0) {
+            long long bh, long long bkv, int s, int sk, int d, int ls,
+            int causal, int window, void* stream) {
+  if (bkv <= 0 || bh % bkv != 0 || bh > 65535 || ls < s || ls % 64 != 0 ||
+      sk <= 0 || (sk != s && (causal || window > 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  *a = Args{q, k, v, dout, lse, dcap, s, ls, static_cast<int>(bh / bkv),
+  *a = Args{q, k, v, dout, lse, dcap, s, sk, ls, static_cast<int>(bh / bkv),
             causal, window,
             static_cast<float>(1.0 / sqrt(static_cast<double>(d))),
             static_cast<cudaStream_t>(stream)};
@@ -2169,13 +2178,15 @@ int prepare(Args* a, const void* q, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
 
-// q, o, do [bh, s, d]; k, v [bkv, s, d]; lse and dcap = rowsum(do * o)
+// q, o, do [bh, s, d]; k, v [bkv, sk, d]; lse and dcap = rowsum(do * o)
 // [bh, ls] f32 (rows padded to ls, a multiple of 64, ls >= s; dcap written
-// by repro_flash_bwd_dq); dq [bh, s, d]; dk, dv [bkv, s, d]; all contiguous
-// and 16-byte aligned. dtype: 0 = float32, 2 = bfloat16 (q, k, v, do and
-// the outputs share it). window <= 0: no window. d in {16, 32, 64, 96, 128,
-// 256}. splits: the dk/dv grid's split of each GQA group (1, or for bf16 at
-// d = 256 up to bh / bkv, with ws an f32 workspace [2, splits, bkv, s, d]).
+// by repro_flash_bwd_dq); dq [bh, s, d]; dk, dv [bkv, sk, d]; all
+// contiguous and 16-byte aligned. dtype: 0 = float32, 2 = bfloat16 (q, k,
+// v, do and the outputs share it). window <= 0: no window. sk, the key
+// length, is s for self-attention; a cross-attention's sk of its own takes
+// neither a causal mask nor a window. d in {16, 32, 64, 96, 128, 256}.
+// splits: the dk/dv grid's split of each GQA group (1, or for bf16 at d =
+// 256 up to bh / bkv, with ws an f32 workspace [2, splits, bkv, sk, d]).
 // The dq entry point writes dcap = rowsum(do * o) from o (the forward's
 // output, q's type) with a kernel of its own before the dq kernel, or at d
 // = 64 in bf16 inside the dq kernel; the dk/dv entry point reads that
@@ -2184,11 +2195,11 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* dcap, void* dq,
                                   int dtype, long long bh, long long bkv,
-                                  int s, int d, int ls, int causal,
+                                  int s, int sk, int d, int ls, int causal,
                                   int window, void* stream) {
   Args a;
-  const int rc = prepare(&a, q, k, v, dout, lse, dcap, bh, bkv, s, d, ls,
-                         causal, window, stream);
+  const int rc = prepare(&a, q, k, v, dout, lse, dcap, bh, bkv, s, sk, d,
+                         ls, causal, window, stream);
   if (rc != 0) return rc;
   if (bh == 0 || s == 0) return static_cast<int>(cudaGetLastError());
   const dim3 dgrid((ls + kThreads / 32 - 1) / (kThreads / 32),
@@ -2214,11 +2225,11 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
                                    const void* lse, const void* dcap,
                                    void* dk, void* dv, void* ws, int splits,
                                    int dtype, long long bh, long long bkv,
-                                   int s, int d, int ls, int causal,
+                                   int s, int sk, int d, int ls, int causal,
                                    int window, void* stream) {
   Args a;
-  const int rc = prepare(&a, q, k, v, dout, lse, dcap, bh, bkv, s, d, ls,
-                         causal, window, stream);
+  const int rc = prepare(&a, q, k, v, dout, lse, dcap, bh, bkv, s, sk, d,
+                         ls, causal, window, stream);
   if (rc != 0) return rc;
   if (splits < 1 || splits > a.group || (splits > 1 && ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -15,17 +15,18 @@ constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;
 
-// the mask of _fwd_kernel: key kj is visible from query qi
-__device__ __forceinline__ bool visible(int qi, int kj, int s, int causal,
+// the mask of _fwd_kernel: key kj of sk is visible from query qi (a causal
+// mask or a window only where the keys are the queries' own, sk = s)
+__device__ __forceinline__ bool visible(int qi, int kj, int sk, int causal,
                                         int window) {
-  return kj < s && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
+  return kj < sk && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
 }
 
-// the key tiles [t0, t1) that intersect the band of queries [q0, q1)
-__device__ __forceinline__ void key_tiles(int q0, int q1, int s, int bk,
+// the tiles [t0, t1) of sk keys that intersect the band of queries [q0, q1)
+__device__ __forceinline__ void key_tiles(int q0, int q1, int sk, int bk,
                                           int causal, int window, int* t0,
                                           int* t1) {
-  const int khi = causal ? min(s, q1) : s;
+  const int khi = causal ? min(sk, q1) : sk;
   const int klo = window > 0 ? max(0, q0 - window + 1) : 0;
   *t0 = klo / bk;
   *t1 = (khi + bk - 1) / bk;

@@ -7,8 +7,9 @@ Run:  PYTHONPATH=src python -m repro_torch.examples.lm_pretrain_smoke \
           [--device cpu] [--arch olmo-1b] [--steps 30]
 
 The dense decoders, recurrentgemma, the MoE decoders (granite) and
-xLSTM train; the encoder-decoders, which the port has not reached yet,
-raise ``NotImplementedError`` naming their ROADMAP item.
+xLSTM train. As in the reference, each batch holds ``tokens`` only, so
+seamless-m4t-large-v2 (which also needs ``frames``) and pixtral-12b
+(``patches``) raise the reference's ``KeyError``.
 """
 import argparse
 

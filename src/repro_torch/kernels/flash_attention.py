@@ -2,16 +2,22 @@
 and its backward (``csrc/flash_attention_bwd.cu``).
 
 Counterparts of ``repro/kernels/flash_attention.py::flash_fwd`` and
-``::flash_bwd``, in their flat layout: ``q [BH, S, D]``, ``k/v [BKV, S,
-D]`` -> (``o [BH, S, D]``, ``lse [BH, S]`` f32), and with ``o``, ``lse``
-and ``do`` -> (``dq``, ``dk``, ``dv``). On CUDA tensors each wrapper
+``::flash_bwd``, in their flat layout: ``q [BH, Sq, D]``, ``k/v [BKV, Sk,
+D]`` -> (``o [BH, Sq, D]``, ``lse [BH, Sq]`` f32), and with ``o``, ``lse``
+and ``do`` -> (``dq``, ``dk``, ``dv``). ``Sk`` is ``Sq`` for
+self-attention; cross-attention (``repro/models/lm/transformer.py::
+attn_apply`` with ``kv_from``: ``chunked_attention(causal=False)`` over the
+encoder's keys) has a key length of its own, and then neither the causal
+mask nor a window applies (the reference aligns no positions across two
+lengths, so the pair raises). On CUDA tensors each wrapper
 launches its hand-written kernels (bf16 on the tensor cores: ``wgmma``
 fed by TMA at D 64, 128 and 256, ``mma.sync`` at D 16, 32 and 96; f32
 with FMAs); on
 CPU tensors it runs the plain version,
 ``ref.flash_attention_ref`` or ``ref.flash_attention_bwd_ref``. There is
 no fallback between the two: a CUDA launch that fails raises. Unlike the
-TPU kernels, any ``S`` works (the ragged tail is masked in the kernels).
+TPU kernels, any ``Sq`` and ``Sk`` work (the ragged tails are masked in
+the kernels).
 """
 from __future__ import annotations
 
@@ -35,10 +41,10 @@ SPLIT_HEAD_DIM = 256
 DKV_WAVES = 2
 
 
-def dkv_splits(bkv: int, s: int, group: int, d: int, dtype: torch.dtype,
+def dkv_splits(bkv: int, sk: int, group: int, d: int, dtype: torch.dtype,
                sms: int) -> int:
     """How many ways K8's dk/dv grid splits each GQA group's query heads:
-    1, except for bf16 at D 256, where a grid of ``bkv * ceil(s / 64)``
+    1, except for bf16 at D 256, where a grid of ``bkv * ceil(sk / 64)``
     key tiles would leave SMs idle (recurrentgemma: one KV head, 64 tiles
     for 132 SMs). There it is the smallest divisor of ``group`` that gives
     at least :data:`DKV_WAVES` blocks an SM (``group`` itself if none
@@ -46,20 +52,24 @@ def dkv_splits(bkv: int, s: int, group: int, d: int, dtype: torch.dtype,
     blocks write f32 partials that a reduce kernel sums in split order."""
     if d != SPLIT_HEAD_DIM or dtype != torch.bfloat16:
         return 1
-    tiles = bkv * -(-s // LSE_TILE)
+    tiles = bkv * -(-sk // LSE_TILE)
     want = -(-DKV_WAVES * sms // tiles)
     return min((x for x in range(1, group + 1)
                 if group % x == 0 and x >= want), default=group)
 
 
-def _check_shapes(q, k, v, window) -> None:
+def _check_shapes(q, k, v, causal, window) -> None:
     _build.require(q.dim() == 3 and k.dim() == 3 and v.dim() == 3,
                    f"q, k, v must be 3-D, got {tuple(q.shape)}, "
                    f"{tuple(k.shape)}, {tuple(v.shape)}")
     bh, s, d = q.shape
-    _build.require(k.shape == v.shape and k.shape[1:] == (s, d),
+    sk = k.shape[1]
+    _build.require(k.shape == v.shape and k.shape[2] == d and sk > 0,
                    f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
-                   f"[BKV, {s}, {d}]")
+                   f"[BKV, Sk, {d}] with Sk > 0")
+    _build.require(sk == s or not (causal or window is not None),
+                   f"a key length {sk} other than the query length {s} "
+                   "takes neither a causal mask nor a window")
     _build.require(k.shape[0] > 0 and bh % k.shape[0] == 0,
                    f"BH {bh} is not a multiple of BKV {k.shape[0]}")
     _build.require(window is None or window > 0,
@@ -84,15 +94,15 @@ def _check_cuda(q: torch.Tensor, **others: torch.Tensor) -> None:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention of ``q [BH, S, D]`` over ``k/v [BKV, S, D]`` (query head
-    ``n`` reads KV head ``n // (BH / BKV)``), causal and/or within a
-    ``window`` of keys ``j > i - window`` -> (``o`` in ``q``'s type,
-    ``lse`` f32). f32 or bf16; D in :data:`HEAD_DIMS` on CUDA. One launch:
+    """Attention of ``q [BH, Sq, D]`` over ``k/v [BKV, Sk, D]`` (query
+    head ``n`` reads KV head ``n // (BH / BKV)``), causal and/or within a
+    ``window`` of keys ``j > i - window`` (both only at ``Sk == Sq``) ->
+    (``o`` in ``q``'s type, ``lse [BH, Sq]`` f32). f32 or bf16; D in :data:`HEAD_DIMS` on CUDA. One launch:
     ``wgmma`` fed by TMA copy rings for bf16 at D = 64, 128 and 256 (at 64
     three warpgroups of 64 queries share each 128-key K/V tile, at 256 two
     query heads of a GQA group do), ``mma.sync`` for bf16 at D 16, 32 and
     96, FMAs for f32."""
-    _check_shapes(q, k, v, window)
+    _check_shapes(q, k, v, causal, window)
     if _build.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     _check_cuda(q, k=k, v=v)
@@ -101,8 +111,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     _build.launch(NAME, "repro_flash_fwd", q.device, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                  _build.DTYPE_CODES[q.dtype], bh, k.shape[0], s, d,
-                  int(causal), 0 if window is None else int(window))
+                  _build.DTYPE_CODES[q.dtype], bh, k.shape[0], s,
+                  k.shape[1], d, int(causal),
+                  0 if window is None else int(window))
     return o, lse
 
 
@@ -110,8 +121,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradient of :func:`flash_fwd`: ``q, o, do [BH, S, D]``, ``k/v
-    [BKV, S, D]`` and the forward's ``lse [BH, S]`` f32 -> (``dq`` in
+    """The gradient of :func:`flash_fwd`: ``q, o, do [BH, Sq, D]``, ``k/v
+    [BKV, Sk, D]`` and the forward's ``lse [BH, Sq]`` f32 -> (``dq`` in
     ``q``'s type, ``dk``, ``dv`` in ``k``'s), ``dk``/``dv`` summed over each
     GQA group of query heads. Two launches: the dq kernel and the dk/dv
     kernel (on ``wgmma`` with TMA copy rings for bf16 at D = 64, 128 and
@@ -123,7 +134,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with more than one split its blocks write f32 partials into a
     workspace and a reduce kernel in the same launch sums them in split
     order, so two calls give the same bits."""
-    _check_shapes(q, k, v, window)
+    _check_shapes(q, k, v, causal, window)
     _build.require(o.shape == q.shape and do.shape == q.shape,
                    f"o {tuple(o.shape)} and do {tuple(do.shape)} must be "
                    f"{tuple(q.shape)}")
@@ -138,6 +149,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    f"lse on {lse.device}, q on {q.device}")
     _build.require(lse.data_ptr() % 16 == 0, "lse is not 16-byte aligned")
     bh, s, d = q.shape
+    sk = k.shape[1]
     # lse and D = rowsum(do * o) padded to whole 64-query tiles, so that the
     # kernels copy a tile's rows of them as one aligned block; the dq launch
     # writes D (and 0 in the padding), the dk/dv launch reads it
@@ -146,12 +158,12 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dcap = torch.empty((bh, ls), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     bkv = k.shape[0]
-    splits = dkv_splits(bkv, s, bh // bkv, d, q.dtype,
+    splits = dkv_splits(bkv, sk, bh // bkv, d, q.dtype,
                         torch.cuda.get_device_properties(
                             q.device).multi_processor_count)
-    ws = (torch.empty((2, splits, bkv, s, d), dtype=torch.float32,
+    ws = (torch.empty((2, splits, bkv, sk, d), dtype=torch.float32,
                       device=q.device) if splits > 1 else None)
-    tail = (_build.DTYPE_CODES[q.dtype], bh, bkv, s, d, ls, int(causal),
+    tail = (_build.DTYPE_CODES[q.dtype], bh, bkv, s, sk, d, ls, int(causal),
             0 if window is None else int(window))
     _build.launch(NAME_BWD, "repro_flash_bwd_dq", q.device, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),

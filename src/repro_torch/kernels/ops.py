@@ -209,7 +209,8 @@ class _FlashAttention(torch.autograd.Function):
     """K7 forward, K8 backward. The kernels write into ``torch.empty``
     buffers that autograd cannot see through, so this Function carries the
     gradient: forward saves the flat, contiguous q, k and v (the ``_bhsd``
-    copies the kernels read), ``o`` and K7's ``lse``."""
+    copies the kernels read; k and v with their own key length), ``o``
+    and K7's ``lse``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -245,9 +246,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """``q [B, S, Hq, D]``, ``k/v [B, S, Hkv, D]`` -> ``[B, S, Hq, D]``:
-    K7 forward and K8 backward on CUDA tensors, the plain version on CPU
-    tensors."""
+    """``q [B, Sq, Hq, D]``, ``k/v [B, Sk, Hkv, D]`` -> ``[B, Sq, Hq,
+    D]``: K7 forward and K8 backward on CUDA tensors, the plain version on
+    CPU tensors. ``Sk`` other than ``Sq`` (cross-attention) takes neither
+    ``causal`` nor a ``window``."""
     if _use_kernel(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_plain(q, k, v, causal, window)

@@ -167,15 +167,35 @@ def dot_interaction_bwd_ref(x: torch.Tensor, dtri: torch.Tensor, *,
 MASKED = -1e30
 
 
+def _mask(sq: int, sk: int, causal: bool, window, device) -> torch.Tensor:
+    """``[Sq, Sk]``: key ``j`` visible from query ``i``. The causal and
+    window masks compare positions on one timeline, so they need ``Sk ==
+    Sq``."""
+    if sk != sq and (causal or window is not None):
+        raise ValueError(f"a key length {sk} other than the query length "
+                         f"{sq} takes neither a causal mask nor a window")
+    i = torch.arange(sq, device=device)
+    j = torch.arange(sk, device=device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= j[None, :] <= i[:, None]
+    if window is not None:
+        mask &= j[None, :] > i[:, None] - window
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window=None):
-    """Softmax attention in the flash kernels' flat layout: ``q [BH, S,
-    D]``, ``k/v [BKV, S, D]`` -> (``o [BH, S, D]`` in ``q``'s type, ``lse
-    [BH, S]`` f32). Query head ``n`` reads KV head ``n // g``, ``g = BH /
-    BKV``. Key ``j`` is visible from query ``i`` when ``j <= i`` (causal)
-    and ``j > i - window`` (a window); a masked score is -1e30 and its
-    ``p`` 0. All in f32 (f64 for f64 inputs); ``lse = m + log(max(l,
-    1e-30))``, as the forward kernel writes it."""
+    """Softmax attention in the flash kernels' flat layout: ``q [BH, Sq,
+    D]``, ``k/v [BKV, Sk, D]`` -> (``o [BH, Sq, D]`` in ``q``'s type,
+    ``lse [BH, Sq]`` f32). Query head ``n`` reads KV head ``n // g``, ``g =
+    BH / BKV``. Key ``j`` is visible from query ``i`` when ``j <= i``
+    (causal) and ``j > i - window`` (a window); a masked score is -1e30 and
+    its ``p`` 0. ``Sk`` may differ from ``Sq`` only without either mask
+    (cross-attention: ``chunked_attention(causal=False)`` with its own key
+    length; the reference aligns no positions across two lengths). All in
+    f32 (f64 for f64 inputs); ``lse = m + log(max(l, 1e-30))``, as the
+    forward kernel writes it."""
     bh, s, d = q.shape
     bkv = k.shape[0]
     g = bh // bkv
@@ -183,12 +203,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.to(dt).reshape(bkv, g, s, d)
     sc = torch.matmul(qf, k.to(dt)[:, None].transpose(-1, -2)) \
         * (1.0 / math.sqrt(d))
-    i = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= i[None, :] <= i[:, None]
-    if window is not None:
-        mask &= i[None, :] > i[:, None] - window
+    mask = _mask(s, k.shape[1], causal, window, q.device)
     sc = torch.where(mask, sc, torch.full((), MASKED, dtype=dt,
                                            device=q.device))
     m = sc.amax(dim=-1)
@@ -205,8 +220,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor, *,
                             causal: bool = True, window=None):
     """The gradient of :func:`flash_attention_ref`, written out (not
-    autograd of it): ``q, o, do [BH, S, D]``, ``k/v [BKV, S, D]``, ``lse
-    [BH, S]`` -> (``dq`` in ``q``'s type, ``dk``, ``dv`` in ``k``'s).
+    autograd of it): ``q, o, do [BH, Sq, D]``, ``k/v [BKV, Sk, D]``, ``lse
+    [BH, Sq]`` -> (``dq`` in ``q``'s type, ``dk``, ``dv`` in ``k``'s).
     ``D = rowsum(do o)``, ``p = exp(s scale - lse)`` (0 where masked, the
     forward's mask), ``dv = p^T do``, ``ds = p (do v^T - D) scale``, ``dq =
     ds k``, ``dk = ds^T q``; ``dk``/``dv`` summed over each group of ``g =
@@ -219,12 +234,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     qf, of, dof = (t.to(dt).reshape(bkv, g, s, d) for t in (q, o, do))
     kf, vf = k.to(dt)[:, None], v.to(dt)[:, None]
     dcap = (dof * of).sum(dim=-1, keepdim=True)
-    i = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= i[None, :] <= i[:, None]
-    if window is not None:
-        mask &= i[None, :] > i[:, None] - window
+    mask = _mask(s, k.shape[1], causal, window, q.device)
     sc = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(sc - lse.to(dt).reshape(bkv, g, s, 1)),
                     torch.zeros((), dtype=dt, device=q.device))

@@ -20,7 +20,11 @@ lr, grad_allreduce_dtype, mode, comm, ckpt_interval))``, ``compile``,
 the newest checkpoint there. An LM arch trains as the reference's LM
 branch: the model of ``--arch`` (reduced by ``--smoke``) from seed-0
 weights, a batch of tokens drawn uniformly from the vocabulary each step
-(numpy, seed 0), and plain SGD, ``p - lr * g``.
+(numpy, seed 0), and plain SGD, ``p - lr * g``. Like the reference's, the
+batch holds ``tokens`` only, so the encoder-decoder (seamless, which also
+needs ``frames``) and the vision prefix (pixtral, ``patches``) raise the
+reference's ``KeyError``; ``lm_value_and_grad`` and ``lm_sgd_step_``
+take a whole batch for them.
 
 Unlike the reference, one device does not imply the smoke reduction: the
 card trains a recipe or an LM at full width. Everything runs on ``cuda``
@@ -47,13 +51,17 @@ from repro_torch.roadmap import LM_CKPT, MULTI_DEVICE, not_ported
 from repro_torch.tree import flatten, tree_map
 
 
-def lm_value_and_grad(model: LMModel, params: Dict, tokens: torch.Tensor
+def lm_value_and_grad(model: LMModel, params: Dict,
+                      tokens: Union[torch.Tensor, Dict]
                       ) -> Tuple[torch.Tensor, Dict]:
-    """``(loss, grads)`` of ``model.train_loss`` at ``params``; ``grads``
-    has ``params``' tree. ``params`` are left as they are (autograd runs
-    on detached aliases of them)."""
+    """``(loss, grads)`` of ``model.train_loss`` at ``params`` on
+    ``tokens`` (a ``[B, S]`` tensor, or a whole batch dict: ``tokens``
+    with ``frames`` or ``patches``); ``grads`` has ``params``' tree.
+    ``params`` are left as they are (autograd runs on detached aliases of
+    them)."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = model.train_loss(live, {"tokens": tokens})
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+    loss = model.train_loss(live, batch)
     leaves = [t for _, t in flatten(live)]
     grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
     return loss.detach(), tree_map(lambda t: grads[id(t)], live)
@@ -73,7 +81,8 @@ def lm_train_step(model: LMModel, opt: Optimizer) -> Callable:
     return step
 
 
-def lm_sgd_step_(model: LMModel, params: Dict, tokens: torch.Tensor,
+def lm_sgd_step_(model: LMModel, params: Dict,
+                 tokens: Union[torch.Tensor, Dict],
                  lr: float) -> torch.Tensor:
     """One SGD step, ``p - lr * g``, written into ``params`` in place; the
     values of ``optimizers.make("sgd")`` without its second copy of the

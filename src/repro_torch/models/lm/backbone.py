@@ -1,4 +1,4 @@
-"""``LMModel`` for the dense decoder family on one device (counterpart of
+"""``LMModel`` for the LM families on one device (counterpart of
 ``repro/models/lm/backbone.py``).
 
 The paper's technique shows up as the vocabulary embedding modes, as in the
@@ -22,10 +22,17 @@ cross-entropy), ``prefill``, ``init_cache`` and ``decode_step`` for the
 dense decoders (phi3-mini, minitron-4b, command-r-plus, olmo-1b), the
 hybrid of RG-LRU and local-attention blocks (recurrentgemma: local
 attention is K7 / K8 with a window, its decode a rolling cache), the MoE
-decoders (granite: every attention layer's FFN is ``moe.moe_apply``) and
-xLSTM (mLSTM and sLSTM blocks, no FFN), with every ``remat`` policy of
-the reference. The encoder-decoder families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+decoders (granite: every attention layer's FFN is ``moe.moe_apply``),
+xLSTM (mLSTM and sLSTM blocks, no FFN), the encoder-decoder (seamless:
+``frames [B, S_f, D]``, a stub frontend with no parameters, through a
+non-causal encoder stack; every decoder layer's cross-attention reads its
+output through K7 / K8 with the encoder's key length) and the vision
+prefix (pixtral: ``patches [B, S_img, D]`` ahead of the token
+embeddings, the loss on the text positions only), with every ``remat``
+policy of the reference (the encoder-decoder's as the reference maps
+them: ``"dots"`` and ``"group"`` both save the matmuls, and the encoder
+is never recomputed). Decode never sees ``frames`` or ``patches``, as in
+the reference.
 
 Layers run group-major, as the reference scans them: every layer of
 pattern slot 0, then of slot 1, ..., then the tail.
@@ -71,12 +78,8 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_save_dots)
 
 
-def _check_ported(cfg: LMConfig) -> None:
-    """Raise ``NotImplementedError`` (naming its ROADMAP item) for a config
-    outside the decoder families the port has."""
-    if cfg.encoder_layers or cfg.frontend:
-        raise tf.not_ported(f"{cfg.name}: encoder layers and modality "
-                            "frontends", tf.ENCDEC)
+def _check_kinds(cfg: LMConfig) -> None:
+    """Raise ``ValueError`` for a block kind the reference does not have."""
     for kind in cfg.block_pattern:
         if kind not in KINDS:
             raise ValueError(kind)
@@ -106,7 +109,7 @@ class LMModel:
                  embed_mode: str = "auto", hot_fraction: float = 0.05,
                  loss_chunk: int = 512, remat: str = "none",
                  use_kernels: bool = True):
-        _check_ported(cfg)
+        _check_kinds(cfg)
         if remat not in REMATS:
             raise ValueError(f"remat {remat!r} not in {REMATS}")
         self.cfg = cfg
@@ -166,6 +169,15 @@ class LMModel:
         params["groups"] = {
             key: self._block_init(g, kind, n)
             for key, kind, n in self._group_keys()}
+        if cfg.encoder_layers:
+            # the reference's backbone.py:186-197: the encoder's layers,
+            # then one cross-attention a decoder layer
+            e = (cfg.encoder_layers,)
+            params["enc_groups"] = {
+                "attn": tf.attn_init(g, cfg, stack=e, device=dev),
+                "ffn": tf.ffn_init(g, cfg, stack=e, device=dev)}
+            params["cross"] = tf.attn_init(g, cfg, stack=(cfg.num_layers,),
+                                           device=dev)
         return params
 
     def _block_init(self, g: torch.Generator, kind: str, n: int) -> Dict:
@@ -248,14 +260,19 @@ class LMModel:
         return tf.ffn_apply(bp["ffn"], x, cfg), new_cache
 
     def _run_stack(self, params: Dict, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-        """Every layer in order; returns the final hidden states. Under
+                   positions: torch.Tensor,
+                   enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Every layer in order; returns the final hidden states (an
+        encoder-decoder's decoder: :meth:`_run_encdec_decoder`). Under
         ``checkpoint`` backward keeps a layer's input and runs it again:
         every layer with ``"full"``; with ``"dots"`` too, but keeping the
         matmuls' outputs; with ``"group"`` each of ``outer`` blocks of a
         group's layers (``outer`` the largest divisor of the layer count
         at most its square root), and each layer inside it. The tail
         layers run plain, as in the reference."""
+        if self.cfg.encoder_layers:
+            return self._run_encdec_decoder(params, x, positions, enc_out)
+
         def block(h, lp, kind):
             return self._apply_block(kind, lp, h, positions=positions)[0]
 
@@ -285,21 +302,99 @@ class LMModel:
                                    context_fn=ctx)
         return x
 
+    def _run_encdec_decoder(self, params: Dict, x: torch.Tensor,
+                            positions: torch.Tensor,
+                            enc_out: torch.Tensor) -> torch.Tensor:
+        """The encoder-decoder's decoder
+        (``repro/models/lm/backbone.py::_run_encdec_decoder``): each layer
+        of pattern slot 0 (there is no tail) runs causal self-attention,
+        cross-attention to ``enc_out`` (non-causal, K7 / K8 with the
+        encoder's key length), then the FFN. ``"full"`` recomputes each
+        layer in backward; ``"dots"`` and ``"group"`` both keep the
+        matmuls' outputs (the reference maps both to ``checkpoint_dots``
+        here: no nested group remat on this path)."""
+        cfg, kernels = self.cfg, self.use_kernels
+
+        def layer(h, lp, cp, enc):
+            h, _ = tf.attn_apply(lp["attn"], h, cfg, positions=positions,
+                                 causal=True, use_kernels=kernels)
+            h, _ = tf.attn_apply(cp, h, cfg, positions=positions,
+                                 causal=False, kv_from=enc,
+                                 use_kernels=kernels)
+            return tf.ffn_apply(lp["ffn"], h, cfg)
+
+        key = f"0_{self.pattern[0]}"
+        n = self.n_groups
+        ctx = _dots_context if self.remat in ("dots", "group") \
+            else noop_context_fn
+        for lp, cp in zip(_layers(params["groups"][key], n),
+                          _layers(params["cross"], n)):
+            if self.remat == "none":
+                x = layer(x, lp, cp, enc_out)
+            else:
+                x = checkpoint(layer, x, lp, cp, enc_out,
+                               use_reentrant=False, context_fn=ctx)
+        return x
+
+    def _encode(self, params: Dict, frames) -> torch.Tensor:
+        """The bidirectional encoder over stub frame embeddings
+        (``repro/models/lm/backbone.py::_encode``): ``frames [B, S_f, D]``
+        cast to the compute type and fed straight in (the frontend has no
+        parameters), then each encoder layer's non-causal self-attention
+        (RoPE at ``arange(S_f)``; K7 / K8) and FFN. Never recomputed."""
+        x = self._frontend(frames)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        for lp in _layers(params["enc_groups"], self.cfg.encoder_layers):
+            x, _ = tf.attn_apply(lp["attn"], x, self.cfg,
+                                 positions=positions, causal=False,
+                                 use_kernels=self.use_kernels)
+            x = tf.ffn_apply(lp["ffn"], x, self.cfg)
+        return x
+
+    def _frontend(self, x) -> torch.Tensor:
+        """A frontend's input (``frames`` or ``patches``) on the model's
+        device in the compute type."""
+        return torch.as_tensor(x, device=self.device).to(self.cd)
+
+    def _forward(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor,
+                                                           int]:
+        """The final-normed hidden states of ``batch`` and the number of
+        vision-prefix positions ahead of the text: ``batch["tokens"]``
+        embedded, ``batch["patches"]`` ahead of them (vision), or
+        ``batch["frames"]`` through the encoder (audio); positions over
+        the whole sequence. The keys are read in the reference's order,
+        so a missing one raises the reference's ``KeyError``."""
+        cfg = self.cfg
+        tokens = self._tokens(batch["tokens"])
+        b = tokens.shape[0]
+        x = self.embed(params, tokens)
+        prefix, enc_out = 0, None
+        if cfg.frontend == "vision":
+            patches = self._frontend(batch["patches"])
+            x = torch.cat([patches, x], dim=1)
+            prefix = patches.shape[1]
+        if cfg.frontend == "audio":
+            enc_out = self._encode(params, batch["frames"])
+        s = x.shape[1]
+        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        x = self._run_stack(params, x, positions, enc_out)
+        return tf.norm_apply(params.get("final_norm", {}), x, cfg), prefix
+
     # ---------------------------------------------------------------- train
 
     def train_loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"] [B, S]`` (the
-        last position has no label); f32 scalar."""
+        last position has no label; a vision prefix is not scored); f32
+        scalar. A vision config also takes ``batch["patches"] [B, S_img,
+        D]``, an audio one ``batch["frames"] [B, S_f, D]``."""
+        x, prefix = self._forward(params, batch)
         tokens = self._tokens(batch["tokens"])
-        b, s = tokens.shape
-        x = self.embed(params, tokens)
-        positions = torch.arange(s, device=self.device)[None].expand(b, s)
-        x = self._run_stack(params, x, positions)
-        x = tf.norm_apply(params.get("final_norm", {}), x, self.cfg)
+        b = tokens.shape[0]
         labels = torch.cat([tokens[:, 1:],
                             torch.full((b, 1), -1, dtype=tokens.dtype,
                                        device=self.device)], dim=1)
-        return self._xent(params, x, labels)
+        return self._xent(params, x[:, prefix:], labels)
 
     def _xent(self, params: Dict, h: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
@@ -335,14 +430,10 @@ class LMModel:
         return torch.as_tensor(tokens, device=self.device)
 
     def prefill(self, params: Dict, batch: Dict) -> torch.Tensor:
-        """Full-sequence forward of ``batch["tokens"] [B, S]``; returns the
-        last position's f32 logits ``[B, logits_size]``."""
-        tokens = self._tokens(batch["tokens"])
-        b, s = tokens.shape
-        x = self.embed(params, tokens)
-        positions = torch.arange(s, device=self.device)[None].expand(b, s)
-        x = self._run_stack(params, x, positions)
-        x = tf.norm_apply(params.get("final_norm", {}), x, self.cfg)
+        """Full-sequence forward of ``batch["tokens"] [B, S]`` (with
+        ``patches`` or ``frames`` as :meth:`train_loss`); returns the last
+        position's f32 logits ``[B, logits_size]``."""
+        x, _ = self._forward(params, batch)
         return self._logits(params, x[:, -1])
 
     def init_cache(self, b: int, max_seq: int) -> Dict:
@@ -352,7 +443,9 @@ class LMModel:
         attention, a rolling cache); a recurrent group's state in f32,
         each leaf ``[layers, B, ...]``: ``{"h", "conv"}`` for RG-LRU,
         ``{"C", "n", "m"}`` for mLSTM, ``{"c", "n", "h", "m"}`` for
-        sLSTM."""
+        sLSTM. An encoder-decoder's also holds ``"cross"``, zeros ``[L, B,
+        frontend_seq or 512, Hkv, Dh]`` (the reference's
+        ``init_cache``)."""
         cfg = self.cfg
         hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         zero_state = {"rglru": rg.rglru_zero_state,
@@ -367,8 +460,15 @@ class LMModel:
                 if kind == "local_attn" else max_seq
             return tuple(torch.zeros((n, b, s, hkv, hd), dtype=self.cd,
                                      device=self.device) for _ in range(2))
-        return {"groups": {key: blk_cache(kind, n)
-                           for key, kind, n in self._group_keys()}}
+        cache = {"groups": {key: blk_cache(kind, n)
+                            for key, kind, n in self._group_keys()}}
+        if cfg.encoder_layers:
+            senc = cfg.frontend_seq or 512
+            cache["cross"] = tuple(
+                torch.zeros((cfg.num_layers, b, senc, hkv, hd),
+                            dtype=self.cd, device=self.device)
+                for _ in range(2))
+        return cache
 
     def decode_step(self, params: Dict, tokens, cache: Dict, pos
                     ) -> Tuple[torch.Tensor, Dict]:
@@ -376,7 +476,13 @@ class LMModel:
         logits_size]``, the cache). Each layer's new K/V (at ``pos``, or
         ``pos % S`` in a rolling cache) and each recurrent layer's new
         state are written into ``cache`` in place; the returned cache is
-        that one."""
+        that one. An encoder-decoder runs the reference's decode: each
+        layer's causal self-attention, then its cross layer called with
+        ``cache["cross"]`` and no encoder output, so it takes the
+        self-attention decode (RoPE, the token's K/V written at ``pos``,
+        entries past ``pos`` masked) on a copy that is then dropped
+        (``keep_cache``): ``cache["cross"]`` goes back as it came, and a
+        ``pos`` past its length writes nothing."""
         tokens = self._tokens(tokens)
         pos = self._tokens(pos)
         x = self.embed(params, tokens)
@@ -385,6 +491,12 @@ class LMModel:
         for key, kind, n in self._group_keys():
             gp = params["groups"][key]
             gc = cache["groups"][key]
+            if self.cfg.encoder_layers and not key.startswith("tail"):
+                x = self._encdec_decode(params, gp, gc, cache["cross"], n,
+                                        x, positions, pos)
+                new_cache["groups"][key] = gc
+                new_cache["cross"] = cache["cross"]
+                continue
             for i, lp in enumerate(_layers(gp, n)):
                 if kind in RECURRENT:
                     x, st = self._apply_block(
@@ -399,3 +511,21 @@ class LMModel:
             new_cache["groups"][key] = gc
         x = tf.norm_apply(params.get("final_norm", {}), x, self.cfg)
         return self._logits(params, x[:, 0]), new_cache
+
+    def _encdec_decode(self, params, gp, gc, cross, n, x, positions, pos):
+        """One decode step through the encoder-decoder's ``n`` decoder
+        layers (:meth:`decode_step`); ``gc`` is written in place, ``cross``
+        is not."""
+        cfg, kernels = self.cfg, self.use_kernels
+        for i, (lp, cp) in enumerate(zip(_layers(gp, n),
+                                         _layers(params["cross"], n))):
+            x, _ = tf.attn_apply(lp["attn"], x, cfg, positions=positions,
+                                 causal=True, cache=(gc[0][i], gc[1][i]),
+                                 cache_pos=pos, use_kernels=kernels)
+            x, _ = tf.attn_apply(cp, x, cfg, positions=positions,
+                                 causal=False,
+                                 cache=(cross[0][i], cross[1][i]),
+                                 cache_pos=pos, keep_cache=True,
+                                 use_kernels=kernels)
+            x = tf.ffn_apply(lp["ffn"], x, cfg)
+        return x

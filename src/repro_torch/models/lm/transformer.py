@@ -11,7 +11,8 @@ RoPE compute in f32 and cast back.
 Prefill and training attention is the flash kernel K7 through
 ``ops.flash_attention``, with K8 as its backward (the reference's chunked
 jnp path and its Pallas kernels compute the same function; on the card the
-port runs the kernels). Decode attends one token
+port runs the kernels), cross-attention to an encoder's output included,
+with the encoder's own key length. Decode attends one token
 against the KV cache in plain torch, as the reference does in jnp outside
 any kernel. Products with weights stay ``torch.matmul``.
 """
@@ -25,9 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels import ops
-from repro_torch.roadmap import (  # noqa: F401 (the backbone's items too)
-    ENCDEC, SEQPAR, not_ported,
-)
+from repro_torch.roadmap import SEQPAR, not_ported
 
 
 def _normal(generator: torch.Generator, shape, scale: float,
@@ -170,31 +169,50 @@ def attn_apply(params: Dict, x: torch.Tensor, cfg: LMConfig, *,
                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                cache_pos: Optional[torch.Tensor] = None,
                kv_from: Optional[torch.Tensor] = None,
+               keep_cache: bool = False,
                use_kernels: bool = True,
                ) -> Tuple[torch.Tensor, Optional[Tuple]]:
-    """Pre-norm attention with residual.
+    """Pre-norm attention with residual
+    (``repro/models/lm/transformer.py::attn_apply``).
 
     * prefill and training: ``cache=None`` -> full-sequence attention
       through K7, with K8 as its backward (``use_kernels``), or the plain
       version; ``window`` keeps keys ``j > i - window`` (local attention).
+    * cross-attention: ``kv_from [B, Senc, D]`` (an encoder's output)
+      supplies K and V, normalised by the same ``norm`` parameters as the
+      queries' input (the reference's ``:304``); no RoPE on either side
+      (``:309``); the caller passes ``causal=False``, and K7 / K8 run with
+      the key length ``Senc``.
     * decode: ``cache=(k_cache, v_cache)`` ``[B, Smax, Hkv, Dh]``, ``x [B,
       1, D]``; the new K/V are written at ``cache_pos`` (at ``cache_pos %
       Smax``, a rolling cache, with a ``window``) **in place** (the
       reference returns an updated copy; the port saves the copy of every
       layer's cache each step) and the token attends against the cache.
+      With ``keep_cache`` the cache passed in is left as it is: the token
+      attends against a copy with its K/V written in, and a ``cache_pos``
+      past ``Smax`` writes nothing (as JAX's out-of-bounds scatter drops
+      the write). That is the reference's encoder-decoder decode, which
+      calls its cross layer with the cross cache and no ``kv_from`` and
+      discards the cache it gets back.
+
+    ``kv_from`` with a ``cache`` (the reference's branch at ``:329``, which
+    none of its callers reaches) raises ``ValueError``.
     """
-    if kv_from is not None:
-        raise not_ported("cross-attention (kv_from)", ENCDEC)
+    if kv_from is not None and cache is not None:
+        raise ValueError("cross-attention (kv_from) takes no cache")
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     cd = x.dtype
     h = norm_apply(params.get("norm", {}), x, cfg)
+    kv_src = h if kv_from is None else norm_apply(params.get("norm", {}),
+                                                  kv_from, cfg)
     q = (h @ params["wq"].to(cd)).reshape(b, -1, hq, hd)
-    k = (h @ params["wk"].to(cd)).reshape(b, -1, hkv, hd)
-    v = (h @ params["wv"].to(cd)).reshape(b, -1, hkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = (kv_src @ params["wk"].to(cd)).reshape(b, -1, hkv, hd)
+    v = (kv_src @ params["wv"].to(cd)).reshape(b, -1, hkv, hd)
+    if kv_from is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -204,9 +222,17 @@ def attn_apply(params: Dict, x: torch.Tensor, cfg: LMConfig, *,
         slot = cache_pos.long()
         if window is not None:
             slot = slot % smax
-        k_cache[bidx, slot] = k[:, 0]
-        v_cache[bidx, slot] = v[:, 0]
-        new_cache = (k_cache, v_cache)
+        kt, vt = k[:, 0], v[:, 0]
+        if keep_cache:
+            k_cache, v_cache = k_cache.clone(), v_cache.clone()
+            # a write past the end keeps the entry it lands on (no sync)
+            inside = (slot < smax)[:, None, None]
+            slot = slot.clamp(max=smax - 1)
+            kt = torch.where(inside, kt, k_cache[bidx, slot])
+            vt = torch.where(inside, vt, v_cache[bidx, slot])
+        k_cache[bidx, slot] = kt
+        v_cache[bidx, slot] = vt
+        new_cache = cache if keep_cache else (k_cache, v_cache)
         if window is not None:
             o = _rolling_decode(q, k_cache, v_cache, cache_pos, smax)
         else:

@@ -6,8 +6,6 @@ naming its item, on the recsys and the LM side alike.
 from __future__ import annotations
 
 MULTI_DEVICE = "Multi-GPU (queue 1 item 4)"
-#: queue 1 item 7: the LM families and paths after xLSTM
-ENCDEC = "encoder-decoder and frontends (seamless, pixtral)"
 SEQPAR = "seqpar_attention with multi-GPU"
 LM_CKPT = "Checkpointed LM training (queue 1 item 7)"
 

@@ -4,10 +4,9 @@ repro_torch.examples.<name> --device cpu`` in process), and pass the
 checks the reference's scripts print: the loss falls, the rebuilt server
 agrees with the training forward pass, the online model drifts while its
 static co-tenant does not, the injected failure is replayed from a
-checkpoint, the ETC learns, the load test delivers in both phases. The
-LM twin's families that the port has not reached (the
-encoder-decoders) raise naming their ROADMAP item, as the port's model
-does.
+checkpoint, the ETC learns, the load test delivers in both phases. (The
+LM twin on seamless-m4t-large-v2 and pixtral-12b raises the reference's
+``KeyError``, held in ``tests/test_torch_encdec.py``.)
 """
 import pytest
 
@@ -89,11 +88,3 @@ def test_lm_pretrain_smoke(arch, steps):
     losses = lm_pretrain_smoke.main(CPU + ["--arch", arch,
                                            "--steps", str(steps)])
     assert len(losses) == steps and losses[-1] < losses[0]
-
-
-@pytest.mark.parametrize("arch,item", [("seamless-m4t-large-v2",
-                                        "encoder-decoder")])
-def test_lm_pretrain_smoke_names_the_item_of_an_unported_family(arch,
-                                                               item):
-    with pytest.raises(NotImplementedError, match=item):
-        lm_pretrain_smoke.main(CPU + ["--arch", arch, "--steps", "1"])

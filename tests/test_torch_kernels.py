@@ -860,6 +860,88 @@ def test_cuda_flash_bwd(cuda, case):
         assert worst <= 1.0, f"{name}: worst row at {worst} of its limit"
 
 
+#: K7 and K8 with a key length of their own (cross-attention: never causal,
+#: never windowed): ``(b, hq, hkv, sq, sk, d, dtype)``. seamless-m4t-large-
+#: v2's decoder cross-attention at full width (x64), then each kernel path
+#: at lengths no tile divides, with fewer keys than queries and more: the
+#: D 64 wgmma kernels (192-query and 128-key blocks), D 128, D 256 with the
+#: dk/dv split over the key tiles, the mma.sync kernels and f32
+_CROSS = {
+    "x64": (2, 16, 16, 4096, 512, 64, torch.bfloat16),
+    "x64ragged": (1, 6, 2, 700, 300, 64, torch.bfloat16),
+    "x64morekeys": (1, 4, 4, 65, 1000, 64, torch.bfloat16),
+    "x128": (1, 6, 2, 700, 300, 128, torch.bfloat16),
+    "x128morekeys": (1, 4, 4, 100, 1500, 128, torch.bfloat16),
+    "x256": (1, 6, 2, 700, 300, 256, torch.bfloat16),
+    "x256split": (1, 16, 1, 1100, 700, 256, torch.bfloat16),
+    "x16": (1, 6, 2, 700, 300, 16, torch.bfloat16),
+    "x32": (1, 6, 2, 700, 300, 32, torch.bfloat16),
+    "x96": (1, 6, 2, 700, 300, 96, torch.bfloat16),
+    "xf32": (1, 8, 4, 1000, 300, 64, torch.float32),
+    "xf32morekeys": (1, 2, 2, 70, 500, 128, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_CROSS))
+def test_cuda_flash_cross(cuda, case):
+    """K7 and K8 at ``Sk != Sq`` (:data:`_CROSS`) against their plain
+    versions on the same inputs, non-causal and unwindowed: ``o`` and
+    ``lse`` within K7's bounds, the gradients by ``BF16_GRAD_RULE`` (f32
+    within 1e-4), ``o`` of ``Sq`` rows and ``dk``, ``dv`` of ``Sk``; two
+    launches give the same bits."""
+    b, hq, hkv, sq, sk, d, dtype = _CROSS[case]
+    g = torch.Generator().manual_seed(9)
+    q, do = (torch.randn((b * hq, sq, d), generator=g).to(dtype).to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn((b * hkv, sk, d), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    o, lse = flash_fwd(q, k, v, causal=False)
+    o2, lse2 = flash_fwd(q, k, v, causal=False)
+    po, plse = flash_attention_ref(q, k, v, causal=False)
+    got = flash_bwd(q, k, v, o, lse, do, causal=False)
+    again = flash_bwd(q, k, v, o, lse, do, causal=False)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    tol_o, tol_l = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-3)
+    assert o.shape == q.shape and lse.shape == q.shape[:2]
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+        "two forward launches differ"
+    assert (o.float() - po.float()).abs().max().item() <= tol_o
+    assert (lse - plse).abs().max().item() <= tol_l
+    for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert torch.equal(x, y), f"{name}: two launches differ"
+        if dtype == torch.float32:
+            err = (x - w).abs().max().item()
+            assert err <= 1e-4, f"{name}: max abs err {err} above 1e-4"
+            continue
+        peak, whole, worst = grad_row_error(x, w)
+        assert peak <= BF16_GRAD_RULE["peak"], f"{name}: peak {peak}"
+        assert whole <= BF16_GRAD_RULE["whole"], f"{name}: rel L2 {whole}"
+        assert worst <= 1.0, f"{name}: worst row at {worst} of its limit"
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 8),
+                                           (True, 8)])
+def test_flash_cross_rejects_masks(causal, window):
+    """A key length other than the query length takes neither the causal
+    mask nor a window (the reference aligns no positions across two
+    lengths): both wrappers and both plain versions raise before any
+    work; the same lengths pass."""
+    q, do = torch.zeros((2, 6, 16)), torch.zeros((2, 6, 16))
+    k, v = torch.zeros((1, 9, 16)), torch.zeros((1, 9, 16))
+    lse = torch.zeros((2, 6))
+    with pytest.raises(ValueError, match="neither a causal mask nor a"):
+        flash_fwd(q, k, v, causal=causal, window=window)
+    with pytest.raises(ValueError, match="neither a causal mask nor a"):
+        flash_bwd(q, k, v, q, lse, do, causal=causal, window=window)
+    with pytest.raises(ValueError, match="neither a causal mask nor a"):
+        flash_attention_ref(q, k, v, causal=causal, window=window)
+    o, lse = flash_fwd(q, k[:, :6], v[:, :6], causal=causal, window=window)
+    assert o.shape == q.shape and lse.shape == (2, 6)
+
+
 #: dkv_splits at 132 SMs (an H100 SXM): ``(bkv, s, group) -> splits``
 _SPLITS_132 = {
     (1, 4096, 16): 8,     # recurrentgemma's training shape: 64 key tiles

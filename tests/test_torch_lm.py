@@ -387,24 +387,20 @@ def test_prefill_on_cpu_launches_nothing():
 # what this slice leaves out
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,item", [
-    ("seamless-m4t-large-v2", "encoder-decoder"),
-    ("pixtral-12b", "frontends"),
-])
-def test_other_families_raise(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        LMModel(reduce_for_smoke(LM_ARCHS[arch]), device="cpu")
-
-
 def test_left_out_paths_raise():
+    """Cross-attention is held to the JAX package in
+    ``tests/test_torch_encdec.py``; with a cache it is the reference's
+    unreachable branch, which the port refuses."""
     cfg = reduce_for_smoke(LM_ARCHS["olmo-1b"])
     params = LMModel(cfg, device="cpu").init()
     x = torch.zeros((1, 4, cfg.d_model))
     pos = torch.zeros((1, 4), dtype=torch.int64)
     blk = params["groups"]["0_attn"]
     layer = {k: v[0] for k, v in blk["attn"].items() if k != "norm"}
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tf.attn_apply(layer, x, cfg, positions=pos, kv_from=x)
+    kv = torch.zeros((1, 8, cfg.num_kv_heads, cfg.resolved_head_dim))
+    with pytest.raises(ValueError, match="takes no cache"):
+        tf.attn_apply(layer, x, cfg, positions=pos, kv_from=x, cache=(kv, kv),
+                      cache_pos=pos[:, 0])
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tf.seqpar_attention(x, x, x, None)
     with pytest.raises(NotImplementedError, match="K7"):

@@ -252,6 +252,27 @@ def _k8_rg(cs, dev, waves=None):
     return call, 5
 
 
+def _encdec(cs, dev, which: int, backward: bool):
+    """K7 (prefill batch) or K8 (training batch) at shape ``which`` of
+    ``chip_smoke.encdec_attn_shapes``: seamless-m4t-large-v2's encoder (0),
+    decoder self-attention (1) and cross-attention (2, 4096 queries over the
+    encoder's 512 keys), pixtral-12b's (3). A checkout whose kernels take
+    one length for queries and keys raises at the cross shape."""
+    import torch
+    from repro_torch.kernels import flash_attention as k78
+    b = cs.RUN.lm_train_batch if backward else cs.RUN.lm_batch
+    _, bh, bkv, sq, sk, d, causal = cs.encdec_attn_shapes(cs.RUN, b)[which]
+    if backward:
+        ins = cs.flash_bwd_inputs(torch.Generator().manual_seed(8), dev, bh,
+                                  bkv, sq, d, torch.bfloat16, causal=causal,
+                                  sk=sk)
+        return lambda: k78.flash_bwd(*ins, causal=causal), 5
+    g = torch.Generator().manual_seed(7)
+    q, = cs.randn_heads(g, dev, (bh,), sq, d, torch.bfloat16)
+    k, v = cs.randn_heads(g, dev, (bkv, bkv), sk, d, torch.bfloat16)
+    return lambda: k78.flash_fwd(q, k, v, causal=causal), 5
+
+
 def parts_ms(fn, calls: int = 10) -> dict:
     """Device ms a call of each kernel ``fn`` launches (K8: the ``D =
     rowsum(do o)`` kernel, dq, dk/dv and, where the dk/dv grid is split,
@@ -288,7 +309,9 @@ def parts_ms(fn, calls: int = 10) -> dict:
 #: recurrentgemma-9b's windowed D 256 prefill and training shapes (b)
 #: (each K8 case also split by launch, :data:`PARTS`; the ``waves`` cases
 #: split the dk/dv grid for 1 or 4 blocks an SM instead of 2), K7 and K8
-#: at granite-moe-3b-a800m's D 64 prefill and training shapes (c); then
+#: at granite-moe-3b-a800m's D 64 prefill and training shapes (c), K7 and
+#: K8 at seamless-m4t-large-v2's encoder, decoder and cross-attention
+#: shapes and pixtral-12b's (d: ``chip_smoke.encdec_attn_shapes``); then
 #: the shapes of
 #: DCN, WDL and DeepFM: K1 and K3 at full-vocabulary wdl-criteo's ``dist``
 #: group (D 16) and its wide twins (D 1) (``wdl_training_rows``), and the
@@ -323,6 +346,10 @@ CASES = {
        (lambda n: lambda cs, dev: _k8_rg(cs, dev, n))(n) for n in (1, 4)},
     "flash_fwd (c)": _k7_granite,
     "flash_bwd (c)": _k8_granite,
+    **{f"flash_{'bwd' if bwd else 'fwd'} (d) {name}":
+       (lambda i, bwd: lambda cs, dev: _encdec(cs, dev, i, bwd))(i, bwd)
+       for i, name in enumerate(("encoder", "decoder", "cross", "pixtral"))
+       for bwd in (False, True)},
     "lookup_fwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, False),
     "lookup_fwd wdl wide": lambda cs, dev: _wdl(cs, dev, 1, False),
     "lookup_bwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, True),
@@ -367,7 +394,8 @@ CASES = {
 
 #: the cases whose device time is also given kernel by kernel
 #: (:func:`parts_ms`)
-PARTS = ("flash_bwd (a)", "flash_bwd (b)", "flash_bwd (c)")
+PARTS = ("flash_bwd (a)", "flash_bwd (b)", "flash_bwd (c)",
+         "flash_bwd (d) cross")
 
 
 def main() -> int:
