@@ -43,7 +43,18 @@ Phases, in order; any failure exits non-zero:
    over the encoder's k/v [32,512,64]; K8 at batch 1, 16 heads) and
    pixtral-12b's (q [64,4096,128], k/v [16,4096,128]), each held and timed
    under ``shapes`` beside ``sdpa``; K1 also at granite's and xLSTM's token
-   tables.
+   tables. The mesh half of the striped L1 (``sharded_gather_rows`` /
+   ``sharded_dequant_gather_rows``): 8 stripes of the 131,072-row cache
+   over a cache mesh naming the card twice, each entry's K5 (K6 for int8)
+   over its own stripes and one sum, bit-exact to the unstriped read and
+   timed beside it (one card cannot show the copy between cards). The
+   mesh path's own kernel calls at capped DLRM's ``dist`` group (5.76M
+   rows) and the first training batch's ids: the all-to-all owner's
+   gather ``ops.row_gather`` (K5, its adjoint K3 at one id a row) over the
+   slots ``_bucket_by_owner`` makes at capacity factor 2 (half of them
+   holes), and ``masked_range_lookup`` (K1, its adjoint K3) against shard
+   1 of 4 of that table (the ids outside it holes); rows bit-exact, the
+   table gradients bit-exact to K3's chunked plain version; each timed.
 4. Train: declare full-width ``dlrm-criteo`` (26 tables at D=128, 13 dense
    features, bottom MLP 512-256-128, top MLP 1024-1024-512-256-1, bf16
    compute) through the port's graph API and ``fit()`` it at batch
@@ -169,6 +180,26 @@ Phases, in order; any failure exits non-zero:
    launch); then ``twotower-criteo`` (26 tables at D 64, towers 256-64,
    head 64) and ``crossdeep-criteo`` (D 16, 4 cross layers, deep
    1024-256), each vocabulary capped at ``RUN.vocab_cap``, as DCN.
+8b. Mesh: full-width ``dlrm-criteo`` (phase 4's cap) on a
+   ``torch.distributed`` mesh of ``torch.cuda.device_count()`` ranks over
+   NCCL: one card, one rank in process on a ``FileStore`` and a (1, 1)
+   mesh; more cards, one spawned process a card on a ``(world // 2, 2)``
+   or ``(1, world)`` mesh. From phase 4's weights and batches: gspmd fits
+   with ``comm`` "allgather_rs" and "all_to_all" (each within
+   ``TRAIN_TOL`` of phase 4's losses), manual with the bf16 gradient
+   all-reduce (within ``MANUAL_TOL``), and the 26 tables localized, each
+   vocabulary capped at ``RUN.loc_vocab`` rows (sparse SGD, against the
+   same config's one-device fit within ``TRAIN_TOL``; where the table
+   count does not divide over the mesh, ``compile`` must refuse it); each
+   model built through the graph API (``recipe_graph``, then
+   ``Model.compile`` on the mesh). K1 / K3 (all-gather path) and K5
+   / K3 (all-to-all path) launches counted inside the mesh steps; step p50
+   of each against phase 4's. The gspmd model is deployed with
+   ``cache_shards`` 2, rebuilt from ``ps.json`` over
+   ``make_cache_mesh(2)`` (one device on one card) and over a cache mesh
+   naming the card twice, and held against the one-device server and the
+   trained model's ``predict``; then the ``mp_train_smoke`` twin on the
+   same mesh shape. The group is torn down after it.
 9. LM serve: full-width ``minitron-4b`` (hybrid token embedding, random
    weights from a seed) prefills a 2 x 4096 Zipf(1.2) batch through K1 and
    K7, held against the plain path (K1 first alone, bit-exact, on both
@@ -333,7 +364,11 @@ RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             pixtral_train_layers=8, online_ids=4096,
                             online_versions=4, online_quiet=48,
                             etc_cache_rows=131072, etc_passes=2,
-                            etc_evict_rows=8192, etc_online_steps=4)
+                            etc_evict_rows=8192, etc_online_steps=4,
+                            mesh_stripes=8, loc_vocab=1 << 16)
+#: manual mode's bf16 gradient all-reduce against phase 4's f32 run (the
+#: reference's bar, ``tests/test_mp_train.py:65-85``)
+MANUAL_TOL = 5e-3
 #: K7 against its plain version: bf16 ``o`` (one bf16 ulp of |o| < 4,
 #: where the kernel's bf16 ``p`` and the plain f32 ``p`` round apart) and
 #: the f32 ``lse``; f32 inputs: the f32 sum-order bound
@@ -762,6 +797,11 @@ def kernel_phase(args, dev):
                * sc8.index_select(0, slots)[:, None],
                B * D + B * 4 + B * 4 + B * D * 4, B * D)
 
+    # the mesh half of the striped L1 over a cache mesh naming this card
+    # twice (f32 through K5, int8 through K6), bit-exact to the unstriped
+    # read of the same slots
+    mesh_half(args, dev, shape_line, table, q8, sc8, holes)
+
     # K2: DLRM's interaction at F = 26 tables + 1, D = 128; two launches
     # give the same bits, and with the diagonal it holds too
     got = k2.interaction_fwd(x)
@@ -826,6 +866,10 @@ def kernel_phase(args, dev):
                int(keep.sum()) * D * 4 + n3 * 4 + v * D * 4,
                int(keep.sum()) * D, reps=4)
         del got, want
+
+    # the mesh path's own K5 / K1 / K3 calls, at the dist group's ids
+    mesh_path_kernels(args, dev, shape_line, groups)
+    torch.cuda.empty_cache()
 
     # K4: the interaction's adjoint at the training shape (f32 x, as the
     # dense net feeds K2); bf16 and self_interaction checked off it
@@ -920,6 +964,190 @@ def kernel_phase(args, dev):
               + ("" if dl is None else
                  f", library device time {dl:.4f} ms"))
     return out
+
+
+def mesh_half(args, dev, shape_line, table, q8, sc8, holes):
+    """The mesh half of ``hps_gather.sharded_gather_rows`` /
+    ``sharded_dequant_gather_rows`` on the card: ``RUN.mesh_stripes``
+    stripes of the cache laid out over ``[dev, dev]`` (each entry a block
+    of its own), each entry's K5 (K6 with scales) over its stripes with
+    the others' slots as holes, then one sum; bit-exact to the unstriped
+    read of the flat view, one launch an entry, and timed beside it."""
+    import torch
+    from repro_torch.kernels import hps_gather as k56
+    from repro_torch.kernels import ops
+    n = args.mesh_stripes
+    c, d = table.shape
+    cl = c // n
+    mesh = [dev, dev]
+    slots = torch.where(holes >= 0, holes % (n * cl), -1).to(torch.int32)
+    b = slots.shape[0]
+    for label, pay, sc in (("f32", table, None), ("int8", q8, sc8)):
+        stripes = pay[:n * cl].view(n, cl, d)
+        scales = None if sc is None else sc[:n * cl].view(n, cl)
+        blocks, bsc = ops.place_stripes(stripes, scales, mesh)
+        name = "gather_rows" if sc is None else "dequant_gather_rows"
+        got, launched = launches_of(lambda: ops.sharded_cache_gather(
+            blocks, slots, scales=bsc, mesh=mesh))
+        check(launched == {name: 2}, f"mesh half {label}: launches "
+              f"{launched}, want one {name} an entry")
+        want = ops.sharded_cache_gather(stripes, slots, scales=scales)
+        check(torch.equal(got, want), f"mesh half {label}: not bit-exact "
+              "to the unstriped read")
+        flat, fsc = ops.striped_view((stripes, scales))
+        fslots = ops.flatten_striped_slots(stripes, slots)
+        plain = (lambda: k56.gather_rows_plain(flat, fslots)) if sc is None \
+            else (lambda: k56.dequant_gather_rows_plain(flat, fsc, fslots))
+        lib = (lambda: flat.index_select(0, fslots.clamp_min(0))) \
+            if sc is None else (lambda: flat.index_select(
+                0, fslots.clamp_min(0)).float() * fsc.index_select(
+                    0, fslots.clamp_min(0))[:, None])
+        row = d * pay.element_size() + (0 if sc is None else 4)
+        shape_line(name, f"the mesh half ({label}): slots [{b}] over {n} "
+                   f"stripes of [{cl},{d}] laid out on [{dev}, {dev}]",
+                   lambda: ops.sharded_cache_gather(blocks, slots,
+                                                    scales=bsc, mesh=mesh),
+                   plain, lib, b * row + b * 4 + b * d * 4,
+                   0 if sc is None else b * d,
+                   err=(got - want).abs().max().item())
+        mesh_ms = graph_ms(lambda: ops.sharded_cache_gather(
+            blocks, slots, scales=bsc, mesh=mesh), 20)
+        flat_ms = graph_ms(lambda: ops.sharded_cache_gather(
+            stripes, slots, scales=scales), 20)
+        print(f"mesh half {label} on {torch.cuda.get_device_name(0)}: the "
+              f"striped-mesh read {mesh_ms:.4f} ms device against the "
+              f"unstriped read {flat_ms:.4f} ms (CUDA graph replay; two "
+              "entries on one card: two launches and the sum, no copy "
+              "between cards, which one card cannot show); bit-exact")
+
+
+def mesh_path_kernels(args, dev, shape_line, groups):
+    """The mesh path's own kernel calls on the card, at capped DLRM's
+    ``dist`` group and the first training batch's ids (``groups``, as
+    :func:`training_rows` gives them): the all-to-all owner's gather
+    ``ops.row_gather`` (K5; its adjoint, K3 at one id a row) over the
+    slots ``_bucket_by_owner`` makes for one shard at capacity factor 2
+    (the main path's at one card: half of them holes), and the all-gather
+    path's ``masked_range_lookup`` through ``ops.kernel_pool`` (K1; its
+    adjoint, K3) against shard 1 of 4 of the same table, where the ids
+    outside the shard become holes. Rows bit-exact to the plain versions,
+    table gradients bit-exact to K3's chunked plain version and within
+    1e-5 of the summed magnitudes of the plain one; each kernel timed at
+    these inputs with ``shape_line``."""
+    import torch
+    from repro_torch.core.embedding.common import masked_range_lookup
+    from repro_torch.core.embedding.strategies import (
+        _bucket_by_owner, a2a_capacity)
+    from repro_torch.kernels import embedding_lookup as k1
+    from repro_torch.kernels import hps_gather as k56
+    from repro_torch.kernels import ops
+    v, rows2 = groups["dist"]
+    b, d = args.train_batch, 128
+    t = rows2.shape[0] // b
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    mega = torch.randn((v, d), generator=gen, device=dev)
+
+    def grad_check(label, table, fn, rows, cot):
+        """``fn``'s table gradient for the cotangent ``cot`` against K3's
+        plain versions at ``rows [N, 1]`` (-1 holes)."""
+        tab = table.detach().requires_grad_()
+        fn(tab).backward(cot)
+        got = tab.grad
+        flat_cot = cot.reshape(rows.shape[0], d)
+        check(torch.equal(got, k1.lookup_bwd_chunked_plain(
+            tuple(table.shape), rows, flat_cot)),
+              f"{label}: the table gradient is not bit-exact to K3's "
+              "chunked plain version")
+        scale = k1.lookup_bwd_plain(tuple(table.shape), rows,
+                                    flat_cot.abs())
+        want = k1.lookup_bwd_plain(tuple(table.shape), rows, flat_cot)
+        check(bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all()),
+              f"{label}: the table gradient is above 1e-5 of the summed "
+              "magnitudes")
+        return (got - want).abs().max().item()
+
+    def bwd_line(label, shape, rows, cot):
+        keep = rows.view(-1) >= 0
+        flat, src = rows.view(-1)[keep].long(), cot[keep]
+        n = rows.shape[0]
+        shape_line("lookup_bwd", f"{label}: rows [{n},1] "
+                   f"({100 * float((~keep).float().mean()):.1f}% -1) into "
+                   f"[{shape[0]},{d}]",
+                   lambda: k1.lookup_bwd(shape, rows, cot),
+                   lambda: k1.lookup_bwd_plain(shape, rows, cot),
+                   lambda: torch.zeros(shape, device=dev).index_add_(
+                       0, flat, src),
+                   int(keep.sum()) * d * 4 + n * 4 + shape[0] * d * 4,
+                   int(keep.sum()) * d, reps=4)
+
+    # the all-to-all owner's gather: one shard's send buffer (world 1)
+    flat_ids = rows2.view(-1)
+    cap = a2a_capacity(flat_ids.numel(), 1, 2.0)
+    send, _, _ = _bucket_by_owner(flat_ids, 1, cap)
+    slots = send.reshape(-1).contiguous()
+    n = slots.shape[0]
+    keep = slots >= 0
+    got = ops.row_gather(mega, slots)
+    want = k56.gather_rows_plain(mega, slots)
+    check(torch.equal(got, want), f"row_gather at slots [{n}] into "
+          f"[{v},{d}]: not bit-exact to gather_rows_plain")
+    cot = torch.randn((n, d), generator=gen, device=dev)
+    gerr = grad_check(f"row_gather at slots [{n}]", mega,
+                      lambda tab: ops.row_gather(tab, slots),
+                      slots.view(-1, 1), cot)
+    distinct = int(torch.unique(slots[keep]).numel())
+    shape_line("gather_rows", f"the all-to-all owner's read (dist): slots "
+               f"[{n}] ({100 * float((~keep).float().mean()):.1f}% -1, "
+               f"{distinct} distinct) into [{v},{d}]",
+               lambda: k56.gather_rows(mega, slots),
+               lambda: k56.gather_rows_plain(mega, slots),
+               lambda: mega.index_select(0, slots.clamp_min(0))
+               * keep[:, None],
+               distinct * d * 4 + n * 4 + n * d * 4, 0,
+               err=(got - want).abs().max().item())
+    bwd_line("the all-to-all owner's adjoint (dist)", (v, d),
+             slots.view(-1, 1), cot)
+    print(f"row_gather (dist, all-to-all at one shard): slots [{n}] into "
+          f"[{v},{d}], rows bit-exact, table gradient bit-exact to K3's "
+          f"chunked plain version ({gerr:.3g} from the plain one)")
+    del got, want, cot
+
+    # the all-gather path's masked range, shard 1 of 4 of the same table
+    shard = -(-v // 4)
+    v0 = shard
+    local = mega[v0:v0 + shard]
+    rows3 = rows2.view(b, t, 1)
+    got = masked_range_lookup(local, rows3, v0, pool_fn=ops.kernel_pool)
+    want = masked_range_lookup(local, rows3, v0)
+    check(torch.equal(got, want), f"masked_range_lookup shard 1 of 4: not "
+          "bit-exact to its plain version")
+    rel = rows2 - v0
+    rel = torch.where((rows2 >= 0) & (rel >= 0) & (rel < shard), rel,
+                      torch.full_like(rel, -1))
+    held = float((rel >= 0).float().mean())
+    cot = torch.randn((b, t, d), generator=gen, device=dev)
+    gerr = grad_check("masked_range_lookup shard 1 of 4", local,
+                      lambda tab: masked_range_lookup(
+                          tab, rows3, v0, pool_fn=ops.kernel_pool),
+                      rel, cot)
+    kept = rel.view(-1) >= 0
+    distinct = int(torch.unique(rel[rel >= 0]).numel())
+    shape_line("lookup_fwd", f"masked range (dist, shard 1 of 4): rows "
+               f"[{b * t},1] ({100 * (1 - held):.1f}% -1, {distinct} "
+               f"distinct) into [{shard},{d}]",
+               lambda: k1.lookup_fwd(local, rel),
+               lambda: k1.lookup_fwd_plain(local, rel),
+               lambda: local.index_select(0, rel.view(-1).clamp_min(0))
+               * kept[:, None],
+               rel.numel() * 4 + distinct * d * 4 + rel.shape[0] * d * 4,
+               int(kept.sum()) * d, err=(got - want).abs().max().item())
+    bwd_line("masked range adjoint (dist, shard 1 of 4)", (shard, d), rel,
+             cot.view(-1, d).contiguous())
+    print(f"masked_range_lookup (dist, shard 1 of 4, v0 {v0}): "
+          f"{100 * held:.1f}% of the ids in the shard, rows bit-exact, "
+          "table gradient bit-exact to K3's chunked plain version "
+          f"({gerr:.3g} from the plain one)")
+    del mega, local, got, want, cot
 
 
 def served_record(args, dev, payload_dtype, record):
@@ -4164,6 +4392,279 @@ def full_line(cfg) -> str:
         for label, ts in sets)
 
 
+# ---------------------------------------------------------------------------
+# 8b. the model-parallel path on a torch.distributed mesh
+# ---------------------------------------------------------------------------
+
+def mesh_shape_for(world: int) -> tuple:
+    """The mesh of ``world`` ranks: ``(world // 2, 2)``, or ``(1, world)``
+    for an odd count."""
+    return (world // 2, 2) if world % 2 == 0 else (1, world)
+
+
+def loc_config(args, cfg):
+    """``cfg`` with every table pinned localized (a graph group has one
+    strategy), each vocabulary capped at ``RUN.loc_vocab`` rows."""
+    return dataclasses.replace(cfg, tables=tuple(
+        dataclasses.replace(t, strategy="localized",
+                            vocab_size=min(t.vocab_size, args.loc_vocab))
+        for t in cfg.tables))
+
+
+def mesh_model(args, cfg, mesh, dev, logical, *, comm="auto", mode="gspmd",
+               ar="f32", sparse="rowwise_adagrad"):
+    """The graph of ``cfg`` (its pinned strategies kept: ``recipe_graph``)
+    compiled on ``mesh`` (None: one device) by ``Model.compile``, its
+    weights ``logical`` (a logical param tree) imported onto the mesh."""
+    from repro_torch.api import CreateSolver, DataReaderParams, recipe_graph
+    from repro_torch.models.recsys.model import import_logical_params
+    m = recipe_graph(cfg, solver=CreateSolver(
+        batch_size=args.train_batch, lr=args.lr, seed=args.seed, comm=comm,
+        mode=mode, grad_allreduce_dtype=ar, sparse_optimizer=sparse),
+        reader=DataReaderParams(num_dense_features=cfg.num_dense_features,
+                                seed=args.seed))
+    m.compile(device=dev, mesh=mesh)
+    m._params = import_logical_params(m.model, logical)
+    return m
+
+
+def mesh_fit(args, m, label, lead):
+    """``m.fit`` over phase 4's batches; its losses, step p50 and the
+    kernels' launches in it (the counts set to 0 just before)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import SyntheticCTR
+    from repro_torch.kernels._build import LAUNCHES
+    reader = SyntheticCTR(m.cfg, args.train_batch, seed=args.seed)
+    steps = args.warm_steps + args.timed_steps
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    hist = m.fit(reader.batch, steps=steps)
+    torch.cuda.synchronize()
+    launches = LAUNCHES.snapshot()
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == steps and np.isfinite(losses).all(),
+          f"mesh {label}: losses {losses}")
+    p50 = float(np.median([h["time"] * 1e3
+                           for h in hist[args.warm_steps:]]))
+    return {"losses": losses, "p50": p50, "launches": launches,
+            "groups": {k: sorted(c.groups)
+                       for k, c in m.model.collections().items()}}
+
+
+def mesh_runs(args, dev, world: int, bundle: str) -> dict:
+    """Every rank's part of phase 8b on its mesh (the process group is up):
+    the four fits from one set of weights, the localized set's one-device
+    fit (rank 0), the gspmd model deployed (rank 0 writes), the twin.
+    Returns rank 0's results."""
+    import torch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.recsys.model import (
+        RecsysModel, export_logical_params)
+    shape = mesh_shape_for(world)
+    mesh = meshlib.make_test_mesh(shape)
+    lead = meshlib.axis_index(mesh, meshlib.all_axes(mesh)) == 0
+    cfg = capped_config(args)
+    gen = torch.Generator().manual_seed(args.seed)
+    one = RecsysModel(cfg, device=dev, global_batch=args.train_batch)
+    logical = export_logical_params(one, one.init(gen))  # phase 4's init
+    del one
+    out = {"mesh": meshlib.mesh_shape(mesh), "runs": {}}
+    for label, kw in (("gspmd allgather_rs", dict(comm="allgather_rs")),
+                      ("gspmd all_to_all", dict(comm="all_to_all")),
+                      ("manual bf16", dict(mode="manual", ar="bf16"))):
+        m = mesh_model(args, cfg, mesh, dev, logical, **kw)
+        out["runs"][label] = mesh_fit(args, m, label, lead)
+        if label == "gspmd allgather_rs":
+            dense, cat = make_requests(args, cfg, 1, 0)[0]
+            req = {"dense": dense, "cat": cat}
+            srv = m.deploy(bundle, cache_capacity=args.cache_capacity,
+                           cache_shards=2, max_batch=args.batch)
+            if srv is not None:             # rank 0's
+                srv.close()
+            out["predict"] = m.predict(req)
+            out["request"] = req
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    del logical
+    lcfg = loc_config(args, cfg)
+    gen = torch.Generator().manual_seed(args.seed)
+    one = RecsysModel(lcfg, device=dev, global_batch=args.train_batch)
+    logical = export_logical_params(one, one.init(gen))
+    del one
+    n_dev = meshlib.mesh_size(mesh)
+    if len(lcfg.tables) % n_dev:
+        # the reference's compile-time refusal, before any device work
+        from repro_torch.api import GraphError
+        try:
+            mesh_model(args, lcfg, mesh, dev, logical, sparse="sgd")
+            refused = None
+        except GraphError as e:
+            refused = str(e)
+        check(refused is not None and "localized" in refused,
+              f"mesh: {len(lcfg.tables)} localized tables over {n_dev} "
+              f"devices compiled (want a GraphError): {refused}")
+        out["localized refused"] = refused
+    else:
+        m = mesh_model(args, lcfg, mesh, dev, logical, sparse="sgd")
+        out["runs"]["localized gspmd"] = mesh_fit(args, m, "localized",
+                                                  lead)
+        del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    if lead and "localized refused" not in out:
+        # the same config on one device
+        m = mesh_model(args, lcfg, None, dev, logical, sparse="sgd")
+        out["localized one device"] = mesh_fit(args, m, "localized 1-dev",
+                                               lead)
+        del m
+    del logical
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.examples import mp_train_smoke
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        twin = mp_train_smoke.main([
+            "--device", dev.type, "--mesh", f"{shape[0]}x{shape[1]}",
+            "--steps", "4"])
+    out["twin"] = twin
+    return out if lead else {}
+
+
+def mesh_rank(rank, world, store, bundle, result):
+    """A spawned rank of phase 8b (more than one card)."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        out = mesh_runs(RUN, torch.device("cuda", rank), world, bundle)
+        if rank == 0:
+            import pickle
+            with open(result, "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(args, dev, total):
+    """Phase 8b: the model-parallel path on ``torch.cuda.device_count()``
+    ranks over NCCL, held against phase 4's one-device fit, then its
+    bundle served over a cache mesh. Adds the mesh steps' launches to
+    ``total``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_cache_mesh
+    from repro_torch.launch.serve import build_server_from_config
+    world = torch.cuda.device_count()
+    root = os.path.join(ROOT, "_smoke_bundle", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    bundle, store = os.path.join(root, "bundle"), os.path.join(root, "store")
+    cfg = capped_config(args)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    if world == 1:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", store=dist.FileStore(store, 1),
+                                rank=0, world_size=1)
+        check(dist.is_initialized() and dist.get_backend() == "nccl",
+              "mesh: the NCCL process group did not start")
+        try:
+            out = mesh_runs(args, dev, 1, bundle)
+        finally:
+            dist.destroy_process_group()
+    else:
+        import multiprocessing as mp
+        import pickle
+        result = os.path.join(root, "result.pkl")
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, world, store, bundle, result))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        bad = [r for r, p in enumerate(procs)
+               if p.is_alive() or p.exitcode != 0]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        check(not bad, f"mesh: ranks {bad} failed or hung")
+        with open(result, "rb") as f:
+            out = pickle.load(f)
+    print(f"mesh on {smi}: {world} rank(s) over NCCL on the mesh "
+          f"{out['mesh']}; phase {time.perf_counter() - t0:.1f} s")
+    ref = FIT_HISTORY[cfg.name]
+    for label, run in out["runs"].items():
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+        if label.startswith("localized"):
+            base = out.get("localized one device", run)
+            want, tol, what = base["losses"], TRAIN_TOL, \
+                "the same config's one-device fit"
+        else:
+            want, tol, what = ref["losses"], (
+                MANUAL_TOL if label.startswith("manual") else TRAIN_TOL), \
+                "phase 4's one-device fit"
+        err = max(abs(a - b) for a, b in zip(run["losses"], want))
+        check(err <= tol, f"mesh {label}: losses {run['losses']} vs "
+              f"{what} {want} (max dev {err}, bound {tol})")
+        base_p50 = (out["localized one device"]["p50"]
+                    if label.startswith("localized") else ref["p50"])
+        print(f"mesh {label} on {smi}: groups {run['groups']}; step p50 "
+              f"{run['p50']:.2f} ms against {base_p50:.2f} ms one-device "
+              f"({run['p50'] / base_p50:.2f}x); losses within {err:.3g} of "
+              f"{what} (bound {tol}); launches {run['launches']}")
+    if "localized refused" in out:
+        print(f"mesh localized on {smi}: compile refused the 26 localized "
+              f"tables on the mesh {out['mesh']}: {out['localized refused']}")
+    ag = out["runs"]["gspmd allgather_rs"]["launches"]
+    a2a = out["runs"]["gspmd all_to_all"]["launches"]
+    check(ag.get("lookup_fwd", 0) > 0 and ag.get("lookup_bwd", 0) > 0,
+          f"mesh: K1 / K3 did not launch in the all-gather steps: {ag}")
+    check(a2a.get("gather_rows", 0) > 0 and a2a.get("lookup_bwd", 0) > 0,
+          f"mesh: K5 / K3 did not launch in the all-to-all steps: {a2a}")
+    # the mesh-trained bundle, rebuilt from ps.json alone over cache meshes
+    req = out["request"]
+    ps = os.path.join(bundle, "ps.json")
+    got = {}
+    for label, cmesh in (("one device", None),
+                         ("make_cache_mesh(2)", make_cache_mesh(2)),
+                         ("cache mesh [card, card]", [dev, dev])):
+        srv, _ = build_server_from_config(ps, device=dev, cache_mesh=cmesh)
+        try:
+            got[label] = (counted(total, lambda: srv.predict(
+                req["dense"], req["cat"])), srv.hps.cache_mesh)
+        finally:
+            srv.close()
+    one = got["one device"][0]
+    for label, (pred, cm) in got.items():
+        check(np.array_equal(pred, one), f"mesh serve {label}: predictions "
+              "differ from the one-device server's")
+    err = float(np.abs(one - out["predict"]).max())
+    check(err <= SERVE_TOL["f32"], f"mesh serve: served predictions "
+          f"{err} from the trained model's predict")
+    print(f"mesh serve on {smi}: the gspmd bundle (cache_shards 2) rebuilt "
+          "from ps.json on one device, over make_cache_mesh(2) (cache mesh "
+          f"{got['make_cache_mesh(2)'][1]}) and over [{dev}, {dev}]: "
+          f"{len(one)} predictions bit-equal across the three, within "
+          f"{err:.3g} of the trained model's predict (bound "
+          f"{SERVE_TOL['f32']})")
+    twin = out["twin"]
+    print(f"mesh twin mp_train_smoke on {smi}: losses "
+          f"{twin['losses'][0]:.4f} -> {twin['losses'][-1]:.4f}, max dev "
+          f"from the (1, 1) run {twin.get('loss_dev', float('nan')):.3g}, "
+          f"served within {twin.get('serve_err', float('nan')):.3g}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def recsys_phases(args, dev):
     """Phases 4-6 (DLRM, its vocabulary capped: train, deploy, serve
     through submit with f32 and int8 L1), 6b (its online path), DCN
@@ -4221,6 +4722,9 @@ def recsys_phases(args, dev):
                                recipe_config(args, arch, capped=False)))
             recipe_run(short, dev, cfg, args.recipe_timed_steps, ("f32",),
                        False, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_phase(args, dev, total)
     return total
 
 

@@ -34,8 +34,25 @@ serves the bundle; :func:`deploy_ensemble` writes one bundle for several
 models, served by one ``MultiModelServer``. ``Solver(etc=ETCParams(...))``
 routes ``fit()`` through the Embedding Training Cache
 (``repro_torch.online.OnlineTrainer``), and ``DataReaderParams(
-source="criteo", path=...)`` reads a Criteo TSV. Not ported yet: meshes
-of more than one device.
+source="criteo", path=...)`` reads a Criteo TSV.
+
+**Model parallelism.** ``Solver`` carries the mesh intent and ``fit()``
+honors it end to end, one process a device: under ``torchrun
+--nproc-per-node N`` (or any initialized ``torch.distributed`` process
+group) ``mesh_shape=(r, c)`` lays the ranks out as a ``("data", "model")``
+mesh (``launch.mesh.make_test_mesh``; a shape larger than the group raises
+naming the fix), the embeddings shard over it per the placement planner
+while the dense net stays data-parallel, and the step runs under
+``mode="gspmd"`` (f32 gradient all-reduce) or ``mode="manual"`` (the
+all-reduce in ``grad_allreduce_dtype``, bf16 compressing it). ``comm``
+picks the embedding exchange per collection: ``"allgather_rs"``,
+``"all_to_all"`` or ``"auto"`` (all-to-all only for groups of large
+one-hot tables, at least ``a2a_threshold`` rows). Every rank reads the
+same global batches and trains on its data-parallel block; rank 0 writes
+checkpoints and bundles, which hold mesh-independent logical arrays, so
+``save()`` on one mesh and ``load()`` on another just works. Without a
+process group (or with one rank and no ``mesh_shape``) the model trains on
+one device with no mesh.
 """
 from __future__ import annotations
 
@@ -51,12 +68,12 @@ from repro_torch.configs.base import (
     EmbeddingTableConfig, ETCParams, RecsysConfig, SparseGroupConfig,
     TrainConfig, recsys_config_hash,
 )
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike
 from repro_torch.models.recsys.dense_graph import (
     RESERVED_NAMES, GraphError, compile_layers, graph_spec, spec_from_layer,
     spec_layers,
 )
-from repro_torch.roadmap import MULTI_DEVICE, not_ported
+from repro_torch.launch import mesh as meshlib
 
 GRAPH_FORMAT = "repro-graph-v1"
 
@@ -65,8 +82,8 @@ GRAPH_FORMAT = "repro-graph-v1"
 class Solver:
     """Run-level knobs (HugeCTR's ``CreateSolver``); the JAX package's
     field set, so ``graph.json`` round-trips between the packages.
-    Training runs on one device: ``mesh_shape`` of more than one device
-    and ``mode="manual"`` raise at ``compile()``."""
+    ``mesh_shape`` is checked against the ranks of the process group (one
+    device without one)."""
     batch_size: int = 256
     lr: float = 1e-3
     optimizer: str = "adamw"
@@ -119,6 +136,14 @@ class Solver:
                 raise GraphError(
                     f"Solver.mesh_shape must be a non-empty tuple of "
                     f"positive ints, got {self.mesh_shape!r}")
+            want = int(np.prod(shape))
+            visible = meshlib.world_size()
+            if want > visible:
+                raise GraphError(
+                    f"Solver.mesh_shape={shape} asks for {want} devices "
+                    f"but only {visible} are visible (the ranks of the "
+                    "process group); shrink the mesh or "
+                    + meshlib.launch_hint(want))
             self.mesh_shape = shape
 
     def to_train_config(self) -> TrainConfig:
@@ -534,18 +559,67 @@ def lower_graph(name: str, inp: Optional[Input],
         extra_groups=extra_groups)
 
 
+def _auto_mesh(mesh_shape: Optional[Tuple[int, ...]]):
+    """The mesh ``Solver.mesh_shape`` asks for: that shape over the
+    process group's ranks, ``(world, 1)`` when unset under a group of
+    several ranks, and no mesh (one device) otherwise."""
+    if mesh_shape is None:
+        world = meshlib.world_size()
+        return meshlib.make_test_mesh((world, 1)) if world > 1 else None
+    if int(np.prod(mesh_shape)) == 1 and \
+            not torch.distributed.is_initialized():
+        return None
+    return meshlib.make_test_mesh(tuple(mesh_shape))
+
+
+def _validate_mesh_fit(cfg: RecsysConfig, mesh, batch_size: int) -> None:
+    """Up-front mesh / batch / table divisibility validation (the
+    reference's): a :class:`GraphError` at ``compile()`` naming the
+    offending axis or table group."""
+    from repro_torch.core.embedding.planner import resolve_strategies
+    from repro_torch.models.recsys.model import has_wide, wide_tables
+    shape = meshlib.mesh_shape(mesh)
+    dp = meshlib.dp_axes(mesh)
+    n_dp = meshlib.axis_size(mesh, dp)
+    n_dev = meshlib.mesh_size(mesh)
+    if batch_size % max(1, n_dp) != 0:
+        raise GraphError(
+            f"batch_size={batch_size} is not divisible by the data-"
+            f"parallel device count {n_dp} (mesh axes {dp} of mesh "
+            f"shape {shape}); batches shard over the data "
+            "axes, so pick a batch size the data extent divides")
+    groups = [("emb", cfg.tables)]
+    if has_wide(cfg):
+        groups.append(("wide", wide_tables(cfg)))
+    for g in cfg.extra_groups:
+        groups.append((g.name, g.tables))
+    mc = meshlib.mesh_config_for(mesh)
+    for gname, tabs in groups:
+        resolved = resolve_strategies(tabs, mc, batch_size)
+        loc = [t for t in resolved if t.strategy == "localized"]
+        if loc and len(loc) % n_dev != 0:
+            raise GraphError(
+                f"embedding group {gname!r}: {len(loc)} localized "
+                f"table(s) {[t.name for t in loc]} cannot spread evenly "
+                f"over {n_dev} devices; localized placement needs the "
+                "table count divisible by the device count")
+
+
 class Model:
     """A declarative model graph: ``add`` layers, lower with
     :meth:`to_recsys_config`, round-trip through ``graph.json``; then
     ``compile`` / ``fit`` / ``predict`` / ``save`` / ``load`` / ``deploy``
-    drive the lowered model on one device."""
+    drive the lowered model, on one device or on a mesh (one rank a
+    device; every rank of it makes the same calls)."""
 
     def __init__(self, solver: Optional[Solver] = None,
                  reader: Optional[DataReaderParams] = None, *,
-                 name: str = "model"):
+                 name: str = "model", mesh=None):
         self.solver = solver or Solver()
         self.reader = reader
         self.name = name
+        self._mesh_override = mesh
+        self.mesh = None
         self._input: Optional[Input] = None
         self._embeddings: List[SparseEmbedding] = []
         self._dense_layers: List[DenseLayer] = []
@@ -581,9 +655,11 @@ class Model:
     # -- compile ----------------------------------------------------------------
 
     def compile(self, *, device: DeviceLike = None,
-                use_kernels: bool = True) -> "Model":
+                use_kernels: bool = True, mesh=None) -> "Model":
         """Lower the graph and build the model on ``device`` (``cuda``
-        unless ``"cpu"`` is given; raises without a card).
+        unless ``"cpu"`` is given; raises without a card), or on ``mesh``
+        (given here, to the constructor, or made from
+        ``Solver.mesh_shape``), each rank on its own device.
         ``use_kernels=False`` runs the plain versions of the kernels."""
         from repro_torch.models.recsys.model import RecsysModel
         self.cfg = self.to_recsys_config()
@@ -593,18 +669,17 @@ class Model:
                 f"reader num_dense_features="
                 f"{self.reader.num_dense_features} != Input dense_dim="
                 f"{self._input.dense_dim}")
-        if self.solver.mesh_shape is not None and \
-                int(np.prod(self.solver.mesh_shape)) > 1:
-            raise not_ported(f"Solver.mesh_shape={self.solver.mesh_shape}",
-                             MULTI_DEVICE)
-        if self.solver.mode == "manual":
-            raise not_ported('Solver.mode="manual"', MULTI_DEVICE)
         self._tcfg = self.solver.to_train_config()
         self.batch_size = self.solver.batch_size
-        self.device = resolve_device(device)
+        self.mesh = mesh or self._mesh_override \
+            or _auto_mesh(self.solver.mesh_shape)
+        if self.mesh is not None:
+            _validate_mesh_fit(self.cfg, self.mesh, self.batch_size)
         self._model = RecsysModel(
-            self.cfg, device=self.device, use_kernels=use_kernels,
-            global_batch=self.batch_size, comm=self.solver.comm)
+            self.cfg, device=device, use_kernels=use_kernels,
+            global_batch=self.batch_size, comm=self.solver.comm,
+            mesh=self.mesh, a2a_threshold=self.solver.a2a_threshold)
+        self.device = self._model.device
         return self
 
     @property
@@ -657,7 +732,8 @@ class Model:
         from repro_torch.train.trainer import Trainer
         trainer = Trainer(self._model, self._tcfg, data_fn,
                           ckpt_dir=ckpt_dir,
-                          ckpt_interval=self.solver.ckpt_interval)
+                          ckpt_interval=self.solver.ckpt_interval,
+                          mode=self.solver.mode)
         trainer.failure_injector = failure_injector
         init = (self._params, self._opt_state) \
             if self._params is not None else None
@@ -699,15 +775,21 @@ class Model:
 
     def predict(self, batch: Dict) -> np.ndarray:
         """Probabilities ``[B]`` for a host batch (``dense``, ``cat``); wide
-        models look their wide twins up in the same ``cat`` columns."""
+        models look their wide twins up in the same ``cat`` columns. On a
+        mesh every rank passes the same batch, predicts its data-parallel
+        block and gets the whole ``[B]``."""
         if self._params is None:
             raise RuntimeError("fit() or load() before predict()")
+        from repro_torch.core.embedding.strategies import all_gather
         from repro_torch.train.trainer import put_batch
         dev = put_batch({k: v for k, v in batch.items()
-                         if k in ("dense", "cat")}, self.device)
+                         if k in ("dense", "cat")}, self.device, self.mesh)
         with torch.no_grad():
-            return torch.sigmoid(self._model.apply(self._params, dev)) \
-                .cpu().numpy()
+            prob = torch.sigmoid(self._model.apply(self._params, dev))
+            if self.mesh is not None:
+                prob = all_gather(prob, meshlib.axis_group(
+                    self.mesh, meshlib.dp_axes(self.mesh)))
+            return prob.cpu().numpy()
 
     # -- introspection ----------------------------------------------------------------
 
@@ -744,28 +826,44 @@ class Model:
 
     # -- persistence ------------------------------------------------------------------
 
+    def _lead(self) -> bool:
+        """Whether this process writes (rank 0 of the mesh; always
+        without one)."""
+        return self.mesh is None or meshlib.axis_index(
+            self.mesh, meshlib.all_axes(self.mesh)) == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            torch.distributed.barrier(group=meshlib.axis_group(
+                self.mesh, meshlib.all_axes(self.mesh)))
+
     def save(self, directory: str, step: int = 0) -> str:
         """Write the graph (graph.json) and a logical-layout checkpoint:
-        everything :meth:`load` (of either package) needs."""
+        everything :meth:`load` (of either package) needs. On a mesh every
+        rank gathers and rank 0 writes."""
         if self._params is None:
             raise RuntimeError("nothing to save: fit() or load() first")
         from repro_torch.models.recsys.model import export_logical_params
         from repro_torch.train import checkpoint as ck
-        os.makedirs(directory, exist_ok=True)
-        self.graph_to_json(os.path.join(directory, "graph.json"))
-        ck.save(directory, step,
-                {"params": export_logical_params(self._model, self._params)})
+        tree = {"params": export_logical_params(self._model, self._params)}
+        if self._lead():
+            os.makedirs(directory, exist_ok=True)
+            self.graph_to_json(os.path.join(directory, "graph.json"))
+            ck.save(directory, step, tree)
+        self._barrier()
         return directory
 
     @classmethod
-    def load(cls, directory: str, *, device: DeviceLike = None) -> "Model":
+    def load(cls, directory: str, *, device: DeviceLike = None,
+             mesh=None) -> "Model":
         """Rebuild a model from :meth:`save` output alone: graph JSON and
-        the newest checkpoint. ``predict()`` works at once; ``fit()``
-        continues from the loaded weights."""
+        the newest checkpoint, onto ``device`` or any ``mesh`` (the
+        checkpoint is mesh-independent). ``predict()`` works at once;
+        ``fit()`` continues from the loaded weights."""
         from repro_torch.models.recsys.model import import_logical_params
         from repro_torch.train import checkpoint as ck
         m = cls.from_json(os.path.join(directory, "graph.json"))
-        m.compile(device=device)
+        m.compile(device=device, mesh=mesh)
         step = ck.latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -782,17 +880,19 @@ class Model:
     def _write_bundle_member(self, pdb, bundle_dir: str, sub: str, *,
                              cache_capacity: int, cache_shards: int,
                              refresh_budget: int, max_batch: int,
-                             payload_dtype: str = "f32"):
+                             payload_dtype: str = "f32", tables=None):
         """Export THIS model into a deployment bundle: every table (the
         ``*_wide`` twins of a wide model and every extra group's tables
         included) into the (possibly shared) PDB, ``graph.json`` and
         ``dense.npz`` under ``bundle_dir/sub``; returns the relocatable
-        HPSConfig, its paths relative to ``bundle_dir``."""
+        HPSConfig, its paths relative to ``bundle_dir``. ``tables`` are
+        the logical tables when already gathered."""
         from repro_torch.serve.server import (trained_tables,
                                               write_bundle_member)
+        if tables is None:
+            tables = trained_tables(self._model, self._params)
         return write_bundle_member(
-            pdb, bundle_dir, sub, self, self.dense_params(),
-            trained_tables(self._model, self._params),
+            pdb, bundle_dir, sub, self, self.dense_params(), tables,
             cache_capacity=cache_capacity, cache_shards=cache_shards,
             refresh_budget=refresh_budget, max_batch=max_batch,
             payload_dtype=payload_dtype)
@@ -820,11 +920,30 @@ class Model:
         this model's device, one HPS per table set, over the given
         VolatileDB and message bus. Either package's
         ``build_server_from_config`` serves the bundle; to serve several
-        models from one bundle, see :func:`deploy_ensemble`."""
+        models from one bundle, see :func:`deploy_ensemble`. On a mesh
+        every rank gathers the tables, rank 0 writes the bundle and gets
+        the server (one device serves it), the others None."""
         if self._params is None:
             raise RuntimeError("fit() or load() before deploy()")
         from repro_torch.configs.base import hps_config_to_dict
         from repro_torch.core.hps.persistent_db import PersistentDB
+        if self.mesh is not None:
+            from repro_torch.serve.server import trained_tables
+            tables = trained_tables(self._model, self._params)
+            server = None
+            if self._lead():
+                os.makedirs(directory, exist_ok=True)
+                pdb = PersistentDB(os.path.join(directory, "pdb"))
+                hcfg = self._write_bundle_member(
+                    pdb, directory, "", cache_capacity=cache_capacity,
+                    cache_shards=cache_shards,
+                    refresh_budget=refresh_budget, max_batch=max_batch,
+                    payload_dtype=payload_dtype, tables=tables)
+                with open(os.path.join(directory, "ps.json"), "w") as f:
+                    json.dump(hps_config_to_dict(hcfg), f, indent=1)
+                server = self._build_server(pdb, hcfg, vdb=vdb, bus=bus)
+            self._barrier()
+            return server
         os.makedirs(directory, exist_ok=True)
         pdb = PersistentDB(os.path.join(directory, "pdb"))
         hcfg = self._write_bundle_member(
@@ -861,7 +980,7 @@ class Model:
         return path
 
     @classmethod
-    def from_json(cls, path: str) -> "Model":
+    def from_json(cls, path: str, *, mesh=None) -> "Model":
         with open(path) as f:
             d = json.load(f)
         if d.get("format") != GRAPH_FORMAT:
@@ -870,7 +989,7 @@ class Model:
         m = cls(Solver(**d["solver"]),
                 DataReaderParams(**d["reader"])
                 if d.get("reader") else None,
-                name=d["name"])
+                name=d["name"], mesh=mesh)
         kinds = {"input": Input, "sparse_embedding": SparseEmbedding,
                  "dense": DenseLayer}
         for ld in d["layers"]:
@@ -1043,15 +1162,14 @@ def paper_recipe(arch: str, *, smoke: bool = False,
     """``configs/<arch>.py::build_model`` of a paper recipe: the graph of
     the registry config ``arch``, or of its smoke cut
     (``reduce_recsys_for_smoke``: six tables of at most 1000 rows, D=16,
-    the ``-smoke`` name). The model trains on one device: a ``mesh``
-    raises."""
+    the ``-smoke`` name), compiled onto ``mesh`` when one is given."""
     from repro_torch.configs.registry import (
         RECSYS_ARCHS, reduce_recsys_for_smoke)
-    if mesh is not None:
-        raise not_ported("build_model(mesh=...)", MULTI_DEVICE)
     cfg = RECSYS_ARCHS[arch]
-    return recipe_graph(reduce_recsys_for_smoke(cfg) if smoke else cfg,
-                        solver=solver, reader=reader)
+    m = recipe_graph(reduce_recsys_for_smoke(cfg) if smoke else cfg,
+                     solver=solver, reader=reader)
+    m._mesh_override = mesh
+    return m
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,8 @@ registry config (parity-tested).
 
 The port's ``repro/configs/dcn_criteo.py``: ``build_model`` declares
 the graph of the registry config (``api.dcn_graph``), at the same smoke
-sizes and names, so it lowers to the same ``recsys_config_hash``; a
-``mesh`` raises.
+sizes and names, so it lowers to the same ``recsys_config_hash``;
+a ``mesh`` is carried into the model's ``compile``.
 """
 
 from repro_torch.api import DataReaderParams, Model, Solver, paper_recipe

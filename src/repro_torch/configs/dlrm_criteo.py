@@ -5,8 +5,8 @@ of its output with the pooled embeddings, and the top MLP.
 
 The port's ``repro/configs/dlrm_criteo.py``: ``build_model`` declares
 the graph of the registry config (``api.dlrm_graph``), at the same smoke
-sizes and names, so it lowers to the same ``recsys_config_hash``; a
-``mesh`` raises.
+sizes and names, so it lowers to the same ``recsys_config_hash``;
+a ``mesh`` is carried into the model's ``compile``.
 """
 
 from repro_torch.api import DataReaderParams, Model, Solver, paper_recipe

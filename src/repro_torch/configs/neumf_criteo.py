@@ -21,7 +21,7 @@ ARCH_ID = "neumf-criteo"
 
 
 def build_model(*, smoke: bool = False, solver: Solver = None,
-                reader: DataReaderParams = None) -> Model:
+                reader: DataReaderParams = None, mesh=None) -> Model:
     if smoke:
         deep_sizes = [min(v, 1000) for v in CRITEO_VOCAB_SIZES[:6]]
         gmf_sizes = [min(v, 500) for v in CRITEO_VOCAB_SIZES[6:10]]
@@ -37,7 +37,7 @@ def build_model(*, smoke: bool = False, solver: Solver = None,
     name = ARCH_ID + ("-smoke" if smoke else "")
     m = Model(solver or Solver(),
               reader or DataReaderParams(num_dense_features=13),
-              name=name)
+              name=name, mesh=mesh)
     m.add(Input(dense_dim=13))
     # first group is the primary collection; each further group gets its
     # own collection, param key and cat column span

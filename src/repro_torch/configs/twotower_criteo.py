@@ -25,7 +25,7 @@ ARCH_ID = "twotower-criteo"
 
 
 def build_model(*, smoke: bool = False, solver: Solver = None,
-                reader: DataReaderParams = None) -> Model:
+                reader: DataReaderParams = None, mesh=None) -> Model:
     if smoke:
         sizes = [min(v, 1000) for v in CRITEO_VOCAB_SIZES[:6]]
         dim, tower, head = 16, (32, 16), (16,)
@@ -35,7 +35,7 @@ def build_model(*, smoke: bool = False, solver: Solver = None,
     name = ARCH_ID + ("-smoke" if smoke else "")
     m = Model(solver or Solver(),
               reader or DataReaderParams(num_dense_features=13),
-              name=name)
+              name=name, mesh=mesh)
     m.add(Input(dense_dim=13))
     m.add(SparseEmbedding(
         vocab_sizes=sizes, dim=dim, top_name="emb",

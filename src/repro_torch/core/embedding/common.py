@@ -107,6 +107,23 @@ def pooled_local_lookup(mega: torch.Tensor, rows: torch.Tensor,
     return pooled
 
 
+def masked_range_lookup(local: torch.Tensor, rows: torch.Tensor, v0: int,
+                        combiner: str = "sum", compute_dtype=None,
+                        pool_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Partial pooled lookup against a row-range shard ``[v0, v0 + len)``:
+    rows outside the shard become -1 holes and contribute zero, so summing
+    the partials across shards gives the full pooled lookup (the mean
+    renorm is the caller's: ``combiner`` is taken and ignored, as in the
+    reference). ``pool_fn(local, rows, compute_dtype=...)`` pools
+    (``kernels.ops.kernel_pool``: K1 forward, K3 backward); the plain
+    :func:`pooled_local_lookup` by default."""
+    rel = rows - v0
+    valid = (rows >= 0) & (rel >= 0) & (rel < local.shape[0])
+    rel = torch.where(valid, rel, torch.full_like(rel, -1))
+    pool = pool_fn or pooled_local_lookup
+    return pool(local, rel, compute_dtype=compute_dtype)
+
+
 def combiner_mask_denom(rows: torch.Tensor) -> torch.Tensor:
     """Denominator for mean-combining given padded rows ``[..., H]``."""
     return (rows >= 0).sum(dim=-1, keepdim=True).clamp_min(1)

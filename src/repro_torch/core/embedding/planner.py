@@ -1,11 +1,13 @@
 """Placement planner, copied from ``repro/core/embedding/planner.py``
-(``plan`` and ``resolve_strategies``), so the port makes the same embedding
-groups as the reference for the same tables, device layout and batch.
+(``plan``, ``choose_comm`` and ``resolve_strategies``), so the port makes
+the same embedding groups and picks the same exchange as the reference for
+the same tables, mesh (``launch.mesh.mesh_config_for``) and batch.
 
 Cost model (per training step, per device, bytes):
   data_parallel : fwd 0, bwd all-reduce of the dense grad  ~ 2·V·D·s
   distributed   : ag_rs — RS(B_g·D·s) + AG_model(B_dp·D·s) per table
                   a2a  — 2 · B_dp·H·D·s request/response traffic
+  localized     : a2a of pooled vectors ~ B_g·D·s / N + id allgather
   hybrid        : hot hits free (DP, replicated) + cold via distributed on
                   (1-cov) of the traffic.
 Tables of at most 1 MiB are replicated whatever the costs say.
@@ -86,6 +88,25 @@ def _mem(t: EmbeddingTableConfig, strategy: str, n: int, s: int) -> float:
         hot = int(t.vocab_size * t.hot_fraction) * t.dim * s
         return hot + (full - hot) / n
     return full
+
+
+def choose_comm(tables: Sequence[EmbeddingTableConfig], *,
+                threshold: int = 65536) -> str:
+    """Pick the embedding-collection comm pattern for one table group.
+
+    The hybrid recipe (Mudigere et al., cited from the paper's §4):
+    ``all_to_all`` only pays off for LARGE one-hot tables, where each
+    device requests exactly the rows it needs instead of allgathering a
+    shard-padded block. Pooled (hotness > 1) or small tables keep
+    ``allgather_rs``: pooling happens shard-side before any exchange and
+    small tables cost next to nothing to allgather.
+    """
+    if not tables:
+        return "allgather_rs"
+    if all(t.hotness == 1 for t in tables) and \
+            max(t.vocab_size for t in tables) >= threshold:
+        return "all_to_all"
+    return "allgather_rs"
 
 
 def resolve_strategies(tables: Sequence[EmbeddingTableConfig],

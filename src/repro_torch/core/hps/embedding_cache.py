@@ -427,7 +427,8 @@ class DeviceEmbeddingCache:
                 rows = np.asarray(self.fetch_fn(ids), np.float32)
             self._store = ShardedPayloadStore(
                 new_capacity, self.dim, shards=self._store.shards,
-                payload_dtype=self.payload_dtype, device=self.device)
+                mesh=self._store.mesh, payload_dtype=self.payload_dtype,
+                device=self.device)
             self.capacity = new_capacity
             self._id_of = np.full(new_capacity, -1, np.int64)
             self._freq = np.zeros(new_capacity, np.float64)

@@ -18,7 +18,12 @@ wait). Every plan gathers from its own payload snapshot (see
 
 With ``cache_shards=N`` the caches stripe their payloads on the one
 device; the device stage remaps each slot block onto the stripes' flat
-view on the host, so the pooled read stays one launch.
+view on the host, so the pooled read stays one launch. With a
+``cache_mesh`` of several devices (``launch.mesh.make_cache_mesh``) the
+stripes are laid out across them and each table's pooled read is the
+reference's ``sharded_pooled_lookup``: K5 / K6 on every device over its
+own stripes, the partial rows summed once on the first device (the HPS
+device), then pooled over H.
 
 Online updates: the ``bus`` Consumer applies trainer messages to L2/L3
 and marks the touched L1 rows dirty (``apply_updates``); the
@@ -53,12 +58,19 @@ Overflow = Tuple[int, np.ndarray, np.ndarray, int]
 
 def _pooled_stack(payloads: Sequence[tuple], slots: Sequence[torch.Tensor],
                   combiners: Sequence[str],
-                  apply_mean: bool = True) -> torch.Tensor:
+                  apply_mean: bool = True, mesh=None) -> torch.Tensor:
     """The pooled gathers of all tables, ``[B, T, D]`` f32, in one device
     dispatch (as the reference's). Each payload is a ``(payload, scales)``
-    snapshot; int8 stores dequantize inside the gather kernel. The mean
-    renorm divides each mean table's slice in place."""
-    out = ops.grouped_pooled_lookup(payloads, slots)
+    snapshot; int8 stores dequantize inside the gather kernel. On a cache
+    ``mesh`` each table reads its per-device stripe blocks
+    (``ops.sharded_pooled_lookup``). The mean renorm divides each mean
+    table's slice in place."""
+    if mesh is not None:
+        out = torch.stack([ops.sharded_pooled_lookup(p, s, scales=sc,
+                                                     mesh=mesh)
+                           for (p, sc), s in zip(payloads, slots)], dim=1)
+    else:
+        out = ops.grouped_pooled_lookup(payloads, slots)
     if apply_mean:
         for ti, (s, comb) in enumerate(zip(slots, combiners)):
             if comb == "mean":
@@ -91,7 +103,13 @@ class HPS:
         self.tables = tuple(tables)
         self.pdb = pdb
         self.vdb = vdb or VolatileDB()
+        if cache_mesh is not None and len(cache_mesh) > 1:
+            # the stripes' partial rows meet on the mesh's first device
+            device = cache_mesh[0] if device is None else device
+        else:
+            cache_mesh = None
         self.device = resolve_device(device)
+        self.cache_mesh = cache_mesh
         self.cache_shards = cache_shards
         self.cache_capacity = cache_capacity
         self.payload_dtype = payload_dtype
@@ -240,7 +258,7 @@ class HPS:
             sb, staged = dev[4 * k], dev[4 * k + 1:4 * k + 4]
             payload = self.caches[self.tables[ti].name].commit(
                 plan, None if staged[0] is None else staged)
-            if self.cache_shards > 1:
+            if self.cache_shards > 1 and self.cache_mesh is None:
                 payload = ops.striped_view(payload)
             slot_blocks.append(sb)
             payloads.append(payload)
@@ -256,11 +274,12 @@ class HPS:
         combiners = tuple("mean" if t.combiner == "mean" else "sum"
                           for t in self.tables)
         if not overflow:
-            return _pooled_stack(payloads, slot_blocks, combiners)[:b]
+            return _pooled_stack(payloads, slot_blocks, combiners,
+                                 mesh=self.cache_mesh)[:b]
         # rare path: some ids exceeded L1 evictable capacity; add their
         # contribution host-side, then apply the mean denominators exactly
         out = _pooled_stack(payloads, slot_blocks, combiners,
-                            apply_mean=False)[:b]
+                            apply_mean=False, mesh=self.cache_mesh)[:b]
         dim = self.tables[0].dim
         corr = np.zeros((b, len(self.tables), dim), np.float32)
         for ti, ov_idx, ov_rows, h in overflow:

@@ -9,8 +9,16 @@ payload; ``shards=N`` stripes it as the companion HPS paper (arXiv
 so both packages hold the same bytes. On one card the stripes are read
 through their flat ``[N * Cl, D]`` view with the slots remapped on the
 host (``ops.flatten_striped_slots``), so K5, K6 and the grouped pooled
-read run unchanged and striping adds no launch. Stripes laid out across
-devices (the reference's cache mesh) are the multi-GPU slice's.
+read run unchanged and striping adds no launch.
+
+With a cache ``mesh`` (``launch.mesh.make_cache_mesh``: a list of more
+than one device, repeats allowed) the stripes are laid out across its
+devices as the reference lays them over its cache axis: stripe ``i`` on
+device ``i * size // N``, each device holding the ``[k, Cl, D]`` block of
+its stripes (and the int8 scales of their rows). Reads keep the GLOBAL
+slots: each device reads its own stripes with K5 / K6, the others' slots
+set to -1, and the partial rows meet on the first device in one sum
+(``ops.sharded_cache_gather``).
 
 Payload precision is a storage knob: ``"f32"`` (bit-exact), ``"f16"``
 (half the bytes) or ``"int8"`` (per-row absmax quantization plus an f32
@@ -38,7 +46,6 @@ import torch
 from repro_torch import device as devmod
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.roadmap import MULTI_DEVICE, not_ported
 
 PAYLOAD_DTYPES = ("f32", "f16", "int8")
 
@@ -85,10 +92,10 @@ def quantize_rows(rows: np.ndarray, payload_dtype: str
 
 
 class ShardedPayloadStore:
-    """Physical slot storage on one device: a single ``[C, D]`` payload
-    (``shards=1``) or ``[N, Cl, D]`` stripes (``shards=N``), in one of the
-    ``PAYLOAD_DTYPES`` storage modes (plus ``[C]`` or ``[N, Cl]`` f32
-    scales for int8)."""
+    """Physical slot storage: a single ``[C, D]`` payload (``shards=1``)
+    or ``[N, Cl, D]`` stripes (``shards=N``), on one device or laid out
+    over a cache ``mesh``, in one of the ``PAYLOAD_DTYPES`` storage modes
+    (plus ``[C]`` or ``[N, Cl]`` f32 scales for int8)."""
 
     def __init__(self, capacity: int, dim: int, *, shards: int = 1,
                  mesh=None, payload_dtype: str = "f32",
@@ -101,12 +108,22 @@ class ShardedPayloadStore:
         if payload_dtype not in _STORAGE:
             raise ValueError(f"unknown payload_dtype {payload_dtype!r}; "
                              f"expected one of {PAYLOAD_DTYPES}")
-        if mesh is not None:
-            raise not_ported("the L1 striped across devices (a cache mesh)",
-                             MULTI_DEVICE)
+        if mesh is not None and len(mesh) > 1:
+            if shards % len(mesh):
+                raise ValueError(
+                    f"shards={shards} does not tile a cache mesh of "
+                    f"{len(mesh)} devices")
+            mesh = [resolve_device(d) for d in mesh]
+            if device is not None and resolve_device(device) != mesh[0]:
+                raise ValueError(f"a cache mesh starting at {mesh[0]} "
+                                 f"serves on it, not on {device}")
+            device = mesh[0]
+        else:
+            mesh = None                  # one device: the flat view
         self.capacity = capacity
         self.dim = dim
         self.shards = shards
+        self.mesh = mesh
         self.payload_dtype = payload_dtype
         self.device = resolve_device(device)
         # rows padded to the reference's gather tile, so both stores have
@@ -115,29 +132,43 @@ class ShardedPayloadStore:
         bc = min(512, _round_up(local_cap, 8))
         self.local_rows = _round_up(local_cap, bc)
         self.phys_rows = shards * self.local_rows
-        need = self.phys_rows * row_bytes(dim, payload_dtype)
+        need = self.phys_rows * row_bytes(dim, payload_dtype) \
+            // (len(mesh) if mesh else 1)
         if self.device.type == "cuda":
             have = torch.cuda.get_device_properties(self.device).total_memory
             if need > have:
-                raise not_ported(
-                    f"an L1 of {need} bytes, more than the {have} bytes of "
-                    "one card, striped across devices", MULTI_DEVICE)
+                raise ValueError(
+                    f"an L1 of {need} bytes a device, more than the {have} "
+                    "bytes of one card: stripe it across devices "
+                    "(cache_mesh=launch.mesh.make_cache_mesh(shards))")
         shape = ((self.phys_rows,) if shards == 1
                  else (shards, self.local_rows))
-        self._payload = torch.zeros(shape + (dim,),
-                                    dtype=_STORAGE[payload_dtype],
-                                    device=self.device)
-        self._scales = (torch.ones(shape, dtype=torch.float32,
-                                   device=self.device)
+        if mesh is not None:             # [k, Cl(, D)] a device
+            shape = (shards // len(mesh), self.local_rows)
+        devices = mesh or [self.device]
+        self._payload = tuple(torch.zeros(shape + (dim,),
+                                          dtype=_STORAGE[payload_dtype],
+                                          device=d) for d in devices)
+        self._scales = (tuple(torch.ones(shape, dtype=torch.float32,
+                                         device=d) for d in devices)
                         if payload_dtype == "int8" else None)
+        if mesh is None:
+            self._payload = self._payload[0]
+            self._scales = None if self._scales is None else self._scales[0]
+
+    def _flat(self, slots: np.ndarray) -> np.ndarray:
+        """Logical slots as rows of the flat ``[N * Cl]`` row space (slot
+        ``s`` at stripe ``s % N``, local row ``s // N``; -1 holes kept)."""
+        if self.shards == 1:
+            return slots
+        return np.where(slots >= 0, (slots % self.shards) * self.local_rows
+                        + slots // self.shards, -1).astype(slots.dtype)
 
     def flat_rows(self, slots: np.ndarray) -> np.ndarray:
-        """Logical slots as rows of the flat payload view (slot ``s`` at
-        stripe ``s % N``, local row ``s // N``; -1 holes kept), on the
-        host."""
-        if self.shards > 1:
-            return ops.flatten_striped_slots(self._payload, slots)
-        return slots
+        """Logical slots as the reads take them, on the host: rows of the
+        flat payload view on one device, the GLOBAL slots themselves on a
+        cache mesh."""
+        return slots if self.mesh is not None else self._flat(slots)
 
     def prepare(self, slots: np.ndarray, rows: np.ndarray
                 ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
@@ -154,12 +185,17 @@ class ShardedPayloadStore:
             if scales is not None:
                 scales = np.concatenate(
                     [scales, np.broadcast_to(scales[:1], (pad,))])
-        return (self.flat_rows(np.asarray(slots, np.int64)), rows, scales)
+        return (self._flat(np.asarray(slots, np.int64)), rows, scales)
 
     def write(self, idx: torch.Tensor, rows: torch.Tensor,
               scales: Optional[torch.Tensor]) -> None:
         """The device half: ``prepare``'s arrays, on this store's device,
         written into a copy of the payload, which the store rebinds to."""
+        if self.mesh is not None:
+            self._payload = self._write_blocks(self._payload, idx, rows)
+            if scales is not None:
+                self._scales = self._write_blocks(self._scales, idx, scales)
+            return
         payload = self._payload.clone()
         payload.view(-1, self.dim).index_copy_(0, idx, rows)
         if scales is not None:
@@ -167,6 +203,24 @@ class ShardedPayloadStore:
             new_scales.view(-1).index_copy_(0, idx, scales)
             self._scales = new_scales
         self._payload = payload
+
+    def _write_blocks(self, blocks: tuple, idx: torch.Tensor,
+                      vals: torch.Tensor) -> tuple:
+        """Copies of the per-device ``blocks`` with ``vals`` written at the
+        flat rows ``idx``: each block takes the rows in its range, the
+        others land in a spare row that is dropped (no host sync)."""
+        out, lo = [], 0
+        for block in blocks:
+            n = block.shape[0] * block.shape[1]
+            dev = block.device
+            local = idx.to(dev) - lo
+            local = torch.where((local >= 0) & (local < n), local, n)
+            flat = torch.cat([block.reshape(n, *block.shape[2:]),
+                              block.new_zeros((1,) + block.shape[2:])])
+            flat.index_copy_(0, local, vals.to(dev))
+            out.append(flat[:n].view(block.shape))
+            lo += n
+        return tuple(out)
 
     def scatter(self, slots: np.ndarray, rows: np.ndarray) -> None:
         """Write ``rows`` (f32, quantized here) at ``slots`` into a copy of
@@ -177,7 +231,8 @@ class ShardedPayloadStore:
 
     def snapshot(self):
         """The current ``(payload, scales)`` pair (``[C, D]`` or
-        ``[N, Cl, D]``; ``scales`` is None outside int8). No later scatter
+        ``[N, Cl, D]``, on a cache mesh a tuple of per-device ``[k, Cl,
+        D]`` blocks; ``scales`` is None outside int8). No later scatter
         writes into these tensors."""
         return (self._payload, self._scales)
 
@@ -187,6 +242,7 @@ class ShardedPayloadStore:
         rows off a snapshot of this store (K5, or K6 when compressed)."""
         payload, scales = snapshot
         if self.shards > 1:
-            return ops.sharded_cache_gather(payload, slots, scales=scales)
+            return ops.sharded_cache_gather(payload, slots, scales=scales,
+                                            mesh=self.mesh)
         return ops.cache_gather(payload, ops.slot_tensor(slots, self.device),
                                 scales=scales)

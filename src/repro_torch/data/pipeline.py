@@ -3,14 +3,16 @@ device (counterpart of ``repro/data/pipeline.py``).
 
 HugeCTR overlaps its data reader with compute via CUDA streams; here a
 daemon thread fills a bounded queue while the device works, and
-:func:`put_batch`, which the trainer uses, moves a host batch onto one
-device. The reference's ``put_batch`` takes a mesh and places each array
-by its ``batch_shardings``; a mesh is ROADMAP queue 1 item 4, so
-:func:`batch_shardings` raises. ``Prefetcher`` is a copy; the trainer
-does not use it, as the reference's does not.
+:func:`put_batch`, which the trainer uses, moves a host batch onto the
+device. On a mesh every rank reads the same global batch (the readers are
+seekable, ``batch(step)``) and keeps its data-parallel block
+(:func:`batch_shardings`), the reference's ``NamedSharding`` over the DP
+axes: split over ``"data"``, replicated over ``"model"``. ``Prefetcher``
+is a copy; the trainer does not use it, as the reference's does not.
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from typing import Callable, Dict, Iterator, Optional
@@ -18,7 +20,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.roadmap import MULTI_DEVICE, not_ported
+from repro_torch.launch import mesh as meshlib
 
 
 class Prefetcher:
@@ -63,16 +65,40 @@ class Prefetcher:
             self._q.get_nowait()
 
 
-def batch_shardings(mesh, dp_axes=None):
-    """The reference's per-array shardings of a batch over a mesh."""
-    raise not_ported("data.pipeline.batch_shardings (a mesh)", MULTI_DEVICE)
+@dataclasses.dataclass(frozen=True)
+class BatchBlock:
+    """Block ``index`` of ``count`` equal blocks along a batch's dim 0."""
+    index: int
+    count: int
+
+    def take(self, a: np.ndarray) -> np.ndarray:
+        n = a.shape[0]
+        if n % self.count:
+            raise ValueError(f"batch of {n} rows does not split into "
+                             f"{self.count} data-parallel blocks")
+        b = n // self.count
+        return a[self.index * b:(self.index + 1) * b]
 
 
-def put_batch(batch: Dict[str, np.ndarray], device) -> Dict:
+def batch_shardings(mesh, dp_axes=None) -> Dict[str, BatchBlock]:
+    """This rank's block of each batch array over ``mesh``'s DP axes
+    (everything but ``"model"``): the same block for every ``model``
+    index of a data row."""
+    dp = tuple(dp_axes or meshlib.dp_axes(mesh))
+    block = BatchBlock(meshlib.axis_index(mesh, dp),
+                       meshlib.axis_size(mesh, dp))
+    return {"dense": block, "cat": block, "label": block}
+
+
+def put_batch(batch: Dict[str, np.ndarray], device, mesh=None) -> Dict:
     """A host batch (``dense``, ``cat``, ``label``) as tensors on
-    ``device``."""
+    ``device``; with ``mesh``, this rank's data-parallel block of it."""
     dtypes = {"dense": torch.float32, "cat": torch.int32,
               "label": torch.float32}
+    if mesh is not None:
+        blocks = batch_shardings(mesh)
+        batch = {k: blocks[k].take(v) if k in blocks else v
+                 for k, v in batch.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
         device=device, dtype=dtypes.get(k))
         for k, v in batch.items()}

@@ -8,8 +8,9 @@ one-table launch with one slot a row and no scale; K6 the same with
 per-row scales, :func:`dequant_gather_grouped` reading and summing every
 table of a served int8 batch in one launch and :func:`dequant_gather_rows`
 the one-table launch with one slot a row. The
-striped multi-device bodies (``sharded_gather_rows`` and its dequant twin)
-belong to the multi-GPU slice.
+reference's striped multi-device bodies (``sharded_gather_rows`` and its
+dequant twin) are ``ops.sharded_cache_gather`` over a cache mesh: one K5
+(K6) launch a device over its own stripes, then one sum.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Entry points over the kernels (counterparts of ``repro/kernels/ops.py``):
 the serving reads ``grouped_pooled_lookup`` (every table of a batch in one
 launch), ``pooled_cache_lookup``, ``cache_gather`` and its striped twin
-``sharded_cache_gather`` (one device), the
-differentiable ``fused_embedding_lookup`` / ``kernel_pool`` and
-``dot_interaction`` that training runs, and the LM's ``flash_attention``.
+``sharded_cache_gather`` (one device, or the mesh half across a cache
+mesh's devices), the differentiable ``fused_embedding_lookup`` /
+``kernel_pool``, ``row_gather`` and ``dot_interaction`` that training
+runs, and the LM's ``flash_attention``.
 
 Each picks by the tensors' device, through its kernel's wrapper: the CUDA
 kernel for CUDA tensors, the plain version for CPU tensors. The JAX
@@ -101,18 +102,100 @@ def striped_view(snapshot: tuple) -> tuple:
             None if scales is None else scales.view(-1))
 
 
-def sharded_cache_gather(stripes: torch.Tensor,
-                         slots: Union[np.ndarray, torch.Tensor], *,
-                         scales: Optional[torch.Tensor] = None
+def place_stripes(stripes: torch.Tensor, scales: Optional[torch.Tensor],
+                  mesh: Sequence) -> tuple:
+    """Lay ``stripes [N, Cl, D]`` (and ``scales [N, Cl]``) out over the
+    cache ``mesh`` (a list of devices, ``launch.mesh.make_cache_mesh``):
+    stripe ``i`` on device ``i * size // N``, so device
+    ``j`` holds the ``[k, Cl, D]`` block of stripes ``j * k .. j * k + k -
+    1`` (``k = N / size``). Returns ``(blocks, scale blocks or None)``."""
+    n, size = stripes.shape[0], len(mesh)
+    if n % size:
+        raise ValueError(f"{n} stripes do not tile a cache mesh of "
+                         f"{size} devices")
+    k = n // size
+    blocks = tuple(stripes[j * k:(j + 1) * k].to(torch.device(dev))
+                   .contiguous() for j, dev in enumerate(mesh))
+    if scales is None:
+        return blocks, None
+    return blocks, tuple(scales[j * k:(j + 1) * k].to(torch.device(dev))
+                         .contiguous() for j, dev in enumerate(mesh))
+
+
+def _local_stripe_gather(block: torch.Tensor,
+                         scales: Optional[torch.Tensor],
+                         slots: torch.Tensor, n_stripes: int,
+                         first: int) -> torch.Tensor:
+    """Per-device body (``hps_gather._local_stripe_gather``): gather the
+    slots whose stripe this device owns. ``block [k, Cl, D]`` holds
+    stripes ``first .. first + k - 1``; global slot ``s`` maps to stripe
+    ``s % N``, local row ``s // N``. Slots owned elsewhere become -1 holes
+    and read zero rows, so the sum of the devices' partials is exact. One
+    K5 launch (K6 with ``scales [k, Cl]``) on the block's device."""
+    k, cl, d = block.shape
+    stripe_of = torch.where(slots >= 0, slots % n_stripes, -1)
+    mine = (stripe_of >= first) & (stripe_of < first + k)
+    local = (stripe_of - first) * cl + torch.div(slots, n_stripes,
+                                                 rounding_mode="floor")
+    local = torch.where(mine, local, -1).to(torch.int32)
+    flat = block.view(k * cl, d)
+    return cache_gather(flat, local, scales=None if scales is None
+                        else scales.view(k * cl))
+
+
+def _mesh_gather(blocks: Sequence[torch.Tensor],
+                 scales: Optional[Sequence[torch.Tensor]],
+                 slots: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+    """The mesh half of ``hps_gather.sharded_gather_rows`` /
+    ``sharded_dequant_gather_rows``: each device's body over its own
+    block, then the ``[n, D]`` partials on the first device, summed once
+    (the reference's one ``psum``)."""
+    n_stripes = sum(b.shape[0] for b in blocks)
+    out_dev = blocks[0].device
+    parts, first = [], 0
+    for j, block in enumerate(blocks):
+        s = slot_tensor(slots, block.device).to(block.device)
+        parts.append(_local_stripe_gather(
+            block, None if scales is None else scales[j], s, n_stripes,
+            first).to(out_dev))
+        first += block.shape[0]
+    return torch.stack(parts).sum(dim=0)
+
+
+def sharded_cache_gather(stripes, slots: Union[np.ndarray, torch.Tensor],
+                         *, scales=None, mesh: Optional[Sequence] = None
                          ) -> torch.Tensor:
-    """``stripes [N, Cl, D]``, GLOBAL ``slots [n]`` (-1 = hole) -> ``[n, D]``
-    f32: :func:`cache_gather` (K5, or K6 with ``scales [N, Cl]``) on the
-    flat view with the remapped slots, row for row the reference's
-    host-shard read. Stripes laid out across devices (the reference's
-    ``mesh`` branch) are the multi-GPU slice's."""
+    """GLOBAL ``slots [n]`` (-1 = hole) of a striped payload -> ``[n, D]``
+    f32, K5 (or K6 with ``scales``).
+
+    Without ``mesh``, ``stripes [N, Cl, D]`` (and ``scales [N, Cl]``) lie
+    on one device and are read through their flat view with the slots
+    remapped, row for row the reference's host-shard read. With ``mesh``
+    (the cache mesh's devices, more than one entry), ``stripes`` and
+    ``scales`` are the per-device blocks of :func:`place_stripes`: each
+    device reads its own stripes, the others' slots set to -1, and the
+    partial rows are summed once on the first device."""
+    if mesh is not None and len(mesh) > 1:
+        return _mesh_gather(stripes, scales, slots)
     flat, flat_scales = striped_view((stripes, scales))
     idx = slot_tensor(flatten_striped_slots(stripes, slots), stripes.device)
     return cache_gather(flat, idx, scales=flat_scales)
+
+
+def sharded_pooled_lookup(stripes, slots: torch.Tensor, *, scales=None,
+                          mesh: Optional[Sequence] = None) -> torch.Tensor:
+    """Pooled serving read off the striped payload, GLOBAL ``slots [B,
+    H]`` (-1 = hole) -> sum-pooled ``[B, D]`` f32: on a cache ``mesh``,
+    :func:`sharded_cache_gather`'s rows summed over H (the reference's
+    ``sharded_pooled_lookup``); on one device, :func:`pooled_cache_lookup`
+    of the flat view."""
+    if mesh is not None and len(mesh) > 1:
+        b, h = slots.shape
+        rows = _mesh_gather(stripes, scales, slots.reshape(-1))
+        return rows.view(b, h, -1).sum(dim=1)
+    flat, flat_scales = striped_view((stripes, scales))
+    return pooled_cache_lookup(flat, flatten_striped_slots(stripes, slots),
+                               flat_scales)
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +215,29 @@ class _FusedLookup(torch.autograd.Function):
         rows, = ctx.saved_tensors
         dpooled = dpooled.to(acc_dtype(dpooled.dtype)).contiguous()
         return lookup_bwd(ctx.table_shape, rows, dpooled), None
+
+
+class _RowGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, slots):
+        ctx.table_shape = tuple(table.shape)
+        ctx.save_for_backward(slots)
+        return gather_rows(table, slots)
+
+    @staticmethod
+    def backward(ctx, drows):
+        slots, = ctx.saved_tensors
+        drows = drows.to(torch.float32).contiguous()
+        return lookup_bwd(ctx.table_shape, slots.view(-1, 1), drows), None
+
+
+def row_gather(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """``table [V, D]`` f32, ``slots [N]`` int32 (-1 = hole) -> ``[N, D]``
+    f32 rows through K5, a zero row for each hole; the gradient reaches
+    ``table`` as the dense ``[V, D]`` scatter-add of K3 at one id a row
+    (the all-to-all owner's gather and its adjoint)."""
+    return _RowGather.apply(table, slots.contiguous())
 
 
 def fused_embedding_lookup(table: torch.Tensor,

@@ -81,8 +81,8 @@ def _build_model_server(base: str, hcfg: HPSConfig, pdb: PersistentDB, *,
                         device, vdb: Optional[VolatileDB],
                         bus: Optional[MessageBus],
                         cache_capacity: Optional[int] = None,
-                        payload_dtype: Optional[str] = None
-                        ) -> Tuple[InferenceServer, Model]:
+                        payload_dtype: Optional[str] = None,
+                        cache_mesh=None) -> Tuple[InferenceServer, Model]:
     """One model's HPSes + InferenceServer over an open PDB: reload the
     graph and the dense weights from the bundle, then hand off to
     ``serve.server.build_server``, the wiring the in-process deploy uses."""
@@ -114,7 +114,8 @@ def _build_model_server(base: str, hcfg: HPSConfig, pdb: PersistentDB, *,
     for tables in sets:
         for t in tables:
             pdb.open_table(hcfg.model, t.name)
-    return build_server(model, pdb, hcfg, dense, vdb=vdb, bus=bus), graph
+    return build_server(model, pdb, hcfg, dense, vdb=vdb, bus=bus,
+                        cache_mesh=cache_mesh), graph
 
 
 def build_server_from_config(
@@ -124,7 +125,7 @@ def build_server_from_config(
         cache_capacity: Union[int, Dict[str, int], None] = None,
         payload_dtype: Optional[str] = None,
         cache_budget: Optional[int] = None,
-        rebalance_interval_s: Optional[float] = None):
+        rebalance_interval_s: Optional[float] = None, cache_mesh=None):
     """ps.json -> a ready server on ``device``.
 
     A single-model bundle gives ``(InferenceServer, api.Model)``, an
@@ -141,8 +142,13 @@ def build_server_from_config(
     (the PDB rows stay f32). ``cache_budget`` and
     ``rebalance_interval_s`` arm the ensemble's observed-miss budget
     rebalancer (see :class:`~repro_torch.serve.server.MultiModelServer`);
-    a single-model bundle ignores them.
+    a single-model bundle ignores them. ``cache_mesh``
+    (``launch.mesh.make_cache_mesh``) lays every L1's ``cache_shards``
+    stripes out across its devices; a mesh of more than one device serves
+    on its first unless ``device`` is given.
     """
+    if device is None and cache_mesh is not None and len(cache_mesh) > 1:
+        device = cache_mesh[0]
     dev = resolve_device(device)
     base = os.path.dirname(os.path.abspath(ps_path))
     cfg = load_ps_config(ps_path)
@@ -156,7 +162,8 @@ def build_server_from_config(
         pdb = PersistentDB(os.path.join(base, cfg.pdb_root))
         return _build_model_server(base, cfg, pdb, device=dev, vdb=vdb,
                                    bus=bus, cache_capacity=cap(cfg.model),
-                                   payload_dtype=payload_dtype)
+                                   payload_dtype=payload_dtype,
+                                   cache_mesh=cache_mesh)
 
     pdb = PersistentDB(os.path.join(base, cfg.models[0].pdb_root))
     vdb = vdb if vdb is not None else VolatileDB()    # shared L2
@@ -165,7 +172,8 @@ def build_server_from_config(
     for hcfg in cfg.models:
         servers[hcfg.model], models[hcfg.model] = _build_model_server(
             base, hcfg, pdb, device=dev, vdb=vdb, bus=bus,
-            cache_capacity=cap(hcfg.model), payload_dtype=payload_dtype)
+            cache_capacity=cap(hcfg.model), payload_dtype=payload_dtype,
+            cache_mesh=cache_mesh)
     return MultiModelServer(servers, vdb=vdb, pdb=pdb, bus=bus,
                             cache_budget=cache_budget,
                             rebalance_interval_s=rebalance_interval_s), \

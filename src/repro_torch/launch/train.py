@@ -11,6 +11,9 @@ LM train steps it runs.
       --steps 5 --batch 1 --seq 4096          # on the card, full width
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch recurrentgemma-9b --smoke --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch dlrm-criteo --smoke --device cpu --mesh 2x2 --mode manual \\
+      --grad-ar-dtype bf16                    # four gloo ranks
 
 A recsys recipe (``RECSYS_RECIPES``) goes through the graph API as in the
 reference: its module's ``build_model(smoke=--smoke, solver=Solver(batch,
@@ -26,18 +29,28 @@ needs ``frames``) and the vision prefix (pixtral, ``patches``) raise the
 reference's ``KeyError``; ``lm_value_and_grad`` and ``lm_sgd_step_``
 take a whole batch for them.
 
+A recipe trains on a mesh as the reference's does: run one process a
+device under ``torchrun --nproc-per-node N`` (the launcher joins the
+process group torchrun describes: NCCL on cards, gloo with ``--device
+cpu``, each rank on card ``LOCAL_RANK``); ``--mesh RxC`` lays the ranks
+out as a ``("data", "model")`` mesh, ``auto`` as ``(N, 1)`` (no mesh on
+one process), and ``--mode``, ``--comm`` and ``--grad-ar-dtype`` (bf16:
+the compressed gradient all-reduce of manual mode) go into the
+``Solver``. Rank 0 logs and writes the checkpoints.
+
 Unlike the reference, one device does not imply the smoke reduction: the
 card trains a recipe or an LM at full width. Everything runs on ``cuda``
-unless ``--device cpu``. A mesh other than ``auto``, ``--mode manual``,
-a ``--comm`` other than ``auto`` and ``--grad-ar-dtype bf16`` (the
-compressed gradient all-reduce) raise ``NotImplementedError`` naming
-ROADMAP queue 1 item 4, and ``--ckpt-dir`` for an LM arch names its item
-7 entry (the reference's LM branch takes the flag and ignores it).
+unless ``--device cpu``. For an LM arch a mesh other than ``auto``,
+``--mode manual``, a ``--comm`` other than ``auto`` and
+``--grad-ar-dtype bf16`` raise ``NotImplementedError`` naming ROADMAP
+queue 1 item 4; ``--ckpt-dir`` is taken and ignored, as the reference's
+LM branch does.
 """
 from __future__ import annotations
 
 import argparse
 import importlib
+import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -47,7 +60,7 @@ from repro_torch.configs.registry import (
     LM_ARCHS, RECSYS_RECIPES, reduce_for_smoke)
 from repro_torch.models.lm.backbone import LMModel
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.roadmap import LM_CKPT, MULTI_DEVICE, not_ported
+from repro_torch.roadmap import MULTI_DEVICE, not_ported
 from repro_torch.tree import flatten, tree_map
 
 
@@ -95,7 +108,10 @@ def lm_sgd_step_(model: LMModel, params: Dict,
 
 
 def _refuse(args) -> None:
-    """Raise for what the port leaves out, naming its ROADMAP item."""
+    """Raise for what the port leaves out of the LM branch (its mesh),
+    naming its ROADMAP item."""
+    if args.arch not in LM_ARCHS:
+        return
     if args.mesh != "auto":
         raise not_ported(f"--mesh {args.mesh}", MULTI_DEVICE)
     if args.mode != "gspmd":
@@ -105,8 +121,42 @@ def _refuse(args) -> None:
     if args.grad_ar_dtype != "f32":
         raise not_ported(f"--grad-ar-dtype {args.grad_ar_dtype}",
                          MULTI_DEVICE)
-    if args.ckpt_dir is not None and args.arch in LM_ARCHS:
-        raise not_ported("--ckpt-dir for an LM arch", LM_CKPT)
+
+
+def mesh_shape_arg(mesh: str):
+    """``--mesh``: ``auto`` -> None (the Solver's default), ``RxC`` ->
+    ``(R, C)``."""
+    if mesh == "auto":
+        return None
+    try:
+        r, c = (int(x) for x in mesh.split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh must be 'auto' or 'RxC', got {mesh!r}")
+    return (r, c)
+
+
+def join_process_group(device) -> bool:
+    """Join the process group ``torchrun`` describes in the environment
+    (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``...): NCCL on cards, each
+    rank on card ``LOCAL_RANK``, gloo on the CPU. Nothing without it, or
+    when a group is already up. True when this call started the group."""
+    import torch.distributed as dist
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    on_cpu = device is not None and str(device).startswith("cpu")
+    if not on_cpu:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("gloo" if on_cpu else "nccl")
+    return True
+
+
+def leave_process_group() -> None:
+    """Wait for every rank, then tear the group down (a rank that exits
+    with the group up may abort in its destructor while another still
+    talks to it)."""
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def train_recipe(args) -> List[Dict]:
@@ -114,16 +164,28 @@ def train_recipe(args) -> List[Dict]:
     ``args.arch``; returns the trainer's history of this run's steps."""
     from repro_torch.api import Solver
     recipe = importlib.import_module(RECSYS_RECIPES[args.arch])
+    joined = join_process_group(args.device)
     solver = Solver(batch_size=args.batch, lr=args.lr,
                     grad_allreduce_dtype=args.grad_ar_dtype,
                     mode=args.mode, comm=args.comm,
+                    mesh_shape=mesh_shape_arg(args.mesh),
                     ckpt_interval=args.ckpt_interval)
     model = recipe.build_model(smoke=args.smoke, solver=solver)
     model.compile(device=args.device)
-    model.summary()
+    if model._lead():
+        if model.mesh is not None:
+            from repro_torch.launch import mesh as meshlib
+            print(f"mesh: {meshlib.mesh_shape(model.mesh)} over "
+                  f"{meshlib.world_size()} ranks")
+        model.summary()
     hist = model.fit(steps=args.steps, ckpt_dir=args.ckpt_dir,
                      log_every=args.log_every)
     losses = [h["loss"] for h in hist]
+    lead = model._lead()
+    if joined:
+        leave_process_group()
+    if not lead:
+        return hist
     if losses:
         print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
               f"{model.stragglers} stragglers flagged")
@@ -153,13 +215,13 @@ def main(argv: Optional[Sequence[str]] = None
     ap.add_argument("--ckpt-interval", type=int, default=50)
     ap.add_argument("--grad-ar-dtype", default="f32",
                     choices=["f32", "bf16"],
-                    help="bf16 = compressed gradient all-reduce, a mesh "
-                         "knob: one device has no all-reduce, so bf16 "
-                         "raises")
+                    help="bf16 = compressed gradient all-reduce (manual "
+                         "mode)")
     ap.add_argument("--mode", default="gspmd", choices=["gspmd", "manual"])
     ap.add_argument("--comm", default="auto",
                     choices=["auto", "allgather_rs", "all_to_all"])
-    ap.add_argument("--mesh", default="auto")
+    ap.add_argument("--mesh", default="auto",
+                    help="'auto' (N x 1 over the torchrun ranks) | 'RxC'")
     args = ap.parse_args(argv)
     _refuse(args)
     if args.arch in RECSYS_RECIPES:

@@ -13,11 +13,21 @@ entry points pin ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False. ``cross_apply`` keeps the
 reference's order the same way: ``x . w`` an f32 product of the rounded
 operands, then each elementwise op of the update in the compute dtype.
+
+The weight of such a product is rounded by ``rounded_weight``. Its gradient
+(an f32 product summed over the batch) is rounded to the compute dtype, as
+the cast's adjoint does, unless the step holds ``deferred_rounding``: then
+it comes back unrounded, and the step rounds it after its sum over the
+ranks of a mesh. That is the reference's order on a mesh, where XLA sums the
+partial products of the data-parallel batch blocks before the cast, so a
+(2, 2) run rounds the weight gradients where a one-device run does.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +43,46 @@ def pin_f32_matmul() -> None:
     """Full-f32 matmuls on the card (no TF32), as the reference computes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+#: ``id(weight) -> compute dtype`` of the weights whose gradient rounding
+#: the running step has taken over (None: round in the backward)
+_DEFERRED: contextvars.ContextVar[Optional[Dict[int, torch.dtype]]] = \
+    contextvars.ContextVar("deferred_rounding", default=None)
+
+
+class _Rounded(torch.autograd.Function):
+    """``w`` rounded to ``dtype`` as f32 values; the gradient passes
+    through unrounded (f32)."""
+
+    @staticmethod
+    def forward(ctx, w, dtype):
+        return w.to(dtype).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def rounded_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` rounded to the compute dtype, as f32 values for an f32
+    product (see the module docstring for its gradient)."""
+    deferred = _DEFERRED.get()
+    if deferred is None or dtype == torch.float32 or not w.requires_grad:
+        return w.to(dtype).float()
+    deferred[id(w)] = dtype
+    return _Rounded.apply(w, dtype)
+
+
+@contextlib.contextmanager
+def deferred_rounding() -> Iterator[Dict[int, torch.dtype]]:
+    """Inside, ``rounded_weight`` leaves its gradient unrounded and records
+    ``id(weight) -> dtype`` in the dict it yields."""
+    token = _DEFERRED.set({})
+    try:
+        yield _DEFERRED.get()
+    finally:
+        _DEFERRED.reset(token)
 
 
 def mlp_init(generator: torch.Generator, in_dim: int,
@@ -58,8 +108,8 @@ def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     n = len(params) // 2
     h = x.to(compute_dtype)
     for i in range(n):
-        w = params[f"w{i}"].to(compute_dtype)
-        h = torch.matmul(h.float(), w.float()) + params[f"b{i}"]
+        w = rounded_weight(params[f"w{i}"], compute_dtype)
+        h = torch.matmul(h.float(), w) + params[f"b{i}"]
         if i < n - 1 or final_activation:
             h = torch.relu(h)
         h = h.to(compute_dtype)
@@ -90,8 +140,8 @@ def cross_apply(params: Dict[str, torch.Tensor], x0: torch.Tensor, *,
     x0c = x0.to(compute_dtype)
     x = x0c
     for i in range(n):
-        w = params[f"w{i}"].to(compute_dtype)
-        xw = torch.matmul(x.float(), w.float())
+        w = rounded_weight(params[f"w{i}"], compute_dtype)
+        xw = torch.matmul(x.float(), w)
         x = x0c * xw[:, None].to(compute_dtype) \
             + params[f"b{i}"].to(compute_dtype) + x
     return x.float()

@@ -28,8 +28,9 @@ import torch
 from repro_torch.configs.base import (
     DATA_PARALLEL, SINGLE_DEVICE, EmbeddingTableConfig, RecsysConfig)
 from repro_torch.core.embedding.collection import EmbeddingCollection
-from repro_torch.core.embedding.planner import resolve_strategies
+from repro_torch.core.embedding.planner import choose_comm, resolve_strategies
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models.recsys import dense_graph, layers
 
 #: the paper's recipes (any other graph is ``model="graph"``)
@@ -62,11 +63,21 @@ class RecsysModel:
     device (the in-port reference path). ``global_batch`` is the batch the
     placement planner sizes the embedding groups for (the ``Solver``
     default unless given), as in the reference; ``comm`` is its exchange
-    knob (see :class:`EmbeddingCollection`)."""
+    knob, ``"auto"`` resolved per collection by ``planner.choose_comm``
+    (all-to-all for groups of large one-hot tables, at least
+    ``a2a_threshold`` rows; see :class:`EmbeddingCollection`).
+
+    With a ``mesh`` (``launch.mesh.make_test_mesh``; one rank a device)
+    the planner sizes the groups for it, each rank holds its shard of the
+    sharded groups (over every axis, or ``embed_shard_axes="model"``) and
+    a replica of the rest, and ``apply`` takes this rank's data-parallel
+    batch block; the model runs on the rank's device."""
 
     def __init__(self, cfg: RecsysConfig, *, device: DeviceLike = None,
                  use_kernels: bool = True, global_batch: int = 256,
-                 comm: str = "allgather_rs"):
+                 comm: str = "allgather_rs", mesh=None,
+                 a2a_threshold: int = 65536,
+                 embed_shard_axes: str = "all"):
         if cfg.model not in MODELS + ("graph",):
             raise ValueError(f"unknown model {cfg.model!r}")
         if cfg.model == "dlrm" and cfg.bottom_mlp[-1] != cfg.embedding_dim:
@@ -75,17 +86,27 @@ class RecsysModel:
                 f"interaction, got {cfg.bottom_mlp[-1]} != "
                 f"{cfg.embedding_dim}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (meshlib.mesh_device(mesh) if mesh is not None
+                       else resolve_device(device))
         self.compute_dtype = layers.compute_dtype(cfg.dtype)
         self.use_kernels = use_kernels
+        mesh_cfg = meshlib.mesh_config_for(mesh) if mesh is not None \
+            else SINGLE_DEVICE
 
-        def collection(tables):
+        def collection(tables, shard_axes="all"):
+            # "auto" resolves PER COLLECTION: each group gets the exchange
+            # its table sizes want
+            pick = comm if comm != "auto" else \
+                choose_comm(tables, threshold=a2a_threshold)
             return EmbeddingCollection(
-                tables, comm=comm, compute_dtype=self.compute_dtype,
+                tables, mesh=mesh, comm=pick,
+                compute_dtype=self.compute_dtype, shard_axes=shard_axes,
                 device=self.device, use_kernels=use_kernels)
 
         self.embedding = collection(
-            resolve_strategies(cfg.tables, SINGLE_DEVICE, global_batch))
+            resolve_strategies(cfg.tables, mesh_cfg, global_batch),
+            embed_shard_axes)
         #: the wide twins, pooled through the same K1 / K3 path on CUDA
         #: (the reference gathers them with plain jnp: the same function)
         self.wide: Optional[EmbeddingCollection] = None
@@ -94,8 +115,9 @@ class RecsysModel:
         #: one collection per extra group, each with its own planner
         #: groups (param key ``embedding@<name>``)
         self.extra: Dict[str, EmbeddingCollection] = {
-            g.name: collection(resolve_strategies(g.tables, SINGLE_DEVICE,
-                                                  global_batch))
+            g.name: collection(resolve_strategies(g.tables, mesh_cfg,
+                                                  global_batch),
+                               embed_shard_axes)
             for g in cfg.extra_groups}
         cols = {"embedding": (0, len(cfg.tables))}
         off = len(cfg.tables)
@@ -216,6 +238,15 @@ class RecsysModel:
         return layers.bce_with_logits(self.apply(params, batch),
                                       batch["label"])
 
+    def sharded_keys(self) -> Dict[str, Tuple[str, ...]]:
+        """Flat param paths (``"embedding/dist"``...) of the tables sharded
+        over a mesh, each with the axes it is replicated over (``()`` when
+        sharded over every axis; the DP axes for ``embed_shard_axes=
+        "model"``); every other parameter is replicated over all axes."""
+        return {f"{key}/{g}": coll.replica_axes(g)
+                for key, coll in self.collections().items()
+                for g in coll.sharded_keys()}
+
 
 def export_logical_params(model: RecsysModel, params: Dict) -> Dict:
     """Param tree with embedding groups in the LOGICAL (mesh-independent)
@@ -234,6 +265,33 @@ def import_logical_params(model: RecsysModel, params: Dict) -> Dict:
         if key in out:
             out[key] = coll.import_logical(out[key])
     return out
+
+
+def export_opt_state(model: RecsysModel, opt_state: Dict) -> Dict:
+    """``opt_state`` as the trainer's checkpoint holds it: the sparse
+    optimizer's per-row state of every collection whole, in the physical
+    layout (``EmbeddingCollection.export_acc``; a collective on a mesh);
+    the dense state as it is (replicated)."""
+    sparse = opt_state.get("sparse", {})
+    if "acc" not in sparse:
+        return opt_state
+    acc = dict(sparse["acc"])
+    for key, coll in model.collections().items():
+        if key in acc:
+            acc[key] = coll.export_acc(acc[key])
+    return {**opt_state, "sparse": {**sparse, "acc": acc}}
+
+
+def import_opt_state(model: RecsysModel, opt_state: Dict) -> Dict:
+    """Inverse of :func:`export_opt_state` for ``model``'s mesh."""
+    sparse = opt_state.get("sparse", {})
+    if "acc" not in sparse:
+        return opt_state
+    acc = dict(sparse["acc"])
+    for key, coll in model.collections().items():
+        if key in acc:
+            acc[key] = coll.import_acc(acc[key])
+    return {**opt_state, "sparse": {**sparse, "acc": acc}}
 
 
 def logical_tables(collection: EmbeddingCollection,
@@ -265,6 +323,9 @@ def import_logical_tables(collection: EmbeddingCollection, emb_params: Dict,
                 raise ValueError(
                     f"table {t.name}: got {full.shape}, want "
                     f"({t.vocab_size}, {t.dim})")
+            if gname == "loc":
+                logical["loc"][i][:t.vocab_size] = full
+                continue
             lo, hi = group.table_rows(i)
             if gname == "hot":
                 clo, chi = collection.groups["cold"].table_rows(i)

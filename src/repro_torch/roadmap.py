@@ -7,7 +7,6 @@ from __future__ import annotations
 
 MULTI_DEVICE = "Multi-GPU (queue 1 item 4)"
 SEQPAR = "seqpar_attention with multi-GPU"
-LM_CKPT = "Checkpointed LM training (queue 1 item 7)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

@@ -237,7 +237,8 @@ def write_bundle(directory: str, graph, dense_params: Dict,
 
 def build_server(model, pdb: PersistentDB, hcfg: HPSConfig, dense: Dict, *,
                  vdb: Optional[VolatileDB] = None,
-                 bus: Optional[MessageBus] = None) -> "InferenceServer":
+                 bus: Optional[MessageBus] = None,
+                 cache_mesh=None) -> "InferenceServer":
     """Stand up one model's HPSes + :class:`InferenceServer` over storage
     that already holds its tables: the one place the serving stack is
     wired (the reference's ``Model._build_server``), shared by the
@@ -246,7 +247,8 @@ def build_server(model, pdb: PersistentDB, hcfg: HPSConfig, dense: Dict, *,
     server's), ``dense`` its dense param tree. The primary tables, a wide
     model's dim-1 twins and each extra group get one HPS each, all over
     ``pdb``, the caller's VolatileDB and message bus, with the bundle's L1
-    capacity, striping and payload type."""
+    capacity, striping and payload type; the stripes across the devices
+    of ``cache_mesh`` when one is given."""
     from repro_torch.models.recsys.model import wide_tables
     cfg = model.cfg
     if hcfg.wide != (model.wide is not None):
@@ -257,7 +259,8 @@ def build_server(model, pdb: PersistentDB, hcfg: HPSConfig, dense: Dict, *,
         return HPS(hcfg.model, tables, pdb, vdb=vdb, bus=bus,
                    cache_capacity=hcfg.cache_capacity,
                    cache_shards=hcfg.cache_shards,
-                   payload_dtype=hcfg.payload_dtype, device=model.device)
+                   payload_dtype=hcfg.payload_dtype, device=model.device,
+                   cache_mesh=cache_mesh)
 
     return InferenceServer(
         model, dense, hps(cfg.tables),

@@ -4,13 +4,19 @@ repro_torch.examples.<name> --device cpu`` in process), and pass the
 checks the reference's scripts print: the loss falls, the rebuilt server
 agrees with the training forward pass, the online model drifts while its
 static co-tenant does not, the injected failure is replayed from a
-checkpoint, the ETC learns, the load test delivers in both phases. (The
-LM twin on seamless-m4t-large-v2 and pixtral-12b raises the reference's
+checkpoint, the ETC learns, the load test delivers in both phases, the
+(2, 2) mesh fit tracks the one-device run and serves from its bundle (four
+gloo ranks under ``torchrun``, a time limit of their own). (The LM twin on
+seamless-m4t-large-v2 and pixtral-12b raises the reference's
 ``KeyError``, held in ``tests/test_torch_encdec.py``.)
 """
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 
@@ -88,3 +94,21 @@ def test_lm_pretrain_smoke(arch, steps):
     losses = lm_pretrain_smoke.main(CPU + ["--arch", arch,
                                            "--steps", str(steps)])
     assert len(losses) == steps and losses[-1] < losses[0]
+
+
+def test_mp_train_smoke_on_four_gloo_ranks():
+    """The twin of ``examples/mp_train_smoke.py``: four gloo ranks on a
+    (2, 2) mesh, the loss trajectory against a (1, 1) run, the bundle
+    served by a rebuilt server; the ranks get 240 s."""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="2")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.examples.mp_train_smoke",
+         "--device", "cpu", "--steps", "4"],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert "mesh: {'data': 2, 'model': 2} over 4 ranks" in res.stdout
+    assert "matches 1-device run" in res.stdout
+    assert "mp-train-smoke OK" in res.stdout

@@ -62,7 +62,9 @@ def test_imports_with_jax_and_repro_blocked():
                 "examples.loadtest_ensemble", "examples.novel_archs",
                 "examples.etc_terabyte_training",
                 "examples.lm_pretrain_smoke", "models.lm.moe",
-                "models.lm.xlstm", *(f"configs.{m}" for m in LM_MODULES)):
+                "models.lm.xlstm", "launch.mesh",
+                "core.embedding.strategies", "examples.mp_train_smoke",
+                *(f"configs.{m}" for m in LM_MODULES)):
         assert f"repro_torch.{mod}" in _modules()
     code = (
         "import sys, importlib, pkgutil\n"

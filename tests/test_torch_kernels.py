@@ -1125,3 +1125,89 @@ def test_cuda_lookup_fwd_lm_width(cuda, dtype, h):
     else:
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     assert torch.equal(got, lookup_fwd(table, rows))
+
+
+# ---------------------------------------------------------------------------
+# on the card: the model-parallel path's shard-local kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v0", [0, 700])
+@pytest.mark.parametrize("h", [1, 3])
+def test_cuda_masked_range_pool_with_holes(cuda, v0, h):
+    """A row-range shard's pool (``masked_range_lookup`` through
+    ``kernel_pool``): rows outside ``[v0, v0 + 1000)`` become -1 holes, K1
+    reads them as zero (bit-exact at H = 1 to the plain pool, within 1e-6
+    at H = 3) and K3's gradient leaves them out (within 1e-5 of the plain
+    version's autograd)."""
+    from repro_torch.core.embedding.common import masked_range_lookup
+    g = torch.Generator().manual_seed(v0 + h)
+    local = torch.randn((1000, 128), generator=g).to(cuda)
+    rows = torch.randint(-1, 2500, (513, 4, h), generator=g,
+                         dtype=torch.int32).to(cuda)
+    cot = torch.randn((513, 4, 128), generator=g).to(cuda)
+    outs, grads = [], []
+    for fn in (ops.kernel_pool, None):
+        t = local.clone().requires_grad_()
+        out = masked_range_lookup(t, rows, v0, pool_fn=fn)
+        (out * cot).sum().backward()
+        outs.append(out.detach())
+        grads.append(t.grad)
+    torch.cuda.synchronize()
+    if h == 1:
+        assert torch.equal(outs[0], outs[1])
+    else:
+        torch.testing.assert_close(outs[0], outs[1], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_row_gather_and_its_adjoint(cuda):
+    """The all-to-all owner's read (``ops.row_gather``): K5 rows bit-exact
+    with -1 holes read as zero, and K3's adjoint within 1e-5 of the plain
+    scatter-add; one launch each."""
+    g = torch.Generator().manual_seed(3)
+    table = torch.randn((5000, 128), generator=g).to(cuda).requires_grad_()
+    slots = torch.randint(-1, 5000, (4099,), generator=g,
+                          dtype=torch.int32).to(cuda)
+    drows = torch.randn((4099, 128), generator=g).to(cuda)
+    _build.LAUNCHES.reset()
+    rows = ops.row_gather(table, slots)
+    rows.backward(drows)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot() == {"gather_rows": 1, "lookup_bwd": 1}
+    assert torch.equal(rows.detach(), gather_rows_plain(table.detach(),
+                                                        slots))
+    torch.testing.assert_close(
+        table.grad, lookup_bwd_plain((5000, 128), slots.view(-1, 1), drows),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload_dtype", ["f32", "f16", "int8"])
+def test_cuda_mesh_half_striped_read(cuda, payload_dtype):
+    """The mesh half of the striped L1 over a cache mesh of one card
+    named twice: each entry's K5 (K6 with scales) over its own stripes,
+    the others' slots as holes, summed once; bit-exact to the unstriped
+    read of the flat view (f32 rows, int8 / f16 ``q * scale``); one
+    launch an entry."""
+    rng = np.random.default_rng(5)
+    rows = rng.standard_normal((8 * 512, 128)).astype(np.float32)
+    stored, scales = quantize_rows(rows, payload_dtype)
+    stripes = torch.from_numpy(stored).view(8, 512, 128).to(cuda)
+    sc = None if scales is None and payload_dtype == "f32" else \
+        torch.from_numpy(scales if scales is not None
+                         else np.ones(len(rows), np.float32)).view(
+            8, 512).to(cuda)
+    slots = torch.from_numpy(rng.integers(-1, 8 * 512, 4099).astype(
+        np.int32)).to(cuda)
+    blocks, bscales = ops.place_stripes(stripes, sc, [cuda, cuda])
+    _build.LAUNCHES.reset()
+    got = ops.sharded_cache_gather(blocks, slots, scales=bscales,
+                                   mesh=[cuda, cuda])
+    torch.cuda.synchronize()
+    name = "gather_rows" if sc is None else "dequant_gather_rows"
+    assert _build.LAUNCHES.snapshot() == {name: 2}
+    want = ops.sharded_cache_gather(stripes, slots, scales=sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -24,8 +24,11 @@ sizes.
 - ``launch.train.main`` for ``dlrm-criteo``: 4 steps with checkpoints,
   then ``--steps 6`` resumes at step 4; the losses equal (within 1e-5)
   6 uninterrupted steps of ``Model.fit``; the checkpoint loads in the
-  reference's ``train/checkpoint.py``; ``--mode manual`` and ``--mesh
-  2x1`` raise naming ROADMAP queue 1 item 4.
+  reference's ``train/checkpoint.py``; ``--mode manual``, ``--comm
+  all_to_all`` and ``--grad-ar-dtype bf16`` train on one device as
+  ``Model.fit`` does, and ``--mesh 2x1`` in one process raises the
+  reference's ``GraphError`` naming ``torchrun`` (the launcher on a mesh
+  of four ranks: ``tests/test_torch_mp_train.py``).
 """
 import pytest
 
@@ -102,8 +105,11 @@ def test_recipe_lowers_to_the_references_config(arch, smoke, capsys):
 def test_paper_recipes_lower_onto_the_registry(arch):
     mod = _recipe(registry, arch)
     assert mod.GRAPH_CONFIG == mod.CONFIG == registry.RECSYS_ARCHS[arch]
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        mod.build_model(mesh=object())
+    # a mesh is carried into the model's compile, as the reference's is
+    mesh = object()
+    assert mod.build_model(mesh=mesh)._mesh_override is mesh
+    assert _recipe(jregistry, arch).build_model(
+        mesh=mesh)._mesh_override is mesh
 
 
 # ---------------------------------------------------------------------------
@@ -208,15 +214,35 @@ def test_prefetcher_close_stops_the_reader():
     assert len(pulled) < 10
 
 
-def test_put_batch_and_the_mesh_refusal():
-    batch = {"dense": np.ones((4, 3), np.float64),
-             "cat": np.zeros((4, 2, 1), np.int64),
+def test_put_batch_and_the_mesh_refusal(tmp_path):
+    """A batch onto one device, and onto a (1, 1) mesh of one gloo rank:
+    this rank's data-parallel block is the whole batch, the arrays the
+    reference's ``put_batch`` places on its (1, 1) mesh (the (2, 2) blocks:
+    ``tests/test_torch_mp_train.py``)."""
+    import torch.distributed as dist
+    from repro.data.pipeline import put_batch as jput
+    from repro_torch.launch.mesh import make_test_mesh as pmesh
+    rng = np.random.default_rng(0)
+    batch = {"dense": rng.normal(size=(4, 3)),
+             "cat": rng.integers(0, 9, (4, 2, 1)),
              "label": np.ones(4, np.float32)}
     out = put_batch(batch, "cpu")
     assert (out["dense"].dtype, out["cat"].dtype, out["label"].dtype) == \
         (torch.float32, torch.int32, torch.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        batch_shardings(object())
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = pmesh((1, 1))
+        blocks = batch_shardings(mesh)
+        assert {(b.index, b.count) for b in blocks.values()} == {(0, 1)}
+        got = put_batch(batch, "cpu", mesh)
+    finally:
+        dist.destroy_process_group()
+    want = jput({"dense": batch["dense"].astype(np.float32),
+                 "cat": batch["cat"].astype(np.int32),
+                 "label": batch["label"]}, make_test_mesh((1, 1)))
+    for k in batch:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
 # ---------------------------------------------------------------------------
@@ -369,5 +395,22 @@ def test_train_resumes_from_its_checkpoint(tmp_path, capsys):
                                    ["--grad-ar-dtype", "bf16"]],
                          ids=["manual", "mesh", "comm", "grad_ar_bf16"])
 def test_train_recsys_left_out_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        launch_train.main([*TRAIN_FLAGS, *flags])
+    """The mesh flags, once refused: on one process ``--mode manual`` (its
+    f32 all-reduce over one rank), ``--comm all_to_all`` and
+    ``--grad-ar-dtype bf16`` (a manual-mode knob) train as ``Model.fit``
+    does, as the reference's (1, 1) mesh trains; ``--mesh 2x1`` asks for
+    two ranks and raises the reference's ``GraphError``, naming the fix."""
+    if flags[0] == "--mesh":
+        with pytest.raises(japi.GraphError, match="2 devices"):
+            japi.Solver(batch_size=64, mesh_shape=(2, 1))
+        with pytest.raises(api.GraphError,
+                           match="torchrun --nproc-per-node 2"):
+            launch_train.main([*TRAIN_FLAGS, *flags])
+        return
+    hist = launch_train.main([*TRAIN_FLAGS, "--steps", "3", *flags])
+    m = _recipe(registry, "dlrm-criteo").build_model(
+        smoke=True, solver=api.Solver(batch_size=64, lr=1e-2))
+    m.compile(device="cpu")
+    want = [h["loss"] for h in m.fit(steps=3)]
+    np.testing.assert_allclose([h["loss"] for h in hist], want,
+                               rtol=LOSS_TOL, atol=LOSS_TOL)

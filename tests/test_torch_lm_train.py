@@ -413,12 +413,23 @@ def test_launcher_smoke_trains_the_moe_and_xlstm_families(arch):
     (["--mesh", "2x1"], "item 4"),
     (["--mode", "manual"], "item 4"),
     (["--comm", "all_to_all"], "item 4"),
-    (["--ckpt-dir", "ckpt"], "Checkpointed LM training"),
 ])
 def test_launcher_left_out_flags_raise(flags, item):
     argv = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", *flags]
     with pytest.raises(NotImplementedError, match=item):
         launch.main(argv)
+
+
+def test_launcher_lm_ckpt_dir_is_taken_and_ignored(tmp_path):
+    """The reference's LM branch parses ``--ckpt-dir`` and never reads it
+    (``repro/launch/train.py:35``, ``:90-127``): the port trains the same
+    losses with the flag and writes nothing there."""
+    argv = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--batch", "2", "--seq", "8"]
+    ckpt = tmp_path / "ckpt"
+    with_flag = launch.main([*argv, "--ckpt-dir", str(ckpt)])
+    assert with_flag == launch.main(argv)
+    assert not ckpt.exists()
 
 
 def test_flash_bwd_wrapper_checks_shapes():

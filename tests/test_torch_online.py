@@ -8,8 +8,10 @@ against the JAX package on the same numpy inputs.
   divides, f32 / f16 / int8: shapes, snapshot bytes and scales after the
   same scatters equal the reference's, and ``gather`` /
   ``ops.sharded_cache_gather`` equal the reference's mesh-less
-  ``sharded_cache_gather`` bit for bit. Stripes across devices raise,
-  naming queue 1 item 4.
+  ``sharded_cache_gather`` bit for bit. Stripes across a cache mesh of
+  devices read the same rows as the reference's one-device store (the
+  mesh half against the reference's four-device one:
+  ``tests/test_torch_hps_mesh.py``).
 - ``DeviceEmbeddingCache``: the same query / ``mark_dirty`` /
   ``refresh_chunk`` / ``resize`` sequence gives the reference's resident
   ids, counters and payload bytes; the scheduler's rules (hot before
@@ -230,14 +232,32 @@ def test_store_validation_and_row_bytes(tmp_path):
         ShardedPayloadStore(4, 8, shards=8, device="cpu")
     with pytest.raises(ValueError, match="shards"):
         ShardedPayloadStore(16, 8, shards=0, device="cpu")
-    # stripes across devices are the multi-GPU item's
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ShardedPayloadStore(64, 8, shards=2, mesh=object(), device="cpu")
+    # stripes across a cache mesh of devices (here two CPU entries) read
+    # what the reference's store reads, and a mesh they do not tile raises
+    rng = np.random.default_rng(9)
+    slots = np.arange(0, 64, 5, dtype=np.int64)
+    rows = rng.normal(size=(len(slots), 8)).astype(np.float32)
+    for dt in ("f32", "int8"):
+        st = ShardedPayloadStore(64, 8, shards=2, mesh=["cpu", "cpu"],
+                                 payload_dtype=dt, device="cpu")
+        js = JStore(64, 8, shards=2, payload_dtype=dt)
+        st.scatter(slots, rows)
+        js.scatter(slots, rows)
+        np.testing.assert_array_equal(
+            st.gather(st.snapshot(), slots.astype(np.int32)).numpy(),
+            np.asarray(js.gather(js.snapshot(), jnp.asarray(slots))))
+    with pytest.raises(ValueError, match="tile"):
+        ShardedPayloadStore(64, 8, shards=3, mesh=["cpu", "cpu"],
+                            device="cpu")
     pdb = PersistentDB(str(tmp_path))
-    pdb.create_table("m", "t0", 50, 4, initial=np.zeros((50, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        HPS("m", [EmbeddingTableConfig("t0", 50, 4)], pdb, cache_shards=2,
-            cache_mesh=object(), device="cpu")
+    table = rng.normal(size=(50, 4)).astype(np.float32)
+    pdb.create_table("m", "t0", 50, 4, initial=table)
+    hps = HPS("m", [EmbeddingTableConfig("t0", 50, 4, hotness=2)], pdb,
+              cache_shards=2, cache_mesh=["cpu", "cpu"])
+    cat = rng.integers(-1, 50, (6, 1, 2)).astype(np.int32)
+    want = np.where((cat >= 0)[..., None], table[cat], 0).sum(2)
+    np.testing.assert_allclose(hps.lookup(cat).numpy(), want, rtol=1e-6,
+                               atol=1e-6)
     c = DeviceEmbeddingCache(8, 4, shards=4, fetch_fn=lambda i: None,
                              device="cpu")
     with pytest.raises(ValueError, match="shard count"):

@@ -107,14 +107,40 @@ def test_saved_models_load_in_the_other_package(trained, tmp_path):
 
 
 def test_unported_training_options_raise():
-    """What the port leaves out raises, naming its ROADMAP item; the ETC
-    backend and the criteo reader, ported since, train or raise the
-    reference's ``GraphError``."""
+    """Training options once left out now train: ``mode="manual"`` on one
+    device (the reference's (1, 1) mesh) gives gspmd's losses with the f32
+    all-reduce and stays within the reference's 5e-3 bar with the bf16
+    one, and within the bf16 bound of the reference's manual bf16 run from
+    the same init; the ETC backend and the criteo reader train or raise
+    the reference's ``GraphError``."""
     from repro_torch.models.recsys.dense_graph import GraphError
-    m = _quickstart(api)
-    m.solver.mode = "manual"
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    from repro.models.recsys.model import export_logical_params as jexport
+    from repro.train.checkpoint import flatten_tree as jflatten
+    from repro_torch import convert
+    from repro_torch.models.recsys.model import import_logical_params
+    j = _quickstart(japi)
+    j.solver.mode, j.solver.grad_allreduce_dtype = "manual", "bf16"
+    j.compile()
+    j._params = jax.jit(j.model.init)(jax.random.PRNGKey(j.solver.seed))
+    init = {k: np.asarray(v) for k, v in
+            jflatten(jexport(j.model, j._params)).items()}
+    want = np.asarray([h["loss"] for h in j.fit(steps=3)])
+    runs = {}
+    for mode, ar in (("gspmd", "f32"), ("manual", "f32"),
+                     ("manual", "bf16")):
+        m = _quickstart(api)
+        m.solver.mode, m.solver.grad_allreduce_dtype = mode, ar
         m.compile(device="cpu")
+        m._params = import_logical_params(m.model, convert.state_from_flat(
+            init, device="cpu"))
+        runs[mode, ar] = np.asarray([h["loss"] for h in m.fit(steps=3)])
+    np.testing.assert_allclose(runs["manual", "f32"], runs["gspmd", "f32"],
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(runs["manual", "bf16"], runs["gspmd", "f32"],
+                               rtol=5e-3, atol=5e-3)
+    # the reference's manual bf16 run from the same init (bf16 dense net)
+    np.testing.assert_allclose(runs["manual", "bf16"], want, rtol=PROB_TOL,
+                               atol=PROB_TOL)
     m = _quickstart(api)
     m.solver.etc = api.ETCParams(cache_rows=1000)
     m.compile(device="cpu")

@@ -144,13 +144,32 @@ def test_planner_groups_and_export_keys_match_jax(batch):
 
 
 def test_unported_placements_raise():
-    _, pcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        EmbeddingCollection(pcfg.tables, comm="all_to_all", device="cpu")
-    tables = tuple(dataclasses.replace(t, strategy="localized")
-                   for t in pcfg.tables)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        EmbeddingCollection(tables, device="cpu")
+    """The all-to-all exchange and localized tables, once refused, run on
+    one device (the reference's (1, 1) mesh): pooled outputs from one JAX
+    init equal the reference's (f32, 1e-5; their gradients on a mesh:
+    ``tests/test_torch_mp_train.py``)."""
+    from repro.core.embedding import EmbeddingCollection as JColl
+    mesh = make_test_mesh((1, 1))
+    rng = np.random.default_rng(5)
+    vocabs = (40, 64, 24)
+    ids = np.stack([rng.integers(-1, v, (BATCH, 2)) for v in vocabs],
+                   axis=1).astype(np.int32)
+    for strategy, comm in (("distributed", "all_to_all"),
+                           ("localized", "allgather_rs")):
+        jt = [JTable(f"C{i}", v, DIM, hotness=2, strategy=strategy)
+              for i, v in enumerate(vocabs)]
+        pt = [EmbeddingTableConfig(f"C{i}", v, DIM, hotness=2,
+                                   strategy=strategy)
+              for i, v in enumerate(vocabs)]
+        with mesh:
+            jc = JColl(jt, mesh, comm=comm)
+            jp = jc.init(jax.random.PRNGKey(1))
+            want = np.asarray(jax.jit(jc.lookup)(jp, jnp.asarray(ids)))
+        pc = EmbeddingCollection(pt, comm=comm, device="cpu")
+        pp = pc.import_logical({k: np.array(v) for k, v in
+                                jc.export_logical(jp).items()})
+        got = pc.lookup(pp, torch.from_numpy(ids))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_hybrid_groups_and_logical_tables_match_jax():
