@@ -148,7 +148,7 @@ Phases, in order; any failure exits non-zero:
    read from the artifact's counts; a shed at steady load is printed with
    its counts as ROADMAP queue 3's open fault, not failed on: the steady
    rate, a share of C fixed before the first run, is above the capacity
-   for this traffic, ``PERF.md`` §7.12); per phase and member the delivered,
+   for this traffic, ``PERF.md`` §7.9); per phase and member the delivered,
    shed, expired and lost counts, client p50 / p99 / p999, the peak
    delivered qps and the largest submit lag (``LOADTEST``); (b) DLRM alone
    with the hot set drifting 2% of the vocabulary a second, its steady
@@ -200,6 +200,18 @@ Phases, in order; any failure exits non-zero:
    naming the card twice, and held against the one-device server and the
    trained model's ``predict``; then the ``mp_train_smoke`` twin on the
    same mesh shape. The group is torn down after it.
+8c. The LM on the mesh (run after phase 15, whose steps it is held
+   against): a one-rank NCCL group on a (1, 1) mesh (on any card count),
+   full-depth ``granite-moe-3b-a800m`` (its ``sharded`` token table
+   striped over ``"model"``, the head and the loss vocab-parallel, its 40
+   experts over ``"model"``) and phase 14's depth-5 full-width
+   ``recurrentgemma-9b`` (a ``hybrid`` tied 256,000-token table: the
+   cold rows striped, the loss's log-sum-exp over ``"model"``) through
+   ``LMModel(cfg, mesh)`` from phases 15's and 14's weights, batch and
+   steps: losses within ``TRAIN_TOL`` of the one-device steps, K1 / K3 /
+   K7 / K8 launches a step equal to theirs, step p50 against theirs; then
+   ``launch.train --arch granite-moe-3b-a800m --mesh 1x1`` under the same
+   group (two steps). The group is torn down after it.
 9. LM serve: full-width ``minitron-4b`` (hybrid token embedding, random
    weights from a seed) prefills a 2 x 4096 Zipf(1.2) batch through K1 and
    K7, held against the plain path (K1 first alone, bit-exact, on both
@@ -1786,11 +1798,12 @@ def kind(name: str) -> str:
     return "other"
 
 
-def profile(label: str, fn) -> None:
+def profile(label: str, fn, host_top: int = 0) -> None:
     """Where one call's time goes: its host wall time against the device's
     busy time in it (the sum of kernel times from ``torch.profiler``), the
-    busy time by kind of kernel, the top kernels, and the launches of each
-    kernel wrapper (``_build.LAUNCHES``) in the call."""
+    busy time by kind of kernel, the top kernels, the launches of each
+    kernel wrapper (``_build.LAUNCHES``) in the call and, with
+    ``host_top``, that many host ops by their own host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.kernels._build import LAUNCHES
@@ -1825,6 +1838,11 @@ def profile(label: str, fn) -> None:
               by_kind.items(), key=lambda kv: -kv[1]))
           + "; top: " + "; ".join(f"{n[:48]} {t:.3f} ms" for n, t in top)
           + f"; wrapper launches {wrappers}")
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        print(f"profile {label}: host ops by own host time: " + "; ".join(
+            f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x {e.count}"
+            for e in ops[:host_top]))
 
 
 def train_phase(args, dev, cfg, timed_steps: int):
@@ -4190,6 +4208,8 @@ def lm_train_phase(args, dev, cfg, depth_cut: str = "", cut: str = "",
         f"lm train: the loss did not fall at every step: {losses}")
     timed = ms[args.lm_train_warm:]
     p50 = float(np.median(timed))
+    LM_TRAIN_HISTORY[cfg.name] = {"losses": losses, "p50": p50,
+                                  "launches": want, "layers": cfg.num_layers}
     print(f"lm train {cfg.name} on {torch.cuda.get_device_name(0)}: "
           f"{len(losses)} SGD "
           f"steps at {b} x {s} {front_note(batch)}({args.lm_train_warm} "
@@ -4205,6 +4225,12 @@ def lm_train_phase(args, dev, cfg, depth_cut: str = "", cut: str = "",
             lambda: lm_sgd_step_(model, params, pbatch, args.lm_train_lr))
     del params
     return launches
+
+
+#: each :func:`lm_train_phase` run by config name: its losses, step p50
+#: (ms), launches a step and layer count, which phase 8c's steps on the
+#: mesh are held against
+LM_TRAIN_HISTORY = {}
 
 
 def front_note(batch, sep: str = "") -> str:
@@ -4665,6 +4691,155 @@ def mesh_phase(args, dev, total):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 8c. the LM on a torch.distributed mesh
+# ---------------------------------------------------------------------------
+
+#: the K1 / K3 / K7 / K8 launches a step that phase 8c counts
+LM_STEP_KERNELS = ("lookup_fwd", "lookup_bwd", "flash_fwd", "flash_bwd")
+
+
+def lm_mesh_steps(args, dev, mesh, cfg) -> dict:
+    """:func:`lm_train_phase`'s SGD steps of ``cfg`` (its seed-``args.seed``
+    weights, batch, learning rate and step count) through ``LMModel(cfg,
+    mesh)``: the token table striped over ``"model"``, the head and the
+    loss vocab-parallel, the experts over ``"model"``. Returns the losses,
+    the step p50 (ms), each step's K1 / K3 / K7 / K8 launches and what the
+    rank holds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.train import lm_sgd_step_
+    from repro_torch.models.lm.backbone import LMModel
+    model = LMModel(cfg, mesh, device=dev, remat="none")
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    batch = {k: model.data_block(v) for k, v in lm_batch(
+        args, cfg, dev, args.lm_train_batch, args.lm_seq).items()}
+    table = params["embed" if "embed" in params else "embed_cold"]
+    experts = (params["groups"]["0_attn"]["ffn"]["w1"].shape[1]
+               if cfg.moe is not None else 0)
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    losses, ms, steps = [], [], []
+    for _ in range(args.lm_train_warm + args.lm_train_timed):
+        before = LAUNCHES.snapshot()
+        t = time.perf_counter()
+        losses.append(float(lm_sgd_step_(model, params, batch,
+                                         args.lm_train_lr)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        after = LAUNCHES.snapshot()
+        steps.append({k: after.get(k, 0) - before.get(k, 0)
+                      for k in LM_STEP_KERNELS})
+    launches = LAUNCHES.snapshot()
+    profile(f"lm mesh step {cfg.name} ({args.lm_train_batch} x "
+            f"{args.lm_seq} tokens, mesh {meshlib.mesh_shape(mesh)})",
+            lambda: lm_sgd_step_(model, params, batch, args.lm_train_lr),
+            host_top=8)
+    del params
+    return {"losses": losses, "p50": float(np.median(
+        ms[args.lm_train_warm:])), "steps": steps, "launches": launches,
+        "embed_mode": model.embed_mode, "stripe": list(table.shape),
+        "vocab_parallel": model.vocab_parallel, "experts": experts,
+        "attn_partition": model.attn_partition}
+
+
+def lm_mesh_phase(args, dev, total):
+    """Phase 8c: the LM on a (1, 1) mesh over a one-rank NCCL group on
+    ``dev`` (phase 8b's layout on one card; on more cards still one rank:
+    the LM across cards is held on the CPU by
+    ``tests/test_torch_lm_mesh.py``): full-depth granite (phase 15's
+    weights and steps) and the depth-5 recurrentgemma of phase 14, each
+    held against its one-device steps within ``TRAIN_TOL``, then
+    ``launch.train --mesh 1x1`` for granite under the same group. Adds the
+    steps' launches to ``total``; tears the group down."""
+    import io
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_lm_config
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import train as launch_train
+    root = os.path.join(ROOT, "_smoke_bundle", "lm_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cfgs = (get_lm_config(args.granite_arch),
+            dataclasses.replace(get_lm_config(args.rg_arch),
+                                num_layers=args.rg_train_layers))
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(root, "store"), 1), rank=0, world_size=1)
+    check(dist.is_initialized() and dist.get_backend() == "nccl",
+          "lm mesh: the NCCL process group did not start")
+    try:
+        mesh = meshlib.make_test_mesh((1, 1))
+        runs = {}
+        for cfg in cfgs:
+            runs[cfg.name] = lm_mesh_steps(args, dev, mesh, cfg)
+            gc.collect()
+            torch.cuda.empty_cache()
+        argv = ["--arch", args.granite_arch, "--mesh", "1x1", "--steps",
+                "2", "--batch", str(args.lm_train_batch), "--seq",
+                str(args.lm_seq), "--log-every", "1"]
+        LAUNCHES.reset()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            launcher = launch_train.main(argv)
+        torch.cuda.synchronize()
+        launcher_launches = LAUNCHES.snapshot()
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for cfg in cfgs:
+        run, ref = runs[cfg.name], LM_TRAIN_HISTORY[cfg.name]
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+        err = max(abs(a - b) for a, b in zip(run["losses"], ref["losses"]))
+        check(len(run["losses"]) == len(ref["losses"]) and
+              np.isfinite(run["losses"]).all() and err <= TRAIN_TOL,
+              f"lm mesh {cfg.name}: losses {run['losses']} vs the "
+              f"one-device steps {ref['losses']} (max dev {err}, bound "
+              f"{TRAIN_TOL})")
+        check(all(step == ref["launches"] for step in run["steps"]),
+              f"lm mesh {cfg.name}: launches a step {run['steps']}, want "
+              f"{ref['launches']} (the one-device step's)")
+        held = (f"{run['embed_mode']} token table, this rank's stripe "
+                f"{run['stripe']}, the head and the loss "
+                + ("vocab-parallel" if run["vocab_parallel"] else "whole")
+                + (f", {run['experts']} experts a rank"
+                   if run["experts"] else "")
+                + f", attention '{run['attn_partition']}'")
+        print(f"lm mesh {cfg.name} ({cfg.num_layers} layers) on {smi}: "
+              f"mesh (1, 1) over NCCL; {held}; {len(run['losses'])} SGD "
+              f"steps at {args.lm_train_batch} x {args.lm_seq}: step p50 "
+              f"{run['p50']:.2f} ms against {ref['p50']:.2f} ms one-device "
+              f"({run['p50'] / ref['p50']:.2f}x); losses "
+              + " -> ".join(f"{x:.4f}" for x in run["losses"])
+              + f", largest difference from the one-device steps {err:.3g} "
+              f"(bound {TRAIN_TOL}); launches a step {run['steps'][0]}")
+    for k, n in launcher_launches.items():
+        total[k] = total.get(k, 0) + n
+    check(len(launcher) == 2 and np.isfinite(launcher).all() and all(
+        launcher_launches.get(k, 0) > 0 for k in LM_STEP_KERNELS),
+        f"lm mesh launcher: losses {launcher}, launches "
+        f"{launcher_launches}\n{log.getvalue()}")
+    print(f"lm mesh launcher on {smi}: python -m repro_torch.launch.train "
+          f"{' '.join(argv)} under the same group: losses "
+          + " -> ".join(f"{x:.4f}" for x in launcher)
+          + f"; launches {launcher_launches}; "
+          + log.getvalue().strip().splitlines()[0])
+    print(f"lm mesh phase: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def recsys_phases(args, dev):
     """Phases 4-6 (DLRM, its vocabulary capped: train, deploy, serve
     through submit with f32 and int8 L1), 6b (its online path), DCN
@@ -4838,6 +5013,10 @@ def main() -> int:
         total[k] = total.get(k, 0) + n
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 8c. the LM on the mesh: granite and the depth-5 recurrentgemma against
+    # their one-device steps of phases 15 and 14, then the launcher
+    lm_mesh_phase(args, dev, total)
 
     # 16. xlstm-125m at full width and depth on a shorter sequence: serve,
     # a gradient against the plain path, train

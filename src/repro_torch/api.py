@@ -559,19 +559,6 @@ def lower_graph(name: str, inp: Optional[Input],
         extra_groups=extra_groups)
 
 
-def _auto_mesh(mesh_shape: Optional[Tuple[int, ...]]):
-    """The mesh ``Solver.mesh_shape`` asks for: that shape over the
-    process group's ranks, ``(world, 1)`` when unset under a group of
-    several ranks, and no mesh (one device) otherwise."""
-    if mesh_shape is None:
-        world = meshlib.world_size()
-        return meshlib.make_test_mesh((world, 1)) if world > 1 else None
-    if int(np.prod(mesh_shape)) == 1 and \
-            not torch.distributed.is_initialized():
-        return None
-    return meshlib.make_test_mesh(tuple(mesh_shape))
-
-
 def _validate_mesh_fit(cfg: RecsysConfig, mesh, batch_size: int) -> None:
     """Up-front mesh / batch / table divisibility validation (the
     reference's): a :class:`GraphError` at ``compile()`` naming the
@@ -672,7 +659,7 @@ class Model:
         self._tcfg = self.solver.to_train_config()
         self.batch_size = self.solver.batch_size
         self.mesh = mesh or self._mesh_override \
-            or _auto_mesh(self.solver.mesh_shape)
+            or meshlib.auto_mesh(self.solver.mesh_shape)
         if self.mesh is not None:
             _validate_mesh_fit(self.cfg, self.mesh, self.batch_size)
         self._model = RecsysModel(

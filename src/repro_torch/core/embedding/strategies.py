@@ -15,8 +15,9 @@ Conventions:
     reduce-scatter path.
   - every collective is a ``torch.autograd.Function`` whose backward is
     its adjoint (all-to-all is self-adjoint, all-gather <->
-    reduce-scatter), so table gradients flow back through the same
-    communication pattern in reverse.
+    reduce-scatter, the all-reduce of shard parts <-> the copy of a
+    replicated value into shard work), so table gradients flow back
+    through the same communication pattern in reverse.
 
 The shard-local work goes through the port's kernels when the caller
 passes them: ``pool_fn`` pools (``kernels.ops.kernel_pool``: K1 forward,
@@ -112,6 +113,61 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _a2a_raw(g, ctx.group), None
+
+
+def _sum_raw(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """``jax.lax.psum`` of parts that each rank of ``group`` computed from
+    its own shard, into a value the ranks then hold alike; backward: the
+    identity. Every rank of the group back-propagates the same loss from
+    the sum, so each already holds the whole cotangent of its own part (a
+    second sum would scale it by the group's size)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_raw(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """The identity on a value the ranks of ``group`` hold alike, where it
+    enters work on each rank's own shard; backward: the sum over the group
+    of the ranks' cotangents, each the part its own shard saw (the
+    adjoint of :class:`_AllReduce`'s pairing)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_raw(g, ctx.group), None
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of their ``x``; the gradient of
+    each rank's ``x`` is the cotangent of the sum, unscaled."""
+    if x.requires_grad:
+        return _AllReduce.apply(x, group)
+    return _sum_raw(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (held alike by the ranks of ``group``) as the input of work on
+    each rank's own shard: the gradient that reaches ``x`` is the sum over
+    the group of what each rank's shard gives it."""
+    if x.requires_grad:
+        return _CopyToGroup.apply(x, group)
+    return x
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:

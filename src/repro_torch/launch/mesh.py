@@ -81,6 +81,19 @@ def make_test_mesh(shape: Sequence[int] = (1, 1),
     return mesh
 
 
+def auto_mesh(shape: Optional[Sequence[int]]) -> Optional[DeviceMesh]:
+    """The mesh a launcher's ``--mesh`` (or ``Solver.mesh_shape``) asks
+    for: ``shape`` over the process group's ranks, ``(world, 1)`` when
+    unset under a group of several ranks, and no mesh (one device)
+    otherwise."""
+    if shape is None:
+        world = world_size()
+        return make_test_mesh((world, 1)) if world > 1 else None
+    if _prod(shape) == 1 and not dist.is_initialized():
+        return None
+    return make_test_mesh(tuple(shape))
+
+
 def make_cache_mesh(stripes: int, devices: Optional[Sequence] = None
                     ) -> List[torch.device]:
     """The striped L1's device list: as many of ``devices`` (every card
@@ -149,8 +162,19 @@ def axis_index(mesh: DeviceMesh, axes: Sequence[str]) -> int:
 def axis_group(mesh: DeviceMesh, axes: Sequence[str]):
     """The process group spanning ``axes`` through this rank, its ranks in
     :func:`axis_index` order: one axis's sub-group, or every rank of the
-    mesh for all of its axes."""
+    mesh for all of its axes. Kept on the mesh after the first call: a
+    ``DeviceMesh`` slice is slow on the host, and a model's layers each
+    ask for theirs."""
     axes = tuple(axes)
+    groups = getattr(mesh, "repro_groups", None)
+    if groups is None:
+        groups = mesh.repro_groups = {}
+    if axes not in groups:
+        groups[axes] = _axis_group(mesh, axes)
+    return groups[axes]
+
+
+def _axis_group(mesh: DeviceMesh, axes: Tuple[str, ...]):
     names = tuple(mesh.mesh_dim_names)
     if len(axes) == 1:
         return mesh[axes[0]].get_group()

@@ -14,6 +14,8 @@ LM train steps it runs.
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch dlrm-criteo --smoke --device cpu --mesh 2x2 --mode manual \\
       --grad-ar-dtype bf16                    # four gloo ranks
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch granite-moe-1b-a400m --smoke --device cpu --mesh 2x2
 
 A recsys recipe (``RECSYS_RECIPES``) goes through the graph API as in the
 reference: its module's ``build_model(smoke=--smoke, solver=Solver(batch,
@@ -29,22 +31,24 @@ needs ``frames``) and the vision prefix (pixtral, ``patches``) raise the
 reference's ``KeyError``; ``lm_value_and_grad`` and ``lm_sgd_step_``
 take a whole batch for them.
 
-A recipe trains on a mesh as the reference's does: run one process a
-device under ``torchrun --nproc-per-node N`` (the launcher joins the
-process group torchrun describes: NCCL on cards, gloo with ``--device
+A recipe or an LM arch trains on a mesh as the reference's does: run one
+process a device under ``torchrun --nproc-per-node N`` (the launcher joins
+the process group torchrun describes: NCCL on cards, gloo with ``--device
 cpu``, each rank on card ``LOCAL_RANK``); ``--mesh RxC`` lays the ranks
 out as a ``("data", "model")`` mesh, ``auto`` as ``(N, 1)`` (no mesh on
-one process), and ``--mode``, ``--comm`` and ``--grad-ar-dtype`` (bf16:
-the compressed gradient all-reduce of manual mode) go into the
-``Solver``. Rank 0 logs and writes the checkpoints.
+one process). A recipe's ``--mode``, ``--comm`` and ``--grad-ar-dtype``
+(bf16: the compressed gradient all-reduce of manual mode) go into the
+``Solver``. An LM arch's model spreads over the mesh (``LMModel(cfg,
+mesh)``: its token table striped over ``"model"``, the head and the loss
+vocab-parallel, the experts over ``"model"``); every rank draws the same
+global batch and trains on its data-parallel block, and the SGD step
+updates each rank's own shards. Rank 0 logs and writes the checkpoints.
 
 Unlike the reference, one device does not imply the smoke reduction: the
 card trains a recipe or an LM at full width. Everything runs on ``cuda``
-unless ``--device cpu``. For an LM arch a mesh other than ``auto``,
-``--mode manual``, a ``--comm`` other than ``auto`` and
-``--grad-ar-dtype bf16`` raise ``NotImplementedError`` naming ROADMAP
-queue 1 item 4; ``--ckpt-dir`` is taken and ignored, as the reference's
-LM branch does.
+unless ``--device cpu``. For an LM arch ``--mode``, ``--comm``,
+``--grad-ar-dtype`` and ``--ckpt-dir`` are taken and ignored, as the
+reference's LM branch does.
 """
 from __future__ import annotations
 
@@ -59,8 +63,8 @@ import torch
 from repro_torch.configs.registry import (
     LM_ARCHS, RECSYS_RECIPES, reduce_for_smoke)
 from repro_torch.models.lm.backbone import LMModel
+from repro_torch.launch import mesh as meshlib
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.roadmap import MULTI_DEVICE, not_ported
 from repro_torch.tree import flatten, tree_map
 
 
@@ -71,13 +75,16 @@ def lm_value_and_grad(model: LMModel, params: Dict,
     ``tokens`` (a ``[B, S]`` tensor, or a whole batch dict: ``tokens``
     with ``frames`` or ``patches``); ``grads`` has ``params``' tree.
     ``params`` are left as they are (autograd runs on detached aliases of
-    them)."""
+    them). On a mesh: this rank's data block and parameters, the global
+    loss, and the gradients of this rank's parameters summed over the
+    data axes (``LMModel.reduce_grads``)."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
     loss = model.train_loss(live, batch)
     leaves = [t for _, t in flatten(live)]
     grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
-    return loss.detach(), tree_map(lambda t: grads[id(t)], live)
+    return loss.detach(), model.reduce_grads(
+        tree_map(lambda t: grads[id(t)], live))
 
 
 def lm_train_step(model: LMModel, opt: Optimizer) -> Callable:
@@ -105,22 +112,6 @@ def lm_sgd_step_(model: LMModel, params: Dict,
         for (_, p), (_, g) in zip(flatten(params), flatten(grads)):
             p.sub_(g.to(p.dtype).mul_(lr))
     return loss
-
-
-def _refuse(args) -> None:
-    """Raise for what the port leaves out of the LM branch (its mesh),
-    naming its ROADMAP item."""
-    if args.arch not in LM_ARCHS:
-        return
-    if args.mesh != "auto":
-        raise not_ported(f"--mesh {args.mesh}", MULTI_DEVICE)
-    if args.mode != "gspmd":
-        raise not_ported(f"--mode {args.mode}", MULTI_DEVICE)
-    if args.comm != "auto":
-        raise not_ported(f"--comm {args.comm}", MULTI_DEVICE)
-    if args.grad_ar_dtype != "f32":
-        raise not_ported(f"--grad-ar-dtype {args.grad_ar_dtype}",
-                         MULTI_DEVICE)
 
 
 def mesh_shape_arg(mesh: str):
@@ -223,28 +214,50 @@ def main(argv: Optional[Sequence[str]] = None
     ap.add_argument("--mesh", default="auto",
                     help="'auto' (N x 1 over the torchrun ranks) | 'RxC'")
     args = ap.parse_args(argv)
-    _refuse(args)
     if args.arch in RECSYS_RECIPES:
         return train_recipe(args)
+    return train_lm(args)
 
+
+def train_lm(args) -> List[float]:
+    """The LM branch: the model of ``args.arch`` (reduced by ``--smoke``)
+    from seed-0 weights, on the mesh ``--mesh`` asks for (none on one
+    process), SGD on uniform random tokens; returns the loss of every
+    step."""
     cfg = LM_ARCHS[args.arch]
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
-    model = LMModel(cfg, device=args.device,
+    joined = join_process_group(args.device)
+    mesh = meshlib.auto_mesh(mesh_shape_arg(args.mesh))
+    if mesh is not None and not meshlib.in_mesh(mesh):
+        # a rank past a mesh smaller than the group does no work on it
+        if joined:
+            leave_process_group()
+        return []
+    lead = mesh is None or meshlib.axis_index(
+        mesh, meshlib.all_axes(mesh)) == 0
+    model = LMModel(cfg, mesh, device=args.device,
                     loss_chunk=min(args.seq, 128))
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
-    print(f"arch {cfg.name}: embed_mode={model.embed_mode} on "
-          f"{model.device}")
+    if lead:
+        where = "" if mesh is None else \
+            f" on the mesh {meshlib.mesh_shape(mesh)}"
+        print(f"arch {cfg.name}: embed_mode={model.embed_mode} "
+              f"attn_partition={model.attn_partition} on "
+              f"{model.device}{where}")
     rng = np.random.default_rng(0)
     losses = []
     for i in range(args.steps):
-        tokens = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (args.batch, args.seq))).to(model.device)
+        tokens = model.data_block(torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (args.batch, args.seq)))).to(model.device)
         losses.append(float(lm_sgd_step_(model, params, tokens, args.lr)))
-        if i % args.log_every == 0:
+        if lead and i % args.log_every == 0:
             print(f"step {i:4d} loss={losses[-1]:.4f}")
-    print(f"done: final loss {losses[-1]:.4f} "
-          f"(ln V = {np.log(cfg.vocab_size):.2f})")
+    if joined:
+        leave_process_group()
+    if lead:
+        print(f"done: final loss {losses[-1]:.4f} "
+              f"(ln V = {np.log(cfg.vocab_size):.2f})")
     return losses
 
 

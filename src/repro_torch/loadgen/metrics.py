@@ -16,8 +16,9 @@ per-group samples, as in the reference:
 
 Neither class locks internally: callers own the synchronization
 (``InferenceServer`` keeps its histogram behind ``_stats_lock``).
-The rest of the reference's ``loadgen`` (the workload generators and
-the open-loop runner) is ROADMAP queue 1 item 6.
+The rest of the reference's ``loadgen`` is ported beside it: the
+workload generators (``loadgen/workload.py``) and the open-loop runner
+(``loadgen/driver.py``).
 """
 from __future__ import annotations
 

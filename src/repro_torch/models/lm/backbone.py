@@ -1,19 +1,20 @@
-"""``LMModel`` for the LM families on one device (counterpart of
-``repro/models/lm/backbone.py``).
+"""``LMModel`` for the LM families, on one device or on a mesh
+(counterpart of ``repro/models/lm/backbone.py``).
 
 The paper's technique shows up as the vocabulary embedding modes, as in the
 reference: LM token tables are Zipf-accessed like CTR features, so the
-hybrid hot/cold split applies. On one device:
+hybrid hot/cold split applies:
 
-* ``replicated`` — one ``[V, D]`` table;
-* ``sharded``    — one ``[V_pad, D]`` table (the reference stripes its rows
-  over the mesh; on one device that is the whole table);
-* ``hybrid``     — a hot ``[V·hot_fraction, D]`` table for the lowest ids
-  and a cold table for the rest, each read by its own lookup and summed.
+* ``replicated`` — one ``[V, D]`` table, whole on every rank;
+* ``sharded``    — one ``[V_pad, D]`` table, its rows striped over the
+  mesh's ``"model"`` axis (on one device, the whole table);
+* ``hybrid``     — a hot ``[max(n_dev, V·hot_fraction), D]`` table for the
+  lowest ids, whole on every rank, and a cold table for the rest, striped
+  over ``"model"`` like ``sharded``; each read by its own lookup, summed.
 
 Every lookup is the pooled-lookup kernel K1 with one id a row (-1 where the
-mode masks the id out), whose gradient is the dense adjoint K3, and
-attention is the flash kernel K7 with K8 as its backward. With
+mode or the stripe masks the id out), whose gradient is the dense adjoint
+K3, and attention is the flash kernel K7 with K8 as its backward. With
 ``use_kernels=False`` all run their plain versions on any device: the
 in-port reference path.
 
@@ -34,6 +35,37 @@ them: ``"dots"`` and ``"group"`` both save the matmuls, and the encoder
 is never recomputed). Decode never sees ``frames`` or ``patches``, as in
 the reference.
 
+On a mesh (``launch.mesh``: one rank a device, axes ``("data",
+"model")``) every method takes and returns this rank's data-parallel
+block of the batch, the same on each rank of a model group, and the
+reference's three ``shard_map`` regions run over the ``"model"`` axis:
+
+* ``_sharded_lookup``: each rank looks its block's ids up in its own
+  stripe (K1, ids outside it -1 holes; K3 the backward), casts its part to
+  the compute type, and the parts are summed once over ``"model"``
+  (exactly one stripe holds each id);
+* the head and the loss, vocab-parallel: a tied ``sharded`` or
+  ``hybrid`` table is never gathered; each rank takes the logits of its
+  own stripe, and the cross-entropy's log-sum-exp runs over ``"model"``
+  (the max, the sum of exponentials and the label's logit each summed or
+  maxed over the axis; the hot logits, alike on every rank, enter once),
+  the vocabulary's padding to the axis masked; ``prefill`` and
+  ``decode_step`` gather the rows' whole logits over ``"model"``;
+* the MoE's experts (``moe.moe_apply_local``).
+
+The loss is the global mean (its sum and count summed over the data
+axes). Each sum over ``"model"`` back-propagates as the identity, and each
+value that the ranks of a model group hold alike and feed into their own
+shard's work sums its gradient over the group on the way back
+(``strategies.all_reduce`` / ``copy_to_group``); :meth:`LMModel.
+reduce_grads` then sums every gradient over the data axes. Attention is
+the reference's ``"heads"`` partition, on the rank's block (the
+reference's head sharding is a placement that changes no value);
+``"seq"`` over a model axis above 1 raises ``NotImplementedError``
+naming the ROADMAP item that ports it. :meth:`LMModel.shard_params` and
+:meth:`LMModel.gather_params` move whole (logical) parameters, as the
+reference draws them at the mesh's padded shapes, to a rank's and back.
+
 Layers run group-major, as the reference scans them: every layer of
 pattern slot 0, then of slot 1, ..., then the tail.
 """
@@ -43,11 +75,15 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.core.embedding.common import masked_range_lookup
+from repro_torch.core.embedding.strategies import (
+    all_gather, all_reduce, copy_to_group)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_lookup import lookup_fwd_plain
@@ -55,9 +91,12 @@ from repro_torch.models.lm import moe
 from repro_torch.models.lm import rglru as rg
 from repro_torch.models.lm import transformer as tf
 from repro_torch.models.lm import xlstm as xl
-from repro_torch.tree import tree_map
+from repro_torch.launch import mesh as meshlib
+from repro_torch.roadmap import SEQPAR, not_ported
+from repro_torch.tree import flatten, tree_map, unflatten
 
 EMBED_MODES = ("replicated", "sharded", "hybrid")
+ATTN_PARTITIONS = ("auto", "heads", "seq")
 REMATS = ("none", "full", "dots", "group")
 KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
 #: the kinds whose decode state is a dict of f32 tensors, not a KV cache
@@ -96,28 +135,51 @@ def _layers(stacked: Dict, n: int) -> List[Dict]:
 
 class LMModel:
     """``device`` resolves as every port entry point does (``cuda`` unless
-    given ``"cpu"``); ``embed_mode="auto"`` picks as the reference does:
+    given ``"cpu"``); ``mesh`` (a ``launch.mesh`` mesh with a ``"model"``
+    axis, this rank in it) spreads the model over ranks, None runs it on
+    one device. ``embed_mode="auto"`` picks as the reference does:
     ``hybrid`` from 100,000 tokens, else ``sharded`` above 2**26 table
     entries, else ``replicated``. ``loss_chunk`` is the cross-entropy's
     sequence chunk. ``remat`` is the reference's policy for the pattern
     groups' layers (the tail is never recomputed): ``"full"`` recomputes
     each layer in backward (``torch.utils.checkpoint``, as
     ``jax.checkpoint``), ``"dots"`` saves only the matmuls' outputs
-    (``checkpoint_dots``), ``"group"`` is the nested sqrt(L) remat."""
+    (``checkpoint_dots``), ``"group"`` is the nested sqrt(L) remat.
+    ``attn_partition`` is the reference's rule (``"auto"``: ``"seq"``
+    where the model axis does not factor over the KV heads and their
+    query groups, or for an FSDP-sized model in training, else
+    ``"heads"``)."""
 
-    def __init__(self, cfg: LMConfig, *, device: DeviceLike = None,
-                 embed_mode: str = "auto", hot_fraction: float = 0.05,
-                 loss_chunk: int = 512, remat: str = "none",
+    def __init__(self, cfg: LMConfig, mesh=None, *,
+                 device: DeviceLike = None, embed_mode: str = "auto",
+                 hot_fraction: float = 0.05, loss_chunk: int = 512,
+                 remat: str = "none", attn_partition: str = "auto",
                  use_kernels: bool = True):
         _check_kinds(cfg)
         if remat not in REMATS:
             raise ValueError(f"remat {remat!r} not in {REMATS}")
+        if attn_partition not in ATTN_PARTITIONS:
+            raise ValueError(f"attn_partition {attn_partition!r} not in "
+                             f"{ATTN_PARTITIONS}")
         self.cfg = cfg
+        self.mesh = mesh
         self.loss_chunk = loss_chunk
         self.remat = remat
         self.device = resolve_device(device)
         self.cd = torch.bfloat16 if cfg.dtype == "bf16" else torch.float32
         self.use_kernels = use_kernels
+        if mesh is None:
+            self.model_size = self.n_dev = 1
+        else:
+            shape = meshlib.mesh_shape(mesh)
+            if "model" not in shape:
+                raise ValueError(f"an LM mesh needs a 'model' axis, got "
+                                 f"{tuple(shape)}")
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot run a "
+                                 f"model on {self.device}")
+            self.model_size = shape["model"]
+            self.n_dev = meshlib.mesh_size(mesh)
         if embed_mode == "auto":
             embed_mode = "hybrid" if cfg.vocab_size >= 100_000 else \
                 "sharded" if cfg.vocab_size * cfg.d_model > 2 ** 26 else \
@@ -126,16 +188,131 @@ class LMModel:
             raise ValueError(f"embed_mode {embed_mode!r} not in "
                              f"{EMBED_MODES}")
         self.embed_mode = embed_mode
-        # one device: no row padding to a shard count
-        self.hot_rows = max(1, int(cfg.vocab_size * hot_fraction)) \
+        # FSDP-sized: TP-only sharding would blow past the device's memory
+        self.fsdp = cfg.dense_param_count * 12 / self.model_size > 10e9
+        self.hot_rows = max(self.n_dev, int(cfg.vocab_size * hot_fraction)) \
             if embed_mode == "hybrid" else 0
-        self.cold_rows = cfg.vocab_size - self.hot_rows
-        self.vocab_pad = cfg.vocab_size
+        # the cold / sharded rows padded to the stripes over "model" (the
+        # reference's default embed_shard_axes); one device pads nothing
+        m = self.model_size
+        self.cold_rows = -(-(cfg.vocab_size - self.hot_rows) // m) * m
+        self.vocab_pad = -(-cfg.vocab_size // m) * m
+        if attn_partition == "auto":
+            dirty = False
+            if self.model_size > 1 and cfg.num_kv_heads > 0:
+                a = math.gcd(cfg.num_kv_heads, self.model_size)
+                group = cfg.num_heads // cfg.num_kv_heads
+                dirty = group % (self.model_size // a) != 0
+            training = remat != "none"
+            attn_partition = "seq" if (dirty or (self.fsdp and training)) \
+                else "heads"
+        if attn_partition == "seq" and self.model_size > 1:
+            raise not_ported(f"{cfg.name}'s attention partitioned by "
+                             f"sequence over a model axis of "
+                             f"{self.model_size}", SEQPAR)
+        self.attn_partition = attn_partition
         self.pattern = cfg.block_pattern
         per = len(self.pattern)
         self.n_groups = cfg.num_layers // per
         self.n_tail = cfg.num_layers - self.n_groups * per
         self.tail_pattern = cfg.block_pattern[:self.n_tail]
+
+    # ------------------------------------------------------------------ mesh
+
+    @property
+    def _model_group(self):
+        return meshlib.axis_group(self.mesh, ("model",))
+
+    @property
+    def _model_index(self) -> int:
+        return self.mesh.get_local_rank("model")
+
+    @property
+    def _dp_axes(self) -> Tuple[str, ...]:
+        return meshlib.dp_axes(self.mesh)
+
+    @property
+    def vocab_parallel(self) -> bool:
+        """Whether the head is this rank's stripe of a tied striped table
+        (the logits of its own vocabulary slice), not a whole matrix."""
+        return self.mesh is not None and self.cfg.tie_embeddings and \
+            self.embed_mode in ("sharded", "hybrid")
+
+    def data_block(self, x):
+        """This rank's data-parallel block of a global batch's leading
+        axis (the whole batch without a mesh); the batch must divide over
+        the data axes."""
+        if self.mesh is None:
+            return x
+        n = meshlib.axis_size(self.mesh, self._dp_axes)
+        if x.shape[0] % n:
+            raise ValueError(f"batch {x.shape[0]} does not split over the "
+                             f"{n} data-parallel ranks of the mesh")
+        blk = x.shape[0] // n
+        i = meshlib.axis_index(self.mesh, self._dp_axes)
+        return x[i * blk:(i + 1) * blk]
+
+    def _striped(self, key: str) -> Optional[int]:
+        """The axis of leaf ``key`` (a ``/``-joined params path) striped
+        over ``"model"``: the rows of ``embed`` (``sharded``) and
+        ``embed_cold`` (``hybrid``), the experts of an MoE layer's ``w1``,
+        ``w2``, ``w3`` (axis 1, after the layer axis); None for a leaf
+        every rank holds whole."""
+        if self.mesh is None:
+            return None
+        if key == {"sharded": "embed", "hybrid": "embed_cold"}.get(
+                self.embed_mode):
+            return 0
+        parts = key.split("/")
+        if self.cfg.moe is not None and len(parts) == 4 and \
+                parts[0] == "groups" and parts[2] == "ffn" and \
+                parts[3] in ("w1", "w2", "w3"):
+            return 1
+        return None
+
+    def shard_params(self, params: Dict) -> Dict:
+        """Whole parameters (the reference's ``init`` tree at this mesh's
+        padded shapes) -> this rank's: its stripe of each striped leaf,
+        the other leaves as they are. Without a mesh, ``params``."""
+        if self.mesh is None:
+            return params
+        m, i = self.model_size, self._model_index
+        out = {}
+        for key, v in flatten(params):
+            ax = self._striped(key)
+            if ax is not None:
+                n = v.shape[ax] // m
+                v = v.narrow(ax, i * n, n).clone()
+            out[key] = v
+        return unflatten(out)
+
+    def gather_params(self, params: Dict) -> Dict:
+        """Inverse of :meth:`shard_params` on every rank: a rank's
+        parameters, or their gradients, -> the whole tree (each striped
+        leaf gathered over ``"model"``)."""
+        if self.mesh is None:
+            return params
+        out = {}
+        for key, v in flatten(params):
+            ax = self._striped(key)
+            if ax is not None:
+                v = all_gather(v.detach().movedim(ax, 0).contiguous(),
+                               self._model_group).movedim(0, ax)
+            out[key] = v
+        return unflatten(out)
+
+    def reduce_grads(self, grads: Dict) -> Dict:
+        """This rank's gradients summed over the data axes, in place: the
+        whole gradient of a replicated leaf, and of this rank's stripe of a
+        striped one (the ranks of a model group already hold alike the
+        gradient of what they share)."""
+        if self.mesh is None or \
+                meshlib.axis_size(self.mesh, self._dp_axes) == 1:
+            return grads
+        group = meshlib.axis_group(self.mesh, self._dp_axes)
+        for _, g in flatten(grads):
+            dist.all_reduce(g, group=group)
+        return grads
 
     def _group_keys(self):
         """``(params key, kind, layers)`` of every stacked group."""
@@ -148,7 +325,9 @@ class LMModel:
 
     def init(self, generator: Optional[torch.Generator] = None) -> Dict:
         """f32 params with the reference's tree keys and distributions,
-        drawn from ``generator`` (on the model's device; seed 0 if none)."""
+        drawn from ``generator`` (on the model's device; seed 0 if none);
+        on a mesh, drawn whole at its padded shapes (alike on every rank
+        given one seed) and this rank's kept (:meth:`shard_params`)."""
         cfg, dev = self.cfg, self.device
         g = generator or torch.Generator(device=dev).manual_seed(0)
         d = cfg.d_model
@@ -178,7 +357,7 @@ class LMModel:
                 "ffn": tf.ffn_init(g, cfg, stack=e, device=dev)}
             params["cross"] = tf.attn_init(g, cfg, stack=(cfg.num_layers,),
                                            device=dev)
-        return params
+        return self.shard_params(params)
 
     def _block_init(self, g: torch.Generator, kind: str, n: int) -> Dict:
         """``n`` stacked layers of one kind: ``{"attn", "ffn"}`` for
@@ -192,7 +371,8 @@ class LMModel:
         mix = (rg.rglru_init(g, cfg, stack=stack, device=dev)
                if kind == "rglru"
                else tf.attn_init(g, cfg, stack=stack, device=dev))
-        ffn = (moe.moe_init(g, cfg, stack=stack, device=dev)
+        ffn = (moe.moe_init(g, cfg, self.model_size, stack=stack,
+                            device=dev)
                if cfg.moe is not None and kind == "attn"
                else tf.ffn_init(g, cfg, stack=stack, device=dev))
         return {"rglru" if kind == "rglru" else "attn": mix, "ffn": ffn}
@@ -202,27 +382,54 @@ class LMModel:
     def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         """``tokens [B, S]`` -> ``[B, S, D]`` in the compute type: lookups
         of one id a row (K1, with K3 as the tables' gradient), exact f32
-        rows, summed (hybrid) and cast."""
+        rows, summed (hybrid) and cast; a striped table through
+        :meth:`_sharded_lookup`."""
         lookup = ops.fused_embedding_lookup if self.use_kernels \
             else lookup_fwd_plain
         ids = tokens.reshape(-1, 1).to(torch.int32)
         if self.embed_mode == "hybrid":
             is_hot = ids < self.hot_rows
             none = torch.full_like(ids, -1)
-            x = lookup(params["embed_hot"], torch.where(is_hot, ids, none)) \
-                + lookup(params["embed_cold"],
-                         torch.where(is_hot, none, ids - self.hot_rows))
+            hot = lookup(params["embed_hot"], torch.where(is_hot, ids, none))
+            cold = torch.where(is_hot, none, ids - self.hot_rows)
+            if self.mesh is None:
+                x = hot + lookup(params["embed_cold"], cold)
+            else:
+                x = hot.to(self.cd) + self._sharded_lookup(
+                    params["embed_cold"], cold)
+        elif self.embed_mode == "sharded" and self.mesh is not None:
+            x = self._sharded_lookup(params["embed"], ids)
         else:
             x = lookup(params["embed"], ids)
         return x.reshape(*tokens.shape, -1).to(self.cd)
 
+    def _sharded_lookup(self, table: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+        """``ids [N, 1]`` (-1: none) against the rows striped over
+        ``"model"``, ``table`` this rank's stripe: the ids in its row range
+        looked up (K1; the others -1 holes), cast to the compute type, and
+        the parts summed over ``"model"`` -> ``[N, D]``."""
+        v0 = self._model_index * table.shape[0]
+        part = masked_range_lookup(
+            table, ids[:, :, None], v0, compute_dtype=self.cd,
+            pool_fn=ops.kernel_pool if self.use_kernels else None)
+        return all_reduce(part[:, 0], self._model_group)
+
     def _head_parts(self, params: Dict):
-        """Output head as a list of ``[D, V_part]`` matrices (tied hybrid
-        stays in its two parts; the logits are their concatenation)."""
+        """Output head as a list of ``[D, V_part]`` matrices: a tied hybrid
+        table stays in its two parts (the logits are their concatenation),
+        a tied replicated one is padded to ``vocab_pad`` columns. On a mesh
+        a tied striped table gives this rank's stripe
+        (:attr:`vocab_parallel`), last."""
         if self.cfg.tie_embeddings:
             if self.embed_mode == "hybrid":
                 return [params["embed_hot"].T, params["embed_cold"].T]
-            return [params["embed"].T]
+            emb = params["embed"]
+            if self.embed_mode == "replicated" and \
+                    emb.shape[0] < self.vocab_pad:
+                emb = torch.cat([emb, emb.new_zeros(
+                    (self.vocab_pad - emb.shape[0], emb.shape[1]))])
+            return [emb.T]
         return [params["head"]]
 
     @property
@@ -232,9 +439,14 @@ class LMModel:
         return self.vocab_pad
 
     def _logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
-        """``h [B, D]`` -> f32 logits ``[B, logits_size]``."""
-        return torch.cat([(h @ hp.to(self.cd)).float()
-                          for hp in self._head_parts(params)], dim=-1)
+        """``h [B, D]`` -> f32 logits ``[B, logits_size]`` (on a mesh the
+        stripes' columns gathered over ``"model"``)."""
+        parts = [(h @ hp.to(self.cd)).float()
+                 for hp in self._head_parts(params)]
+        if self.vocab_parallel:
+            parts[-1] = all_gather(parts[-1].T.contiguous(),
+                                   self._model_group).T
+        return torch.cat(parts, dim=-1)
 
     # ---------------------------------------------------------------- blocks
 
@@ -256,6 +468,10 @@ class LMModel:
                 use_kernels=self.use_kernels)
         if cfg.moe is not None and kind == "attn":
             # adds its own residual, as the FFN does
+            if self.mesh is not None:
+                return moe.moe_apply_local(
+                    bp["ffn"], x, cfg, mesh=self.mesh,
+                    model_axis_size=self.model_size), new_cache
             return moe.moe_apply(bp["ffn"], x, cfg), new_cache
         return tf.ffn_apply(bp["ffn"], x, cfg), new_cache
 
@@ -401,27 +617,75 @@ class LMModel:
         """Cross-entropy in ``loss_chunk`` sequence chunks, so ``[B, S, V]``
         logits never exist at once: each chunk's body runs under
         ``checkpoint`` and backward recomputes its logits. The heads are
-        cast to the compute type once; labels of -1 are not counted."""
+        cast to the compute type once; labels of -1 are not counted. On a
+        mesh the loss's sum and count are summed over the data axes (the
+        global mean) and a striped head's chunks run vocab-parallel
+        (:meth:`_xent_chunk_vp`)."""
         heads = [hp.to(self.cd) for hp in self._head_parts(params)]
+        body = self._xent_chunk_vp if self.vocab_parallel \
+            else self._xent_chunk
         chunk = min(self.loss_chunk, h.shape[1])
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         count = torch.zeros((), dtype=torch.int64, device=h.device)
         for c0 in range(0, h.shape[1], chunk):
             lc = labels[:, c0:c0 + chunk]
-            total = total + checkpoint(self._xent_chunk, h[:, c0:c0 + chunk],
-                                       lc, *heads, use_reentrant=False)
+            total = total + checkpoint(body, h[:, c0:c0 + chunk], lc,
+                                       *heads, use_reentrant=False)
             count = count + (lc >= 0).sum()
+        if self.mesh is not None:
+            dp = meshlib.axis_group(self.mesh, self._dp_axes)
+            total, count = all_reduce(total, dp), all_reduce(count, dp)
         return total / count.clamp_min(1)
 
     def _xent_chunk(self, hc: torch.Tensor, lc: torch.Tensor,
                     *heads: torch.Tensor) -> torch.Tensor:
         """The summed loss of one chunk: f32 logits, ``logsumexp -
-        logit[label]`` over the valid labels. (The reference also masks
-        the vocabulary's padding to the mesh; on one device there is
-        none: ``logits_size == vocab_size``.)"""
+        logit[label]`` over the valid labels, the logits at and past
+        ``vocab_size`` (the vocabulary's padding to the mesh) masked out."""
         logits = torch.cat([(hc @ hp).float() for hp in heads], dim=-1)
+        if logits.shape[-1] > self.cfg.vocab_size:
+            logits = logits.masked_fill(torch.arange(
+                logits.shape[-1], device=logits.device)
+                >= self.cfg.vocab_size, -1e30)
         lse = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, lc.clamp_min(0)[..., None].long())[..., 0]
+        return torch.where(lc >= 0, lse - ll, 0.0).sum()
+
+    def _xent_chunk_vp(self, hc: torch.Tensor, lc: torch.Tensor,
+                       *heads: torch.Tensor) -> torch.Tensor:
+        """:meth:`_xent_chunk` with the last head this rank's stripe of the
+        vocabulary (a hybrid table's hot head, whole, ahead of it): the
+        log-sum-exp's max, its sum of exponentials and the label's logit
+        each taken over ``"model"``, the hot logits counted once."""
+        group = self._model_group
+        *hot, stripe = heads
+        width = stripe.shape[1]
+        local = (copy_to_group(hc, group) @ stripe).float()
+        col0 = self.hot_rows + self._model_index * width  # its 1st logit
+        if col0 + width > self.cfg.vocab_size:       # padding columns
+            local = local.masked_fill(
+                torch.arange(width, device=hc.device)
+                >= self.cfg.vocab_size - col0, -1e30)
+        hot = [(hc @ hp).float() for hp in hot]
+        mx = local.amax(-1)
+        if hot:
+            mx = torch.maximum(mx, hot[0].amax(-1))
+        mx = mx.detach()
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+        label = lc.clamp_min(0).long()
+        rel = label - col0
+        mine = (rel >= 0) & (rel < width)
+        # the stripe's sum of exponentials and label logit, summed at once
+        se, ll = all_reduce(torch.stack([
+            torch.exp(local - mx[..., None]).sum(-1),
+            torch.where(mine, local.gather(-1, torch.where(
+                mine, rel, 0)[..., None])[..., 0], 0.0)]), group).unbind()
+        if hot:
+            se = se + torch.exp(hot[0] - mx[..., None]).sum(-1)
+            is_hot = label < self.hot_rows
+            ll = ll + torch.where(is_hot, hot[0].gather(
+                -1, torch.where(is_hot, label, 0)[..., None])[..., 0], 0.0)
+        lse = mx + torch.log(se)
         return torch.where(lc >= 0, lse - ll, 0.0).sum()
 
     # ---------------------------------------------------------------- serve
@@ -432,7 +696,8 @@ class LMModel:
     def prefill(self, params: Dict, batch: Dict) -> torch.Tensor:
         """Full-sequence forward of ``batch["tokens"] [B, S]`` (with
         ``patches`` or ``frames`` as :meth:`train_loss`); returns the last
-        position's f32 logits ``[B, logits_size]``."""
+        position's f32 logits ``[B, logits_size]``, the padding entries
+        unmasked as in the reference."""
         x, _ = self._forward(params, batch)
         return self._logits(params, x[:, -1])
 

@@ -1,15 +1,25 @@
-"""Mixture-of-Experts FFN of the granite family on one device (counterpart
-of ``repro/models/lm/moe.py``).
+"""Mixture-of-Experts FFN of the granite family (counterpart of
+``repro/models/lm/moe.py``), on one device or with its experts over the
+``"model"`` axis of a mesh.
 
 Each token's normed activations go to its ``top_k`` experts by the router
 logits; the tokens of each expert are gathered into a bucket of
 ``capacity`` rows (stable in token order, overflow dropped), the SwiGLU
 expert FFN runs over the ``[E, C, D]`` buckets as batched products, and
-the outputs come back weighted by the softmax of the chosen logits. This
-is the reference's ``moe_apply_local`` at a model axis of one device:
-every expert is local and its ``psum`` is the identity. Expert
-parallelism over a mesh raises ``NotImplementedError`` naming ROADMAP
-queue 1 item 4.
+the outputs come back weighted by the softmax of the chosen logits.
+
+On a mesh (:func:`moe_apply_local`) the experts are padded to a multiple
+of the model axis (:func:`padded_experts`; the padding experts are masked
+out of routing) and each rank holds ``e_loc`` whole experts, as the
+paper's localized slot embedding places whole slots. The batch is split
+over the data axes only, so every rank of a model group routes the same
+tokens, each to its own experts, and one sum over ``"model"`` combines
+the parts (``strategies.all_reduce``; the tokens and gates enter each
+rank's experts through ``strategies.copy_to_group``, whose adjoint sums
+their gradients over the group). ``capacity`` comes from the rank's
+block's token count and the unpadded expert count, as in the reference:
+a mesh drops other assignments than one device. :func:`moe_apply` is the
+same body on one device, every expert local.
 
 Selection keeps the reference's tie rule: ``jax.lax.top_k`` puts the
 lower expert index first among equal logits, which ``torch.topk`` does
@@ -30,26 +40,26 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.core.embedding.strategies import all_reduce, copy_to_group
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models.lm.transformer import _normal, norm_apply, norm_init
-from repro_torch.roadmap import MULTI_DEVICE, not_ported
 
 
 def padded_experts(cfg: LMConfig, model_axis_size: int = 1) -> int:
     """The expert count padded to a multiple of the model axis; one device
     pads nothing."""
-    if model_axis_size != 1:
-        raise not_ported(f"expert parallelism over a model axis of "
-                         f"{model_axis_size}", MULTI_DEVICE)
-    return cfg.moe.num_experts
+    e = cfg.moe.num_experts
+    return (e + model_axis_size - 1) // model_axis_size * model_axis_size
 
 
-def moe_init(generator: torch.Generator, cfg: LMConfig, *,
-             stack: Tuple[int, ...] = (), device=None) -> Dict:
-    """The reference's tree and scales: ``router [D, E]`` and ``w1`` /
-    ``w3 [E, D, F]`` at ``1/sqrt(D)``, ``w2 [E, F, D]`` at ``1/sqrt(F)``,
-    and the pre-norm."""
+def moe_init(generator: torch.Generator, cfg: LMConfig,
+             model_axis_size: int = 1, *, stack: Tuple[int, ...] = (),
+             device=None) -> Dict:
+    """The reference's tree and scales at the padded expert count ``E``:
+    ``router [D, E]`` and ``w1`` / ``w3 [E, D, F]`` at ``1/sqrt(D)``, ``w2
+    [E, F, D]`` at ``1/sqrt(F)``, and the pre-norm."""
     d, f = cfg.d_model, cfg.moe.expert_d_ff
-    e = padded_experts(cfg)
+    e = padded_experts(cfg, model_axis_size)
     s, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     return {
         "router": _normal(generator, (*stack, d, e), s, device),
@@ -88,29 +98,59 @@ def _bucket(owner: torch.Tensor, n_buckets: int,
 
 
 def moe_apply(params: Dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """``x [B, S, D]`` -> ``x + moe(x)`` in ``x``'s type."""
+    """``x [B, S, D]`` -> ``x + moe(x)`` in ``x``'s type, every expert on
+    this device."""
+    return _moe(params, x, cfg, e_pad=cfg.moe.num_experts, e0=0, group=None)
+
+
+def moe_apply_local(params: Dict, x: torch.Tensor, cfg: LMConfig, *, mesh,
+                    model_axis: str = "model",
+                    model_axis_size: int) -> torch.Tensor:
+    """One rank's MoE on a mesh: ``x [B_loc, S, D]``, this rank's data
+    block (the same on every rank of its model group), and this rank's
+    experts, ``w1`` / ``w3 [E_loc, D, F]`` and ``w2 [E_loc, F, D]`` (the
+    router whole); returns ``x + moe(x)``, summed over ``model_axis``."""
+    e_loc = params["w1"].shape[0]
+    return _moe(params, x, cfg,
+                e_pad=padded_experts(cfg, model_axis_size),
+                e0=mesh.get_local_rank(model_axis) * e_loc,
+                group=meshlib.axis_group(mesh, (model_axis,)))
+
+
+def _moe(params: Dict, x: torch.Tensor, cfg: LMConfig, *, e_pad: int,
+         e0: int, group) -> torch.Tensor:
+    """The body of :func:`moe_apply_local`: routes over all ``e_pad``
+    experts, runs the local ones (``e0`` the first), and sums the parts
+    over ``group`` (None: one device, every expert local)."""
     moe = cfg.moe
     b, s, d = x.shape
-    e, k = padded_experts(cfg), moe.top_k
+    e_loc, k = params["w1"].shape[0], moe.top_k
     cd = x.dtype
     h = norm_apply(params.get("norm", {}), x, cfg)
     logits = (h @ params["router"].to(cd)).float()
+    if e_pad > moe.num_experts:                  # mask padding experts
+        logits = logits.masked_fill(
+            torch.arange(e_pad, device=x.device) >= moe.num_experts, -1e30)
     gate_vals, sel = _top_k(logits, k)                      # [B, S, k]
     gate = torch.softmax(gate_vals, dim=-1)
 
     n = b * s
     flat = h.reshape(n, d)
+    if group is not None:
+        flat, gate = copy_to_group(flat, group), copy_to_group(gate, group)
     tok_of = torch.arange(n, device=x.device).repeat_interleave(k)
     # each expert's bucket rows, computed in Python as the reference does
     capacity = max(1, int(n * k / moe.num_experts * moe.capacity_factor))
-    slot = _bucket(sel.reshape(n * k), e, capacity)         # [n*k]
-    valid = slot < e * capacity
+    rel = sel.reshape(n * k) - e0
+    owner = torch.where((rel >= 0) & (rel < e_loc), rel, e_loc)
+    slot = _bucket(owner, e_loc, capacity)                  # [n*k]
+    valid = slot < e_loc * capacity
 
-    # gather the tokens into [E, C, D]. The reference reads a zero row
-    # into each empty slot and out for each dropped assignment; here each
-    # reads a row of its own, zeroed, since one shared row makes the
-    # gathers' backward add thousands of gradients into it one by one
-    m = e * capacity
+    # gather the tokens into [E_loc, C, D]. The reference reads a zero row
+    # into each empty slot and out for each dropped or remote assignment;
+    # here each reads a row of its own, zeroed, since one shared row makes
+    # the gathers' backward add thousands of gradients into it one by one
+    m = e_loc * capacity
     buf_tok = torch.full((m + 1,), -1, dtype=torch.int64, device=x.device)
     buf_tok[slot] = tok_of                  # the drops land on entry m
     buf_tok = buf_tok[:m]
@@ -118,7 +158,7 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     buf = flat[torch.where(filled, buf_tok,
                            torch.arange(m, device=x.device) % n)] \
         * filled[:, None].to(cd)
-    buf = buf.reshape(e, capacity, d)
+    buf = buf.reshape(e_loc, capacity, d)
 
     u = F.silu(torch.matmul(buf, params["w1"].to(cd))) \
         * torch.matmul(buf, params["w3"].to(cd))
@@ -130,6 +170,8 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     contrib = y_buf[own] * (gate.reshape(n * k)
                             * valid).to(y_buf.dtype)[:, None]
     y = contrib.float().reshape(n, k, d).sum(1)
+    if group is not None:
+        y = all_reduce(y, group)
     return x + y.reshape(b, s, d).to(cd)
 
 

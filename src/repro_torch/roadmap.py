@@ -1,11 +1,11 @@
 """What the port leaves out, by the ROADMAP item that ports it.
 
 A part of the reference that the port lacks raises :func:`not_ported`
-naming its item, on the recsys and the LM side alike.
+naming its item: sequence-parallel attention (``SEQPAR``, queue 1 item 4
+(c)) is the one left.
 """
 from __future__ import annotations
 
-MULTI_DEVICE = "Multi-GPU (queue 1 item 4)"
 SEQPAR = "seqpar_attention with multi-GPU"
 
 

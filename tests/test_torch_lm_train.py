@@ -32,7 +32,9 @@ Seeded numpy inputs go through both packages:
 * (e) ``remat="full"`` gives the loss and gradients of ``"none"``; a
   policy the reference does not have raises.
 * (f) ``python -m repro_torch.launch.train --smoke --device cpu``: the loss
-  falls over 5 steps and no kernel launches.
+  falls over 5 steps and no kernel launches; ``--mode``, ``--comm``,
+  ``--grad-ar-dtype`` and ``--ckpt-dir`` are taken and ignored, as the
+  reference's LM branch does.
 
 S is a multiple of the JAX attention chunk in (c) and (d): at other S the
 reference's ``chunked_attention`` slices its last key chunk with a
@@ -409,15 +411,22 @@ def test_launcher_smoke_trains_the_moe_and_xlstm_families(arch):
     assert _build.LAUNCHES.snapshot() == {}
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x1"], "item 4"),
-    (["--mode", "manual"], "item 4"),
-    (["--comm", "all_to_all"], "item 4"),
-])
-def test_launcher_left_out_flags_raise(flags, item):
-    argv = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError, match=item):
-        launch.main(argv)
+@pytest.mark.parametrize("flags", [
+    ["--mesh", "2x1"], ["--mode", "manual"], ["--comm", "all_to_all"],
+    ["--grad-ar-dtype", "bf16"]])
+def test_launcher_left_out_flags_raise(flags):
+    """The reference's LM branch parses ``--mode``, ``--comm`` and
+    ``--grad-ar-dtype`` and reads none of them (``repro/launch/
+    train.py:37-45``, ``:89-121``): the port trains the same losses with
+    each. ``--mesh 2x1`` asks for two ranks, which one process without a
+    process group cannot give: the error names the ``torchrun`` launch."""
+    argv = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--batch", "2", "--seq", "8"]
+    if flags[0] == "--mesh":
+        with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+            launch.main([*argv, *flags])
+        return
+    assert launch.main([*argv, *flags]) == launch.main(argv)
 
 
 def test_launcher_lm_ckpt_dir_is_taken_and_ignored(tmp_path):

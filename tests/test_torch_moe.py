@@ -243,9 +243,15 @@ def test_aux_load_balance_loss_matches_jax():
 
 
 def test_expert_parallelism_raises():
-    _, pcfg = _cfgs("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        moe.padded_experts(pcfg, model_axis_size=2)
+    """The expert count padded to the model axis, as the reference pads
+    it, for both granite configs at model axes 1-4 (the MoE over a mesh
+    itself: ``tests/test_torch_lm_mesh.py``)."""
+    for arch in GRANITE:
+        jcfg, pcfg = J_ARCHS[arch], LM_ARCHS[arch]
+        for m in (1, 2, 3, 4):
+            assert moe.padded_experts(pcfg, m) == \
+                jmoe.padded_experts(jcfg, m), (arch, m)
+    assert moe.padded_experts(LM_ARCHS["granite-moe-3b-a800m"], 3) == 42
 
 
 # ---------------------------------------------------------------------------
