@@ -42,8 +42,15 @@ Phases, in order; any failure exits non-zero:
    causal [32,4096,64] at g = 1, and the cross-attention, q [32,4096,64]
    over the encoder's k/v [32,512,64]; K8 at batch 1, 16 heads) and
    pixtral-12b's (q [64,4096,128], k/v [16,4096,128]), each held and timed
-   under ``shapes`` beside ``sdpa``; K1 also at granite's and xLSTM's token
-   tables. The mesh half of the striped L1 (``sharded_gather_rows`` /
+   under ``shapes`` beside ``sdpa``; K7 and K8 with a causal query offset
+   (``q_pos0``, a shard of sequence-parallel attention) on every route
+   (bf16 at D 16, 32, 64, 96, 128 and 256, and f32) at the first shard of
+   a split, an offset every tile divides, one none does and the last
+   shard, the keys no query sees with zero ``dk`` / ``dv``, and both timed
+   under ``shapes`` at minitron-4b's last shard of a model axis of 16 (q
+   [48,256,128] at ``q_pos0`` 3840, k/v [16,4096,128]) beside ``sdpa``
+   with the explicit causal mask (its backend named); K1 also at
+   granite's and xLSTM's token tables. The mesh half of the striped L1 (``sharded_gather_rows`` /
    ``sharded_dequant_gather_rows``): 8 stripes of the 131,072-row cache
    over a cache mesh naming the card twice, each entry's K5 (K6 for int8)
    over its own stripes and one sum, bit-exact to the unstriped read and
@@ -212,6 +219,19 @@ Phases, in order; any failure exits non-zero:
    K7 / K8 launches a step equal to theirs, step p50 against theirs; then
    ``launch.train --arch granite-moe-3b-a800m --mesh 1x1`` under the same
    group (two steps). The group is torn down after it.
+8d. Sequence-parallel attention, replayed shard by shard on the card:
+   ``LMModel``'s rule picks ``"seq"`` for minitron-4b and
+   granite-moe-3b-a800m on a model axis of 16 (checked on a shape-only
+   mesh); each rank's part of ``seqpar_attention``
+   (``transformer.seqpar_shard``: its 256 query rows against the whole
+   K/V through K7 / K8 at ``q_pos0 = 256 i``) runs for i = 0..15 in turn
+   at minitron's prefill (q [2,4096,24,128], forward) and training (q
+   [1,4096,24,128], forward and backward) shapes and at granite's D 64
+   ones; the outputs concatenated against one whole-sequence K7 launch
+   (bit-equality reported, ``ATTN_TOL`` held) and the gradients (``dq``
+   concatenated, ``dk`` / ``dv`` summed over the shards in f32) against
+   one K8 call (``ref.BF16_GRAD_RULE``); the shards' launches count as the
+   path's, and the 16 shards' forward is timed beside the whole launch.
 9. LM serve: full-width ``minitron-4b`` (hybrid token embedding, random
    weights from a seed) prefills a 2 x 4096 Zipf(1.2) batch through K1 and
    K7, held against the plain path (K1 first alone, bit-exact, on both
@@ -351,7 +371,9 @@ REMAT_TOL = 1e-6
 #: bring it back under the first); the online phase's hottest ids a table
 #: that each update rewrites, update versions, and requests served before
 #: the first update; phase 6d's ETC cache rows a table, passes, the
-#: evicting run's cache rows, and the freshness loop's steps a pass
+#: evicting run's cache rows, and the freshness loop's steps a pass; the
+#: mesh phases' L1 stripes and localized vocabulary cap; phase 8d's model
+#: axis (how many sequence-parallel shards it replays)
 RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             batch=1024, warmup=4, requests=16, seed=0,
                             train_batch=4096, warm_steps=2, timed_steps=8,
@@ -377,7 +399,8 @@ RUN = types.SimpleNamespace(vocab_cap=1 << 20, cache_capacity=131072,
                             online_versions=4, online_quiet=48,
                             etc_cache_rows=131072, etc_passes=2,
                             etc_evict_rows=8192, etc_online_steps=4,
-                            mesh_stripes=8, loc_vocab=1 << 16)
+                            mesh_stripes=8, loc_vocab=1 << 16,
+                            seq_shards=16)
 #: manual mode's bf16 gradient all-reduce against phase 4's f32 run (the
 #: reference's bar, ``tests/test_mp_train.py:65-85``)
 MANUAL_TOL = 5e-3
@@ -1374,15 +1397,20 @@ def randn_heads(g, dev, heads, s: int, d: int, dtype) -> list:
 
 
 def flash_bwd_inputs(g, dev, bh: int, bkv: int, s: int, d: int, dtype,
-                     window=None, causal=True, sk=None) -> tuple:
+                     window=None, causal=True, sk=None,
+                     q_pos0: int = 0) -> tuple:
     """K8's inputs: random ``q, k, v, do`` and K7's own ``o`` and ``lse``
-    for them (causal unless told otherwise; ``k``, ``v`` over ``sk`` keys,
-    ``s`` if not given) -> ``(q, k, v, o, lse, do)``."""
+    for them (causal unless told otherwise, queries from position
+    ``q_pos0``; ``k``, ``v`` over ``sk`` keys, ``s`` if not given) ->
+    ``(q, k, v, o, lse, do)``."""
     from repro_torch.kernels import flash_attention as k78
     q, k, v, do = (randn_heads(g, dev, (n,), t, d, dtype)[0]
                    for n, t in ((bh, s), (bkv, sk or s), (bkv, sk or s),
                                 (bh, s)))
-    o, lse = k78.flash_fwd(q, k, v, causal=causal, window=window)
+    # no offset, no argument: tools/kernel_times.py builds these inputs
+    # for checkouts whose kernels predate the offset too
+    shard = {"q_pos0": q_pos0} if q_pos0 else {}
+    o, lse = k78.flash_fwd(q, k, v, causal=causal, window=window, **shard)
     return q, k, v, o, lse, do
 
 
@@ -1438,10 +1466,66 @@ def encdec_attn_shapes(args, b: int) -> list:
              px.resolved_head_dim, True)]
 
 
-def attn_pairs(sq: int, sk: int, causal: bool) -> int:
-    """(query, key) pairs a head computes: the causal triangle, or every
-    pair of a non-causal (cross-)attention."""
-    return sq * (sq + 1) // 2 if causal else sq * sk
+def attn_pairs(sq: int, sk: int, causal: bool, q_pos0: int = 0) -> int:
+    """(query, key) pairs a head computes: the causal triangle (for queries
+    at positions ``q_pos0 ...``: ``n p + n (n + 1) / 2`` over ``n``
+    queries at offset ``p``), or every pair of a non-causal
+    (cross-)attention."""
+    if not causal:
+        return sq * sk
+    return sq * q_pos0 + sq * (sq + 1) // 2
+
+
+#: K7 / K8 with a causal query offset, on every route: ``(label, D,
+#: dtype)``, each at every ``(Sq, Sk, q_pos0)`` of :data:`OFFSET_CASES`
+#: with 6 query heads over 2 KV heads (at D 256 the dk/dv grid splits the
+#: group 3 ways)
+OFFSET_ROUTES = (("D 16", 16, "bf16"), ("D 32", 32, "bf16"),
+                 ("D 64", 64, "bf16"), ("D 96", 96, "bf16"),
+                 ("D 128", 128, "bf16"), ("D 256", 256, "bf16"),
+                 ("f32 D 64", 64, "f32"))
+#: the first shard of a split (offset 0 over more keys than queries), an
+#: offset every query and key tile divides, one none does (37 queries at
+#: 100) and the last shard
+OFFSET_CASES = ((100, 700, 0), (100, 700, 384), (37, 700, 100),
+                (100, 700, 600))
+
+
+def shard_shape(args) -> tuple:
+    """``(n, p)``: the queries of the last of ``args.seq_shards``
+    sequence-parallel shards of ``args.attn_seq`` positions and its query
+    offset."""
+    n = args.attn_seq // args.seq_shards
+    return n, args.attn_seq - n
+
+
+def causal_mask(n: int, sk: int, q_pos0: int, dev):
+    """``[n, sk]`` bool, True where query row ``i`` (at position ``q_pos0
+    + i``) attends key ``j``: K7's causal mask with a query offset, as
+    ``sdpa`` takes it (its ``is_causal`` aligns the diagonal top-left when
+    the lengths differ, another function)."""
+    import torch
+    i = torch.arange(n, device=dev)
+    j = torch.arange(sk, device=dev)
+    return j[None, :] <= q_pos0 + i[:, None]
+
+
+def sdpa_backend(fn) -> str:
+    """The device kernels one call of ``fn`` (an ``sdpa`` call) launches,
+    by name, from ``torch.profiler``: which backend ``sdpa`` took; "not
+    measured" if the profiler records no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    if not names:
+        return "not measured"
+    return ", ".join(n[:60] for n in names[:6])
 
 
 def attention_kernel(args, record, shape_line, g, dev):
@@ -1456,7 +1540,12 @@ def attention_kernel(args, record, shape_line, g, dev):
     encoder-decoder's and the vision prefix's prefill shapes
     (:func:`encdec_attn_shapes`: seamless's encoder, decoder and
     cross-attention, whose keys are the encoder's 512, and pixtral's),
-    each timed under ``shapes`` with ``sdpa`` as the yardstick."""
+    each timed under ``shapes`` with ``sdpa`` as the yardstick; (f) a
+    causal query offset on every route (:data:`OFFSET_ROUTES` x
+    :data:`OFFSET_CASES`), then minitron-4b's last sequence-parallel shard
+    (:func:`shard_shape`) timed under ``shapes`` with ``sdpa`` and the
+    explicit causal mask as the yardstick (the kernels it launches
+    printed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k7
@@ -1465,12 +1554,15 @@ def attention_kernel(args, record, shape_line, g, dev):
     def qkv(bh, bkv, s, d, dtype):
         return randn_heads(g, dev, (bh, bkv, bkv), s, d, dtype)
 
-    def held(case, q, k, v, dtype, window=None, causal=True):
-        o, lse = k7.flash_fwd(q, k, v, causal=causal, window=window)
-        o2, lse2 = k7.flash_fwd(q, k, v, causal=causal, window=window)
+    def held(case, q, k, v, dtype, window=None, causal=True, q_pos0=0):
+        o, lse = k7.flash_fwd(q, k, v, causal=causal, window=window,
+                              q_pos0=q_pos0)
+        o2, lse2 = k7.flash_fwd(q, k, v, causal=causal, window=window,
+                                q_pos0=q_pos0)
         check(torch.equal(o, o2) and torch.equal(lse, lse2),
               f"flash_fwd {case}: two launches differ")
-        po, plse = flash_attention_ref(q, k, v, causal=causal, window=window)
+        po, plse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_pos0=q_pos0)
         err_o = (o.float() - po.float()).abs().max().item()
         err_l = (lse - plse).abs().max().item()
         tol_o, tol_l = ATTN_TOL[dtype]
@@ -1478,7 +1570,8 @@ def attention_kernel(args, record, shape_line, g, dev):
               f"flash_fwd {case}: max abs err o {err_o}, lse {err_l} (bounds "
               f"{tol_o}, {tol_l})")
         print(f"flash_fwd {case}: q {list(q.shape)} k/v {list(k.shape)} "
-              f"{dtype}, causal {causal}, window {window}: max abs err o "
+              f"{dtype}, causal {causal}, window {window}"
+              + (f", q_pos0 {q_pos0}" if q_pos0 else "") + ": max abs err o "
               f"{err_o:.3g} (bound "
               f"{tol_o}), lse {err_l:.3g} (bound {tol_l}); two launches "
               "bit-identical")
@@ -1555,6 +1648,43 @@ def attention_kernel(args, record, shape_line, g, dev):
 
     for shape in encdec_attn_shapes(args, b):
         prefill_shape(*shape)
+    # (f) a causal query offset (a shard of sequence-parallel attention) on
+    # every route, then timed at minitron-4b's last shard of a model axis
+    # of 16: q [48, 256, 128] at q_pos0 3840 over k/v [16, 4096, 128]
+    for label, d, dt in OFFSET_ROUTES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        for sq, sk, p in OFFSET_CASES:
+            q, = randn_heads(g, dev, (6,), sq, d, dtype)
+            k, v = randn_heads(g, dev, (2, 2), sk, d, dtype)
+            held(f"(f) {label} offset", q, k, v, dt, q_pos0=p)
+    hq, hkv, d = lm_attn_shape(args)
+    n, p = shard_shape(args)
+    q, = randn_heads(g, dev, (b * hq,), n, d, torch.bfloat16)
+    k, v = randn_heads(g, dev, (b * hkv, b * hkv), s, d, torch.bfloat16)
+    o, po = held("(f) minitron-4b's last seq shard", q, k, v, "bf16",
+                 q_pos0=p)
+    err = (o.float() - po.float()).abs().max().item()
+    q4, k4, v4 = (t.view(b, -1, t.shape[1], d) for t in (q, k, v))
+    mask = causal_mask(n, s, p, dev)
+
+    def sdpa_shard():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              enable_gqa=True)
+
+    print(f"flash_fwd (f) yardstick: sdpa with the explicit causal mask "
+          f"[{n},{s}] took {sdpa_backend(sdpa_shard)}")
+    shape_line("flash_fwd", f"{args.lm_arch} last seq shard of "
+               f"{args.seq_shards}: q [{b * hq},{n},{d}] at q_pos0 {p}, k/v "
+               f"[{b * hkv},{s},{d}] bf16, causal ({attn_pairs(n, s, True, p)}"
+               " query-key pairs a head); library: sdpa with the explicit "
+               "causal mask",
+               lambda: k7.flash_fwd(q, k, v, causal=True, q_pos0=p),
+               lambda: flash_attention_ref(q, k, v, causal=True, q_pos0=p),
+               sdpa_shard,
+               2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * hq * n,
+               4 * b * hq * d * attn_pairs(n, s, True, p), reps=5, err=err,
+               flops_per_s=BF16_TC_FLOPS, iters=10)
+    del q, k, v, o, po, q4, k4, v4
     # (a) minitron-4b prefill: B 2, Hq 24, Hkv 8, D 128, S 4096, causal
     hq, hkv, d = lm_attn_shape(args)
     q, k, v = qkv(b * hq, b * hkv, s, d, torch.bfloat16)
@@ -1584,7 +1714,11 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
     and K7's two D 64 edges at ``attn_edge_seq``, (e) the
     encoder-decoder's and the vision prefix's training shapes
     (:func:`encdec_attn_shapes` at batch 1: the cross-attention's dk and
-    dv are the encoder's 512 keys), timed under ``shapes`` as (d)."""
+    dv are the encoder's 512 keys), timed under ``shapes`` as (d); (f) a
+    causal query offset on every route as K7's, the ``dk`` / ``dv`` of the
+    keys no query sees 0, then minitron-4b's last sequence-parallel shard
+    timed under ``shapes`` with ``sdpa``'s backward under the explicit
+    causal mask as the yardstick."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k78
@@ -1592,18 +1726,27 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
                                          flash_attention_bwd_ref,
                                          grad_row_error)
 
-    def inputs(bh, bkv, s, d, dtype, window=None, causal=True, sk=None):
+    def inputs(bh, bkv, s, d, dtype, window=None, causal=True, sk=None,
+               q_pos0=0):
         return flash_bwd_inputs(g, dev, bh, bkv, s, d, dtype, window, causal,
-                                sk)
+                                sk, q_pos0)
 
-    def held(case, ins, dtype, window=None, causal=True):
-        got = k78.flash_bwd(*ins, causal=causal, window=window)
-        again = k78.flash_bwd(*ins, causal=causal, window=window)
-        want = flash_attention_bwd_ref(*ins, causal=causal, window=window)
+    def held(case, ins, dtype, window=None, causal=True, q_pos0=0):
+        got = k78.flash_bwd(*ins, causal=causal, window=window,
+                            q_pos0=q_pos0)
+        again = k78.flash_bwd(*ins, causal=causal, window=window,
+                              q_pos0=q_pos0)
+        want = flash_attention_bwd_ref(*ins, causal=causal, window=window,
+                                       q_pos0=q_pos0)
         errs = []
+        seen = q_pos0 + ins[0].shape[1]        # keys past it: no query
         for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
             check(torch.equal(x, y), f"flash_bwd {case} {name}: two "
                   "launches differ")
+            if name != "dq" and causal:
+                check(not x[:, seen:].any(), f"flash_bwd {case} {name}: "
+                      f"the keys from {seen} on, which no query sees, are "
+                      "not 0")
             top = w.float().abs().max().item()
             err = (x.float() - w.float()).abs().max().item()
             if dtype == "f32":
@@ -1625,8 +1768,11 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
                         f"of its limit")
         q, k = ins[0], ins[1]
         print(f"flash_bwd {case}: q/o/do {list(q.shape)} k/v "
-              f"{list(k.shape)} {dtype}, causal {causal}, window {window}: "
-              "max abs err "
+              f"{list(k.shape)} {dtype}, causal {causal}, window {window}"
+              + (f", q_pos0 {q_pos0}" if q_pos0 else "")
+              + (f" (dk/dv of keys {seen}+ all 0)"
+                 if seen < k.shape[1] and causal else "")
+              + ": max abs err "
               + ", ".join(errs) + "; two launches bit-identical")
         return (torch.cat([x.float().flatten() for x in got]),
                 torch.cat([x.float().flatten() for x in want]))
@@ -1726,6 +1872,47 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
 
     for shape in encdec_attn_shapes(args, args.lm_train_batch):
         training_shape(*shape)
+    # (f) a causal query offset on every route, as K7's, then timed at
+    # minitron-4b's last shard of a model axis of 16 (K7's shape)
+    for label, d, dt in OFFSET_ROUTES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        for sq, sk, p in OFFSET_CASES:
+            held(f"(f) {label} offset", inputs(6, 2, sq, d, dtype, sk=sk,
+                                              q_pos0=p), dt, q_pos0=p)
+    (hq, hkv, d), s = lm_attn_shape(args), args.attn_seq
+    n, p = shard_shape(args)
+    b = args.lm_batch
+    ins = inputs(b * hq, b * hkv, n, d, torch.bfloat16, sk=s, q_pos0=p)
+    got, want = held("(f) minitron-4b's last seq shard", ins, "bf16",
+                     q_pos0=p)
+    err = (got - want).abs().max().item()
+    del got, want
+    q, k, v, o, lse, do = ins
+    q4, k4, v4 = (t.detach().view(b, -1, t.shape[1], d).requires_grad_()
+                  for t in (q, k, v))
+    do4, mask = do.view(b, hq, n, d), causal_mask(n, s, p, dev)
+
+    def sdpa_f():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              enable_gqa=True)
+
+    print("flash_bwd (f) yardstick: sdpa with the explicit causal mask, "
+          "forward + backward, took " + sdpa_backend(
+              lambda: torch.autograd.grad(sdpa_f(), (q4, k4, v4), do4)))
+    shape_line("flash_bwd", f"{args.lm_arch} last seq shard of "
+               f"{args.seq_shards}: q/o/do [{b * hq},{n},{d}] at q_pos0 {p}, "
+               f"k/v [{b * hkv},{s},{d}] bf16, causal "
+               f"({attn_pairs(n, s, True, p)} query-key pairs a head); "
+               "library: sdpa with the explicit causal mask, forward + "
+               "backward minus forward",
+               lambda: k78.flash_bwd(*ins, causal=True, q_pos0=p),
+               lambda: flash_attention_bwd_ref(*ins, causal=True, q_pos0=p),
+               lambda: torch.autograd.grad(sdpa_f(), (q4, k4, v4), do4),
+               2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+               5 * 2 * b * hq * d * attn_pairs(n, s, True, p), reps=5,
+               err=err, flops_per_s=BF16_TC_FLOPS, lib_minus=sdpa_f,
+               iters=10)
+    del ins, q, k, v, o, lse, do, q4, k4, v4
     # (a) minitron-4b training: B 1, Hq 24, Hkv 8, D 128, S 4096, causal
     (hq, hkv, d), s = lm_attn_shape(args), args.attn_seq
     ins = inputs(hq, hkv, s, d, torch.bfloat16)
@@ -4840,6 +5027,135 @@ def lm_mesh_phase(args, dev, total):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 8d. sequence-parallel attention, replayed shard by shard
+# ---------------------------------------------------------------------------
+
+def seq_rule_mesh(model: int):
+    """What ``LMModel`` reads of a mesh to pick its attention partition, for
+    a ``(1, model)`` mesh this run has no ranks for: its axes, shape and
+    device type."""
+    import torch
+    return types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 mesh=torch.zeros((1, model)),
+                                 device_type="cuda")
+
+
+def seqpar_replay(args, dev, g, label, b, hq, hkv, d, backward) -> dict:
+    """Each rank's part of ``seqpar_attention`` over a model axis of
+    ``args.seq_shards`` (``transformer.seqpar_shard``: rank ``i``'s query
+    rows against the whole K/V, K7 / K8 at ``q_pos0`` its first row), for
+    every ``i`` in turn at q ``[b, S, hq, d]``, k/v ``[b, S, hkv, d]``
+    bf16 (with ``backward``, each shard's gradient too, from random
+    ``do``), against the whole sequence's one K7 launch (and K8 call).
+    Returns the shards' launches; prints the errors and the shards' and the
+    whole launch's times."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.kernels.ref import BF16_GRAD_RULE, grad_row_error
+    from repro_torch.models.lm import transformer as tf
+    s, m = args.attn_seq, args.seq_shards
+    n = s // m
+    q = torch.randn((b, s, hq, d), generator=g).to(torch.bfloat16).to(dev)
+    k, v = (torch.randn((b, s, hkv, d), generator=g).to(torch.bfloat16)
+            .to(dev) for _ in range(2))
+    do = torch.randn((b, s, hq, d), generator=g).to(torch.bfloat16).to(dev)
+    rows = [slice(i * n, (i + 1) * n) for i in range(m)]
+    with torch.no_grad():
+        shards_ms = time_ms(lambda: [tf.seqpar_shard(q[:, r], k, v, i, n)
+                                     for i, r in enumerate(rows)], 5)
+        whole_ms = time_ms(lambda: ops.flash_attention(q, k, v, True), 5)
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    outs, dq = [], []
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for i, r in enumerate(rows):
+        qi, ki, vi = (t.detach().requires_grad_(backward)
+                      for t in (q[:, r], k, v))
+        o = tf.seqpar_shard(qi, ki, vi, i, n)
+        if backward:
+            o.backward(do[:, r])
+            dq.append(qi.grad)
+            dk += ki.grad.float()
+            dv += vi.grad.float()
+        outs.append(o.detach())
+    torch.cuda.synchronize()
+    launches = LAUNCHES.snapshot()
+    qw, kw, vw = (t.detach().requires_grad_(backward) for t in (q, k, v))
+    whole = ops.flash_attention(qw, kw, vw, True)
+    got = torch.cat(outs, 1)
+    equal = torch.equal(got, whole.detach())
+    err = (got.float() - whole.detach().float()).abs().max().item()
+    tol_o = ATTN_TOL["bf16"][0]
+    check(err <= tol_o, f"seqpar {label}: the shards' outputs {err} from "
+          f"the whole launch's (bound {tol_o})")
+    line = (f"o {'bit-equal' if equal else f'max abs err {err:.3g}'} "
+            f"(bound {tol_o})")
+    if backward:
+        whole.backward(do)
+        for name, x, w in (("dq", torch.cat(dq, 1), qw.grad),
+                           ("dk", dk, kw.grad), ("dv", dv, vw.grad)):
+            peak, rel, worst = grad_row_error(x, w)
+            check(peak <= BF16_GRAD_RULE["peak"] and
+                  rel <= BF16_GRAD_RULE["whole"] and worst <= 1.0,
+                  f"seqpar {label} {name}: peak {peak}, relative L2 {rel}, "
+                  f"worst row {worst} of its limit (BF16_GRAD_RULE)")
+            exact = torch.equal(x.to(w.dtype), w)
+            line += (f"; {name} " + ("bit-equal" if exact else
+                     f"peak {peak:.3g}, relative L2 {rel:.3g}, worst row "
+                     f"{worst:.3g} of its limit"))
+        line += (" (dk / dv: the shards' bf16 parts summed in f32 against "
+                 "K8's one sum; BF16_GRAD_RULE)")
+    print(f"seqpar {label}: q [{b},{s},{hq},{d}] k/v [{b},{s},{hkv},{d}] "
+          f"bf16 over a model axis of {m} ({n} queries a shard, q_pos0 0 .. "
+          f"{s - n}), {'forward and backward' if backward else 'forward'}: "
+          f"{line}; launches {launches}; the {m} shards' forward "
+          f"{shards_ms:.4f} ms against the whole launch's {whole_ms:.4f} ms "
+          "(CUDA events)")
+    return launches
+
+
+def seqpar_phase(args, dev, total):
+    """Phase 8d: the ``"seq"`` partition's attention on one card, each
+    rank's part replayed in turn (:func:`seqpar_replay`) at minitron-4b's
+    prefill and training shapes (D 128) and granite-moe-3b-a800m's (D 64),
+    after checking that ``LMModel``'s rule picks ``"seq"`` for both on a
+    model axis of ``args.seq_shards``. Adds the shards' launches to
+    ``total``."""
+    import torch
+    from repro_torch.configs.registry import get_lm_config
+    from repro_torch.models.lm.backbone import LMModel
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(args.seed + 32)
+    seen = {}
+    for arch in (args.lm_arch, args.granite_arch):
+        cfg = get_lm_config(arch)
+        part = LMModel(cfg, seq_rule_mesh(args.seq_shards), device=dev,
+                       remat="none").attn_partition
+        check(part == "seq", f"seqpar: {arch}'s rule picks {part!r} on a "
+              f"model axis of {args.seq_shards}, not 'seq'")
+        for label, b, backward in (("prefill", args.lm_batch, False),
+                                   ("training", args.lm_train_batch, True)):
+            got = seqpar_replay(args, dev, g, f"{arch} {label}", b,
+                                cfg.num_heads, cfg.num_kv_heads,
+                                cfg.resolved_head_dim, backward)
+            for k, n in got.items():
+                seen[k] = seen.get(k, 0) + n
+                total[k] = total.get(k, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
+    check(seen.get("flash_fwd", 0) > 0 and seen.get("flash_bwd", 0) > 0,
+          f"seqpar: the shards launched {seen}, not K7 and K8")
+    print(f"seqpar phase on {smi}: {time.perf_counter() - t0:.1f} s "
+          f"(launches {seen})")
+
+
 def recsys_phases(args, dev):
     """Phases 4-6 (DLRM, its vocabulary capped: train, deploy, serve
     through submit with f32 and int8 L1), 6b (its online path), DCN
@@ -5017,6 +5333,11 @@ def main() -> int:
     # 8c. the LM on the mesh: granite and the depth-5 recurrentgemma against
     # their one-device steps of phases 15 and 14, then the launcher
     lm_mesh_phase(args, dev, total)
+
+    # 8d. sequence-parallel attention, each rank's part replayed in turn
+    seqpar_phase(args, dev, total)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 16. xlstm-125m at full width and depth on a shorter sequence: serve,
     # a gradient against the plain path, train

@@ -97,7 +97,8 @@ __global__ void __launch_bounds__(kThreads)
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ o,
                          float* __restrict__ lse, int s, int sk,
-                         int group, int causal, int window, float scale) {
+                         int group, int causal, int window, int qp,
+                         float scale) {
   using T = MmaTile<D>;
   constexpr int kNt = D / 8;                // output n-tiles of 8 columns
   constexpr int kStride = T::kStride;
@@ -127,7 +128,8 @@ __global__ void __launch_bounds__(kThreads)
   float l_run[2] = {0.f, 0.f};    // this thread's columns only; summed over
                                   // the quad at the end
   int t0, t1;
-  key_tiles(q0, min(q0 + T::kBq, s), sk, T::kBk, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + T::kBq, s), sk, T::kBk, causal, window, qp, &t0,
+            &t1);
   for (int kt = t0; kt < t1; ++kt) {
     const int k0 = kt * T::kBk;
     __syncthreads();                        // the last tile's readers are done
@@ -148,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + (e >> 1) * 8;
         const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const float val = visible(row, key, sk, causal, window)
+        const float val = visible(row + qp, key, sk, causal, window)
                               ? sc[j][e] * scale
                               : kMasked;
         sc[j][e] = val;
@@ -230,7 +232,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int s, int sk, int group,
-                         int causal, int window, float scale) {
+                         int causal, int window, int qp, float scale) {
   constexpr int kRows = kF32Bq / (kThreads / 32);
   constexpr int kPer = (D + 31) / 32;       // output columns a lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -260,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kPer; ++c) acc[i][c] = 0.f;
   }
   int t0, t1;
-  key_tiles(q0, min(q0 + kF32Bq, s), sk, kF32Bk, causal, window, &t0,
+  key_tiles(q0, min(q0 + kF32Bq, s), sk, kF32Bk, causal, window, qp, &t0,
             &t1);
   for (int kt = t0; kt < t1; ++kt) {
     const int k0 = kt * kF32Bk;
@@ -287,7 +289,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = 0; d < D; ++d) {
         dot = fmaf(qs[qr * D + d], ks[lane * (D + 1) + d], dot);
       }
-      const bool vis = visible(row, key, sk, causal, window);
+      const bool vis = visible(row + qp, key, sk, causal, window);
       const float sv = vis ? dot * scale : kMasked;
       float mx = sv;
 #pragma unroll
@@ -362,7 +364,7 @@ __global__ void __launch_bounds__(kThreadsWg, 3)
                            const __grid_constant__ CUtensorMap tv,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int s, int sk,
-                           int group, int causal, int window,
+                           int group, int causal, int window, int qp,
                            float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = aligned_smem(smem_raw);            // K, V a stage
@@ -379,7 +381,8 @@ __global__ void __launch_bounds__(kThreadsWg, 3)
   const int bh = blockIdx.x;
   const int hk = bh / group;
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, qp, &t0,
+            &t1);
   const int items = t1 - t0;
 
   auto issue = [&](int i) {                // key tile t0 + i into its stage
@@ -417,17 +420,17 @@ __global__ void __launch_bounds__(kThreadsWg, 3)
     }
   }
 
-  // the keys [lo, hi] each of this thread's two rows sees (visible()), and
-  // the keys [wlo, whi] every row of the tile sees: a key tile inside the
-  // latter needs no mask
+  // the keys [lo, hi] each of this thread's two rows sees (visible(), at
+  // the rows' positions), and the keys [wlo, whi] every row of the tile
+  // sees: a key tile inside the latter needs no mask
   int lo[2], hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    hi[r] = causal ? min(qrow + 8 * r, sk - 1) : sk - 1;
-    lo[r] = window > 0 ? qrow + 8 * r - window + 1 : 0;
+    hi[r] = causal ? min(qrow + qp + 8 * r, sk - 1) : sk - 1;
+    lo[r] = window > 0 ? qrow + qp + 8 * r - window + 1 : 0;
   }
-  const int whi = causal ? min(q0, sk - 1) : sk - 1;
-  const int wlo = window > 0 ? q0 + kTile - window : 0;
+  const int whi = causal ? min(q0 + qp, sk - 1) : sk - 1;
+  const int wlo = window > 0 ? q0 + qp + kTile - window : 0;
 
   float acc[64];
 #pragma unroll
@@ -530,7 +533,7 @@ __global__ void __launch_bounds__(kThreadsWg, 3)
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            long long bh, int group, int s, int sk, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int qp, float scale, cudaStream_t stream) {
   CUtensorMap tk, tv;
   int rc = hopper::tensor_map_bf16(&tk, k, kD, sk, bh / group, kTile);
   if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, sk, bh / group, kTile);
@@ -540,7 +543,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   flash_fwd_wgmma_kernel<<<grid, kThreadsWg, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), tk, tv,
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, sk,
-      group, causal, window, scale * kLog2e);
+      group, causal, window, qp, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -588,7 +591,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
                               __nv_bfloat16* __restrict__ o,
                               float* __restrict__ lse, int s, int sk,
                               int group, int pairs, int causal, int window,
-                              float scale_log2) {
+                              int qp, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = aligned_shared(smem_raw);     // a Q tile a warpgroup
   unsigned char* ring = qs + 2 * kTileBytes;        // K, V a stage
@@ -607,7 +610,8 @@ __global__ void __launch_bounds__(kThreads256, 1)
   const int h0 = 2 * (static_cast<int>(blockIdx.x) % pairs);
   const int nheads = min(2, group - h0);
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, qp, &t0,
+            &t1);
   const int items = t1 - t0;
 
   if (tid == 0) {
@@ -651,11 +655,11 @@ __global__ void __launch_bounds__(kThreads256, 1)
   int lo[2], hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    hi[r] = causal ? min(qrow + 8 * r, sk - 1) : sk - 1;
-    lo[r] = window > 0 ? qrow + 8 * r - window + 1 : 0;
+    hi[r] = causal ? min(qrow + qp + 8 * r, sk - 1) : sk - 1;
+    lo[r] = window > 0 ? qrow + qp + 8 * r - window + 1 : 0;
   }
-  const int whi = causal ? min(q0, sk - 1) : sk - 1;
-  const int wlo = window > 0 ? q0 + kTile - window : 0;
+  const int whi = causal ? min(q0 + qp, sk - 1) : sk - 1;
+  const int wlo = window > 0 ? q0 + qp + kTile - window : 0;
 
   float acc[128];
 #pragma unroll
@@ -752,7 +756,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            long long bh, int group, int s, int sk, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int qp, float scale, cudaStream_t stream) {
   const long long bkv = bh / group;
   const int pairs = (group + 1) / 2;
   CUtensorMap tq, tk, tv;
@@ -764,7 +768,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const dim3 grid(static_cast<unsigned>(bkv * pairs), (s + kTile - 1) / kTile);
   flash_fwd_wgmma256_kernel<<<grid, kThreads256, kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      s, sk, group, pairs, causal, window, scale * kLog2e);
+      s, sk, group, pairs, causal, window, qp, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -823,7 +827,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ o,
                              float* __restrict__ lse, int s, int sk,
-                             int group, int causal, int window,
+                             int group, int causal, int window, int qp,
                              float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = aligned_shared(smem_raw);     // Q a warpgroup
@@ -841,7 +845,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kBq;
   const int bh = blockIdx.x;
   int t0, t1;
-  key_tiles(q0, min(q0 + kBq, s), sk, kBk, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kBq, s), sk, kBk, causal, window, qp, &t0, &t1);
   const int items = t1 - t0;
 
   if (tid == 0) {
@@ -889,23 +893,24 @@ __global__ void __launch_bounds__(kThreads64, 1)
   int a = 0, b = 0;
   if (qw0 < s) {
     int w0, w1;
-    key_tiles(qw0, min(qw0 + 64, s), sk, kBk, causal, window, &w0, &w1);
+    key_tiles(qw0, min(qw0 + 64, s), sk, kBk, causal, window, qp, &w0,
+              &w1);
     a = w0 - t0;
     b = w1 - t0;
   }
   const unsigned char* qt = qs + wgi * kQBytes;
   hopper::mbar_wait(q_bar, 0);
-  // the keys [lo, hi] each of this thread's two rows sees (visible()), and
-  // the keys [wlo, whi] every row of the warpgroup sees: a key tile inside
-  // the latter needs no mask
+  // the keys [lo, hi] each of this thread's two rows sees (visible(), at
+  // the rows' positions), and the keys [wlo, whi] every row of the
+  // warpgroup sees: a key tile inside the latter needs no mask
   int lo[2], hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    hi[r] = causal ? min(qrow + 8 * r, sk - 1) : sk - 1;
-    lo[r] = window > 0 ? qrow + 8 * r - window + 1 : 0;
+    hi[r] = causal ? min(qrow + qp + 8 * r, sk - 1) : sk - 1;
+    lo[r] = window > 0 ? qrow + qp + 8 * r - window + 1 : 0;
   }
-  const int whi = causal ? min(qw0, sk - 1) : sk - 1;
-  const int wlo = window > 0 ? qw0 + 64 - window : 0;
+  const int whi = causal ? min(qw0 + qp, sk - 1) : sk - 1;
+  const int wlo = window > 0 ? qw0 + qp + 64 - window : 0;
 
   float sc[64];           // S of the newest tile, then its f32 p
   uint32_t pa[8][4];      // p of the tile before, the PV product's A
@@ -1037,7 +1042,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            long long bh, int group, int s, int sk, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int qp, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int rc = hopper::tensor_map_bf16(&tq, q, kD, s, bh, 64);
   if (rc == 0) rc = hopper::tensor_map_bf16(&tk, k, kD, sk, bh / group, kBk);
@@ -1048,7 +1053,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   flash_fwd_wgmma64_kernel<<<grid, kThreads64, kSmem, stream>>>(
       tq, tk, tv,
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, sk,
-      group, causal, window, scale * kLog2e);
+      group, causal, window, qp, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1057,7 +1062,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                void* lse, long long bh, int group, int s, int sk,
-               int causal, int window, float scale, cudaStream_t stream) {
+               int causal, int window, int qp, float scale,
+               cudaStream_t stream) {
   using T = MmaTile<D>;
   const int rc = set_smem(flash_fwd_mma_kernel<D>, T::kSmem);
   if (rc != 0) return rc;
@@ -1066,14 +1072,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), s, sk, group, causal, window, scale);
+      static_cast<float*>(lse), s, sk, group, causal, window, qp, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, long long bh, int group, int s, int sk,
-               int causal, int window, float scale, cudaStream_t stream) {
+               int causal, int window, int qp, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = f32_smem<D>();
   const int rc = set_smem(flash_fwd_f32_kernel<D>, smem);
   if (rc != 0) return rc;
@@ -1081,32 +1088,32 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), s, sk, group, causal, window, scale);
+      static_cast<float*>(lse), s, sk, group, causal, window, qp, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            void* lse, long long bh, int group, int s, int sk, int causal,
-           int window, float scale, cudaStream_t stream) {
+           int window, int qp, float scale, cudaStream_t stream) {
   if (dtype == 2) {
     if constexpr (D == wg::kD) {
       return wg::launch(q, k, v, o, lse, bh, group, s, sk, causal, window,
-                        scale, stream);
+                        qp, scale, stream);
     } else if constexpr (D == wg256::kD) {
       return wg256::launch(q, k, v, o, lse, bh, group, s, sk, causal, window,
-                           scale, stream);
+                           qp, scale, stream);
     } else if constexpr (D == wg64::kD) {
       return wg64::launch(q, k, v, o, lse, bh, group, s, sk, causal, window,
-                          scale, stream);
+                          qp, scale, stream);
     } else {
       return launch_mma<D>(q, k, v, o, lse, bh, group, s, sk, causal, window,
-                           scale, stream);
+                           qp, scale, stream);
     }
   }
   if (dtype == 0) {
     return launch_f32<D>(q, k, v, o, lse, bh, group, s, sk, causal, window,
-                         scale, stream);
+                         qp, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1116,15 +1123,18 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // q, o [bh, s, d]; k, v [bkv, sk, d]; lse [bh, s] f32; all contiguous.
 // dtype: 0 = float32, 2 = bfloat16 (q, k, v and o share it). window <= 0:
 // no window. d in {16, 32, 64, 96, 128, 256}. sk, the key length, is s
-// for self-attention; a cross-attention's sk of its own takes neither a
-// causal mask nor a window (no positions align across the two lengths).
+// for self-attention. q_pos0 >= 0, the causal query offset: query row i
+// sits at position q_pos0 + i, so key j is visible from it when j <=
+// q_pos0 + i (a shard of a sequence-parallel split); see offset_ok for
+// the calls it allows.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int dtype, long long bh,
                                long long bkv, int s, int sk, int d,
-                               int causal, int window, void* stream) {
+                               int causal, int window, int q_pos0,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bkv <= 0 || bh % bkv != 0 || bh > 65535 || sk <= 0 ||
-      (sk != s && (causal || window > 0))) {
+      !offset_ok(s, sk, causal, window, q_pos0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bh == 0 || s == 0) return static_cast<int>(cudaGetLastError());
@@ -1132,17 +1142,17 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   switch (d) {
     case 16: return launch<16>(dtype, q, k, v, o, lse, bh, group, s, sk,
-                               causal, window, scale, st);
+                               causal, window, q_pos0, scale, st);
     case 32: return launch<32>(dtype, q, k, v, o, lse, bh, group, s, sk,
-                               causal, window, scale, st);
+                               causal, window, q_pos0, scale, st);
     case 64: return launch<64>(dtype, q, k, v, o, lse, bh, group, s, sk,
-                               causal, window, scale, st);
+                               causal, window, q_pos0, scale, st);
     case 96: return launch<96>(dtype, q, k, v, o, lse, bh, group, s, sk,
-                               causal, window, scale, st);
+                               causal, window, q_pos0, scale, st);
     case 128: return launch<128>(dtype, q, k, v, o, lse, bh, group, s, sk,
-                                 causal, window, scale, st);
+                                 causal, window, q_pos0, scale, st);
     case 256: return launch<256>(dtype, q, k, v, o, lse, bh, group, s, sk,
-                                 causal, window, scale, st);
+                                 causal, window, q_pos0, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

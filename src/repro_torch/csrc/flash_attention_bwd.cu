@@ -132,19 +132,22 @@
 
 namespace {
 
-// a (query, key) pair inside the s queries, the sk keys and the band; the
-// forward never writes rows past s, so a padded query must not reach dk or dv
+// a (query row, key) pair inside the s queries, the sk keys and the band
+// (query row qi at position qi + qp, as K7's visible); the forward never
+// writes rows past s, so a padded query must not reach dk or dv
 __device__ __forceinline__ bool visible_bwd(int qi, int kj, int s, int sk,
-                                            int causal, int window) {
-  return qi < s && visible(qi, kj, sk, causal, window);
+                                            int causal, int window, int qp) {
+  return qi < s && visible(qi + qp, kj, sk, causal, window);
 }
 
-// the tiles [t0, t1) of s queries whose queries see a key of [k0, k1)
+// the tiles [t0, t1) of s query rows whose queries see a key of [k0, k1);
+// none for keys past every query's position (t0 = t1), whose dk and dv are
+// then 0
 __device__ __forceinline__ void query_tiles(int k0, int k1, int s, int bq,
-                                            int causal, int window, int* t0,
-                                            int* t1) {
-  const int qlo = causal ? k0 : 0;
-  const int qhi = window > 0 ? min(s, k1 - 1 + window) : s;
+                                            int causal, int window, int qp,
+                                            int* t0, int* t1) {
+  const int qlo = causal ? max(0, k0 - qp) : 0;
+  const int qhi = window > 0 ? min(s, k1 - 1 + window - qp) : s;
   *t0 = qlo / bq;
   *t1 = qhi > qlo ? (qhi + bq - 1) / bq : *t0;
 }
@@ -171,7 +174,7 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ dcap,
                             __nv_bfloat16* __restrict__ dq, int s, int sk,
                             int ls,
-                            int group, int causal, int window,
+                            int group, int causal, int window, int qp,
                             float scale) {
   constexpr int kNt = D / 8;
   constexpr int kStride = D + 8;
@@ -207,7 +210,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   }
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, qp, &t0, &t1);
   for (int kt = t0; kt < t1; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();                        // the last tile's readers are done
@@ -226,7 +229,7 @@ __global__ void __launch_bounds__(kThreads)
         const int r = e >> 1;
         const int key = k0 + j * 8 + 2 * t + (e & 1);
         const float p =
-            visible_bwd(row0 + r * 8, key, s, sk, causal, window)
+            visible_bwd(row0 + r * 8, key, s, sk, causal, window, qp)
                 ? exp2f((sc[j][e] * scale - lse_r[r]) * kLog2e)
                 : 0.f;
         sc[j][e] = p * (dp[j][e] - dc_r[r]) * scale;        // dS
@@ -261,7 +264,8 @@ __global__ void __launch_bounds__(kThreads)
                              __nv_bfloat16* __restrict__ dk,
                              __nv_bfloat16* __restrict__ dv, int s, int sk,
                              int ls,
-                             int group, int causal, int window, float scale) {
+                             int group, int causal, int window, int qp,
+                             float scale) {
   constexpr int kNt = D / 8;
   constexpr int kStride = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -292,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   int t0, t1;
-  query_tiles(k0, min(k0 + kTile, sk), s, kTile, causal, window, &t0, &t1);
+  query_tiles(k0, min(k0 + kTile, sk), s, kTile, causal, window, qp, &t0, &t1);
   for (int h = 0; h < group; ++h) {          // the group's query heads
     const int bh = hk * group + h;
     const int64_t qoff = static_cast<int64_t>(bh) * s * D;
@@ -319,7 +323,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int e = 0; e < 4; ++e) {
           const int c = j * 8 + 2 * t + (e & 1);
           st[j][e] = visible_bwd(q0 + c, row0 + (e >> 1) * 8, s, sk,
-                                 causal, window)
+                                 causal, window, qp)
                          ? exp2f((st[j][e] * scale - lse_s[c]) * kLog2e)
                          : 0.f;
         }
@@ -341,6 +345,7 @@ __global__ void __launch_bounds__(kThreads)
       warp_pb<D, kNt>(dk_acc, pa, qs, lane);               // dK += dS^T Q
     }
   }
+  cp_async_wait_all();      // keys no query sees: K, V land before the exit
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -394,7 +399,7 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ dcap,
                             float* __restrict__ dq, int s, int sk, int ls,
                             int group,
-                            int causal, int window, float scale) {
+                            int causal, int window, int qp, float scale) {
   constexpr int kPer = (D + 31) / 32;       // output columns a lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);   // [rows][D]
@@ -420,7 +425,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kPer; ++c) acc[i][c] = 0.f;
   }
   int t0, t1;
-  key_tiles(q0, min(q0 + kF32Rows, s), sk, kF32Lanes, causal, window, &t0,
+  key_tiles(q0, min(q0 + kF32Rows, s), sk, kF32Lanes, causal, window, qp, &t0,
             &t1);
   for (int kt = t0; kt < t1; ++kt) {
     const int k0 = kt * kF32Lanes;
@@ -438,7 +443,7 @@ __global__ void __launch_bounds__(kThreads)
         sdot = fmaf(qs[qr * D + d], ks[lane * (D + 1) + d], sdot);
         pdot = fmaf(dos[qr * D + d], vs[lane * (D + 1) + d], pdot);
       }
-      const float p = visible_bwd(q0 + qr, key, s, sk, causal, window)
+      const float p = visible_bwd(q0 + qr, key, s, sk, causal, window, qp)
                           ? expf(sdot * scale - lse_r[i])
                           : 0.f;
       const float ds = p * (pdot - dc_r[i]) * scale;
@@ -474,8 +479,7 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ dcap,
                              float* __restrict__ dk, float* __restrict__ dv,
                              int s, int sk, int ls, int group, int causal,
-                             int window,
-                             float scale) {
+                             int window, int qp, float scale) {
   constexpr int kPer = (D + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);   // [rows][D]
@@ -499,7 +503,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   int t0, t1;
-  query_tiles(k0, min(k0 + kF32Rows, sk), s, kF32Lanes, causal, window, &t0,
+  query_tiles(k0, min(k0 + kF32Rows, sk), s, kF32Lanes, causal, window, qp, &t0,
               &t1);
   for (int h = 0; h < group; ++h) {
     const int bh = hk * group + h;
@@ -524,7 +528,7 @@ __global__ void __launch_bounds__(kThreads)
           sdot = fmaf(ks[kr * D + d], qs[lane * (D + 1) + d], sdot);
           pdot = fmaf(vs[kr * D + d], dos[lane * (D + 1) + d], pdot);
         }
-        const float p = visible_bwd(qi, k0 + kr, s, sk, causal, window)
+        const float p = visible_bwd(qi, k0 + kr, s, sk, causal, window, qp)
                             ? expf(sdot * scale - lse_l)
                             : 0.f;
         const float ds = p * (pdot - dc_l) * scale;
@@ -588,7 +592,7 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
                const float* __restrict__ lse, const float* __restrict__ dcap,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                int s, int sk, int ls, int group, int causal, int window,
-               float scale) {
+               int qp, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = aligned_smem(smem_raw);
   unsigned char* ks = base;                               // [64, 128]
@@ -606,7 +610,7 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
   const int k0 = static_cast<int>(blockIdx.y) * kTile;
   const int hk = blockIdx.x;
   int t0, t1;
-  query_tiles(k0, min(k0 + kTile, sk), s, kTile, causal, window, &t0, &t1);
+  query_tiles(k0, min(k0 + kTile, sk), s, kTile, causal, window, qp, &t0, &t1);
   const int nqt = t1 - t0;
   const int items = group * nqt;             // (query head, query tile)
 
@@ -678,8 +682,8 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
     // P^T = exp(S^T scale - lse), while dP^T is still on the tensor cores;
     // a tile the band covers whole needs no mask
     const bool whole = q0 + kTile <= s && k0 + kTile <= sk &&
-                       (!causal || k0 + kTile - 1 <= q0) &&
-                       (window <= 0 || q0 + kTile - 1 - window < k0);
+                       (!causal || k0 + kTile - 1 <= q0 + qp) &&
+                       (window <= 0 || q0 + qp + kTile - 1 - window < k0);
     hopper::wgmma_wait<1>();
     hopper::fence_regs(sc);
 #pragma unroll
@@ -691,7 +695,7 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
         const bool in =
             whole ||
             visible_bwd(q0 + c, krow + (e >> 1) * 8, s, sk, causal,
-                        window);
+                        window, qp);
         sc[x] = in ? exp2f((sc[x] * scale - lse_s[c]) * kLog2e) : 0.f;
       }
     }
@@ -767,7 +771,7 @@ __global__ void __launch_bounds__(kDqThreads)
               const __grid_constant__ CUtensorMap tdo,
               const float* __restrict__ lse, const float* __restrict__ dcap,
               __nv_bfloat16* __restrict__ dq, int s, int sk, int ls, int group,
-              int causal, int window, float scale) {
+              int causal, int window, int qp, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = aligned_smem(smem_raw);
   unsigned char* qs = base;                               // [64, 128]
@@ -788,7 +792,7 @@ __global__ void __launch_bounds__(kDqThreads)
   const int bh = blockIdx.x;
   const int hk = bh / group;
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, qp, &t0, &t1);
   const int items = t1 - t0;
 
   auto issue = [&](int i) {
@@ -854,8 +858,8 @@ __global__ void __launch_bounds__(kDqThreads)
     // p, while dP is still on the tensor cores; a tile the band covers
     // whole needs no mask
     const bool whole = q0 + kTile <= s && k0 + kTile <= sk &&
-                       (!causal || k0 + kTile - 1 <= q0) &&
-                       (window <= 0 || q0 + kTile - 1 - window < k0);
+                       (!causal || k0 + kTile - 1 <= q0 + qp) &&
+                       (window <= 0 || q0 + qp + kTile - 1 - window < k0);
     hopper::wgmma_wait<1>();
     hopper::fence_regs(sc);
 #pragma unroll
@@ -866,7 +870,7 @@ __global__ void __launch_bounds__(kDqThreads)
         const int x = 4 * j + e;
         const bool in = whole || visible_bwd(qrow + r * 8,
                                              k0 + j * 8 + 2 * t + (e & 1), s,
-                                             sk, causal, window);
+                                             sk, causal, window, qp);
         sc[x] = in ? exp2f((sc[x] * scale - lse_r[r]) * kLog2e) : 0.f;
       }
     }
@@ -982,7 +986,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                float* __restrict__ ws, int s, int sk, int ls, int group,
                int splits,
-               int causal, int window, float scale) {
+               int causal, int window, int qp, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ks = aligned_shared(smem_raw);     // [64, 256]
   unsigned char* vs = ks + kTileBytes;              // [64, 256]
@@ -1003,7 +1007,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
   const int split = static_cast<int>(blockIdx.x) % splits;
   const int hb = split * group / splits, he = (split + 1) * group / splits;
   int t0, t1;
-  query_tiles(k0, min(k0 + kTile, sk), s, kTile, causal, window, &t0, &t1);
+  query_tiles(k0, min(k0 + kTile, sk), s, kTile, causal, window, qp, &t0, &t1);
   const int nqt = t1 - t0;
   const int items = (he - hb) * nqt;        // (query head, query tile)
 
@@ -1095,13 +1099,13 @@ __global__ void __launch_bounds__(kThreads256, 1)
       // log2e, then 0 where masked (no branch); a tile the band covers
       // whole needs no mask
       const bool whole = q0 + kTile <= s && k0 + kTile <= sk &&
-                         (!causal || k0 + kTile - 1 <= q0) &&
-                         (window <= 0 || q0 + kTile - 1 - window < k0);
+                         (!causal || k0 + kTile - 1 <= q0 + qp) &&
+                         (window <= 0 || q0 + qp + kTile - 1 - window < k0);
 #pragma unroll
       for (int x = 0; x < 32; ++x) {
         const int c = (x >> 2) * 8 + 2 * t + (x & 1);
         const bool in = whole | visible_bwd(q0 + c, krow + ((x >> 1) & 1) * 8,
-                                            s, sk, causal, window);
+                                            s, sk, causal, window, qp);
         const float p = ex2(fmaf(sc[x], scale_log2, -lse_s[c] * kLog2e));
         sc[x] = in ? p : 0.f;
       }
@@ -1221,7 +1225,8 @@ __global__ void __launch_bounds__(kThreads256, 1)
               const __grid_constant__ CUtensorMap tdo,
               const float* __restrict__ lse, const float* __restrict__ dcap,
               __nv_bfloat16* __restrict__ dq, int s, int sk, int ls, int group,
-              int pairs, int causal, int window, float scale) {
+              int pairs, int causal, int window, int qp,
+              float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = aligned_shared(smem_raw);     // Q of each warpgroup
   unsigned char* dos = qs + 2 * kTileBytes;         // dO of each warpgroup
@@ -1242,7 +1247,7 @@ __global__ void __launch_bounds__(kThreads256, 1)
   const int h0 = 2 * (static_cast<int>(blockIdx.x) % pairs);
   const int nheads = min(2, group - h0);
   int t0, t1;
-  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kTile, s), sk, kTile, causal, window, qp, &t0, &t1);
   const int items = t1 - t0;
 
   if (tid == 0) {
@@ -1300,8 +1305,8 @@ __global__ void __launch_bounds__(kThreads256, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qrow + 8 * r;
-    hi[r] = row >= s ? -1 : causal ? row : sk - 1;
-    lo[r] = window > 0 ? row - window + 1 : 0;
+    hi[r] = row >= s ? -1 : causal ? row + qp : sk - 1;
+    lo[r] = window > 0 ? row + qp - window + 1 : 0;
   }
   const float scale_log2 = scale * kLog2e;
   float lse_l[2] = {0.f, 0.f}, dc_r[2] = {0.f, 0.f};   // lse log2e, D
@@ -1352,8 +1357,8 @@ __global__ void __launch_bounds__(kThreads256, 1)
     // p, while dP is still on the tensor cores; a tile the band covers
     // whole needs no mask
     const bool whole = q0 + kTile <= s && k0 + kTile <= sk &&
-                       (!causal || k0 + kTile - 1 <= q0) &&
-                       (window <= 0 || q0 + kTile - 1 - window < k0);
+                       (!causal || k0 + kTile - 1 <= q0 + qp) &&
+                       (window <= 0 || q0 + qp + kTile - 1 - window < k0);
     hopper::wgmma_wait<1>();
     hopper::fence_regs(sc);
 #pragma unroll
@@ -1454,7 +1459,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
                const float* __restrict__ lse, const float* __restrict__ dcap,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                int s, int sk, int ls, int group, int causal, int window,
-               float scale) {
+               int qp, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = aligned_shared(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDkvStages *
@@ -1468,7 +1473,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
   const int k0 = static_cast<int>(blockIdx.y) * kBlock;
   const int hk = blockIdx.x;
   int t0, t1;
-  query_tiles(k0, min(k0 + kBlock, sk), s, kTile, causal, window, &t0, &t1);
+  query_tiles(k0, min(k0 + kBlock, sk), s, kTile, causal, window, qp, &t0, &t1);
   const int items = (t1 - t0) * group;      // (query tile, query head)
 
   if (tid == 0) {
@@ -1518,7 +1523,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
   int a = 0, b = 0;
   if (kw0 < sk) {
     int w0, w1;
-    query_tiles(kw0, min(kw0 + 64, sk), s, kTile, causal, window, &w0, &w1);
+    query_tiles(kw0, min(kw0 + 64, sk), s, kTile, causal, window, qp, &w0, &w1);
     if (w1 > w0) {
       a = (w0 - t0) * group;
       b = (w1 - t0) * group;
@@ -1588,8 +1593,8 @@ __global__ void __launch_bounds__(kThreads64, 1)
     // where masked (only a tile the band does not cover whole needs the
     // mask), then dS^T = P^T (dP^T - D) scale
     const bool whole = q0 + kTile <= s && kw0 + 64 <= sk &&
-                       (!causal || kw0 + 63 <= q0) &&
-                       (window <= 0 || q0 + kTile - 1 - window < kw0);
+                       (!causal || kw0 + 63 <= q0 + qp) &&
+                       (window <= 0 || q0 + qp + kTile - 1 - window < kw0);
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
       const int c = (x >> 2) * 8 + 2 * t + (x & 1);
@@ -1600,7 +1605,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
       for (int x = 0; x < 32; ++x) {
         const int c = (x >> 2) * 8 + 2 * t + (x & 1);
         sc[x] = visible_bwd(q0 + c, krow + ((x >> 1) & 1) * 8, s, sk,
-                            causal, window)
+                            causal, window, qp)
                     ? sc[x]
                     : 0.f;
       }
@@ -1692,7 +1697,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
               const __nv_bfloat16* __restrict__ dout,
               const float* __restrict__ lse, float* __restrict__ dcap,
               __nv_bfloat16* __restrict__ dq, int s, int sk, int ls, int group,
-              int causal, int window, float scale) {
+              int causal, int window, int qp, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = aligned_shared(smem_raw);     // Q a warpgroup
   unsigned char* dos = qs + kDqWgs * kTileBytes;    // dO a warpgroup
@@ -1710,7 +1715,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kDqBlock;
   const int bh = blockIdx.x;
   int t0, t1;
-  key_tiles(q0, min(q0 + kDqBlock, s), sk, kTile, causal, window, &t0, &t1);
+  key_tiles(q0, min(q0 + kDqBlock, s), sk, kTile, causal, window, qp, &t0, &t1);
   const int items = t1 - t0;
 
   if (tid == 0) {
@@ -1763,7 +1768,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   int a = 0, b = 0;
   if (qw0 < s) {
     int w0, w1;
-    key_tiles(qw0, min(qw0 + 64, s), sk, kTile, causal, window, &w0, &w1);
+    key_tiles(qw0, min(qw0 + 64, s), sk, kTile, causal, window, qp, &w0, &w1);
     a = w0 - t0;
     b = w1 - t0;
   }
@@ -1795,8 +1800,8 @@ __global__ void __launch_bounds__(kDqThreads, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qrow + 8 * r;
-    hi[r] = row >= s ? -1 : causal ? row : sk - 1;
-    lo[r] = window > 0 ? row - window + 1 : 0;
+    hi[r] = row >= s ? -1 : causal ? row + qp : sk - 1;
+    lo[r] = window > 0 ? row + qp - window + 1 : 0;
     const int64_t off = static_cast<int64_t>(bh) * ls + row;
     lse_l[r] = row < s ? lse[off] * kLog2e : 0.f;
     dc_r[r] += __shfl_xor_sync(0xffffffffu, dc_r[r], 1);
@@ -1852,8 +1857,8 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     // p, 0 where masked (a tile the band covers whole needs no mask), then
     // dS = p (dP - D) scale
     const bool whole = qw0 + 64 <= s && k0 + kTile <= sk &&
-                       (!causal || k0 + kTile - 1 <= qw0) &&
-                       (window <= 0 || qw0 + 63 - window < k0);
+                       (!causal || k0 + kTile - 1 <= qw0 + qp) &&
+                       (window <= 0 || qw0 + qp + 63 - window < k0);
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
       sc[x] = ex2(fmaf(sc[x], scale_log2, -lse_l[(x >> 1) & 1]));
@@ -1947,7 +1952,7 @@ __global__ void flash_bwd_dcap_kernel(const T* __restrict__ o,
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *dcap;
-  int s, sk, ls, group, causal, window;
+  int s, sk, ls, group, causal, window, qp;
   float scale;
   cudaStream_t stream;
 };
@@ -1974,7 +1979,7 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
                                             wg256::kDqSmem, a.stream>>>(
           m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
           static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dq),
-          a.s, a.sk, a.ls, a.group, pairs, a.causal, a.window, a.scale);
+          a.s, a.sk, a.ls, a.group, pairs, a.causal, a.window, a.qp, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else if constexpr (D == wg64::kD) {
       wg::Maps m;
@@ -1993,7 +1998,7 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
           static_cast<const __nv_bfloat16*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<float*>(dcap),
           static_cast<__nv_bfloat16*>(dq), a.s, a.sk, a.ls, a.group, a.causal,
-          a.window, a.scale);
+          a.window, a.qp, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else if constexpr (D == wg::kD) {
       wg::Maps m;
@@ -2007,7 +2012,7 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
                                       a.stream>>>(
           m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
           static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dq),
-          a.s, a.sk, a.ls, a.group, a.causal, a.window, a.scale);
+          a.s, a.sk, a.ls, a.group, a.causal, a.window, a.qp, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else {
       constexpr size_t smem = mma_smem<D>();
@@ -2021,7 +2026,7 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
           static_cast<const __nv_bfloat16*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
           static_cast<__nv_bfloat16*>(dq), a.s, a.sk, a.ls, a.group, a.causal,
-          a.window, a.scale);
+          a.window, a.qp, a.scale);
     }
   } else if (dtype == 0) {
     constexpr size_t smem = f32_smem<D>();
@@ -2034,7 +2039,7 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
         static_cast<float*>(dq), a.s, a.sk, a.ls, a.group, a.causal, a.window,
-        a.scale);
+        a.qp, a.scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2067,7 +2072,7 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
           static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dk),
           static_cast<__nv_bfloat16*>(dv), static_cast<float*>(ws), a.s, a.sk,
           a.ls,
-          a.group, splits, a.causal, a.window, a.scale);
+          a.group, splits, a.causal, a.window, a.qp, a.scale);
       rc = static_cast<int>(cudaGetLastError());
       if (rc != 0 || splits == 1) return rc;
       const long long n = bkv * a.sk * wg256::kD;
@@ -2098,7 +2103,7 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
           static_cast<const __nv_bfloat16*>(a.v), tq, tdo,
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          a.s, a.sk, a.ls, a.group, a.causal, a.window, a.scale);
+          a.s, a.sk, a.ls, a.group, a.causal, a.window, a.qp, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else if constexpr (D == wg::kD) {
       wg::Maps m;
@@ -2113,7 +2118,7 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
           m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
           static_cast<const float*>(a.dcap), static_cast<__nv_bfloat16*>(dk),
           static_cast<__nv_bfloat16*>(dv), a.s, a.sk, a.ls, a.group, a.causal,
-          a.window, a.scale);
+          a.window, a.qp, a.scale);
       return static_cast<int>(cudaGetLastError());
     } else {
       constexpr size_t smem = mma_smem<D>();
@@ -2128,7 +2133,7 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
               static_cast<const float*>(a.lse),
               static_cast<const float*>(a.dcap),
               static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-              a.s, a.sk, a.ls, a.group, a.causal, a.window, a.scale);
+              a.s, a.sk, a.ls, a.group, a.causal, a.window, a.qp, a.scale);
     }
   } else if (dtype == 0) {
     constexpr size_t smem = f32_smem<D>();
@@ -2142,7 +2147,7 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
         static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
         static_cast<float*>(dk), static_cast<float*>(dv), a.s, a.sk, a.ls,
         a.group,
-        a.causal, a.window, a.scale);
+        a.causal, a.window, a.qp, a.scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2153,13 +2158,13 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
 int prepare(Args* a, const void* q, const void* k, const void* v,
             const void* dout, const void* lse, const void* dcap,
             long long bh, long long bkv, int s, int sk, int d, int ls,
-            int causal, int window, void* stream) {
+            int causal, int window, int q_pos0, void* stream) {
   if (bkv <= 0 || bh % bkv != 0 || bh > 65535 || ls < s || ls % 64 != 0 ||
-      sk <= 0 || (sk != s && (causal || window > 0))) {
+      sk <= 0 || !offset_ok(s, sk, causal, window, q_pos0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *a = Args{q, k, v, dout, lse, dcap, s, sk, ls, static_cast<int>(bh / bkv),
-            causal, window,
+            causal, window, q_pos0,
             static_cast<float>(1.0 / sqrt(static_cast<double>(d))),
             static_cast<cudaStream_t>(stream)};
   return 0;
@@ -2183,8 +2188,9 @@ int prepare(Args* a, const void* q, const void* k, const void* v,
 // by repro_flash_bwd_dq); dq [bh, s, d]; dk, dv [bkv, sk, d]; all
 // contiguous and 16-byte aligned. dtype: 0 = float32, 2 = bfloat16 (q, k,
 // v, do and the outputs share it). window <= 0: no window. sk, the key
-// length, is s for self-attention; a cross-attention's sk of its own takes
-// neither a causal mask nor a window. d in {16, 32, 64, 96, 128, 256}.
+// length, is s for self-attention; q_pos0, the causal query offset, as
+// repro_flash_fwd's (offset_ok: a cross-attention's sk of its own takes
+// neither a causal mask nor a window). d in {16, 32, 64, 96, 128, 256}.
 // splits: the dk/dv grid's split of each GQA group (1, or for bf16 at d =
 // 256 up to bh / bkv, with ws an f32 workspace [2, splits, bkv, sk, d]).
 // The dq entry point writes dcap = rowsum(do * o) from o (the forward's
@@ -2196,10 +2202,10 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* lse, void* dcap, void* dq,
                                   int dtype, long long bh, long long bkv,
                                   int s, int sk, int d, int ls, int causal,
-                                  int window, void* stream) {
+                                  int window, int q_pos0, void* stream) {
   Args a;
   const int rc = prepare(&a, q, k, v, dout, lse, dcap, bh, bkv, s, sk, d,
-                         ls, causal, window, stream);
+                         ls, causal, window, q_pos0, stream);
   if (rc != 0) return rc;
   if (bh == 0 || s == 0) return static_cast<int>(cudaGetLastError());
   const dim3 dgrid((ls + kThreads / 32 - 1) / (kThreads / 32),
@@ -2226,10 +2232,10 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
                                    void* dk, void* dv, void* ws, int splits,
                                    int dtype, long long bh, long long bkv,
                                    int s, int sk, int d, int ls, int causal,
-                                   int window, void* stream) {
+                                   int window, int q_pos0, void* stream) {
   Args a;
   const int rc = prepare(&a, q, k, v, dout, lse, dcap, bh, bkv, s, sk, d,
-                         ls, causal, window, stream);
+                         ls, causal, window, q_pos0, stream);
   if (rc != 0) return rc;
   if (splits < 1 || splits > a.group || (splits > 1 && ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);

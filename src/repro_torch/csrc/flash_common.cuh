@@ -15,21 +15,35 @@ constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;
 
-// the mask of _fwd_kernel: key kj of sk is visible from query qi (a causal
-// mask or a window only where the keys are the queries' own, sk = s)
-__device__ __forceinline__ bool visible(int qi, int kj, int sk, int causal,
+// the mask of _fwd_kernel: key kj of sk is visible from the query at
+// position pi (its row plus the causal query offset qp: a shard of the
+// sequence whose first query sits at position qp; a causal mask or a
+// window only where the keys are the queries' own timeline)
+__device__ __forceinline__ bool visible(int pi, int kj, int sk, int causal,
                                         int window) {
-  return kj < sk && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
+  return kj < sk && (!causal || kj <= pi) && (window <= 0 || kj > pi - window);
 }
 
-// the tiles [t0, t1) of sk keys that intersect the band of queries [q0, q1)
+// the tiles [t0, t1) of sk keys that intersect the band of the query rows
+// [q0, q1), which sit at positions [q0 + qp, q1 + qp)
 __device__ __forceinline__ void key_tiles(int q0, int q1, int sk, int bk,
-                                          int causal, int window, int* t0,
-                                          int* t1) {
-  const int khi = causal ? min(sk, q1) : sk;
-  const int klo = window > 0 ? max(0, q0 - window + 1) : 0;
+                                          int causal, int window, int qp,
+                                          int* t0, int* t1) {
+  const int khi = causal ? min(sk, q1 + qp) : sk;
+  const int klo = window > 0 ? max(0, q0 + qp - window + 1) : 0;
   *t0 = klo / bk;
   *t1 = (khi + bk - 1) / bk;
+}
+
+// the mask arguments both entry points take: a causal call needs q_pos0 +
+// s <= sk (its last query's keys exist; q_pos0 = 0 and sk = s is plain
+// causal self-attention), a call without the causal mask takes no offset
+// (a cross-attention's sk of its own), and a window only sk = s with no
+// offset (no sequence-parallel split runs a windowed layer)
+inline bool offset_ok(int s, int sk, int causal, int window, int q_pos0) {
+  if (q_pos0 < 0 || (!causal && q_pos0 > 0)) return false;
+  if (causal && static_cast<long long>(q_pos0) + s > sk) return false;
+  return window <= 0 || (q_pos0 == 0 && sk == s);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -9,7 +9,13 @@ self-attention; cross-attention (``repro/models/lm/transformer.py::
 attn_apply`` with ``kv_from``: ``chunked_attention(causal=False)`` over the
 encoder's keys) has a key length of its own, and then neither the causal
 mask nor a window applies (the reference aligns no positions across two
-lengths, so the pair raises). On CUDA tensors each wrapper
+lengths, so the pair raises). A causal call may take a query offset
+``q_pos0``: query row ``i`` sits at position ``q_pos0 + i`` and sees the
+keys ``j <= q_pos0 + i``, with ``q_pos0 + Sq <= Sk`` (a shard of
+sequence-parallel attention, the reference's ``chunked_attention(q_pos0=
+...)`` under ``seqpar_attention``; the Pallas ``flash_fwd`` has no offset).
+Keys that no query of the call sees get zero ``dk`` and ``dv``. On CUDA
+tensors each wrapper
 launches its hand-written kernels (bf16 on the tensor cores: ``wgmma``
 fed by TMA at D 64, 128 and 256, ``mma.sync`` at D 16, 32 and 96; f32
 with FMAs); on
@@ -26,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+from repro_torch.kernels.ref import (check_mask, flash_attention_bwd_ref,
                                      flash_attention_ref)
 
 NAME = "flash_fwd"
@@ -58,7 +64,7 @@ def dkv_splits(bkv: int, sk: int, group: int, d: int, dtype: torch.dtype,
                 if group % x == 0 and x >= want), default=group)
 
 
-def _check_shapes(q, k, v, causal, window) -> None:
+def _check_shapes(q, k, v, causal, window, q_pos0) -> None:
     _build.require(q.dim() == 3 and k.dim() == 3 and v.dim() == 3,
                    f"q, k, v must be 3-D, got {tuple(q.shape)}, "
                    f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -67,9 +73,7 @@ def _check_shapes(q, k, v, causal, window) -> None:
     _build.require(k.shape == v.shape and k.shape[2] == d and sk > 0,
                    f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
                    f"[BKV, Sk, {d}] with Sk > 0")
-    _build.require(sk == s or not (causal or window is not None),
-                   f"a key length {sk} other than the query length {s} "
-                   "takes neither a causal mask nor a window")
+    check_mask(s, sk, causal, window, q_pos0)
     _build.require(k.shape[0] > 0 and bh % k.shape[0] == 0,
                    f"BH {bh} is not a multiple of BKV {k.shape[0]}")
     _build.require(window is None or window > 0,
@@ -92,19 +96,21 @@ def _check_cuda(q: torch.Tensor, **others: torch.Tensor) -> None:
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: Optional[int] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              causal: bool = True, window: Optional[int] = None,
+              q_pos0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention of ``q [BH, Sq, D]`` over ``k/v [BKV, Sk, D]`` (query
-    head ``n`` reads KV head ``n // (BH / BKV)``), causal and/or within a
-    ``window`` of keys ``j > i - window`` (both only at ``Sk == Sq``) ->
+    head ``n`` reads KV head ``n // (BH / BKV)``), causal (keys ``j <=
+    q_pos0 + i``) and/or within a ``window`` of keys ``j > i - window``
+    (``ref.check_mask`` says which calls are legal) ->
     (``o`` in ``q``'s type, ``lse [BH, Sq]`` f32). f32 or bf16; D in :data:`HEAD_DIMS` on CUDA. One launch:
     ``wgmma`` fed by TMA copy rings for bf16 at D = 64, 128 and 256 (at 64
     three warpgroups of 64 queries share each 128-key K/V tile, at 256 two
     query heads of a GQA group do), ``mma.sync`` for bf16 at D 16, 32 and
     96, FMAs for f32."""
-    _check_shapes(q, k, v, causal, window)
+    _check_shapes(q, k, v, causal, window, q_pos0)
     if _build.on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_pos0=q_pos0)
     _check_cuda(q, k=k, v=v)
     bh, s, d = q.shape
     o = torch.empty_like(q)
@@ -113,18 +119,20 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                   _build.DTYPE_CODES[q.dtype], bh, k.shape[0], s,
                   k.shape[1], d, int(causal),
-                  0 if window is None else int(window))
+                  0 if window is None else int(window), int(q_pos0))
     return o, lse
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-              causal: bool = True, window: Optional[int] = None
+              causal: bool = True, window: Optional[int] = None,
+              q_pos0: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`flash_fwd`: ``q, o, do [BH, Sq, D]``, ``k/v
     [BKV, Sk, D]`` and the forward's ``lse [BH, Sq]`` f32 -> (``dq`` in
     ``q``'s type, ``dk``, ``dv`` in ``k``'s), ``dk``/``dv`` summed over each
-    GQA group of query heads. Two launches: the dq kernel and the dk/dv
+    GQA group of query heads (0 for keys no query sees, past ``q_pos0 +
+    Sq - 1``). Two launches: the dq kernel and the dk/dv
     kernel (on ``wgmma`` with TMA copy rings for bf16 at D = 64, 128 and
     256, ``mma.sync`` for bf16 at D 16, 32 and 96, FMAs for f32). ``D =
     rowsum(do * o)``, which the JAX package computes outside its kernels,
@@ -134,7 +142,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with more than one split its blocks write f32 partials into a
     workspace and a reduce kernel in the same launch sums them in split
     order, so two calls give the same bits."""
-    _check_shapes(q, k, v, causal, window)
+    _check_shapes(q, k, v, causal, window, q_pos0)
     _build.require(o.shape == q.shape and do.shape == q.shape,
                    f"o {tuple(o.shape)} and do {tuple(do.shape)} must be "
                    f"{tuple(q.shape)}")
@@ -142,7 +150,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    f"lse {tuple(lse.shape)} must be {tuple(q.shape[:2])}")
     if _build.on_cpu(q, k, v, o, lse, do):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                       window=window)
+                                       window=window, q_pos0=q_pos0)
     _check_cuda(q, k=k, v=v, o=o, do=do)
     _build.require_cuda("lse", lse, (torch.float32,), 2)
     _build.require(lse.device == q.device,
@@ -164,7 +172,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ws = (torch.empty((2, splits, bkv, sk, d), dtype=torch.float32,
                       device=q.device) if splits > 1 else None)
     tail = (_build.DTYPE_CODES[q.dtype], bh, bkv, s, sk, d, ls, int(causal),
-            0 if window is None else int(window))
+            0 if window is None else int(window), int(q_pos0))
     _build.launch(NAME_BWD, "repro_flash_bwd_dq", q.device, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                   lse_p.data_ptr(), dcap.data_ptr(), dq.data_ptr(), *tail)

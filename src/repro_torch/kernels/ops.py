@@ -319,11 +319,12 @@ class _FlashAttention(torch.autograd.Function):
     and K7's ``lse``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_pos0):
         qf, kf, vf = _bhsd(q), _bhsd(k), _bhsd(v)
-        o, lse = flash_fwd(qf, kf, vf, causal=causal, window=window)
+        o, lse = flash_fwd(qf, kf, vf, causal=causal, window=window,
+                           q_pos0=q_pos0)
         ctx.save_for_backward(qf, kf, vf, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_pos0 = causal, window, q_pos0
         return _unbhsd(o, q.shape[0])
 
     @staticmethod
@@ -331,8 +332,10 @@ class _FlashAttention(torch.autograd.Function):
         qf, kf, vf, o, lse = ctx.saved_tensors
         b = do.shape[0]
         dq, dk, dv = flash_bwd(qf, kf, vf, o, lse, _bhsd(do),
-                               causal=ctx.causal, window=ctx.window)
-        return _unbhsd(dq, b), _unbhsd(dk, b), _unbhsd(dv, b), None, None
+                               causal=ctx.causal, window=ctx.window,
+                               q_pos0=ctx.q_pos0)
+        return (_unbhsd(dq, b), _unbhsd(dk, b), _unbhsd(dv, b), None, None,
+                None)
 
 
 def _use_kernel(*tensors: torch.Tensor) -> bool:
@@ -341,21 +344,24 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          q_pos0: int = 0) -> torch.Tensor:
     """The plain version of :func:`flash_attention` on any device, in
     plain torch ops that autograd differentiates."""
     o, _ = flash_attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
-                               window=window)
+                               window=window, q_pos0=q_pos0)
     return _unbhsd(o, q.shape[0])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    q_pos0: int = 0) -> torch.Tensor:
     """``q [B, Sq, Hq, D]``, ``k/v [B, Sk, Hkv, D]`` -> ``[B, Sq, Hq,
     D]``: K7 forward and K8 backward on CUDA tensors, the plain version on
-    CPU tensors. ``Sk`` other than ``Sq`` (cross-attention) takes neither
-    ``causal`` nor a ``window``."""
+    CPU tensors. ``Sk`` other than ``Sq`` takes neither a ``window`` nor,
+    without a query offset ``q_pos0`` (query row ``i`` at position ``q_pos0
+    + i``: a shard of sequence-parallel attention), ``causal``
+    (``ref.check_mask``)."""
     if _use_kernel(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return flash_attention_plain(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, q_pos0)
+    return flash_attention_plain(q, k, v, causal, window, q_pos0)

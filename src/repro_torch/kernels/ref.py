@@ -167,14 +167,34 @@ def dot_interaction_bwd_ref(x: torch.Tensor, dtri: torch.Tensor, *,
 MASKED = -1e30
 
 
-def _mask(sq: int, sk: int, causal: bool, window, device) -> torch.Tensor:
-    """``[Sq, Sk]``: key ``j`` visible from query ``i``. The causal and
-    window masks compare positions on one timeline, so they need ``Sk ==
-    Sq``."""
-    if sk != sq and (causal or window is not None):
-        raise ValueError(f"a key length {sk} other than the query length "
-                         f"{sq} takes neither a causal mask nor a window")
-    i = torch.arange(sq, device=device)
+def check_mask(sq: int, sk: int, causal: bool, window, q_pos0: int) -> None:
+    """The mask arguments the flash kernels take (their ``offset_ok``):
+    query row ``i`` sits at position ``q_pos0 + i``, so a causal call needs
+    ``q_pos0 + Sq <= Sk`` (``q_pos0 = 0``, ``Sk = Sq``: causal
+    self-attention; an offset: a shard of sequence-parallel attention), a
+    non-causal one takes no offset (a key length of its own:
+    cross-attention) and a window needs ``Sk = Sq`` and no offset (no
+    sequence-parallel split runs a windowed layer). Raises ``ValueError``
+    otherwise."""
+    if q_pos0 < 0 or (q_pos0 and not causal):
+        raise ValueError(f"q_pos0 {q_pos0}: the query offset is >= 0, and "
+                         "0 without the causal mask")
+    if causal and q_pos0 + sq > sk:
+        raise ValueError(f"causal queries at positions [{q_pos0}, "
+                         f"{q_pos0 + sq}) need their keys, but there are "
+                         f"{sk}")
+    if window is not None and (q_pos0 or sk != sq):
+        raise ValueError(f"a window takes neither a key length {sk} other "
+                         f"than the query length {sq} nor a query offset "
+                         f"{q_pos0}")
+
+
+def _mask(sq: int, sk: int, causal: bool, window, device,
+          q_pos0: int = 0) -> torch.Tensor:
+    """``[Sq, Sk]``: key ``j`` visible from query row ``i``, at position
+    ``q_pos0 + i`` (:func:`check_mask`)."""
+    check_mask(sq, sk, causal, window, q_pos0)
+    i = q_pos0 + torch.arange(sq, device=device)
     j = torch.arange(sk, device=device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
@@ -185,15 +205,19 @@ def _mask(sq: int, sk: int, causal: bool, window, device) -> torch.Tensor:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window=None):
+                        *, causal: bool = True, window=None,
+                        q_pos0: int = 0):
     """Softmax attention in the flash kernels' flat layout: ``q [BH, Sq,
     D]``, ``k/v [BKV, Sk, D]`` -> (``o [BH, Sq, D]`` in ``q``'s type,
     ``lse [BH, Sq]`` f32). Query head ``n`` reads KV head ``n // g``, ``g =
-    BH / BKV``. Key ``j`` is visible from query ``i`` when ``j <= i``
-    (causal) and ``j > i - window`` (a window); a masked score is -1e30 and
-    its ``p`` 0. ``Sk`` may differ from ``Sq`` only without either mask
-    (cross-attention: ``chunked_attention(causal=False)`` with its own key
-    length; the reference aligns no positions across two lengths). All in
+    BH / BKV``. Key ``j`` is visible from query row ``i``, at position ``p
+    = q_pos0 + i``, when ``j <= p`` (causal) and ``j > p - window`` (a
+    window); a masked score is -1e30 and its ``p`` 0. ``Sk`` may differ
+    from ``Sq`` without either mask (cross-attention:
+    ``chunked_attention(causal=False)`` with its own key length; the
+    reference aligns no positions across two lengths) or causally with a
+    query offset (``chunked_attention(q_pos0=...)``, a shard of
+    ``seqpar_attention``), as :func:`check_mask` allows. All in
     f32 (f64 for f64 inputs); ``lse = m + log(max(l, 1e-30))``, as the
     forward kernel writes it."""
     bh, s, d = q.shape
@@ -203,7 +227,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.to(dt).reshape(bkv, g, s, d)
     sc = torch.matmul(qf, k.to(dt)[:, None].transpose(-1, -2)) \
         * (1.0 / math.sqrt(d))
-    mask = _mask(s, k.shape[1], causal, window, q.device)
+    mask = _mask(s, k.shape[1], causal, window, q.device, q_pos0)
     sc = torch.where(mask, sc, torch.full((), MASKED, dtype=dt,
                                            device=q.device))
     m = sc.amax(dim=-1)
@@ -218,7 +242,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor, *,
-                            causal: bool = True, window=None):
+                            causal: bool = True, window=None,
+                            q_pos0: int = 0):
     """The gradient of :func:`flash_attention_ref`, written out (not
     autograd of it): ``q, o, do [BH, Sq, D]``, ``k/v [BKV, Sk, D]``, ``lse
     [BH, Sq]`` -> (``dq`` in ``q``'s type, ``dk``, ``dv`` in ``k``'s).
@@ -234,7 +259,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     qf, of, dof = (t.to(dt).reshape(bkv, g, s, d) for t in (q, o, do))
     kf, vf = k.to(dt)[:, None], v.to(dt)[:, None]
     dcap = (dof * of).sum(dim=-1, keepdim=True)
-    mask = _mask(s, k.shape[1], causal, window, q.device)
+    mask = _mask(s, k.shape[1], causal, window, q.device, q_pos0)
     sc = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(sc - lse.to(dt).reshape(bkv, g, s, 1)),
                     torch.zeros((), dtype=dt, device=q.device))

@@ -58,11 +58,14 @@ axes). Each sum over ``"model"`` back-propagates as the identity, and each
 value that the ranks of a model group hold alike and feed into their own
 shard's work sums its gradient over the group on the way back
 (``strategies.all_reduce`` / ``copy_to_group``); :meth:`LMModel.
-reduce_grads` then sums every gradient over the data axes. Attention is
-the reference's ``"heads"`` partition, on the rank's block (the
-reference's head sharding is a placement that changes no value);
-``"seq"`` over a model axis above 1 raises ``NotImplementedError``
-naming the ROADMAP item that ports it. :meth:`LMModel.shard_params` and
+reduce_grads` then sums every gradient over the data axes. Attention
+follows the reference's rule: the ``"heads"`` partition runs whole on the
+rank's block (the reference's head sharding is a placement that changes
+no value); the ``"seq"`` partition is ``transformer.seqpar_attention``
+over ``"model"`` for the causal self-attention layers (each rank its
+shard of the queries against the whole K/V, K7 / K8 with a causal query
+offset, the shards gathered along the sequence; the encoder-decoder's
+layers never take it, as in the reference). :meth:`LMModel.shard_params` and
 :meth:`LMModel.gather_params` move whole (logical) parameters, as the
 reference draws them at the mesh's padded shapes, to a rank's and back.
 
@@ -92,7 +95,6 @@ from repro_torch.models.lm import rglru as rg
 from repro_torch.models.lm import transformer as tf
 from repro_torch.models.lm import xlstm as xl
 from repro_torch.launch import mesh as meshlib
-from repro_torch.roadmap import SEQPAR, not_ported
 from repro_torch.tree import flatten, tree_map, unflatten
 
 EMBED_MODES = ("replicated", "sharded", "hybrid")
@@ -206,11 +208,8 @@ class LMModel:
             training = remat != "none"
             attn_partition = "seq" if (dirty or (self.fsdp and training)) \
                 else "heads"
-        if attn_partition == "seq" and self.model_size > 1:
-            raise not_ported(f"{cfg.name}'s attention partitioned by "
-                             f"sequence over a model axis of "
-                             f"{self.model_size}", SEQPAR)
         self.attn_partition = attn_partition
+        self._seq_par_mesh = mesh if attn_partition == "seq" else None
         self.pattern = cfg.block_pattern
         per = len(self.pattern)
         self.n_groups = cfg.num_layers // per
@@ -465,7 +464,8 @@ class LMModel:
             x, new_cache = tf.attn_apply(
                 bp["attn"], x, cfg, positions=positions, causal=True,
                 window=window, cache=cache, cache_pos=cache_pos,
-                use_kernels=self.use_kernels)
+                use_kernels=self.use_kernels,
+                seq_par_mesh=self._seq_par_mesh)
         if cfg.moe is not None and kind == "attn":
             # adds its own residual, as the FFN does
             if self.mesh is not None:

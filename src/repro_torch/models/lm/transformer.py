@@ -12,7 +12,11 @@ Prefill and training attention is the flash kernel K7 through
 ``ops.flash_attention``, with K8 as its backward (the reference's chunked
 jnp path and its Pallas kernels compute the same function; on the card the
 port runs the kernels), cross-attention to an encoder's output included,
-with the encoder's own key length. Decode attends one token
+with the encoder's own key length. On a mesh whose rule picks the
+``"seq"`` partition, causal self-attention is :func:`seqpar_attention`:
+each rank of a model group attends its shard of the queries to the whole
+K/V through K7 / K8 with a causal query offset, and the shards are
+gathered along the sequence. Decode attends one token
 against the KV cache in plain torch, as the reference does in jnp outside
 any kernel. Products with weights stay ``torch.matmul``.
 """
@@ -25,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.core.embedding.strategies import all_gather, copy_to_group
 from repro_torch.kernels import ops
-from repro_torch.roadmap import SEQPAR, not_ported
+from repro_torch.launch import mesh as meshlib
 
 
 def _normal(generator: torch.Generator, shape, scale: float,
@@ -96,9 +101,71 @@ def chunked_attention(*args, **kwargs):
         "kernel K7 (kernels/ops.flash_attention) or its plain version")
 
 
-def seqpar_attention(*args, **kwargs):
-    raise not_ported("sequence-parallel attention (seqpar_attention)",
-                     SEQPAR)
+def _attend(use_kernels: bool):
+    """K7 / K8 (``ops.flash_attention``) or their plain version."""
+    return ops.flash_attention if use_kernels else ops.flash_attention_plain
+
+
+def seqpar_shard(q_shard: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 index: int, shard: int,
+                 use_kernels: bool = True) -> torch.Tensor:
+    """One rank's part of :func:`seqpar_attention`: its ``shard`` queries
+    ``q_shard [B, shard, Hq, Dh]``, rows ``[index * shard, (index + 1) *
+    shard)`` of the sequence, attended causally to the whole ``k/v [B, S,
+    Hkv, Dh]`` (K7 / K8 with the query offset ``index * shard``, or their
+    plain version) -> ``[B, shard, Hq, Dh]``. A plain function of its
+    inputs, so a single device can replay every rank's part in turn."""
+    return _attend(use_kernels)(q_shard, k, v, True, None, index * shard)
+
+
+class _GatherShards(torch.autograd.Function):
+    """The shards' outputs ``[B, shard, H, D]`` of a model group gathered
+    along the sequence, in rank order; backward: this rank's own rows of
+    the cotangent. Every rank of the group back-propagates the same loss
+    from the gathered value, so each already holds its whole cotangent
+    (``strategies.all_gather``'s own adjoint, the recsys reduce-scatter,
+    would sum ``model`` copies of it)."""
+
+    @staticmethod
+    def forward(ctx, o, group, index):
+        ctx.index, ctx.shard = index, o.shape[1]
+        return all_gather(o.detach().transpose(0, 1), group).transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, n = ctx.index, ctx.shard
+        return g[:, i * n:(i + 1) * n], None, None
+
+
+def seqpar_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mesh, *, use_kernels: bool = True) -> torch.Tensor:
+    """Sequence-parallel causal attention over ``mesh``'s ``"model"`` axis
+    (``repro/models/lm/transformer.py::seqpar_attention``): ``q [B, S, Hq,
+    Dh]``, ``k/v [B, S, Hkv, Dh]``, held alike by the ranks of a model
+    group -> ``[B, S, Hq, Dh]``, alike on them too. Rank ``i`` of ``m``
+    attends query rows ``[i * S / m, (i + 1) * S / m)`` to the whole K/V
+    (:func:`seqpar_shard`), and the shards are gathered along the
+    sequence. With ``m == 1`` or ``S`` not a multiple of ``m``, the whole
+    causal attention, as the reference falls back.
+
+    The gradients follow the mesh's rule: q, k and v enter the shard's
+    work through ``strategies.copy_to_group``, so the query rows' zeros
+    outside the shard and each shard's ``dk`` / ``dv`` are summed over the
+    group on the way back, and every rank ends with the whole gradients of
+    a one-device run; the gather back-propagates as taking the rank's own
+    rows. The reference's folded chunks round ``p`` to the values' type
+    before the PV product; K7 does too in bf16, its plain version keeps
+    f32 (f32 models: the same function)."""
+    m = meshlib.axis_size(mesh, ("model",))
+    s = q.shape[1]
+    if m == 1 or s % m:
+        return _attend(use_kernels)(q, k, v, True, None)
+    shard, i = s // m, mesh.get_local_rank("model")
+    group = meshlib.axis_group(mesh, ("model",))
+    q, k, v = (copy_to_group(t, group) for t in (q, k, v))
+    o = seqpar_shard(q[:, i * shard:(i + 1) * shard], k, v, i, shard,
+                     use_kernels)
+    return _GatherShards.apply(o, group, i)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -171,6 +238,7 @@ def attn_apply(params: Dict, x: torch.Tensor, cfg: LMConfig, *,
                kv_from: Optional[torch.Tensor] = None,
                keep_cache: bool = False,
                use_kernels: bool = True,
+               seq_par_mesh=None,
                ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """Pre-norm attention with residual
     (``repro/models/lm/transformer.py::attn_apply``).
@@ -178,6 +246,9 @@ def attn_apply(params: Dict, x: torch.Tensor, cfg: LMConfig, *,
     * prefill and training: ``cache=None`` -> full-sequence attention
       through K7, with K8 as its backward (``use_kernels``), or the plain
       version; ``window`` keeps keys ``j > i - window`` (local attention).
+      With ``seq_par_mesh`` (the reference's, given where the model's
+      rule picks the ``"seq"`` partition), causal self-attention without
+      a window is :func:`seqpar_attention` over its ``"model"`` axis.
     * cross-attention: ``kv_from [B, Senc, D]`` (an encoder's output)
       supplies K and V, normalised by the same ``norm`` parameters as the
       queries' input (the reference's ``:304``); no RoPE on either side
@@ -237,10 +308,11 @@ def attn_apply(params: Dict, x: torch.Tensor, cfg: LMConfig, *,
             o = _rolling_decode(q, k_cache, v_cache, cache_pos, smax)
         else:
             o = decode_attention(q, k_cache, v_cache, cache_pos)
+    elif seq_par_mesh is not None and window is None and causal and \
+            kv_from is None:
+        o = seqpar_attention(q, k, v, seq_par_mesh, use_kernels=use_kernels)
     else:
-        attend = ops.flash_attention if use_kernels \
-            else ops.flash_attention_plain
-        o = attend(q, k, v, causal, window)
+        o = _attend(use_kernels)(q, k, v, causal, window)
     out = o.reshape(b, -1, hq * hd) @ params["wo"].to(cd)
     return x + out, new_cache
 

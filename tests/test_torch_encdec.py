@@ -210,17 +210,19 @@ def kernel_path(monkeypatch):
     key length of each."""
     calls = []
 
-    def fake_fwd(q, k, v, *, causal, window):
+    def fake_fwd(q, k, v, *, causal, window, q_pos0=0):
         calls.append(("fwd", q.shape[1], k.shape[1]))
         assert all(t.is_contiguous() for t in (q, k, v))
         with torch.no_grad():
-            return flash_attention_ref(q, k, v, causal=causal, window=window)
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_pos0=q_pos0)
 
-    def fake_bwd(q, k, v, o, lse, do, *, causal, window):
+    def fake_bwd(q, k, v, o, lse, do, *, causal, window, q_pos0=0):
         calls.append(("bwd", q.shape[1], k.shape[1]))
         with torch.no_grad():
             return flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                           causal=causal, window=window)
+                                           causal=causal, window=window,
+                                           q_pos0=q_pos0)
 
     monkeypatch.setattr(ops, "_use_kernel", lambda *ts: True)
     monkeypatch.setattr(ops, "flash_fwd", fake_fwd)

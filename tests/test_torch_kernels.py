@@ -925,21 +925,81 @@ def test_cuda_flash_cross(cuda, case):
 @pytest.mark.parametrize("causal,window", [(True, None), (False, 8),
                                            (True, 8)])
 def test_flash_cross_rejects_masks(causal, window):
-    """A key length other than the query length takes neither the causal
-    mask nor a window (the reference aligns no positions across two
-    lengths): both wrappers and both plain versions raise before any
-    work; the same lengths pass."""
+    """A key length of its own takes no window (the reference aligns no
+    positions across two lengths), and causal queries need their keys:
+    with fewer keys than queries both wrappers and both plain versions
+    raise before any work; the same lengths pass. (A causal call with
+    more keys than queries is a shard of sequence-parallel attention:
+    ``tests/test_torch_seqpar.py::test_offset_rule``.)"""
     q, do = torch.zeros((2, 6, 16)), torch.zeros((2, 6, 16))
-    k, v = torch.zeros((1, 9, 16)), torch.zeros((1, 9, 16))
+    k, v = torch.zeros((1, 5, 16)), torch.zeros((1, 5, 16))
     lse = torch.zeros((2, 6))
-    with pytest.raises(ValueError, match="neither a causal mask nor a"):
+    refused = "key length 5 other than|need their keys"
+    with pytest.raises(ValueError, match=refused):
         flash_fwd(q, k, v, causal=causal, window=window)
-    with pytest.raises(ValueError, match="neither a causal mask nor a"):
+    with pytest.raises(ValueError, match=refused):
         flash_bwd(q, k, v, q, lse, do, causal=causal, window=window)
-    with pytest.raises(ValueError, match="neither a causal mask nor a"):
+    with pytest.raises(ValueError, match=refused):
         flash_attention_ref(q, k, v, causal=causal, window=window)
-    o, lse = flash_fwd(q, k[:, :6], v[:, :6], causal=causal, window=window)
+    k, v = torch.zeros((1, 6, 16)), torch.zeros((1, 6, 16))
+    o, lse = flash_fwd(q, k, v, causal=causal, window=window)
     assert o.shape == q.shape and lse.shape == (2, 6)
+
+
+#: K7 and K8 with a causal query offset (a shard of sequence-parallel
+#: attention: query row i at position q_pos0 + i over all Sk keys) on every
+#: route, ``(sq, sk, q_pos0)`` x route: the first shard (offset 0, Sk >
+#: Sq), an offset every query and key tile divides (384), one none does
+#: (100, Sq 37) and the last shard (q_pos0 + Sq = Sk); GQA g = 3 (at D 256
+#: the dk/dv grid splits the group 3 ways: every split writes its zeros
+#: for the keys no query sees)
+_OFFSETS = {"first": (100, 700, 0), "tiled": (100, 700, 384),
+            "ragged": (37, 700, 100), "last": (100, 700, 600)}
+_ROUTES = {**{f"d{d}": (d, torch.bfloat16) for d in HEAD_DIMS},
+           "f32": (64, torch.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", list(_OFFSETS))
+@pytest.mark.parametrize("route", list(_ROUTES))
+def test_cuda_flash_offset(cuda, route, offset):
+    """K7 and K8 with ``q_pos0`` against their plain versions on the same
+    inputs: ``o`` and ``lse`` within K7's bounds, the gradients by
+    ``BF16_GRAD_RULE`` (f32 within 1e-4), the ``dk`` / ``dv`` rows of the
+    keys past ``q_pos0 + Sq - 1`` exactly 0; two launches give the same
+    bits."""
+    d, dtype = _ROUTES[route]
+    sq, sk, p = _OFFSETS[offset]
+    g = torch.Generator().manual_seed(11)
+    q, do = (torch.randn((6, sq, d), generator=g).to(dtype).to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn((2, sk, d), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    o, lse = flash_fwd(q, k, v, q_pos0=p)
+    o2, lse2 = flash_fwd(q, k, v, q_pos0=p)
+    po, plse = flash_attention_ref(q, k, v, q_pos0=p)
+    got = flash_bwd(q, k, v, o, lse, do, q_pos0=p)
+    again = flash_bwd(q, k, v, o, lse, do, q_pos0=p)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, q_pos0=p)
+    torch.cuda.synchronize()
+    tol_o, tol_l = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-3)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+        "two forward launches differ"
+    assert (o.float() - po.float()).abs().max().item() <= tol_o
+    assert (lse - plse).abs().max().item() <= tol_l
+    for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert torch.equal(x, y), f"{name}: two launches differ"
+        if name != "dq":
+            assert not x[:, p + sq:].any(), f"{name}: unseen keys not 0"
+        if dtype == torch.float32:
+            err = (x - w).abs().max().item()
+            assert err <= 1e-4, f"{name}: max abs err {err} above 1e-4"
+            continue
+        peak, whole, worst = grad_row_error(x, w)
+        assert peak <= BF16_GRAD_RULE["peak"], f"{name}: peak {peak}"
+        assert whole <= BF16_GRAD_RULE["whole"], f"{name}: rel L2 {whole}"
+        assert worst <= 1.0, f"{name}: worst row at {worst} of its limit"
 
 
 #: dkv_splits at 132 SMs (an H100 SXM): ``(bkv, s, group) -> splits``

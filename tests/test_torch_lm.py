@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 import dataclasses
 import functools
+import types
 
 import numpy as np
 import jax
@@ -192,16 +193,18 @@ def test_flash_attention_kernel_path_backward_raises(monkeypatch):
     autograd as the kernels' output buffers) so the path runs here."""
     calls = []
 
-    def fake_flash_fwd(q, k, v, *, causal, window):
+    def fake_flash_fwd(q, k, v, *, causal, window, q_pos0=0):
         calls.append(("fwd", q.shape))
         with torch.no_grad():
-            return flash_attention_ref(q, k, v, causal=causal, window=window)
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_pos0=q_pos0)
 
-    def fake_flash_bwd(q, k, v, o, lse, do, *, causal, window):
+    def fake_flash_bwd(q, k, v, o, lse, do, *, causal, window, q_pos0=0):
         calls.append(("bwd", do.shape))
         with torch.no_grad():
             return flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                           causal=causal, window=window)
+                                           causal=causal, window=window,
+                                           q_pos0=q_pos0)
 
     monkeypatch.setattr(ops, "_use_kernel", lambda *ts: True)
     monkeypatch.setattr(ops, "flash_fwd", fake_flash_fwd)
@@ -390,7 +393,10 @@ def test_prefill_on_cpu_launches_nothing():
 def test_left_out_paths_raise():
     """Cross-attention is held to the JAX package in
     ``tests/test_torch_encdec.py``; with a cache it is the reference's
-    unreachable branch, which the port refuses."""
+    unreachable branch, which the port refuses. ``seqpar_attention`` at a
+    model axis of 1 is whole causal attention (the reference's fallback;
+    its shards are held in ``tests/test_torch_seqpar.py`` and on a mesh in
+    ``tests/test_torch_lm_mesh.py``); ``chunked_attention`` has no port."""
     cfg = reduce_for_smoke(LM_ARCHS["olmo-1b"])
     params = LMModel(cfg, device="cpu").init()
     x = torch.zeros((1, 4, cfg.d_model))
@@ -401,8 +407,15 @@ def test_left_out_paths_raise():
     with pytest.raises(ValueError, match="takes no cache"):
         tf.attn_apply(layer, x, cfg, positions=pos, kv_from=x, cache=(kv, kv),
                       cache_pos=pos[:, 0])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tf.seqpar_attention(x, x, x, None)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 4, cfg.num_heads, cfg.resolved_head_dim),
+                    generator=g)
+    k, v = torch.randn((2, 1, 4, cfg.num_kv_heads, cfg.resolved_head_dim),
+                       generator=g)
+    one = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                mesh=torch.zeros((2, 1)))
+    assert torch.equal(tf.seqpar_attention(q, k, v, one),
+                       ops.flash_attention(q, k, v, True))
     with pytest.raises(NotImplementedError, match="K7"):
         tf.chunked_attention(x, x, x)
 

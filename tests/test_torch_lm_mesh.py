@@ -27,6 +27,16 @@ tokens ``[4, 32]``, loss chunks of 16):
 * granite-moe-1b with 5 experts (padded to 6, the padding masked out of
   routing) in its own bf16, against JAX's (2, 2) run within
   ``BF16_LOSS_REL`` and ``BF16_GRAD_REL``;
+* the ``"seq"`` partition forced (``attn_partition="seq"`` on both
+  sides: sequence-parallel attention over ``"model"``, each rank its 16
+  query rows through ``transformer.seqpar_shard``): minitron-4b,
+  ``sharded``, untied, f32, the loss, every whole gradient and
+  ``prefill``'s logits against JAX's (2, 2) ``"seq"`` run and the port's
+  one-device run, <= 1e-5; granite-moe-1b, ``hybrid``, in its own bf16
+  (MoE beside the seq attention) against JAX's within ``BF16_LOSS_REL``
+  and ``BF16_GRAD_REL``; olmo-1b at a sequence of 15, which the model
+  axis does not divide (both packages fall back to whole attention),
+  against JAX's and the port's one-device run, <= 1e-5;
 * ``python -m repro_torch.launch.train --arch granite-moe-1b-a400m
   --smoke --mesh 2x2 --device cpu`` on the four ranks against the
   reference's LM branch (``repro/launch/train.py``) on a (2, 2) mesh from
@@ -35,8 +45,8 @@ tokens ``[4, 32]``, loss chunks of 16):
 Without ranks: ``attn_partition``, ``fsdp``, ``hot_rows``, ``cold_rows``,
 ``vocab_pad`` and ``padded_experts`` for every LM arch at full size on
 (4, 1), (2, 2) and (1, 4), with and without remat, equal to the
-reference's; a ``"seq"`` partition over a model axis above 1 raises
-``NotImplementedError`` naming ROADMAP item 4 (c).
+reference's (the ``"seq"`` ones, minitron-4b and granite-moe-3b on a
+model axis of 16 aside, included: command-r-plus in training).
 
 A rank that dies or overruns its time fails the test; nothing waits
 forever.
@@ -67,6 +77,13 @@ TOL = 1e-5
 #: each gradient's relative L2 error
 BF16_LOSS_REL = 2e-3
 BF16_GRAD_REL = 5e-2
+#: bf16 on the "seq" partition: JAX's sequence-parallel shards round p to
+#: bf16 before the PV product (``p_dtype=vf.dtype``, its folded chunks),
+#: the port's plain attention keeps it f32 (K7 on the card rounds it as
+#: JAX does), so its bf16 gradients are held by their drift from JAX's
+#: f32 gradients of the same init and tokens: at most ``BF16_DRIFT`` x
+#: JAX's own bf16 gradients' drift, plus 2e-3 (relative L2 each)
+BF16_DRIFT = 1.5
 #: the launcher's bf16 losses against the reference's LM branch's
 LAUNCHER_TOL = 1e-2
 LAUNCHER_ARGS = ["--arch", "granite-moe-1b-a400m", "--smoke", "--mesh",
@@ -75,25 +92,38 @@ LAUNCHER_ARGS = ["--arch", "granite-moe-1b-a400m", "--smoke", "--mesh",
 #: the processes of the module: ranks and the JAX subprocess
 TIMEOUT_S = 300
 
-#: cases: (arch, embed mode, dtype, vocabulary, capacity factor, experts;
-#: None: the reduced config's own)
+#: cases: (arch, embed mode, dtype, vocabulary, capacity factor, experts,
+#: attention partition; None: the reduced config's own, "auto": the rule's)
 CASES = {
-    "olmo": ("olmo-1b", "sharded", "f32", None, None, None),
-    "phi3": ("phi3-mini-3.8b", "sharded", "f32", 511, None, None),
-    "granite": ("granite-moe-1b-a400m", "hybrid", "f32", None, None, None),
+    "olmo": ("olmo-1b", "sharded", "f32", None, None, None, "auto"),
+    "phi3": ("phi3-mini-3.8b", "sharded", "f32", 511, None, None, "auto"),
+    "granite": ("granite-moe-1b-a400m", "hybrid", "f32", None, None, None,
+                "auto"),
     "granite_nodrop": ("granite-moe-1b-a400m", "hybrid", "f32", None, 8.0,
-                       None),
+                       None, "auto"),
     "granite_bf16": ("granite-moe-1b-a400m", "hybrid", "bf16", None, None,
-                     5),
+                     5, "auto"),
+    "minitron_seq": ("minitron-4b", "sharded", "f32", None, None, None,
+                     "seq"),
+    "granite_seq_bf16": ("granite-moe-1b-a400m", "hybrid", "bf16", None,
+                         None, None, "seq"),
+    "olmo_seq_odd": ("olmo-1b", "sharded", "f32", None, None, None, "seq"),
 }
-LOGITS = ("olmo", "granite")
+#: a case's sequence where it is not ``S``: 15 tokens, which the model
+#: axis of 2 does not divide
+SEQ = {"olmo_seq_odd": 15}
+LOGITS = ("olmo", "granite", "minitron_seq")
+#: the bf16 cases whose gradients are held by their drift from JAX's f32
+#: gradients of the same init and tokens (``BF16_DRIFT``)
+DRIFT = ("granite_seq_bf16",)
 DECODE = ("granite",)
 SHAPES = ((4, 1), (2, 2), (1, 4))
 
 
 def _case_cfg(case, archs, reduce):
-    """A case's reduced config (either package's) and its embed mode."""
-    arch, mode, dtype, vocab, factor, experts = CASES[case]
+    """A case's reduced config (either package's), its embed mode and its
+    attention partition."""
+    arch, mode, dtype, vocab, factor, experts, attn = CASES[case]
     cfg = dataclasses.replace(reduce(archs[arch]), dtype=dtype)
     if vocab is not None:
         cfg = dataclasses.replace(cfg, vocab_size=vocab)
@@ -103,13 +133,13 @@ def _case_cfg(case, archs, reduce):
     if experts is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_experts=experts))
-    return cfg, mode
+    return cfg, mode, attn
 
 
 def _tokens(case, vocab):
     seed = list(CASES).index(case)
     return np.random.default_rng(100 + seed).integers(
-        0, vocab, (B, S)).astype(np.int32)
+        0, vocab, (B, SEQ.get(case, S))).astype(np.int32)
 
 
 def _data(path):
@@ -153,9 +183,19 @@ def _port_cases(rank, tmp):
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.train import lm_value_and_grad
+    from repro_torch.models.lm import transformer as tf
     from repro_torch.models.lm.backbone import LMModel
     mesh = meshlib.make_test_mesh((2, 2))
     dp = meshlib.axis_group(mesh, ("data",))
+    # the shards this rank attends through seqpar_shard: (index, rows)
+    shards, shard_fn = [], tf.seqpar_shard
+
+    def counted_shard(q, k, v, index, shard, use_kernels=True):
+        shards.append((index, shard))
+        return shard_fn(q, k, v, index, shard, use_kernels)
+
+    tf.seqpar_shard = counted_shard
+    meta = {}
 
     def save(name, arrays):
         if rank == 0:
@@ -164,11 +204,12 @@ def _port_cases(rank, tmp):
             os.rename(path + ".tmp.npz", path)
 
     for case in CASES:
-        cfg, mode = _case_cfg(case, LM_ARCHS, reduce_for_smoke)
+        cfg, mode, attn = _case_cfg(case, LM_ARCHS, reduce_for_smoke)
         path = os.path.join(tmp, f"in_{case}.npz")
         _wait_for(path)
         model = LMModel(cfg, mesh, device="cpu", embed_mode=mode,
-                        loss_chunk=CHUNK)
+                        loss_chunk=CHUNK, attn_partition=attn)
+        del shards[:]
         params = model.shard_params(convert.lm_params_from_flat(
             _data(path), device="cpu"))
         tokens = model.data_block(torch.from_numpy(_tokens(
@@ -188,6 +229,12 @@ def _port_cases(rank, tmp):
                     torch.zeros(b, dtype=torch.int64))
                 out["decode"] = all_gather(logits, dp).numpy()
         save(f"port_{case}.npz", out)
+        meta[case] = {"attn_partition": model.attn_partition,
+                      "model_index": model._model_index,
+                      "shards": sorted(set(shards))}
+    if rank == 0:
+        with open(os.path.join(tmp, "port_meta.json"), "w") as f:
+            json.dump(meta, f)
 
     # the launcher's seed-0 weights, for the reference's LM branch
     cfg = reduce_for_smoke(LM_ARCHS[LAUNCHER_ARGS[1]])
@@ -231,10 +278,10 @@ def flat_np(tree):
 
 mesh = make_test_mesh((2, 2))
 for i, case in enumerate(CASES):
-    cfg, mode = _case_cfg(case, LM_ARCHS, reduce_for_smoke)
+    cfg, mode, attn = _case_cfg(case, LM_ARCHS, reduce_for_smoke)
     with mesh:
         m = LMModel(cfg, mesh, embed_mode=mode, q_chunk=CHUNK,
-                    k_chunk=CHUNK, loss_chunk=CHUNK)
+                    k_chunk=CHUNK, loss_chunk=CHUNK, attn_partition=attn)
         params = jax.jit(m.init)(jax.random.PRNGKey(i))
     save(f'in_{case}.npz', **flat_np(params))
     tokens = jnp.asarray(_tokens(case, cfg.vocab_size))
@@ -251,6 +298,16 @@ for i, case in enumerate(CASES):
                 params, tokens[:, :1], m.init_cache(B, DECODE_LEN),
                 jnp.zeros((B,), jnp.int32))
             out['decode'] = np.asarray(logits)
+        if case in DRIFT:
+            # the same init, tokens and mesh in f32: what each package's
+            # bf16 gradients drift from
+            m32 = LMModel(dataclasses.replace(cfg, dtype='f32'), mesh,
+                          embed_mode=mode, q_chunk=CHUNK, k_chunk=CHUNK,
+                          loss_chunk=CHUNK, attn_partition=attn)
+            _, g32 = jax.jit(jax.value_and_grad(m32.train_loss))(
+                params, {'tokens': tokens})
+            save(f'jax_{case}_f32.npz', **{f'g/{k}': v for k, v in
+                                           flat_np(g32).items()})
     save(f'jax_{case}.npz', **out)
 
 # every arch's sizes at full size on each mesh
@@ -311,8 +368,8 @@ def runs(tmp_path_factory):
     log = open(os.path.join(tmp, "jax.log"), "w")
     shared = "\n".join(
         [f"B, S, CHUNK, DECODE_LEN = {B}, {S}, {CHUNK}, {DECODE_LEN}",
-         f"TIMEOUT_S = {TIMEOUT_S}", f"CASES = {CASES!r}",
-         f"LOGITS, DECODE = {LOGITS!r}, {DECODE!r}",
+         f"TIMEOUT_S = {TIMEOUT_S}", f"CASES = {CASES!r}", f"SEQ = {SEQ!r}",
+         f"LOGITS, DECODE, DRIFT = {LOGITS!r}, {DECODE!r}, {DRIFT!r}",
          f"SHAPES = {SHAPES!r}", f"LAUNCHER_ARGS = {LAUNCHER_ARGS!r}"]
         + [inspect.getsource(f) for f in (_case_cfg, _tokens)])
     jproc = subprocess.Popen(
@@ -355,26 +412,30 @@ def _load(tmp, name):
 
 
 def _one_device(runs, case):
-    """The port's one-device loss and whole gradients of ``case`` from the
-    case's init, cut from the mesh's padded shapes to one device's (the
-    padding rows of a striped table are never read and take no
-    gradient)."""
+    """The port's one-device loss, whole gradients and (for a case of
+    ``LOGITS``) ``prefill``'s logits of ``case`` from the case's init, cut
+    from the mesh's padded shapes to one device's (the padding rows of a
+    striped table are never read and take no gradient)."""
     from repro_torch import convert
     from repro_torch.configs.registry import LM_ARCHS, reduce_for_smoke
     from repro_torch.launch.train import lm_value_and_grad
     from repro_torch.models.lm.backbone import LMModel
     from repro_torch.tree import flatten
-    cfg, mode = _case_cfg(case, LM_ARCHS, reduce_for_smoke)
+    cfg, mode, _ = _case_cfg(case, LM_ARCHS, reduce_for_smoke)
     model = LMModel(cfg, device="cpu", embed_mode=mode, loss_chunk=CHUNK)
     shapes = {k: v.shape for k, v in flatten(model.init())}
     init = _load(runs, f"in_{case}.npz")
     assert set(init) == set(shapes)
     cut = {k: v[tuple(slice(0, n) for n in shapes[k])]
            for k, v in init.items()}
-    loss, grads = lm_value_and_grad(
-        model, convert.lm_params_from_flat(cut, device="cpu"),
-        torch.from_numpy(_tokens(case, cfg.vocab_size)))
-    return float(loss), convert.lm_params_to_flat(grads)
+    params = convert.lm_params_from_flat(cut, device="cpu")
+    tokens = torch.from_numpy(_tokens(case, cfg.vocab_size))
+    loss, grads = lm_value_and_grad(model, params, tokens)
+    logits = None
+    if case in LOGITS:
+        with torch.no_grad():
+            logits = model.prefill(params, {"tokens": tokens}).numpy()
+    return float(loss), convert.lm_params_to_flat(grads), logits
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +443,8 @@ def _one_device(runs, case):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", ["olmo", "phi3", "granite",
-                                  "granite_nodrop"])
+                                  "granite_nodrop", "minitron_seq",
+                                  "olmo_seq_odd"])
 def test_lm_mesh_matches_jax(runs, case):
     want = _load(runs, f"jax_{case}.npz")
     got = _load(runs, f"port_{case}.npz")
@@ -394,11 +456,15 @@ def test_lm_mesh_matches_jax(runs, case):
     assert ("decode" in got) == (case in DECODE)
 
 
-@pytest.mark.parametrize("case", ["olmo", "granite_nodrop"])
+@pytest.mark.parametrize("case", ["olmo", "granite_nodrop", "minitron_seq",
+                                  "olmo_seq_odd"])
 def test_lm_mesh_matches_one_device(runs, case):
     got = _load(runs, f"port_{case}.npz")
-    loss, grads = _one_device(runs, case)
+    loss, grads, logits = _one_device(runs, case)
     np.testing.assert_allclose(got["loss"], loss, rtol=TOL, atol=TOL)
+    if logits is not None:
+        np.testing.assert_allclose(got["prefill"][:, :logits.shape[1]],
+                                   logits, rtol=TOL, atol=TOL)
     for k, v in grads.items():
         whole = got[f"g/{k}"]
         np.testing.assert_allclose(
@@ -415,13 +481,16 @@ def test_published_capacity_drops_by_the_block(runs):
     block of tokens, so the mesh drops other assignments than one device,
     as the reference's (2, 2) run does (its (1, 1) loss differs too)."""
     got = _load(runs, "port_granite.npz")
-    loss, _ = _one_device(runs, "granite")
+    loss, _, _ = _one_device(runs, "granite")
     assert abs(float(got["loss"]) - loss) > 1e-4
 
 
-def test_lm_mesh_bf16_padded_experts_within_bound(runs):
-    want = _load(runs, "jax_granite_bf16.npz")
-    got = _load(runs, "port_granite_bf16.npz")
+def _bf16_within_bound(runs, case):
+    """The port's bf16 loss and every whole gradient against JAX's (2, 2)
+    run of ``case``: the loss within ``BF16_LOSS_REL``, each gradient's
+    relative L2 error within ``BF16_GRAD_REL``; returns the port's."""
+    want = _load(runs, f"jax_{case}.npz")
+    got = _load(runs, f"port_{case}.npz")
     assert set(got) == set(want)
     w, g = float(want["loss"]), float(got["loss"])
     assert abs(g - w) <= BF16_LOSS_REL * abs(w), (g, w)
@@ -432,9 +501,48 @@ def test_lm_mesh_bf16_padded_experts_within_bound(runs):
         assert a.shape == b.shape, k
         rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
         assert rel <= BF16_GRAD_REL, (k, rel)
+    return got
+
+
+def test_lm_mesh_bf16_padded_experts_within_bound(runs):
+    got = _bf16_within_bound(runs, "granite_bf16")
     # the padding expert (index 5 of 6) is never routed to: no gradient
     for k in ("w1", "w2", "w3"):
         assert not got[f"g/groups/0_attn/ffn/{k}"][:, 5].any(), k
+
+
+def test_lm_mesh_seq_bf16_within_bound(runs):
+    """granite-moe-1b in bf16 on the ``"seq"`` partition (sequence-
+    parallel attention beside the experts over ``"model"``): the loss
+    within ``BF16_LOSS_REL`` of JAX's, every whole gradient's drift from
+    JAX's f32 gradient within ``BF16_DRIFT`` x JAX's bf16 one's + 2e-3."""
+    want = _load(runs, "jax_granite_seq_bf16.npz")
+    exact = _load(runs, "jax_granite_seq_bf16_f32.npz")
+    got = _load(runs, "port_granite_seq_bf16.npz")
+    assert set(got) == set(want) and set(exact) <= set(want)
+    w, g = float(want["loss"]), float(got["loss"])
+    assert abs(g - w) <= BF16_LOSS_REL * abs(w), (g, w)
+    for k, e in exact.items():
+        e = e.astype(np.float64)
+        norm = max(np.linalg.norm(e), 1e-30)
+        drift = np.linalg.norm(got[k].astype(np.float64) - e) / norm
+        jdrift = np.linalg.norm(want[k].astype(np.float64) - e) / norm
+        assert drift <= BF16_DRIFT * jdrift + 2e-3, (k, drift, jdrift)
+
+
+@pytest.mark.parametrize("case", ["minitron_seq", "granite_seq_bf16",
+                                  "olmo_seq_odd"])
+def test_seq_cases_run_sequence_parallel(runs, case):
+    """Each ``"seq"`` case built with that partition; rank 0 (model index
+    0) attended its own 16 of the 32 query rows in every causal
+    self-attention layer, and the case at 15 tokens none (whole
+    attention, the fallback)."""
+    with open(os.path.join(runs, "port_meta.json")) as f:
+        meta = json.load(f)[case]
+    assert meta["attn_partition"] == "seq"
+    assert meta["model_index"] == 0
+    want = [] if case in SEQ else [[0, S // 2]]
+    assert meta["shards"] == want
 
 
 def test_launcher_on_the_mesh_matches_the_reference(runs):
@@ -472,11 +580,6 @@ def test_sizes_and_attention_rule_match_jax(runs, shape):
     for arch, cfg in LM_ARCHS.items():
         for remat in ("none", "full"):
             want = sizes[f"{arch} {shape[0]}x{shape[1]} {remat}"]
-            if want["attn_partition"] == "seq" and shape[1] > 1:
-                with pytest.raises(NotImplementedError,
-                                   match="seqpar_attention"):
-                    LMModel(cfg, mesh, device="cpu", remat=remat)
-                continue
             m = LMModel(cfg, mesh, device="cpu", remat=remat)
             got = dict(attn_partition=m.attn_partition, fsdp=m.fsdp,
                        embed_mode=m.embed_mode, hot_rows=m.hot_rows,
@@ -488,23 +591,26 @@ def test_sizes_and_attention_rule_match_jax(runs, shape):
 
 def test_seq_partition_raises_seqpar():
     """The reference's training rule sends command-r-plus (an FSDP-sized
-    model) to sequence-parallel attention; over a model axis of 4 that is
-    ROADMAP item 4 (c). On a model axis of 1 ``"seq"`` is the same
-    function as ``"heads"`` and builds; a forced ``"seq"`` over a model
-    axis above 1 raises too."""
+    model) to sequence-parallel attention, over a model axis of 4 as on
+    one of 1, and the model builds on it (it raised before the port had
+    ``seqpar_attention``); without remat it keeps ``"heads"``. A forced
+    ``"seq"`` builds on (2, 2); an unknown partition raises
+    ``ValueError``."""
     from repro_torch.configs.registry import LM_ARCHS, reduce_for_smoke
     from repro_torch.models.lm.backbone import LMModel
-    from repro_torch.roadmap import SEQPAR
     cfg = LM_ARCHS["command-r-plus-104b"]
-    with pytest.raises(NotImplementedError, match=SEQPAR):
-        LMModel(cfg, _shape_only_mesh((1, 4)), device="cpu", remat="full")
+    m = LMModel(cfg, _shape_only_mesh((1, 4)), device="cpu", remat="full")
+    assert m.attn_partition == "seq" and m.fsdp
+    assert m._seq_par_mesh is not None
     m = LMModel(cfg, _shape_only_mesh((1, 4)), device="cpu")
-    assert m.attn_partition == "heads"
+    assert m.attn_partition == "heads" and m._seq_par_mesh is None
     assert LMModel(cfg, _shape_only_mesh((4, 1)), device="cpu",
                    remat="full").attn_partition == "seq"
     small = reduce_for_smoke(LM_ARCHS["olmo-1b"])
-    with pytest.raises(NotImplementedError, match=SEQPAR):
-        LMModel(small, _shape_only_mesh((2, 2)), device="cpu",
+    m = LMModel(small, _shape_only_mesh((2, 2)), device="cpu",
                 attn_partition="seq")
+    assert m.attn_partition == "seq" and m._seq_par_mesh is not None
+    assert LMModel(small, device="cpu",
+                   attn_partition="seq")._seq_par_mesh is None
     with pytest.raises(ValueError, match="attn_partition"):
         LMModel(small, device="cpu", attn_partition="rows")

@@ -211,18 +211,20 @@ def kernel_path(monkeypatch):
     the kernels' output buffers); returns the launches it made."""
     calls = []
 
-    def fake_fwd(q, k, v, *, causal, window):
+    def fake_fwd(q, k, v, *, causal, window, q_pos0=0):
         calls.append("fwd")
         assert all(t.is_contiguous() for t in (q, k, v))
         with torch.no_grad():
-            return flash_attention_ref(q, k, v, causal=causal, window=window)
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_pos0=q_pos0)
 
-    def fake_bwd(q, k, v, o, lse, do, *, causal, window):
+    def fake_bwd(q, k, v, o, lse, do, *, causal, window, q_pos0=0):
         calls.append("bwd")
         assert all(t.is_contiguous() for t in (q, k, v, o, lse, do))
         with torch.no_grad():
             return flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                           causal=causal, window=window)
+                                           causal=causal, window=window,
+                                           q_pos0=q_pos0)
 
     monkeypatch.setattr(ops, "_use_kernel", lambda *ts: True)
     monkeypatch.setattr(ops, "flash_fwd", fake_fwd)

@@ -273,6 +273,29 @@ def _encdec(cs, dev, which: int, backward: bool):
     return lambda: k78.flash_fwd(q, k, v, causal=causal), 5
 
 
+def _seq_shard(cs, dev, backward: bool):
+    """K7 (or K8) at minitron-4b's last shard of a model axis of
+    ``RUN.seq_shards`` (``chip_smoke.shard_shape``): q ``[RUN.lm_batch x
+    Hq, S / 16, D]`` at ``q_pos0 = S - S / 16`` over the whole k/v
+    ``[RUN.lm_batch x Hkv, S, D]``, bf16, as ``chip_smoke.py`` times it
+    under ``shapes`` (its case (f)). A checkout whose kernels take no query
+    offset raises."""
+    import torch
+    from repro_torch.kernels import flash_attention as k78
+    hq, hkv, d = cs.lm_attn_shape(cs.RUN)
+    b, s = cs.RUN.lm_batch, cs.RUN.attn_seq
+    n, p = cs.shard_shape(cs.RUN)
+    if backward:
+        ins = cs.flash_bwd_inputs(torch.Generator().manual_seed(8), dev,
+                                  b * hq, b * hkv, n, d, torch.bfloat16,
+                                  sk=s, q_pos0=p)
+        return lambda: k78.flash_bwd(*ins, causal=True, q_pos0=p), 5
+    g = torch.Generator().manual_seed(7)
+    q, = cs.randn_heads(g, dev, (b * hq,), n, d, torch.bfloat16)
+    k, v = cs.randn_heads(g, dev, (b * hkv, b * hkv), s, d, torch.bfloat16)
+    return lambda: k78.flash_fwd(q, k, v, causal=True, q_pos0=p), 5
+
+
 def parts_ms(fn, calls: int = 10) -> dict:
     """Device ms a call of each kernel ``fn`` launches (K8: the ``D =
     rowsum(do o)`` kernel, dq, dk/dv and, where the dk/dv grid is split,
@@ -311,7 +334,9 @@ def parts_ms(fn, calls: int = 10) -> dict:
 #: split the dk/dv grid for 1 or 4 blocks an SM instead of 2), K7 and K8
 #: at granite-moe-3b-a800m's D 64 prefill and training shapes (c), K7 and
 #: K8 at seamless-m4t-large-v2's encoder, decoder and cross-attention
-#: shapes and pixtral-12b's (d: ``chip_smoke.encdec_attn_shapes``); then
+#: shapes and pixtral-12b's (d: ``chip_smoke.encdec_attn_shapes``), K7 and
+#: K8 at minitron-4b's last sequence-parallel shard of a model axis of 16
+#: (``seq shard``: ``q_pos0`` 3840); then
 #: the shapes of
 #: DCN, WDL and DeepFM: K1 and K3 at full-vocabulary wdl-criteo's ``dist``
 #: group (D 16) and its wide twins (D 1) (``wdl_training_rows``), and the
@@ -350,6 +375,8 @@ CASES = {
        (lambda i, bwd: lambda cs, dev: _encdec(cs, dev, i, bwd))(i, bwd)
        for i, name in enumerate(("encoder", "decoder", "cross", "pixtral"))
        for bwd in (False, True)},
+    "flash_fwd seq shard": lambda cs, dev: _seq_shard(cs, dev, False),
+    "flash_bwd seq shard": lambda cs, dev: _seq_shard(cs, dev, True),
     "lookup_fwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, False),
     "lookup_fwd wdl wide": lambda cs, dev: _wdl(cs, dev, 1, False),
     "lookup_bwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, True),
@@ -395,7 +422,7 @@ CASES = {
 #: the cases whose device time is also given kernel by kernel
 #: (:func:`parts_ms`)
 PARTS = ("flash_bwd (a)", "flash_bwd (b)", "flash_bwd (c)",
-         "flash_bwd (d) cross")
+         "flash_bwd (d) cross", "flash_bwd seq shard")
 
 
 def main() -> int:
