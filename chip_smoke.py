@@ -982,6 +982,8 @@ def kernel_phase(args, dev):
     recipe_kernels(args, dev, shape_line, etc_training_rows(args, dev), (),
                    ())
     torch.cuda.empty_cache()
+    route_edges(args, dev)
+    torch.cuda.empty_cache()
     attention_kernel(args, record, shape_line, g, dev)
     attention_bwd_kernel(args, record, shape_line, g, dev)
     for name, recs in shapes.items():
@@ -1526,6 +1528,90 @@ def sdpa_backend(fn) -> str:
     if not names:
         return "not measured"
     return ", ".join(n[:60] for n in names[:6])
+
+
+#: K3 at the edges of its routes, ``(D, B)``: rows ``[B, 1]`` over a
+#: vocabulary of 2^20 with a run of one id across hundreds of chunks, at
+#: every group width of the narrow passes and the first D past them, each
+#: at the longest list the hand-written sort takes and at one id more
+K3_EDGES = tuple((d, b) for d in (1, 2, 8, 24, 32, 33)
+                 for b in (32_768, 32_769))
+#: K7 at the edges of the D 64 short-key form, ``(label, BH, BKV, Sq, Sk,
+#: causal, q_pos0)``: its longest Sk with GQA g = 4 and one key more, a
+#: ragged Sk, causal self-attention at its longest S, a causal query
+#: offset over 500 keys
+K7_EDGES = (("Sk 512, g 4", 8, 2, 700, 512, False, 0),
+            ("Sk 513, g 4", 8, 2, 700, 513, False, 0),
+            ("Sk 300", 8, 8, 700, 300, False, 0),
+            ("causal S 512, g 3", 6, 2, 512, 512, True, 0),
+            ("causal at q_pos0 400 over 500 keys, g 3", 6, 2, 100, 500,
+             True, 400))
+
+
+def route_edges(args, dev) -> None:
+    """K3 and K7 at the edges of the routes their wrappers choose by shape
+    (:data:`K3_EDGES`, :data:`K7_EDGES`), each held against its plain
+    version with two launches bit-equal; then K7's two D 64 forms against
+    each other: the same queries over 512 keys (the short form) and over
+    513 (the long form), the 513th key scored so low that its p is 0, give
+    the same bits."""
+    import torch
+    from repro_torch.kernels import embedding_lookup as k1
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels.ref import flash_attention_ref
+    g = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    gc = torch.Generator().manual_seed(args.seed + 9)
+    v, run = 1 << 20, 9000
+    for d, b in K3_EDGES:
+        rows = torch.randint(-1, v, (b, 1), generator=g, device=dev,
+                             dtype=torch.int32)
+        rows[:run] = 7
+        dp = torch.randn((b, d), generator=g, device=dev)
+        got = k1.lookup_bwd((v, d), rows, dp)
+        check(torch.equal(got, k1.lookup_bwd((v, d), rows, dp)),
+              f"lookup_bwd D {d} rows [{b},1]: two launches differ")
+        check(torch.equal(got, k1.lookup_bwd_chunked_plain((v, d), rows,
+                                                           dp)),
+              f"lookup_bwd D {d} rows [{b},1]: not bit-exact to its "
+              "chunked plain version")
+        del got, rows, dp
+    print(f"kernel lookup_bwd at its route edges: D "
+          f"{', '.join(str(d) for d in sorted({d for d, _ in K3_EDGES}))} "
+          f"x rows [{K3_EDGES[0][1]},1] (the hand-written sort) and "
+          f"[{K3_EDGES[1][1]},1] (torch.sort) into [{v},D], a {run}-row "
+          "run: bit-exact to the chunked plain version, two launches equal")
+    tol_o, tol_l = ATTN_TOL["bf16"]
+    worst = 0.0
+    for label, bh, bkv, sq, sk, causal, p in K7_EDGES:
+        q, = randn_heads(gc, dev, (bh,), sq, 64, torch.bfloat16)
+        k, v_ = randn_heads(gc, dev, (bkv, bkv), sk, 64, torch.bfloat16)
+        o, lse = k7.flash_fwd(q, k, v_, causal=causal, q_pos0=p)
+        o2, lse2 = k7.flash_fwd(q, k, v_, causal=causal, q_pos0=p)
+        po, plse = flash_attention_ref(q, k, v_, causal=causal, q_pos0=p)
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"flash_fwd D 64 {label}: two launches differ")
+        err = (o.float() - po.float()).abs().max().item()
+        check(err <= tol_o and (lse - plse).abs().max().item() <= tol_l,
+              f"flash_fwd D 64 {label}: o {err} or lse off its plain "
+              "version")
+        worst = max(worst, err)
+    q, = randn_heads(gc, dev, (8,), 700, 64, torch.bfloat16)
+    q[..., 0] = q[..., 0].abs() + 1
+    k, v_ = randn_heads(gc, dev, (2, 2), 513, 64, torch.bfloat16)
+    k[:, 512] = 0
+    k[:, 512, 0] = -3000.0
+    short = k7.flash_fwd(q, k[:, :512].contiguous(), v_[:, :512].contiguous(),
+                         causal=False)
+    long_ = k7.flash_fwd(q, k, v_, causal=False)
+    check(torch.equal(short[0], long_[0]) and torch.equal(short[1],
+                                                          long_[1]),
+          "flash_fwd D 64: the short-key form's o / lse differ from the long "
+          "form's over the same keys")
+    print(f"kernel flash_fwd D 64 at its route edges: "
+          f"{'; '.join(e[0] for e in K7_EDGES)}: within {tol_o} / {tol_l} of "
+          f"the plain version (worst o {worst:.3g}), two launches equal; "
+          "q [8,700,64] over 512 keys (the short-key form) and over 513 "
+          "(the long form, key 513 scored -3000 x q_0): o and lse bit-equal")
 
 
 def attention_kernel(args, record, shape_line, g, dev):

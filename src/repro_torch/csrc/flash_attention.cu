@@ -39,12 +39,25 @@
 // its softmax and then its products in turn is held near their sum; the D
 // = 64 kernel runs one warpgroup's softmax under the others' products.
 //
-// Five kernels:
+// Six kernels:
 // * bf16 at D = 64, flash_fwd_wgmma64_kernel (namespace wg64, below): three
 //   consumer warpgroups of 64 queries each and a producer warpgroup that
 //   streams 128-key K and V tiles to all three through a TMA ring; Q in
 //   shared memory; registers 128 a thread at launch, 160 for each
 //   consumer thread (setmaxnreg), shared memory 153 KB (one block an SM).
+// * bf16 at D = 64 and sk <= 512 (an encoder's self-attention, a
+//   cross-attention over an encoder's keys), flash_fwd_wgmma64_short_kernel:
+//   the same warpgroups, but a head's K and V stay in shared memory whole
+//   (177 KB) while the block's three warpgroups walk many 64-query items
+//   of the head; about one block an SM. At seamless-m4t-large-v2's
+//   cross-attention the long form ran 704 blocks of four key tiles each,
+//   which paid Q's copy, the ring's fill and the epilogue for every four
+//   tiles and read each head's K / V 22 times. Both D = 64 forms write o
+//   through shared memory and one TMA store a warpgroup, and divide by l
+//   with one reciprocal a row (a correctly rounded quotient): a thread's
+//   own 4-byte stores to 8 rows an instruction and 32 divisions took about
+//   a ninth of the cross-attention's time on the H100 (0.0518 -> 0.0461
+//   ms).
 // * bf16 at D = 128, flash_fwd_wgmma_kernel (namespace wg, below): one
 //   warpgroup, Q in registers, K and V through a two-stage TMA ring,
 //   wgmma products.
@@ -71,6 +84,8 @@
 //   output columns c, c + 32, ... with p broadcast by shuffle. f32 FMAs, so
 //   f32 inputs keep f32 products (mma in TF32 would not).
 #include <math.h>
+
+#include <algorithm>
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -801,31 +816,245 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 160;
 constexpr int kStages = 4;                          // the copy ring of K, V
 constexpr size_t kSmem = 1024 + kWgs * kQBytes + kStages * 2 * kKvBytes +
                          128;                       // 153 KB
+// the short form: every key tile of a head in the ring's stages, two Q
+// buffers a warpgroup
+constexpr int kShortKeys = kStages * kBk;           // 512
+constexpr size_t kShortSmem = 1024 + kStages * 2 * kKvBytes +
+                              kWgs * 2 * kQBytes + 256;  // 177 KB
 
-// One block per (query head, 192-query tile): each of three consumer
-// warpgroups owns 64 of the queries, with its Q tile in shared memory, and
-// all three share the band's 128-key K and V tiles, which the producer
-// warpgroup streams through a ring of kStages stages (a stage is refilled
-// once all consumer threads have released it). S = Q K^T is one m64n128k16
-// product over D (4 k steps, both operands K-major in shared memory), O +=
-// P V eight m64n64k16 steps with P from S's registers and V read MN-major.
-// At D = 64 the ex2 of the softmax costs about as much as the two products,
-// so the products of one warpgroup have to run under the softmax of
-// another: a warpgroup issues tile j's S and tile j - 1's PV together,
+// K and V of item i as a consumer warpgroup sees them: the long form's ring
+// of kStages stages, released after each item; the short form's key tiles
+// held whole, item i in stage i, are the same stages and barrier phases
+// below kStages items, filled once and never released.
+struct KvStages {
+  const unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ __forceinline__ const unsigned char* stage(int i) const {
+    return ring + (i % kStages) * 2 * kKvBytes;
+  }
+  __device__ __forceinline__ void wait(int i) const {
+    hopper::mbar_wait(full + i % kStages, (i / kStages) & 1);
+  }
+  __device__ __forceinline__ void release(int i) const {
+    hopper::mbar_arrive(empty + i % kStages);
+  }
+};
+
+// S = Q K^T of one tile: one m64n128k16 product over D (4 k steps, both
+// operands K-major in shared memory)
+__device__ __forceinline__ void issue_s(float (&sc)[64],
+                                        const unsigned char* qt,
+                                        const unsigned char* ks) {
+  hopper::wgmma_fence();
+  hopper::wgmma_m64n128k16_ss_z(sc, kmajor(qt, 0), kmajor(ks, 0));
+#pragma unroll
+  for (int kk = 1; kk < kD / 16; ++kk) {
+    hopper::wgmma_m64n128k16_ss(sc, kmajor(qt, kk), kmajor(ks, kk), 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P V of one tile: eight m64n64k16 steps, P from S's registers, V
+// read MN-major
+__device__ __forceinline__ void issue_pv(float (&acc)[32],
+                                         uint32_t (&pa)[8][4],
+                                         const unsigned char* vs) {
+  hopper::fence_regs(pa);
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBk / 16; ++kk) {
+    hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk], mnmajor(vs, kk), 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// the keys [lo, hi] each of a thread's two rows sees (visible(), at the
+// rows' positions), and the keys [wlo, whi] every row of its warpgroup's 64
+// queries sees: a key tile inside the latter needs no mask
+struct Band {
+  int lo[2], hi[2], wlo, whi;
+};
+
+__device__ __forceinline__ Band band(int qw0, int qrow, int sk, int causal,
+                                     int window, int qp) {
+  Band bd;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bd.hi[r] = causal ? min(qrow + qp + 8 * r, sk - 1) : sk - 1;
+    bd.lo[r] = window > 0 ? qrow + qp + 8 * r - window + 1 : 0;
+  }
+  bd.whi = causal ? min(qw0 + qp, sk - 1) : sk - 1;
+  bd.wlo = window > 0 ? qw0 + qp + 64 - window : 0;
+  return bd;
+}
+
+// the softmax of the tile at keys [k0, k0 + 128): the mask (only a tile
+// that crosses the diagonal, the window's lower edge or the ragged tail
+// needs one), the running max of the raw scores over the quad that shares
+// a row, then p = 2^(s c - m c), c = scale log2e, one FMA and one ex2 a
+// score (0 where masked), and l from the f32 p; corr rescales O
+__device__ __forceinline__ void softmax(float (&sc)[64], int k0,
+                                        const Band& bd, int t,
+                                        float (&m_run)[2], float (&l_run)[2],
+                                        float (&corr)[2], float scale_log2) {
+  if (k0 < bd.wlo || k0 + kBk - 1 > bd.whi) {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) {
+      const int r = (x >> 1) & 1;
+      const int key = k0 + (x >> 2) * 8 + 2 * t + (x & 1);
+      sc[x] = (key >= bd.lo[r]) & (key <= bd.hi[r]) ? sc[x] : -INFINITY;
+    }
+  }
+  float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+  for (int x = 0; x < 64; ++x) {
+    mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], sc[x]);
+  }
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = ex2((m_run[r] - mx[r]) * scale_log2);
+    m_run[r] = mx[r];
+    mc[r] = mx[r] * scale_log2;
+    l_run[r] *= corr[r];
+  }
+#pragma unroll
+  for (int x = 0; x < 64; ++x) {
+    const int r = (x >> 1) & 1;
+    sc[x] = ex2(fmaf(sc[x], scale_log2, -mc[r]));
+    l_run[r] += sc[x];
+  }
+}
+
+// A consumer warpgroup's walk of its 64 queries [qw0, qw0 + 64) (this
+// thread's rows qrow, qrow + 8) over items [a, b), item i the key tile t0 +
+// i. At D = 64 the ex2 of the softmax costs about as much as the two
+// products, so the products of one warpgroup have to run under the softmax
+// of another: a warpgroup issues tile j's S and tile j - 1's PV together,
 // waits for both, then runs tile j's softmax, rescales O and converts P,
-// while the other two warpgroups' products occupy the tensor cores. (A
-// warpgroup that also overlaps its own softmax with its PV, two warpgroups
-// with Q in registers, explicit ping-pong turns and a second S buffer were
-// each slower on the H100.) Three warpgroups need Q out of the
-// registers: 64 of S, 32 of P and 32 of O fit the 160 a consumer gets. A
-// warpgroup walks only the key tiles its own queries see, and releases the
-// others untouched. Masking and the online softmax are the D = 128
-// kernel's.
+// while the other two warpgroups' products occupy the tensor cores. Leaves
+// O, the running max and this thread's part of the row sums in acc, m_run,
+// l_run.
+__device__ __forceinline__ void attend(const KvStages& kv,
+                                       const unsigned char* qt, int a, int b,
+                                       int t0, int qw0, int qrow, int t,
+                                       int sk, int causal, int window, int qp,
+                                       float scale_log2, float (&acc)[32],
+                                       float (&m_run)[2], float (&l_run)[2]) {
+  const Band bd = band(qw0, qrow, sk, causal, window, qp);
+  float sc[64];           // S of the newest tile, then its f32 p
+  uint32_t pa[8][4];      // p of the tile before, the PV product's A
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_run[r] = kMasked;
+    l_run[r] = 0.f;
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+  if (a < b) {
+    kv.wait(a);
+    issue_s(sc, qt, kv.stage(a));
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    softmax(sc, (t0 + a) * kBk, bd, t, m_run, l_run, corr, scale_log2);
+    hopper::acc_to_a128(pa, sc);              // O is 0: nothing to rescale
+    // tile i's S and tile i - 1's PV go to the tensor cores together and
+    // are waited for together; one warpgroup's softmax runs under the
+    // others' products
+    for (int i = a + 1; i < b; ++i) {
+      kv.wait(i);
+      issue_s(sc, qt, kv.stage(i));
+      issue_pv(acc, pa, kv.stage(i - 1) + kKvBytes);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      kv.release(i - 1);
+      softmax(sc, (t0 + i) * kBk, bd, t, m_run, l_run, corr, scale_log2);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) acc[x] *= corr[(x >> 1) & 1];
+      hopper::acc_to_a128(pa, sc);
+    }
+    issue_pv(acc, pa, kv.stage(b - 1) + kKvBytes);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pa);
+    kv.release(b - 1);
+  }
+}
+
+// o and lse of a warpgroup's 64 queries [qw0, qw0 + 64) of head bh (this
+// thread's rows qrow, qrow + 8): the row sums over the quad, o = acc /
+// max(l, 1e-30) in bf16 and lse = m + log(max(l, 1e-30)). o goes through
+// `tile`, a [64, 64] tile of shared memory the warpgroup no longer reads
+// (its Q), in the Q tiles' 128-byte swizzle, and one TMA store of the tile
+// (rows past s are not written): a thread's own stores would write 16
+// bytes of each of 8 rows an instruction. Named barrier 1 + wgi joins the
+// warpgroup's threads; the thread that issues the store returns once the
+// store has read the tile.
+__device__ __forceinline__ void store_tile(const CUtensorMap* to,
+                                           unsigned char* tile,
+                                           float* __restrict__ lse,
+                                           const float (&acc)[32],
+                                           const float (&m_run)[2],
+                                           float (&l_run)[2], int bh, int s,
+                                           int qw0, int qrow, int t, int wgi,
+                                           float scale_log2) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    const float l = fmaxf(l_run[r], 1e-30f);
+    // acc / l, correctly rounded: the quotient by the rounded reciprocal,
+    // then one correction by the exact residual (Markstein), one
+    // reciprocal a row in place of a division an element
+    const float rl = __frcp_rn(l);
+    auto div = [&](float a) {
+      const float q = a * rl;
+      return fmaf(fmaf(-q, l, a), rl, q);
+    };
+    const int row = qrow - qw0 + r * 8;
+    unsigned char* line = tile + row * 128;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(line + (((j ^ (row & 7)) << 4) | (4 * t))) =
+          pack_bf16(div(acc[4 * j + 2 * r]), div(acc[4 * j + 2 * r + 1]));
+    }
+    if (t == 0 && qrow + r * 8 < s) {
+      lse[static_cast<int64_t>(bh) * s + qrow + r * 8] =
+          m_run[r] * scale_log2 * kLn2 + logf(l);
+    }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_sync(1 + wgi, 128);
+  if ((threadIdx.x & 127) == 0) {
+    hopper::tma_store_3d(to, tile, 0, qw0, bh);
+    hopper::bulk_wait_read();
+  }
+}
+
+// The long form: one block per (query head, 192-query tile). Each of three
+// consumer warpgroups owns 64 of the queries, with its Q tile in shared
+// memory, and all three share the band's 128-key K and V tiles, which the
+// producer warpgroup streams through a ring of kStages stages (a stage is
+// refilled once all consumer threads have released it); each warpgroup
+// walks them with attend(). (A warpgroup that also overlaps its own
+// softmax with its PV, two warpgroups with Q in registers, explicit
+// ping-pong turns and a second S buffer were each slower on the H100.)
+// Three warpgroups need Q out of the registers: 64 of S, 32 of P and 32 of
+// O fit the 160 a consumer gets. A warpgroup walks only the key tiles its
+// own queries see, and releases the others untouched. Masking and the
+// online softmax are the D = 128 kernel's.
 __global__ void __launch_bounds__(kThreads64, 1)
     flash_fwd_wgmma64_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ o,
+                             const __grid_constant__ CUtensorMap to,
                              float* __restrict__ lse, int s, int sk,
                              int group, int causal, int window, int qp,
                              float scale_log2) {
@@ -898,162 +1127,251 @@ __global__ void __launch_bounds__(kThreads64, 1)
     a = w0 - t0;
     b = w1 - t0;
   }
-  const unsigned char* qt = qs + wgi * kQBytes;
+  const KvStages kv{ring, full, empty};
   hopper::mbar_wait(q_bar, 0);
-  // the keys [lo, hi] each of this thread's two rows sees (visible(), at
-  // the rows' positions), and the keys [wlo, whi] every row of the
-  // warpgroup sees: a key tile inside the latter needs no mask
-  int lo[2], hi[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    hi[r] = causal ? min(qrow + qp + 8 * r, sk - 1) : sk - 1;
-    lo[r] = window > 0 ? qrow + qp + 8 * r - window + 1 : 0;
-  }
-  const int whi = causal ? min(qw0 + qp, sk - 1) : sk - 1;
-  const int wlo = window > 0 ? qw0 + qp + 64 - window : 0;
-
-  float sc[64];           // S of the newest tile, then its f32 p
-  uint32_t pa[8][4];      // p of the tile before, the PV product's A
-  float acc[32];          // O
-  float m_run[2] = {kMasked, kMasked};
-  float l_run[2] = {0.f, 0.f};   // this thread's columns only; summed over
-                                 // the quad at the end
-  float corr[2];
-  auto stage = [&](int i) { return ring + (i % kStages) * 2 * kKvBytes; };
-  auto release = [&](int i) { hopper::mbar_arrive(empty + i % kStages); };
-  auto issue_s = [&](int i) {                       // S = Q K^T of item i
-    const unsigned char* ks = stage(i);
-    hopper::mbar_wait(full + i % kStages, (i / kStages) & 1);
-    hopper::wgmma_fence();
-    hopper::wgmma_m64n128k16_ss_z(sc, kmajor(qt, 0), kmajor(ks, 0));
-#pragma unroll
-    for (int kk = 1; kk < kD / 16; ++kk) {
-      hopper::wgmma_m64n128k16_ss(sc, kmajor(qt, kk), kmajor(ks, kk), 1);
-    }
-    hopper::wgmma_commit();
-  };
-  auto issue_pv = [&](int i) {                      // O += P V of item i
-    const unsigned char* vs = stage(i) + kKvBytes;
-    hopper::fence_regs(pa);
-    hopper::fence_regs(acc);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk], mnmajor(vs, kk), 1);
-    }
-    hopper::wgmma_commit();
-  };
-  // mask (only a tile that crosses the diagonal, the window's lower edge or
-  // the ragged tail needs one), the running max of the raw scores over the
-  // quad that shares a row, then p = 2^(s c - m c), c = scale log2e, one
-  // FMA and one ex2 a score (0 where masked), and l from the f32 p
-  auto softmax = [&](int i) {
-    const int k0 = (t0 + i) * kBk;
-    if (k0 < wlo || k0 + kBk - 1 > whi) {
-#pragma unroll
-      for (int x = 0; x < 64; ++x) {
-        const int r = (x >> 1) & 1;
-        const int key = k0 + (x >> 2) * 8 + 2 * t + (x & 1);
-        sc[x] = (key >= lo[r]) & (key <= hi[r]) ? sc[x] : -INFINITY;
-      }
-    }
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int x = 0; x < 64; ++x) {
-      mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], sc[x]);
-    }
-    float mc[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = ex2((m_run[r] - mx[r]) * scale_log2);
-      m_run[r] = mx[r];
-      mc[r] = mx[r] * scale_log2;
-      l_run[r] *= corr[r];
-    }
-#pragma unroll
-    for (int x = 0; x < 64; ++x) {
-      const int r = (x >> 1) & 1;
-      sc[x] = ex2(fmaf(sc[x], scale_log2, -mc[r]));
-      l_run[r] += sc[x];
-    }
-  };
-
   for (int i = 0; i < a; ++i) {              // tiles only the other sees
-    hopper::mbar_wait(full + i % kStages, (i / kStages) & 1);
-    release(i);
+    kv.wait(i);
+    kv.release(i);
   }
+  float acc[32];          // O
+  float m_run[2], l_run[2];   // l: this thread's columns only; summed over
+                              // the quad at the end
+  attend(kv, qs + wgi * kQBytes, a, b, t0, qw0, qrow, t, sk, causal, window,
+         qp, scale_log2, acc, m_run, l_run);
+  for (int i = b; i < items; ++i) {
+    kv.wait(i);
+    kv.release(i);
+  }
+  if (qw0 < s) {
+    store_tile(&to, qs + wgi * kQBytes, lse, acc, m_run, l_run, bh, s, qw0,
+               qrow, t, wgi, scale_log2);
+  }
+}
+
+// The short form, for sk <= kShortKeys: the head's key tiles fit in shared
+// memory whole (four 128-key K and V tiles, 128 KB), so a block loads them
+// once and its three consumer warpgroups walk many 64-query items of the
+// head with them. Block (head, part) owns the part's run of query tiles;
+// item k of the block goes to warpgroup k % 3, whose Q comes through two
+// buffers, so the next item's copy is in flight while this one computes.
+// Parts are chosen so that the grid is about one block an SM: the long
+// form's per-block costs (Q's copy, the ring's fill, K and V read again for
+// every 192 queries, the epilogue) are paid once a part, and a short key
+// walk no longer leaves a wave's tail idle. Each item walks the same key
+// tiles in the same order with the same arithmetic as the long form's
+// attend(), so o and lse keep their bits whichever form runs. K and V of a
+// tile complete on barriers of their own (a tile's S needs its K, the PV
+// after it its V), and the copies go out in the order the walks use them.
+__global__ void __launch_bounds__(kThreads64, 1)
+    flash_fwd_wgmma64_short_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap to,
+                                   float* __restrict__ lse, int s, int sk,
+                                   int group, int causal, int window, int qp,
+                                   float scale_log2, int per) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kvs = aligned_shared(smem_raw);    // K, V of tile j
+  unsigned char* qs = kvs + kStages * 2 * kKvBytes; // Q [warpgroup][buffer]
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + kWgs * 2 * kQBytes);
+  uint64_t* v_full = full + kStages;                // V of tile j (full: K)
+  uint64_t* q_full = v_full + kStages;              // [warpgroup][buffer]
+  uint64_t* q_empty = q_full + kWgs * 2;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int nt = (s + 63) / 64;
+  const int first = static_cast<int>(blockIdx.y) * per;
+  const int cnt = max(0, min(per, nt - first));
+  // the key tiles any query of the part sees
+  int t0, t1;
+  key_tiles(first * 64, min((first + cnt) * 64, s), sk, kBk, causal, window,
+            qp, &t0, &t1);
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(v_full + i, 1);
+    }
+    for (int i = 0; i < kWgs * 2; ++i) {
+      hopper::mbar_init(q_full + i, 1);
+      hopper::mbar_init(q_empty + i, 128);
+    }
+    hopper::mbar_fence_init();
+  } else if (tid == kConsumers) {
+    hopper::prefetch_map(&tq);
+    hopper::prefetch_map(&tk);
+    hopper::prefetch_map(&tv);
+    hopper::prefetch_map(&to);
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {             // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers && cnt > 0) {
+      const int hk = bh / group;
+      auto load_k = [&](int j) {
+        hopper::mbar_expect_tx(full + j, kKvBytes);
+        load_rows<1>(kvs + j * 2 * kKvBytes, &tk, full + j, j * kBk, hk);
+      };
+      auto load_v = [&](int j) {
+        hopper::mbar_expect_tx(v_full + j, kKvBytes);
+        load_rows<1>(kvs + j * 2 * kKvBytes + kKvBytes, &tv, v_full + j,
+                     j * kBk, hk);
+      };
+      // item i: warpgroup i % 3, its (i / 3)-th item, buffer (i / 3) & 1
+      auto load_q = [&](int i) {
+        const int w = i % kWgs, n = i / kWgs, slot = w * 2 + (n & 1);
+        if (n >= 2) hopper::mbar_wait(q_empty + slot, ((n >> 1) - 1) & 1);
+        hopper::mbar_expect_tx(q_full + slot, kQBytes);
+        load_rows<1>(qs + slot * kQBytes, &tq, q_full + slot,
+                     (first + i) * 64, bh);
+      };
+      // in the order the walks need them: the first item's Q and K, the
+      // other warpgroups' first Q, then V and K tile by tile (a tile's S
+      // goes out with the tile before's PV)
+      const int lead = min(cnt, kWgs);
+      load_q(0);
+      if (t0 < t1) load_k(t0);
+      for (int i = 1; i < lead; ++i) load_q(i);
+      for (int j = t0; j < t1; ++j) {
+        load_v(j);
+        if (j + 1 < t1) load_k(j + 1);
+      }
+      for (int i = lead; i < cnt; ++i) load_q(i);
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wgi = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int g = lane >> 2, t = lane & 3;
+  const KvStages kv{kvs, full, nullptr};
+  if (wgi >= cnt) return;
+  // the warpgroup's items n = 0, 1, ... (the block's wgi + 3 n) as one
+  // stream of (item, tile) steps: the first tile's S of each item goes to
+  // the tensor cores with the last tile's PV of the item before, as
+  // attend() pairs the tiles inside an item, so the walk pays one item's
+  // start and end, not every item's
+  int n = 0;
+  int slot = wgi * 2;
+  int qw0 = (first + wgi) * 64;
+  int qrow = qw0 + (warp & 3) * 16 + g;
+  Band bd = band(qw0, qrow, sk, causal, window, qp);
+  int i, b;
+  key_tiles(qw0, min(qw0 + 64, s), sk, kBk, causal, window, qp, &i, &b);
+  float sc[64];
+  uint32_t pa[8][4];
+  float acc[32];
+  float m_run[2] = {kMasked, kMasked};
+  float l_run[2] = {0.f, 0.f};
+  float corr[2];
 #pragma unroll
   for (int x = 0; x < 32; ++x) acc[x] = 0.f;
-  if (a < b) {
-    issue_s(a);
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(sc);
-    softmax(a);                              // O is 0: nothing to rescale
-    hopper::acc_to_a128(pa, sc);
-    // tile i's S and tile i - 1's PV go to the tensor cores together and
-    // are waited for together; one warpgroup's softmax runs under the
-    // others' products
-    for (int i = a + 1; i < b; ++i) {
-      issue_s(i);
-      issue_pv(i - 1);
+  hopper::mbar_wait(q_full + slot, 0);
+  kv.wait(i);
+  issue_s(sc, qs + slot * kQBytes, kv.stage(i));
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  softmax(sc, i * kBk, bd, t, m_run, l_run, corr, scale_log2);
+  hopper::acc_to_a128(pa, sc);
+  for (;;) {
+    const int pv = i;                          // the tile whose PV is next
+    if (i + 1 < b) {                           // the item goes on
+      ++i;
+      kv.wait(i);
+      issue_s(sc, qs + slot * kQBytes, kv.stage(i));
+      hopper::mbar_wait(v_full + pv, 0);
+      issue_pv(acc, pa, kv.stage(pv) + kKvBytes);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
       hopper::fence_regs(acc);
       hopper::fence_regs(pa);
-      release(i - 1);
-      softmax(i);
+      softmax(sc, i * kBk, bd, t, m_run, l_run, corr, scale_log2);
 #pragma unroll
       for (int x = 0; x < 32; ++x) acc[x] *= corr[(x >> 1) & 1];
       hopper::acc_to_a128(pa, sc);
+      continue;
     }
-    issue_pv(b - 1);
+    // the item's last tile: every S that read its Q has been waited for,
+    // so its Q buffer takes the item's o (store_tile), then goes back to
+    // the producer
+    if (wgi + kWgs * (n + 1) >= cnt) {         // the warpgroup's last item
+      hopper::mbar_wait(v_full + pv, 0);
+      issue_pv(acc, pa, kv.stage(pv) + kKvBytes);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      store_tile(&to, qs + slot * kQBytes, lse, acc, m_run, l_run, bh, s,
+                 qw0, qrow, t, wgi, scale_log2);
+      return;
+    }
+    ++n;
+    const int pslot = slot, pw0 = qw0, prow = qrow;
+    slot = wgi * 2 + (n & 1);
+    qw0 = (first + wgi + kWgs * n) * 64;
+    qrow = qw0 + (warp & 3) * 16 + g;
+    bd = band(qw0, qrow, sk, causal, window, qp);
+    key_tiles(qw0, min(qw0 + 64, s), sk, kBk, causal, window, qp, &i, &b);
+    hopper::mbar_wait(q_full + slot, (n >> 1) & 1);
+    kv.wait(i);
+    issue_s(sc, qs + slot * kQBytes, kv.stage(i));
+    hopper::mbar_wait(v_full + pv, 0);
+    issue_pv(acc, pa, kv.stage(pv) + kKvBytes);
     hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
     hopper::fence_regs(acc);
     hopper::fence_regs(pa);
-    release(b - 1);
-  }
-  for (int i = b; i < items; ++i) {
-    hopper::mbar_wait(full + i % kStages, (i / kStages) & 1);
-    release(i);
-  }
-
-  const int64_t qoff = static_cast<int64_t>(bh) * s * kD;
+    store_tile(&to, qs + pslot * kQBytes, lse, acc, m_run, l_run, bh, s,
+               pw0, prow, t, wgi, scale_log2);
+    hopper::mbar_arrive(q_empty + pslot);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    const int row = qrow + r * 8;
-    if (row >= s) continue;
-    const float l = fmaxf(l_run[r], 1e-30f);
-    __nv_bfloat16* out = o + qoff + static_cast<int64_t>(row) * kD + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      m_run[r] = kMasked;
+      l_run[r] = 0.f;
+    }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<uint32_t*>(out + j * 8) =
-          pack_bf16(acc[4 * j + 2 * r] / l, acc[4 * j + 2 * r + 1] / l);
-    }
-    if (t == 0) {
-      lse[static_cast<int64_t>(bh) * s + row] =
-          m_run[r] * scale_log2 * kLn2 + logf(l);
-    }
+    for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+    softmax(sc, i * kBk, bd, t, m_run, l_run, corr, scale_log2);
+    hopper::acc_to_a128(pa, sc);              // O is 0: nothing to rescale
   }
 }
-
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            long long bh, int group, int s, int sk, int causal, int window,
            int qp, float scale, cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to;
   int rc = hopper::tensor_map_bf16(&tq, q, kD, s, bh, 64);
   if (rc == 0) rc = hopper::tensor_map_bf16(&tk, k, kD, sk, bh / group, kBk);
   if (rc == 0) rc = hopper::tensor_map_bf16(&tv, v, kD, sk, bh / group, kBk);
-  if (rc == 0) rc = set_smem(flash_fwd_wgmma64_kernel, kSmem);
+  if (rc == 0) rc = hopper::tensor_map_bf16(&to, o, kD, s, bh, 64);
+  if (rc != 0) return rc;
+  if (sk <= kShortKeys) {
+    // parts of a head's query tiles: about one block an SM in all
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int nt = (s + 63) / 64;
+    const int parts = static_cast<int>(std::max<long long>(
+        1, std::min<long long>(nt, sms / bh)));
+    const int per = (nt + parts - 1) / parts;
+    rc = set_smem(flash_fwd_wgmma64_short_kernel, kShortSmem);
+    if (rc != 0) return rc;
+    const dim3 grid(static_cast<unsigned>(bh), (nt + per - 1) / per);
+    flash_fwd_wgmma64_short_kernel<<<grid, kThreads64, kShortSmem, stream>>>(
+        tq, tk, tv, to, static_cast<float*>(lse), s, sk, group, causal,
+        window, qp, scale * kLog2e, per);
+    return static_cast<int>(cudaGetLastError());
+  }
+  rc = set_smem(flash_fwd_wgmma64_kernel, kSmem);
   if (rc != 0) return rc;
   const dim3 grid(static_cast<unsigned>(bh), (s + kBq - 1) / kBq);
   flash_fwd_wgmma64_kernel<<<grid, kThreads64, kSmem, stream>>>(
-      tq, tk, tv,
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, sk,
-      group, causal, window, qp, scale * kLog2e);
+      tq, tk, tv, to, static_cast<float*>(lse), s, sk, group, causal, window,
+      qp, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 

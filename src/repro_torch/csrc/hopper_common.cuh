@@ -103,6 +103,14 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // copies that complete on an mbarrier
 // ---------------------------------------------------------------------------
 
+// brings a tensor map (a __grid_constant__ kernel parameter) into the
+// descriptor cache before its first copy
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // one box of a 3-D tensor map at coordinates (c0 innermost, c1, c2); rows
 // past the tensor's extent arrive as zeros and count toward the bytes
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -124,6 +132,35 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(saddr(dst)),
       "l"(src), "r"(bytes), "r"(saddr(bar))
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// copies from shared memory to global memory
+// ---------------------------------------------------------------------------
+
+// makes this thread's writes to shared memory visible to the async proxy,
+// which a TMA store reads them through; then a barrier over the writers
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one box of a 3-D tensor map from shared memory at coordinates (c0
+// innermost, c1, c2), in this thread's bulk group; rows past the tensor's
+// extent are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(saddr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -41,7 +41,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "repro_lookup_fwd": [_P, _P, _P, _I, _I, _L, _I, _P, _L, _P],
     "repro_lookup_fwd_one": [_P, _P, _I, _I, _L, _I, _P, _P],
-    "repro_lookup_bwd": [_P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
+    "repro_lookup_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I,
+                         _P],
     "repro_gather_rows": [_P, _P, _I, _I, _L, _I, _P, _P],
     "repro_dequant_gather_rows": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _L,
                                   _P],

@@ -7,10 +7,14 @@ kernel; on CPU tensors it runs its plain version. There is no fallback
 between the two: a CUDA launch that fails raises. K1 is the grouped pooled
 read of ``kernels/pooled.py``: :func:`lookup_fwd_grouped` reads every table
 of a served batch in one launch, :func:`lookup_fwd` is the same kernel with
-one table. K3's kernel adds in the
-order of ``lookup_bwd_chunked_plain`` and matches it bit for bit;
-``lookup_bwd_plain`` (one ``index_add_``) computes the same function in
-another order and is what CPU tensors take.
+one table. K3's kernels add in the
+order of ``lookup_bwd_chunked_plain`` and match it bit for bit on every
+route; ``lookup_bwd_plain`` (one ``index_add_``) computes the same function
+in another order and is what CPU tensors take. K3 chooses its route by
+shape: a list of at most :data:`SORT_MAX` ids is sorted by hand in the
+launch that zero-fills the gradient (a longer one by ``torch.sort``, the
+gradient by ``torch.zeros``), and rows of at most 32 columns take the
+passes that walk several chunks a warp.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ from repro_torch.kernels.ref import embedding_lookup_ref as lookup_fwd_plain
 NAME = "lookup_fwd"
 NAME_BWD = "lookup_bwd"
 TABLE_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+#: the longest id list K3 sorts by hand (``csrc/embedding_lookup.cu``'s
+#: ``kSortMax``); a longer one goes to ``torch.sort``
+SORT_MAX = 32_768
 
 
 def lookup_fwd(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -64,8 +71,9 @@ def lookup_bwd(table_shape: Sequence[int], rows: torch.Tensor,
                dpooled: torch.Tensor) -> torch.Tensor:
     """``rows [B, H]`` int32 (-1 = pad), ``dpooled [B, D]`` f32 -> the
     dense gradient ``dtable [V, D]`` f32 of :func:`lookup_fwd` for a table
-    of ``table_shape``; deterministic (no atomics). One launch on CUDA (a
-    chunk pass and a merge pass on the stream), no device-to-host sync."""
+    of ``table_shape``; deterministic (no atomics). One launch on CUDA (the
+    sort beside the zero-fill where ``B*H <= SORT_MAX``, a chunk pass and a
+    merge pass on the stream), no device-to-host sync."""
     if _build.on_cpu(rows, dpooled):
         return lookup_bwd_plain(table_shape, rows, dpooled)
     _build.require_cuda("rows", rows, (torch.int32,), 2)
@@ -76,15 +84,25 @@ def lookup_bwd(table_shape: Sequence[int], rows: torch.Tensor,
                    f"dpooled {tuple(dpooled.shape)} != ({b}, {d})")
     _build.require(rows.device == dpooled.device,
                    f"rows on {rows.device}, dpooled on {dpooled.device}")
-    # bookkeeping: the flat ids in stable order and where each came from,
-    # and scratch for the runs that cross a chunk edge (sized from B*H
-    # alone: nothing comes back to the host)
-    ids, order = torch.sort(rows.reshape(-1), stable=True)
-    chunks = -(-(b * h) // LOOKUP_BWD_CHUNK)
+    # bookkeeping: the flat ids in stable order and where each came from
+    # (written by the kernel's own sort up to SORT_MAX ids, which also
+    # zero-fills out), and scratch for the runs that cross a chunk edge
+    # (sized from B*H alone: nothing comes back to the host)
+    n = b * h
+    dev = rows.device
+    sort = 0 < n <= SORT_MAX
+    if sort:
+        ids = torch.empty(n, dtype=torch.int32, device=dev)
+        order = torch.empty(n, dtype=torch.int64, device=dev)
+        out = torch.empty((v, d), dtype=torch.float32, device=dev)
+    else:
+        ids, order = torch.sort(rows.reshape(-1), stable=True)
+        out = torch.zeros((v, d), dtype=torch.float32, device=dev)
+    chunks = -(-n // LOOKUP_BWD_CHUNK)
     partial = torch.empty((2 * max(chunks, 1), d), dtype=torch.float32,
-                          device=rows.device)
-    out = torch.zeros((v, d), dtype=torch.float32, device=rows.device)
-    _build.launch(NAME_BWD, "repro_lookup_bwd", rows.device, ids.data_ptr(),
-                  order.data_ptr(), dpooled.data_ptr(), out.data_ptr(),
-                  partial.data_ptr(), b * h, h, v, d, LOOKUP_BWD_CHUNK)
+                          device=dev)
+    _build.launch(NAME_BWD, "repro_lookup_bwd", dev, rows.data_ptr(),
+                  ids.data_ptr(), order.data_ptr(), dpooled.data_ptr(),
+                  out.data_ptr(), partial.data_ptr(), n, h, v, d,
+                  LOOKUP_BWD_CHUNK, int(sort))
     return out

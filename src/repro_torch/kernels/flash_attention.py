@@ -39,6 +39,9 @@ NAME = "flash_fwd"
 NAME_BWD = "flash_bwd"
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+#: the longest key length of K7's short-key form at D 64 (four 128-key
+#: tiles, ``csrc/flash_attention.cu``'s ``kShortKeys``)
+SHORT_KEYS = 512
 #: the row padding of K8's lse and D operands: one query tile
 LSE_TILE = 64
 #: the head dim whose bf16 dk/dv kernel splits each GQA group across blocks
@@ -106,7 +109,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``wgmma`` fed by TMA copy rings for bf16 at D = 64, 128 and 256 (at 64
     three warpgroups of 64 queries share each 128-key K/V tile, at 256 two
     query heads of a GQA group do), ``mma.sync`` for bf16 at D 16, 32 and
-    96, FMAs for f32."""
+    96, FMAs for f32. At D 64 with at most :data:`SHORT_KEYS` keys (an
+    encoder, a cross-attention over its output) a head's K and V stay in
+    shared memory while a block walks many query tiles of the head: the
+    same tiles in the same order, so the bits do not depend on the
+    form."""
     _check_shapes(q, k, v, causal, window, q_pos0)
     if _build.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,

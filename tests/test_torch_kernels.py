@@ -40,8 +40,8 @@ from repro_torch.kernels.dot_interaction import (
 from repro_torch.kernels.embedding_lookup import (
     lookup_bwd, lookup_bwd_chunked_plain, lookup_bwd_plain, lookup_fwd,
     lookup_fwd_grouped, lookup_fwd_grouped_plain, lookup_fwd_plain)
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_bwd,
-                                                 flash_fwd)
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, SHORT_KEYS,
+                                                 flash_bwd, flash_fwd)
 from repro_torch.kernels.hps_gather import (
     dequant_gather_grouped, dequant_gather_grouped_plain, dequant_gather_rows,
     dequant_gather_rows_plain, dequant_pooled_plain, gather_rows,
@@ -229,7 +229,8 @@ def test_lookup_bwd_pads_and_duplicates():
 
 def _chunk_case(case, rng):
     """(V, D, rows) for the chunked K3 order: runs across many chunks, runs
-    on chunk edges, all pads, D not a multiple of 32, D above 256."""
+    on chunk edges, all pads, D not a multiple of 32, the narrow rows of
+    D 1 and D 8 (a run across 25 and 15 chunks), D above 256."""
     if case == "long_run":             # a Zipf head's 562-row run
         rows = _rows(rng, 700, 1, 64)
         rows[rng.permutation(700)[:562]] = 7
@@ -243,6 +244,14 @@ def _chunk_case(case, rng):
         rows = _rows(rng, 150, 3, 20)
         rows[:40, :] = 3
         return 20, 45, rows
+    if case == "narrow_d1":            # a wide twin's D 1: a lane a chunk
+        rows = _rows(rng, 600, 1, 50)
+        rows[rng.permutation(600)[:400]] = 3
+        return 50, 1, rows
+    if case == "narrow_d8":            # NeuMF ctx's D 8: multi-hot, pads
+        rows = _rows(rng, 300, 2, 40)
+        rows[rng.permutation(300)[:250], 1] = 9
+        return 40, 8, rows
     assert case == "wide_d"            # two column tiles, the second ragged
     rows = _rows(rng, 100, 2, 12)
     rows[:70, 0] = 5
@@ -250,7 +259,8 @@ def _chunk_case(case, rng):
 
 
 @pytest.mark.parametrize("case", ["long_run", "chunk_edges", "all_pads",
-                                  "odd_d", "wide_d"])
+                                  "odd_d", "narrow_d1", "narrow_d8",
+                                  "wide_d"])
 def test_lookup_bwd_chunked_plain_matches_pallas_vjp(J, case):
     """K3's summation order (``lookup_bwd_chunked_plain``, which the kernel
     matches bit for bit) against the Pallas lookup's VJP and the one-pass
@@ -663,31 +673,61 @@ def test_cuda_gathers(cuda, payload_dtype, d, n):
     torch.cuda.synchronize()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("v,h,hot_rows,d", [
-    (3194, 1, 64, 128), (100_000, 1, 64, 128), (1000, 3, 64, 128),
-    (50, 1, 3000, 128),
-    (12800, 1, 562, 3072),      # the LM's hot token table, its head's run
+#: K3's cases ``(v, h, hot_rows, d, b)``: ``rows [b, h]`` with a hot id
+#: in the first ``hot_rows`` rows
+_K3_CASES = [
+    (3194, 1, 64, 128, 4096), (100_000, 1, 64, 128, 4096),
+    (1000, 3, 64, 128, 4096), (50, 1, 3000, 128, 4096),
+    # the LM's hot token table, its head's run
+    (12800, 1, 562, 3072, 4096),
     # the DCN / WDL / DeepFM tables (D 16, a dist-like group among them)
-    # and their dim-1 wide twins: one column tile, most lanes idle
-    (100_000, 1, 64, 16), (1000, 3, 64, 16), (50, 1, 3000, 16),
-    (100_000, 1, 64, 1), (1000, 3, 64, 1), (50, 1, 3000, 1),
+    # and their dim-1 wide twins: a group of one lane a chunk
+    (100_000, 1, 64, 16, 4096), (1000, 3, 64, 16, 4096),
+    (50, 1, 3000, 16, 4096),
+    (100_000, 1, 64, 1, 4096), (1000, 3, 64, 1, 4096),
+    (50, 1, 3000, 1, 4096),
     # the graph recipes' groups: NeuMF deep and two-tower (D 64), NeuMF
     # ctx (D 8)
-    (100_000, 1, 64, 64), (1000, 3, 64, 64), (50, 1, 3000, 64),
-    (100_000, 1, 64, 8), (1000, 3, 64, 8), (50, 1, 3000, 8),
-])
-def test_cuda_lookup_bwd(cuda, v, h, hot_rows, d):
+    (100_000, 1, 64, 64, 4096), (1000, 3, 64, 64, 4096),
+    (50, 1, 3000, 64, 4096),
+    (100_000, 1, 64, 8, 4096), (1000, 3, 64, 8, 4096),
+    (50, 1, 3000, 8, 4096),
+    # every group width of the narrow passes and the first D past them
+    (100_000, 1, 64, 2, 4096), (1000, 3, 700, 24, 4096),
+    (100_000, 1, 64, 32, 4096), (1000, 3, 700, 33, 4096),
+    # the hand-written sort: a block of one slot a thread and a cluster of
+    # two (a short fill), a block of 16 slots a thread (a long fill), the
+    # longest list it takes (32,768) and one id more (torch.sort), each
+    # with a run across hundreds of chunks; WDL's wide twins' vocabulary
+    # (26 bits of key) at their list length; no ids
+    (5000, 1, 900, 8, 1024), (5000, 1, 900, 1, 1025),
+    (1 << 22, 1, 9000, 8, 16_384),
+    (1 << 20, 1, 9000, 1, 32_768), (1 << 20, 1, 9000, 1, 32_769),
+    (1 << 20, 1, 9000, 24, 32_768), (1 << 20, 1, 9000, 33, 32_769),
+    (33_762_590, 1, 5000, 1, 106_496), (100, 1, 0, 8, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,h,hot_rows,d,b", _K3_CASES)
+def test_cuda_lookup_bwd(cuda, v, h, hot_rows, d, b):
     """Bit-exact to the chunked plain version (the kernel's order of adds),
     and against the one-pass plain version (an atomic index_add_ on the
     card): a row sums up to thousands of contributions, so the f32
     sum-order bound is 1e-5 of the summed magnitudes; two launches give the
-    same bits."""
+    same bits; one launch a call."""
     g = torch.Generator().manual_seed(v + h)
-    rows = torch.randint(-1, v, (4096, h), generator=g,
+    rows = torch.randint(-1, v, (b, h), generator=g,
                          dtype=torch.int32).to(cuda)
     rows[:hot_rows] = 7                             # a hot row's long run
-    dp = torch.randn((4096, d), generator=g).to(cuda)
+    if b > 2:
+        rows[1, 0], rows[2, 0] = v, -5     # past the table, below it
+    dp = torch.randn((b, d), generator=g).to(cuda)
+    _build.LAUNCHES.reset()
+    once = lookup_bwd((v, d), rows, dp)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot() == {"lookup_bwd": 1}
+    del once
     got = lookup_bwd((v, d), rows, dp)
     again = lookup_bwd((v, d), rows, dp)
     exact = lookup_bwd_chunked_plain((v, d), rows, dp)
@@ -742,6 +782,10 @@ _FWD_EXTRA["d128s65"] = (1, 6, 2, 65, 128, None, torch.bfloat16, True)
 #: warpgroup has no rows) and 65, MHA without the causal mask (an encoder's
 #: self-attention, g = 1) and g = 2
 _D64 = {
+    # the short-key form (every key tile held whole): causal with a window
+    # at its longest S, and an encoder's non-causal MHA at S 300
+    "d64shortw": (1, 6, 2, 512, 64, 200, torch.bfloat16, True),
+    "d64shortfull": (1, 4, 4, 300, 64, None, torch.bfloat16, False),
     "d64w": (1, 6, 2, 700, 64, 300, torch.bfloat16, True),
     "d64full": (1, 6, 2, 700, 64, None, torch.bfloat16, False),
     "d64s64": (1, 6, 2, 64, 64, None, torch.bfloat16, True),
@@ -868,6 +912,11 @@ def test_cuda_flash_bwd(cuda, case):
 #: dk/dv split over the key tiles, the mma.sync kernels and f32
 _CROSS = {
     "x64": (2, 16, 16, 4096, 512, 64, torch.bfloat16),
+    # its encoder (Sq == Sk, a few query tiles a head); the short-key
+    # form's longest Sk with g = 4, and one key more (the long form)
+    "x64encoder": (2, 16, 16, 512, 512, 64, torch.bfloat16),
+    "x64threshold": (1, 8, 2, 700, SHORT_KEYS, 64, torch.bfloat16),
+    "x64over": (1, 8, 2, 700, SHORT_KEYS + 1, 64, torch.bfloat16),
     "x64ragged": (1, 6, 2, 700, 300, 64, torch.bfloat16),
     "x64morekeys": (1, 4, 4, 65, 1000, 64, torch.bfloat16),
     "x128": (1, 6, 2, 700, 300, 128, torch.bfloat16),
@@ -946,15 +995,41 @@ def test_flash_cross_rejects_masks(causal, window):
     assert o.shape == q.shape and lse.shape == (2, 6)
 
 
+@pytest.mark.cuda
+def test_cuda_flash_short_key_form_bits(cuda):
+    """K7's two D 64 forms give the same bits where both apply: queries
+    over 512 keys (the short-key form, every key tile held whole) and over
+    the same keys plus a 513th (the long form) that every query scores so
+    low that its p is exactly 0 (q's first column >= 1, the key -3000
+    there): the same key tiles in the same order, so ``o`` and ``lse``
+    are bit-equal."""
+    g = torch.Generator().manual_seed(13)
+    q = torch.randn((8, 700, 64), generator=g)
+    q[..., 0] = q[..., 0].abs() + 1
+    n = SHORT_KEYS
+    k, v = (torch.randn((2, n + 1, 64), generator=g) for _ in range(2))
+    k[:, n] = 0
+    k[:, n, 0] = -3000.0
+    q, k, v = (t.to(torch.bfloat16).to(cuda) for t in (q, k, v))
+    short = flash_fwd(q, k[:, :n].contiguous(), v[:, :n].contiguous(),
+                      causal=False)
+    long_ = flash_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(short[0], long_[0])
+    assert torch.equal(short[1], long_[1])
+
+
 #: K7 and K8 with a causal query offset (a shard of sequence-parallel
 #: attention: query row i at position q_pos0 + i over all Sk keys) on every
 #: route, ``(sq, sk, q_pos0)`` x route: the first shard (offset 0, Sk >
 #: Sq), an offset every query and key tile divides (384), one none does
-#: (100, Sq 37) and the last shard (q_pos0 + Sq = Sk); GQA g = 3 (at D 256
+#: (100, Sq 37), the last shard (q_pos0 + Sq = Sk) and a last shard over
+#: 500 keys (D 64's short-key form); GQA g = 3 (at D 256
 #: the dk/dv grid splits the group 3 ways: every split writes its zeros
 #: for the keys no query sees)
 _OFFSETS = {"first": (100, 700, 0), "tiled": (100, 700, 384),
-            "ragged": (37, 700, 100), "last": (100, 700, 600)}
+            "ragged": (37, 700, 100), "last": (100, 700, 600),
+            "shortkeys": (100, 500, 400)}
 _ROUTES = {**{f"d{d}": (d, torch.bfloat16) for d in HEAD_DIMS},
            "f32": (64, torch.float32)}
 

@@ -10,12 +10,11 @@
 functions and its run settings (``chip_smoke.RUN``), so that its shapes and
 ids follow the smoke's. Each time is the mean of calls replayed from a CUDA
 graph (``chip_smoke.graph_ms``), beside the wrapper's time (CUDA events
-around back-to-back calls, ``chip_smoke.time_ms``); K8's cases also give
-each of their kernels' device time (``parts_ms``, ``torch.profiler``).
-The ``library ...``
-cases time a kernel's library yardstick on the same inputs. Prints the card's name
-and power limit, then one JSON line. Needs a CUDA device; exits 2 without
-one.
+around back-to-back calls, ``chip_smoke.time_ms``); the cases of
+:data:`PARTS` also give each of their kernels' device time (``parts_ms``,
+``torch.profiler``). The ``library ...`` cases time a kernel's library
+yardstick on the same inputs. Prints the card's name and power limit, then
+one JSON line. Needs a CUDA device; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -28,16 +27,32 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _lm_k3(cs, dev, table: int):
+def _lm_k3(cs, dev, table: int, arch=None, library: bool = False):
+    """K3 at token table ``table`` of ``arch`` (default ``RUN.lm_arch``;
+    ``RUN.xlstm_arch`` at ``RUN.xlstm_seq`` tokens, as phase 16 trains it)
+    on ``chip_smoke.lm_k3_inputs``; with ``library``, ``zeros`` +
+    ``index_add_`` of the valid rows on the same inputs."""
     from repro_torch.configs.registry import get_lm_config
     from repro_torch.kernels import embedding_lookup as k1
     from repro_torch.models.lm.backbone import LMModel
-    cfg = get_lm_config(cs.RUN.lm_arch)
-    tokens = cs.lm_tokens(cs.RUN, cfg, dev, cs.RUN.lm_train_batch,
-                          cs.RUN.lm_seq)
+    cfg = get_lm_config(arch or cs.RUN.lm_arch)
+    seq = cs.RUN.xlstm_seq if arch == cs.RUN.xlstm_arch else cs.RUN.lm_seq
+    tokens = cs.lm_tokens(cs.RUN, cfg, dev, cs.RUN.lm_train_batch, seq)
     shape, rows, dp = cs.lm_k3_inputs(LMModel(cfg, device=dev),
                                       tokens)[table]
+    if library:
+        return _k3_library(shape, rows, dp), 5
     return lambda: k1.lookup_bwd(shape, rows, dp), 5
+
+
+def _k3_library(shape, rows, dp):
+    """K3's library yardstick, as ``chip_smoke.py`` times it: ``zeros`` +
+    ``index_add_`` of the valid ids' ``dpooled`` rows."""
+    import torch
+    keep = rows.view(-1) >= 0
+    flat, src = rows.view(-1)[keep].long(), dp[keep]
+    return lambda: torch.zeros(shape, device=dp.device).index_add_(0, flat,
+                                                                   src)
 
 
 def _dlrm_k3(cs, dev):
@@ -115,11 +130,13 @@ def _pooled_stack(cs, dev, payload_dtype: str, d: int = 128,
                        slots), sets
 
 
-def _wdl(cs, dev, which: int, backward: bool, arch: str = "wdl"):
+def _wdl(cs, dev, which: int, backward: bool, arch: str = "wdl",
+         library: bool = False):
     """K1 or K3 at full-vocabulary wdl-criteo's ``dist`` group (0) or its
     wide twins (1), or (``arch="neumf"``) at neumf-criteo's largest
     ``deep`` (0) or ``ctx`` (1) group, or (``arch="etc"``) at phase 6d's
-    flattened ETC cache, on the first training batch's ids."""
+    flattened ETC cache, on the first training batch's ids; with
+    ``library``, K3's yardstick on the same inputs."""
     import torch
     from repro_torch.kernels import embedding_lookup as k1
     fn = {"wdl": cs.wdl_training_rows, "neumf": cs.neumf_training_rows,
@@ -128,6 +145,8 @@ def _wdl(cs, dev, which: int, backward: bool, arch: str = "wdl"):
     g = torch.Generator(device=dev).manual_seed(which)
     if backward:
         dp = torch.randn((rows.shape[0], d), generator=g, device=dev)
+        if library:
+            return _k3_library((v, d), rows, dp), 4
         return lambda: k1.lookup_bwd((v, d), rows, dp), 4
     mega = torch.randn((v, d), generator=g, device=dev)
     return lambda: k1.lookup_fwd(mega, rows), 10
@@ -299,8 +318,10 @@ def _seq_shard(cs, dev, backward: bool):
 def parts_ms(fn, calls: int = 10) -> dict:
     """Device ms a call of each kernel ``fn`` launches (K8: the ``D =
     rowsum(do o)`` kernel, dq, dk/dv and, where the dk/dv grid is split,
-    the split reduce), from ``torch.profiler`` over ``calls`` calls after a
-    warm-up; empty if the profiler records no device events."""
+    the split reduce; K3: the sort, or ``torch.sort``'s and the fill's
+    kernels, then the chunk and merge passes), from ``torch.profiler`` over
+    ``calls`` calls after a warm-up; empty if the profiler records no
+    device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -346,7 +367,9 @@ def parts_ms(fn, calls: int = 10) -> dict:
 #: 64, 9 x D 16, 4 x D 8) and the cache query at D 64 and D 8; then the
 #: served read and the cache query on a 2-way striped L1's flat view
 #: (``striped``, the online phase's ``cache_shards=2``); then K1 and K3
-#: over phase 6d's flattened ETC cache (``etc_training_rows``)
+#: over phase 6d's flattened ETC cache (``etc_training_rows``); K3 at
+#: xlstm-125m's token table (``lookup_bwd xlstm``); K3's library yardstick
+#: (``zeros`` + ``index_add_``) at its narrow and short rows
 CASES = {
     "launch floor": lambda cs, dev: (cs.launch_floor_call(dev), 100),
     "pooled_stack f32": lambda cs, dev: _pooled_stack(cs, dev, "f32"),
@@ -416,13 +439,23 @@ CASES = {
         lambda cs, dev: _striped_library(cs, dev, "f32", query=True),
     "lookup_fwd etc": lambda cs, dev: _wdl(cs, dev, 0, False, "etc"),
     "lookup_bwd etc": lambda cs, dev: _wdl(cs, dev, 0, True, "etc"),
+    "lookup_bwd xlstm": lambda cs, dev: _lm_k3(cs, dev, 0,
+                                               cs.RUN.xlstm_arch),
+    "library lookup_bwd neumf ctx":
+        lambda cs, dev: _wdl(cs, dev, 1, True, "neumf", library=True),
+    "library lookup_bwd wdl wide":
+        lambda cs, dev: _wdl(cs, dev, 1, True, library=True),
+    "library lookup_bwd xlstm":
+        lambda cs, dev: _lm_k3(cs, dev, 0, cs.RUN.xlstm_arch, library=True),
 }
 
 
 #: the cases whose device time is also given kernel by kernel
-#: (:func:`parts_ms`)
+#: (:func:`parts_ms`): K8's launches; K3's sort, zero-fill and passes
 PARTS = ("flash_bwd (a)", "flash_bwd (b)", "flash_bwd (c)",
-         "flash_bwd (d) cross", "flash_bwd seq shard")
+         "flash_bwd (d) cross", "flash_bwd seq shard",
+         "lookup_bwd neumf ctx", "lookup_bwd wdl wide", "lookup_bwd xlstm",
+         "lookup_bwd dlrm", "flash_fwd (d) encoder", "flash_fwd (d) cross")
 
 
 def main() -> int:
