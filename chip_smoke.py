@@ -52,9 +52,12 @@ Phases, in order; any failure exits non-zero:
    with the explicit causal mask (its backend named); K1 also at
    granite's and xLSTM's token tables. The mesh half of the striped L1 (``sharded_gather_rows`` /
    ``sharded_dequant_gather_rows``): 8 stripes of the 131,072-row cache
-   over a cache mesh naming the card twice, each entry's K5 (K6 for int8)
-   over its own stripes and one sum, bit-exact to the unstriped read and
-   timed beside it (one card cannot show the copy between cards). The
+   over a cache mesh naming the card twice, one owner-mapped K5 (K6 for
+   int8) launch an entry at the global slots, then the 26 served tables
+   off a 2-stripe L1 there through ``hps._pooled_stack`` (one launch an
+   entry for all of them); each bit-exact to the unstriped read and to the
+   plain version, its launches counted and timed beside it (one card
+   cannot show the copy between cards). The
    mesh path's own kernel calls at capped DLRM's ``dist`` group (5.76M
    rows) and the first training batch's ids: the all-to-all owner's
    gather ``ops.row_gather`` (K5, its adjoint K3 at one id a row) over the
@@ -205,7 +208,8 @@ Phases, in order; any failure exits non-zero:
    ``cache_shards`` 2, rebuilt from ``ps.json`` over
    ``make_cache_mesh(2)`` (one device on one card) and over a cache mesh
    naming the card twice, and held against the one-device server and the
-   trained model's ``predict``; then the ``mp_train_smoke`` twin on the
+   trained model's ``predict``, each server's ``predict`` p50 timed over
+   ``RUN.requests`` requests; then the ``mp_train_smoke`` twin on the
    same mesh shape. The group is torn down after it.
 8c. The LM on the mesh (run after phase 15, whose steps it is held
    against): a one-rank NCCL group on a (1, 1) mesh (on any card count),
@@ -1005,11 +1009,13 @@ def kernel_phase(args, dev):
 
 def mesh_half(args, dev, shape_line, table, q8, sc8, holes):
     """The mesh half of ``hps_gather.sharded_gather_rows`` /
-    ``sharded_dequant_gather_rows`` on the card: ``RUN.mesh_stripes``
-    stripes of the cache laid out over ``[dev, dev]`` (each entry a block
-    of its own), each entry's K5 (K6 with scales) over its stripes with
-    the others' slots as holes, then one sum; bit-exact to the unstriped
-    read of the flat view, one launch an entry, and timed beside it."""
+    ``sharded_dequant_gather_rows`` on the card, over a cache mesh naming
+    ``dev`` twice (each entry a block of its own): one owner-mapped K5 (K6
+    with scales) launch an entry at the GLOBAL slots. The row read of one
+    table over ``RUN.mesh_stripes`` stripes, then the served pooled read of
+    the 26 tables off a 2-stripe L1 (``hps._pooled_stack``, one launch an
+    entry for all of them); each bit-exact to the unstriped read of the
+    flat views and to the plain version, and timed beside it."""
     import torch
     from repro_torch.kernels import hps_gather as k56
     from repro_torch.kernels import ops
@@ -1017,6 +1023,7 @@ def mesh_half(args, dev, shape_line, table, q8, sc8, holes):
     c, d = table.shape
     cl = c // n
     mesh = [dev, dev]
+    gpu = torch.cuda.get_device_name(0)
     slots = torch.where(holes >= 0, holes % (n * cl), -1).to(torch.int32)
     b = slots.shape[0]
     for label, pay, sc in (("f32", table, None), ("int8", q8, sc8)):
@@ -1024,13 +1031,23 @@ def mesh_half(args, dev, shape_line, table, q8, sc8, holes):
         scales = None if sc is None else sc[:n * cl].view(n, cl)
         blocks, bsc = ops.place_stripes(stripes, scales, mesh)
         name = "gather_rows" if sc is None else "dequant_gather_rows"
-        got, launched = launches_of(lambda: ops.sharded_cache_gather(
-            blocks, slots, scales=bsc, mesh=mesh))
+
+        def fn():
+            return ops.sharded_cache_gather(blocks, slots, scales=bsc,
+                                            mesh=mesh)
+
+        def one():
+            return ops.sharded_cache_gather(stripes, slots, scales=scales)
+
+        got, launched = launches_of(fn)
         check(launched == {name: 2}, f"mesh half {label}: launches "
               f"{launched}, want one {name} an entry")
-        want = ops.sharded_cache_gather(stripes, slots, scales=scales)
+        want = one()
         check(torch.equal(got, want), f"mesh half {label}: not bit-exact "
               "to the unstriped read")
+        check(torch.equal(got, ops.mesh_pooled_read(
+            ((blocks, bsc),), (slots.view(-1, 1),), plain=True)[:, 0]),
+            f"mesh half {label}: not bit-exact to the plain version")
         flat, fsc = ops.striped_view((stripes, scales))
         fslots = ops.flatten_striped_slots(stripes, slots)
         plain = (lambda: k56.gather_rows_plain(flat, fslots)) if sc is None \
@@ -1042,20 +1059,89 @@ def mesh_half(args, dev, shape_line, table, q8, sc8, holes):
         row = d * pay.element_size() + (0 if sc is None else 4)
         shape_line(name, f"the mesh half ({label}): slots [{b}] over {n} "
                    f"stripes of [{cl},{d}] laid out on [{dev}, {dev}]",
-                   lambda: ops.sharded_cache_gather(blocks, slots,
-                                                    scales=bsc, mesh=mesh),
-                   plain, lib, b * row + b * 4 + b * d * 4,
+                   fn, plain, lib, b * row + b * 4 + b * d * 4,
                    0 if sc is None else b * d,
                    err=(got - want).abs().max().item())
-        mesh_ms = graph_ms(lambda: ops.sharded_cache_gather(
-            blocks, slots, scales=bsc, mesh=mesh), 20)
-        flat_ms = graph_ms(lambda: ops.sharded_cache_gather(
-            stripes, slots, scales=scales), 20)
-        print(f"mesh half {label} on {torch.cuda.get_device_name(0)}: the "
-              f"striped-mesh read {mesh_ms:.4f} ms device against the "
-              f"unstriped read {flat_ms:.4f} ms (CUDA graph replay; two "
-              "entries on one card: two launches and the sum, no copy "
-              "between cards, which one card cannot show); bit-exact")
+        print(f"mesh half {label} on {gpu}: the striped-mesh read "
+              f"{graph_ms(fn, 20):.4f} ms device, {time_ms(fn, 100):.4f} ms "
+              f"wrapper, against the unstriped read {graph_ms(one, 20):.4f} "
+              f"/ {time_ms(one, 100):.4f} ms (CUDA graph replay / CUDA "
+              f"events over 100 calls; launches {launched}: two entries on "
+              "one card, no copy between cards, which one card cannot "
+              "show); bit-exact")
+    for label in ("f32", "int8"):
+        mesh_stack(args, dev, shape_line, label, mesh)
+
+
+def mesh_stack(args, dev, shape_line, payload_dtype, mesh):
+    """The served pooled read of the 26 tables (:func:`served_inputs`)
+    off an L1 of two stripes a table laid out on the cache ``mesh``:
+    ``hps._pooled_stack(..., mesh=)``, one owner-mapped K5 (f32) or K6
+    (int8) launch an entry for all the tables, held bit-exact to the
+    one-device read of the stripes' flat views (K1 / K6, the slots remapped)
+    and to the plain version; timed beside the one-device read, with each
+    table's ``index_select`` + ``sum`` and a ``torch.stack`` on the flat
+    views as the library yardstick."""
+    import torch
+    from repro_torch.core.hps.hps import _pooled_stack
+    from repro_torch.kernels import ops
+    pays, sets = served_inputs(args, dev, payload_dtype, SLOT_SETS)
+    stripes = [(p.view(2, -1, p.shape[1]),
+                None if sc is None else sc.view(2, -1)) for p, sc in pays]
+    placed = [ops.place_stripes(st, sc, mesh) for st, sc in stripes]
+    flat = [ops.striped_view(st) for st in stripes]
+    fsets = [[ops.flatten_striped_slots(st[0], s)
+              for st, s in zip(stripes, batch)] for batch in sets]
+    combiners = ("sum",) * len(pays)
+    b, d = args.batch, pays[0][0].shape[1]
+    name = "gather_rows" if payload_dtype == "f32" else "dequant_gather_rows"
+
+    def fn(sl):
+        return _pooled_stack(placed, sl, combiners, mesh=mesh)
+
+    def one(fs):
+        return _pooled_stack(flat, fs, combiners)
+
+    def plain(sl):
+        return ops.mesh_pooled_read(placed, sl, plain=True)
+
+    def lib(fs):
+        return torch.stack([
+            (p.index_select(0, s.view(-1)).float() if sc is None else
+             p.index_select(0, s.view(-1)).float()
+             * sc.index_select(0, s.view(-1))[:, None]).view(b, -1, d)
+            .sum(1) for (p, sc), s in zip(flat, fs)], 1)
+
+    got, launched = launches_of(lambda: fn(sets[0]))
+    check(launched == {name: len(mesh)}, f"mesh stack {payload_dtype}: "
+          f"launches {launched}, want one {name} an entry")
+    check(torch.equal(got, one(fsets[0])), f"mesh stack {payload_dtype}: "
+          "not bit-exact to the one-device read")
+    check(torch.equal(got, plain(sets[0])), f"mesh stack {payload_dtype}: "
+          "not bit-exact to the plain version")
+    slots = sets[0]
+    ids = sum(s.numel() for s in slots)
+    valid = sum(int((s >= 0).sum()) for s in slots)
+    distinct = sum(int(torch.unique(s[s >= 0]).numel()) for s in slots)
+    row = d * pays[0][0].element_size() + (0 if pays[0][1] is None else 4)
+    shape_line(name, f"the mesh half, served ({payload_dtype}): "
+               f"{len(pays)} tables x slots [{b},1] over 2 stripes of "
+               f"[{pays[0][0].shape[0] // 2},{d}] on [{dev}, {dev}] "
+               "(hps._pooled_stack; library on the flat views)",
+               rotating(fn, sets), rotating(plain, sets),
+               rotating(lib, fsets),
+               ids * 4 + distinct * row + len(pays) * b * d * 4,
+               (1 if pays[0][1] is None else 2) * valid * d, err=0.0)
+    mesh_fn, one_fn = rotating(fn, sets), rotating(one, fsets)
+    print(f"mesh stack {payload_dtype} on {torch.cuda.get_device_name(0)}: "
+          f"{len(pays)} tables over [{dev}, {dev}], launches {launched}; "
+          f"device {graph_ms(mesh_fn, SLOT_SETS):.4f} ms, wrapper "
+          f"{time_ms(mesh_fn, 100):.4f} ms, against the one-device read's "
+          f"{graph_ms(one_fn, SLOT_SETS):.4f} / {time_ms(one_fn, 100):.4f} "
+          "ms (CUDA graph replay / CUDA events over 100 calls); bit-exact "
+          "to it and to the plain version")
+    del pays, placed, flat
+    torch.cuda.empty_cache()
 
 
 def mesh_path_kernels(args, dev, shape_line, groups):
@@ -4933,7 +5019,8 @@ def mesh_phase(args, dev, total):
     # the mesh-trained bundle, rebuilt from ps.json alone over cache meshes
     req = out["request"]
     ps = os.path.join(bundle, "ps.json")
-    got = {}
+    got, p50 = {}, {}
+    timed = make_requests(args, cfg, args.warmup + args.requests, 3)
     for label, cmesh in (("one device", None),
                          ("make_cache_mesh(2)", make_cache_mesh(2)),
                          ("cache mesh [card, card]", [dev, dev])):
@@ -4941,6 +5028,13 @@ def mesh_phase(args, dev, total):
         try:
             got[label] = (counted(total, lambda: srv.predict(
                 req["dense"], req["cat"])), srv.hps.cache_mesh)
+            ms = []
+            for k, (dense, cat) in enumerate(timed):
+                t1 = time.perf_counter()
+                srv.predict(dense, cat)
+                if k >= args.warmup:
+                    ms.append(1e3 * (time.perf_counter() - t1))
+            p50[label] = float(np.percentile(ms, 50))
         finally:
             srv.close()
     one = got["one device"][0]
@@ -4956,6 +5050,12 @@ def mesh_phase(args, dev, total):
           f"{len(one)} predictions bit-equal across the three, within "
           f"{err:.3g} of the trained model's predict (bound "
           f"{SERVE_TOL['f32']})")
+    print(f"mesh serve p50 on {smi}: predict p50 over {args.requests} "
+          f"batch-{args.batch} requests after {args.warmup} warm-ups: "
+          f"{p50['one device']:.2f} ms on one device, "
+          f"{p50['cache mesh [card, card]']:.2f} ms over [{dev}, {dev}] "
+          f"({p50['cache mesh [card, card]'] / p50['one device']:.2f}x), "
+          f"{p50['make_cache_mesh(2)']:.2f} ms over make_cache_mesh(2)")
     twin = out["twin"]
     print(f"mesh twin mp_train_smoke on {smi}: losses "
           f"{twin['losses'][0]:.4f} -> {twin['losses'][-1]:.4f}, max dev "

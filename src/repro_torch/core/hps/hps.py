@@ -20,10 +20,11 @@ With ``cache_shards=N`` the caches stripe their payloads on the one
 device; the device stage remaps each slot block onto the stripes' flat
 view on the host, so the pooled read stays one launch. With a
 ``cache_mesh`` of several devices (``launch.mesh.make_cache_mesh``) the
-stripes are laid out across them and each table's pooled read is the
-reference's ``sharded_pooled_lookup``: K5 / K6 on every device over its
-own stripes, the partial rows summed once on the first device (the HPS
-device), then pooled over H.
+stripes are laid out across them and the pooled read is the reference's
+``sharded_pooled_lookup`` of every table: one owner-mapped K5 / K6 launch
+on every device for all the tables over its own stripes; the other
+devices' rows meet on the first device (the HPS device), whose launch
+pools each row's slots in order.
 
 Online updates: the ``bus`` Consumer applies trainer messages to L2/L3
 and marks the touched L1 rows dirty (``apply_updates``); the
@@ -62,13 +63,12 @@ def _pooled_stack(payloads: Sequence[tuple], slots: Sequence[torch.Tensor],
     """The pooled gathers of all tables, ``[B, T, D]`` f32, in one device
     dispatch (as the reference's). Each payload is a ``(payload, scales)``
     snapshot; int8 stores dequantize inside the gather kernel. On a cache
-    ``mesh`` each table reads its per-device stripe blocks
-    (``ops.sharded_pooled_lookup``). The mean renorm divides each mean
-    table's slice in place."""
+    ``mesh`` each payload is the per-device stripe blocks, and each entry
+    reads all the tables in one owner-mapped launch
+    (``ops.mesh_pooled_read``). The mean renorm divides each mean table's
+    slice in place."""
     if mesh is not None:
-        out = torch.stack([ops.sharded_pooled_lookup(p, s, scales=sc,
-                                                     mesh=mesh)
-                           for (p, sc), s in zip(payloads, slots)], dim=1)
+        out = ops.mesh_pooled_read(payloads, slots)
     else:
         out = ops.grouped_pooled_lookup(payloads, slots)
     if apply_mean:

@@ -47,6 +47,17 @@ SIGNATURES = {
     "repro_dequant_gather_rows": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _L,
                                   _P],
     "repro_dequant_gather_rows_one": [_P, _P, _P, _I, _I, _L, _I, _P, _P],
+    # the owner-mapped twins: ..., out, (out_stride,) rows, rows_stride,
+    # stripes, first, owned, pool, stream
+    "repro_gather_rows_mesh": [_P, _P, _I, _I, _I, _L, _I, _P, _P, _L, _I,
+                               _I, _I, _I, _P],
+    "repro_gather_rows_grouped_mesh": [_P, _P, _P, _P, _P, _I, _I, _L, _I,
+                                       _P, _L, _P, _L, _I, _I, _I, _I, _P],
+    "repro_dequant_gather_rows_one_mesh": [_P, _P, _P, _I, _I, _I, _L, _I,
+                                           _P, _P, _L, _I, _I, _I, _I, _P],
+    "repro_dequant_gather_rows_mesh": [_P, _P, _P, _P, _P, _P, _I, _I, _L,
+                                       _I, _P, _L, _P, _L, _I, _I, _I, _I,
+                                       _P],
     "repro_interaction_fwd": [_P, _P, _L, _I, _I, _I, _P],
     "repro_interaction_bwd": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _I,

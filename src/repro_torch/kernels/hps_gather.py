@@ -9,12 +9,15 @@ per-row scales, :func:`dequant_gather_grouped` reading and summing every
 table of a served int8 batch in one launch and :func:`dequant_gather_rows`
 the one-table launch with one slot a row. The
 reference's striped multi-device bodies (``sharded_gather_rows`` and its
-dequant twin) are ``ops.sharded_cache_gather`` over a cache mesh: one K5
-(K6) launch a device over its own stripes, then one sum.
+dequant twin, ``_local_stripe_gather``) are :func:`owned_read`: one mesh
+entry's owner-mapped pooled read of its block of stripes at GLOBAL slots,
+one K5 (K6 with scales) launch for every table of the call;
+``ops.mesh_pooled_read`` runs it on each entry: the later entries place
+the rows of their stripes, the first pools each row's slots in order.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -26,6 +29,10 @@ from repro_torch.kernels.ref import (
 
 GATHER = "gather_rows"
 DEQUANT = "dequant_gather_rows"
+#: the owner-mapped C entries, one table and grouped
+GATHER_OWNED = ("repro_gather_rows_mesh", "repro_gather_rows_grouped_mesh")
+DEQUANT_OWNED = ("repro_dequant_gather_rows_one_mesh",
+                 "repro_dequant_gather_rows_mesh")
 PAYLOAD_DTYPES = (torch.float32, torch.float16)
 COMPRESSED_DTYPES = (torch.float16, torch.int8)
 
@@ -91,3 +98,70 @@ def dequant_gather_grouped(payloads: Sequence[torch.Tensor],
         return dequant_gather_grouped_plain(payloads, scales, slots)
     return pooled.launch(DEQUANT, "repro_dequant_gather_rows", payloads,
                          scales, slots, COMPRESSED_DTYPES)
+
+
+def owned_read_plain(blocks: Sequence[torch.Tensor],
+                     scales: Optional[Sequence[torch.Tensor]],
+                     slots: Sequence[torch.Tensor], stripes: int, first: int,
+                     rows: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of :func:`owned_read`, in the kernel's order:
+    without ``out`` the rows of this entry's stripes written into ``rows``
+    (nothing else); with ``out`` each row of ``out[:, t]`` the sum over h
+    from a zero start of its slots' rows (a hole adds nothing), this
+    entry's from its blocks and the others' from ``rows``."""
+    col = 0
+    for t, (blk, sl) in enumerate(zip(blocks, slots)):
+        k, cl, d = blk.shape
+        h = sl.shape[1]
+        sl = sl.long()
+        stripe = sl.remainder(stripes)
+        mine = (sl >= 0) & (stripe >= first) & (stripe < first + k)
+        local = torch.where(mine, (stripe - first) * cl
+                            + torch.div(sl, stripes, rounding_mode="floor"),
+                            0)
+        own = blk.reshape(k * cl, d)[local].float()
+        if scales is not None:
+            own = own * scales[t].reshape(k * cl)[local][..., None]
+        placed = torch.where(mine[..., None], own, rows[:, col:col + h])
+        if out is None:
+            rows[:, col:col + h] = placed
+        else:
+            placed = torch.where((sl >= 0)[..., None], placed, 0.0)
+            acc = torch.zeros((sl.shape[0], d), dtype=torch.float32,
+                              device=out.device)
+            for j in range(h):
+                acc = acc + placed[:, j]
+            out[:, t] = acc
+        col += h
+    return out if out is not None else rows
+
+
+def owned_read(blocks: Sequence[torch.Tensor],
+               scales: Optional[Sequence[torch.Tensor]],
+               slots: Sequence[torch.Tensor], stripes: int, first: int,
+               rows: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One cache-mesh entry's read of a striped L1 (the mesh half of K5 /
+    K6): ``blocks [k, Cl_t, D]`` one a table (f32 / f16; int8 / f16 with
+    ``scales [k, Cl_t]`` f32), the entry's stripes ``first .. first + k -
+    1`` of ``stripes``; GLOBAL ``slots [B, H_t]`` int32 (-1 = hole; slot
+    ``s`` at stripe ``s % stripes``, row ``s // stripes``); ``rows [B, W,
+    D]`` f32, table ``t``'s slot h at column ``H_0 + .. + H_{t-1} + h``.
+    Without ``out``: the rows of this entry's stripes placed in ``rows``.
+    With ``out [B, T, D]`` f32: ``out[:, t]`` the sum over h of table
+    ``t``'s slots' rows, in order, this entry's from its blocks and the
+    others' from ``rows`` (``rows`` may be ``out`` where every H_t is 1).
+    Returns what it wrote. On CUDA one K5 (K6) launch for every
+    :data:`pooled.MAX_TABLES` tables; on the CPU the plain version."""
+    if not rows.is_cuda and _build.on_cpu(rows, *blocks, *slots,
+                                          *(scales or ())):
+        return owned_read_plain(blocks, scales, slots, stripes, first, rows,
+                                out)
+    if scales is None:
+        pooled.launch_owned(GATHER, GATHER_OWNED, blocks, None, slots,
+                            PAYLOAD_DTYPES, stripes, first, rows, out)
+    else:
+        pooled.launch_owned(DEQUANT, DEQUANT_OWNED, blocks, scales, slots,
+                            COMPRESSED_DTYPES, stripes, first, rows, out)
+    return out if out is not None else rows

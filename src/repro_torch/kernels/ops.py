@@ -2,7 +2,8 @@
 the serving reads ``grouped_pooled_lookup`` (every table of a batch in one
 launch), ``pooled_cache_lookup``, ``cache_gather`` and its striped twin
 ``sharded_cache_gather`` (one device, or the mesh half across a cache
-mesh's devices), the differentiable ``fused_embedding_lookup`` /
+mesh's devices: ``mesh_pooled_read``, one owner-mapped launch an entry
+for every table of a read), the differentiable ``fused_embedding_lookup`` /
 ``kernel_pool``, ``row_gather`` and ``dot_interaction`` that training
 runs, and the LM's ``flash_attention``.
 
@@ -15,12 +16,13 @@ become ``torch.autograd.Function``s whose backward is the adjoint kernel
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, hps_gather
 from repro_torch.kernels.dot_interaction import interaction_bwd, interaction_fwd
 from repro_torch.kernels.embedding_lookup import (lookup_bwd, lookup_fwd,
                                                   lookup_fwd_grouped)
@@ -122,44 +124,76 @@ def place_stripes(stripes: torch.Tensor, scales: Optional[torch.Tensor],
                          .contiguous() for j, dev in enumerate(mesh))
 
 
-def _local_stripe_gather(block: torch.Tensor,
-                         scales: Optional[torch.Tensor],
-                         slots: torch.Tensor, n_stripes: int,
-                         first: int) -> torch.Tensor:
-    """Per-device body (``hps_gather._local_stripe_gather``): gather the
-    slots whose stripe this device owns. ``block [k, Cl, D]`` holds
-    stripes ``first .. first + k - 1``; global slot ``s`` maps to stripe
-    ``s % N``, local row ``s // N``. Slots owned elsewhere become -1 holes
-    and read zero rows, so the sum of the devices' partials is exact. One
-    K5 launch (K6 with ``scales [k, Cl]``) on the block's device."""
-    k, cl, d = block.shape
-    stripe_of = torch.where(slots >= 0, slots % n_stripes, -1)
-    mine = (stripe_of >= first) & (stripe_of < first + k)
-    local = (stripe_of - first) * cl + torch.div(slots, n_stripes,
-                                                 rounding_mode="floor")
-    local = torch.where(mine, local, -1).to(torch.int32)
-    flat = block.view(k * cl, d)
-    return cache_gather(flat, local, scales=None if scales is None
-                        else scales.view(k * cl))
+def _slots_on(slots: Sequence[torch.Tensor], dev: torch.device) -> list:
+    """The batch's slot blocks on ``dev`` in one copy (several blocks go
+    as one concatenation and come back as views)."""
+    if len(slots) == 1:
+        return [slots[0].to(dev)]
+    flat = torch.cat([s.reshape(-1) for s in slots]).to(dev)
+    return [part.view(s.shape) for part, s in zip(
+        flat.split([s.numel() for s in slots]), slots)]
 
 
-def _mesh_gather(blocks: Sequence[torch.Tensor],
-                 scales: Optional[Sequence[torch.Tensor]],
-                 slots: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+def mesh_pooled_read(payloads: Sequence[tuple],
+                     slots: Sequence[Union[np.ndarray, torch.Tensor]], *,
+                     plain: bool = False,
+                     local: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """The mesh half of ``hps_gather.sharded_gather_rows`` /
-    ``sharded_dequant_gather_rows``: each device's body over its own
-    block, then the ``[n, D]`` partials on the first device, summed once
-    (the reference's one ``psum``)."""
-    n_stripes = sum(b.shape[0] for b in blocks)
-    out_dev = blocks[0].device
-    parts, first = [], 0
-    for j, block in enumerate(blocks):
-        s = slot_tensor(slots, block.device).to(block.device)
-        parts.append(_local_stripe_gather(
-            block, None if scales is None else scales[j], s, n_stripes,
-            first).to(out_dev))
-        first += block.shape[0]
-    return torch.stack(parts).sum(dim=0)
+    ``sharded_dequant_gather_rows`` for every table of a read: ``payloads``
+    one ``(blocks, scale blocks or None)`` a table, the per-entry ``[k,
+    Cl_t, D]`` blocks of :func:`place_stripes` (one type and width, all
+    scaled or none); GLOBAL ``slots [B, H_t]`` (-1 = hole) -> ``[B, T, D]``
+    f32 on the first entry's device, ``[:, t]`` table ``t``'s sum over H.
+
+    Each entry makes one owner-mapped read (``hps_gather.owned_read``: K5,
+    K6 with scales) of all the tables. Every entry but the first places the
+    rows of its stripes in a rows buffer on the first entry's device (the
+    output itself where every H is 1); an entry on another device (``local``
+    false; by default, whether its blocks lie elsewhere) does so in a zeroed
+    buffer of its own, from the one copy of the slots that device gets, and
+    the buffers are added on the first device in entry order (the
+    reference's one ``psum``, exact: a row has one owner). Then the first
+    entry sums each output row's slots in order of h, its own rows from its
+    blocks: the one-device read's sums, bit for bit. ``plain`` runs the
+    plain version."""
+    blocks0 = payloads[0][0]
+    out_dev = blocks0[0].device
+    stripes = sum(blk.shape[0] for blk in blocks0)
+    slots = [slot_tensor(s, out_dev) for s in slots]
+    read = hps_gather.owned_read_plain if plain else hps_gather.owned_read
+    if local is None:
+        local = [blk.device == out_dev for blk in blocks0]
+    firsts = list(itertools.accumulate((blk.shape[0] for blk in blocks0),
+                                       initial=0))
+    b, d = slots[0].shape[0], blocks0[0].shape[-1]
+    hots = [s.shape[1] for s in slots]
+    out = torch.empty((b, len(payloads), d), dtype=torch.float32,
+                      device=out_dev)
+    rows = out if all(h == 1 for h in hots) else torch.empty(
+        (b, sum(hots), d), dtype=torch.float32, device=out_dev)
+
+    def entry(j, sl, dest, pooled=None):
+        return read([p[j] for p, _ in payloads],
+                    None if payloads[0][1] is None
+                    else [sc[j] for _, sc in payloads],
+                    sl, stripes, firsts[j], dest, pooled)
+
+    foreign = [j for j in range(1, len(blocks0)) if not local[j]]
+    if foreign:
+        rows.zero_()
+    moved, parts = {}, []
+    for j in foreign:           # first, so they run beside this device's
+        dev = blocks0[j].device
+        if dev not in moved:
+            moved[dev] = _slots_on(slots, dev)
+        parts.append(entry(j, moved[dev], torch.zeros(
+            rows.shape, dtype=rows.dtype, device=dev)))
+    for part in parts:
+        rows.add_(part.to(out_dev))
+    for j in range(1, len(blocks0)):
+        if local[j]:
+            entry(j, slots, rows)
+    return entry(0, slots, rows, out)
 
 
 def sharded_cache_gather(stripes, slots: Union[np.ndarray, torch.Tensor],
@@ -172,11 +206,13 @@ def sharded_cache_gather(stripes, slots: Union[np.ndarray, torch.Tensor],
     on one device and are read through their flat view with the slots
     remapped, row for row the reference's host-shard read. With ``mesh``
     (the cache mesh's devices, more than one entry), ``stripes`` and
-    ``scales`` are the per-device blocks of :func:`place_stripes`: each
-    device reads its own stripes, the others' slots set to -1, and the
-    partial rows are summed once on the first device."""
+    ``scales`` are the per-device blocks of :func:`place_stripes`, read by
+    :func:`mesh_pooled_read` at one slot a row: one owner-mapped launch an
+    entry, the rows summed once on the first device."""
     if mesh is not None and len(mesh) > 1:
-        return _mesh_gather(stripes, scales, slots)
+        return mesh_pooled_read(((stripes, scales),),
+                                (slot_tensor(slots, stripes[0].device)
+                                 .reshape(-1, 1),))[:, 0]
     flat, flat_scales = striped_view((stripes, scales))
     idx = slot_tensor(flatten_striped_slots(stripes, slots), stripes.device)
     return cache_gather(flat, idx, scales=flat_scales)
@@ -186,13 +222,12 @@ def sharded_pooled_lookup(stripes, slots: torch.Tensor, *, scales=None,
                           mesh: Optional[Sequence] = None) -> torch.Tensor:
     """Pooled serving read off the striped payload, GLOBAL ``slots [B,
     H]`` (-1 = hole) -> sum-pooled ``[B, D]`` f32: on a cache ``mesh``,
-    :func:`sharded_cache_gather`'s rows summed over H (the reference's
-    ``sharded_pooled_lookup``); on one device, :func:`pooled_cache_lookup`
-    of the flat view."""
+    :func:`mesh_pooled_read` of the one table (the reference's
+    ``sharded_pooled_lookup``: its rows summed over H; here each entry sums
+    its own, then the entries' sums meet); on one device,
+    :func:`pooled_cache_lookup` of the flat view."""
     if mesh is not None and len(mesh) > 1:
-        b, h = slots.shape
-        rows = _mesh_gather(stripes, scales, slots.reshape(-1))
-        return rows.view(b, h, -1).sum(dim=1)
+        return mesh_pooled_read(((stripes, scales),), (slots,))[:, 0]
     flat, flat_scales = striped_view((stripes, scales))
     return pooled_cache_lookup(flat, flatten_striped_slots(stripes, slots),
                                flat_scales)

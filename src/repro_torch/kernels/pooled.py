@@ -11,7 +11,9 @@ graph. More tables take several launches, each writing its slice of
 ``out`` (:func:`table_launches`). One table takes :func:`launch_one`: its
 C entry gets the table's pointers as scalars, so the host builds no
 pointer arrays, and its checks run inline, building a message only when
-one fails.
+one fails. :func:`launch_owned` is the owner-mapped form: one cache-mesh
+entry's read of its block of a striped L1 at GLOBAL slots (the mesh half
+of K5 / K6).
 """
 from __future__ import annotations
 
@@ -129,3 +131,98 @@ def launch_one(kernel: str, entry: str, payload: torch.Tensor,
     _build.launch(kernel, entry, out.device, *head, slots.data_ptr(), ss[1],
                   _build.DTYPE_CODES[payload.dtype], b, d, out.data_ptr())
     return out
+
+
+def _check_f32(name: str, t: torch.Tensor, shape: tuple, di: int) -> None:
+    if not (t.is_cuda and t.dtype is torch.float32 and t.is_contiguous()
+            and t.get_device() == di and t.shape == shape):
+        raise ValueError(f"{name}: want {list(shape)} f32, contiguous, on "
+                         f"cuda:{di}, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+
+
+def launch_owned(kernel: str, entries: Tuple[str, str],
+                 blocks: Sequence[torch.Tensor],
+                 scales: Optional[Sequence[torch.Tensor]],
+                 slots: Sequence[torch.Tensor], dtypes, stripes: int,
+                 first: int, rows: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> None:
+    """One cache-mesh entry's owner-mapped read: ``blocks [k, Cl_t, D]``
+    (CUDA, one type; the entry's stripes ``first .. first + k - 1`` of
+    ``stripes``), ``scales [k, Cl_t]`` f32 or None, GLOBAL ``slots [B,
+    H_t]`` int32, ``rows [B, W, D]`` f32 (W the H_t summed, table ``t`` from
+    column ``H_0 + .. + H_{t-1}``). Without ``out`` the entry writes the
+    rows of its stripes into ``rows``; with ``out [B, T, D]`` f32 it writes
+    each output row, its slots' rows summed in order of h, its own from its
+    block and the others' from ``rows`` (which may be ``out`` where every
+    H_t is 1). ``entries`` names the one-table and the grouped C entry: one
+    launch for one table, one per :data:`MAX_TABLES` tables otherwise, each
+    counted as one of ``kernel``."""
+    n = len(blocks)
+    if not n or len(slots) != n or (scales is not None and len(scales) != n):
+        raise ValueError(f"{n} blocks, {len(slots)} slot blocks and "
+                         f"{'no' if scales is None else len(scales)} scales")
+    first_blk = blocks[0]
+    if not (first_blk.is_cuda and first_blk.dtype in dtypes
+            and first_blk.dim() == 3):
+        _build.require_cuda("block 0", first_blk, dtypes, 3)
+    owned, _, d = first_blk.shape
+    b, dtype, di = slots[0].shape[0], first_blk.dtype, first_blk.get_device()
+    if not 0 <= first <= stripes - owned:
+        raise ValueError(f"stripes {first} .. {first + owned - 1} of "
+                         f"{stripes}")
+    hots = []
+    for t, (p, s) in enumerate(zip(blocks, slots)):
+        sc = None if scales is None else scales[t]
+        ps, ss = p.shape, s.shape
+        if not (p.dtype is dtype and len(ps) == 3 and ps[0] == owned
+                and ps[2] == d and p.is_contiguous()
+                and p.get_device() == di and s.dtype is torch.int32
+                and len(ss) == 2 and ss[0] == b and s.is_contiguous()
+                and s.get_device() == di
+                and (sc is None or (sc.dtype is torch.float32
+                                    and sc.shape == ps[:2]
+                                    and sc.is_contiguous()
+                                    and sc.get_device() == di))):
+            raise ValueError(
+                f"table {t}: block {tuple(ps)} {p.dtype} on {p.device}, "
+                f"slots {tuple(ss)} {s.dtype} on {s.device}, scales "
+                f"{None if sc is None else (tuple(sc.shape), sc.dtype)}: "
+                f"want [{owned}, Cl, {d}] {dtype}, [{b}, H] int32 and "
+                f"[{owned}, Cl] f32, contiguous, on {first_blk.device}")
+        hots.append(ss[1])
+    _check_f32("rows", rows, (b, sum(hots), d), di)
+    if out is not None:
+        _check_f32("out", out, (b, n, d), di)
+    pool = int(out is not None)
+    if (out if pool else rows).numel() == 0:
+        return
+    code = _build.DTYPE_CODES[dtype]
+    tail = (rows.data_ptr(), rows.stride(0), stripes, first, owned, pool)
+    out_ptr = out.data_ptr() if pool else None
+    if n == 1:
+        p, s = blocks[0], slots[0]
+        head = (p.data_ptr(),) if scales is None else (
+            p.data_ptr(), scales[0].data_ptr())
+        _build.launch(kernel, entries[0], first_blk.device, *head,
+                      s.data_ptr(), hots[0], p.shape[1], code, b, d, out_ptr,
+                      *tail)
+        return
+    cols = [0]
+    for h in hots[:-1]:
+        cols.append(cols[-1] + h)
+    for t0, t1 in table_launches(n):
+        m = t1 - t0
+        pp, ss = _ptrs(blocks[t0:t1]), _ptrs(slots[t0:t1])
+        hh = (ctypes.c_int * m)(*hots[t0:t1])
+        rr = (ctypes.c_int * m)(*[p.shape[1] for p in blocks[t0:t1]])
+        kk = (ctypes.c_int * m)(*cols[t0:t1])
+        cc = None if scales is None else _ptrs(scales[t0:t1])
+        head = [ctypes.addressof(pp)] + (
+            [] if cc is None else [ctypes.addressof(cc)])
+        _build.launch(kernel, entries[1], first_blk.device, *head,
+                      ctypes.addressof(ss), ctypes.addressof(hh),
+                      ctypes.addressof(rr), ctypes.addressof(kk), m, code, b,
+                      d, None if out_ptr is None
+                      else out_ptr + t0 * d * out.element_size(),
+                      n * d, *tail)

@@ -15,7 +15,16 @@ and the partial rows are summed once. Against the reference's values:
   int8 read back as the reference's store reads them;
 * a sharded ``HPS`` (``cache_mesh``, ``cache_shards=4``) against the
   unsharded one on the same query stream, bit for bit, and against the
-  reference's sharded HPS.
+  reference's sharded HPS;
+* the owner-mapped read (``hps_gather.owned_read``, one launch an entry
+  for every table): each slot placed by its owner entry alone, the
+  entries' rows meeting in the flat read bit for bit, on this device and
+  through the other-device branch (``local``) of ``ops.mesh_pooled_read``;
+* the served pooled read of several tables at once
+  (``hps._pooled_stack`` over the mesh: H 1 and mixed H up to 3, ``sum``
+  and ``mean``, f32 / f16 / int8) against the reference's stack of
+  per-table ``sharded_pooled_lookup`` over its four devices and, bit for
+  bit, the one-device read.
 """
 import pytest
 
@@ -28,16 +37,21 @@ import sys
 import numpy as np
 
 from repro_torch.configs.base import EmbeddingTableConfig
-from repro_torch.core.hps.hps import HPS
+from repro_torch.core.hps.hps import HPS, _pooled_stack
 from repro_torch.core.hps.payload_store import ShardedPayloadStore
 from repro_torch.core.hps.persistent_db import PersistentDB
-from repro_torch.kernels import ops
+from repro_torch.kernels import hps_gather, ops
 from repro_torch.launch.mesh import make_cache_mesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = make_cache_mesh(8, devices=["cpu"] * 4)
 DTYPES = ("f32", "f16", "int8")
 QUERIES = 4
+#: the stacked tables' rows a stripe (8 stripes each, D 8), their H in the
+#: mixed case, and their combiners
+STACK_CL = (16, 8, 24, 16)
+STACK_H3 = (3, 1, 3, 2)
+STACK_COMBINERS = ("sum", "mean", "sum", "mean")
 
 JAX_SCRIPT = r"""
 import os, sys
@@ -68,6 +82,20 @@ for dt in ("f16", "int8"):
         qs, inp["slots"], scales=scs, mesh=mesh))
 out["pooled_f32"] = np.asarray(ops.sharded_pooled_lookup(
     stripes, jnp.asarray(inp["pslots"]), mesh=mesh))
+from repro.core.hps.hps import _pooled_stack
+combs = ("sum", "mean", "sum", "mean")
+for dt in ("f32", "f16", "int8"):
+    pays = []
+    for t in range(4):
+        r = inp[f"stack_rows{t}"]
+        cl = r.shape[0] // 8
+        q, sc = (r, None) if dt == "f32" else quantize_rows(r, dt)
+        pays.append((jnp.asarray(q.reshape(8, cl, 8)),
+                     None if sc is None else jnp.asarray(sc.reshape(8, cl))))
+    for hc in ("h1", "h3"):
+        sl = tuple(jnp.asarray(inp[f"stack_{hc}_{t}"]) for t in range(4))
+        out[f"stack_{dt}_{hc}"] = np.asarray(_pooled_stack(
+            tuple(pays), sl, combs, shards=8, mesh=mesh))
 pdb = PersistentDB(os.path.join(tmp, "pdb_jax"))
 tabs = []
 for i in range(3):
@@ -100,6 +128,12 @@ def ref(tmp_path_factory):
     for k in range(QUERIES):
         inp[f"cat{k}"] = rng.integers(-1, 120, size=(8, 3, 4)).astype(
             np.int32)
+    for t, (cl, h) in enumerate(zip(STACK_CL, STACK_H3)):
+        inp[f"stack_rows{t}"] = rng.normal(size=(8 * cl, 8)).astype(
+            np.float32)
+        for hc, hh in (("h1", 1), ("h3", h)):
+            inp[f"stack_{hc}_{t}"] = rng.integers(
+                -1, 8 * cl, size=(6, hh)).astype(np.int32)
     np.savez(os.path.join(tmp, "in.npz"), **inp)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(ROOT, "src"))
@@ -215,3 +249,78 @@ def test_sharded_hps_on_the_mesh_matches_unsharded_and_jax(ref, tmp_path):
                                    rtol=1e-6, atol=1e-6)
     assert {k: c.hits for k, c in h1.caches.items()} == \
         {k: c.hits for k, c in h4.caches.items()}
+
+
+@pytest.mark.parametrize("n,entries,cl,hole,dt", [
+    (2, 2, 16, 0.0, "f32"), (4, 2, 5, 0.3, "int8"), (8, 4, 16, 0.2, "f32"),
+    (8, 2, 7, 0.5, "f16"), (6, 3, 9, 0.1, "f32"), (4, 4, 1, 0.25, "int8"),
+    (8, 8, 3, 0.4, "f32"), (12, 4, 6, 1.0, "f32")])
+def test_owner_mapped_read_splits_by_stripe(n, entries, cl, hole, dt):
+    """``hps_gather.owned_read`` over ``n`` stripes of ``cl`` rows on
+    ``entries`` entries: an entry places exactly the rows of the slots in
+    its own stripes (the others untouched), the entries' placed rows add
+    up, in entry order, to the one-device flat read bit for bit, and the
+    mesh reads (rows and a pooled H = 3 read, on this device and through
+    the other-device branch) equal the one-device reads bit for bit."""
+    rng = np.random.default_rng(n * 100 + entries * 10 + cl)
+    rows = rng.standard_normal((n * cl, 8)).astype(np.float32)
+    stripes, scales = (torch.from_numpy(rows).view(n, cl, 8), None) \
+        if dt == "f32" else _quantized(rows.reshape(n, cl, 8), dt)
+    if dt == "f16":
+        scales = None
+    slots = rng.integers(0, n * cl, size=(41, 1)).astype(np.int32)
+    slots[rng.random(slots.shape) < hole] = -1
+    sl = torch.from_numpy(slots)
+    mesh = ["cpu"] * entries
+    blocks, bsc = ops.place_stripes(stripes, scales, mesh)
+    k = n // entries
+    flat = ops.sharded_cache_gather(stripes, sl.view(-1), scales=scales)
+    total = torch.zeros((41, 1, 8))
+    for j in range(entries):
+        placed = torch.full((41, 1, 8), float("nan"))
+        hps_gather.owned_read([blocks[j]], None if bsc is None
+                              else [bsc[j]], [sl], n, j * k, placed)
+        owner = (sl >= 0) & ((sl % n) // k == j)
+        written = ~placed.isnan().all(dim=-1)
+        assert torch.equal(written, owner)
+        assert torch.equal(placed[owner], flat[owner[:, 0]])
+        total = total + torch.where(written[..., None], placed, 0.0)
+    assert torch.equal(total[:, 0], flat)
+    payload = ((blocks, bsc),)
+    others = [True] + [False] * (entries - 1)
+    for local in (None, others):
+        got = ops.mesh_pooled_read(payload, [sl], local=local)
+        assert torch.equal(got[:, 0], flat)
+    pslots = torch.from_numpy(rng.integers(-1, n * cl, size=(9, 3)).astype(
+        np.int32))
+    one = ops.sharded_pooled_lookup(stripes, pslots, scales=scales)
+    for local in (None, others):
+        got = ops.mesh_pooled_read(payload, [pslots], local=local)
+        assert torch.equal(got[:, 0], one)
+
+
+@pytest.mark.parametrize("hc", ("h1", "h3"))
+@pytest.mark.parametrize("dt", DTYPES)
+def test_mesh_pooled_stack_matches_jax(ref, dt, hc):
+    """The served pooled read of four tables (their own Cl, ``sum`` and
+    ``mean``) over the cache mesh, one owner-mapped read an entry for all
+    of them: the reference's stack of per-table ``sharded_pooled_lookup``
+    over its four devices at 1e-6, and the one-device read of the stripes'
+    flat views bit for bit (H 1, and H 3 / 1 / 3 / 2)."""
+    inp, want, _ = ref
+    pays = []
+    for t, cl in enumerate(STACK_CL):
+        r = inp[f"stack_rows{t}"].reshape(8, cl, 8)
+        st, sc = (torch.from_numpy(r), None) if dt == "f32" \
+            else _quantized(r, dt)
+        pays.append((st, sc if dt == "int8" else None))
+    slots = [torch.from_numpy(inp[f"stack_{hc}_{t}"]) for t in range(4)]
+    placed = [ops.place_stripes(st, sc, MESH) for st, sc in pays]
+    got = _pooled_stack(placed, slots, STACK_COMBINERS, mesh=MESH)
+    one = _pooled_stack([ops.striped_view(p) for p in pays],
+                        [ops.flatten_striped_slots(st, s)
+                         for (st, _), s in zip(pays, slots)],
+                        STACK_COMBINERS)
+    np.testing.assert_array_equal(got.numpy(), one.numpy())
+    np.testing.assert_allclose(got.numpy(), want[f"stack_{dt}_{hc}"],
+                               rtol=1e-6, atol=1e-6)

@@ -1322,10 +1322,11 @@ def test_cuda_row_gather_and_its_adjoint(cuda):
 @pytest.mark.parametrize("payload_dtype", ["f32", "f16", "int8"])
 def test_cuda_mesh_half_striped_read(cuda, payload_dtype):
     """The mesh half of the striped L1 over a cache mesh of one card
-    named twice: each entry's K5 (K6 with scales) over its own stripes,
-    the others' slots as holes, summed once; bit-exact to the unstriped
-    read of the flat view (f32 rows, int8 / f16 ``q * scale``); one
-    launch an entry."""
+    named twice: each entry's owner-mapped K5 (K6 with scales) over its
+    own stripes at the global slots (the second entry places its rows,
+    the first reads its own and takes the others'); bit-exact to the
+    unstriped read of the flat view (f32 rows, int8 / f16 ``q * scale``)
+    and to the plain version; one launch an entry."""
     rng = np.random.default_rng(5)
     rows = rng.standard_normal((8 * 512, 128)).astype(np.float32)
     stored, scales = quantize_rows(rows, payload_dtype)
@@ -1344,5 +1345,52 @@ def test_cuda_mesh_half_striped_read(cuda, payload_dtype):
     name = "gather_rows" if sc is None else "dequant_gather_rows"
     assert _build.LAUNCHES.snapshot() == {name: 2}
     want = ops.sharded_cache_gather(stripes, slots, scales=sc)
+    plain = ops.mesh_pooled_read(((blocks, bscales),), (slots.view(-1, 1),),
+                                 plain=True)[:, 0]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload_dtype,hot,tables", [
+    ("f32", 1, 26), ("f32", 3, 26), ("int8", 1, 26), ("int8", 3, 26),
+    ("f16", 3, 26), ("f32", 1, 70)])
+def test_cuda_mesh_pooled_stack(cuda, payload_dtype, hot, tables):
+    """The served pooled read of every table over a cache mesh of one card
+    named twice (``hps._pooled_stack(..., mesh=)``): one owner-mapped K5
+    (K6 with scales) launch an entry for all the tables (70 take two a
+    launch's limit), bit-exact to the one-device read of the flat views
+    (K1 / K6 in the same order of h) at H = 1 and H = 3 and so within 1e-6
+    of it, and bit-exact to the plain version; tables of their own Cl."""
+    from repro_torch.core.hps.hps import _pooled_stack
+    rng = np.random.default_rng(7)
+    mesh = [cuda, cuda]
+    pays, flat, slots, fslots = [], [], [], []
+    for t in range(tables):
+        cl = 512 + 8 * (t % 3)
+        rows = rng.standard_normal((2 * cl, 128)).astype(np.float32)
+        stored, scales = quantize_rows(rows, payload_dtype)
+        st = torch.from_numpy(stored).view(2, cl, 128).to(cuda)
+        sc = None if scales is None else torch.from_numpy(scales).view(
+            2, cl).to(cuda)
+        s = rng.integers(-1, 2 * cl, size=(1031, hot)).astype(np.int32)
+        sl = torch.from_numpy(s).to(cuda)
+        pays.append(ops.place_stripes(st, sc, mesh))
+        flat.append(ops.striped_view((st, sc)))
+        slots.append(sl)
+        fslots.append(ops.flatten_striped_slots(st, sl))
+    combiners = ("sum",) * tables
+    _build.LAUNCHES.reset()
+    got = _pooled_stack(pays, slots, combiners, mesh=mesh)
+    torch.cuda.synchronize()
+    name = "dequant_gather_rows" if payload_dtype == "int8" else \
+        "gather_rows"
+    assert _build.LAUNCHES.snapshot() == {
+        name: 2 * len(pooled.table_launches(tables))}
+    one = _pooled_stack(flat, fslots, combiners)
+    plain = ops.mesh_pooled_read(pays, slots, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+    torch.testing.assert_close(got, one, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, plain)

@@ -12,8 +12,10 @@ ids follow the smoke's. Each time is the mean of calls replayed from a CUDA
 graph (``chip_smoke.graph_ms``), beside the wrapper's time (CUDA events
 around back-to-back calls, ``chip_smoke.time_ms``); the cases of
 :data:`PARTS` also give each of their kernels' device time (``parts_ms``,
-``torch.profiler``). The ``library ...`` cases time a kernel's library
-yardstick on the same inputs. Prints the card's name and power limit, then
+``torch.profiler``, with each kernel's launches a call under ``events``;
+the :data:`PROFILED` cases have no graph time, their device time is that
+sum). The ``library ...`` cases time a kernel's library yardstick on the
+same inputs. Prints the card's name and power limit, then
 one JSON line. Needs a CUDA device; exits 2 without one.
 """
 from __future__ import annotations
@@ -128,6 +130,64 @@ def _pooled_stack(cs, dev, payload_dtype: str, d: int = 128,
     combiners = ("sum",) * len(pays)
     return cs.rotating(lambda sl: _pooled_stack(pays, sl, combiners),
                        slots), sets
+
+
+def _mesh_half(cs, dev, payload_dtype: str):
+    """The mesh half's row read as ``chip_smoke.mesh_half`` runs it: slots
+    ``[RUN.batch]`` (every 7th a hole) over ``RUN.mesh_stripes`` stripes of
+    one served table's payload laid out on ``[dev, dev]``, through
+    ``ops.sharded_cache_gather``."""
+    from repro_torch.kernels import ops
+    pays, sets = cs.served_inputs(cs.RUN, dev, payload_dtype)
+    (p, sc), slots = pays[0], sets[0][0].view(-1).clone()
+    slots[::7] = -1
+    n = cs.RUN.mesh_stripes
+    stripes = p.view(n, p.shape[0] // n, -1)
+    scales = None if sc is None else sc.view(n, -1)
+    mesh = [dev, dev]
+    blocks, bsc = ops.place_stripes(stripes, scales, mesh)
+    return (lambda: ops.sharded_cache_gather(blocks, slots, scales=bsc,
+                                             mesh=mesh)), 20
+
+
+def _mesh_stack(cs, dev, payload_dtype: str, stripes: int = 2):
+    """The served pooled read of the 26 tables off an L1 of ``stripes``
+    stripes laid out on the cache mesh ``[dev, dev]``
+    (``core.hps.hps._pooled_stack(..., mesh=)``, a new batch of GLOBAL
+    slots each call), as a DLRM HPS with ``cache_mesh`` serves it."""
+    from repro_torch.core.hps.hps import _pooled_stack
+    from repro_torch.kernels import ops
+    pays, slots = cs.served_inputs(cs.RUN, dev, payload_dtype, cs.SLOT_SETS)
+    mesh = [dev, dev]
+    placed = [ops.place_stripes(
+        p.view(stripes, p.shape[0] // stripes, -1),
+        None if sc is None else sc.view(stripes, -1), mesh)
+        for p, sc in pays]
+    combiners = ("sum",) * len(placed)
+    return cs.rotating(lambda sl: _pooled_stack(placed, sl, combiners,
+                                                mesh=mesh), slots), \
+        cs.SLOT_SETS
+
+
+def _sdpa_bwd(cs, dev, which: int):
+    """``scaled_dot_product_attention``'s backward alone at K8's shape
+    ``which`` of ``chip_smoke.encdec_attn_shapes`` (seamless's encoder 0,
+    decoder 1, cross 2; training batch): one forward kept, each call one
+    ``autograd.grad`` through it. Timed by the profiler only
+    (:data:`PROFILED`)."""
+    import torch
+    import torch.nn.functional as F
+    _, bh, bkv, sq, sk, d, causal = cs.encdec_attn_shapes(
+        cs.RUN, cs.RUN.lm_train_batch)[which]
+    g = torch.Generator().manual_seed(8)
+    q, k, v, do = (torch.randn((1, h, s, d), generator=g).to(
+        dev, torch.bfloat16) for h, s in ((bh, sq), (bkv, sk), (bkv, sk),
+                                          (bh, sq)))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                       enable_gqa=True)
+    return (lambda: torch.autograd.grad(o, (q, k, v), do,
+                                        retain_graph=True)), 5
 
 
 def _wdl(cs, dev, which: int, backward: bool, arch: str = "wdl",
@@ -315,13 +375,13 @@ def _seq_shard(cs, dev, backward: bool):
     return lambda: k78.flash_fwd(q, k, v, causal=True, q_pos0=p), 5
 
 
-def parts_ms(fn, calls: int = 10) -> dict:
+def parts_ms(fn, events: dict, calls: int = 10) -> dict:
     """Device ms a call of each kernel ``fn`` launches (K8: the ``D =
     rowsum(do o)`` kernel, dq, dk/dv and, where the dk/dv grid is split,
     the split reduce; K3: the sort, or ``torch.sort``'s and the fill's
     kernels, then the chunk and merge passes), from ``torch.profiler`` over
-    ``calls`` calls after a warm-up; empty if the profiler records no
-    device events."""
+    ``calls`` calls after a warm-up, and into ``events`` each kernel's
+    launches a call; empty if the profiler records no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -335,6 +395,9 @@ def parts_ms(fn, calls: int = 10) -> dict:
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out[e.name] = out.get(e.name, 0.0) + e.device_time / 1e3 / calls
+            events[e.name] = events.get(e.name, 0) + 1
+    for name in events:
+        events[name] /= calls
     return out
 
 
@@ -369,7 +432,13 @@ def parts_ms(fn, calls: int = 10) -> dict:
 #: (``striped``, the online phase's ``cache_shards=2``); then K1 and K3
 #: over phase 6d's flattened ETC cache (``etc_training_rows``); K3 at
 #: xlstm-125m's token table (``lookup_bwd xlstm``); K3's library yardstick
-#: (``zeros`` + ``index_add_``) at its narrow and short rows
+#: (``zeros`` + ``index_add_``) at its narrow and short rows; the mesh half
+#: of K5 / K6 (``mesh_half``: one table's row read over 8 stripes on
+#: ``[dev, dev]``) and the 26 served tables' pooled read off a 2-stripe L1
+#: on that cache mesh (``pooled_stack ... mesh``); ``sdpa``'s backward
+#: alone at seamless's three K8 shapes (``library flash_bwd (d) ...``).
+#: Every case also gives the port's launch counts of one call
+#: (``launches``)
 CASES = {
     "launch floor": lambda cs, dev: (cs.launch_floor_call(dev), 100),
     "pooled_stack f32": lambda cs, dev: _pooled_stack(cs, dev, "f32"),
@@ -447,15 +516,30 @@ CASES = {
         lambda cs, dev: _wdl(cs, dev, 1, True, library=True),
     "library lookup_bwd xlstm":
         lambda cs, dev: _lm_k3(cs, dev, 0, cs.RUN.xlstm_arch, library=True),
+    "mesh_half f32": lambda cs, dev: _mesh_half(cs, dev, "f32"),
+    "mesh_half int8": lambda cs, dev: _mesh_half(cs, dev, "int8"),
+    "pooled_stack f32 mesh": lambda cs, dev: _mesh_stack(cs, dev, "f32"),
+    "pooled_stack int8 mesh": lambda cs, dev: _mesh_stack(cs, dev, "int8"),
+    **{f"library flash_bwd (d) {name}":
+       (lambda i: lambda cs, dev: _sdpa_bwd(cs, dev, i))(i)
+       for i, name in enumerate(("encoder", "decoder", "cross"))},
 }
 
 
 #: the cases whose device time is also given kernel by kernel
-#: (:func:`parts_ms`): K8's launches; K3's sort, zero-fill and passes
+#: (:func:`parts_ms`): K8's launches; K3's sort, zero-fill and passes;
+#: the mesh half's remap ops, launches, stack and sum
 PARTS = ("flash_bwd (a)", "flash_bwd (b)", "flash_bwd (c)",
          "flash_bwd (d) cross", "flash_bwd seq shard",
          "lookup_bwd neumf ctx", "lookup_bwd wdl wide", "lookup_bwd xlstm",
-         "lookup_bwd dlrm", "flash_fwd (d) encoder", "flash_fwd (d) cross")
+         "lookup_bwd dlrm", "flash_fwd (d) encoder", "flash_fwd (d) cross",
+         "mesh_half f32", "mesh_half int8", "pooled_stack f32 mesh",
+         "pooled_stack int8 mesh")
+
+#: the cases no CUDA graph captures (an autograd backward): their device
+#: time is the sum of :func:`parts_ms`, the profiler's
+PROFILED = tuple(f"library flash_bwd (d) {name}"
+                 for name in ("encoder", "decoder", "cross"))
 
 
 def main() -> int:
@@ -479,18 +563,27 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    ms, wrapper, parts = {}, {}, {}
+    from repro_torch.kernels._build import LAUNCHES
+    ms, wrapper, parts, events, launches = {}, {}, {}, {}, {}
     for name in args.cases or CASES:
         fn, reps = CASES[name](cs, dev)
-        ms[name] = cs.graph_ms(fn, reps)
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        fn()
+        torch.cuda.synchronize()
+        launches[name] = LAUNCHES.snapshot()
+        if name in PARTS or name in PROFILED:
+            events[name] = {}
+            parts[name] = parts_ms(fn, events[name])
+        ms[name] = (sum(parts[name].values()) if name in PROFILED
+                    else cs.graph_ms(fn, reps))
         wrapper[name] = cs.time_ms(fn, 100)
-        if name in PARTS:
-            parts[name] = parts_ms(fn)
         del fn
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "src": args.src,
                       "device_ms": ms, "wrapper_ms": wrapper,
-                      "parts_ms": parts}))
+                      "parts_ms": parts, "events": events,
+                      "launches": launches}))
     return 0
 
 

@@ -15,8 +15,10 @@ bundle serves ``RUN.warmup`` warm-up and ``RUN.requests`` measured
 batch-``RUN.batch`` Zipf(1.1) requests (``chip_smoke.make_requests``): all
 at once through ``submit`` (a burst, as ``chip_smoke.py``'s engine phase
 sends it: delivered rows/s), then one at a time through ``submit``, then
-through ``predict``. Prints the card's name and power limit, then one JSON
-line of p50 / p99 ms and the bursts' rows/s. ``--profile ENGINE`` also
+through ``predict``. ``--cache-mesh N`` serves the L1 striped N ways over
+a cache mesh that names the card N times (``chip_smoke.striped_ps``'s
+ps.json), ``--engines`` picks the engines. Prints the card's name and
+power limit, then one JSON line of p50 / p99 ms and the bursts' rows/s. ``--profile ENGINE`` also
 prints the host profile (``cProfile``, every thread) of that engine's
 burst: the functions with the most time of their own, then the most
 cumulative time. Needs a CUDA device; exits 2 without one.
@@ -64,22 +66,26 @@ def _bundle(cs, directory: str, vocab: int) -> str:
     return ps
 
 
-def measure(cs, ps: str, dev, profile: str = "") -> dict:
+def measure(cs, ps: str, dev, profile: str = "", cache_mesh=None,
+            engines=None) -> dict:
     """``{"submit <engine>" / "predict after <engine>": [p50, p99],
     "burst <engine> rows/s": r}`` over the measured requests, a fresh
-    server from ``ps`` for each engine."""
+    server from ``ps`` (its L1 over ``cache_mesh`` where given) for each of
+    ``engines`` (default: every engine the server has)."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import build_server_from_config
     from repro_torch.serve import server as srv
-    base, _ = build_server_from_config(ps, device=dev)
+    base, _ = build_server_from_config(ps, device=dev,
+                                       cache_mesh=cache_mesh)
     cfg = base.model.cfg
     warm = cs.make_requests(cs.RUN, cfg, cs.RUN.warmup, 1)
     reqs = cs.make_requests(cs.RUN, cfg, cs.RUN.requests, 2)
     base.close()
     out = {}
-    for engine in srv.ENGINES:
-        built, _ = build_server_from_config(ps, device=dev)
+    for engine in engines or srv.ENGINES:
+        built, _ = build_server_from_config(ps, device=dev,
+                                            cache_mesh=cache_mesh)
         server = srv.InferenceServer(built.model, built.dense_params,
                                      built.hps, max_batch=cs.RUN.batch,
                                      engine=engine)
@@ -128,6 +134,11 @@ def main() -> int:
     ap.add_argument("--vocab", type=int, default=1 << 20)
     ap.add_argument("--profile", default="",
                     help="an engine whose burst is profiled")
+    ap.add_argument("--cache-mesh", type=int, default=0, metavar="N",
+                    help="serve the L1 striped N ways over a cache mesh "
+                    "naming the card N times")
+    ap.add_argument("--engines", nargs="*", default=None,
+                    help="the engines to time (default: all)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -139,10 +150,14 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    out = measure(cs, _bundle(cs, args.bundle, args.vocab),
-                  torch.device("cuda", 0), args.profile)
+    dev = torch.device("cuda", 0)
+    ps = _bundle(cs, args.bundle, args.vocab)
+    mesh = None
+    if args.cache_mesh > 1:
+        ps, mesh = cs.striped_ps(ps, args.cache_mesh), [dev] * args.cache_mesh
+    out = measure(cs, ps, dev, args.profile, mesh, args.engines)
     print(json.dumps({"label": args.label, "src": args.src,
-                      "times": out}))
+                      "cache_mesh": args.cache_mesh, "times": out}))
     return 0
 
 
