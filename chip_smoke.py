@@ -1598,6 +1598,55 @@ def causal_mask(n: int, sk: int, q_pos0: int, dev):
     return j[None, :] <= q_pos0 + i[:, None]
 
 
+def device_kernels(fn, calls: int = 10) -> dict:
+    """The device kernels a call of ``fn`` launches: each kernel's name
+    (its function's, without the anonymous namespace and the arguments) ->
+    launches a call, from ``torch.profiler`` over ``calls`` calls after a
+    warm-up (as ``tools/kernel_times.py``'s ``parts_ms``: a single
+    profiled call can lose its first kernel); empty if the profiler
+    records no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(anonymous namespace)::")[-1].split("(")[0]
+            out[name] = out.get(name, 0) + 1
+    return {name: n / calls for name, n in out.items()}
+
+
+def bwd_form(kernels: dict) -> str:
+    """Which form of K8's D 64 kernels :func:`device_kernels` saw: "short"
+    (the dq kernel with a head's K / V resident, the dk/dv walk split over
+    a cluster), "long", "not measured" (no device events) or "not D 64"."""
+    if not kernels:
+        return "not measured"
+    names = " ".join(kernels)
+    if "flash_bwd_dq_wgmma64_short_kernel" in names and \
+            "flash_bwd_dkv_wgmma64_kernel<true>" in names:
+        return "short"
+    if "flash_bwd_dq_wgmma64_kernel" in names:
+        return "long"
+    return "not D 64"
+
+
+#: K8's D 64 short form at the edges of its dk/dv split, ``(label, BH,
+#: BKV, Sq, Sk)``, non-causal: runs of whole query tiles, runs that end
+#: inside a tile's heads (45 items over 8 splits), one query tile of 40
+#: queries (2 splits), the longest Sk with g = 4
+K8_SHORT_EDGES = (("split runs of whole tiles, g 4", 8, 2, 1000, 300),
+                  ("split runs inside a tile, g 3", 6, 2, 900, 300),
+                  ("40 queries, g 2", 4, 2, 40, 300),
+                  ("Sk 512, g 4", 8, 2, 700, 512))
+
+
 def sdpa_backend(fn) -> str:
     """The device kernels one call of ``fn`` (an ``sdpa`` call) launches,
     by name, from ``torch.profiler``: which backend ``sdpa`` took; "not
@@ -1886,7 +1935,10 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
     and K7's two D 64 edges at ``attn_edge_seq``, (e) the
     encoder-decoder's and the vision prefix's training shapes
     (:func:`encdec_attn_shapes` at batch 1: the cross-attention's dk and
-    dv are the encoder's 512 keys), timed under ``shapes`` as (d); (f) a
+    dv are the encoder's 512 keys), timed under ``shapes`` as (d), each
+    with the form of the D 64 kernels that ran and its device kernels a
+    call, then the short form at the edges of its dk/dv split
+    (:data:`K8_SHORT_EDGES`); (f) a
     causal query offset on every route as K7's, the ``dk`` / ``dv`` of the
     keys no query sees 0, then minitron-4b's last sequence-parallel shard
     timed under ``shapes`` with ``sdpa``'s backward under the explicit
@@ -2015,12 +2067,26 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
                flops_per_s=BF16_TC_FLOPS, lib_minus=sdpa_g, iters=10)
     del ins, q, k, v, o, lse, do, q4, k4, v4
 
-    # (e) seamless's three shapes at D 64 and pixtral's at D 128, batch 1
+    # (e) seamless's three shapes at D 64 and pixtral's at D 128, batch 1,
+    # each with the form of K8 that ran and its device kernels a call (at
+    # D 64 and at most SHORT_KEYS keys the short form must run); then the
+    # short form at the edges of its dk/dv split
     def training_shape(label, bh, bkv, sq, sk, d, causal):
         ins = inputs(bh, bkv, sq, d, torch.bfloat16, causal=causal, sk=sk)
         got, want = held(f"(e) {label}", ins, "bf16", causal=causal)
         err = (got - want).abs().max().item()
         del got, want
+        kernels = device_kernels(lambda: k78.flash_bwd(*ins, causal=causal))
+        form = bwd_form(kernels)
+        splits = k78.dkv_splits(bkv, sk, bh // bkv, d, torch.bfloat16,
+                                torch.cuda.get_device_properties(
+                                    dev).multi_processor_count, sq=sq)
+        print(f"flash_bwd (e) {label}: form {form}, dk/dv split "
+              f"{splits} ways; device kernels a call: "
+              + ", ".join(f"{n} x{c:g}" for n, c in kernels.items()))
+        if d == 64 and sk <= k78.SHORT_KEYS and form != "not measured":
+            check(form == "short", f"flash_bwd (e) {label}: form {form} "
+                  f"at {sk} keys")
         q, k, v, o, lse, do = ins
         q4, k4, v4 = (t.detach().view(1, -1, t.shape[1], d).requires_grad_()
                       for t in (q, k, v))
@@ -2044,6 +2110,10 @@ def attention_bwd_kernel(args, record, shape_line, g, dev):
 
     for shape in encdec_attn_shapes(args, args.lm_train_batch):
         training_shape(*shape)
+    for label, bh, bkv, sq, sk in K8_SHORT_EDGES:
+        held(f"(e) short form, {label}", inputs(bh, bkv, sq, 64,
+                                                torch.bfloat16, causal=False,
+                                                sk=sk), "bf16", causal=False)
     # (f) a causal query offset on every route, as K7's, then timed at
     # minitron-4b's last shard of a model axis of 16 (K7's shape)
     for label, d, dt in OFFSET_ROUTES:

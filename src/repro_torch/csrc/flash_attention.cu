@@ -1348,12 +1348,9 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (rc != 0) return rc;
   if (sk <= kShortKeys) {
     // parts of a head's query tiles: about one block an SM in all
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
+    int sms = 0;
+    rc = sm_count(&sms);
+    if (rc != 0) return rc;
     const int nt = (s + 63) / 64;
     const int parts = static_cast<int>(std::max<long long>(
         1, std::min<long long>(nt, sms / bh)));

@@ -108,6 +108,24 @@
 //   memory; a warpgroup computes D = rowsum(do * o) of its rows itself (and
 //   writes it for dk/dv, so no D kernel runs), and the band's 64-key K and
 //   V tiles stream.
+// At D = 64 with sk <= 512 (an encoder's self-attention, a cross-attention
+// over an encoder's output) both take a short form, for grids that fill
+// the card (seamless-m4t-large-v2 at batch 1: 16 heads over 512 keys; the
+// long forms ran 64 dk/dv blocks for 132 SMs and 352 dq blocks in 2.67
+// waves at its cross-attention, 48 dq blocks at its encoder):
+// * dk/dv: a cluster of `splits` blocks (the wrapper's dkv_splits, from the
+//   SM count: 2 at seamless's shapes) shares a (KV head, 128-key tile);
+//   each walks a contiguous run of its items and keeps its f32 dK, dV in
+//   shared memory, and each writes 128 / splits of the keys, summing the
+//   splits' partials in split order through distributed shared memory.
+// * dq: one block per (query head, part of its 64-query tiles), the head's
+//   K and V resident whole (eight 64-key tiles, 128 KB, loaded once a
+//   part), the three warpgroups walking the part's 64-query items, each
+//   the long form's walk (dq and D keep their bits).
+//   Ruled out: one fused pass with all 512 keys resident (a block's dK and
+//   dV for 512 keys are 256 KB of f32, the SM's whole register file), and
+//   dQ added with f32 atomics from the dk/dv walk (an order of adds that
+//   changes from run to run).
 // ptxas serialises wgmma products it cannot prove safe to overlap (its
 // C7514-C7520 notes): a branch on the warpgroup's index, read from
 // threadIdx, counts as divergent unless the index comes through a shuffle
@@ -126,6 +144,8 @@
 // query of a 32-query tile a lane.
 // The wrapper pads lse and D to whole 64-query tiles (row stride ls).
 #include <math.h>
+
+#include <algorithm>
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -1435,6 +1455,20 @@ constexpr int kDkvStages = 4;            // the copy ring of Q, dO, lse, D
 // start on a 1024-byte boundary
 constexpr int kDkvStage = 2 * kTileBytes + 1024;
 constexpr size_t kDkvSmem = 1024 + kDkvStages * kDkvStage + 64;   // 69 KB
+// the short form (sk <= kShortKeys, flash_attention.py's SHORT_KEYS):
+// every 64-key tile of a head fits in the dq kernel's shared memory, and the
+// dk/dv kernel splits each block's items over a cluster of up to the
+// portable cluster size, each split's f32 dK, dV in shared memory beside
+// the ring for the cluster's blocks to add
+constexpr int kShortKeys = 512;
+constexpr int kShortTiles = kShortKeys / kTile;     // 8 64-key tiles
+constexpr int kMaxSplits = 8;
+// a split's f32 dK, dV of a key: 64 each and 4 of padding after each, so
+// that the eight rows a warp writes at once fall on distinct banks
+constexpr int kPartLd = kD + 4;
+constexpr int kPartKey = 2 * kPartLd;
+constexpr size_t kDkvSplitSmem =
+    kDkvSmem + kBlock * kPartKey * sizeof(float);           // 137 KB
 
 // Each consumer warpgroup owns 64 of the block's keys: its K and V stay in
 // registers as the A operands of S^T = K Q^T and dP^T = V dO^T (64 keys x
@@ -1451,6 +1485,19 @@ constexpr size_t kDkvSmem = 1024 + kDkvStages * kDkvStage + 64;   // 69 KB
 // items its keys see (a prefix or a suffix of the block's) and releases
 // the others untouched. The order of the adds is fixed: no atomics, the
 // same bits on every run.
+//
+// kSplit, the short form's (sk <= kShortKeys): a grid of (KV head, 128-key
+// tile) blocks is a few dozen at an encoder's or a cross-attention's key
+// length (seamless: 16 x 4 = 64 blocks for 132 SMs, each walking every
+// query tile of the head). So `splits` blocks, one cluster, share a
+// (KV head, key tile): block r of the cluster walks the r-th of `splits`
+// contiguous runs of the items (query tile, then query head) and keeps its
+// f32 dK, dV in shared memory; between two cluster barriers each block then
+// writes 128 / splits of the keys, each element the sum of the splits'
+// partials in split order, the others' read through distributed shared
+// memory. No atomics and no second kernel; a fixed order of adds, the same
+// bits on every run (not the long form's bits: a split's sum starts at 0).
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads64, 1)
     flash_bwd_dkv_wgmma64_kernel(const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
@@ -1459,7 +1506,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
                const float* __restrict__ lse, const float* __restrict__ dcap,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                int s, int sk, int ls, int group, int causal, int window,
-               int qp, float scale) {
+               int qp, float scale, int splits) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = aligned_shared(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDkvStages *
@@ -1471,10 +1518,15 @@ __global__ void __launch_bounds__(kThreads64, 1)
   // heads fastest: the first key tiles of every head, which the most
   // causal query tiles see, start first
   const int k0 = static_cast<int>(blockIdx.y) * kBlock;
-  const int hk = blockIdx.x;
+  const int split = kSplit ? hopper::cluster_rank() : 0;
+  const int hk = kSplit ? static_cast<int>(blockIdx.x) / splits
+                        : static_cast<int>(blockIdx.x);
   int t0, t1;
   query_tiles(k0, min(k0 + kBlock, sk), s, kTile, causal, window, qp, &t0, &t1);
-  const int items = (t1 - t0) * group;      // (query tile, query head)
+  // the block's run [lo, lo + items) of the (query tile, query head) items
+  const int all = (t1 - t0) * group;
+  const int lo = kSplit ? split * all / splits : 0;
+  const int items = kSplit ? (split + 1) * all / splits - lo : all;
 
   if (tid == 0) {
     for (int i = 0; i < kDkvStages; ++i) {
@@ -1484,6 +1536,7 @@ __global__ void __launch_bounds__(kThreads64, 1)
     hopper::mbar_fence_init();
   }
   __syncthreads();
+  const bool clustered = kSplit && splits > 1;
 
   if (warp >= kConsumers / 32) {             // the producer warpgroup
     hopper::setmaxnreg_dec<kProducerRegs>();
@@ -1494,8 +1547,8 @@ __global__ void __launch_bounds__(kThreads64, 1)
           hopper::mbar_wait(empty + st, (i / kDkvStages - 1) & 1);
         }
         unsigned char* stage = ring + st * kDkvStage;
-        const int bh = hk * group + i % group;
-        const int q0 = (t0 + i / group) * kTile;
+        const int bh = hk * group + (lo + i) % group;
+        const int q0 = (t0 + (lo + i) / group) * kTile;
         hopper::mbar_expect_tx(full + st, 2 * kTileBytes + 2 * kTile * 4);
         load_rows<1>(stage, &tq, full + st, q0, bh);
         load_rows<1>(stage + kTileBytes, &tdo, full + st, q0, bh);
@@ -1505,6 +1558,10 @@ __global__ void __launch_bounds__(kThreads64, 1)
         hopper::bulk_load(stage + 2 * kTileBytes + kTile * 4, dcap + off,
                           kTile * 4, full + st);
       }
+    }
+    if (clustered) {                         // the epilogue's two barriers
+      hopper::cluster_sync();
+      hopper::cluster_sync();
     }
     return;
   }
@@ -1529,6 +1586,10 @@ __global__ void __launch_bounds__(kThreads64, 1)
       b = (w1 - t0) * group;
     }
   }
+  if (kSplit) {                              // within the block's run
+    a = min(max(a - lo, 0), items);
+    b = min(max(b - lo, 0), items);
+  }
   const int64_t kvoff = static_cast<int64_t>(hk) * sk * kD;
   uint32_t ka[4][4], va[4][4];
   hopper::rows_to_a64(ka, k + kvoff, krow, sk, t);
@@ -1537,10 +1598,9 @@ __global__ void __launch_bounds__(kThreads64, 1)
 
   auto stage = [&](int i) { return ring + (i % kDkvStages) * kDkvStage; };
   auto release = [&](int i) { hopper::mbar_arrive(empty + i % kDkvStages); };
-  // S^T = K Q^T and dP^T = V dO^T of item i, two commit groups, issued once
-  // the item's stage has landed
-  float sc[32], dp[32];
-  auto first_products = [&](int i) {
+  // S^T = K Q^T and dP^T = V dO^T of item i into sc and dp, two commit
+  // groups, issued once the item's stage has landed
+  auto first_products = [&](int i, float (&sc)[32], float (&dp)[32]) {
     const unsigned char* qs = stage(i);
     hopper::mbar_wait(full + i % kDkvStages, (i / kDkvStages) & 1);
     hopper::wgmma_fence();
@@ -1569,18 +1629,11 @@ __global__ void __launch_bounds__(kThreads64, 1)
     release(i);
   }
   uint32_t pa[4][4], da[4][4];
-  if (a < b) first_products(a);
-  for (int i = a; i < b; ++i) {
-    const unsigned char* qs = stage(i);
-    const unsigned char* dos = qs + kTileBytes;
-    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * kTileBytes);
-    const float* dc_s = lse_s + kTile;
-    const int q0 = (t0 + i / group) * kTile;
-
-    // item i's S^T and dP^T, and the item before's dV and dK, are done (a
-    // partial wait would leave ptxas to serialise the products, since the
-    // elementwise work reads their accumulators): the other warpgroup's
-    // products run under this one's elementwise work
+  // item i's S^T, dP^T in sc, dp (and the item before's dV and dK) are
+  // done (a partial wait would leave ptxas to serialise the products,
+  // since the elementwise work reads their accumulators): the other
+  // warpgroup's products run under this one's elementwise work
+  auto done = [&](float (&sc)[32], float (&dp)[32]) {
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
     hopper::fence_regs(dp);
@@ -1588,10 +1641,18 @@ __global__ void __launch_bounds__(kThreads64, 1)
     hopper::fence_regs(dk_acc);
     hopper::fence_regs(pa);
     hopper::fence_regs(da);
-    if (i > a) release(i - 1);
-    // P^T = exp(S^T scale - lse) = 2^(s c - lse log2e), c = scale log2e, 0
-    // where masked (only a tile the band does not cover whole needs the
-    // mask), then dS^T = P^T (dP^T - D) scale
+  };
+  // item i from its S^T and dP^T: P^T = exp(S^T scale - lse) = 2^(s c -
+  // lse log2e), c = scale log2e, 0 where masked (only a tile the band does
+  // not cover whole needs the mask), dS^T = P^T (dP^T - D) scale, then dV
+  // += P^T dO and dK += dS^T Q (the queries along k, the streamed tiles
+  // read MN-major), one commit group
+  auto update = [&](int i, float (&sc)[32], float (&dp)[32]) {
+    const unsigned char* qs = stage(i);
+    const unsigned char* dos = qs + kTileBytes;
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * kTileBytes);
+    const float* dc_s = lse_s + kTile;
+    const int q0 = (t0 + (lo + i) / group) * kTile;
     const bool whole = q0 + kTile <= s && kw0 + 64 <= sk &&
                        (!causal || kw0 + 63 <= q0 + qp) &&
                        (window <= 0 || q0 + qp + kTile - 1 - window < kw0);
@@ -1617,9 +1678,6 @@ __global__ void __launch_bounds__(kThreads64, 1)
     }
     hopper::acc_to_a(pa, sc);
     hopper::acc_to_a(da, dp);
-    // dV += P^T dO and dK += dS^T Q (the queries along k, the streamed
-    // tiles read MN-major), one commit group, then the next item's S^T and
-    // dP^T behind them
     hopper::fence_regs(pa);
     hopper::fence_regs(da);
     hopper::fence_regs(dv_acc);
@@ -1634,7 +1692,29 @@ __global__ void __launch_bounds__(kThreads64, 1)
       hopper::wgmma_m64n64k16_rs_tb(dk_acc, da[kk], mnmajor(qs, kk), 1);
     }
     hopper::wgmma_commit();
-    if (i + 1 < b) first_products(i + 1);
+  };
+  if constexpr (kSplit) {
+    // S^T and dP^T declared in the loop body and issued at its top, behind
+    // the item before's dV and dK: issued at the bottom, for the next item,
+    // into accumulators the loop carries (the long form's order), they
+    // make ptxas serialise every wgmma product of the kernel (its C7515
+    // note)
+    for (int i = a; i < b; ++i) {
+      float sc[32], dp[32];
+      first_products(i, sc, dp);
+      done(sc, dp);
+      if (i > a) release(i - 1);
+      update(i, sc, dp);
+    }
+  } else {
+    float sc[32], dp[32];
+    if (a < b) first_products(a, sc, dp);
+    for (int i = a; i < b; ++i) {
+      done(sc, dp);
+      if (i > a) release(i - 1);
+      update(i, sc, dp);
+      if (i + 1 < b) first_products(i + 1, sc, dp);   // behind dV and dK
+    }
   }
   if (a < b) {
     hopper::wgmma_wait<0>();
@@ -1647,6 +1727,50 @@ __global__ void __launch_bounds__(kThreads64, 1)
   for (int i = b; i < items; ++i) {
     hopper::mbar_wait(full + i % kDkvStages, (i / kDkvStages) & 1);
     release(i);
+  }
+  if (clustered) {
+    // every split's f32 dK, dV into its shared memory, [key][dK, dV]; each
+    // split then writes 128 / splits of the block's keys, each element the
+    // sum over the splits in split order, the others' read through
+    // distributed shared memory: the same bits whichever split writes,
+    // coalesced stores, and the cluster's blocks share the work
+    float* part = reinterpret_cast<float*>(ring + kDkvStages * kDkvStage + 64);
+    const int kl = krow - k0;                       // the block's key
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* at = part + (kl + 8 * r) * kPartKey + j * 8 + 2 * t;
+        *reinterpret_cast<float2*>(at) =
+            make_float2(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<float2*>(at + kPartLd) =
+            make_float2(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
+    }
+    hopper::cluster_sync();                         // the partials are written
+    const int kn = kBlock / splits;                 // keys a split writes
+    for (int idx = tid; idx < kn * 2 * (kD / 4); idx += kConsumers) {
+      const int row = idx / (kD / 4);               // [key][dK, dV]
+      const int key = split * kn + row / 2, c = (idx % (kD / 4)) * 4;
+      const float4* at = reinterpret_cast<const float4*>(
+          part + key * kPartKey + (row % 2) * kPartLd + c);
+      float4 sum = *hopper::cluster_map(at, 0);
+      for (int q = 1; q < splits; ++q) {
+        const float4 x = *hopper::cluster_map(at, q);
+        sum.x += x.x;
+        sum.y += x.y;
+        sum.z += x.z;
+        sum.w += x.w;
+      }
+      if (k0 + key < sk) {
+        __nv_bfloat16* out = (row % 2 == 0 ? dk : dv) + kvoff +
+                             static_cast<int64_t>(k0 + key) * kD + c;
+        *reinterpret_cast<uint2*>(out) =
+            make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
+      }
+    }
+    hopper::cluster_sync();                         // read: the blocks may go
+    return;
   }
 
 #pragma unroll
@@ -1662,6 +1786,61 @@ __global__ void __launch_bounds__(kThreads64, 1)
           pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
     }
   }
+}
+
+// D = rowsum(do * o) of a thread's two rows (queries row0 and row0 + 8 of
+// an m64 operand) from its A fragments of dO (a) and o (b): its 16 column
+// pairs in a fixed order, then the quad of threads that shares the rows
+__device__ __forceinline__ void row_dots(float (&dc)[2],
+                                         const uint32_t (&a)[4][4],
+                                         const uint32_t (&b)[4][4]) {
+  dc[0] = dc[1] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&b[kk][e]));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&a[kk][e]));
+      dc[e & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, dc[e & 1]));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dc[r] += __shfl_xor_sync(0xffffffffu, dc[r], 1);
+    dc[r] += __shfl_xor_sync(0xffffffffu, dc[r], 2);
+  }
+}
+
+// a warpgroup's dS of one 64-key tile at k0 from its S and dP: p = 2^(s c -
+// lse log2e), c = scale log2e, 0 where masked (a row sees the keys [lo,
+// hi]; a tile the band covers whole needs no mask), then dS = p (dP - D)
+// scale, packed as the register A operand of dQ += dS K
+__device__ __forceinline__ void tile_ds(uint32_t (&da)[4][4],
+                                        float (&sc)[32], float (&dp)[32],
+                                        int k0, bool whole,
+                                        const int (&lo)[2], const int (&hi)[2],
+                                        const float (&lse_l)[2],
+                                        const float (&dc)[2], int t,
+                                        float scale_log2, float scale) {
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    sc[x] = ex2(fmaf(sc[x], scale_log2, -lse_l[(x >> 1) & 1]));
+  }
+  if (!whole) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int r = (x >> 1) & 1;
+      const int key = k0 + (x >> 2) * 8 + 2 * t + (x & 1);
+      sc[x] = (key >= lo[r]) & (key <= hi[r]) ? sc[x] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    dp[x] = sc[x] * (dp[x] - dc[(x >> 1) & 1]) * scale;
+  }
+  hopper::acc_to_a(da, dp);
 }
 
 // ---- dq: one block per (query head, 192-query tile)
@@ -1776,22 +1955,12 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   // D = rowsum(do * o) of this thread's rows, from its dO fragments and the
   // same elements of o, summed over the quad that shares the rows; written
   // for the dk/dv kernel too (0 in the padding rows [s, ls))
-  float dc_r[2] = {0.f, 0.f};
+  float dc_r[2];
   {
     uint32_t oa[4][4], ob[4][4];
     hopper::rows_to_a64(oa, dout + qoff, qrow, s, t);
     hopper::rows_to_a64(ob, o + qoff, qrow, s, t);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 x = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&ob[kk][e]));
-        const float2 y = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&oa[kk][e]));
-        dc_r[e & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, dc_r[e & 1]));
-      }
-    }
+    row_dots(dc_r, oa, ob);
   }
   // the keys [lo, hi] each of this thread's two rows sees (visible_bwd:
   // none for a row past s), lse log2e of the rows
@@ -1804,8 +1973,6 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     lo[r] = window > 0 ? row + qp - window + 1 : 0;
     const int64_t off = static_cast<int64_t>(bh) * ls + row;
     lse_l[r] = row < s ? lse[off] * kLog2e : 0.f;
-    dc_r[r] += __shfl_xor_sync(0xffffffffu, dc_r[r], 1);
-    dc_r[r] += __shfl_xor_sync(0xffffffffu, dc_r[r], 2);
     if (t == 0 && row < ls) dcap[off] = dc_r[r];
   }
   const float scale_log2 = scale * kLog2e;
@@ -1859,23 +2026,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     const bool whole = qw0 + 64 <= s && k0 + kTile <= sk &&
                        (!causal || k0 + kTile - 1 <= qw0 + qp) &&
                        (window <= 0 || qw0 + qp + 63 - window < k0);
-#pragma unroll
-    for (int x = 0; x < 32; ++x) {
-      sc[x] = ex2(fmaf(sc[x], scale_log2, -lse_l[(x >> 1) & 1]));
-    }
-    if (!whole) {
-#pragma unroll
-      for (int x = 0; x < 32; ++x) {
-        const int r = (x >> 1) & 1;
-        const int key = k0 + (x >> 2) * 8 + 2 * t + (x & 1);
-        sc[x] = (key >= lo[r]) & (key <= hi[r]) ? sc[x] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int x = 0; x < 32; ++x) {
-      dp[x] = sc[x] * (dp[x] - dc_r[(x >> 1) & 1]) * scale;
-    }
-    hopper::acc_to_a(da, dp);
+    tile_ds(da, sc, dp, k0, whole, lo, hi, lse_l, dc_r, t, scale_log2, scale);
     hopper::fence_regs(da);
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
@@ -1907,6 +2058,267 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       *reinterpret_cast<uint32_t*>(out + j * 8) =
           pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
+  }
+}
+
+// ---- dq, the short form (sk <= kShortKeys): one block per (query head,
+// part of its 64-query tiles), the head's K and V resident whole
+
+// K and V of every tile, Q and dO a (warpgroup, buffer), the barriers and
+// one tile's D
+constexpr size_t kDqShortSmem = 1024 + 2 * kShortTiles * kTileBytes +
+                                kDqWgs * 2 * 2 * kTileBytes + 256 +
+                                kTile * sizeof(float);      // 226 KB
+
+// The long form reads a head's K and V again for every 192 queries, and at
+// a short key length its grid runs in waves with a tail (seamless's cross-
+// attention: 352 blocks of 8 key tiles each for 132 SMs; its encoder: 48
+// blocks). Here a block loads the head's 64-key K and V tiles once, each on
+// a barrier of its own (a tile's products wait for that tile only), and its
+// three consumer warpgroups walk the part's 64-query items: item i goes to
+// warpgroup i % 3, whose Q and dO come through two buffers, so the next
+// item's copy is in flight while this one computes. Parts are chosen so
+// that the grid is about one block an SM. Each item is the long form's
+// warpgroup walk: D of its rows (written for the dk/dv kernel), then the
+// same key tiles in the same order with the same arithmetic, so dq and D
+// keep their bits whichever form runs. A part of one query tile (an
+// encoder's 8 tiles a head over 16 heads: 128 parts) would leave two of
+// the three warpgroups idle and walk all eight key tiles in turn; there
+// the warpgroups share the tile's key tiles and add their dQ through
+// shared memory in a fixed order (dq's bits then differ from the long
+// form's; D's do not).
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_wgmma64_short_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __nv_bfloat16* __restrict__ o,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, float* __restrict__ dcap,
+              __nv_bfloat16* __restrict__ dq, int s, int sk, int ls, int group,
+              int causal, int window, int qp, float scale, int per) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kts = aligned_shared(smem_raw);    // K of tile j
+  unsigned char* vts = kts + kShortTiles * kTileBytes;        // V of tile j
+  unsigned char* qbuf = vts + kShortTiles * kTileBytes;       // Q, dO
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(qbuf + kDqWgs * 2 * 2 *
+                                                kTileBytes);
+  uint64_t* vfull = kfull + kShortTiles;
+  uint64_t* q_full = vfull + kShortTiles;           // [warpgroup][buffer]
+  uint64_t* q_empty = q_full + kDqWgs * 2;
+  float* dc_s = reinterpret_cast<float*>(kfull + 32);  // a spread tile's D
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int nt = (s + kTile - 1) / kTile;
+  const int first = static_cast<int>(blockIdx.y) * per;
+  const int cnt = max(0, min(per, nt - first));
+  // the key tiles any query of the part sees
+  int t0, t1;
+  key_tiles(first * kTile, min((first + cnt) * kTile, s), sk, kTile, causal,
+            window, qp, &t0, &t1);
+
+  if (tid == 0) {
+    for (int j = 0; j < kShortTiles; ++j) {
+      hopper::mbar_init(kfull + j, 1);
+      hopper::mbar_init(vfull + j, 1);
+    }
+    for (int i = 0; i < kDqWgs * 2; ++i) {
+      hopper::mbar_init(q_full + i, 1);
+      hopper::mbar_init(q_empty + i, 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kDqConsumers / 32) {           // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kDqConsumers && cnt > 0) {
+      const int hk = bh / group;
+      auto load_kv = [&](int j) {
+        hopper::mbar_expect_tx(kfull + j, kTileBytes);
+        load_rows<1>(kts + j * kTileBytes, &tk, kfull + j, j * kTile, hk);
+        hopper::mbar_expect_tx(vfull + j, kTileBytes);
+        load_rows<1>(vts + j * kTileBytes, &tv, vfull + j, j * kTile, hk);
+      };
+      // item i: warpgroup i % 3, its (i / 3)-th item, buffer (i / 3) & 1
+      auto load_q = [&](int i) {
+        const int n = i / kDqWgs, slot = (i % kDqWgs) * 2 + (n & 1);
+        if (n >= 2) hopper::mbar_wait(q_empty + slot, ((n >> 1) - 1) & 1);
+        unsigned char* qt = qbuf + slot * 2 * kTileBytes;
+        hopper::mbar_expect_tx(q_full + slot, 2 * kTileBytes);
+        load_rows<1>(qt, &tq, q_full + slot, (first + i) * kTile, bh);
+        load_rows<1>(qt + kTileBytes, &tdo, q_full + slot,
+                     (first + i) * kTile, bh);
+      };
+      // in the order the walks need them: the first item's Q, dO and first
+      // key tile, the other warpgroups' first items, the other key tiles,
+      // then each warpgroup's later items as their buffers come free
+      const int lead = min(cnt, kDqWgs);
+      load_q(0);
+      if (t0 < t1) load_kv(t0);
+      for (int i = 1; i < lead; ++i) load_q(i);
+      for (int j = t0 + 1; j < t1; ++j) load_kv(j);
+      for (int i = lead; i < cnt; ++i) load_q(i);
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kDqConsumerRegs>();
+
+  // the warpgroup's index through a shuffle, as the long form's
+  const int wgi = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int g = lane >> 2, t = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  float acc[32];
+  // a part of one item: the three warpgroups share its key tiles (tile a +
+  // w, a + w + 3, ... to warpgroup w), and warpgroup 0 adds the others' dQ
+  // in warpgroup order (the long form's order of adds is lost, the bits
+  // still repeat); else item i of the part goes to warpgroup i % 3
+  const bool spread = cnt == 1;
+  for (int n = 0; spread ? n < 1 : wgi + kDqWgs * n < cnt; ++n) {
+    const int slot = spread ? 0 : wgi * 2 + (n & 1);
+    const unsigned char* qt = qbuf + slot * 2 * kTileBytes;
+    const unsigned char* dot = qt + kTileBytes;
+    const int qw0 = (first + (spread ? 0 : wgi + kDqWgs * n)) * kTile;
+    const int qrow = qw0 + (warp & 3) * 16 + g;       // queries qrow, qrow + 8
+    int a, b;                                         // its key tiles
+    key_tiles(qw0, min(qw0 + 64, s), sk, kTile, causal, window, qp, &a, &b);
+    const int64_t qoff = static_cast<int64_t>(bh) * s * kD;
+    // D = rowsum(do * o) of this thread's rows, as the long form's (the
+    // same values in the same order: dO from its tile in shared memory, o
+    // from global memory); in spread mode warpgroup 0 hands it to the
+    // others through shared memory
+    float dc_r[2] = {0.f, 0.f};
+    if (!spread || wgi == 0) {
+      uint32_t oa[4][4], ob[4][4];
+      hopper::rows_to_a64(ob, o + qoff, qrow, s, t);
+      hopper::mbar_wait(q_full + slot, (n >> 1) & 1);
+      hopper::tile_to_a64(oa, dot, qrow - qw0, t);
+      row_dots(dc_r, oa, ob);
+    }
+    int lo[2], hi[2];
+    float lse_l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      hi[r] = row >= s ? -1 : causal ? row + qp : sk - 1;
+      lo[r] = window > 0 ? row + qp - window + 1 : 0;
+      const int64_t off = static_cast<int64_t>(bh) * ls + row;
+      lse_l[r] = row < s ? lse[off] * kLog2e : 0.f;
+      if (t == 0 && (!spread || wgi == 0)) {
+        if (row < ls) dcap[off] = dc_r[r];
+        if (spread) dc_s[row - qw0] = dc_r[r];
+      }
+    }
+    if (spread && wgi == 0) hopper::named_arrive(2, kDqConsumers);
+
+    // per key tile: S = Q K^T and dP = dO V^T (two commit groups, queued
+    // behind the tile before's dQ), waited for with that dQ, then p, dS =
+    // p (dP - D) scale and dQ += dS K (K read MN-major). S and dP are
+    // declared in the loop body and issued at its top: issued at the
+    // bottom, for the next tile, into accumulators the loop carries (the
+    // long forms' order), they make ptxas serialise every wgmma product of
+    // the kernel (its C7515 note)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+    hopper::mbar_wait(q_full + slot, (n >> 1) & 1);
+    const int step = spread ? kDqWgs : 1;
+    bool need_dc = spread && wgi != 0;
+    for (int i = a + (spread ? wgi : 0); i < b; i += step) {
+      const unsigned char* kt = kts + i * kTileBytes;
+      const unsigned char* vt = vts + i * kTileBytes;
+      const int k0 = i * kTile;
+      float sc[32], dp[32];
+      hopper::mbar_wait(kfull + i, 0);
+      hopper::mbar_wait(vfull + i, 0);
+      hopper::wgmma_fence();
+      hopper::wgmma_m64n64k16_ss_z(sc, kmajor(qt, 0), kmajor(kt, 0));
+#pragma unroll
+      for (int kk = 1; kk < kD / 16; ++kk) {
+        hopper::wgmma_m64n64k16_ss(sc, kmajor(qt, kk), kmajor(kt, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_m64n64k16_ss_z(dp, kmajor(dot, 0), kmajor(vt, 0));
+#pragma unroll
+      for (int kk = 1; kk < kD / 16; ++kk) {
+        hopper::wgmma_m64n64k16_ss(dp, kmajor(dot, kk), kmajor(vt, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      hopper::fence_regs(acc);
+      if (need_dc) {                          // warpgroup 0's D, once
+        hopper::named_sync(2, kDqConsumers);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) dc_r[r] = dc_s[qrow + 8 * r - qw0];
+        need_dc = false;
+      }
+      const bool whole = qw0 + 64 <= s && k0 + kTile <= sk &&
+                         (!causal || k0 + kTile - 1 <= qw0 + qp) &&
+                         (window <= 0 || qw0 + qp + 63 - window < k0);
+      uint32_t da[4][4];
+      tile_ds(da, sc, dp, k0, whole, lo, hi, lse_l, dc_r, t, scale_log2,
+              scale);
+      hopper::fence_regs(da);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {       // dQ += dS K
+        hopper::wgmma_m64n64k16_rs_tb(acc, da[kk], mnmajor(kt, kk), 1);
+      }
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (need_dc) hopper::named_sync(2, kDqConsumers);   // walked no tile
+    if (spread) {
+      // warpgroups 1 and 2 leave their dQ in their own Q buffers, which
+      // this mode does not load, thread by thread
+      const int ct = tid & 127;
+      if (wgi != 0) {
+        float4* mine = reinterpret_cast<float4*>(qbuf + wgi * 4 * kTileBytes);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          mine[j * 128 + ct] = make_float4(acc[4 * j], acc[4 * j + 1],
+                                           acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+      hopper::named_sync(1, kDqConsumers);
+      if (wgi != 0) break;
+      for (int w = 1; w < kDqWgs; ++w) {
+        const float4* theirs =
+            reinterpret_cast<const float4*>(qbuf + w * 4 * kTileBytes);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 x = theirs[j * 128 + ct];
+          acc[4 * j] += x.x;
+          acc[4 * j + 1] += x.y;
+          acc[4 * j + 2] += x.z;
+          acc[4 * j + 3] += x.w;
+        }
+      }
+    } else {
+      hopper::mbar_arrive(q_empty + slot);    // Q and dO are read
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + r * 8;
+      if (row >= s) continue;
+      __nv_bfloat16* out = dq + qoff + static_cast<int64_t>(row) * kD + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(out + j * 8) =
+            pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+  // key tiles no walk of this warpgroup read land before the block exits
+  for (int j = t0; cnt > 0 && j < t1; ++j) {
+    hopper::mbar_wait(kfull + j, 0);
+    hopper::mbar_wait(vfull + j, 0);
   }
 }
 
@@ -1985,6 +2397,30 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
       wg::Maps m;
       int rc = wg::make_maps(&m, a.q, a.k, a.v, a.dout, bh, bh / a.group,
                              a.s, a.sk, D);
+      if (rc == 0 && a.sk <= wg64::kShortKeys) {
+        // parts of a head's 64-query tiles: about one block an SM in all
+        int sms = 0;
+        rc = sm_count(&sms);
+        if (rc == 0) {
+          rc = set_smem(wg64::flash_bwd_dq_wgmma64_short_kernel,
+                        wg64::kDqShortSmem);
+        }
+        if (rc != 0) return rc;
+        const int nt = (a.s + wg::kTile - 1) / wg::kTile;
+        const int parts = static_cast<int>(std::max<long long>(
+            1, std::min<long long>(nt, sms / bh)));
+        const int per = (nt + parts - 1) / parts;
+        const dim3 grid(static_cast<unsigned>(bh), (nt + per - 1) / per);
+        wg64::flash_bwd_dq_wgmma64_short_kernel<<<grid, wg64::kDqThreads,
+                                                  wg64::kDqShortSmem,
+                                                  a.stream>>>(
+            m.q, m.dout, m.k, m.v, static_cast<const __nv_bfloat16*>(o),
+            static_cast<const __nv_bfloat16*>(a.dout),
+            static_cast<const float*>(a.lse), static_cast<float*>(dcap),
+            static_cast<__nv_bfloat16*>(dq), a.s, a.sk, a.ls, a.group,
+            a.causal, a.window, a.qp, a.scale, per);
+        return static_cast<int>(cudaGetLastError());
+      }
       if (rc == 0) {
         rc = set_smem(wg64::flash_bwd_dq_wgmma64_kernel, wg64::kDqSmem);
       }
@@ -2046,13 +2482,21 @@ int launch_dq(int dtype, const Args& a, long long bh, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// splits > 1 (bf16 at D = 256 only): the dk/dv kernel writes f32 partials
-// into ws [2, splits, bkv, s, 256], and the split reduce sums them into dk
-// and dv
+// splits > 1 for bf16 at D = 256: the dk/dv kernel writes f32 partials into
+// ws [2, splits, bkv, s, 256] (splits <= the GQA group), and the split
+// reduce sums them into dk and dv; for bf16 at D = 64 and sk <= kShortKeys
+// (the short form, always taken there): clusters of `splits` blocks
+// (splits <= kMaxSplits) add their partials through shared memory, no ws
 template <int D>
 int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
                void* ws, int splits) {
-  if (splits != 1 && !(dtype == 2 && D == wg256::kD)) {
+  const bool wide = dtype == 2 && D == wg256::kD;
+  const bool short_keys =
+      dtype == 2 && D == wg64::kD && a.sk <= wg64::kShortKeys;
+  if (splits < 1 || (splits > 1 && !wide && !short_keys) ||
+      (wide && splits > 1 && (splits > a.group || ws == nullptr)) ||
+      (short_keys &&
+       (splits > wg64::kMaxSplits || (splits & (splits - 1)) != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 2) {
@@ -2091,19 +2535,48 @@ int launch_dkv(int dtype, const Args& a, long long bkv, void* dk, void* dv,
         rc = hopper::tensor_map_bf16(&tdo, a.dout, D, a.s, bkv * a.group,
                                      kTile);
       }
+      const dim3 grid(static_cast<unsigned>(bkv * splits),
+                      (a.sk + wg64::kBlock - 1) / wg64::kBlock);
+      const auto* k = static_cast<const __nv_bfloat16*>(a.k);
+      const auto* v = static_cast<const __nv_bfloat16*>(a.v);
+      const auto* lse = static_cast<const float*>(a.lse);
+      const auto* dcap = static_cast<const float*>(a.dcap);
+      auto* dkp = static_cast<__nv_bfloat16*>(dk);
+      auto* dvp = static_cast<__nv_bfloat16*>(dv);
+      if (short_keys) {
+        // the cluster of a (KV head, key tile)'s splits: its blocks are
+        // neighbours in x
+        if (rc == 0) {
+          rc = set_smem(wg64::flash_bwd_dkv_wgmma64_kernel<true>,
+                        wg64::kDkvSplitSmem);
+        }
+        if (rc != 0) return rc;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = grid;
+        cfg.blockDim = dim3(wg64::kThreads64);
+        cfg.dynamicSmemBytes = wg64::kDkvSplitSmem;
+        cfg.stream = a.stream;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        return static_cast<int>(cudaLaunchKernelEx(
+            &cfg, wg64::flash_bwd_dkv_wgmma64_kernel<true>, k, v, tq, tdo,
+            lse, dcap, dkp, dvp, a.s, a.sk, a.ls, a.group, a.causal,
+            a.window, a.qp, a.scale, splits));
+      }
       if (rc == 0) {
-        rc = set_smem(wg64::flash_bwd_dkv_wgmma64_kernel, wg64::kDkvSmem);
+        rc = set_smem(wg64::flash_bwd_dkv_wgmma64_kernel<false>,
+                      wg64::kDkvSmem);
       }
       if (rc != 0) return rc;
-      const dim3 grid(static_cast<unsigned>(bkv),
-                      (a.sk + wg64::kBlock - 1) / wg64::kBlock);
-      wg64::flash_bwd_dkv_wgmma64_kernel<<<grid, wg64::kThreads64,
-                                           wg64::kDkvSmem, a.stream>>>(
-          static_cast<const __nv_bfloat16*>(a.k),
-          static_cast<const __nv_bfloat16*>(a.v), tq, tdo,
-          static_cast<const float*>(a.lse), static_cast<const float*>(a.dcap),
-          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          a.s, a.sk, a.ls, a.group, a.causal, a.window, a.qp, a.scale);
+      wg64::flash_bwd_dkv_wgmma64_kernel<false><<<grid, wg64::kThreads64,
+                                                  wg64::kDkvSmem, a.stream>>>(
+          k, v, tq, tdo, lse, dcap, dkp, dvp, a.s, a.sk, a.ls, a.group,
+          a.causal, a.window, a.qp, a.scale, 1);
       return static_cast<int>(cudaGetLastError());
     } else if constexpr (D == wg::kD) {
       wg::Maps m;
@@ -2237,9 +2710,6 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
   const int rc = prepare(&a, q, k, v, dout, lse, dcap, bh, bkv, s, sk, d,
                          ls, causal, window, q_pos0, stream);
   if (rc != 0) return rc;
-  if (splits < 1 || splits > a.group || (splits > 1 && ws == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   if (bh == 0 || s == 0) return static_cast<int>(cudaGetLastError());
 #define REPRO_DKV(D) launch_dkv<D>(dtype, a, bkv, dk, dv, ws, splits)
   REPRO_FLASH_BWD_DISPATCH(REPRO_DKV)

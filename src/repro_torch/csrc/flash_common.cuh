@@ -173,6 +173,17 @@ __device__ __forceinline__ void warp_pb(float (&acc)[kN][4],
   }
 }
 
+// the current device's SM count, for grids sized to fill the card; 0 or a
+// cudaError
+inline int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return static_cast<int>(err);
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;

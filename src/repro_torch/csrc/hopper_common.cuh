@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, named
-// barriers, TMA tile loads and bulk copies that complete on them, warpgroup
-// matrix multiplies (wgmma) on bf16 operands in 128-byte-swizzled shared
-// memory, and the [64, 64 * H] tile helpers (namespace wg) of the
-// flash-attention kernels: K7's forward (flash_attention.cu) and K8's
-// backward (flash_attention_bwd.cu) at D = 64 (H = 1), D = 128 (H = 2) and
-// D = 256 (H = 4). Kept apart from flash_common.cuh so that other kernels
+// barriers, cluster barriers and distributed shared memory, TMA tile loads
+// and bulk copies that complete on them, warpgroup matrix multiplies
+// (wgmma) on bf16 operands in 128-byte-swizzled shared memory, and the
+// [64, 64 * H] tile helpers (namespace wg) of the flash-attention kernels:
+// K7's forward (flash_attention.cu) and K8's backward
+// (flash_attention_bwd.cu) at D = 64 (H = 1), D = 128 (H = 2) and D = 256
+// (H = 4). Kept apart from flash_common.cuh so that other kernels
 // can take them up.
 //
 // The shared-memory layout every piece here agrees on, a "swizzled tile": a
@@ -82,6 +83,36 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   __threadfence_block();
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread block clusters
+// ---------------------------------------------------------------------------
+
+// this block's rank in its cluster (0 without a cluster launch)
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// a barrier over every thread of every block of the cluster, producer
+// warps included: the writes to shared memory before it are visible to the
+// cluster's blocks after it (the arrive releases, the wait acquires)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" :::
+                   "memory");
+}
+
+// the same shared-memory object of block `rank` of the cluster, as a
+// generic address plain loads read (distributed shared memory)
+template <typename T>
+__device__ __forceinline__ const T* cluster_map(const T* p, int rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(out);
 }
 
 // warp specialisation: a warpgroup lowers (dec) or raises (inc) its
@@ -501,6 +532,26 @@ __device__ __forceinline__ void rows_to_a64(uint32_t (&a)[4][4],
     for (int kk = 0; kk < 4; ++kk) {
       a[kk][e] = row < s ? *reinterpret_cast<const uint32_t*>(src + 16 * kk)
                          : 0u;
+    }
+  }
+}
+
+// rows_to_a64's operand read from a [64, 64] swizzled tile in shared memory
+// (the layout at the top of this file) rather than from global memory:
+// row0 is the warp's 16 rows + lane / 4 counted from the tile's first row;
+// the same values for the same rows, a TMA load having zero-filled the rows
+// past the tensor's end
+__device__ __forceinline__ void tile_to_a64(uint32_t (&a)[4][4],
+                                            const unsigned char* tile,
+                                            int row0, int t) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = row0 + 8 * (e & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int chunk = 2 * kk + (e >> 1);          // 16 bytes: 8 columns
+      a[kk][e] = *reinterpret_cast<const uint32_t*>(
+          tile + row * 128 + ((chunk ^ (row & 7)) << 4) + 4 * t);
     }
   }
 }

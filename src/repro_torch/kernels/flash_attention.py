@@ -48,23 +48,45 @@ LSE_TILE = 64
 SPLIT_HEAD_DIM = 256
 #: blocks an SM that the split dk/dv grid aims for (one block fits an SM)
 DKV_WAVES = 2
+#: keys a block of K8's bf16 D 64 dk/dv kernel, and the most blocks of a
+#: cluster (the portable cluster size) that split its items at short keys
+DKV_BLOCK_64, MAX_CLUSTER = 128, 8
 
 
 def dkv_splits(bkv: int, sk: int, group: int, d: int, dtype: torch.dtype,
-               sms: int) -> int:
-    """How many ways K8's dk/dv grid splits each GQA group's query heads:
-    1, except for bf16 at D 256, where a grid of ``bkv * ceil(sk / 64)``
-    key tiles would leave SMs idle (recurrentgemma: one KV head, 64 tiles
-    for 132 SMs). There it is the smallest divisor of ``group`` that gives
-    at least :data:`DKV_WAVES` blocks an SM (``group`` itself if none
-    does), so each split walks ``group / splits`` heads. Each split's
-    blocks write f32 partials that a reduce kernel sums in split order."""
-    if d != SPLIT_HEAD_DIM or dtype != torch.bfloat16:
+               sms: int, sq: Optional[int] = None) -> int:
+    """How many ways K8's dk/dv grid splits each block's walk: 1, except
+
+    * for bf16 at D 256, where a grid of ``bkv * ceil(sk / 64)`` key tiles
+      would leave SMs idle (recurrentgemma: one KV head, 64 tiles for 132
+      SMs). There it is the smallest divisor of ``group`` that gives at
+      least :data:`DKV_WAVES` blocks an SM (``group`` itself if none
+      does), so each split walks ``group / splits`` heads. Each split's
+      blocks write f32 partials that a reduce kernel sums in split order.
+    * for bf16 at D 64 with at most :data:`SHORT_KEYS` keys (the short
+      form: an encoder, a cross-attention over its output), where
+      ``bkv * ceil(sk / 128)`` blocks walk every (64-query tile, query
+      head) item of their keys (seamless: 64 blocks for 132 SMs). There it
+      is the largest power of two up to :data:`MAX_CLUSTER` that keeps the
+      grid within one block an SM and gives each split an item
+      (``ceil(sq / 64) * group`` of them; ``sq`` defaults to ``sk``): a
+      cluster of that many blocks walks contiguous runs of the items, and
+      the first adds the others' f32 partials in split order."""
+    if dtype != torch.bfloat16:
         return 1
-    tiles = bkv * -(-sk // LSE_TILE)
-    want = -(-DKV_WAVES * sms // tiles)
-    return min((x for x in range(1, group + 1)
-                if group % x == 0 and x >= want), default=group)
+    if d == SPLIT_HEAD_DIM:
+        tiles = bkv * -(-sk // LSE_TILE)
+        want = -(-DKV_WAVES * sms // tiles)
+        return min((x for x in range(1, group + 1)
+                    if group % x == 0 and x >= want), default=group)
+    if d != 64 or sk > SHORT_KEYS:
+        return 1
+    items = -(-(sk if sq is None else sq) // LSE_TILE) * group
+    most = min(MAX_CLUSTER, sms // (bkv * -(-sk // DKV_BLOCK_64)), items)
+    splits = 1
+    while 2 * splits <= most:
+        splits *= 2
+    return splits
 
 
 def _check_shapes(q, k, v, causal, window, q_pos0) -> None:
@@ -148,7 +170,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch splits each GQA group :func:`dkv_splits` ways across blocks;
     with more than one split its blocks write f32 partials into a
     workspace and a reduce kernel in the same launch sums them in split
-    order, so two calls give the same bits."""
+    order, so two calls give the same bits. At D 64 in bf16 with at most
+    :data:`SHORT_KEYS` keys (an encoder, a cross-attention) both kernels
+    take a short form: the dq kernel keeps a head's K and V in shared
+    memory while a block walks a part of the head's query tiles (its dq
+    and ``D`` keep the long form's bits), and the dk/dv launch runs
+    clusters of :func:`dkv_splits` blocks, each walking a run of the
+    query tiles, the first adding the others' f32 partials in split order
+    (the same bits on every call, not the long form's)."""
     _check_shapes(q, k, v, causal, window, q_pos0)
     _build.require(o.shape == q.shape and do.shape == q.shape,
                    f"o {tuple(o.shape)} and do {tuple(do.shape)} must be "
@@ -175,9 +204,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bkv = k.shape[0]
     splits = dkv_splits(bkv, sk, bh // bkv, d, q.dtype,
                         torch.cuda.get_device_properties(
-                            q.device).multi_processor_count)
+                            q.device).multi_processor_count, sq=s)
     ws = (torch.empty((2, splits, bkv, sk, d), dtype=torch.float32,
-                      device=q.device) if splits > 1 else None)
+                      device=q.device) if splits > 1 and d == SPLIT_HEAD_DIM
+          else None)
     tail = (_build.DTYPE_CODES[q.dtype], bh, bkv, s, sk, d, ls, int(causal),
             0 if window is None else int(window), int(q_pos0))
     _build.launch(NAME_BWD, "repro_flash_bwd_dq", q.device, q.data_ptr(),

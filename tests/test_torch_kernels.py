@@ -919,6 +919,13 @@ _CROSS = {
     "x64over": (1, 8, 2, 700, SHORT_KEYS + 1, 64, torch.bfloat16),
     "x64ragged": (1, 6, 2, 700, 300, 64, torch.bfloat16),
     "x64morekeys": (1, 4, 4, 65, 1000, 64, torch.bfloat16),
+    # the short form's dk/dv split (clusters of 8 blocks at these grids)
+    # with GQA: runs of whole query tiles, runs that end inside a tile's
+    # heads (45 items over 8 splits), and one query tile of 40 queries
+    # (2 items, 2 splits)
+    "x64splitgqa": (1, 8, 2, 1000, 300, 64, torch.bfloat16),
+    "x64splituneven": (1, 6, 2, 900, 300, 64, torch.bfloat16),
+    "x64splitfewqueries": (1, 4, 2, 40, 300, 64, torch.bfloat16),
     "x128": (1, 6, 2, 700, 300, 128, torch.bfloat16),
     "x128morekeys": (1, 4, 4, 100, 1500, 128, torch.bfloat16),
     "x256": (1, 6, 2, 700, 300, 256, torch.bfloat16),
@@ -1019,6 +1026,47 @@ def test_cuda_flash_short_key_form_bits(cuda):
     assert torch.equal(short[1], long_[1])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 64])
+def test_cuda_flash_bwd_short_key_forms(cuda, heads):
+    """K8's two D 64 forms on the inputs of
+    :func:`test_cuda_flash_short_key_form_bits` (with ``heads`` query
+    heads over 2 KV heads): over 512 keys the short form (K / V resident
+    in the dq kernel, the dk/dv walk split over a cluster), over the same
+    keys plus the 513th that no query weighs the long form. The dk/dv
+    split adds its runs' partials, another order than the long form's one
+    run, so dk and dv are held within ``BF16_GRAD_RULE`` of the long
+    form's, and the 513th key's are 0. At 64 heads every dq block walks
+    several query tiles, each the long form's walk over the same key tiles
+    in the same order (the 513th key's tile adds exact zeros): dq is
+    bit-equal. At 8 heads a block holds one query tile, whose key tiles
+    its three warpgroups share: dq too is held within the rule."""
+    g = torch.Generator().manual_seed(13)
+    q = torch.randn((heads, 700, 64), generator=g)
+    q[..., 0] = q[..., 0].abs() + 1
+    n = SHORT_KEYS
+    k, v = (torch.randn((2, n + 1, 64), generator=g) for _ in range(2))
+    k[:, n] = 0
+    k[:, n, 0] = -3000.0
+    do = torch.randn((heads, 700, 64), generator=g)
+    q, k, v, do = (t.to(torch.bfloat16).to(cuda) for t in (q, k, v, do))
+    ks, vs = k[:, :n].contiguous(), v[:, :n].contiguous()
+    o, lse = flash_fwd(q, ks, vs, causal=False)
+    short = flash_bwd(q, ks, vs, o, lse, do, causal=False)
+    long_ = flash_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    if heads == 64:
+        assert torch.equal(short[0], long_[0]), "dq: the two forms differ"
+    for name, x, w in zip(("dq", "dk", "dv"), short, long_):
+        if name != "dq":
+            assert not w[:, n:].any(), f"{name}: the 513th key's is not 0"
+            w = w[:, :n]
+        peak, whole, worst = grad_row_error(x, w)
+        assert peak <= BF16_GRAD_RULE["peak"], f"{name}: peak {peak}"
+        assert whole <= BF16_GRAD_RULE["whole"], f"{name}: rel L2 {whole}"
+        assert worst <= 1.0, f"{name}: worst row at {worst} of its limit"
+
+
 #: K7 and K8 with a causal query offset (a shard of sequence-parallel
 #: attention: query row i at position q_pos0 + i over all Sk keys) on every
 #: route, ``(sq, sk, q_pos0)`` x route: the first shard (offset 0, Sk >
@@ -1104,6 +1152,52 @@ def test_dkv_splits(shape):
     for d, dtype in ((128, torch.bfloat16), (256, torch.float32),
                      (64, torch.bfloat16)):
         assert dkv_splits(bkv, s, group, d, dtype, 132) == 1
+
+
+#: dkv_splits at D 64 in bf16 and 132 SMs: ``(bkv, sk, group, sq) ->
+#: splits``; the short form (sk <= SHORT_KEYS) splits each block's items
+#: over a cluster, the long form never
+_SHORT_SPLITS_132 = {
+    (16, 512, 1, 4096): 2,   # seamless's cross-attention: 64 blocks
+    (16, 512, 1, 512): 2,    # its encoder
+    (16, 513, 1, 4096): 1,   # one key more: the long form
+    (16, 4096, 1, 4096): 1,  # seamless's decoder self-attention
+    (8, 4096, 3, 4096): 1,   # granite-moe-3b-a800m's training shape
+    (32, 512, 1, 512): 1,    # the encoder at batch 2: 128 blocks already
+    (2, 512, 4, 700): 8,     # 8 blocks: the cluster's limit
+    (2, 300, 2, 40): 2,      # one query tile of two heads: two items
+    (2, 500, 3, 100): 4,     # six items: the largest power of two
+}
+
+
+@pytest.mark.parametrize("shape", list(_SHORT_SPLITS_132))
+def test_dkv_splits_short_keys(shape):
+    """K8's dk/dv split at D 64 in bf16: at most SHORT_KEYS keys take
+    the largest power of two up to MAX_CLUSTER that keeps the grid within
+    one block an SM and each split an item; more keys, f32 and D 128
+    take 1."""
+    from repro_torch.kernels.flash_attention import (DKV_BLOCK_64,
+                                                     MAX_CLUSTER, dkv_splits)
+    bkv, sk, group, sq = shape
+    got = dkv_splits(bkv, sk, group, 64, torch.bfloat16, 132, sq=sq)
+    assert got == _SHORT_SPLITS_132[shape]
+    assert got & (got - 1) == 0 and got <= MAX_CLUSTER
+    assert got <= -(-sq // 64) * group
+    if got > 1:
+        assert bkv * -(-sk // DKV_BLOCK_64) * got <= 132
+    for d, dtype in ((64, torch.float32), (128, torch.bfloat16)):
+        assert dkv_splits(bkv, sk, group, d, dtype, 132, sq=sq) == 1
+
+
+@pytest.mark.parametrize("shape", list(_SPLITS_132))
+def test_dkv_splits_d256_takes_no_query_length(shape):
+    """At D 256 the split is over the GQA group's heads whatever the
+    query length: the short form's ``sq`` changes nothing there."""
+    from repro_torch.kernels.flash_attention import dkv_splits
+    bkv, s, group = shape
+    for sq in (1, 64, s, 4 * s):
+        assert dkv_splits(bkv, s, group, 256, torch.bfloat16, 132,
+                          sq=sq) == _SPLITS_132[shape]
 
 
 def _cuda_grouped(cuda, mode, t, d, hots, g, offset=False):

@@ -169,25 +169,62 @@ def _mesh_stack(cs, dev, payload_dtype: str, stripes: int = 2):
         cs.SLOT_SETS
 
 
-def _sdpa_bwd(cs, dev, which: int):
-    """``scaled_dot_product_attention``'s backward alone at K8's shape
-    ``which`` of ``chip_smoke.encdec_attn_shapes`` (seamless's encoder 0,
-    decoder 1, cross 2; training batch): one forward kept, each call one
-    ``autograd.grad`` through it. Timed by the profiler only
-    (:data:`PROFILED`)."""
+def _sdpa_bwd(cs, dev, b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+              causal: bool, q_pos0: int = 0, window=None):
+    """``scaled_dot_product_attention``'s backward alone at a K8 shape:
+    q/do ``[b, hq, sq, d]`` over k/v ``[b, hkv, sk, d]``, bf16; one forward
+    kept, each call one ``autograd.grad`` through it. A query offset takes
+    the explicit causal mask (``chip_smoke.causal_mask``, as phase 3 (f)
+    builds it: ``is_causal`` aligns the diagonal top-left), a window the
+    windowed mask (``chip_smoke.window_mask``, as phase 3 (b) builds it).
+    Timed by the profiler only (:data:`PROFILED`)."""
     import torch
     import torch.nn.functional as F
-    _, bh, bkv, sq, sk, d, causal = cs.encdec_attn_shapes(
-        cs.RUN, cs.RUN.lm_train_batch)[which]
     g = torch.Generator().manual_seed(8)
-    q, k, v, do = (torch.randn((1, h, s, d), generator=g).to(
-        dev, torch.bfloat16) for h, s in ((bh, sq), (bkv, sk), (bkv, sk),
-                                          (bh, sq)))
+    q, k, v, do = (torch.randn((b, h, s, d), generator=g).to(
+        dev, torch.bfloat16) for h, s in ((hq, sq), (hkv, sk), (hkv, sk),
+                                          (hq, sq)))
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    o = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                       enable_gqa=True)
+    mask = {"is_causal": causal}
+    if q_pos0:
+        mask = {"attn_mask": cs.causal_mask(sq, sk, q_pos0, dev)}
+    elif window:
+        mask = {"attn_mask": cs.window_mask(sq, window, dev)}
+    o = F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **mask)
     return (lambda: torch.autograd.grad(o, (q, k, v), do,
                                         retain_graph=True)), 5
+
+
+def _sdpa_bwd_at(cs, dev, case: str):
+    """:func:`_sdpa_bwd` at the shape of K8's ``case``: (a) minitron-4b's
+    and (c) granite-moe-3b-a800m's training shapes (batch 1, causal), (b)
+    recurrentgemma-9b's (batch 1, window 2048), the four of
+    ``chip_smoke.encdec_attn_shapes`` at the training batch (seamless's
+    encoder, decoder and cross-attention, pixtral's), and minitron-4b's
+    last sequence-parallel shard at ``RUN.lm_batch``."""
+    run, s = cs.RUN, cs.RUN.attn_seq
+    if case == "(b)":
+        hq, hkv, d, w = cs.rg_attn_shape()
+        return _sdpa_bwd(cs, dev, 1, hq, hkv, s, s, d, True, window=w)
+    if case in ("(a)", "(c)"):
+        hq, hkv, d = (cs.lm_attn_shape if case == "(a)"
+                      else cs.granite_attn_shape)(run)
+        return _sdpa_bwd(cs, dev, 1, hq, hkv, s, s, d, True)
+    if case == "seq shard":
+        hq, hkv, d = cs.lm_attn_shape(run)
+        n, p = cs.shard_shape(run)
+        return _sdpa_bwd(cs, dev, run.lm_batch, hq, hkv, n, s, d, True, p)
+    which = ENCDEC.index(case.split()[-1])
+    b = run.lm_train_batch
+    _, bh, bkv, sq, sk, d, causal = cs.encdec_attn_shapes(run, b)[which]
+    return _sdpa_bwd(cs, dev, b, bh // b, bkv // b, sq, sk, d, causal)
+
+
+#: the shapes of ``chip_smoke.encdec_attn_shapes``, in its order
+ENCDEC = ("encoder", "decoder", "cross", "pixtral")
+#: the K8 cases that have ``sdpa``'s backward alone as their yardstick
+LIBRARY_BWD = ("(a)", "(b)", "(c)", *(f"(d) {name}" for name in ENCDEC),
+               "seq shard")
 
 
 def _wdl(cs, dev, which: int, backward: bool, arch: str = "wdl",
@@ -436,7 +473,8 @@ def parts_ms(fn, events: dict, calls: int = 10) -> dict:
 #: of K5 / K6 (``mesh_half``: one table's row read over 8 stripes on
 #: ``[dev, dev]``) and the 26 served tables' pooled read off a 2-stripe L1
 #: on that cache mesh (``pooled_stack ... mesh``); ``sdpa``'s backward
-#: alone at seamless's three K8 shapes (``library flash_bwd (d) ...``).
+#: alone at K8's (a), (b), (c), (d) and ``seq shard`` shapes (``library
+#: flash_bwd ...``, :data:`LIBRARY_BWD`).
 #: Every case also gives the port's launch counts of one call
 #: (``launches``)
 CASES = {
@@ -465,8 +503,7 @@ CASES = {
     "flash_bwd (c)": _k8_granite,
     **{f"flash_{'bwd' if bwd else 'fwd'} (d) {name}":
        (lambda i, bwd: lambda cs, dev: _encdec(cs, dev, i, bwd))(i, bwd)
-       for i, name in enumerate(("encoder", "decoder", "cross", "pixtral"))
-       for bwd in (False, True)},
+       for i, name in enumerate(ENCDEC) for bwd in (False, True)},
     "flash_fwd seq shard": lambda cs, dev: _seq_shard(cs, dev, False),
     "flash_bwd seq shard": lambda cs, dev: _seq_shard(cs, dev, True),
     "lookup_fwd wdl dist": lambda cs, dev: _wdl(cs, dev, 0, False),
@@ -520,9 +557,9 @@ CASES = {
     "mesh_half int8": lambda cs, dev: _mesh_half(cs, dev, "int8"),
     "pooled_stack f32 mesh": lambda cs, dev: _mesh_stack(cs, dev, "f32"),
     "pooled_stack int8 mesh": lambda cs, dev: _mesh_stack(cs, dev, "int8"),
-    **{f"library flash_bwd (d) {name}":
-       (lambda i: lambda cs, dev: _sdpa_bwd(cs, dev, i))(i)
-       for i, name in enumerate(("encoder", "decoder", "cross"))},
+    **{f"library flash_bwd {case}":
+       (lambda case: lambda cs, dev: _sdpa_bwd_at(cs, dev, case))(case)
+       for case in LIBRARY_BWD},
 }
 
 
@@ -530,7 +567,8 @@ CASES = {
 #: (:func:`parts_ms`): K8's launches; K3's sort, zero-fill and passes;
 #: the mesh half's remap ops, launches, stack and sum
 PARTS = ("flash_bwd (a)", "flash_bwd (b)", "flash_bwd (c)",
-         "flash_bwd (d) cross", "flash_bwd seq shard",
+         "flash_bwd (d) encoder", "flash_bwd (d) cross",
+         "flash_bwd seq shard",
          "lookup_bwd neumf ctx", "lookup_bwd wdl wide", "lookup_bwd xlstm",
          "lookup_bwd dlrm", "flash_fwd (d) encoder", "flash_fwd (d) cross",
          "mesh_half f32", "mesh_half int8", "pooled_stack f32 mesh",
@@ -538,8 +576,7 @@ PARTS = ("flash_bwd (a)", "flash_bwd (b)", "flash_bwd (c)",
 
 #: the cases no CUDA graph captures (an autograd backward): their device
 #: time is the sum of :func:`parts_ms`, the profiler's
-PROFILED = tuple(f"library flash_bwd (d) {name}"
-                 for name in ("encoder", "decoder", "cross"))
+PROFILED = tuple(f"library flash_bwd {case}" for case in LIBRARY_BWD)
 
 
 def main() -> int:
