@@ -6,7 +6,10 @@
 Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
-2. Build: compile ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a.
+2. Build: compile ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a;
+   print ptxas's report and the kernels whose ``wgmma`` products it
+   serialised (its C7515 notes, ``_build.serialised_wgmma``): the run
+   fails unless that list is empty.
 3. Kernels: time the launch floor (a one-element ``add_`` replayed from a
    CUDA graph), then launch K1 (pooled lookup) and K6 (dequantizing read)
    as the served batch runs them, one grouped launch for all 26 tables
@@ -158,7 +161,7 @@ Phases, in order; any failure exits non-zero:
    read from the artifact's counts; a shed at steady load is printed with
    its counts as ROADMAP queue 3's open fault, not failed on: the steady
    rate, a share of C fixed before the first run, is above the capacity
-   for this traffic, ``PERF.md`` §7.9); per phase and member the delivered,
+   for this traffic, ``PERF.md`` §7.8); per phase and member the delivered,
    shed, expired and lost counts, client p50 / p99 / p999, the peak
    delivered qps and the largest submit lag (``LOADTEST``); (b) DLRM alone
    with the hot set drifting 2% of the vocabulary a second, its steady
@@ -5507,6 +5510,12 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.build_info['path']})")
     print(_build.build_info["log"].strip())
+    serialised = _build.serialised_wgmma(_build.build_info["log"])
+    print(f"build: wgmma serialised by ptxas (C7515) in {serialised}")
+    if serialised:
+        print(f"chip_smoke: ptxas serialises the wgmma products of "
+              f"{serialised}", file=sys.stderr)
+        return 1
 
     # 3. kernels against their plain versions
     from repro_torch.models.recsys.layers import pin_f32_matmul

@@ -97,7 +97,10 @@
 // At D = 64 (granite's attention) each consumer warpgroup owns 64 rows of
 // a block, a producer warpgroup streams the other operands through a
 // 4-stage TMA ring (24 registers, setmaxnreg), and one warpgroup's
-// exponentials run under the others' products:
+// exponentials run under the others' products; each warpgroup issues a
+// step's S and dP at the top of its loop, queued behind the step before's
+// last products, and waits for all of them at once (ptxas keeps every
+// product asynchronous: below):
 // * dk/dv: one block per (KV head, 128-key tile), two consumer warpgroups
 //   (240 registers a thread); a warpgroup keeps its K and V in registers
 //   (the A operands of S^T and dP^T) and its dK, dV accumulators (32 + 32
@@ -131,8 +134,13 @@
 // threadIdx, counts as divergent unless the index comes through a shuffle
 // from lane 0, and an accumulator that plain instructions write or read
 // while a product is in flight counts too; so the first k step of each
-// product writes its accumulator (scale-d false, an output-only asm) and
-// a warpgroup waits for all its products before its elementwise work.
+// product writes its accumulator (scale-d false, an output-only asm), a
+// warpgroup waits for all its products before its elementwise work, and
+// every D 64 form declares S and dP in its loop body and issues them at
+// the loop's top, behind the products of the step before: issued at the
+// bottom, for the next step, into accumulators the loop carries, they made
+// ptxas serialise every product of the long forms (C7515). The build's
+// log names any kernel it still serialises (_build.serialised_wgmma).
 //
 // bf16 at D 16, 32 and 96 keeps the mma.sync kernels (K7's pieces from
 // flash_common.cuh: 16-byte cp.async staging of row-major tiles, ldmatrix,
@@ -1477,11 +1485,16 @@ constexpr size_t kDkvSplitSmem =
 // so a block has two consumer warpgroups, not three. The producer streams
 // the band's (64-query tile, query head) items, tile by tile and the
 // group's heads in order within a tile, through the ring; both warpgroups
-// read each item. Per item: S^T and dP^T, waited for with the item
-// before's dV and dK, then P^T = exp(S^T scale - lse), dS^T = P^T (dP^T -
-// D) scale, and dV += P^T dO, dK += dS^T Q (dO and Q read MN-major) with
-// the next item's S^T and dP^T queued behind them; the other warpgroup's
-// products run under one's elementwise work. A warpgroup walks only the
+// read each item. Per item, at the top of the loop: S^T and dP^T, queued
+// behind the item before's dV and dK and waited for with them (one wait
+// for all), then P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - D) scale,
+// and dV += P^T dO, dK += dS^T Q (dO and Q read MN-major), left in flight
+// for the next item's products to queue behind; the other warpgroup's
+// products run under one's elementwise work. S^T and dP^T live in the
+// loop body: issued at the loop's bottom, for the next item, into
+// accumulators the loop carries, they made ptxas serialise every wgmma
+// product of the kernel (its C7515 note) with the same order of issues
+// and waits. A warpgroup walks only the
 // items its keys see (a prefix or a suffix of the block's) and releases
 // the others untouched. The order of the adds is fixed: no atomics, the
 // same bits on every run.
@@ -1693,28 +1706,14 @@ __global__ void __launch_bounds__(kThreads64, 1)
     }
     hopper::wgmma_commit();
   };
-  if constexpr (kSplit) {
-    // S^T and dP^T declared in the loop body and issued at its top, behind
-    // the item before's dV and dK: issued at the bottom, for the next item,
-    // into accumulators the loop carries (the long form's order), they
-    // make ptxas serialise every wgmma product of the kernel (its C7515
-    // note)
-    for (int i = a; i < b; ++i) {
-      float sc[32], dp[32];
-      first_products(i, sc, dp);
-      done(sc, dp);
-      if (i > a) release(i - 1);
-      update(i, sc, dp);
-    }
-  } else {
+  // S^T and dP^T of each item in the loop body, issued at its top behind
+  // the item before's dV and dK (not at the bottom: C7515, above)
+  for (int i = a; i < b; ++i) {
     float sc[32], dp[32];
-    if (a < b) first_products(a, sc, dp);
-    for (int i = a; i < b; ++i) {
-      done(sc, dp);
-      if (i > a) release(i - 1);
-      update(i, sc, dp);
-      if (i + 1 < b) first_products(i + 1, sc, dp);   // behind dV and dK
-    }
+    first_products(i, sc, dp);
+    done(sc, dp);
+    if (i > a) release(i - 1);
+    update(i, sc, dp);
   }
   if (a < b) {
     hopper::wgmma_wait<0>();
@@ -1861,12 +1860,15 @@ constexpr size_t kDqSmem = 1024 + kDqWgs * 2 * kTileBytes +
 // 160 registers), and all three share the band's 64-key K and V tiles,
 // which the producer streams through the ring. A warpgroup first computes
 // D = rowsum(do * o) of its rows (and writes it for the dk/dv kernel, so
-// no D kernel runs). Per tile: S and dP (4 k steps each), waited for with
-// the tile before's dQ, then p, dS = p (dP - D) scale and dQ += dS K (K
-// read MN-major), with the next tile's S and dP queued behind dQ; the
-// other warpgroups' products run under one's elementwise work. dq
-// recomputes S and dP rather than taking dS from the dk/dv kernel: no
-// atomics, the same bits on every run.
+// no D kernel runs). Per tile, at the top of the loop: S and dP (4 k steps
+// each), queued behind the tile before's dQ and waited for with it, then
+// p, dS = p (dP - D) scale and dQ += dS K (K read MN-major), left in
+// flight for the next tile's S and dP; the other warpgroups' products run
+// under one's elementwise work. As dk/dv's, S and dP live in the loop
+// body (issued at the bottom into loop-carried accumulators they made
+// ptxas serialise every product, C7515). dq recomputes S and dP rather
+// than taking dS from the dk/dv kernel: no atomics, the same bits on
+// every run.
 __global__ void __launch_bounds__(kDqThreads, 1)
     flash_bwd_dq_wgmma64_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tdo,
@@ -1977,12 +1979,24 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   }
   const float scale_log2 = scale * kLog2e;
 
-  auto stage = [&](int i) { return ring + (i % kDqStages) * 2 * kTileBytes; };
   auto release = [&](int i) { hopper::mbar_arrive(empty + i % kDqStages); };
-  // S = Q K^T and dP = dO V^T of tile i, two commit groups
-  float sc[32], dp[32];
-  auto first_products = [&](int i) {
-    const unsigned char* ks = stage(i);
+
+  float acc[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+  for (int i = 0; i < a; ++i) {              // tiles only the other sees
+    hopper::mbar_wait(full + i % kDqStages, (i / kDqStages) & 1);
+    release(i);
+  }
+  uint32_t da[4][4];
+  hopper::mbar_wait(q_bar, 0);
+  for (int i = a; i < b; ++i) {
+    const unsigned char* ks = ring + (i % kDqStages) * 2 * kTileBytes;
+    const int k0 = (t0 + i) * kTile;
+    // S = Q K^T and dP = dO V^T of tile i, two commit groups queued behind
+    // the tile before's dQ (in the loop body, not at its bottom: C7515,
+    // above)
+    float sc[32], dp[32];
     hopper::mbar_wait(full + i % kDqStages, (i / kDqStages) & 1);
     hopper::wgmma_fence();
     hopper::wgmma_m64n64k16_ss_z(sc, kmajor(qt, 0), kmajor(ks, 0));
@@ -1999,21 +2013,6 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                                  kmajor(ks + kTileBytes, kk), 1);
     }
     hopper::wgmma_commit();
-  };
-
-  float acc[32];
-#pragma unroll
-  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
-  for (int i = 0; i < a; ++i) {              // tiles only the other sees
-    hopper::mbar_wait(full + i % kDqStages, (i / kDqStages) & 1);
-    release(i);
-  }
-  uint32_t da[4][4];
-  hopper::mbar_wait(q_bar, 0);
-  if (a < b) first_products(a);
-  for (int i = a; i < b; ++i) {
-    const unsigned char* ks = stage(i);
-    const int k0 = (t0 + i) * kTile;
     // tile i's S and dP, and the tile before's dQ, are done (as dk/dv's)
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
@@ -2035,7 +2034,6 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       hopper::wgmma_m64n64k16_rs_tb(acc, da[kk], mnmajor(ks, kk), 1);
     }
     hopper::wgmma_commit();
-    if (i + 1 < b) first_products(i + 1);   // queued behind dQ
   }
   if (a < b) {
     hopper::wgmma_wait<0>();
@@ -2213,13 +2211,10 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     }
     if (spread && wgi == 0) hopper::named_arrive(2, kDqConsumers);
 
-    // per key tile: S = Q K^T and dP = dO V^T (two commit groups, queued
-    // behind the tile before's dQ), waited for with that dQ, then p, dS =
-    // p (dP - D) scale and dQ += dS K (K read MN-major). S and dP are
-    // declared in the loop body and issued at its top: issued at the
-    // bottom, for the next tile, into accumulators the loop carries (the
-    // long forms' order), they make ptxas serialise every wgmma product of
-    // the kernel (its C7515 note)
+    // per key tile, as the long form's: S = Q K^T and dP = dO V^T (two
+    // commit groups, queued behind the tile before's dQ), waited for with
+    // that dQ, then p, dS = p (dP - D) scale and dQ += dS K (K read
+    // MN-major); S and dP declared in the loop body and issued at its top
 #pragma unroll
     for (int x = 0; x < 32; ++x) acc[x] = 0.f;
     hopper::mbar_wait(q_full + slot, (n >> 1) & 1);

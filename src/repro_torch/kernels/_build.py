@@ -5,8 +5,10 @@ library with a plain C interface, bound with ``ctypes`` (no PyTorch headers,
 so a build takes seconds); ``csrc/*.cuh`` holds what several sources share.
 Objects are compiled in parallel, one ``nvcc`` per source, then linked. The
 library lands in ``repro_torch/_build/<hash>/`` (listed in ``.gitignore``),
-keyed by a hash of the sources, headers and flags, and is built at the
-first kernel launch of a process: nothing here runs at import.
+keyed by a hash of the sources, headers and flags, beside the build's
+ptxas log, and is built at the first kernel launch of a process: nothing
+here runs at import. :func:`serialised_wgmma` names the kernels whose
+``wgmma`` products that log says ptxas serialised.
 
 The module also owns the launch counters: :func:`launch`, the one place a
 wrapper starts its kernel, counts each successful launch and nothing else,
@@ -18,6 +20,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,6 +36,8 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "librepro_kernels.so"
+#: the build's ptxas report, kept beside the library
+LOG_NAME = "ptxas.log"
 
 #: ctypes signatures: pointers and the stream as c_void_p (a plain int
 #: would be cut to 32 bits), sizes as c_longlong/c_int; every entry point
@@ -74,8 +79,9 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
-#: what the last build in this process printed (ptxas register and
-#: shared-memory report) and how long it took; empty when it was cached
+#: what the build of the loaded library printed (ptxas register and
+#: shared-memory report, read back from beside the library when it was
+#: cached) and how long this process spent building it (0 when cached)
 build_info: Dict[str, object] = {"log": "", "seconds": 0.0, "path": ""}
 
 
@@ -156,7 +162,12 @@ def build() -> str:
     final = os.path.join(BUILD_ROOT, _key(srcs))
     lib_path = os.path.join(final, LIB_NAME)
     if os.path.exists(lib_path):
-        build_info.update(log="", seconds=0.0, path=lib_path)
+        log_path = os.path.join(final, LOG_NAME)
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        build_info.update(log=log, seconds=0.0, path=lib_path)
         return lib_path
     nvcc = _nvcc()
     os.makedirs(BUILD_ROOT, exist_ok=True)
@@ -169,6 +180,8 @@ def build() -> str:
                     for s, o in zip(srcs, objs)])
         _run([[nvcc, *ARCH_FLAGS, "-shared", "-o",
                os.path.join(tmp, LIB_NAME), *objs]])
+        with open(os.path.join(tmp, LOG_NAME), "w") as f:
+            f.write(log)
         try:
             os.rename(tmp, final)       # atomic: a racing build may win
         except OSError:
@@ -180,6 +193,23 @@ def build() -> str:
     build_info.update(log=log, seconds=time.perf_counter() - t0,
                       path=lib_path)
     return lib_path
+
+
+#: the function a ptxas note names
+_FUNCTION = re.compile(r"function '([^']+)'")
+
+
+def serialised_wgmma(log: str) -> list:
+    """The functions whose ``wgmma`` products ptxas serialised, as the
+    ``(C7515)`` lines of a build's log name them (mangled), in log order
+    (a line that names none gives itself); other ptxas lines (registers,
+    spills, C7517's injected waits) are ignored."""
+    out = []
+    for line in log.splitlines():
+        if "(C7515)" in line:
+            named = _FUNCTION.search(line)
+            out.append(named.group(1) if named else line.strip())
+    return out
 
 
 def lib() -> ctypes.CDLL:

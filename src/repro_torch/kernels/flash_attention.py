@@ -177,7 +177,11 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and ``D`` keep the long form's bits), and the dk/dv launch runs
     clusters of :func:`dkv_splits` blocks, each walking a run of the
     query tiles, the first adding the others' f32 partials in split order
-    (the same bits on every call, not the long form's)."""
+    (the same bits on every call, not the long form's). Every bf16 D 64
+    kernel, long or short, issues a step's S and dP at the top of its loop
+    behind the step before's last products, so that ptxas keeps all its
+    ``wgmma`` products asynchronous (``_build.serialised_wgmma`` of the
+    build's log is empty)."""
     _check_shapes(q, k, v, causal, window, q_pos0)
     _build.require(o.shape == q.shape and do.shape == q.shape,
                    f"o {tuple(o.shape)} and do {tuple(do.shape)} must be "

@@ -840,6 +840,15 @@ def test_cuda_flash_fwd(cuda, case):
 
 
 @pytest.mark.cuda
+def test_cuda_build_serialises_no_wgmma(cuda):
+    """ptxas keeps every kernel's ``wgmma`` products asynchronous: the
+    build's log (read back on a cache hit) has no C7515 note."""
+    _build.lib()
+    assert "ptxas info" in _build.build_info["log"]
+    assert _build.serialised_wgmma(_build.build_info["log"]) == []
+
+
+@pytest.mark.cuda
 def test_cuda_flash_bwd_rejects_misaligned_lse(cuda):
     """At S a multiple of 64 K8 bulk-copies the caller's own ``lse``, which
     needs a 16-byte-aligned address: a contiguous view that is not raises
@@ -866,21 +875,25 @@ _BWD_EXTRA.update(_D64)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["a", "b", "c", "d", *_BWD_EXTRA])
+@pytest.mark.parametrize("case", ["a", "b", "c", "d", "decoder",
+                                  *_BWD_EXTRA])
 def test_cuda_flash_bwd(cuda, case):
     """(a) minitron-4b's training shape, bf16 causal GQA g=3; (b)
     recurrentgemma's local attention (Hq 16, Hkv 1, D 256, window 2048) at
     an S that no tile divides; (c) an odd length in f32, GQA g=2; (d)
     granite-moe-3b-a800m's training shape at D 64, bf16 causal GQA g=3;
-    then each D of HEAD_DIMS in bf16 at S 700 with GQA g=3, so that the
-    wgmma kernels (D 64, 128, 256) and the mma.sync kernels of the other D
-    are each held, D 128 with a window and with no causal mask, and the D
-    256 and D 64 edges."""
+    (decoder) seamless-m4t-large-v2's decoder self-attention, causal MHA
+    at D 64 over 4096 positions (4 of its 16 heads): the long D 64 forms
+    with g = 1; then each D of HEAD_DIMS in bf16 at S 700 with GQA g=3,
+    so that the wgmma kernels (D 64, 128, 256) and the mma.sync kernels of
+    the other D are each held, D 128 with a window and with no causal
+    mask, and the D 256 and D 64 edges."""
     b, hq, hkv, s, d, window, dtype, causal = {
         "a": (1, 24, 8, 4096, 128, None, torch.bfloat16, True),
         "b": (1, 16, 1, 2500, 256, 2048, torch.bfloat16, True),
         "c": (1, 8, 4, 1000, 64, None, torch.float32, True),
         "d": (1, 24, 8, 4096, 64, None, torch.bfloat16, True),
+        "decoder": (1, 4, 4, 4096, 64, None, torch.bfloat16, True),
         **_BWD_EXTRA}[case]
     g = torch.Generator().manual_seed(8)
     q, k, v, do = (torch.randn((b * h, s, d), generator=g).to(dtype).to(cuda)

@@ -14,7 +14,9 @@ around back-to-back calls, ``chip_smoke.time_ms``); the cases of
 :data:`PARTS` also give each of their kernels' device time (``parts_ms``,
 ``torch.profiler``, with each kernel's launches a call under ``events``;
 the :data:`PROFILED` cases have no graph time, their device time is that
-sum). The ``library ...`` cases time a kernel's library yardstick on the
+sum). K8's split cases are ``flash_bwd (a)``, ``(b)``, ``(c)``, ``(d)
+encoder``, ``(d) decoder``, ``(d) cross`` and ``seq shard``: dq and dk/dv
+apart. The ``library ...`` cases time a kernel's library yardstick on the
 same inputs. Prints the card's name and power limit, then
 one JSON line. Needs a CUDA device; exits 2 without one.
 """
@@ -567,7 +569,8 @@ CASES = {
 #: (:func:`parts_ms`): K8's launches; K3's sort, zero-fill and passes;
 #: the mesh half's remap ops, launches, stack and sum
 PARTS = ("flash_bwd (a)", "flash_bwd (b)", "flash_bwd (c)",
-         "flash_bwd (d) encoder", "flash_bwd (d) cross",
+         "flash_bwd (d) encoder", "flash_bwd (d) decoder",
+         "flash_bwd (d) cross",
          "flash_bwd seq shard",
          "lookup_bwd neumf ctx", "lookup_bwd wdl wide", "lookup_bwd xlstm",
          "lookup_bwd dlrm", "flash_fwd (d) encoder", "flash_fwd (d) cross",
