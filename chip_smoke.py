@@ -151,7 +151,12 @@ Phases, in order; any failure exits non-zero:
    sync a served group by the hot-path twin while the consumer applies it,
    and the probe from its baseline onto the oracle (the trained rows under
    the deployed dense net) within ``SERVE_TOL["f32"]``.
-6e. The launchers, their ``main(argv)`` in process: (a)
+6e. The launchers, their ``main(argv)`` in process: (a) first the HPS
+   host stage on fresh traffic (``fresh_host_split``: an ensemble server
+   from 6c's bundle, the load test's warm-up, 32 fresh requests through
+   ``predict``): each model's L1 rows and the L2's rows against their
+   capacities before and after, and a request's host ms in the L1 index
+   update, the L1 eviction, the L2 insert and the L2 eviction; then
    ``launch.loadtest`` on 6c's ensemble bundle (DLRM + DCN): requests of
    256 rows, ``--max-coalesce 4`` (max_batch 1024), Poisson arrivals, Zipf
    1.2, a 3:1 mix, ``queue_depth`` 64, an SLO of 100 ms; a steady phase at
@@ -3430,9 +3435,110 @@ def loadtest_summary(result) -> str:
     return " | ".join(out)
 
 
+def l1_l2_occupancy(servers, vdb) -> str:
+    """Each model's L1 rows against its capacity (the tables summed, the
+    full ones counted, the largest table), and the L2's rows against each
+    namespace's capacity."""
+    out = []
+    for n, s in servers.items():
+        tabs = [(c._next_free, c.capacity) for c in s.hps.caches.values()]
+        out.append(f"{n} L1 {sum(r for r, _ in tabs)} of "
+                   f"{sum(c for _, c in tabs)} rows ({sum(r >= c for r, c in tabs)}"
+                   f" of {len(tabs)} tables full, the largest "
+                   f"{max(r for r, _ in tabs)} of {max(c for _, c in tabs)})")
+    st = vdb.stats()
+    cap = st["shards"] * st["capacity_per_shard"]
+    rows = [v["rows"] for v in st["tables"].values()]
+    out.append(f"L2 {sum(rows)} rows in {len(rows)} namespaces of {cap} "
+               f"({sum(r >= cap for r in rows)} full, the largest "
+               f"{max(rows, default=0)})")
+    return ", ".join(out)
+
+
+def fresh_host_split(ps: str, dev, lt, names, total, n: int = 32) -> str:
+    """The HPS host stage on fresh traffic, as phase 6e's load test meets
+    it: an ensemble server from ``ps`` on ``dev`` (stood up as the load
+    test stands it up), the load test's warm-up, then ``n`` fresh
+    ``Workload`` requests (``lt``'s rows, Zipf exponent and mix; another
+    seed than the load test's; ``names`` the members in ``lt.mix``'s
+    order) through each member's ``predict``, one at
+    a time, with the L1 index update, the L1 eviction, the L2 insert and
+    the L2 eviction timed (thread ms a request, the host workers'
+    summed). Returns the line's text: L1 and L2 occupancy before and
+    after, those ms and the ``predict`` p50. Adds the launches to
+    ``total``."""
+    import numpy as np
+    import threading
+    import torch
+    from repro_torch.core.hps import embedding_cache, volatile_db
+    from repro_torch.launch import loadtest
+    from repro_torch.launch.serve import build_server_from_config
+    from repro_torch.loadgen import ModelShape, Workload, WorkloadConfig
+    timed = {"L1 index update": (embedding_cache.DeviceEmbeddingCache,
+                                 "_update_index_locked"),
+             "L1 eviction": (embedding_cache.DeviceEmbeddingCache,
+                             "_evict_locked"),
+             "L2 insert": (volatile_db.VolatileDB, "insert"),
+             "L2 eviction": (volatile_db._Shard, "_lru_victims")}
+    spent = {k: 0.0 for k in timed}
+    mu = threading.Lock()
+
+    def timer(label, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                with mu:
+                    spent[label] += dt
+        return run
+
+    ens, _ = build_server_from_config(ps, device=dev)
+    try:
+        servers = ens.servers
+        loadtest._warmup(servers, lt.rows, lt.max_coalesce)
+        before = l1_l2_occupancy(servers, ens.vdb)
+        mix = dict(zip(names, lt.mix))
+        reqs = list(Workload(WorkloadConfig(
+            qps=100.0, duration_s=4 * n / 100.0, rows=lt.rows,
+            seed=lt.seed + 1, zipf_a=lt.zipf_a, mix=mix),
+            {k: ModelShape.from_config(s.model.cfg)
+             for k, s in servers.items()}).requests())[:n]
+        saved = {k: getattr(cls, attr) for k, (cls, attr) in timed.items()}
+        for k, (cls, attr) in timed.items():
+            setattr(cls, attr, timer(k, saved[k]))
+        ms = []
+        try:
+            def drive():
+                for r in reqs:
+                    t0 = time.perf_counter()
+                    servers[r.model].predict(r.dense, r.cat)
+                    ms.append(1e3 * (time.perf_counter() - t0))
+            counted(total, drive)
+        finally:
+            for k, (cls, attr) in timed.items():
+                setattr(cls, attr, saved[k])
+        after = l1_l2_occupancy(servers, ens.vdb)
+    finally:
+        ens.close()
+        del ens
+        gc.collect()
+        torch.cuda.empty_cache()
+    return (f"{len(reqs)} fresh requests of {lt.rows} rows (Zipf "
+            f"{lt.zipf_a}, mix {lt.mix[0]}:{lt.mix[1]}) through predict "
+            f"after the load test's warm-up: occupancy before {before}; "
+            f"after {after}; thread ms a request "
+            + ", ".join(f"{k} {1e3 * v / len(reqs):.3f}"
+                        for k, v in spent.items())
+            + f" (the L2 insert holds its eviction); predict p50 "
+            f"{float(np.percentile(ms, 50)):.2f} ms")
+
+
 def front_doors_phase(args, dev, served, total):
     """Phase 6e (a)-(c): the launchers' ``main`` in process on the card.
-    (a) ``launch.loadtest`` on 6c's ensemble bundle (full-width DLRM + DCN,
+    (a) the HPS host stage on fresh traffic (:func:`fresh_host_split`),
+    then ``launch.loadtest`` on 6c's ensemble bundle (full-width DLRM + DCN,
     vocabularies capped), open loop at 10% of C then 4 x C, with its smoke
     assertions; (b) DLRM alone with hot-set drift, the steady phase from
     its recorded trace; (c) ``launch.serve --sanitize`` on DLRM's
@@ -3455,7 +3561,11 @@ def front_doors_phase(args, dev, served, total):
               str(lt.queue_depth), "--slo-ms", str(lt.slo_ms),
               "--qps", repr(steady_qps), "--duration", str(lt.steady_s)]
 
-    # (a) open loop on the ensemble, steady then overloaded
+    # (a) the host stage on fresh traffic, then open loop on the
+    # ensemble, steady then overloaded
+    print(f"loadtest host split on {name}: "
+          + fresh_host_split(served["ensemble"], dev, lt, served["names"],
+                             total))
     art = os.path.join(base, "loadtest_ensemble.json")
 
     def ensemble_run():

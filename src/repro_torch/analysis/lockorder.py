@@ -85,17 +85,35 @@ class LockOrderRecorder:
 
     def instrument_hps(self, hps, tag: str = "") -> None:
         """Wrap every lock an ``HPS`` stack can contend on: per-table
-        L1 cache locks, the shared VDB/PDB locks, the L3 stats lock,
-        the host-pool lock, and the message-bus lock (when wired)."""
+        L1 cache locks, the shared VDB/PDB locks and the VDB's namespace
+        locks, the L3 stats lock, the host-pool lock, and the message-bus
+        lock (when wired)."""
         p = f"{tag}:" if tag else ""
         for tname, cache in hps.caches.items():
             self.wrap(cache, "_lock", f"{p}cache[{tname}]._lock")
         self.wrap(hps.vdb, "_lock", f"{p}VolatileDB._lock")
+        self._wrap_spaces(hps.vdb, p)
         self.wrap(hps.pdb, "_lock", f"{p}PersistentDB._lock")
         self.wrap(hps, "_l3_stats_lock", f"{p}HPS._l3_stats_lock")
         self.wrap(hps, "_pool_lock", f"{p}HPS._pool_lock")
         if hps.consumer is not None:
             self.wrap(hps.consumer.bus, "_lock", f"{p}MessageBus._lock")
+
+    def _wrap_spaces(self, vdb, p: str) -> None:
+        """Wrap the lock of each of ``vdb``'s namespaces (one a table),
+        those it makes later included (idempotent)."""
+        make = vdb._space
+        if getattr(make, "recorded", False):
+            return
+
+        def space(table: str):
+            ns = make(table)
+            self.wrap(ns, "_lock", f"{p}VolatileDB[{table}]._lock")
+            return ns
+        space.recorded = True
+        vdb._space = space
+        for table in list(vdb._spaces):
+            space(table)
 
     # -- recording (called with the wrapped lock just taken) -----------------
 

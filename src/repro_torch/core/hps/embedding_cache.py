@@ -2,10 +2,15 @@
 ``repro/core/hps/embedding_cache.py``.
 
 A device-resident payload (``ShardedPayloadStore``) plus a host-side
-index. The host logic (sorted-array index, one ``searchsorted`` per
-query, coalesced miss fetch, batch-aware LFU eviction, overflow) is the
-reference's numpy code unchanged, so both packages make the same slot
-decisions on the same query stream.
+index. The index is an exact id -> slot hash map (``id_index.IdIndex``):
+a probe searches and updates it in time that grows with the probe's ids,
+where the reference searches a sorted id array and re-sorts it on every
+probe that misses. Everything that decides a slot (coalesced miss fetch,
+batch-aware LFU eviction with its ``argpartition``, the hottest misses
+kept on overflow) is the reference's numpy code unchanged, so both
+packages make the same slot decisions on the same query stream, and
+``_sorted_ids`` / ``_sorted_slots`` read back the reference's sorted
+index.
 
 The query splits into a HOST stage (``probe``: index probe + coalesced
 miss fetch; the payload scatter is deferred) and a DEVICE stage
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core.hps.id_index import IdIndex
 from repro_torch.core.hps.payload_store import ShardedPayloadStore
 from repro_torch.device import DeviceLike
 
@@ -66,18 +72,18 @@ class LookupPlan:
 class DeviceEmbeddingCache:
 
     # every listed attribute is touched only under self._lock; fetch_fn
-    # is the injected L2/L3 fall-through, which takes the VDB/PDB locks
-    # and the HPS L3 counters' lock (declared for the lock-order pass)
+    # is the injected L2/L3 fall-through, which takes the VDB's and its
+    # namespaces' locks, the PDB lock and the HPS L3 counters' lock
+    # (declared for the lock-order pass)
     _GUARDED_BY = {
         "_id_of": "_lock", "_freq": "_lock", "_next_free": "_lock",
-        "_sorted_ids": "_lock", "_sorted_slots": "_lock",
-        "_pending": "_lock",
+        "_index": "_lock", "_pending": "_lock",
         "_dirty": "_lock", "hits": "_lock", "misses": "_lock",
         "rows_refreshed": "_lock", "refresh_chunks": "_lock",
     }
     _LOCKS_OF = {
-        "fetch_fn": ("VolatileDB._lock", "PersistentDB._lock",
-                     "HPS._l3_stats_lock"),
+        "fetch_fn": ("VolatileDB._lock", "_Namespace._lock",
+                     "PersistentDB._lock", "HPS._l3_stats_lock"),
     }
 
     def __init__(self, capacity: int, dim: int, *,
@@ -101,8 +107,7 @@ class DeviceEmbeddingCache:
         self._id_of = np.full(capacity, -1, np.int64)
         self._freq = np.zeros(capacity, np.float64)
         self._next_free = 0
-        self._sorted_ids = np.empty(0, np.int64)
-        self._sorted_slots = np.empty(0, np.int64)
+        self._index = IdIndex()
         self.hits = 0
         self.misses = 0
         #: plans whose snapshot is not bound yet, in probe order
@@ -131,45 +136,35 @@ class DeviceEmbeddingCache:
     # -- host index --------------------------------------------------------------
 
     def _find_locked(self, ids: np.ndarray) -> np.ndarray:
-        """Vectorized id -> slot (-1 if not resident). ``ids`` unique."""
-        if len(self._sorted_ids) == 0:
-            return np.full(len(ids), -1, np.int64)
-        pos = np.searchsorted(self._sorted_ids, ids)
-        np.minimum(pos, len(self._sorted_ids) - 1, out=pos)
-        found = self._sorted_ids[pos] == ids
-        return np.where(found, self._sorted_slots[pos], -1)
+        """Vectorized id -> slot (-1 if not resident, a pad included)."""
+        return self._index.find(ids)
 
     def _rebuild_index_locked(self) -> None:
         occ = self._id_of[:self._next_free]
-        order = np.argsort(occ, kind="stable").astype(np.int64)
-        self._sorted_ids = occ[order]
-        self._sorted_slots = order
+        self._index = IdIndex(occ, np.arange(len(occ), dtype=np.int64))
 
-    def _update_index_locked(self, old_ids: np.ndarray, new_ids: np.ndarray,
+    def _update_index_locked(self, gone: np.ndarray, new_ids: np.ndarray,
                              dest: np.ndarray) -> None:
-        """The index after ``new_ids`` moved into slots ``dest``, whose
-        previous residents were ``old_ids`` (-1 for a free slot): the
-        evicted ``(id, slot)`` pairs are dropped at their ``searchsorted``
-        positions and the inserted block, sorted, is spliced in. Equal to
-        :meth:`_rebuild_index_locked` (resident ids are unique), at
-        O(n + k log n) a probe instead of an ``argsort`` of every
-        resident id."""
-        ids, slots = self._sorted_ids, self._sorted_slots
-        gone = old_ids[old_ids >= 0]
-        if len(gone):
-            keep = np.ones(len(ids), bool)
-            keep[np.searchsorted(ids, gone)] = False
-            ids, slots = ids[keep], slots[keep]
-        order = np.argsort(new_ids)
-        add_ids, add_slots = new_ids[order], dest[order]
-        at = np.searchsorted(ids, add_ids)
-        self._sorted_ids = np.insert(ids, at, add_ids)
-        self._sorted_slots = np.insert(slots, at, add_slots)
+        """The index after ``new_ids`` moved into slots ``dest``, evicting
+        the resident ids ``gone``: equal to :meth:`_rebuild_index_locked`,
+        in time that grows with the probe's misses."""
+        self._index.update(gone, new_ids, dest)
+
+    @property
+    def _sorted_ids(self) -> np.ndarray:
+        """The resident ids, sorted: the reference's index array."""
+        with self._lock:
+            return self._index.sorted_view()[0]
+
+    @property
+    def _sorted_slots(self) -> np.ndarray:
+        """The slot of each of :attr:`_sorted_ids`."""
+        with self._lock:
+            return self._index.sorted_view()[1]
 
     def resident_ids(self) -> np.ndarray:
         """Ids currently resident in the cache (sorted)."""
-        with self._lock:
-            return self._sorted_ids.copy()
+        return self._sorted_ids
 
     # -- two-stage query ---------------------------------------------------------
 
@@ -229,69 +224,64 @@ class DeviceEmbeddingCache:
         """``(slots, overflow positions, overflow rows, the deferred
         scatter as ShardedPayloadStore.prepare gives it or None)``."""
         n = len(ids)
-        empty = (np.empty(0, np.int64),
-                 np.empty((0, self.dim), np.float32))
+        ov_idx, ov_rows = (np.empty(0, np.int64),
+                           np.empty((0, self.dim), np.float32))
         if n == 0:
-            return np.empty(0, np.int64), *empty, None
-        valid = ids >= 0
-        uniq, inv = np.unique(np.where(valid, ids, -1), return_inverse=True)
-        counts = np.bincount(inv, minlength=len(uniq))
-        has_pad = len(uniq) > 0 and uniq[0] < 0
-        slots_u = np.full(len(uniq), -1, np.int64)
-        real = slice(1, None) if has_pad else slice(None)
-        slots_u[real] = self._find_locked(uniq[real])
+            return np.empty(0, np.int64), ov_idx, ov_rows, None
+        # every pad (any negative id) is one -1 entry, first in uniq
+        uniq, inv, counts = np.unique(np.maximum(ids, -1),
+                                      return_inverse=True,
+                                      return_counts=True)
+        slots_u = self._find_locked(uniq)    # -1 for the pad too
         found = slots_u >= 0
-        real_mask = uniq >= 0
-        self.hits += int(counts[found].sum())
-        self.misses += int(counts[real_mask & ~found].sum())
-        if found.any():   # distinct ids, distinct slots: no repeats
-            self._freq[slots_u[found]] += counts[found]
+        hit_slots = slots_u[found]   # distinct ids, distinct slots
+        hit_counts = counts[found]
+        n_hit = int(hit_counts.sum())
+        n_pad = int(counts[0]) if uniq[0] < 0 else 0
+        self.hits += n_hit
+        self.misses += n - n_hit - n_pad
+        if n_hit:
+            self._freq[hit_slots] += hit_counts
 
-        miss = real_mask & ~found
-        ov_idx, ov_rows = empty
         scatter = None
-        if miss.any():
+        if n_hit + n_pad < n:
+            miss = ~found
+            if n_pad:
+                miss[0] = False
             miss_ids = uniq[miss]
             # lock-ok: LOCK002 probe fetch under the lock preserves same-table ordering; the pipelined engine keeps it off the hot thread
             rows = np.asarray(self.fetch_fn(miss_ids), np.float32)
             k = len(miss_ids)
             n_occ = self._next_free
             free = min(k, self.capacity - n_occ)
-            dest_free = np.arange(n_occ, n_occ + free, dtype=np.int64)
-            victims = np.empty(0, np.int64)
+            dest = np.arange(n_occ, n_occ + free, dtype=np.int64)
+            gone = dest[:0]     # the evicted residents' ids
             if k > free:
-                # batch-aware LFU eviction: age once per batch, protect
-                # the slots this query reads
-                self._freq[:n_occ] *= self.decay
-                cost = self._freq[:n_occ].copy()
-                hit_slots = slots_u[found]
-                cost[hit_slots] = np.inf
-                evictable = n_occ - len(np.unique(hit_slots))
-                take = min(k - free, evictable)
-                if take > 0:
-                    victims = np.argpartition(cost, take - 1)[:take]
-                    victims = victims.astype(np.int64)
-            dest = np.concatenate([dest_free, victims])
+                victims = self._evict_locked(k - free, hit_slots)
+                if len(victims):
+                    gone = self._id_of[victims]
+                    dest = np.concatenate([dest, victims])
+            miss_counts = counts[miss]
             ins = len(dest)
             if ins < k:  # cache the hottest misses, overflow the rest
-                order = np.argsort(-counts[miss], kind="stable")
-            else:
-                order = np.arange(k)
-            sel, ovf = order[:ins], order[ins:]
+                order = np.argsort(-miss_counts, kind="stable")
+                sel, ovf = order[:ins], order[ins:]
+            else:        # every miss in the order of uniq
+                sel, ovf = slice(None), None
 
             self._next_free = n_occ + free
-            old_ids = self._id_of[dest]
             self._id_of[dest] = miss_ids[sel]
-            self._freq[dest] = counts[miss][sel].astype(np.float64)
+            self._freq[dest] = miss_counts[sel]
             self._dirty[dest] = False      # fresh from the lower levels
-            self._update_index_locked(old_ids, miss_ids[sel], dest)
+            self._update_index_locked(gone, miss_ids[sel], dest)
             if ins:  # the ONE device scatter, deferred to commit()
                 scatter = self._store.prepare(dest, rows[sel])
-            miss_slots = np.full(k, -1, np.int64)
-            miss_slots[sel] = dest
-            slots_u[miss] = miss_slots
-
-            if len(ovf):
+            if ovf is None:
+                slots_u[miss] = dest
+            else:
+                miss_slots = np.full(k, -1, np.int64)
+                miss_slots[sel] = dest
+                slots_u[miss] = miss_slots
                 ov_uniq = np.full(len(uniq), -1, np.int64)
                 ov_pos_u = np.nonzero(miss)[0][ovf]
                 ov_uniq[ov_pos_u] = np.arange(len(ovf))
@@ -299,7 +289,20 @@ class DeviceEmbeddingCache:
                 ov_idx = np.nonzero(per_elem >= 0)[0].astype(np.int64)
                 ov_rows = rows[ovf][per_elem[ov_idx]]
 
-        return slots_u[inv].astype(np.int64), ov_idx, ov_rows, scatter
+        return slots_u[inv], ov_idx, ov_rows, scatter
+
+    def _evict_locked(self, want: int, hit_slots: np.ndarray) -> np.ndarray:
+        """Batch-aware LFU eviction of up to ``want`` residents: age every
+        counter once a batch, protect the slots this query reads (each
+        hit slot once), and take the coldest in one ``argpartition``."""
+        n_occ = self._next_free
+        self._freq[:n_occ] *= self.decay
+        cost = self._freq[:n_occ].copy()
+        cost[hit_slots] = np.inf
+        take = min(want, n_occ - len(hit_slots))
+        if take <= 0:
+            return hit_slots[:0]
+        return np.argpartition(cost, take - 1)[:take]
 
     def _scatter_locked(self, slots: np.ndarray, rows: np.ndarray) -> None:
         self._store.scatter(slots, rows)

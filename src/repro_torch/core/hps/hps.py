@@ -3,7 +3,7 @@
 
 Lookup path per table: L1 device cache -> L2 volatile DB -> L3 persistent
 DB, with promotion on miss at every level. Each table resolves through a
-HOST stage (sorted-index probe + one coalesced miss fetch) and a DEVICE
+HOST stage (index probe + one coalesced miss fetch) and a DEVICE
 stage (the one payload scatter + the slot block's transfer). In
 ``lookup`` and ``lookup_stream`` a batch's device stage ships every
 table's slot block and deferred scatter in ONE pinned host-to-device
@@ -144,17 +144,20 @@ class HPS:
 
         def fetch(ids: np.ndarray) -> np.ndarray:
             mask, rows = self.vdb.query(self._vdb_key(table), ids)
-            if rows is None:
-                rows = np.zeros((len(ids), dim), np.float32)
             if not mask.all():
-                missing = ids[~mask]
+                missing = ids[~mask] if rows is not None else ids
                 fetched = self.pdb.fetch(self.model_name, table, missing)
                 with self._l3_stats_lock:
                     self._l3_fetch_calls[table] += 1
                     self._l3_fetch_rows[table] += len(missing)
-                rows[~mask] = fetched
+                if rows is None:    # L2 held none of the ids
+                    rows = fetched
+                else:
+                    rows[~mask] = fetched
                 self.vdb.insert(self._vdb_key(table), missing,
                                 fetched)  # promote
+            elif rows is None:      # no ids
+                rows = np.zeros((len(ids), dim), np.float32)
             return rows
         return fetch
 

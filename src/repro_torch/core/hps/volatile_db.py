@@ -1,6 +1,6 @@
 """Volatile database (HPS level 2) — distributed CPU-memory cache.
 
-Copied from ``repro/core/hps/volatile_db.py`` (pure numpy).
+Ported from ``repro/core/hps/volatile_db.py`` (pure numpy).
 
 Stands in for the paper's Redis-cluster VDB: embedding rows live in the
 system memory of (simulated) cluster nodes, sharded by id hash, each shard
@@ -8,29 +8,38 @@ bounded by a capacity with LRU eviction. Partial copies only — misses fall
 through to the persistent DB.
 
 Vectorized to match the batched L1 path: each shard keeps its rows in a
-dense ``[cap, D]`` array with a sorted id index, so a whole query resolves
-with one ``np.searchsorted`` per shard and inserts are one slice-assign.
-The sorted index is maintained by an *incremental merge* on insert
-(victim pairs dropped, the new sorted id block spliced in) — a full
-re-sort only happens on the rare explicit ``evict_ids`` compaction.
-Rows are **copied** on insert and on query — the store never aliases
-caller arrays (the seed kept views into the caller's row buffers, so
-later in-place writes by the caller silently mutated the DB).
+dense ``[cap, D]`` array with an id -> slot index, so a whole query
+resolves with one search per shard and inserts are one slice-assign. The
+index is an exact hash map (``id_index.IdIndex``), searched and updated in
+time that grows with the ids of the call; the reference keeps a sorted id
+array and splices every insert into it. The decisions are the
+reference's: the dedup keeps the last occurrence, the LRU victims come
+from the same ``argpartition`` over the same order of ticks, and the rare
+explicit ``evict_ids`` compacts the shard. Rows are **copied** on insert
+and on query — the store never aliases caller arrays (the seed kept views
+into the caller's row buffers, so later in-place writes by the caller
+silently mutated the DB).
 
-Access is serialized by one store-wide lock: the HPS pipelined lookup
-probes tables from a host worker while the serving thread may apply
-online updates or refresh fetches, and all of those paths land here.
+Each namespace (a model's table) has a lock of its own and its own LRU
+clock, so the HPS host workers probing different tables, and the serving
+thread applying online updates or refresh fetches, do not wait for each
+other. A namespace's clock ticks once per query or insert on it, as the
+reference's one store-wide clock does: within a namespace the ticks keep
+the reference's order and ties, which is all ``argpartition`` compares.
+The namespace map and the hit / miss counters keep a lock of their own.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch.core.hps.id_index import IdIndex
+
 
 class _Shard:
-    """One (simulated) cluster node: dense rows + sorted id index + LRU."""
+    """One (simulated) cluster node: dense rows + id index + LRU."""
 
     def __init__(self, capacity: int):
         self.capacity = capacity
@@ -38,70 +47,66 @@ class _Shard:
         self.id_of = np.full(capacity, -1, np.int64)
         self.tick = np.zeros(capacity, np.int64)   # LRU clock per slot
         self.n = 0
-        self.sorted_ids = np.empty(0, np.int64)
-        self.sorted_slots = np.empty(0, np.int64)
+        self.index = IdIndex()
+
+    @property
+    def sorted_ids(self) -> np.ndarray:
+        """The resident ids, sorted: the reference's index array."""
+        return self.index.sorted_view()[0]
+
+    @property
+    def sorted_slots(self) -> np.ndarray:
+        """The slot of each of :attr:`sorted_ids`."""
+        return self.index.sorted_view()[1]
 
     def _rebuild(self) -> None:
-        occ = self.id_of[:self.n]
-        order = np.argsort(occ, kind="stable").astype(np.int64)
-        self.sorted_ids = occ[order]
-        self.sorted_slots = order
+        self.index = IdIndex(self.id_of[:self.n],
+                             np.arange(self.n, dtype=np.int64))
 
     def find(self, ids: np.ndarray) -> np.ndarray:
         """Vectorized id -> slot (-1 missing); ``ids`` need not be unique."""
-        if len(self.sorted_ids) == 0:
-            return np.full(len(ids), -1, np.int64)
-        pos = np.searchsorted(self.sorted_ids, ids)
-        np.minimum(pos, len(self.sorted_ids) - 1, out=pos)
-        return np.where(self.sorted_ids[pos] == ids,
-                        self.sorted_slots[pos], -1)
+        return self.index.find(ids)
 
     def insert(self, ids: np.ndarray, rows: np.ndarray, now: int) -> None:
-        # dedup keeping the LAST occurrence: batched online updates
-        # concatenate chronologically, so the newest row must win
-        uniq, idx_rev = np.unique(ids[::-1], return_index=True)
-        ids, rows = uniq, rows[len(rows) - 1 - idx_rev]
+        if len(ids) > 1 and not (ids[1:] > ids[:-1]).all():
+            # dedup keeping the LAST occurrence: batched online updates
+            # concatenate chronologically, so the newest row must win (ids
+            # already sorted and unique, as an L1 probe's misses, pass)
+            uniq, idx_rev = np.unique(ids[::-1], return_index=True)
+            ids, rows = uniq, rows[len(rows) - 1 - idx_rev]
         if self.rows is None:
             self.rows = np.zeros((self.capacity, rows.shape[1]), np.float32)
         slots = self.find(ids)
         hit = slots >= 0
+        new_ids, new_rows = ids, rows
         if hit.any():  # update in place (copies — no aliasing)
             self.rows[slots[hit]] = rows[hit]
             self.tick[slots[hit]] = now
-        new_ids, new_rows = ids[~hit], rows[~hit]
+            new_ids, new_rows = ids[~hit], rows[~hit]
         k = len(new_ids)
         if k == 0:
             return
         free = min(k, self.capacity - self.n)
         dest = np.arange(self.n, self.n + free, dtype=np.int64)
-        victims = np.empty(0, np.int64)
-        if k > free:  # LRU eviction, all victims in one argpartition
-            take = min(k - free, self.n)
-            if take > 0:
-                victims = np.argpartition(self.tick[:self.n],
-                                          take - 1)[:take].astype(np.int64)
-                dest = np.concatenate([dest, victims])
-        sel = np.arange(len(dest))
-        # incremental sorted merge, NOT a per-batch re-sort: drop the
-        # victims' (id, slot) pairs, then splice the new id block in at
-        # its searchsorted positions — O(n + b log n) per batch instead
-        # of O(n log n), the dominant host cost of the L2 promote path
-        # at high miss rates. new_ids is np.unique output, so the
-        # spliced block is already sorted.
-        base_ids, base_slots = self.sorted_ids, self.sorted_slots
-        if len(victims):
-            vpos = np.searchsorted(base_ids, self.id_of[victims])
-            keep = np.ones(len(base_ids), bool)
-            keep[vpos] = False
-            base_ids, base_slots = base_ids[keep], base_slots[keep]
-        add_ids = new_ids[sel]
-        ins = np.searchsorted(base_ids, add_ids)
-        self.sorted_ids = np.insert(base_ids, ins, add_ids)
-        self.sorted_slots = np.insert(base_slots, ins, dest)
+        victims = dest[:0]
+        if k > free:
+            victims = self._lru_victims(k - free)
+            dest = np.concatenate([dest, victims])
+        add_ids = new_ids[:len(dest)]
+        self.index.update(self.id_of[victims], add_ids, dest)
         self.n += free
         self.id_of[dest] = add_ids
-        self.rows[dest] = new_rows[sel]
+        self.rows[dest] = new_rows[:len(dest)]
         self.tick[dest] = now
+
+    def _lru_victims(self, want: int) -> np.ndarray:
+        """Up to ``want`` least recently used slots, all in one
+        ``argpartition`` over the ticks."""
+        take = min(want, self.n)
+        if take <= 0:
+            return np.empty(0, np.int64)
+        return np.argpartition(self.tick[:self.n],
+                               take - 1)[:take].astype(np.int64)
 
     def evict_ids(self, ids: np.ndarray) -> None:
         slots = self.find(np.unique(ids))
@@ -120,29 +125,93 @@ class _Shard:
         self._rebuild()
 
 
+class _Namespace:
+    """One table's shards, under a lock of its own, with its own LRU
+    clock."""
+
+    _GUARDED_BY = {"_shards": "_lock", "_now": "_lock"}
+
+    def __init__(self, shards: int, capacity: int):
+        self._shards = [_Shard(capacity) for _ in range(shards)]
+        self._now = 0
+        self._lock = threading.RLock()
+
+    def _split_locked(self, ids: np.ndarray
+                      ) -> List[Tuple[_Shard, Union[slice, np.ndarray]]]:
+        """``(shard, positions of its ids)`` for each shard that ``ids``
+        hash to; a single shard takes every position (a slice)."""
+        if len(self._shards) == 1:
+            return [(self._shards[0], slice(None))] if len(ids) else []
+        shard_of = ids % len(self._shards)
+        out = []
+        for s, shard in enumerate(self._shards):
+            in_s = np.nonzero(shard_of == s)[0]
+            if len(in_s):
+                out.append((shard, in_s))
+        return out
+
+    def query(self, ids: np.ndarray
+              ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        with self._lock:
+            self._now += 1
+            mask = np.zeros(len(ids), bool)
+            rows = None
+            for shard, in_s in self._split_locked(ids):
+                if shard.rows is None:
+                    continue
+                slots = shard.find(ids[in_s])
+                hit = slots >= 0
+                if not hit.any():
+                    continue
+                if rows is None:
+                    rows = np.zeros((len(ids), shard.rows.shape[1]),
+                                    np.float32)
+                at = hit if isinstance(in_s, slice) else in_s[hit]
+                rows[at] = shard.rows[slots[hit]]
+                shard.tick[slots[hit]] = self._now       # LRU touch
+                mask[in_s] = hit
+            return mask, rows
+
+    def insert(self, ids: np.ndarray, rows: np.ndarray) -> None:
+        with self._lock:
+            self._now += 1
+            for shard, in_s in self._split_locked(ids):
+                # the shard copies the rows into its own array
+                shard.insert(ids[in_s], rows[in_s], self._now)
+
+    def evict(self, ids: np.ndarray) -> None:
+        with self._lock:
+            for shard, in_s in self._split_locked(ids):
+                shard.evict_ids(ids[in_s])
+
+    def size(self) -> int:
+        with self._lock:
+            return sum(s.n for s in self._shards)
+
+
 class VolatileDB:
 
-    # shard state, the LRU clock and the hit/miss counters are all
-    # behind the one store-wide lock
+    # the namespace map and the hit / miss counters are behind the
+    # store's lock; each namespace's shards and clock behind its own
     _GUARDED_BY = {
-        "_store": "_lock", "_now": "_lock",
-        "hits": "_lock", "misses": "_lock",
+        "_spaces": "_lock", "hits": "_lock", "misses": "_lock",
     }
 
     def __init__(self, *, shards: int = 1, capacity_per_shard: int = 100000):
         self.shards = shards
         self.capacity = capacity_per_shard
-        self._store: Dict[str, List[_Shard]] = {}  # table -> shard list
-        self._now = 0
+        self._spaces: Dict[str, _Namespace] = {}
         self.hits = 0
         self.misses = 0
         self._lock = threading.RLock()
 
-    def _ns_locked(self, table: str) -> List[_Shard]:
-        if table not in self._store:
-            self._store[table] = [_Shard(self.capacity)
-                                  for _ in range(self.shards)]
-        return self._store[table]
+    def _space(self, table: str) -> _Namespace:
+        with self._lock:
+            ns = self._spaces.get(table)
+            if ns is None:
+                ns = self._spaces[table] = _Namespace(self.shards,
+                                                      self.capacity)
+            return ns
 
     def query(self, table: str, ids: np.ndarray
               ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -150,67 +219,33 @@ class VolatileDB:
 
         ``rows`` is freshly allocated (never a view into the store).
         """
-        with self._lock:
-            return self._query_locked(table, ids)
-
-    def _query_locked(self, table: str, ids: np.ndarray
-                      ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-        ns = self._ns_locked(table)
         ids = np.asarray(ids, np.int64)
-        self._now += 1
-        mask = np.zeros(len(ids), bool)
-        rows = None
-        shard_of = ids % self.shards
-        for s, shard in enumerate(ns):
-            in_s = np.nonzero(shard_of == s)[0]
-            if len(in_s) == 0 or shard.rows is None:
-                continue
-            slots = shard.find(ids[in_s])
-            hit = slots >= 0
-            if not hit.any():
-                continue
-            if rows is None:
-                rows = np.zeros((len(ids), shard.rows.shape[1]), np.float32)
-            rows[in_s[hit]] = shard.rows[slots[hit]]
-            shard.tick[slots[hit]] = self._now       # LRU touch
-            mask[in_s] = hit
-        self.hits += int(mask.sum())
-        self.misses += int((~mask).sum())
+        mask, rows = self._space(table).query(ids)
+        n_hit = int(mask.sum())
+        with self._lock:
+            self.hits += n_hit
+            self.misses += len(ids) - n_hit
         return mask, rows
 
     def insert(self, table: str, ids: np.ndarray, rows: np.ndarray) -> None:
-        with self._lock:
-            ns = self._ns_locked(table)
-            ids = np.asarray(ids, np.int64)
-            rows = np.asarray(rows, np.float32)
-            self._now += 1
-            shard_of = ids % self.shards
-            for s, shard in enumerate(ns):
-                in_s = np.nonzero(shard_of == s)[0]
-                if len(in_s):
-                    shard.insert(ids[in_s], rows[in_s].copy(), self._now)
+        self._space(table).insert(np.asarray(ids, np.int64),
+                                  np.asarray(rows, np.float32))
 
     def evict(self, table: str, ids: np.ndarray) -> None:
-        with self._lock:
-            ns = self._ns_locked(table)
-            ids = np.asarray(ids, np.int64)
-            shard_of = ids % self.shards
-            for s, shard in enumerate(ns):
-                in_s = np.nonzero(shard_of == s)[0]
-                if len(in_s):
-                    shard.evict_ids(ids[in_s])
+        self._space(table).evict(np.asarray(ids, np.int64))
 
     def size(self, table: str) -> int:
-        with self._lock:
-            return sum(s.n for s in self._ns_locked(table))
+        return self._space(table).size()
 
     def stats(self) -> Dict:
         """Per-table occupancy for the serving L1/L2/L3 picture."""
         with self._lock:
-            cap = self.shards * self.capacity
-            tables = {t: {"rows": sum(s.n for s in shards),
-                          "fill": sum(s.n for s in shards) / cap}
-                      for t, shards in self._store.items()}
-            return {"hits": self.hits, "misses": self.misses,
-                    "shards": self.shards, "capacity_per_shard":
-                    self.capacity, "tables": tables}
+            spaces = list(self._spaces.items())
+            hits, misses = self.hits, self.misses
+        cap = self.shards * self.capacity
+        tables = {}
+        for t, ns in spaces:
+            rows = ns.size()
+            tables[t] = {"rows": rows, "fill": rows / cap}
+        return {"hits": hits, "misses": misses, "shards": self.shards,
+                "capacity_per_shard": self.capacity, "tables": tables}

@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import sys
 import threading
 import types
 
@@ -436,6 +437,223 @@ def test_probes_ahead_of_commits_match_jax(J, payload_dtype, shards):
             np.testing.assert_array_equal(scales.numpy(),
                                           np.asarray(jscales))
     assert not pc._pending
+
+
+# ---------------------------------------------------------------------------
+# the host indexes as hash maps: the L1's and each L2 shard's decisions
+# ---------------------------------------------------------------------------
+
+def _turnover(n=50, b=128, vocab=6000, seed=13):
+    """Zipf batches over a vocabulary >> an L1 of a few hundred rows, the
+    hot set sliding each batch, ~5% pads: the cache fills within a few
+    batches, then every batch evicts, and the residents turn over several
+    times."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        ids = (rng.zipf(1.2, b) + 101 * k) % vocab
+        ids[rng.random(b) < 0.05] = -1
+        out.append(ids.astype(np.int64))
+    return out
+
+
+@pytest.mark.parametrize("capacity", [200, 500])
+def test_index_map_matches_a_rebuild_and_jax(J, capacity):
+    """The L1 index is a hash map with no merge step; through a stream
+    that fills the cache and then turns its residents over several
+    times, after each probe the map's search over every id seen (pads
+    included) equals a search of the index rebuilt from the slots, and
+    the slots, the LFU counters, the residents and ``resident_ids()``
+    equal the JAX cache's bit for bit."""
+    from repro.core.hps.embedding_cache import DeviceEmbeddingCache as JC
+    store = np.random.default_rng(14).standard_normal((6000, DIM)).astype(
+        np.float32)
+    jc = JC(capacity, DIM, fetch_fn=lambda ids: store[ids])
+    pc = DeviceEmbeddingCache(capacity, DIM, fetch_fn=lambda ids: store[ids],
+                              device="cpu")
+    seen = np.empty(0, np.int64)
+    full_probes = 0
+    for ids in _turnover():
+        full_probes += pc._next_free == capacity
+        jp, pp = jc.probe(ids), pc.probe(ids)
+        jc.commit(jp)
+        pc.commit(pp)
+        seen = np.union1d(seen, ids)
+        occ = pc._id_of[:pc._next_free]
+        order = np.argsort(occ, kind="stable")
+        pos = np.minimum(np.searchsorted(occ[order], seen), len(occ) - 1)
+        want = np.where(occ[order][pos] == seen, order[pos], -1)
+        with pc._lock:
+            np.testing.assert_array_equal(pc._find_locked(seen), want)
+        np.testing.assert_array_equal(pp.slots, jp.slots)
+        np.testing.assert_array_equal(pp.ov_idx, jp.ov_idx)
+        np.testing.assert_array_equal(pc._freq, jc._freq)
+        np.testing.assert_array_equal(pc._id_of, jc._id_of)
+        np.testing.assert_array_equal(pc.resident_ids(), jc.resident_ids())
+    assert full_probes >= 20 and len(seen) > 4 * capacity
+    assert pc.hits == jc.hits and pc.misses == jc.misses
+
+
+def _l2_shards(db, table):
+    """A store's shards of ``table``: the port's namespace or the
+    reference's list."""
+    ns = getattr(db, "_spaces", None)
+    return ns[table]._shards if ns is not None else db._store[table]
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+def test_volatile_db_matches_jax(J, shards):
+    """Three namespaces in one store, a stream of inserts (ids repeated in
+    a batch: the last row wins), queries and explicit evictions that
+    overflows every shard's capacity: the found masks and rows, and after
+    every call each shard's sorted (id, slot) view, slot contents and
+    rows equal the reference ``VolatileDB``'s, so the LRU victims do."""
+    from repro.core.hps.volatile_db import VolatileDB as JV
+    from repro_torch.core.hps.volatile_db import VolatileDB
+    jv = JV(shards=shards, capacity_per_shard=40)
+    pv = VolatileDB(shards=shards, capacity_per_shard=40)
+    spaces = ("m/a", "m/b", "n/a")
+    rng = np.random.default_rng(21)
+    evicted = 0
+    for step in range(90):
+        t = spaces[rng.integers(len(spaces))]
+        ids = rng.integers(0, 300, rng.integers(1, 40))
+        op = rng.random()
+        if op < 0.5:
+            rows = rng.standard_normal((len(ids), DIM)).astype(np.float32)
+            full = sum(s.n == s.capacity for s in _l2_shards(pv, t)) \
+                if t in pv._spaces else 0
+            jv.insert(t, ids, rows)
+            pv.insert(t, ids, rows)
+            evicted += full
+        elif op < 0.9:
+            jm, jr = jv.query(t, ids)
+            pm, pr = pv.query(t, ids)
+            np.testing.assert_array_equal(pm, jm)
+            assert (pr is None) == (jr is None)
+            if pr is not None:
+                np.testing.assert_array_equal(pr[pm], jr[jm])
+        else:
+            jv.evict(t, ids[:5])
+            pv.evict(t, ids[:5])
+        for t2 in spaces:
+            if t2 not in jv._store:
+                continue
+            for js, ps in zip(_l2_shards(jv, t2), _l2_shards(pv, t2)):
+                assert ps.n == js.n
+                np.testing.assert_array_equal(ps.sorted_ids, js.sorted_ids)
+                np.testing.assert_array_equal(ps.sorted_slots,
+                                              js.sorted_slots)
+                np.testing.assert_array_equal(ps.id_of, js.id_of)
+                assert (ps.rows is None) == (js.rows is None)
+                if ps.rows is not None:
+                    np.testing.assert_array_equal(ps.rows[:ps.n],
+                                                  js.rows[:js.n])
+    assert evicted > 5
+    assert pv.stats()["hits"] == jv.stats()["hits"]
+    assert pv.stats()["misses"] == jv.stats()["misses"]
+    assert pv.stats()["tables"] == jv.stats()["tables"]
+
+
+def test_namespaces_insert_from_four_threads_as_serially():
+    """A lock and a clock a namespace: four threads inserting into and
+    querying four namespaces of one store at once leave each namespace
+    (slots, ids, rows and LRU ticks) and the hit / miss counts as a
+    serial run of the same calls does."""
+    from repro_torch.core.hps.volatile_db import VolatileDB
+
+    def calls(k):
+        rng = np.random.default_rng(100 + k)
+        out = []
+        for _ in range(40):
+            ids = rng.integers(0, 200, rng.integers(1, 30))
+            out.append((ids, rng.standard_normal((len(ids), DIM)).astype(
+                np.float32)))
+        return out
+
+    def run(db, k):
+        for ids, rows in calls(k):
+            db.insert(f"t{k}", ids, rows)
+            db.query(f"t{k}", ids[::2])
+
+    serial = VolatileDB(shards=2, capacity_per_shard=30)
+    for k in range(4):
+        run(serial, k)
+    par = VolatileDB(shards=2, capacity_per_shard=30)
+    errors = []
+    start = threading.Barrier(4)
+
+    def worker(k):
+        try:
+            start.wait()
+            run(par, k)
+        except Exception as e:      # pragma: no cover
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        ts = [threading.Thread(target=worker, args=(k,)) for k in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(t.is_alive() for t in ts)
+    for k in range(4):
+        for a, b in zip(_l2_shards(serial, f"t{k}"),
+                        _l2_shards(par, f"t{k}")):
+            assert a.n == b.n
+            np.testing.assert_array_equal(a.id_of, b.id_of)
+            np.testing.assert_array_equal(a.tick, b.tick)
+            np.testing.assert_array_equal(a.rows, b.rows)
+            np.testing.assert_array_equal(a.sorted_slots, b.sorted_slots)
+    assert par.stats() == serial.stats()
+
+
+def test_lock_order_recorder_sees_namespace_locks(tmp_path):
+    """The dynamic lock-order check wraps each L2 namespace's lock, those
+    made after it was armed included: a pipelined lookup records the L1
+    lock -> namespace lock edges, and the graph stays acyclic."""
+    from repro_torch.analysis import LockOrderRecorder
+    pdb = PersistentDB(str(tmp_path))
+    rng = np.random.default_rng(3)
+    tabs = _tables(EmbeddingTableConfig)
+    for t in tabs:
+        pdb.create_table("m", t.name, t.vocab_size, t.dim,
+                         initial=rng.standard_normal(
+                             (t.vocab_size, t.dim)).astype(np.float32))
+    hps = HPS("m", tabs, pdb, cache_capacity=16, device="cpu")
+    rec = LockOrderRecorder()
+    rec.instrument_hps(hps)
+    try:
+        for cat in _stream(n=3):
+            hps.lookup(cat, pipelined=True)
+    finally:
+        hps.close()
+    for t in tabs:
+        assert (f"cache[{t.name}]._lock",
+                f"VolatileDB[m/{t.name}]._lock") in rec.edges()
+    rec.assert_acyclic()
+
+
+def test_id_index_find_update_and_sorted_view():
+    """``IdIndex``: any ids searched (repeats, absent ids, pads -> -1),
+    updates that unmap and map in one call, and the sorted view."""
+    from repro_torch.core.hps.id_index import IdIndex
+    idx = IdIndex(np.array([7, 3, 11], np.int64), np.array([0, 1, 2]))
+    np.testing.assert_array_equal(
+        idx.find(np.array([3, -1, 7, 3, 5])), [1, -1, 0, 1, -1])
+    idx.update(np.array([7]), np.array([9, 2]), np.array([0, 3]))
+    assert len(idx) == 4
+    ids, slots = idx.sorted_view()
+    np.testing.assert_array_equal(ids, [2, 3, 9, 11])
+    np.testing.assert_array_equal(slots, [3, 1, 0, 2])
+    assert idx.find(np.array([7])).tolist() == [-1]
+    empty = IdIndex()
+    assert empty.find(np.zeros(0, np.int64)).shape == (0,)
+    assert [a.tolist() for a in empty.sorted_view()] == [[], []]
 
 
 def _check_to_device_many(device):
