@@ -6,10 +6,11 @@
 Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
-2. Build: compile ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a;
-   print ptxas's report and the kernels whose ``wgmma`` products it
-   serialised (its C7515 notes, ``_build.serialised_wgmma``): the run
-   fails unless that list is empty.
+2. Build: compile ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a
+   and, beside it, the HPS host library ``csrc/hps_host.cpp`` with the
+   host compiler (``core/hps/_host.py``); print ptxas's report and the
+   kernels whose ``wgmma`` products it serialised (its C7515 notes,
+   ``_build.serialised_wgmma``): the run fails unless that list is empty.
 3. Kernels: time the launch floor (a one-element ``add_`` replayed from a
    CUDA graph), then launch K1 (pooled lookup) and K6 (dequantizing read)
    as the served batch runs them, one grouped launch for all 26 tables
@@ -155,8 +156,12 @@ Phases, in order; any failure exits non-zero:
    host stage on fresh traffic (``fresh_host_split``: an ensemble server
    from 6c's bundle, the load test's warm-up, 32 fresh requests through
    ``predict``): each model's L1 rows and the L2's rows against their
-   capacities before and after, and a request's host ms in the L1 index
-   update, the L1 eviction, the L2 insert and the L2 eviction; then
+   capacities before and after, a request's host ms in each part of the
+   HPS host library (the L1 probe's pass 1 and pass 2, the L2 query and
+   insert, the L3 gather: ``core/hps/_host.py``, built from
+   ``csrc/hps_host.cpp`` by the host compiler), the L1 eviction, the whole
+   L2 insert and the L2 eviction, and the host-library calls, which must
+   be more than 0; then
    ``launch.loadtest`` on 6c's ensemble bundle (DLRM + DCN): requests of
    256 rows, ``--max-coalesce 4`` (max_batch 1024), Poisson arrivals, Zipf
    1.2, a 3:1 mix, ``queue_depth`` 64, an SLO of 100 ms; a steady phase at
@@ -3461,26 +3466,34 @@ def fresh_host_split(ps: str, dev, lt, names, total, n: int = 32) -> str:
     test stands it up), the load test's warm-up, then ``n`` fresh
     ``Workload`` requests (``lt``'s rows, Zipf exponent and mix; another
     seed than the load test's; ``names`` the members in ``lt.mix``'s
-    order) through each member's ``predict``, one at
-    a time, with the L1 index update, the L1 eviction, the L2 insert and
-    the L2 eviction timed (thread ms a request, the host workers'
-    summed). Returns the line's text: L1 and L2 occupancy before and
-    after, those ms and the ``predict`` p50. Adds the launches to
-    ``total``."""
+    order) through each member's ``predict``, one at a time, with the
+    host library's calls (the L1 probe's two passes, the L2 query and
+    insert, the L3 gather), the L1 eviction, the whole L2 insert and the
+    L2 eviction timed (thread ms a request, the host workers' summed).
+    Fails if the requests made no host-library call. Returns the line's
+    text: L1 and L2 occupancy before and after, those ms, the calls and
+    the ``predict`` p50. Adds the launches to ``total``."""
     import numpy as np
     import threading
     import torch
-    from repro_torch.core.hps import embedding_cache, volatile_db
+    from repro_torch.core.hps import _host, embedding_cache, volatile_db
     from repro_torch.launch import loadtest
     from repro_torch.launch.serve import build_server_from_config
     from repro_torch.loadgen import ModelShape, Workload, WorkloadConfig
-    timed = {"L1 index update": (embedding_cache.DeviceEmbeddingCache,
-                                 "_update_index_locked"),
-             "L1 eviction": (embedding_cache.DeviceEmbeddingCache,
+    #: the host library's entry points by part
+    host_parts = {"hps_l1_pass1": "L1 pass 1",
+                  "hps_l1_pass2": "L1 pass 2",
+                  "hps_l2_query": "L2 query (host)",
+                  "hps_l2_insert": "L2 insert (host)",
+                  "hps_l2_place": "L2 insert (host)",
+                  "hps_gather_rows": "L3 gather"}
+    timed = {"L1 eviction": (embedding_cache.DeviceEmbeddingCache,
                              "_evict_locked"),
              "L2 insert": (volatile_db.VolatileDB, "insert"),
              "L2 eviction": (volatile_db._Shard, "_lru_victims")}
-    spent = {k: 0.0 for k in timed}
+    order = ("L1 pass 1", "L1 pass 2", "L1 eviction", "L2 query (host)",
+             "L2 insert", "L2 insert (host)", "L2 eviction", "L3 gather")
+    spent = {k: 0.0 for k in order}
     mu = threading.Lock()
 
     def timer(label, fn):
@@ -3493,6 +3506,18 @@ def fresh_host_split(ps: str, dev, lt, names, total, n: int = 32) -> str:
                 with mu:
                     spent[label] += dt
         return run
+
+    host_call = _host.call
+
+    def timed_call(entry, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return host_call(entry, *a, **k)
+        finally:
+            dt = time.perf_counter() - t0
+            if entry in host_parts:
+                with mu:
+                    spent[host_parts[entry]] += dt
 
     ens, _ = build_server_from_config(ps, device=dev)
     try:
@@ -3508,6 +3533,8 @@ def fresh_host_split(ps: str, dev, lt, names, total, n: int = 32) -> str:
         saved = {k: getattr(cls, attr) for k, (cls, attr) in timed.items()}
         for k, (cls, attr) in timed.items():
             setattr(cls, attr, timer(k, saved[k]))
+        _host.call = timed_call
+        calls0 = sum(_host.CALLS.snapshot().values())
         ms = []
         try:
             def drive():
@@ -3517,22 +3544,27 @@ def fresh_host_split(ps: str, dev, lt, names, total, n: int = 32) -> str:
                     ms.append(1e3 * (time.perf_counter() - t0))
             counted(total, drive)
         finally:
+            _host.call = host_call
             for k, (cls, attr) in timed.items():
                 setattr(cls, attr, saved[k])
+        calls = sum(_host.CALLS.snapshot().values()) - calls0
         after = l1_l2_occupancy(servers, ens.vdb)
     finally:
         ens.close()
         del ens
         gc.collect()
         torch.cuda.empty_cache()
+    check(calls > 0, "loadtest host split: the fresh requests made no call "
+          "into the HPS host library")
     return (f"{len(reqs)} fresh requests of {lt.rows} rows (Zipf "
             f"{lt.zipf_a}, mix {lt.mix[0]}:{lt.mix[1]}) through predict "
             f"after the load test's warm-up: occupancy before {before}; "
             f"after {after}; thread ms a request "
-            + ", ".join(f"{k} {1e3 * v / len(reqs):.3f}"
-                        for k, v in spent.items())
-            + f" (the L2 insert holds its eviction); predict p50 "
-            f"{float(np.percentile(ms, 50)):.2f} ms")
+            + ", ".join(f"{k} {1e3 * spent[k] / len(reqs):.3f}"
+                        for k in order)
+            + f" (the L2 insert holds its host calls and its eviction); "
+            f"host-library calls {calls} ({calls / len(reqs):.1f} a "
+            f"request); predict p50 {float(np.percentile(ms, 50)):.2f} ms")
 
 
 def front_doors_phase(args, dev, served, total):
@@ -5613,12 +5645,19 @@ def main() -> int:
     print(smi[0])
     dev = torch.device("cuda", 0)
 
-    # 2. build
+    # 2. build: the kernels (nvcc) and, beside them, the HPS host library
+    # (the host compiler)
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.hps import _host
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.lib()
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(_host.lib)
+        _build.lib()
+        host_lib.result()
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({_build.build_info['path']})")
+          f"({_build.build_info['path']}; the HPS host library "
+          f"{_host.build_info['seconds']:.1f} s, {_host.build_info['path']})")
     print(_build.build_info["log"].strip())
     serialised = _build.serialised_wgmma(_build.build_info["log"])
     print(f"build: wgmma serialised by ptxas (C7515) in {serialised}")

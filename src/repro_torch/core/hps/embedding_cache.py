@@ -5,12 +5,16 @@ A device-resident payload (``ShardedPayloadStore``) plus a host-side
 index. The index is an exact id -> slot hash map (``id_index.IdIndex``):
 a probe searches and updates it in time that grows with the probe's ids,
 where the reference searches a sorted id array and re-sorts it on every
-probe that misses. Everything that decides a slot (coalesced miss fetch,
-batch-aware LFU eviction with its ``argpartition``, the hottest misses
-kept on overflow) is the reference's numpy code unchanged, so both
-packages make the same slot decisions on the same query stream, and
-``_sorted_ids`` / ``_sorted_slots`` read back the reference's sorted
-index.
+probe that misses. A probe is two passes of the host library (``_host``):
+the first makes ``np.unique``'s dedup, the search, the counters and the
+hits' LFU update, the second places the misses (the index, ``_id_of``,
+``_freq``, ``_dirty``) and gives each id its slot. What decides a slot
+between them (coalesced miss fetch, batch-aware LFU eviction with its
+``argpartition``, the hottest misses kept on overflow by a stable
+``argsort``) is the reference's numpy code unchanged, and the passes keep
+its orders and its double adds, so both packages make the same slot
+decisions on the same query stream, and ``_sorted_ids`` /
+``_sorted_slots`` read back the reference's sorted index.
 
 The query splits into a HOST stage (``probe``: index probe + coalesced
 miss fetch; the payload scatter is deferred) and a DEVICE stage
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core.hps import _host
 from repro_torch.core.hps.id_index import IdIndex
 from repro_torch.core.hps.payload_store import ShardedPayloadStore
 from repro_torch.device import DeviceLike
@@ -80,6 +85,7 @@ class DeviceEmbeddingCache:
         "_index": "_lock", "_pending": "_lock",
         "_dirty": "_lock", "hits": "_lock", "misses": "_lock",
         "rows_refreshed": "_lock", "refresh_chunks": "_lock",
+        "_work": "_lock", "_info": "_lock",
     }
     _LOCKS_OF = {
         "fetch_fn": ("VolatileDB._lock", "_Namespace._lock",
@@ -108,6 +114,9 @@ class DeviceEmbeddingCache:
         self._freq = np.zeros(capacity, np.float64)
         self._next_free = 0
         self._index = IdIndex()
+        #: the probe passes' work rows (``_host.W_*``) and counts
+        self._work = np.empty((_host.L1_ROWS, 0), np.int64)
+        self._info = _host.info_buffer()
         self.hits = 0
         self.misses = 0
         #: plans whose snapshot is not bound yet, in probe order
@@ -142,13 +151,6 @@ class DeviceEmbeddingCache:
     def _rebuild_index_locked(self) -> None:
         occ = self._id_of[:self._next_free]
         self._index = IdIndex(occ, np.arange(len(occ), dtype=np.int64))
-
-    def _update_index_locked(self, gone: np.ndarray, new_ids: np.ndarray,
-                             dest: np.ndarray) -> None:
-        """The index after ``new_ids`` moved into slots ``dest``, evicting
-        the resident ids ``gone``: equal to :meth:`_rebuild_index_locked`,
-        in time that grows with the probe's misses."""
-        self._index.update(gone, new_ids, dest)
 
     @property
     def _sorted_ids(self) -> np.ndarray:
@@ -218,6 +220,13 @@ class DeviceEmbeddingCache:
             if plan is upto:
                 return
 
+    def _work_locked(self, n: int) -> np.ndarray:
+        """The probe passes' work rows, at least ``n`` wide."""
+        if self._work.shape[1] < n:
+            self._work = np.empty(
+                (_host.L1_ROWS, max(n, 2 * self._work.shape[1])), np.int64)
+        return self._work
+
     def _probe_locked(self, ids: np.ndarray
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                  Optional[tuple]]:
@@ -228,68 +237,59 @@ class DeviceEmbeddingCache:
                            np.empty((0, self.dim), np.float32))
         if n == 0:
             return np.empty(0, np.int64), ov_idx, ov_rows, None
-        # every pad (any negative id) is one -1 entry, first in uniq
-        uniq, inv, counts = np.unique(np.maximum(ids, -1),
-                                      return_inverse=True,
-                                      return_counts=True)
-        slots_u = self._find_locked(uniq)    # -1 for the pad too
-        found = slots_u >= 0
-        hit_slots = slots_u[found]   # distinct ids, distinct slots
-        hit_counts = counts[found]
-        n_hit = int(hit_counts.sum())
-        n_pad = int(counts[0]) if uniq[0] < 0 else 0
+        work = self._work_locked(n)
+        work[_host.W_IDS, :n] = ids
+        # pass 1: uniq = np.unique(max(ids, -1)) (every pad one -1 entry,
+        # first), its counts and inverse, the search, the hits' counters
+        _host.check("hps_l1_pass1", _host.call(
+            "hps_l1_pass1", self._index.handle, n, _host.ptr(self._freq),
+            _host.ptr(work), work.shape[1], self._info))
+        n_uniq, n_hit, n_pad, k, n_hit_u = self._info[:5]
         self.hits += n_hit
         self.misses += n - n_hit - n_pad
-        if n_hit:
-            self._freq[hit_slots] += hit_counts
+        if k == 0:
+            return work[_host.W_OUT, :n].copy(), ov_idx, ov_rows, None
 
+        miss_ids = work[_host.W_MISS_IDS, :k].copy()    # in uniq's order
+        # lock-ok: LOCK002 probe fetch under the lock preserves same-table ordering; the pipelined engine keeps it off the hot thread
+        rows = np.asarray(self.fetch_fn(miss_ids), np.float32)
+        n_occ = self._next_free
+        free = min(k, self.capacity - n_occ)
+        dest = np.arange(n_occ, n_occ + free, dtype=np.int64)
+        if k > free:
+            victims = self._evict_locked(
+                k - free, work[_host.W_HIT_SLOTS, :n_hit_u])
+            if len(victims):
+                dest = _host.i64(np.concatenate([dest, victims]))
+        ins = len(dest)
+        sel = ovf = None
+        if ins < k:  # cache the hottest misses, overflow the rest
+            order = np.argsort(-work[_host.W_MISS_COUNTS, :k], kind="stable")
+            sel, ovf = _host.i64(order[:ins]), order[ins:]
+        self._next_free = n_occ + free
         scatter = None
-        if n_hit + n_pad < n:
-            miss = ~found
-            if n_pad:
-                miss[0] = False
-            miss_ids = uniq[miss]
-            # lock-ok: LOCK002 probe fetch under the lock preserves same-table ordering; the pipelined engine keeps it off the hot thread
-            rows = np.asarray(self.fetch_fn(miss_ids), np.float32)
-            k = len(miss_ids)
-            n_occ = self._next_free
-            free = min(k, self.capacity - n_occ)
-            dest = np.arange(n_occ, n_occ + free, dtype=np.int64)
-            gone = dest[:0]     # the evicted residents' ids
-            if k > free:
-                victims = self._evict_locked(k - free, hit_slots)
-                if len(victims):
-                    gone = self._id_of[victims]
-                    dest = np.concatenate([dest, victims])
-            miss_counts = counts[miss]
-            ins = len(dest)
-            if ins < k:  # cache the hottest misses, overflow the rest
-                order = np.argsort(-miss_counts, kind="stable")
-                sel, ovf = order[:ins], order[ins:]
-            else:        # every miss in the order of uniq
-                sel, ovf = slice(None), None
-
-            self._next_free = n_occ + free
-            self._id_of[dest] = miss_ids[sel]
-            self._freq[dest] = miss_counts[sel]
-            self._dirty[dest] = False      # fresh from the lower levels
-            self._update_index_locked(gone, miss_ids[sel], dest)
-            if ins:  # the ONE device scatter, deferred to commit()
-                scatter = self._store.prepare(dest, rows[sel])
-            if ovf is None:
-                slots_u[miss] = dest
-            else:
-                miss_slots = np.full(k, -1, np.int64)
-                miss_slots[sel] = dest
-                slots_u[miss] = miss_slots
-                ov_uniq = np.full(len(uniq), -1, np.int64)
-                ov_pos_u = np.nonzero(miss)[0][ovf]
-                ov_uniq[ov_pos_u] = np.arange(len(ovf))
-                per_elem = ov_uniq[inv]
-                ov_idx = np.nonzero(per_elem >= 0)[0].astype(np.int64)
-                ov_rows = rows[ovf][per_elem[ov_idx]]
-
-        return slots_u[inv], ov_idx, ov_rows, scatter
+        if ins:
+            # pass 2: the index, _id_of, _freq, _dirty (fresh from the
+            # lower levels) at dest, and each id's slot
+            rc = _host.call("hps_l1_pass2", self._index.handle, n,
+                _host.ptr(self._id_of), _host.ptr(self._freq),
+                _host.ptr(self._dirty), _host.ptr(work), work.shape[1],
+                None if sel is None else _host.ptr(sel),
+                _host.ptr(dest), ins, free)
+            if rc > 0:
+                raise KeyError(f"evicted slot {int(dest[free + rc - 1])} "
+                               "held no indexed id")
+            _host.check("hps_l1_pass2", rc)
+            # the ONE device scatter, deferred to commit()
+            scatter = self._store.prepare(dest,
+                                          rows if sel is None else rows[sel])
+        if ovf is not None:
+            ov_uniq = np.full(n_uniq, -1, np.int64)
+            ov_uniq[work[_host.W_MISS_POS, :k][ovf]] = np.arange(len(ovf))
+            per_elem = ov_uniq[work[_host.W_INV, :n]]
+            ov_idx = np.nonzero(per_elem >= 0)[0].astype(np.int64)
+            ov_rows = rows[ovf][per_elem[ov_idx]]
+        return work[_host.W_OUT, :n].copy(), ov_idx, ov_rows, scatter
 
     def _evict_locked(self, want: int, hit_slots: np.ndarray) -> np.ndarray:
         """Batch-aware LFU eviction of up to ``want`` residents: age every
@@ -474,3 +474,4 @@ class DeviceEmbeddingCache:
             hits, misses = self.hits, self.misses
         n = hits + misses
         return hits / n if n else 0.0
+

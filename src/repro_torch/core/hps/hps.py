@@ -141,23 +141,28 @@ class HPS:
 
     def _make_fetch(self, table: str):
         dim = self._table_cfg[table].dim
+        key = self._vdb_key(table)
 
         def fetch(ids: np.ndarray) -> np.ndarray:
-            mask, rows = self.vdb.query(self._vdb_key(table), ids)
-            if not mask.all():
-                missing = ids[~mask] if rows is not None else ids
-                fetched = self.pdb.fetch(self.model_name, table, missing)
-                with self._l3_stats_lock:
-                    self._l3_fetch_calls[table] += 1
-                    self._l3_fetch_rows[table] += len(missing)
-                if rows is None:    # L2 held none of the ids
-                    rows = fetched
-                else:
-                    rows[~mask] = fetched
-                self.vdb.insert(self._vdb_key(table), missing,
-                                fetched)  # promote
-            elif rows is None:      # no ids
-                rows = np.zeros((len(ids), dim), np.float32)
+            mask, rows = self.vdb.query(key, ids)
+            if rows is None:        # L2 held none of the ids
+                if not len(ids):
+                    return np.zeros((0, dim), np.float32)
+                missing = ids
+            elif mask.all():
+                return rows
+            else:
+                miss = ~mask
+                missing = ids[miss]
+            fetched = self.pdb.fetch(self.model_name, table, missing)
+            with self._l3_stats_lock:
+                self._l3_fetch_calls[table] += 1
+                self._l3_fetch_rows[table] += len(missing)
+            if missing is ids:
+                rows = fetched
+            else:
+                rows[miss] = fetched
+            self.vdb.insert(key, missing, fetched)  # promote
             return rows
         return fetch
 
@@ -249,8 +254,8 @@ class HPS:
         host: List[Optional[np.ndarray]] = []
         for ti, plan in plans:
             h = blocks[ti].shape[1]
-            slots = np.pad(plan.slots.reshape(b, h), ((0, bp - b), (0, 0)),
-                           constant_values=-1).astype(np.int32)
+            slots = np.full((bp, h), -1, np.int32)
+            slots[:b] = plan.slots.reshape(b, h)
             host.append(plan.store.flat_rows(slots))
             staged = plan.scatter if plan.payload is None else None
             host.extend(staged if staged is not None else (None,) * 3)

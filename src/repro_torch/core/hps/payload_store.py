@@ -52,6 +52,15 @@ PAYLOAD_DTYPES = ("f32", "f16", "int8")
 _STORAGE = {"f32": torch.float32, "f16": torch.float16, "int8": torch.int8}
 
 
+def _pad_first(a: np.ndarray, m: int, dtype=None) -> np.ndarray:
+    """``a`` extended to ``m`` entries along its first axis by repeating
+    its first entry."""
+    out = np.empty((m,) + a.shape[1:], a.dtype if dtype is None else dtype)
+    out[:len(a)] = a
+    out[len(a):] = a[0]
+    return out
+
+
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
@@ -177,14 +186,13 @@ class ShardedPayloadStore:
         to a multiple of 64 by repeating the first slot, as the reference
         does (idempotent: the repeated writes carry the same row)."""
         rows, scales = quantize_rows(np.asarray(rows), self.payload_dtype)
-        pad = _round_up(len(slots), 64) - len(slots)
-        if pad:
-            slots = np.concatenate([slots, np.full(pad, slots[0])])
-            rows = np.concatenate(
-                [rows, np.broadcast_to(rows[:1], (pad, rows.shape[1]))])
-            if scales is not None:
-                scales = np.concatenate(
-                    [scales, np.broadcast_to(scales[:1], (pad,))])
+        n = len(slots)
+        m = _round_up(n, 64)
+        if m > n:
+            slots, rows, scales = (_pad_first(slots, m, np.int64),
+                                   _pad_first(rows, m),
+                                   None if scales is None
+                                   else _pad_first(scales, m))
         return (self._flat(np.asarray(slots, np.int64)), rows, scales)
 
     def write(self, idx: torch.Tensor, rows: torch.Tensor,

@@ -10,7 +10,9 @@ key namespaces. One memmap per (model, table) namespace.
 
 One store-wide lock serializes access: the serve loop upserts online
 updates while pipelined-lookup host workers and refresh fetches read the
-same rows, and a torn memmap row must never reach the caches.
+same rows, and a torn memmap row must never reach the caches. A fetch is
+one gather of the host library (``_host``) from the memmap's buffer,
+under that lock.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import threading
 from typing import Dict, Tuple
 
 import numpy as np
+
+from repro_torch.core.hps import _host
 
 
 class PersistentDB:
@@ -63,9 +67,27 @@ class PersistentDB:
                                                    meta["dim"])
 
     def fetch(self, model: str, table: str, ids: np.ndarray) -> np.ndarray:
+        """``[*ids.shape, dim]`` f32 rows (a fresh array); a negative id
+        counts from the end and one out of range raises ``IndexError``, as
+        numpy's indexing does."""
+        ids = np.asarray(ids)
+        if ids.size and ids.dtype.kind not in "iu":
+            raise IndexError("arrays used as indices must be of integer "
+                             f"type, got {ids.dtype}")
+        flat = _host.i64(ids.reshape(-1))
         with self._lock:
-            return np.asarray(self._maps[self._key(model, table)][ids],
-                              np.float32)
+            mm = self._maps[self._key(model, table)]
+            vocab, dim = mm.shape
+            out = np.empty((len(flat), dim), np.float32)
+            if len(flat) and dim:
+                bad = _host.call("hps_gather_rows", _host.ptr(mm), vocab,
+                                 dim, _host.ptr(flat), len(flat),
+                                 _host.ptr(out))
+                if bad >= 0:
+                    raise IndexError(
+                        f"index {int(flat[bad])} is out of bounds for axis "
+                        f"0 with size {vocab}")
+        return out.reshape(*ids.shape, dim)
 
     def upsert(self, model: str, table: str, ids: np.ndarray,
                rows: np.ndarray) -> None:

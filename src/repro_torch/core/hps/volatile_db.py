@@ -12,13 +12,17 @@ dense ``[cap, D]`` array with an id -> slot index, so a whole query
 resolves with one search per shard and inserts are one slice-assign. The
 index is an exact hash map (``id_index.IdIndex``), searched and updated in
 time that grows with the ids of the call; the reference keeps a sorted id
-array and splices every insert into it. The decisions are the
+array and splices every insert into it. A shard's query (the search, the
+LRU touch, the row copy) and its insert of sorted unique ids (an L1
+probe's misses: the in-place update of residents, the append into free
+slots, the index update) are each one call into the host library
+(``_host``). The decisions are the
 reference's: the dedup keeps the last occurrence, the LRU victims come
-from the same ``argpartition`` over the same order of ticks, and the rare
-explicit ``evict_ids`` compacts the shard. Rows are **copied** on insert
-and on query — the store never aliases caller arrays (the seed kept views
-into the caller's row buffers, so later in-place writes by the caller
-silently mutated the DB).
+from the same numpy ``argpartition`` over the same order of ticks, and
+the rare explicit ``evict_ids`` compacts the shard. Rows are **copied**
+on insert and on query — the store never aliases caller arrays (the seed
+kept views into the caller's row buffers, so later in-place writes by
+the caller silently mutated the DB).
 
 Each namespace (a model's table) has a lock of its own and its own LRU
 clock, so the HPS host workers probing different tables, and the serving
@@ -35,6 +39,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch.core.hps import _host
 from repro_torch.core.hps.id_index import IdIndex
 
 
@@ -67,37 +72,72 @@ class _Shard:
         """Vectorized id -> slot (-1 missing); ``ids`` need not be unique."""
         return self.index.find(ids)
 
-    def insert(self, ids: np.ndarray, rows: np.ndarray, now: int) -> None:
-        if len(ids) > 1 and not (ids[1:] > ids[:-1]).all():
+    def query_into(self, ids: np.ndarray, pos: Optional[np.ndarray],
+                   now: int, rows: np.ndarray, mask: np.ndarray) -> int:
+        """Search ``ids[pos]`` (all of ``ids`` when None): each resident
+        id's row copied into ``rows`` at its position, its tick set to
+        ``now``, its ``mask`` entry set. Returns the hits."""
+        m = len(ids) if pos is None else len(pos)
+        return _host.call("hps_l2_query", self.index.handle, _host.ptr(ids),
+            None if pos is None else _host.ptr(pos), m,
+            _host.ptr(self.rows), self.rows.shape[1], _host.ptr(self.tick),
+            now, _host.ptr(rows), _host.ptr(mask))
+
+    def insert(self, ids: np.ndarray, rows: np.ndarray, now: int,
+               info) -> None:
+        """Insert ``ids`` with ``rows`` at LRU time ``now``: residents
+        updated in place, the rest into free slots, then over the least
+        recently used. ``info`` is the caller's ``_host.info_buffer``."""
+        ids = _host.i64(ids)
+        rows = np.ascontiguousarray(rows, np.float32)
+        if rows.ndim != 2:
+            raise ValueError(f"rows of shape {rows.shape}: want [n, D]")
+        if self.rows is None:
+            self.rows = np.zeros((self.capacity, rows.shape[1]), np.float32)
+        if rows.shape != (len(ids), self.rows.shape[1]):
+            # the host passes copy len(ids) rows of the shard's width
+            raise ValueError(f"rows of shape {rows.shape} for {len(ids)} "
+                             f"ids of width {self.rows.shape[1]}")
+        miss = np.empty(len(ids), np.int64)
+        dim = rows.shape[1]
+        rc = self._insert_sorted(ids, rows, miss, now, info)
+        if rc == 1:
             # dedup keeping the LAST occurrence: batched online updates
             # concatenate chronologically, so the newest row must win (ids
             # already sorted and unique, as an L1 probe's misses, pass)
             uniq, idx_rev = np.unique(ids[::-1], return_index=True)
             ids, rows = uniq, rows[len(rows) - 1 - idx_rev]
-        if self.rows is None:
-            self.rows = np.zeros((self.capacity, rows.shape[1]), np.float32)
-        slots = self.find(ids)
-        hit = slots >= 0
-        new_ids, new_rows = ids, rows
-        if hit.any():  # update in place (copies — no aliasing)
-            self.rows[slots[hit]] = rows[hit]
-            self.tick[slots[hit]] = now
-            new_ids, new_rows = ids[~hit], rows[~hit]
-        k = len(new_ids)
-        if k == 0:
+            rc = self._insert_sorted(ids, rows, miss, now, info)
+        _host.check("hps_l2_insert", rc)
+        k, placed = info[:2]
+        if k == 0 or placed:
+            if placed:
+                self.n += k
             return
-        free = min(k, self.capacity - self.n)
-        dest = np.arange(self.n, self.n + free, dtype=np.int64)
-        victims = dest[:0]
-        if k > free:
-            victims = self._lru_victims(k - free)
-            dest = np.concatenate([dest, victims])
-        add_ids = new_ids[:len(dest)]
-        self.index.update(self.id_of[victims], add_ids, dest)
+        # more new ids than free slots: the LRU victims, then one place
+        free = self.capacity - self.n
+        dest = np.arange(self.n, self.capacity, dtype=np.int64)
+        victims = self._lru_victims(k - free)
+        if len(victims):
+            dest = _host.i64(np.concatenate([dest, victims]))
+        if len(dest):
+            rc = _host.call("hps_l2_place", self.index.handle, _host.ptr(ids),
+                _host.ptr(rows), _host.ptr(miss), _host.ptr(dest),
+                len(dest), free, dim, _host.ptr(self.rows),
+                _host.ptr(self.tick), _host.ptr(self.id_of), now)
+            if rc > 0:
+                raise KeyError(f"victim slot {int(dest[free + rc - 1])} "
+                               "held no indexed id")
+            _host.check("hps_l2_place", rc)
         self.n += free
-        self.id_of[dest] = add_ids
-        self.rows[dest] = new_rows[:len(dest)]
-        self.tick[dest] = now
+
+    def _insert_sorted(self, ids, rows, miss, now, info) -> int:
+        """One ``hps_l2_insert`` call (1: the ids are not sorted and
+        unique, nothing done)."""
+        return _host.call("hps_l2_insert", self.index.handle, _host.ptr(ids),
+            _host.ptr(rows), len(ids), rows.shape[1], _host.ptr(self.rows),
+            _host.ptr(self.tick), _host.ptr(self.id_of), now, self.n,
+            self.capacity, _host.ptr(miss), info)
 
     def _lru_victims(self, want: int) -> np.ndarray:
         """Up to ``want`` least recently used slots, all in one
@@ -129,11 +169,12 @@ class _Namespace:
     """One table's shards, under a lock of its own, with its own LRU
     clock."""
 
-    _GUARDED_BY = {"_shards": "_lock", "_now": "_lock"}
+    _GUARDED_BY = {"_shards": "_lock", "_now": "_lock", "_info": "_lock"}
 
     def __init__(self, shards: int, capacity: int):
         self._shards = [_Shard(capacity) for _ in range(shards)]
         self._now = 0
+        self._info = _host.info_buffer()
         self._lock = threading.RLock()
 
     def _split_locked(self, ids: np.ndarray
@@ -155,29 +196,25 @@ class _Namespace:
         with self._lock:
             self._now += 1
             mask = np.zeros(len(ids), bool)
-            rows = None
+            rows, hits = None, 0
             for shard, in_s in self._split_locked(ids):
                 if shard.rows is None:
-                    continue
-                slots = shard.find(ids[in_s])
-                hit = slots >= 0
-                if not hit.any():
                     continue
                 if rows is None:
                     rows = np.zeros((len(ids), shard.rows.shape[1]),
                                     np.float32)
-                at = hit if isinstance(in_s, slice) else in_s[hit]
-                rows[at] = shard.rows[slots[hit]]
-                shard.tick[slots[hit]] = self._now       # LRU touch
-                mask[in_s] = hit
-            return mask, rows
+                # the search, the LRU touch and the row copy: one call
+                hits += shard.query_into(
+                    ids, None if isinstance(in_s, slice) else in_s,
+                    self._now, rows, mask)
+            return mask, rows if hits else None
 
     def insert(self, ids: np.ndarray, rows: np.ndarray) -> None:
         with self._lock:
             self._now += 1
             for shard, in_s in self._split_locked(ids):
                 # the shard copies the rows into its own array
-                shard.insert(ids[in_s], rows[in_s], self._now)
+                shard.insert(ids[in_s], rows[in_s], self._now, self._info)
 
     def evict(self, ids: np.ndarray) -> None:
         with self._lock:
@@ -219,7 +256,7 @@ class VolatileDB:
 
         ``rows`` is freshly allocated (never a view into the store).
         """
-        ids = np.asarray(ids, np.int64)
+        ids = _host.i64(ids)
         mask, rows = self._space(table).query(ids)
         n_hit = int(mask.sum())
         with self._lock:

@@ -3,14 +3,24 @@
 ``_build.serialised_wgmma`` names the kernels whose ``wgmma`` products
 ptxas serialised (its C7515 notes) and nothing else. ``nvcc`` is stubbed:
 the fake compile prints a ptxas report, the fake link writes the
-library."""
+library. The HPS host library (``core/hps/_host.py``) is built for real
+by the host compiler into a temporary build root: a clean build, a cache
+hit, two processes racing to one library, a failing compiler raising,
+and no build at import."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import ctypes
 import os
+import subprocess
+import sys
 
+from repro_torch.core.hps import _host
 from repro_torch.kernels import _build
+
+#: the directory that holds the ``repro_torch`` package
+SRC = os.path.dirname(_host._PKG)
 
 DQ = ("_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_ee2381fc4wg6427"
       "flash_bwd_dq_wgmma64_kernelE14CUtensorMap_stS1_S1_S1_PK13__nv_"
@@ -106,3 +116,80 @@ def test_serialised_wgmma_unnamed_line():
     """A C7515 line that names no function still counts: it gives itself."""
     line = "ptxas info    : (C7515) Potential Performance Loss: serialized"
     assert _build.serialised_wgmma(f"x\n{line}\n") == [line]
+
+
+@pytest.fixture
+def host_root(monkeypatch, tmp_path):
+    """``_host.build`` into ``tmp_path`` (the real host compiler)."""
+    monkeypatch.setattr(_host, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(_host, "build_info", dict(_host.build_info))
+    return tmp_path
+
+
+def test_host_build_then_a_cache_hit(host_root):
+    """A clean build compiles one library under the root, keyed by the
+    source, compiler and flags, which loads and maps ids; the second
+    build finds it and compiles nothing."""
+    path = _host.build()
+    assert os.path.dirname(os.path.dirname(path)) == str(host_root)
+    assert os.path.basename(os.path.dirname(path)).startswith("host-")
+    assert _host.build_info["path"] == path
+    assert _host.build_info["seconds"] > 0
+    built = os.path.getmtime(path)
+    assert _host.build() == path
+    assert _host.build_info == {"path": path, "seconds": 0.0}
+    assert os.path.getmtime(path) == built
+    assert os.listdir(host_root) == [os.path.basename(os.path.dirname(path))]
+    lib = ctypes.CDLL(path)
+    lib.hps_map_new.restype = ctypes.c_void_p
+    lib.hps_map_new.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+    lib.hps_map_size.restype = ctypes.c_longlong
+    lib.hps_map_size.argtypes = [ctypes.c_void_p]
+    lib.hps_map_free.argtypes = [ctypes.c_void_p]
+    ids = (ctypes.c_longlong * 3)(5, -9, 1 << 62)
+    slots = (ctypes.c_longlong * 3)(0, 1, 2)
+    m = lib.hps_map_new(ids, slots, 3)
+    assert lib.hps_map_size(m) == 3
+    lib.hps_map_free(m)
+
+
+def test_two_processes_race_to_one_host_library(host_root):
+    """Two processes building into one empty root at once end with one
+    library, the same path for both, and no temporary directory left."""
+    code = ("import sys; from repro_torch.core.hps import _host; "
+            "_host.BUILD_ROOT = sys.argv[1]; print(_host.build())")
+    env = {**os.environ, "PYTHONPATH": SRC}
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(host_root)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for _ in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    paths = {o.strip() for o, _ in outs}
+    assert len(paths) == 1
+    path = paths.pop()
+    assert os.path.isfile(path)
+    assert os.listdir(host_root) == [os.path.basename(os.path.dirname(path))]
+
+
+def test_a_failing_host_compiler_raises(host_root, monkeypatch):
+    """A compiler that fails raises with its command; nothing is left
+    under the root, and no library is bound."""
+    monkeypatch.setenv("CXX", "false")
+    with pytest.raises(RuntimeError, match="host compiler failed"):
+        _host.build()
+    assert os.listdir(host_root) == []
+
+
+def test_no_host_build_at_import():
+    """Importing the HPS, the servers and the launchers builds and loads
+    nothing: with a compiler that cannot run, the imports pass and the
+    library is still unbound."""
+    code = ("import repro_torch.core.hps.hps, repro_torch.serve.server, "
+            "repro_torch.launch.serve, repro_torch.launch.loadtest; "
+            "from repro_torch.core.hps import _host; "
+            "assert _host._lib is None and _host.build_info['path'] == '' "
+            "and not _host.CALLS.snapshot(); print('ok')")
+    env = {**os.environ, "PYTHONPATH": SRC, "CXX": "/nonexistent/c++"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -656,6 +656,334 @@ def test_id_index_find_update_and_sorted_view():
     assert [a.tolist() for a in empty.sorted_view()] == [[], []]
 
 
+# ---------------------------------------------------------------------------
+# the host library: its map, the probe's passes, the L2 and L3 calls
+# ---------------------------------------------------------------------------
+
+_U64 = (1 << 64) - 1
+
+
+def _mix(key: int) -> int:
+    """The host map's hash (splitmix64's finaliser) of an int64 key."""
+    x = ((key & _U64) + 0x9E3779B97F4A7C15) & _U64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _U64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _U64
+    return x ^ (x >> 31)
+
+
+def _map_keys(case: str, rng) -> np.ndarray:
+    """The key pool of a map stream: wide random ids; ids whose home cell
+    agrees in its low 10 bits (one cluster at every table size up to
+    1,024 cells, so deletes shift it); or ids at both ends of int64 and
+    around 0."""
+    if case == "random":
+        return rng.integers(-(1 << 40), 1 << 40, 3000)
+    if case == "collisions":
+        out, k = [], 0
+        while len(out) < 60:
+            if _mix(k) & 1023 == 5:
+                out.append(k)
+            k += 1
+        return np.array(out, np.int64)
+    lo, hi = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    return np.array(sorted({*range(lo, lo + 40), *range(hi - 40, hi + 1),
+                            *range(-40, 40)}), np.int64)
+
+
+@pytest.mark.parametrize("case", ["random", "collisions", "extremes"])
+def test_host_map_matches_a_dict_and_a_sorted_rebuild(case):
+    """The host library's id -> slot map (``IdIndex``) against a ``dict``
+    over a seeded stream of updates (unmapping residents, mapping new ids)
+    and searches (residents, absent ids, repeats): every search, the
+    size, and the sorted view against the dict's sorted items, through
+    growth from empty to thousands of ids and back down; an unmapped id
+    among ``gone`` raises ``KeyError``, a negative slot ``ValueError``."""
+    from repro_torch.core.hps.id_index import IdIndex
+    rng = np.random.default_rng({"random": 1, "collisions": 2,
+                                 "extremes": 3}[case])
+    pool = _map_keys(case, rng)
+    idx, ref = IdIndex(), {}
+    next_slot = 0
+    for step in range(300):
+        grow = step < 150
+        absent = np.array([k for k in rng.choice(pool, 40) if k not in ref],
+                          np.int64)
+        new = np.unique(absent)[:int(rng.integers(0, 40 if grow else 8))]
+        present = np.array(list(ref), np.int64)
+        n_gone = int(rng.integers(0, 6 if grow else 40))
+        gone = (rng.choice(present, min(n_gone, len(present)),
+                           replace=False) if len(present) else present)
+        slots = np.arange(next_slot, next_slot + len(new), dtype=np.int64)
+        next_slot += len(new)
+        idx.update(gone, new, slots)
+        for g in gone.tolist():
+            del ref[g]
+        ref.update(zip(new.tolist(), slots.tolist()))
+        probe = np.concatenate([rng.choice(pool, 30), present[:10],
+                                present[:3]]).astype(np.int64)
+        np.testing.assert_array_equal(
+            idx.find(probe), [ref.get(k, -1) for k in probe.tolist()])
+        assert len(idx) == len(ref)
+        if step % 25 == 0 or step == 299:
+            ids, sl = idx.sorted_view()
+            want = sorted(ref.items())
+            np.testing.assert_array_equal(ids, [k for k, _ in want])
+            np.testing.assert_array_equal(sl, [v for _, v in want])
+            rebuilt = IdIndex(ids, sl)
+            np.testing.assert_array_equal(rebuilt.find(pool), idx.find(pool))
+    assert next_slot > len(pool) // 4 or case == "extremes"
+    absent = next(k for k in pool.tolist() if k not in ref)
+    with pytest.raises(KeyError):
+        idx.update(np.array([absent]), np.zeros(0, np.int64),
+                   np.zeros(0, np.int64))
+    with pytest.raises(ValueError):
+        idx.update(np.zeros(0, np.int64), np.array([absent]),
+                   np.array([-3]))
+
+
+def _l2_state(vdb, table):
+    """Each shard of ``table``: occupancy, ids, ticks, rows, sorted view."""
+    return [(sh.n, sh.id_of.copy(), sh.tick.copy(),
+             None if sh.rows is None else sh.rows[:sh.n].copy(),
+             sh.sorted_ids, sh.sorted_slots)
+            for sh in _l2_shards(vdb, table)]
+
+
+def _probe_stream(seed=17):
+    """Batches over a vocabulary of 1,000 with the hot set sliding: pads
+    (-1 and other negatives), repeats, one all-pad block, one batch of 200
+    distinct ids (past the L1 of 40: the overflow path), the rest
+    Zipf-skewed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(30):
+        if k == 7:
+            out.append(np.full(48, -1, np.int64))
+            continue
+        if k == 12:
+            out.append(rng.permutation(1000)[:200].astype(np.int64))
+            continue
+        ids = (rng.zipf(1.2, 64) + 29 * k) % 1000
+        ids[rng.random(64) < 0.1] = -1
+        ids[rng.random(64) < 0.03] = -7
+        out.append(ids.astype(np.int64))
+    return out
+
+
+@pytest.mark.parametrize("l2_shards", [1, 2])
+def test_probe_passes_match_jax_with_l1_and_l2_evicting(J, tmp_path,
+                                                         l2_shards):
+    """One table's L1 probe (its two host passes) through an L2 small
+    enough to evict and the L3, against the JAX package's HPS on the same
+    PDB and stream: after every probe the slots, the overflow positions
+    and rows, the hit / miss counts, the LFU counters and the residents,
+    each L2 shard's ids, ticks, rows and sorted index, and the rows the
+    PDB returned, all bit for bit; the stream evicts in both levels and
+    overflows the L1."""
+    from repro.core.hps.volatile_db import VolatileDB as JV
+    from repro_torch.core.hps.volatile_db import VolatileDB
+    rng = np.random.default_rng(5)
+    root = str(tmp_path)
+    J.PDB(root).create_table("m", "t", 1000, DIM, initial=rng.standard_normal(
+        (1000, DIM)).astype(np.float32))
+    jpdb, pdb = J.PDB(root), PersistentDB(root)
+    jpdb.open_table("m", "t")
+    pdb.open_table("m", "t")
+    seen = {"j": [], "p": []}
+
+    def spy(db, key):
+        fetch = db.fetch
+
+        def run(model, table, ids):
+            rows = fetch(model, table, ids)
+            seen[key].append((np.array(ids), np.array(rows)))
+            return rows
+        db.fetch = run
+
+    spy(jpdb, "j")
+    spy(pdb, "p")
+    j = J.HPS("m", (J.Table("t", 1000, DIM),), jpdb, cache_capacity=40,
+              vdb=JV(shards=l2_shards, capacity_per_shard=60))
+    p = HPS("m", (EmbeddingTableConfig("t", 1000, DIM),), pdb,
+            cache_capacity=40, device="cpu",
+            vdb=VolatileDB(shards=l2_shards, capacity_per_shard=60))
+    jc, pc = j.caches["t"], p.caches["t"]
+    overflowed = l2_full = 0
+    for ids in _probe_stream():
+        jp, pp = jc.probe(ids), pc.probe(ids)
+        jc.commit(jp)
+        pc.commit(pp)
+        overflowed += len(pp.ov_idx)
+        np.testing.assert_array_equal(pp.slots, jp.slots)
+        np.testing.assert_array_equal(pp.ov_idx, jp.ov_idx)
+        np.testing.assert_array_equal(pp.ov_rows, jp.ov_rows)
+        assert (pc.hits, pc.misses) == (jc.hits, jc.misses)
+        np.testing.assert_array_equal(pc._freq, jc._freq)
+        np.testing.assert_array_equal(pc._id_of, jc._id_of)
+        np.testing.assert_array_equal(pc.resident_ids(), jc.resident_ids())
+        for a, b in zip(_l2_state(p.vdb, "m/t"), _l2_state(j.vdb, "m/t")):
+            assert a[0] == b[0]
+            for x, y in zip(a[1:], b[1:]):
+                np.testing.assert_array_equal(x, y)
+        l2_full += any(s.n == s.capacity for s in _l2_shards(p.vdb, "m/t"))
+        assert len(seen["p"]) == len(seen["j"])
+        for (pi, pr), (ji, jr) in zip(seen["p"], seen["j"]):
+            np.testing.assert_array_equal(pi, ji)
+            np.testing.assert_array_equal(pr, jr)
+    assert overflowed and l2_full > 5 and pc._next_free == pc.capacity
+    assert p.vdb.stats()["hits"] == j.vdb.stats()["hits"] > 0
+    p.close()
+
+
+@pytest.mark.parametrize("switch_s", [1e-5, 5e-3])
+def test_four_threads_probing_tables_leave_a_serial_state(tmp_path,
+                                                          switch_s):
+    """Four host threads probing four tables of one HPS at once (each
+    table's stream in order) leave every cache's slots, counters and
+    residents, every L2 namespace and the hit / miss counts as a serial
+    run of the same probes does: with the threads switched every 10 us
+    (between nearly any two host calls) and at the default interval."""
+    rng = np.random.default_rng(4)
+    pdb = PersistentDB(str(tmp_path))
+    tabs = tuple(EmbeddingTableConfig(f"t{i}", 2000, DIM) for i in range(4))
+    for t in tabs:
+        pdb.create_table("m", t.name, 2000, DIM, initial=rng.standard_normal(
+            (2000, DIM)).astype(np.float32))
+    from repro_torch.core.hps.volatile_db import VolatileDB
+
+    def streams(k):
+        r = np.random.default_rng(50 + k)
+        out = []
+        for i in range(25):
+            ids = (r.zipf(1.2, 96) + 53 * i) % 2000
+            ids[r.random(96) < 0.05] = -1
+            out.append(ids.astype(np.int64))
+        return out
+
+    def run(hps, k, slots):
+        cache = hps.caches[f"t{k}"]
+        for ids in streams(k):
+            plan = cache.probe(ids)
+            cache.commit(plan)
+            slots[k].append(plan.slots)
+
+    def build():
+        return HPS("m", tabs, pdb, cache_capacity=64, device="cpu",
+                   vdb=VolatileDB(shards=2, capacity_per_shard=90))
+
+    serial, s_slots = build(), {k: [] for k in range(4)}
+    for k in range(4):
+        run(serial, k, s_slots)
+    par, p_slots = build(), {k: [] for k in range(4)}
+    errors = []
+    start = threading.Barrier(4)
+
+    def worker(k):
+        try:
+            start.wait()
+            run(par, k, p_slots)
+        except Exception as e:      # pragma: no cover
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(switch_s)
+    try:
+        ts = [threading.Thread(target=worker, args=(k,)) for k in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(t.is_alive() for t in ts)
+    for k in range(4):
+        for a, b in zip(s_slots[k], p_slots[k]):
+            np.testing.assert_array_equal(a, b)
+        a, b = serial.caches[f"t{k}"], par.caches[f"t{k}"]
+        np.testing.assert_array_equal(a._freq, b._freq)
+        np.testing.assert_array_equal(a._id_of, b._id_of)
+        assert a.counters() == b.counters()
+        for x, y in zip(_l2_state(serial.vdb, f"m/t{k}"),
+                        _l2_state(par.vdb, f"m/t{k}")):
+            assert x[0] == y[0]
+            for u, v in zip(x[1:], y[1:]):
+                np.testing.assert_array_equal(u, v)
+    assert serial.vdb.stats() == par.vdb.stats()
+    assert serial.stats()["l3_fetches"] == par.stats()["l3_fetches"]
+    serial.close()
+    par.close()
+
+
+def test_host_calls_keep_the_interpreter_lock_and_are_counted():
+    """The host library is bound with ``ctypes.PyDLL`` (a served call
+    takes microseconds and keeps the interpreter lock, so no thread
+    waits to win it back while holding a cache's, a namespace's or the
+    store's lock), and each call is counted by its entry point."""
+    import ctypes
+    from repro_torch.core.hps import _host
+    from repro_torch.core.hps.id_index import IdIndex
+    idx = IdIndex(np.arange(5), np.arange(5))
+    assert isinstance(_host.lib(), ctypes.PyDLL)
+    assert _host.lib().hps_map_find._flags_ & ctypes._FUNCFLAG_PYTHONAPI
+    _host.CALLS.reset()
+    ids = np.arange(-2, 8)
+    want = np.where((ids >= 0) & (ids < 5), ids, -1)
+    np.testing.assert_array_equal(idx.find(ids), want)
+    np.testing.assert_array_equal(idx.find(ids[:3]), want[:3])
+    assert _host.CALLS.snapshot() == {"hps_map_find": 2}
+
+
+@pytest.mark.parametrize("shape", [(6, DIM - 1), (5, DIM), (1, DIM), (6,)])
+def test_l2_insert_rejects_rows_of_another_shape(shape):
+    """An L2 insert whose rows are not ``[len(ids), D]`` of the shard's
+    width raises ``ValueError`` before any host call (a narrower, a
+    shorter, a one-row broadcast or a flat block), as numpy's assignment
+    did, and leaves the namespace as it was."""
+    from repro_torch.core.hps.volatile_db import VolatileDB
+    vdb = VolatileDB(shards=1, capacity_per_shard=16)
+    rng = np.random.default_rng(7)
+    vdb.insert("t", np.arange(4), rng.standard_normal((4, DIM)).astype(
+        np.float32))
+    before = vdb.query("t", np.arange(4))
+    with pytest.raises(ValueError):
+        vdb.insert("t", np.arange(10, 16),
+                   rng.standard_normal(shape).astype(np.float32))
+    mask, rows = vdb.query("t", np.arange(10, 16))
+    assert not mask.any() and rows is None
+    after = vdb.query("t", np.arange(4))
+    np.testing.assert_array_equal(before[0], after[0])
+    np.testing.assert_array_equal(before[1], after[1])
+    assert vdb.size("t") == 4
+
+
+@pytest.mark.parametrize("ids", [
+    [0, 9, 3, 3, 9],
+    [[1, 2], [-1, -10]],
+    [],
+    np.array([7], np.int32),
+])
+def test_pdb_fetch_is_numpy_indexing(tmp_path, ids):
+    """``PersistentDB.fetch`` (one gather of the host library) returns what
+    indexing the memmap returns: the shape of ``ids`` plus the row, a
+    negative id counted from the end, a fresh f32 array; an id out of
+    range raises ``IndexError`` on either side."""
+    rows = np.random.default_rng(0).standard_normal((10, 3)).astype(
+        np.float32)
+    pdb = PersistentDB(str(tmp_path))
+    pdb.create_table("m", "t", 10, 3, initial=rows)
+    got = pdb.fetch("m", "t", ids)
+    want = np.asarray(rows[np.asarray(ids, np.int64)], np.float32)
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    got[...] = 0
+    np.testing.assert_array_equal(pdb.fetch("m", "t", ids), want)
+    for bad in ([10], [-11], [3, 12]):
+        with pytest.raises(IndexError):
+            rows[bad]
+        with pytest.raises(IndexError):
+            pdb.fetch("m", "t", bad)
+
+
 def _check_to_device_many(device):
     from repro_torch import device as devmod
     arrays = [np.arange(5, dtype=np.int32), None,

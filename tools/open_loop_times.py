@@ -4,7 +4,7 @@
 
   python3 tools/open_loop_times.py [--src PATH] [--bundle DIR] [--qps Q ...]
                                    [--steps N ...] [--split-requests N]
-                                   [--switch-interval S]
+                                   [--switch-interval S] [--probe-blocks N]
 
 Writes (once, into ``--bundle``) an ensemble bundle as phase 6c deploys
 it: full-width ``dlrm-criteo`` (26 tables at D 128) and ``dcn-criteo`` (26
@@ -25,8 +25,10 @@ one ``MultiModelServer`` over one VolatileDB. Then, in ``--steps`` order:
    L1 index update, the L1 eviction (ageing the counters, copying them,
    ``argpartition``), the rest of the probe, the L2 query and insert (the
    insert's merge and eviction apart), the L3 fetch, the scatter's
-   ``prepare``, and the waits for the L1, L2 and L3 locks; with the
-   events a request and what the callbacks cost. Also each table's L1
+   ``prepare``, the waits for the L1, L2 and L3 locks and, on a tree
+   with the host library, each of its calls (``SPLIT_RULES``) and their
+   count a request; with the events a request and what the callbacks
+   cost. Also each table's L1
    residents against its capacity and each L2 namespace's rows against
    its capacity, before the warm-up, before the split and after it.
 1. ``predict`` one at a time (closed loop) on the DLRM member, requests of
@@ -48,6 +50,13 @@ one ``MultiModelServer`` over one VolatileDB. Then, in ``--steps`` order:
    submit lag. Phase 6e's steady rate is 10% of C, phase 6c's measured
    closed-loop rows/s; the default 25 requests/s is that of a C of
    64,000 rows/s.
+
+5. one cache's probe alone: the DLRM member's first table, ``--probe-blocks``
+   blocks of ``--rows`` ids (the first column of ``Workload``'s
+   requests), each probed once on one thread with nothing else running
+   (fresh: the misses fetched from L2 / L3) and then again (every id a
+   hit): the wall us of a probe, and, on a tree with the host library,
+   each of its entry points' us a call.
 
 Each step after 0 starts from the server the previous step left.
 ``--switch-interval`` sets the interpreter's thread switch interval
@@ -79,14 +88,21 @@ MEMBERS = ("dlrm-criteo", "dcn-criteo")
 #: function's lines, [(regex on a line's text, label)])``, for the
 #: parent's functions and this tree's. A function with rules gets line
 #: events; one without, only its calls and returns. A None label, and a
-#: function not listed, is charged to the caller's current label.
+#: function not listed, is charged to the caller's current label. Each
+#: call into the host library (``core/hps/_host.py``, on a tree that has
+#: one) is a part of its own: ``l1 pass 1`` / ``l1 pass 2`` (the probe's
+#: two passes), ``l2 query: host``, ``l2 insert: host`` (an insert and,
+#: past the free slots, its place), ``l3 gather``; each call's line names
+#: its entry point.
 SPLIT_RULES = (
     ("hps", "HPS._probe", "l1 probe other", ()),
     ("embedding_cache", "DeviceEmbeddingCache.probe", "l1 probe other",
      ((r"with self\._lock", "l1 lock wait"),)),
     ("embedding_cache", "DeviceEmbeddingCache._probe_locked",
      "l1 probe other",
-     ((r"\*= self\.decay", "l1 evict: age"),
+     ((r"hps_l1_pass1", "l1 pass 1"),
+      (r"hps_l1_pass2", "l1 pass 2"),
+      (r"\*= self\.decay", "l1 evict: age"),
       (r"= self\._freq\[:n_occ\]\.copy\(\)", "l1 evict: copy"),
       (r"argpartition", "l1 evict: argpartition"),
       (r"fetch_fn\(", "fetch other"))),
@@ -107,17 +123,21 @@ SPLIT_RULES = (
      ((r"with .*lock", "l2 lock wait"),)),
     ("volatile_db", "_Namespace.query", "l2 query",
      ((r"with .*lock", "l2 lock wait"),)),
+    ("volatile_db", "_Shard.query_into", "l2 query: host", ()),
     ("volatile_db", "VolatileDB.insert", "l2 insert other",
      ((r"with .*lock", "l2 lock wait"),)),
     ("volatile_db", "_Namespace.insert", "l2 insert other",
      ((r"with .*lock", "l2 lock wait"),)),
     ("volatile_db", "_Shard.insert", "l2 insert other",
-     ((r"argpartition", "l2 insert: evict"),
+     ((r"hps_l2_place", "l2 insert: host"),
+      (r"argpartition", "l2 insert: evict"),
       (r"np\.insert|keep|sorted_ids|sorted_slots|searchsorted|"
        r"index\.update\(", "l2 insert: merge"))),
+    ("volatile_db", "_Shard._insert_sorted", "l2 insert: host", ()),
     ("volatile_db", "_Shard._lru_victims", "l2 insert: evict", ()),
     ("persistent_db", "PersistentDB.fetch", "l3 fetch",
-     ((r"with self\._lock", "l3 lock wait"),)),
+     ((r"with self\._lock", "l3 lock wait"),
+      (r"hps_gather_rows", "l3 gather"))),
     ("payload_store", "ShardedPayloadStore.prepare", "scatter prepare", ()),
 )
 
@@ -434,6 +454,11 @@ def split_step(cs, ens, rows: int, n: int) -> dict:
                        "volatile_db": volatile_db,
                        "persistent_db": persistent_db,
                        "payload_store": payload_store})
+    try:
+        from repro_torch.core.hps import _host
+    except ImportError:     # a tree without the host library
+        _host = None
+    calls0 = _host.CALLS.snapshot() if _host else {}
     ms = []
     with split:
         for r in reqs[half:]:
@@ -450,6 +475,7 @@ def split_step(cs, ens, rows: int, n: int) -> dict:
                for k, s in servers.items()
                for a, b in zip(c0[k], s.hps.caches.values()))
     l2_1 = ens.vdb.stats()
+    calls1 = _host.CALLS.snapshot() if _host else {}
     out["split, thread ms a request (wall, CPU)"] = {
         k: [1e3 * v[0] / m, 1e3 * v[1] / m]
         for k, v in sorted(parts.items(), key=lambda kv: -kv[1][1])}
@@ -461,13 +487,67 @@ def split_step(cs, ens, rows: int, n: int) -> dict:
             1e3 * cost[0] * events / m,
         "l1 misses a request": misses / m, "l1 hits a request": hits / m,
         "l2 hits a request": (l2_1["hits"] - l2_0["hits"]) / m,
-        "l2 misses a request": (l2_1["misses"] - l2_0["misses"]) / m}
+        "l2 misses a request": (l2_1["misses"] - l2_0["misses"]) / m,
+        "host-library calls a request": {
+            k: (v - calls0.get(k, 0)) / m for k, v in sorted(calls1.items())
+            if v > calls0.get(k, 0)}}
     out["occupancy after split"] = _occupancy(servers, ens.vdb)
     return out
 
 
+def probe_step(server, rows: int, blocks: int) -> dict:
+    """Step 5 on ``server`` (the DLRM member)."""
+    import numpy as np
+    from repro_torch.loadgen import ModelShape, Workload, WorkloadConfig
+    try:
+        from repro_torch.core.hps import _host
+    except ImportError:     # a tree without the host library
+        _host = None
+    cache = next(iter(server.hps.caches.values()))
+    reqs = list(Workload(WorkloadConfig(
+        qps=1000.0, duration_s=2 * blocks / 1000.0, rows=rows, seed=11,
+        zipf_a=1.2), {"m": ModelShape.from_config(server.model.cfg)}
+    ).requests())[:blocks]
+    ids = [np.asarray(r.cat).reshape(rows, -1)[:, 0].astype(np.int64)
+           for r in reqs]
+    spent, calls = {}, {}
+    host_call = _host.call if _host else None
+
+    def timed_call(entry, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return host_call(entry, *a, **k)
+        finally:
+            spent[entry] = spent.get(entry, 0.0) + time.perf_counter() - t0
+            calls[entry] = calls.get(entry, 0) + 1
+
+    out = {}
+    for kind in ("fresh", "all hit"):
+        spent.clear()
+        calls.clear()
+        us = []
+        if _host:
+            _host.call = timed_call
+        try:
+            for b in ids:
+                t0 = time.perf_counter()
+                plan = cache.probe(b)
+                us.append(1e6 * (time.perf_counter() - t0))
+                cache.commit(plan)
+        finally:
+            if _host:
+                _host.call = host_call
+        out[kind] = {"probes": len(us), "p50_us": float(np.percentile(us, 50)),
+                     "mean_us": float(np.mean(us)),
+                     "host us a call": {k: 1e6 * v / calls[k]
+                                        for k, v in sorted(spent.items())},
+                     "host calls a probe": {k: v / len(us)
+                                            for k, v in sorted(calls.items())}}
+    return out
+
+
 def measure(cs, ps: str, dev, rows: int, qps_list, steps,
-            split_requests: int) -> dict:
+            split_requests: int, probe_blocks: int = 64) -> dict:
     import types
     from repro_torch.launch import loadtest
     from repro_torch.launch.serve import build_server_from_config
@@ -520,6 +600,9 @@ def measure(cs, ps: str, dev, rows: int, qps_list, steps,
             for i, engine in enumerate(("stream", "sync", "stage_sync")):
                 out[f"submit {engine}, fresh 32"] = _closed_loop(
                     server, wl[160 + 32 * i:192 + 32 * i], engine)
+        if 5 in steps:
+            out["step 5"] = probe_step(server, rows, probe_blocks)
+            print("probe alone: " + json.dumps(out["step 5"]))
     finally:
         ens.close()
     if 4 not in steps:
@@ -557,11 +640,12 @@ def main() -> int:
                                          "open_loop_bundle"))
     ap.add_argument("--rows", type=int, default=256)
     ap.add_argument("--steps", type=int, nargs="*",
-                    default=[0, 1, 2, 3, 4])
+                    default=[0, 1, 2, 3, 4, 5])
     ap.add_argument("--split-requests", type=int, default=160)
     ap.add_argument("--switch-interval", type=float, default=None,
                     help="sys.setswitchinterval for the run (seconds)")
     ap.add_argument("--qps", type=float, nargs="*", default=[25.0])
+    ap.add_argument("--probe-blocks", type=int, default=64)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -579,7 +663,7 @@ def main() -> int:
     if args.switch_interval is not None:
         sys.setswitchinterval(args.switch_interval)
     out = measure(cs, ps, torch.device("cuda", 0), args.rows, args.qps,
-                  args.steps, args.split_requests)
+                  args.steps, args.split_requests, args.probe_blocks)
     print(json.dumps({"src": args.src, "rows": args.rows,
                       "switch_interval_s": sys.getswitchinterval(),
                       "times": out}))
